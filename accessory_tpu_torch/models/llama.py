@@ -1,0 +1,160 @@
+"""LLaMA forward for serving: prefill at position 0 and one-token decode.
+
+Port of ``accessory_tpu/models/llama.py`` (init_params, init_kv_cache,
+_block, forward) on its unrolled per-layer decode path. Params are a tree of
+dicts whose ``layers`` is a list of per-layer dicts; weights are stored
+(in_dim, out_dim). Each decode layer runs: the wqkv W4 kernel with the
+RMSNorm prologue and RoPE epilogue; the fused decode attention + KV write;
+wo W4 + residual; w13 W4 with the norm; SwiGLU; w2 W4 + residual. A
+position-0 prefill runs the same matmuls, causal flash attention and one
+slab write of the prompt's K/V per layer. The output head is the final
+RMSNorm plus a dense matmul, outside any kernel, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from accessory_tpu_torch.config import LLaMAArgs
+from accessory_tpu_torch.ops.decode_attention import (cached_attention_t,
+                                                      decode_attention_update,
+                                                      write_kv_layer)
+from accessory_tpu_torch.ops.linear import module_linear_nr
+from accessory_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
+
+Params = Dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
+
+
+def init_params(args: LLaMAArgs, seed: int = 0, device="cuda") -> Params:
+    """Random per-layer params from ``seed`` (normal, fan-in scaled; the exact
+    init does not matter for serving). Norm weights start at one."""
+    dtype = torch_dtype(args.dtype)
+    hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
+    ffn = args.ffn_hidden_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(shape, scale=None):
+        scale = scale or shape[0] ** -0.5
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return (w * scale).to(dtype)
+
+    tok = dense((args.vocab_size, args.dim), 0.02)
+    layers: List[Params] = []
+    for _ in range(args.n_layers):
+        layers.append({
+            "attention_norm": {"weight": torch.ones(args.dim, dtype=dtype, device=device)},
+            "ffn_norm": {"weight": torch.ones(args.dim, dtype=dtype, device=device)},
+            "attention": {
+                "wq": {"weight": dense((args.dim, nq * hd))},
+                "wk": {"weight": dense((args.dim, nkv * hd))},
+                "wv": {"weight": dense((args.dim, nkv * hd))},
+                "wo": {"weight": dense((nq * hd, args.dim))},
+            },
+            "feed_forward": {
+                "w1": {"weight": dense((args.dim, ffn))},
+                "w2": {"weight": dense((ffn, args.dim))},
+                "w3": {"weight": dense((args.dim, ffn))},
+            },
+        })
+    return {
+        "tok_embeddings": {"weight": tok},
+        "layers": layers,
+        "norm": {"weight": torch.ones(args.dim, dtype=dtype, device=device)},
+        "output": {"weight": dense((args.dim, args.vocab_size))},
+    }
+
+
+def init_kv_cache(args: LLaMAArgs, batch: int, max_len: Optional[int] = None,
+                  dtype=None, kv_dtype: Optional[str] = None,
+                  device="cuda") -> Dict[str, List[torch.Tensor]]:
+    """Per-layer KV cache, each pool (batch, n_kv_heads, max_len, head_dim):
+    every cached token of a head is one contiguous row (the port's layout)."""
+    if kv_dtype not in (None, "fp", "bf16", "bfloat16"):
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r}: the int8 KV cache and its kernels are ROADMAP B7")
+    max_len = max_len or args.max_seq_len
+    dtype = torch_dtype(dtype or args.dtype)
+    shape = (batch, args.kv_heads, max_len, args.head_dim)
+    return {"k": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)],
+            "v": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)]}
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_tables(head_dim: int, max_len: int, theta: float, scaling, style: str,
+                 n_rot: int, n_pass: int, device: str):
+    """cos/sin tables (max_len, hd/2) and their per-position decode rows
+    (max_len, (n_rot + n_pass) * hd), built once per cache length."""
+    cos, sin = precompute_rope(head_dim, max_len, theta, scaling, device=device)
+    rows = rope_rows(cos, sin, n_rot, n_pass, head_dim, style)
+    return cos, sin, rows[0], rows[1]
+
+
+def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
+           update_cache: bool, rope_t=None):
+    """One transformer block over fused (wqkv / w13) layer params. With
+    ``update_cache`` (a decode step) the fused attention kernel writes the
+    new token's k/v into the cache and (h, cache_k, cache_v) is returned;
+    otherwise (h, k, v) for the caller's slab write."""
+    b, sq, _ = h.shape
+    hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
+    att = layer["attention"]
+    qkv = module_linear_nr(h, att["wqkv"], norm=layer["attention_norm"],
+                           eps=args.norm_eps, rope=rope_t)
+    q = qkv[..., :nq * hd].reshape(b, sq, nq, hd)
+    k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, sq, nkv, hd)
+    v = qkv[..., (nq + nkv) * hd:].reshape(b, sq, nkv, hd)
+    if rope_t is None:
+        q = apply_rope(q, cos, sin, args.rope_style)
+        k = apply_rope(k, cos, sin, args.rope_style)
+
+    if update_cache:
+        out, k, v = decode_attention_update(q, k, v, cache_k, cache_v, pos)
+    else:
+        out = cached_attention_t(q, k, v, cache_k, cache_v, pos)
+
+    h = module_linear_nr(out.reshape(b, sq, nq * hd), att["wo"], residual=h)
+    ff = layer["feed_forward"]
+    gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps)
+    hidden = gu.shape[-1] // 2
+    gate = torch.nn.functional.silu(gu[..., :hidden])
+    h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h)
+    return h, k, v
+
+
+def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
+            cache: Dict[str, List[torch.Tensor]], cur_pos: int = 0
+            ) -> Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]:
+    """Prefill (cur_pos 0, any chunk length) or decode (one token at cur_pos)
+    over per-layer params fused by ``quant.fuse.fuse_for_decode``. Returns
+    (logits f32 (b, sq, vocab), cache); the cache is updated in place."""
+    for i, layer in enumerate(params["layers"]):
+        if "wqkv" not in layer["attention"] or "w13" not in layer["feed_forward"]:
+            raise ValueError(f"layer {i} has no fused wqkv / w13 weights: forward takes the "
+                             "params that quant.fuse.fuse_for_decode returns")
+    h = params["tok_embeddings"]["weight"][tokens]
+    sq = h.shape[1]
+    s_len = cache["k"][0].shape[2]
+    cos_full, sin_full, cos_rows, sin_rows = _rope_tables(
+        args.head_dim, s_len, args.rope_theta, args.rope_scaling, args.rope_style,
+        args.n_heads + args.kv_heads, args.kv_heads, str(h.device))
+    cos = cos_full[cur_pos:cur_pos + sq]
+    sin = sin_full[cur_pos:cur_pos + sq]
+    decode = sq == 1
+    # decode-RoPE folded into the fused wqkv epilogue: one shared position
+    rope_t = ((cos_rows[cur_pos], sin_rows[cur_pos], args.rope_style, args.head_dim)
+              if decode else None)
+    for layer, ck, cv in zip(params["layers"], cache["k"], cache["v"]):
+        h, k_new, v_new = _block(h, layer, args, cos, sin, cur_pos, ck, cv, decode, rope_t)
+        if not decode:
+            write_kv_layer(ck, cv, k_new, v_new, cur_pos)
+    logits = module_linear_nr(h, params["output"], norm=params["norm"], eps=args.norm_eps)
+    return logits.to(torch.float32), cache

@@ -1,0 +1,62 @@
+"""Attention: the plain grouped-GQA version (the oracle) and its dispatch.
+
+Port of ``accessory_tpu/ops/attention.py::attention``. GQA is computed
+grouped (q reshaped to (kv head, group)), masking is positional with
+NEG_INF = -1e30, scores and softmax are f32 and the probabilities are cast to
+v's dtype before the value product, the JAX op order. A causal
+self-attention call at offset 0 goes to ops.flash_attention, which launches
+the CUDA kernel on a CUDA tensor at any length.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              q_offset=0, kv_len: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """q (b, q_len, n_heads, hd); k, v (b, kv_len_max, n_kv_heads, hd) ->
+    (b, q_len, n_heads, hd) in q.dtype."""
+    if kv_len is None and causal and isinstance(q_offset, int) and q_offset == 0 \
+            and q.shape[1] == k.shape[1]:
+        from accessory_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, scale=scale)
+    return grouped_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                             scale=scale)
+
+
+def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, q_offset=0,
+                      kv_len: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Plain grouped-GQA attention with positional masking (no dispatch)."""
+    b, sq, nq, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    if nq % nkv:
+        raise ValueError(f"n_heads {nq} is not a multiple of n_kv_heads {nkv}")
+    n_rep = nq // nkv
+    if scale is None:
+        scale = hd ** -0.5
+    dev = q.device
+    qg = q.reshape(b, sq, nkv, n_rep, hd).to(torch.float32)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k.to(torch.float32)) * scale
+    q_pos = torch.as_tensor(q_offset, device=dev).reshape(-1)
+    q_ids = q_pos[:, None] + torch.arange(sq, device=dev)[None, :]
+    kv_ids = torch.arange(skv, device=dev)[None, :]
+    mask = torch.ones((q_ids.shape[0], sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kv_ids[:, None, :] <= q_ids[:, :, None])
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=dev).reshape(-1)
+        mask = mask & (kv_ids[:, None, :] < kl[:, None, None])
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrqs,bskh->bqkrh", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, sq, nq, hd).to(q.dtype)

@@ -1,0 +1,203 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Edge shapes beyond chip_smoke.py's main-path shapes: every GEMV row-count
+template and ragged mma tiles, both RoPE styles at head_dim 64 and 128,
+padded in_dim, decode attention at R = 1..8 and head_dim 128, flash
+attention at lengths 1..130, slab writes of one token. Each test carries the
+``cuda`` marker, needs a CUDA device and skips without one (decided inside the
+fixture). On the card:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports JAX, which the card's machine
+does not have; this file imports only the port.)
+
+Tolerances: kernel and plain version compute the same f32 sums in another
+order, so bf16 outputs differ by at most a rounding step or two: 2e-2
+relative plus 2e-2 absolute on values of magnitude ~1-4.
+"""
+
+import pytest
+import torch
+
+from accessory_tpu_torch import kernels
+from accessory_tpu_torch.config import LLaMAArgs
+from accessory_tpu_torch.models import llama
+from accessory_tpu_torch.ops.attention import grouped_attention
+from accessory_tpu_torch.ops.decode_attention import (decode_attention_update,
+                                                      decode_attention_update_plain,
+                                                      write_kv_layer, write_kv_layer_plain)
+from accessory_tpu_torch.ops.flash_attention import flash_attention
+from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm, planes_qmm_plain
+from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
+from accessory_tpu_torch.quant.fuse import fuse_for_decode
+from accessory_tpu_torch.quant.qtensor import quantize_weight, to_folded_layout
+from accessory_tpu_torch.quant.quantize import quantize_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on the card)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def assert_close(got, want):
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    bad = (g - w).abs() > 2e-2 + 2e-2 * w.abs()
+    assert not bad.any(), f"{int(bad.sum())} of {g.numel()} off; max {float((g - w).abs().max())}"
+
+
+def _w4(gen, k, n, pad_in_to=None):
+    w = randn(gen, k, n, dtype=torch.float32, scale=k ** -0.5)
+    return to_folded_layout(quantize_weight(w, 4, 128, pad_in_to=pad_in_to))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 11, 16, 17, 100, 300])
+@pytest.mark.parametrize("fusion", ["none", "norm+res", "rope_interleaved", "rope_half"])
+def test_w4_matmul(gen, m, fusion):
+    k, n, hd = 256, 512, 64
+    qw = _w4(gen, k, n)
+    kw = {}
+    if fusion == "norm+res":
+        kw.update(norm_weight=1 + 0.1 * randn(gen, k, dtype=torch.float32),
+                  residual=randn(gen, m, n))
+    if fusion.startswith("rope"):
+        style = fusion.split("_")[1]
+        cos, sin = precompute_rope(hd, 64, device="cuda")
+        cr, sr = rope_rows(cos[13], sin[13], n // hd - 2, 2, hd, style)
+        kw.update(rope_cos=cr, rope_sin=sr, rope_style=style, rope_hd=hd)
+    x = randn(gen, m, k)
+    args = (x, qw.packed, qw.scales, qw.zeros)
+    got = planes_qmm(*args, in_dim=qw.in_dim, group_size=128, **kw)
+    assert_close(got, planes_qmm_plain(*args, in_dim=qw.in_dim, group_size=128, **kw))
+
+
+@pytest.mark.parametrize("m", [4, 40])
+@pytest.mark.parametrize("style", ["interleaved", "half"])
+def test_w4_matmul_rope_head_dim_128(gen, m, style):
+    k, n, hd = 256, 768, 128
+    qw = _w4(gen, k, n)
+    cos, sin = precompute_rope(hd, 64, device="cuda")
+    cr, sr = rope_rows(cos[7], sin[7], 4, 2, hd, style)
+    x = randn(gen, m, k)
+    kw = dict(in_dim=k, group_size=128, rope_style=style, rope_hd=hd)
+    assert_close(planes_qmm(x, qw.packed, qw.scales, qw.zeros, None, None, cr, sr, **kw),
+                 planes_qmm_plain(x, qw.packed, qw.scales, qw.zeros, None, None, cr, sr, **kw))
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_w4_matmul_padded_in_dim(gen, m):
+    """x narrower than a padded in_dim (the w2 case: 5632 padded to 6144)."""
+    qw = _w4(gen, 1152, 256, pad_in_to=1024)
+    assert qw.in_dim == 2048
+    x = randn(gen, m, 1152)
+    res = randn(gen, m, 256)
+    got = planes_qmm(x, qw.packed, qw.scales, qw.zeros, None, res, in_dim=2048, group_size=128)
+    assert_close(got, planes_qmm_plain(x, qw.packed, qw.scales, qw.zeros, None, res,
+                                       in_dim=2048, group_size=128))
+
+
+def test_w4_matmul_refuses(gen):
+    qw = _w4(gen, 256, 256)
+    with pytest.raises(NotImplementedError, match="B5"):
+        planes_qmm(randn(gen, 1024, 256), qw.packed, qw.scales, qw.zeros, in_dim=256,
+                   group_size=128)
+    with pytest.raises(ValueError):
+        planes_qmm(randn(gen, 8, 256, dtype=torch.float32), qw.packed, qw.scales, qw.zeros,
+                   in_dim=256, group_size=128)
+
+
+def test_wrappers_refuse_mixed_devices(gen):
+    """A CPU operand beside CUDA ones would hand the kernel a host pointer."""
+    qw = _w4(gen, 256, 256)
+    with pytest.raises(ValueError, match="device"):
+        planes_qmm(randn(gen, 8, 256), qw.packed.cpu(), qw.scales, qw.zeros, in_dim=256,
+                   group_size=128)
+    q, kn = randn(gen, 1, 1, 4, 64), randn(gen, 1, 1, 2, 64)
+    ck = randn(gen, 1, 2, 16, 64)
+    with pytest.raises(ValueError, match="device"):
+        decode_attention_update(q, kn, kn, ck, ck.cpu(), 3)
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(q, kn.cpu(), kn)
+    with pytest.raises(ValueError, match="device"):
+        write_kv_layer(ck, ck.cpu(), kn, kn, 0)
+
+
+@pytest.mark.parametrize("hd,r", [(64, 1), (64, 2), (64, 8), (128, 1), (128, 4)])
+@pytest.mark.parametrize("s_len,pos", [(64, 0), (64, 1), (64, 63), (200, 64), (200, 199)])
+def test_decode_attention(gen, hd, r, s_len, pos):
+    b, nkv = 3, 2
+    nq = nkv * r
+    qkv = randn(gen, b, 1, (nq + 2 * nkv) * hd)
+    q = qkv[..., :nq * hd].view(b, 1, nq, hd)
+    kn = qkv[..., nq * hd:(nq + nkv) * hd].view(b, 1, nkv, hd)
+    vn = qkv[..., (nq + nkv) * hd:].view(b, 1, nkv, hd)
+    ck, cv = randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd)
+    ck2, cv2 = ck.clone(), cv.clone()
+    before = kernels.launch_counts()["decode_attention"]
+    got, gk, gv = decode_attention_update(q, kn, vn, ck, cv, pos)
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    want, wk, wv = decode_attention_update_plain(q, kn, vn, ck2, cv2, pos)
+    assert_close(got, want)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("s", [1, 17, 64, 65, 130])
+@pytest.mark.parametrize("hd,nq,nkv", [(64, 4, 4), (64, 8, 2), (128, 4, 1)])
+def test_flash_attention(gen, s, hd, nq, nkv):
+    b = 2
+    q, k = randn(gen, b, s, nq, hd), randn(gen, b, s, nkv, hd)
+    v = randn(gen, b, s, 2 * nkv * hd)[..., nkv * hd:].view(b, s, nkv, hd)
+    assert_close(flash_attention(q, k, v), grouped_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("sq,pos", [(1, 0), (1, 9), (7, 5), (128, 0)])
+def test_slab_write(gen, sq, pos):
+    b, nkv, hd, s_len = 2, 2, 64, 160
+    buf = randn(gen, b, sq, 3 * nkv * hd)
+    nk = buf[..., :nkv * hd].view(b, sq, nkv, hd)
+    nv = buf[..., 2 * nkv * hd:].view(b, sq, nkv, hd)
+    ck, cv = randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd)
+    ck2, cv2 = ck.clone(), cv.clone()
+    write_kv_layer(ck, cv, nk, nv, pos)
+    write_kv_layer_plain(ck2, cv2, nk, nv, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+def test_small_model_cuda_matches_cpu(gen):
+    """A 2-layer dim-256 W4 model: prefill and decode logits, card vs CPU."""
+    args = LLaMAArgs(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512,
+                     multiple_of=128, max_seq_len=128)
+    params = fuse_for_decode(quantize_params(llama.init_params(args, seed=1)))
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (3, 40), generator=torch.Generator().manual_seed(0))
+    cg, cc = llama.init_kv_cache(args, 3, 64), llama.init_kv_cache(args, 3, 64, device="cpu")
+    lg, _ = llama.forward(params, args, toks[:, :32].cuda(), cache=cg, cur_pos=0)
+    lc, _ = llama.forward(cpu, args, toks[:, :32], cache=cc, cur_pos=0)
+    pairs = [(lg, lc)]
+    for p in range(32, 40):
+        lg, _ = llama.forward(params, args, toks[:, p:p + 1].cuda(), cache=cg, cur_pos=p)
+        lc, _ = llama.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p)
+        pairs.append((lg, lc))
+    for g, c in pairs:
+        g = g.cpu()
+        assert float((g - c).norm() / c.norm()) < 2e-2
+        assert float((g - c).abs().max()) < 2e-2 * float(c.abs().max()) + 2e-2
+
+
+def _to(node, device):
+    if isinstance(node, dict):
+        return {k: _to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, device) for v in node]
+    return node.to(device)
