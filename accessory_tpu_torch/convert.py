@@ -9,6 +9,9 @@ dtype or any dtype torch reads). It accepts stacked (L, ...) or per-layer
 ``layers``, fused (wqkv / w13) or separate projections, the ``std`` and
 ``planes`` W4 layouts, and scale rows padded past in_dim // group_size.
 Every quantized leaf comes out in the port's folded layout.
+
+``cache_from_jax`` does the same for a KV cache: the JAX package's lane-major
+pools become the port's token-major ones.
 """
 
 from __future__ import annotations
@@ -110,4 +113,19 @@ def params_from_jax(tree: Dict[str, Any], args: LLaMAArgs, device="cuda") -> Dic
         raise ValueError(f"{len(layers)} layers in the tree, args say {args.n_layers}")
     out = {k: _convert(v, act_dtype, device) for k, v in tree.items() if k != "layers"}
     out["layers"] = [_convert(layer, act_dtype, device) for layer in layers]
+    return out
+
+
+def cache_from_jax(cache_np: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """A JAX per-layer KV cache as numpy -> the port's layout on ``device``.
+
+    ``k`` / ``v``: one (B, NKV, HD, S) array per layer (bf16, f32 or int8; a
+    list, or one array stacked on a leading layer axis) become (B, NKV, S, HD)
+    contiguous; the int8 cache's ``ks`` / ``vs`` (B, NKV, S) f32 scale pools
+    keep their layout."""
+    out = {key: [_tensor(np.asarray(a), device).transpose(2, 3).contiguous()
+                 for a in cache_np[key]] for key in ("k", "v")}
+    for key in ("ks", "vs"):
+        if key in cache_np:
+            out[key] = [_tensor(np.asarray(a), device).contiguous() for a in cache_np[key]]
     return out

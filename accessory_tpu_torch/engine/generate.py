@@ -56,6 +56,7 @@ class Generator:
         self.device = torch.device(device)
         self.params = fuse_for_decode(params)
         self.last_decode_steps = 0
+        self.last_tokens = None  # the last run's token buffer (batch, buf_len), numpy
 
     @torch.no_grad()
     def generate(self, prompts: List[str], max_gen_len: int = 512, temperature: float = 0.0,
@@ -127,4 +128,5 @@ class Generator:
             cur += 1
             steps += 1
         self.last_decode_steps = steps
-        return tokens.cpu().numpy(), stop_pos.cpu().numpy()
+        self.last_tokens = tokens.cpu().numpy()
+        return self.last_tokens, stop_pos.cpu().numpy()

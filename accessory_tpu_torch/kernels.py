@@ -9,9 +9,12 @@ into ``build/<name>-<hash>.so`` and loaded with ``ctypes``. The hash covers
 the source, the shared headers and the flags, so an edited source rebuilds.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
-Every wrapper that launches a kernel calls ``count(name)`` right after the
-launch returned 0, and nowhere else, so a run can show which kernels its main
-path went through (``launch_counts`` / ``reset_launch_counts``).
+Every wrapper that launches a kernel calls ``check(name, rc)``, which counts
+the launch when it returned 0, and nowhere else, so a run can show which
+kernels its main path went through (``launch_counts`` /
+``reset_launch_counts``). Counts are kept per C entry point (``KERNELS``), not
+per source file: the GQA and MHA decode kernels, the bf16 and int8 forms and
+the two slab writes each show their own count.
 """
 
 from __future__ import annotations
@@ -29,7 +32,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("w4_matmul", "decode_attention", "flash_attention", "kv_write")
+SOURCES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention_mha",
+           "flash_attention", "kv_write")
+# launch-count name of each C entry point -> the source that holds it
+KERNELS = {
+    "w4_matmul": "w4_matmul",
+    "w4_matmul_bigm": "w4_matmul_bigm",
+    "decode_attention": "decode_attention",
+    "decode_attention_mha": "decode_attention_mha",
+    "decode_attention_mha8": "decode_attention_mha",
+    "flash_attention": "flash_attention",
+    "kv_write": "kv_write",
+    "kv_write_q8": "kv_write",
+}
 # -Xptxas=-v: registers, shared memory and spills land in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -37,11 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
-_launches: Dict[str, int] = {name: 0 for name in SOURCES}
-
-
-def count(name: str) -> None:
-    _launches[name] += 1
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -151,11 +162,12 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def check(name: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+    """Raise if the launch of entry point ``name`` (a key of ``KERNELS``)
+    returned a CUDA error; count it otherwise."""
     if rc != 0:
-        msg = load(name).kernel_error_string(rc).decode()
+        msg = load(KERNELS[name]).kernel_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
-    count(name)
+    _launches[name] += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

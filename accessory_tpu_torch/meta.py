@@ -29,6 +29,9 @@ class MetaModel:
         self.args = make_args(ARGS_REGISTRY[llama_type], llama_config, **overrides)
         self.params = (self.module.init_params(self.args, seed=seed, device=device)
                        if init_params else None)
+        # KV-cache dtype the Generator allocates (None: the activation dtype,
+        # "int8": the int8 cache); set it, then call _reset_generator
+        self.kv_dtype: Optional[str] = None
         self._generator: Optional[Generator] = None
 
     @property
@@ -37,8 +40,11 @@ class MetaModel:
             if self.params is None or self.tokenizer is None:
                 raise RuntimeError("MetaModel.generate needs params and a tokenizer")
             self._generator = Generator(self.module, self.args, self.params, self.tokenizer,
-                                        device=self.device)
+                                        kv_dtype=self.kv_dtype, device=self.device)
         return self._generator
+
+    def _reset_generator(self):
+        self._generator = None
 
     def generate(self, prompts: List[str], max_gen_len: int = 512, temperature: float = 0.0,
                  top_p: float = 0.95, additional_stop_symbols: Iterable[str] = (),
@@ -51,7 +57,16 @@ class MetaModel:
     def quantize(self, bits: int = 4, group_size: int = 128):
         from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
 
-        self.params = quantize_params(self.params, bits=bits, group_size=group_size,
-                                      blocklist=DEFAULT_BLOCKLIST)
-        self._generator = None
+        kw = dict(bits=bits, group_size=group_size, blocklist=DEFAULT_BLOCKLIST)
+        layers = self.params.get("layers")
+        if isinstance(layers, list):
+            # one layer at a time, each replacing its dense weights, so the
+            # dense and the quantized model never both sit in device memory
+            rest = {k: v for k, v in self.params.items() if k != "layers"}
+            self.params = dict(quantize_params(rest, **kw), layers=layers)
+            for i in range(len(layers)):
+                layers[i] = quantize_params(layers[i], **kw)
+        else:
+            self.params = quantize_params(self.params, **kw)
+        self._reset_generator()
         return self

@@ -7,8 +7,13 @@ dicts whose ``layers`` is a list of per-layer dicts; weights are stored
 RMSNorm prologue and RoPE epilogue; the fused decode attention + KV write;
 wo W4 + residual; w13 W4 with the norm; SwiGLU; w2 W4 + residual. A
 position-0 prefill runs the same matmuls, causal flash attention and one
-slab write of the prompt's K/V per layer. The output head is the final
-RMSNorm plus a dense matmul, outside any kernel, as in the JAX package.
+slab write of the prompt's K/V per layer; with 1024 prompt rows or more the
+W4 matmuls go unfused through the many-row kernel (ops/linear.py). With an
+int8 KV cache (``kv_dtype="int8"``: int8 ``k``/``v`` pools plus f32 ``ks``/
+``vs`` scale pools) the decode attention and the slab write are the int8
+kernels; the prefill still attends over the exact new k/v and only the write
+quantizes. The output head is the final RMSNorm plus a dense matmul, outside
+any kernel, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ import torch
 from accessory_tpu_torch.config import LLaMAArgs
 from accessory_tpu_torch.ops.decode_attention import (cached_attention_t,
                                                       decode_attention_update,
-                                                      write_kv_layer)
+                                                      decode_attention_update8,
+                                                      write_kv_layer, write_kv_layer8)
 from accessory_tpu_torch.ops.linear import module_linear_nr
 from accessory_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
+from accessory_tpu_torch.util import resolve_kv_dtype
 
 Params = Dict[str, Any]
 
@@ -77,15 +84,23 @@ def init_kv_cache(args: LLaMAArgs, batch: int, max_len: Optional[int] = None,
                   dtype=None, kv_dtype: Optional[str] = None,
                   device="cuda") -> Dict[str, List[torch.Tensor]]:
     """Per-layer KV cache, each pool (batch, n_kv_heads, max_len, head_dim):
-    every cached token of a head is one contiguous row (the port's layout)."""
-    if kv_dtype not in (None, "fp", "bf16", "bfloat16"):
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: the int8 KV cache and its kernels are ROADMAP B7")
+    every cached token of a head is one contiguous row (the port's layout).
+    ``kv_dtype="int8"`` stores per-token-per-head symmetric int8 ``k``/``v``
+    plus f32 scale pools ``ks``/``vs`` (batch, n_kv_heads, max_len); ``None``
+    means the activation dtype (``util.resolve_kv_dtype``)."""
     max_len = max_len or args.max_seq_len
-    dtype = torch_dtype(dtype or args.dtype)
+    int8_kv = resolve_kv_dtype(kv_dtype) == "int8"
+    dtype = torch.int8 if int8_kv else torch_dtype(dtype or args.dtype)
     shape = (batch, args.kv_heads, max_len, args.head_dim)
-    return {"k": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)],
-            "v": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)]}
+
+    def pools(shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)]
+
+    cache = {"k": pools(shape, dtype), "v": pools(shape, dtype)}
+    if int8_kv:
+        cache["ks"] = pools(shape[:3], torch.float32)
+        cache["vs"] = pools(shape[:3], torch.float32)
+    return cache
 
 
 @functools.lru_cache(maxsize=16)
@@ -99,11 +114,12 @@ def _rope_tables(head_dim: int, max_len: int, theta: float, scaling, style: str,
 
 
 def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
-           update_cache: bool, rope_t=None):
+           update_cache: bool, rope_t=None, cache_ks=None, cache_vs=None):
     """One transformer block over fused (wqkv / w13) layer params. With
     ``update_cache`` (a decode step) the fused attention kernel writes the
-    new token's k/v into the cache and (h, cache_k, cache_v) is returned;
-    otherwise (h, k, v) for the caller's slab write."""
+    new token's k/v into the cache (quantized when the int8 scale pools
+    ``cache_ks`` / ``cache_vs`` are given) and (h, cache_k, cache_v) is
+    returned; otherwise (h, k, v) for the caller's slab write."""
     b, sq, _ = h.shape
     hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
     att = layer["attention"]
@@ -116,9 +132,13 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
         q = apply_rope(q, cos, sin, args.rope_style)
         k = apply_rope(k, cos, sin, args.rope_style)
 
-    if update_cache:
+    if update_cache and cache_ks is not None:
+        out, k, v, _, _ = decode_attention_update8(q, k, v, cache_k, cache_v, cache_ks,
+                                                   cache_vs, pos)
+    elif update_cache:
         out, k, v = decode_attention_update(q, k, v, cache_k, cache_v, pos)
     else:
+        # a position-0 prefill reads nothing cached, whatever the cache's dtype
         out = cached_attention_t(q, k, v, cache_k, cache_v, pos)
 
     h = module_linear_nr(out.reshape(b, sq, nq * hd), att["wo"], residual=h)
@@ -152,9 +172,17 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     # decode-RoPE folded into the fused wqkv epilogue: one shared position
     rope_t = ((cos_rows[cur_pos], sin_rows[cur_pos], args.rope_style, args.head_dim)
               if decode else None)
-    for layer, ck, cv in zip(params["layers"], cache["k"], cache["v"]):
-        h, k_new, v_new = _block(h, layer, args, cos, sin, cur_pos, ck, cv, decode, rope_t)
-        if not decode:
+    int8_kv = "ks" in cache
+    for i, (layer, ck, cv) in enumerate(zip(params["layers"], cache["k"], cache["v"])):
+        cks = cache["ks"][i] if int8_kv else None
+        cvs = cache["vs"][i] if int8_kv else None
+        h, k_new, v_new = _block(h, layer, args, cos, sin, cur_pos, ck, cv, decode, rope_t,
+                                 cks, cvs)
+        if decode:
+            continue
+        if int8_kv:
+            write_kv_layer8(ck, cv, cks, cvs, k_new, v_new, cur_pos)
+        else:
             write_kv_layer(ck, cv, k_new, v_new, cur_pos)
     logits = module_linear_nr(h, params["output"], norm=params["norm"], eps=args.norm_eps)
     return logits.to(torch.float32), cache

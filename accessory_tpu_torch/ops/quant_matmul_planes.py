@@ -7,9 +7,11 @@ path for tensors on the CPU. Both fold the zero point out per group:
 
     y = sum_g  s_g * (x_g @ q_g)  -  sum(x_g) * zs_g
 
-with q exact and f32 accumulation. The weight-stationary kernel for M >= 1024
-rows (planes_qmm_bigm in the JAX package) is not ported yet, so such a call
-on CUDA raises rather than take another path.
+with q exact and f32 accumulation. Calls of BIGM_ROWS (1024) rows or more
+belong to ``ops/quant_matmul_bigm.py::planes_qmm_bigm`` (other numerics: the
+weight rounded to bf16, see there), which ``quant.qtensor.quant_matmul``
+dispatches to when no fusion operand is given. The CUDA kernel here does not
+take that many rows, so a direct call with them raises on CUDA.
 """
 
 from __future__ import annotations
@@ -21,9 +23,8 @@ import torch
 from accessory_tpu_torch import kernels
 from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import rotate_flat
-from accessory_tpu_torch.quant.qtensor import unpack_int
+from accessory_tpu_torch.quant.qtensor import BIGM_ROWS, unpack_int
 
-BIGM_ROWS = 1024
 _STYLES = {"": 0, "interleaved": 1, "half": 2}
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
          kernels.I, kernels.I, kernels.P, kernels.F, kernels.P, kernels.P, kernels.P,
@@ -55,9 +56,10 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     n = packed.shape[1]
     if m >= BIGM_ROWS:
         raise NotImplementedError(
-            f"W4 matmul with M={m} >= {BIGM_ROWS} rows needs the weight-stationary "
-            "kernel (ops/quant_matmul_bigm.py::planes_qmm_bigm), ROADMAP B5; "
-            "prefill batch x prompt bucket must stay below 1024 rows")
+            f"planes_qmm with M={m} >= {BIGM_ROWS} rows: the many-row kernel "
+            "(ops/quant_matmul_bigm.py::planes_qmm_bigm, PERF.md kernel table row 5) "
+            "takes such calls and has no norm / RoPE / residual fusion; compose them "
+            "unfused as ops.linear.module_linear_nr does")
     _check(x2d.dtype == torch.bfloat16 and x2d.stride(1) == 1 and x2d.stride(0) % 8 == 0
            and x2d.data_ptr() % 16 == 0, "x2d must be bf16 with 16-byte aligned rows")
     _check(kx <= in_dim and kx % group_size == 0 and group_size % 64 == 0,

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+# rows from which a W4 matmul takes the many-row kernel (the JAX default)
+BIGM_ROWS = 1024
 W3_W8_QUEUE = ("only W4 is ported; W3 is ROADMAP A1 and the W8 kernel "
                "(ops/quant_matmul_w8.py::w8_qmm) is ROADMAP B10")
 
@@ -136,16 +138,27 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedWeight,
     """x @ dequant(qw), with the optional RMSNorm prologue (``norm_weight``),
     decode-RoPE epilogue (``rope`` = (cos_row, sin_row, style, head_dim)) and
     residual add, all in one W4 kernel call (ops/quant_matmul_planes.py).
-    Activations narrower than a padded in_dim count as zero-padded."""
+    Activations narrower than a padded in_dim count as zero-padded.
+
+    A call of ``BIGM_ROWS`` rows or more without fusion operands goes to the
+    many-row kernel (ops/quant_matmul_bigm.py), as in the JAX package; with
+    fusion operands it stays on ``planes_qmm`` (whose CUDA kernel refuses that
+    many rows: ``ops.linear.module_linear_nr`` composes such calls unfused)."""
     if qw.bits != 4:
         raise NotImplementedError(f"W{qw.bits} matmul: {W3_W8_QUEUE}")
     if qw.layout != "folded":
         raise ValueError("quant_matmul serves the folded layout; convert with "
                          "to_folded_layout (quantize_params does)")
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm
     from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm
 
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).to(qw.act_dtype)
+    if (x2d.shape[0] >= BIGM_ROWS and norm_weight is None and residual is None
+            and rope is None):
+        out = planes_qmm_bigm(x2d, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                              group_size=qw.group_size)
+        return out.reshape(*lead, qw.out_dim)
     res2d = None if residual is None else residual.reshape(-1, qw.out_dim)
     cos_row, sin_row, style, hd = rope if rope is not None else (None, None, "", 0)
     out = planes_qmm(x2d, qw.packed, qw.scales, qw.zeros, norm_weight, res2d,

@@ -2,8 +2,10 @@
 
 Edge shapes beyond chip_smoke.py's main-path shapes: every GEMV row-count
 template and ragged mma tiles, both RoPE styles at head_dim 64 and 128,
-padded in_dim, decode attention at R = 1..8 and head_dim 128, flash
-attention at lengths 1..130, slab writes of one token. Each test carries the
+padded in_dim, the LLaMA2-7B projection shapes, the many-row W4 kernel at
+ragged row counts and a narrow x, decode attention at R = 1..8 (R = 1 is the
+MHA kernel) and head_dim 128 over the bf16 and the int8 cache, flash
+attention at lengths 1..130, bf16 and int8 slab writes of one token. Each test carries the
 ``cuda`` marker, needs a CUDA device and skips without one (decided inside the
 fixture). On the card:
 
@@ -25,9 +27,14 @@ from accessory_tpu_torch.config import LLaMAArgs
 from accessory_tpu_torch.models import llama
 from accessory_tpu_torch.ops.attention import grouped_attention
 from accessory_tpu_torch.ops.decode_attention import (decode_attention_update,
+                                                      decode_attention_update8,
+                                                      decode_attention_update8_plain,
                                                       decode_attention_update_plain,
-                                                      write_kv_layer, write_kv_layer_plain)
+                                                      write_kv_layer, write_kv_layer8,
+                                                      write_kv_layer8_plain,
+                                                      write_kv_layer_plain)
 from accessory_tpu_torch.ops.flash_attention import flash_attention
+from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm, planes_qmm_bigm_plain
 from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm, planes_qmm_plain
 from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
 from accessory_tpu_torch.quant.fuse import fuse_for_decode
@@ -107,13 +114,79 @@ def test_w4_matmul_padded_in_dim(gen, m):
 
 
 def test_w4_matmul_refuses(gen):
+    """A fused call of 1024 rows or more still raises (the tile kernel does
+    not take it, the many-row kernel has no fusions); an unfused one runs the
+    many-row kernel through quant_matmul."""
+    from accessory_tpu_torch.quant.qtensor import quant_matmul
+
     qw = _w4(gen, 256, 256)
-    with pytest.raises(NotImplementedError, match="B5"):
-        planes_qmm(randn(gen, 1024, 256), qw.packed, qw.scales, qw.zeros, in_dim=256,
+    x = randn(gen, 1024, 256)
+    with pytest.raises(NotImplementedError, match="row 5"):
+        planes_qmm(x, qw.packed, qw.scales, qw.zeros, None, randn(gen, 1024, 256), in_dim=256,
                    group_size=128)
+    before = kernels.launch_counts()
+    got = quant_matmul(x, qw)
+    after = kernels.launch_counts()
+    assert after["w4_matmul_bigm"] == before["w4_matmul_bigm"] + 1
+    assert after["w4_matmul"] == before["w4_matmul"]
+    assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=256,
+                                            group_size=128))
     with pytest.raises(ValueError):
         planes_qmm(randn(gen, 8, 256, dtype=torch.float32), qw.packed, qw.scales, qw.zeros,
                    in_dim=256, group_size=128)
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 1024, 1100])
+@pytest.mark.parametrize("k,kx,n,gs", [(256, 256, 128, 128), (2048, 1152, 384, 128),
+                                       (512, 512, 256, 64)])
+def test_w4_matmul_bigm(gen, m, k, kx, n, gs):
+    """Ragged row tiles, x narrower than a padded in_dim, group size 64."""
+    w = randn(gen, k, n, dtype=torch.float32, scale=k ** -0.5)
+    qw = to_folded_layout(quantize_weight(w, 4, gs))
+    x = randn(gen, m, kx)
+    got = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=k, group_size=gs)
+    assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=k,
+                                            group_size=gs))
+
+
+def test_w4_matmul_bigm_strided_x(gen):
+    """x as a column slice of a wider buffer (row stride > Kx)."""
+    qw = _w4(gen, 256, 128)
+    x = randn(gen, 1030, 512)[:, 128:384]
+    got = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128)
+    assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=256,
+                                            group_size=128))
+    with pytest.raises(ValueError, match="128-column"):
+        qn = _w4(gen, 256, 192)
+        planes_qmm_bigm(x, qn.packed, qn.scales, qn.zeros, in_dim=256, group_size=128)
+
+
+@pytest.mark.parametrize("m", [8, 200])
+@pytest.mark.parametrize("name,k,n,fusion", [("wqkv", 4096, 12288, "norm+rope_interleaved"),
+                                             ("wqkv", 4096, 12288, "norm+rope_half"),
+                                             ("wo", 4096, 4096, "res"),
+                                             ("w13", 4096, 22016, "norm"),
+                                             ("w2", 11008, 4096, "res")])
+def test_w4_matmul_llama2_7b_shapes(gen, m, name, k, n, fusion):
+    """The LLaMA2-7B projections: K 4096 with the norm prologue, K 11008
+    padded to 11264, N 22016 = 172 x 128, RoPE at head_dim 128 in both styles."""
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    qw = _w4(gen, k, n, pad_in_to=pad_to(k, 128))
+    assert qw.in_dim == (11264 if k == 11008 else k)
+    kw = {}
+    if "norm" in fusion:
+        kw["norm_weight"] = 1 + 0.1 * randn(gen, k, dtype=torch.float32)
+    if fusion == "res":
+        kw["residual"] = randn(gen, m, n)
+    if "rope" in fusion:
+        style = fusion.split("_")[1]
+        cos, sin = precompute_rope(128, 64, device="cuda")
+        cr, sr = rope_rows(cos[13], sin[13], 64, 32, 128, style)
+        kw.update(rope_cos=cr, rope_sin=sr, rope_style=style, rope_hd=128)
+    args = (randn(gen, m, k), qw.packed, qw.scales, qw.zeros)
+    got = planes_qmm(*args, in_dim=qw.in_dim, group_size=128, **kw)
+    assert_close(got, planes_qmm_plain(*args, in_dim=qw.in_dim, group_size=128, **kw))
 
 
 def test_wrappers_refuse_mixed_devices(gen):
@@ -143,12 +216,87 @@ def test_decode_attention(gen, hd, r, s_len, pos):
     vn = qkv[..., (nq + nkv) * hd:].view(b, 1, nkv, hd)
     ck, cv = randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd)
     ck2, cv2 = ck.clone(), cv.clone()
-    before = kernels.launch_counts()["decode_attention"]
+    name = "decode_attention_mha" if r == 1 else "decode_attention"   # the R == 1 dispatch
+    before = kernels.launch_counts()
     got, gk, gv = decode_attention_update(q, kn, vn, ck, cv, pos)
-    assert kernels.launch_counts()["decode_attention"] == before + 1
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
     want, wk, wv = decode_attention_update_plain(q, kn, vn, ck2, cv2, pos)
     assert_close(got, want)
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+def _int8_pools(gen, b, nkv, s_len, hd):
+    ck = torch.randint(-127, 128, (b, nkv, s_len, hd), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    cv = torch.randint(-127, 128, (b, nkv, s_len, hd), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ks = 0.005 + 0.015 * torch.rand((b, nkv, s_len), generator=gen, device="cuda")
+    vs = 0.005 + 0.015 * torch.rand((b, nkv, s_len), generator=gen, device="cuda")
+    return ck, cv, ks, vs
+
+
+def assert_pools8(got, want):
+    """int8 pools equal; scale pools to f32 rounding (the kernel and the
+    plain version divide the same amax by 127)."""
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        assert bool(((g - w).abs() <= 2e-7 * w.abs()).all())
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s_len,pos", [(64, 0), (64, 1), (64, 63), (200, 64), (200, 199),
+                                       (1024, 700)])
+def test_decode_attention_int8(gen, hd, s_len, pos):
+    b, nkv = 3, 4
+    qkv = randn(gen, b, 1, 3 * nkv * hd)
+    q = qkv[..., :nkv * hd].view(b, 1, nkv, hd)
+    kn = qkv[..., nkv * hd:2 * nkv * hd].view(b, 1, nkv, hd)
+    vn = qkv[..., 2 * nkv * hd:].view(b, 1, nkv, hd)
+    if pos == 1:
+        kn[0, 0, 0] = 0   # an all-zero vector: scale 1e-6 / 127, zeros
+    pools = _int8_pools(gen, b, nkv, s_len, hd)
+    pools2 = tuple(p.clone() for p in pools)
+    before = kernels.launch_counts()["decode_attention_mha8"]
+    got = decode_attention_update8(q, kn, vn, *pools, pos)
+    assert kernels.launch_counts()["decode_attention_mha8"] == before + 1
+    want = decode_attention_update8_plain(q, kn, vn, *pools2, pos)
+    assert_close(got[0], want[0])
+    assert_pools8(got[1:], want[1:])
+    if pos == 1:
+        assert float(got[3][0, 0, 1]) == pytest.approx(1e-6 / 127, rel=1e-6)
+        assert not got[1][0, 0, 1].any()
+
+
+def test_decode_attention_int8_refuses_gqa(gen):
+    """int8 with more than one query head per KV head waits for its kernel."""
+    q, kn = randn(gen, 1, 1, 4, 64), randn(gen, 1, 1, 2, 64)
+    pools = _int8_pools(gen, 1, 2, 16, 64)
+    with pytest.raises(NotImplementedError, match="row 13"):
+        decode_attention_update8(q, kn, kn, *pools, 3)
+    with pytest.raises(ValueError, match="device"):
+        decode_attention_update8(kn, kn, kn, pools[0], pools[1], pools[2].cpu(), pools[3], 3)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,pos", [(1, 0), (1, 9), (7, 5), (128, 0), (130, 30)])
+def test_slab_write8(gen, hd, sq, pos):
+    b, nkv, s_len = 2, 3, 160
+    buf = randn(gen, b, sq, 3 * nkv * hd, scale=2.0)
+    nk = buf[..., :nkv * hd].view(b, sq, nkv, hd)
+    nv = buf[..., 2 * nkv * hd:].view(b, sq, nkv, hd)
+    nk[0, 0, 0] = 0
+    pools = _int8_pools(gen, b, nkv, s_len, hd)
+    pools2 = tuple(p.clone() for p in pools)
+    before = kernels.launch_counts()["kv_write_q8"]
+    got = write_kv_layer8(*pools, nk, nv, pos)
+    assert kernels.launch_counts()["kv_write_q8"] == before + 1
+    want = write_kv_layer8_plain(*pools2, nk, nv, pos)
+    assert_pools8(got, want)
+    with pytest.raises(ValueError, match="device"):
+        write_kv_layer8(pools[0], pools[1], pools[2], pools[3].cpu(), nk, nv, pos)
 
 
 @pytest.mark.parametrize("s", [1, 17, 64, 65, 130])
@@ -189,6 +337,37 @@ def test_small_model_cuda_matches_cpu(gen):
         lg, _ = llama.forward(params, args, toks[:, p:p + 1].cuda(), cache=cg, cur_pos=p)
         lc, _ = llama.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p)
         pairs.append((lg, lc))
+    for g, c in pairs:
+        g = g.cpu()
+        assert float((g - c).norm() / c.norm()) < 2e-2
+        assert float((g - c).abs().max()) < 2e-2 * float(c.abs().max()) + 2e-2
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_small_mha_model_cuda_matches_cpu(gen, kv_dtype):
+    """A 2-layer dim-256 MHA W4 model with a 1024-row prefill (the many-row
+    kernel) and decode over the bf16 or the int8 cache, card vs CPU; every
+    kernel of that path is launched and no other."""
+    args = LLaMAArgs(dim=256, n_layers=2, n_heads=4, vocab_size=512, multiple_of=128,
+                     max_seq_len=256)
+    params = fuse_for_decode(quantize_params(llama.init_params(args, seed=2)))
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (8, 134), generator=torch.Generator().manual_seed(0))
+    cg = llama.init_kv_cache(args, 8, 160, kv_dtype=kv_dtype)
+    cc = llama.init_kv_cache(args, 8, 160, kv_dtype=kv_dtype, device="cpu")
+    kernels.reset_launch_counts()
+    lg, _ = llama.forward(params, args, toks[:, :128].cuda(), cache=cg, cur_pos=0)
+    lc, _ = llama.forward(cpu, args, toks[:, :128], cache=cc, cur_pos=0)
+    pairs = [(lg, lc)]
+    for p in range(128, 134):
+        lg, _ = llama.forward(params, args, toks[:, p:p + 1].cuda(), cache=cg, cur_pos=p)
+        lc, _ = llama.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p)
+        pairs.append((lg, lc))
+    int8 = kv_dtype == "int8"
+    assert kernels.launch_counts() == {
+        "w4_matmul": 4 * 2 * 6, "w4_matmul_bigm": 4 * 2, "decode_attention": 0,
+        "decode_attention_mha": 0 if int8 else 2 * 6, "decode_attention_mha8": 2 * 6 if int8 else 0,
+        "flash_attention": 2, "kv_write": 0 if int8 else 2, "kv_write_q8": 2 if int8 else 0}
     for g, c in pairs:
         g = g.cpu()
         assert float((g - c).norm() / c.norm()) < 2e-2

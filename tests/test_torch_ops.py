@@ -271,8 +271,10 @@ def test_unported_paths_name_their_queue_item():
     from accessory_tpu_torch.models import get_model_module, llama
 
     args = LLaMAArgs(dim=128, n_layers=1, n_heads=2, vocab_size=32, max_seq_len=16)
-    with pytest.raises(NotImplementedError, match="B7"):
-        llama.init_kv_cache(args, 1, kv_dtype="int8", device="cpu")
+    # the int8 cache is served: int8 k / v pools and their f32 scale pools
+    cache = llama.init_kv_cache(args, 1, kv_dtype="int8", device="cpu")
+    assert sorted(cache) == ["k", "ks", "v", "vs"]
+    assert cache["k"][0].dtype == torch.int8 and cache["vs"][0].shape == (1, 2, 16)
     with pytest.raises(KeyError, match="A9"):
         get_model_module("mixtral")
     q = torch.zeros((1, 2, 2, 64))
