@@ -1,10 +1,14 @@
 // Fused MHA (one query head per KV head) decode attention + KV-cache write of
-// the new token, over a bf16 cache or an int8 cache with per-token f32 scales.
+// the new token, over a bf16 cache or an int8 cache with per-token f32 scales,
+// and the same attention with the cache only read.
 //
 // Replaces: accessory_tpu/ops/decode_attention.py::_kernel_hgrp_w (via
 // _decode_attn_hgrp_w / decode_attention_update, with _hgrp_common) and its
 // int8 form _kernel_hgrp_w8 (via _decode_attn_hgrp_w8 /
-// decode_attention_update8).
+// decode_attention_update8). With the compile-time WRITE switch off it is
+// the read-only attention of _kernel_bloop / _kernel (cached_attention_t) and
+// _kernel_bloop8 (cached_attention_t8) at one query row per KV head, where
+// the JAX package has no head-grouped read-only kernel of its own.
 //
 // The TPU kernels group G heads per program because a lone (1, S) softmax row
 // fills one of eight sublanes. This card's form of that problem: the GQA
@@ -44,6 +48,8 @@
 // Bound on the H100: bytes, 2 * pos * HD * 2 per (b, head) over the bf16
 // cache; about half of that plus 8 bytes of scales per token over int8.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -51,6 +57,10 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr float KV_SCALE_EPS = 1e-6f;
+
+// A pool pointer: written by the fused kernels, const for the read-only ones.
+template <bool WRITE, typename X>
+using Pool = typename std::conditional<WRITE, X, const X>::type*;
 
 // element j of a 16-byte load as float
 template <typename CT, int EPL>
@@ -89,13 +99,15 @@ __device__ __forceinline__ void merge_lanes(float& m, float& l, float (&acc)[EPL
   m = m_new;
 }
 
-template <int HD, typename CT>
+template <int HD, typename CT, bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_mha_kernel(const bf16* __restrict__ q, long long q_bstride,
                        const bf16* __restrict__ kn, long long kn_bstride,
                        const bf16* __restrict__ vn, long long vn_bstride,
-                       CT* __restrict__ cache_k, CT* __restrict__ cache_v,
-                       float* __restrict__ cache_ks, float* __restrict__ cache_vs,
+                       Pool<WRITE, CT> __restrict__ cache_k,
+                       Pool<WRITE, CT> __restrict__ cache_v,
+                       Pool<WRITE, float> __restrict__ cache_ks,
+                       Pool<WRITE, float> __restrict__ cache_vs,
                        int NKV, int S, int pos, float scale, bf16* __restrict__ out) {
   constexpr bool INT8 = sizeof(CT) == 1;
   constexpr int EPL = 16 / sizeof(CT);   // elements of one 16-byte load
@@ -219,59 +231,62 @@ decode_attn_mha_kernel(const bf16* __restrict__ q, long long q_bstride,
   }
 
   // in-place write of the new token at index pos
-  const size_t woff = cbase + (size_t)pos * HD;
-  if (!INT8) {
-    bf16* ck = reinterpret_cast<bf16*>(cache_k);
-    bf16* cv = reinterpret_cast<bf16*>(cache_v);
-    for (int i = tid; i < 2 * (HD / 8); i += THREADS) {
-      const int d8 = (i % (HD / 8)) * 8;
-      if (i < HD / 8)
-        *reinterpret_cast<uint4*>(ck + woff + d8) = *reinterpret_cast<const uint4*>(knb + d8);
-      else
-        *reinterpret_cast<uint4*>(cv + woff + d8) = *reinterpret_cast<const uint4*>(vnb + d8);
-    }
-  } else if (warp < 2) {
-    constexpr int DPL = HD / 32;
-    const bf16* src = warp == 0 ? knb : vnb;
-    int8_t* dst = reinterpret_cast<int8_t*>(warp == 0 ? cache_k : cache_v) + woff;
-    float xv[DPL], amax = 0.f;
+  if constexpr (WRITE) {
+    const size_t woff = cbase + (size_t)pos * HD;
+    if constexpr (!INT8) {
+      for (int i = tid; i < 2 * (HD / 8); i += THREADS) {
+        const int d8 = (i % (HD / 8)) * 8;
+        if (i < HD / 8)
+          *reinterpret_cast<uint4*>(cache_k + woff + d8) =
+              *reinterpret_cast<const uint4*>(knb + d8);
+        else
+          *reinterpret_cast<uint4*>(cache_v + woff + d8) =
+              *reinterpret_cast<const uint4*>(vnb + d8);
+      }
+    } else if (warp < 2) {
+      constexpr int DPL = HD / 32;
+      const bf16* src = warp == 0 ? knb : vnb;
+      int8_t* dst = (warp == 0 ? cache_k : cache_v) + woff;
+      float xv[DPL], amax = 0.f;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      xv[j] = bf2f(src[lane * DPL + j]);
-      amax = fmaxf(amax, fabsf(xv[j]));
-    }
-    amax = warp_max(amax);
-    const float sc = __fdiv_rn(fmaxf(amax, KV_SCALE_EPS), 127.f);
+      for (int j = 0; j < DPL; ++j) {
+        xv[j] = bf2f(src[lane * DPL + j]);
+        amax = fmaxf(amax, fabsf(xv[j]));
+      }
+      amax = warp_max(amax);
+      const float sc = __fdiv_rn(fmaxf(amax, KV_SCALE_EPS), 127.f);
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int qv = __float2int_rn(__fdiv_rn(xv[j], sc));
-      dst[lane * DPL + j] = (int8_t)max(-127, min(127, qv));
+      for (int j = 0; j < DPL; ++j) {
+        const int qv = __float2int_rn(__fdiv_rn(xv[j], sc));
+        dst[lane * DPL + j] = (int8_t)max(-127, min(127, qv));
+      }
+      if (lane == 0) (warp == 0 ? cache_ks : cache_vs)[sbase + pos] = sc;
     }
-    if (lane == 0) (warp == 0 ? cache_ks : cache_vs)[sbase + pos] = sc;
   }
 }
 
-template <typename CT>
+template <typename CT, bool WRITE>
 cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long kn_bstride,
-                   const void* vn, long long vn_bstride, void* cache_k, void* cache_v,
-                   void* cache_ks, void* cache_vs, int B, int NKV, int S, int HD, int pos,
-                   float scale, void* out, void* stream) {
+                   const void* vn, long long vn_bstride, const void* cache_k,
+                   const void* cache_v, const void* cache_ks, const void* cache_vs, int B,
+                   int NKV, int S, int HD, int pos, float scale, void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (B < 1 || NKV < 1 || pos < 0 || pos >= S) return cudaErrorInvalidValue;
+  // the fused kernels write index pos; a read-only call may find the cache full
+  if (B < 1 || NKV < 1 || pos < 0 || pos > (WRITE ? S - 1 : S)) return cudaErrorInvalidValue;
   dim3 grid(NKV, B);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(kn);
   const bf16* vp = static_cast<const bf16*>(vn);
-  CT* ck = static_cast<CT*>(cache_k);
-  CT* cv = static_cast<CT*>(cache_v);
-  float* ks = static_cast<float*>(cache_ks);
-  float* vs = static_cast<float*>(cache_vs);
+  Pool<WRITE, CT> ck = static_cast<Pool<WRITE, CT>>(const_cast<void*>(cache_k));
+  Pool<WRITE, CT> cv = static_cast<Pool<WRITE, CT>>(const_cast<void*>(cache_v));
+  Pool<WRITE, float> ks = static_cast<Pool<WRITE, float>>(const_cast<void*>(cache_ks));
+  Pool<WRITE, float> vs = static_cast<Pool<WRITE, float>>(const_cast<void*>(cache_vs));
   bf16* o = static_cast<bf16*>(out);
   if (HD == 64) {
-    decode_attn_mha_kernel<64, CT><<<grid, THREADS, 0, st>>>(
+    decode_attn_mha_kernel<64, CT, WRITE><<<grid, THREADS, 0, st>>>(
         qp, q_bstride, kp, kn_bstride, vp, vn_bstride, ck, cv, ks, vs, NKV, S, pos, scale, o);
   } else if (HD == 128) {
-    decode_attn_mha_kernel<128, CT><<<grid, THREADS, 0, st>>>(
+    decode_attn_mha_kernel<128, CT, WRITE><<<grid, THREADS, 0, st>>>(
         qp, q_bstride, kp, kn_bstride, vp, vn_bstride, ck, cv, ks, vs, NKV, S, pos, scale, o);
   } else {
     return cudaErrorInvalidValue;
@@ -288,8 +303,8 @@ extern "C" int decode_attention_mha(const void* q, long long q_bstride, const vo
                                     long long kn_bstride, const void* vn, long long vn_bstride,
                                     void* cache_k, void* cache_v, int B, int NKV, int S, int HD,
                                     int pos, float scale, void* out, void* stream) {
-  return (int)launch<bf16>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
-                           nullptr, nullptr, B, NKV, S, HD, pos, scale, out, stream);
+  return (int)launch<bf16, true>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
+                                 nullptr, nullptr, B, NKV, S, HD, pos, scale, out, stream);
 }
 
 // The same over int8 caches with f32 scale pools cache_ks / cache_vs
@@ -299,6 +314,28 @@ extern "C" int decode_attention_mha8(const void* q, long long q_bstride, const v
                                      void* cache_k, void* cache_v, void* cache_ks,
                                      void* cache_vs, int B, int NKV, int S, int HD, int pos,
                                      float scale, void* out, void* stream) {
-  return (int)launch<int8_t>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
-                             cache_ks, cache_vs, B, NKV, S, HD, pos, scale, out, stream);
+  return (int)launch<int8_t, true>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k,
+                                   cache_v, cache_ks, cache_vs, B, NKV, S, HD, pos, scale, out,
+                                   stream);
+}
+
+// The two attentions with the pools only read (0 <= pos <= S).
+extern "C" int decode_attention_mha_ro(const void* q, long long q_bstride, const void* kn,
+                                       long long kn_bstride, const void* vn,
+                                       long long vn_bstride, const void* cache_k,
+                                       const void* cache_v, int B, int NKV, int S, int HD,
+                                       int pos, float scale, void* out, void* stream) {
+  return (int)launch<bf16, false>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
+                                  nullptr, nullptr, B, NKV, S, HD, pos, scale, out, stream);
+}
+
+extern "C" int decode_attention_mha8_ro(const void* q, long long q_bstride, const void* kn,
+                                        long long kn_bstride, const void* vn,
+                                        long long vn_bstride, const void* cache_k,
+                                        const void* cache_v, const void* cache_ks,
+                                        const void* cache_vs, int B, int NKV, int S, int HD,
+                                        int pos, float scale, void* out, void* stream) {
+  return (int)launch<int8_t, false>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k,
+                                    cache_v, cache_ks, cache_vs, B, NKV, S, HD, pos, scale, out,
+                                    stream);
 }

@@ -1,9 +1,26 @@
-// KV-cache slab writes: a prefill chunk's K and V into the per-layer cache,
-// as bf16 (kv_write_slab) or quantized to int8 on the way (kv_write_slab_q8).
+// KV-cache writes: new K and V into the cache, as bf16 or quantized to int8 on
+// the way; a prefill chunk or one decode token; one layer's cache or all
+// layers' stacked (L, B, NKV, S, HD) cache in one launch.
 //
-// Replaces: accessory_tpu/ops/decode_attention.py::_write_slab_layer (Pallas
-// kernel `_write_kernel4`, via write_kv_layer) and ::_write_slab_layer_q8
-// (Pallas kernel `_write_kernel4_q8`, via write_kv_layer8).
+// Replaces, in accessory_tpu/ops/decode_attention.py:
+//   _write_slab_layer    (`_write_kernel4`, via write_kv_layer)      kv_write_slab
+//   _write_slab_layer_q8 (`_write_kernel4_q8`, via write_kv_layer8)  kv_write_slab_q8
+//   _write_col_layer     (`_col_write_kernel4`, write_kv_layer at one token)
+//                                                                    kv_write_col
+//   _write_col_layer_q8  (`_col_write_kernel4_q8`, write_kv_layer8 at one token)
+//                                                                    kv_write_col_q8
+//   _write_col_inplace   (`_col_write_kernel`, write_kv_t at one token)
+//                                                                    kv_write_stacked_col
+//   _write_inplace       (`_write_kernel`, write_kv_t for a slab)    kv_write_stacked
+//   write_kv_t8          (dynamic_update_slice there)                kv_write_stacked_q8
+//
+// The one-token writes are a masked read-modify-write of a 128-lane tile on
+// the TPU because its cache is lane-major; here a token's row of a head is
+// contiguous, so they are the slab kernels at sq = 1 with a launch shape of
+// their own (a block of 128 threads, B * NKV * HD / 8 sixteen-byte pieces or
+// B * NKV warps in all). A stacked cache is the per-layer problem with L * B
+// batch rows: the new k/v come stacked (L, B, sq, NKV, HD), layer stride B
+// batch strides.
 //
 // Copies new K/V (B, sq, NKV, HD), given with batch and token strides so a
 // strided view of the fused qkv projection needs no copy, into the caches
@@ -104,37 +121,33 @@ __global__ void kv_write_q8_kernel(const bf16* __restrict__ nk, long long nk_bs,
   }
 }
 
-}  // namespace
-
-// Requires HD % 8 == 0, 16-byte aligned sources with strides that are
-// multiples of 8 elements, and pos + sq <= S.
-extern "C" int kv_write_slab(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
-                             long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
-                             int B, int sq, int NKV, int HD, int S, int pos, void* stream) {
+// Launch helpers: `rows` batch rows (B, or L * B for a stacked cache).
+cudaError_t launch_bf16(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
+                        long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
+                        long long rows, int sq, int NKV, int HD, int S, int pos, int threads,
+                        void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (HD % 8 != 0 || pos < 0 || sq < 1 || pos + sq > S) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * sq * NKV * (HD / 8);
-  const int threads = 256;
+  if (HD % 8 != 0 || rows < 1 || rows > 0x7fffffffLL || pos < 0 || sq < 1 || pos + sq > S)
+    return cudaErrorInvalidValue;
+  const long long total = rows * sq * NKV * (HD / 8);
   const long long want = (total + threads - 1) / threads;
   dim3 grid((unsigned)(want < 4096 ? want : 4096), 2);
   kv_write_kernel<<<grid, threads, 0, st>>>(
       static_cast<const bf16*>(nk), nk_bs, nk_ts, static_cast<const bf16*>(nv), nv_bs, nv_ts,
-      static_cast<bf16*>(cache_k), static_cast<bf16*>(cache_v), B, sq, NKV, HD, S, pos);
-  return (int)cudaGetLastError();
+      static_cast<bf16*>(cache_k), static_cast<bf16*>(cache_v), (int)rows, sq, NKV, HD, S, pos);
+  return cudaGetLastError();
 }
 
-// The int8 form: nk/nv as above (bf16, strided); cache_k/cache_v int8
-// (B, NKV, S, HD) and cache_ks/cache_vs f32 (B, NKV, S), all contiguous.
-// Requires HD in {64, 128, 256}, sources aligned to HD / 16 bytes with
-// strides that are multiples of HD / 32 elements, and pos + sq <= S.
-extern "C" int kv_write_slab_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
-                                long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
-                                void* cache_ks, void* cache_vs, int B, int sq, int NKV, int HD,
-                                int S, int pos, void* stream) {
+cudaError_t launch_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
+                      long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
+                      void* cache_ks, void* cache_vs, long long rows, int sq, int NKV, int HD,
+                      int S, int pos, int threads, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (pos < 0 || sq < 1 || pos + sq > S) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * sq * NKV;
-  const int threads = 256, wpb = threads / 32;
+  if (rows < 1 || rows > 0x7fffffffLL || pos < 0 || sq < 1 || pos + sq > S)
+    return cudaErrorInvalidValue;
+  const int B = (int)rows;
+  const long long total = rows * sq * NKV;
+  const int wpb = threads / 32;
   const long long want = (total + wpb - 1) / wpb;
   dim3 grid((unsigned)(want < 16384 ? want : 16384), 2);
   const bf16* k = static_cast<const bf16*>(nk);
@@ -153,7 +166,77 @@ extern "C" int kv_write_slab_q8(const void* nk, long long nk_bs, long long nk_ts
     kv_write_q8_kernel<8><<<grid, threads, 0, st>>>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks,
                                                     vs, B, sq, NKV, S, pos);
   } else {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// A chunk (B, sq, NKV, HD), batch and token strides in elements, into the
+// bf16 caches (B, NKV, S, HD) at token rows [pos, pos + sq). Requires
+// HD % 8 == 0, 16-byte aligned sources with strides that are multiples of 8
+// elements, and pos + sq <= S.
+extern "C" int kv_write_slab(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
+                             long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
+                             int B, int sq, int NKV, int HD, int S, int pos, void* stream) {
+  return (int)launch_bf16(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, B, sq, NKV, HD, S,
+                          pos, 256, stream);
+}
+
+// The int8 form: nk/nv as above (bf16, strided); cache_k/cache_v int8
+// (B, NKV, S, HD) and cache_ks/cache_vs f32 (B, NKV, S), all contiguous.
+// Requires HD in {64, 128, 256}, sources aligned to HD / 16 bytes with
+// strides that are multiples of HD / 32 elements, and pos + sq <= S.
+extern "C" int kv_write_slab_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
+                                long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
+                                void* cache_ks, void* cache_vs, int B, int sq, int NKV, int HD,
+                                int S, int pos, void* stream) {
+  return (int)launch_q8(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, cache_ks, cache_vs,
+                        B, sq, NKV, HD, S, pos, 256, stream);
+}
+
+// One token (B, 1, NKV, HD) into the bf16 caches at row pos.
+extern "C" int kv_write_col(const void* nk, long long nk_bs, const void* nv, long long nv_bs,
+                            void* cache_k, void* cache_v, int B, int NKV, int HD, int S, int pos,
+                            void* stream) {
+  return (int)launch_bf16(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, B, 1, NKV, HD, S, pos,
+                          128, stream);
+}
+
+// One token quantized into the int8 caches and the scale pools at row pos.
+extern "C" int kv_write_col_q8(const void* nk, long long nk_bs, const void* nv, long long nv_bs,
+                               void* cache_k, void* cache_v, void* cache_ks, void* cache_vs,
+                               int B, int NKV, int HD, int S, int pos, void* stream) {
+  return (int)launch_q8(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, cache_ks, cache_vs, B, 1,
+                        NKV, HD, S, pos, 128, stream);
+}
+
+// All layers in one launch: new k/v (L, B, sq, NKV, HD) with layer stride
+// B * batch stride, into stacked bf16 caches (L, B, NKV, S, HD) contiguous.
+extern "C" int kv_write_stacked(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
+                                long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
+                                int L, int B, int sq, int NKV, int HD, int S, int pos,
+                                void* stream) {
+  return (int)launch_bf16(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, (long long)L * B,
+                          sq, NKV, HD, S, pos, 256, stream);
+}
+
+// The same for one token per layer (L, B, 1, NKV, HD).
+extern "C" int kv_write_stacked_col(const void* nk, long long nk_bs, const void* nv,
+                                    long long nv_bs, void* cache_k, void* cache_v, int L, int B,
+                                    int NKV, int HD, int S, int pos, void* stream) {
+  return (int)launch_bf16(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, (long long)L * B, 1, NKV,
+                          HD, S, pos, 128, stream);
+}
+
+// All layers quantized into stacked int8 caches (L, B, NKV, S, HD) and scale
+// pools (L, B, NKV, S), any sq.
+extern "C" int kv_write_stacked_q8(const void* nk, long long nk_bs, long long nk_ts,
+                                   const void* nv, long long nv_bs, long long nv_ts,
+                                   void* cache_k, void* cache_v, void* cache_ks, void* cache_vs,
+                                   int L, int B, int sq, int NKV, int HD, int S, int pos,
+                                   void* stream) {
+  return (int)launch_q8(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, cache_ks, cache_vs,
+                        (long long)L * B, sq, NKV, HD, S, pos, sq == 1 ? 128 : 256, stream);
 }

@@ -13,8 +13,8 @@ Every wrapper that launches a kernel calls ``check(name, rc)``, which counts
 the launch when it returned 0, and nowhere else, so a run can show which
 kernels its main path went through (``launch_counts`` /
 ``reset_launch_counts``). Counts are kept per C entry point (``KERNELS``), not
-per source file: the GQA and MHA decode kernels, the bf16 and int8 forms and
-the two slab writes each show their own count.
+per source file: the GQA and MHA decode kernels, their bf16 and int8, fused
+and read-only forms, and each of the cache writes show their own count.
 """
 
 from __future__ import annotations
@@ -39,11 +39,21 @@ KERNELS = {
     "w4_matmul": "w4_matmul",
     "w4_matmul_bigm": "w4_matmul_bigm",
     "decode_attention": "decode_attention",
+    "decode_attention8": "decode_attention",
+    "decode_attention_ro": "decode_attention",
+    "decode_attention8_ro": "decode_attention",
     "decode_attention_mha": "decode_attention_mha",
     "decode_attention_mha8": "decode_attention_mha",
+    "decode_attention_mha_ro": "decode_attention_mha",
+    "decode_attention_mha8_ro": "decode_attention_mha",
     "flash_attention": "flash_attention",
     "kv_write": "kv_write",
     "kv_write_q8": "kv_write",
+    "kv_write_col": "kv_write",
+    "kv_write_col_q8": "kv_write",
+    "kv_write_stacked": "kv_write",
+    "kv_write_stacked_col": "kv_write",
+    "kv_write_stacked_q8": "kv_write",
 }
 # -Xptxas=-v: registers, shared memory and spills land in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

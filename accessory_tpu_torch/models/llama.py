@@ -1,9 +1,15 @@
-"""LLaMA forward for serving: prefill at position 0 and one-token decode.
+"""LLaMA forward for serving: prefill, a chunk after cached tokens, and
+one-token decode, over a per-layer or a stacked KV cache.
 
 Port of ``accessory_tpu/models/llama.py`` (init_params, init_kv_cache,
-_block, forward) on its unrolled per-layer decode path. Params are a tree of
-dicts whose ``layers`` is a list of per-layer dicts; weights are stored
-(in_dim, out_dim). Each decode layer runs: the wqkv W4 kernel with the
+_block, forward): its unrolled per-layer decode path and its stacked-cache
+path (read-only attention in each layer, one bulk write per forward; a layer
+of a stacked tensor is a view in PyTorch, so the params stay per-layer lists
+on both paths and only the cache is stacked). Params are a tree of dicts
+whose ``layers`` is a list of per-layer dicts; weights are stored
+(in_dim, out_dim). Layers hold fused wqkv / w13 weights
+(``quant.fuse.fuse_for_decode``) or separate wq, wk, wv / w1, w3. Each fused
+decode layer runs: the wqkv W4 kernel with the
 RMSNorm prologue and RoPE epilogue; the fused decode attention + KV write;
 wo W4 + residual; w13 W4 with the norm; SwiGLU; w2 W4 + residual. A
 position-0 prefill runs the same matmuls, causal flash attention and one
@@ -24,11 +30,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from accessory_tpu_torch.config import LLaMAArgs
-from accessory_tpu_torch.ops.decode_attention import (cached_attention_t,
+from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached_attention_t8,
                                                       decode_attention_update,
-                                                      decode_attention_update8,
-                                                      write_kv_layer, write_kv_layer8)
-from accessory_tpu_torch.ops.linear import module_linear_nr
+                                                      decode_attention_update8, write_kv_layer,
+                                                      write_kv_layer8, write_kv_t, write_kv_t8)
+from accessory_tpu_torch.ops.linear import module_linear, module_linear_nr
+from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
 from accessory_tpu_torch.util import resolve_kv_dtype
 
@@ -81,19 +88,24 @@ def init_params(args: LLaMAArgs, seed: int = 0, device="cuda") -> Params:
 
 
 def init_kv_cache(args: LLaMAArgs, batch: int, max_len: Optional[int] = None,
-                  dtype=None, kv_dtype: Optional[str] = None,
-                  device="cuda") -> Dict[str, List[torch.Tensor]]:
-    """Per-layer KV cache, each pool (batch, n_kv_heads, max_len, head_dim):
-    every cached token of a head is one contiguous row (the port's layout).
-    ``kv_dtype="int8"`` stores per-token-per-head symmetric int8 ``k``/``v``
-    plus f32 scale pools ``ks``/``vs`` (batch, n_kv_heads, max_len); ``None``
-    means the activation dtype (``util.resolve_kv_dtype``)."""
+                  dtype=None, kv_dtype: Optional[str] = None, device="cuda",
+                  stacked: bool = False) -> Dict[str, Any]:
+    """Static KV cache. Per layer (the default, for the unrolled decode path):
+    lists of pools (batch, n_kv_heads, max_len, head_dim), every cached token
+    of a head one contiguous row (the port's layout). ``stacked=True``: one
+    tensor per pool with a leading layer axis (n_layers, batch, ...), for the
+    path that reads the cache in each layer and writes all layers' new k/v
+    once per forward. ``kv_dtype="int8"`` stores per-token-per-head symmetric
+    int8 ``k``/``v`` plus f32 scale pools ``ks``/``vs`` (batch, n_kv_heads,
+    max_len); ``None`` means the activation dtype (``util.resolve_kv_dtype``)."""
     max_len = max_len or args.max_seq_len
     int8_kv = resolve_kv_dtype(kv_dtype) == "int8"
     dtype = torch.int8 if int8_kv else torch_dtype(dtype or args.dtype)
     shape = (batch, args.kv_heads, max_len, args.head_dim)
 
     def pools(shape, dtype):
+        if stacked:
+            return torch.zeros((args.n_layers,) + shape, dtype=dtype, device=device)
         return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)]
 
     cache = {"k": pools(shape, dtype), "v": pools(shape, dtype)}
@@ -114,55 +126,88 @@ def _rope_tables(head_dim: int, max_len: int, theta: float, scaling, style: str,
 
 
 def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
-           update_cache: bool, rope_t=None, cache_ks=None, cache_vs=None):
-    """One transformer block over fused (wqkv / w13) layer params. With
-    ``update_cache`` (a decode step) the fused attention kernel writes the
-    new token's k/v into the cache (quantized when the int8 scale pools
-    ``cache_ks`` / ``cache_vs`` are given) and (h, cache_k, cache_v) is
-    returned; otherwise (h, k, v) for the caller's slab write."""
+           update_cache: bool, rope_t=None, cache_ks=None, cache_vs=None,
+           fused_attn_write: bool = True):
+    """One transformer block, over fused (wqkv / w13) or separate (wq, wk, wv /
+    w1, w3) layer params. With ``update_cache`` (a decode step over per-layer
+    pools) the attention call also writes the new token's k/v into the cache
+    (quantized when the int8 scale pools ``cache_ks`` / ``cache_vs`` are
+    given), in one kernel or, without ``fused_attn_write``, in a read-only
+    attention and a one-token write, and (h, cache_k, cache_v) is returned;
+    otherwise the cache is only read and (h, k, v) goes back for the caller's
+    write."""
     b, sq, _ = h.shape
     hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
     att = layer["attention"]
-    qkv = module_linear_nr(h, att["wqkv"], norm=layer["attention_norm"],
-                           eps=args.norm_eps, rope=rope_t)
-    q = qkv[..., :nq * hd].reshape(b, sq, nq, hd)
-    k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, sq, nkv, hd)
-    v = qkv[..., (nq + nkv) * hd:].reshape(b, sq, nkv, hd)
-    if rope_t is None:
+    if "wqkv" in att:
+        qkv = module_linear_nr(h, att["wqkv"], norm=layer["attention_norm"],
+                               eps=args.norm_eps, rope=rope_t)
+        q = qkv[..., :nq * hd].reshape(b, sq, nq, hd)
+        k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, sq, nkv, hd)
+        v = qkv[..., (nq + nkv) * hd:].reshape(b, sq, nkv, hd)
+        if rope_t is None:
+            q = apply_rope(q, cos, sin, args.rope_style)
+            k = apply_rope(k, cos, sin, args.rope_style)
+    else:
+        x = rms_norm(h, layer["attention_norm"]["weight"], args.norm_eps)
+        q = module_linear(x, att["wq"]).reshape(b, sq, nq, hd)
+        k = module_linear(x, att["wk"]).reshape(b, sq, nkv, hd)
+        v = module_linear(x, att["wv"]).reshape(b, sq, nkv, hd)
         q = apply_rope(q, cos, sin, args.rope_style)
         k = apply_rope(k, cos, sin, args.rope_style)
 
     if update_cache and cache_ks is not None:
         out, k, v, _, _ = decode_attention_update8(q, k, v, cache_k, cache_v, cache_ks,
-                                                   cache_vs, pos)
+                                                   cache_vs, pos, fused_attn_write)
     elif update_cache:
-        out, k, v = decode_attention_update(q, k, v, cache_k, cache_v, pos)
+        out, k, v = decode_attention_update(q, k, v, cache_k, cache_v, pos, fused_attn_write)
+    elif cache_ks is not None:
+        out = cached_attention_t8(q, k, v, cache_k, cache_v, cache_ks, cache_vs, pos)
     else:
-        # a position-0 prefill reads nothing cached, whatever the cache's dtype
         out = cached_attention_t(q, k, v, cache_k, cache_v, pos)
 
     h = module_linear_nr(out.reshape(b, sq, nq * hd), att["wo"], residual=h)
     ff = layer["feed_forward"]
-    gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps)
-    hidden = gu.shape[-1] // 2
-    gate = torch.nn.functional.silu(gu[..., :hidden])
-    h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h)
+    if "w13" in ff:
+        gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps)
+        hidden = gu.shape[-1] // 2
+        gate = torch.nn.functional.silu(gu[..., :hidden])
+        h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h)
+    else:
+        x = rms_norm(h, layer["ffn_norm"]["weight"], args.norm_eps)
+        gate = torch.nn.functional.silu(module_linear(x, ff["w1"]))
+        h = module_linear_nr(gate * module_linear(x, ff["w3"]), ff["w2"], residual=h)
     return h, k, v
 
 
-def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
-            cache: Dict[str, List[torch.Tensor]], cur_pos: int = 0
-            ) -> Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]:
-    """Prefill (cur_pos 0, any chunk length) or decode (one token at cur_pos)
-    over per-layer params fused by ``quant.fuse.fuse_for_decode``. Returns
-    (logits f32 (b, sq, vocab), cache); the cache is updated in place."""
+def _check_layers(params: Params) -> None:
     for i, layer in enumerate(params["layers"]):
-        if "wqkv" not in layer["attention"] or "w13" not in layer["feed_forward"]:
-            raise ValueError(f"layer {i} has no fused wqkv / w13 weights: forward takes the "
-                             "params that quant.fuse.fuse_for_decode returns")
+        att, ff = layer["attention"], layer["feed_forward"]
+        if not (("wqkv" in att or all(k in att for k in ("wq", "wk", "wv")))
+                and ("w13" in ff or all(k in ff for k in ("w1", "w3")))):
+            raise ValueError(f"layer {i} has neither fused (wqkv / w13, from "
+                             "quant.fuse.fuse_for_decode) nor separate (wq, wk, wv / w1, w3) "
+                             "projection weights")
+
+
+def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
+            cache: Dict[str, Any], cur_pos: int = 0, fused_attn_write: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """A chunk of tokens at position ``cur_pos`` (a prefill at 0, a chunk
+    after cached tokens, or one decode token) over per-layer params, fused
+    by ``quant.fuse.fuse_for_decode`` or not. Returns (logits f32
+    (b, sq, vocab), cache); the cache is updated in place.
+
+    Per-layer pools (lists): a decode step's attention writes its own layer's
+    slot (one fused kernel, or read-only attention plus a one-token write with
+    ``fused_attn_write=False``); a longer chunk is written layer by layer.
+    A stacked cache (one tensor per pool): every layer reads its slice of the
+    cache and all layers' new k/v are written by one call after the last."""
+    _check_layers(params)
     h = params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
-    s_len = cache["k"][0].shape[2]
+    stacked = isinstance(cache["k"], torch.Tensor)
+    s_len = cache["k"].shape[3] if stacked else cache["k"][0].shape[2]
     cos_full, sin_full, cos_rows, sin_rows = _rope_tables(
         args.head_dim, s_len, args.rope_theta, args.rope_scaling, args.rope_style,
         args.n_heads + args.kv_heads, args.kv_heads, str(h.device))
@@ -173,16 +218,28 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     rope_t = ((cos_rows[cur_pos], sin_rows[cur_pos], args.rope_style, args.head_dim)
               if decode else None)
     int8_kv = "ks" in cache
-    for i, (layer, ck, cv) in enumerate(zip(params["layers"], cache["k"], cache["v"])):
+    new_k, new_v = [], []
+    for i, layer in enumerate(params["layers"]):
         cks = cache["ks"][i] if int8_kv else None
         cvs = cache["vs"][i] if int8_kv else None
-        h, k_new, v_new = _block(h, layer, args, cos, sin, cur_pos, ck, cv, decode, rope_t,
-                                 cks, cvs)
-        if decode:
+        ck, cv = cache["k"][i], cache["v"][i]
+        h, k_new, v_new = _block(h, layer, args, cos, sin, cur_pos, ck, cv,
+                                 decode and not stacked, rope_t, cks, cvs, fused_attn_write)
+        if stacked:
+            new_k.append(k_new)
+            new_v.append(v_new)
+        elif decode:
             continue
-        if int8_kv:
+        elif int8_kv:
             write_kv_layer8(ck, cv, cks, cvs, k_new, v_new, cur_pos)
         else:
             write_kv_layer(ck, cv, k_new, v_new, cur_pos)
+    if stacked:
+        # one bulk write of all layers' new k/v (the stack is a copy of them)
+        new_k, new_v = torch.stack(new_k), torch.stack(new_v)
+        if int8_kv:
+            write_kv_t8(cache["k"], cache["v"], cache["ks"], cache["vs"], new_k, new_v, cur_pos)
+        else:
+            write_kv_t(cache["k"], cache["v"], new_k, new_v, cur_pos)
     logits = module_linear_nr(h, params["output"], norm=params["norm"], eps=args.norm_eps)
     return logits.to(torch.float32), cache

@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (accessory_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernels,parity,serve,decode,
+                                               checkpoint,parity8,serve8,stream,stacked,
+                                               decode8,decode_unfused,
                                                parity7b,serve7b,decode7b] [--out FILE]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
@@ -23,6 +25,24 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   decode    that model at the bench shape (batch 8, 1024-token cache, 100
             forward steps from position 512): ms per step against the bytes
             bound, with each kernel's launch count checked over the timed steps;
+  checkpoint  that quantized 22-layer model saved with MetaModel.save_pretrained
+            into a temporary directory (the native format the JAX package
+            loads), read back with MetaModel.from_pretrained (the numpy
+            reader; the stub tokenizer handed over as an object), every tensor
+            compared bit for bit; the phases below run the loaded weights;
+  parity8   as parity with the int8 KV cache (the fused GQA int8 kernel), and
+            once over the stacked-cache path (separate projections, read-only
+            attention, one bulk write), bf16 and int8;
+  serve8    the loaded model through MetaModel.generate with kv_dtype="int8":
+            4 prompts x 64 new tokens, launch counts exact;
+  stream    MetaModel.stream_generate, one prompt, 64 new tokens, both cache
+            types: the stream equals generate's greedy text, counts exact;
+  stacked   Generator(unroll_decode=False).generate, both cache types: per step
+            7 W4 launches and one read-only attention a layer and ONE stacked
+            write, greedy tokens and first-step logits against the unrolled path;
+  decode8, decode_unfused  the bench shape with the int8 GQA cache, and with
+            fused_attn_write=False (read-only attention + one-token write) for
+            both cache types;
   parity7b  LLaMA2-7B width, 2 layers: the same CPU-vs-card comparison through
             a prefill of 8 x 128 = 1024 rows (the many-row W4 kernel) and 4
             decode steps, with the bf16 and with the int8 KV cache (2 layers
@@ -33,9 +53,10 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             the int8 KV cache, with each kernel's launch count checked exactly;
   decode7b  that model at batch 8, 1024-token cache, 50 forward steps from
             position 512, in turns bf16, int8, int8, bf16 KV: ms per step
-            against the bytes bound.
+            against the bytes bound; then 20 steps with fused_attn_write=False
+            for each cache type (the read-only one-query-head kernels).
 The line before the last holds the kernel table ({"kernels": [...]}, launches
-summed over the serve phases' counted runs); the last line is
+summed over the counted main-path runs); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
 """
 
@@ -46,7 +67,9 @@ import json
 import math
 import statistics
 import subprocess
+import shutil
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -57,8 +80,11 @@ TINYLLAMA = dict(dim=2048, n_layers=22, n_heads=32, n_kv_heads=4, vocab_size=320
                  multiple_of=256, dtype="bfloat16")
 LLAMA2_7B = dict(dim=4096, n_layers=32, n_heads=32, vocab_size=32000, multiple_of=256,
                  dtype="bfloat16")
-KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention_mha",
-                "decode_attention_mha8", "flash_attention", "kv_write", "kv_write_q8")
+KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention8",
+                "decode_attention_ro", "decode_attention8_ro", "decode_attention_mha",
+                "decode_attention_mha8", "decode_attention_mha_ro", "decode_attention_mha8_ro",
+                "flash_attention", "kv_write", "kv_write_q8", "kv_write_col", "kv_write_col_q8",
+                "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8")
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
@@ -364,49 +390,6 @@ def _qkv_views(kr, b, nq, nkv, hd):
             qkv[..., (nq + nkv) * hd:].view(b, 1, nkv, hd))
 
 
-def _kernels_decode_attention(kr, tag, nq, nkv, hd, cases, most_copies=32):
-    """Fused decode attention + KV write over the bf16 cache: the GQA kernel
-    (nq > nkv) or the MHA kernel (nq == nkv), by decode_attention_update's
-    own dispatch."""
-    import torch
-    import torch.nn.functional as F
-
-    from accessory_tpu_torch.ops.decode_attention import (decode_attention_update,
-                                                          decode_attention_update_plain)
-
-    kernel = "decode_attention_mha" if nq == nkv else "decode_attention"
-    ncols = (nq + 2 * nkv) * hd
-    for b, s_len, pos in cases:
-        kv_read = 2 * b * nkv * pos * hd * 2
-        nbytes = kv_read + b * ncols * 2 + b * nq * hd * 2 + 2 * b * nkv * hd * 2
-        flops = 4.0 * b * nq * (pos + 1) * hd
-        sets = [_qkv_views(kr, b, nq, nkv, hd) + (kr.randn(b, nkv, s_len, hd),
-                                                  kr.randn(b, nkv, s_len, hd))
-                for _ in range(n_copies(nbytes, most_copies))]
-        q, kn, vn, ck, cv = sets[0]
-        ck2, cv2 = ck.clone(), cv.clone()
-        got, gk, gv = decode_attention_update(q, kn, vn, ck, cv, pos)
-        want, wk, wv = decode_attention_update_plain(q, kn, vn, ck2, cv2, pos)
-        torch.cuda.synchronize()
-        # softmax averages of pos + 1 values: held to 4 bf16 ulps of the
-        # largest output and 1% (plus the relative L2 check)
-        check_close(f"{kernel} {tag} B={b} S={s_len} pos={pos}", got, want, rtol=1e-2,
-                    atol=4 * bf16_ulp(float(want.float().abs().max())))
-        if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
-            raise AssertionError(f"{kernel} S={s_len} pos={pos}: cache write differs")
-        del ck2, cv2
-        k_ms = time_ms(lambda *a: decode_attention_update(*a, pos), sets)
-        k_wall = wall_ms(lambda *a: decode_attention_update(*a, pos), sets)
-        p_ms = time_ms(lambda *a: decode_attention_update_plain(*a, pos), sets[:1], min_iters=5)
-        mask = (torch.arange(s_len, device="cuda") <= pos)[None]  # cache now holds the new token
-        lib_sets = [(s[0].transpose(1, 2), s[3], s[4]) for s in sets]
-        lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask, enable_gqa=True), lib_sets)
-        kr.record(kernel, f"{tag} B={b} NKV={nkv} R={nq // nkv} HD={hd} S={s_len} pos={pos}",
-                  max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, flops)
-        del sets, lib_sets
-
-
 def _int8_pools(kr, b, nkv, s_len, hd):
     import torch
 
@@ -420,42 +403,88 @@ def _int8_pools(kr, b, nkv, s_len, hd):
     return q8(), q8(), sc(), sc()
 
 
-def _kernels_decode_attention8(kr, tag, nkv, hd, cases, most_copies=32):
-    """The MHA kernel's int8 form. The yardstick is SDPA over a cache that was
-    dequantized to bf16 beforehand (its dequantization is not timed)."""
+def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_copies=32,
+                    separate=False):
+    """One decode-attention entry over the bf16 or the int8 cache, fused with
+    the write (decode_attention_update[8]) or read-only (cached_attention_t[8]
+    at one token): the GQA kernel (nq > nkv) or the one-query-head kernel, by
+    the wrapper's own dispatch. The library yardstick is SDPA, for int8 over a
+    cache dequantized to bf16 beforehand (its dequantization is not timed). A
+    read-only row with pos < S also holds the unfused route (read-only
+    attention + one-token write) against the fused kernel: pools equal,
+    outputs inside the kernel tolerance. ``separate``: q, k_new and v_new are
+    contiguous tensors of their own instead of views of one wqkv output."""
     import torch
     import torch.nn.functional as F
 
-    from accessory_tpu_torch.ops.decode_attention import (decode_attention_update8,
-                                                          decode_attention_update8_plain)
+    from accessory_tpu_torch.ops import decode_attention as da
 
-    ncols = 3 * nkv * hd
+    r = nq // nkv
+    kernel = ("decode_attention_mha" if r == 1 else "decode_attention") \
+        + ("8" if int8 else "") + ("" if write else "_ro")
+    update = da.decode_attention_update8 if int8 else da.decode_attention_update
+    if write:
+        fn = update
+        plain = da.decode_attention_update8_plain if int8 else da.decode_attention_update_plain
+    else:
+        fn = da.cached_attention_t8 if int8 else da.cached_attention_t
+        plain = da.cached_attention_decode8_plain if int8 else da.cached_attention_decode_plain
+    ncols = (nq + 2 * nkv) * hd
+    tok_bytes = hd + 4 if int8 else 2 * hd        # one cached k or v vector (+ its scale)
     for b, s_len, pos in cases:
-        kv_read = 2 * b * nkv * pos * (hd + 4)
-        nbytes = kv_read + b * ncols * 2 + b * nkv * hd * 2 + 2 * b * nkv * (hd + 4)
-        flops = 4.0 * b * nkv * (pos + 1) * hd
-        sets = [_qkv_views(kr, b, nkv, nkv, hd) + _int8_pools(kr, b, nkv, s_len, hd)
+        name = f"{kernel} {tag} B={b} S={s_len} pos={pos}"
+        nbytes = 2 * b * nkv * pos * tok_bytes + b * ncols * 2 + b * nq * hd * 2 \
+            + (2 * b * nkv * tok_bytes if write else 0)
+        flops = 4.0 * b * nq * (pos + 1) * hd
+        sets = [((kr.randn(b, 1, nq, hd), kr.randn(b, 1, nkv, hd), kr.randn(b, 1, nkv, hd))
+                 if separate else _qkv_views(kr, b, nq, nkv, hd))
+                + (_int8_pools(kr, b, nkv, s_len, hd) if int8
+                   else (kr.randn(b, nkv, s_len, hd), kr.randn(b, nkv, s_len, hd)))
                 for _ in range(n_copies(nbytes, most_copies))]
         first = sets[0]
-        pools2 = tuple(p.clone() for p in first[3:])
-        got = decode_attention_update8(*first, pos)
-        want = decode_attention_update8_plain(*first[:3], *pools2, pos)
+        before = tuple(p.clone() for p in first[3:])   # the pools as they were
+        pools2 = tuple(p.clone() for p in before)
+        got = fn(*first, pos)
+        want = plain(*first[:3], *pools2, pos)
         torch.cuda.synchronize()
-        check_close(f"decode_attention_mha8 {tag} B={b} S={s_len} pos={pos}", got[0], want[0],
-                    rtol=1e-2, atol=4 * bf16_ulp(float(want[0].float().abs().max())))
-        check_pools8(f"decode_attention_mha8 {tag} S={s_len} pos={pos}", got[1:], want[1:])
-        del pools2
-        k_ms = time_ms(lambda *a: decode_attention_update8(*a, pos), sets)
-        k_wall = wall_ms(lambda *a: decode_attention_update8(*a, pos), sets)
-        p_ms = time_ms(lambda *a: decode_attention_update8_plain(*a, pos), sets[:1], min_iters=5)
-        mask = (torch.arange(s_len, device="cuda") <= pos)[None]
-        lib_sets = [(s[0].transpose(1, 2),
-                     (s[3].float() * s[5][..., None]).to(torch.bfloat16),
-                     (s[4].float() * s[6][..., None]).to(torch.bfloat16)) for s in sets[:2]]
+        out_g, out_w = (got[0], want[0]) if write else (got, want)
+        # softmax averages of pos + 1 values: held to 4 bf16 ulps of the
+        # largest output and 1% (plus the relative L2 check)
+        atol = 4 * bf16_ulp(float(out_w.float().abs().max()))
+        check_close(name, out_g, out_w, rtol=1e-2, atol=atol)
+        if write and int8:
+            check_pools8(name, got[1:], want[1:])
+        elif write and not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+            raise AssertionError(f"{name}: cache write differs")
+        elif not write and not all(torch.equal(a, b_) for a, b_ in zip(first[3:], before)):
+            raise AssertionError(f"{name}: a read-only kernel changed the cache")
+        if not write and pos < s_len:
+            fused = update(*first[:3], *(p.clone() for p in before), pos)
+            unfused = update(*first[:3], *(p.clone() for p in before), pos,
+                             fused_attn_write=False)
+            torch.cuda.synchronize()
+            check_close(name + " unfused vs fused", unfused[0], fused[0], rtol=1e-2, atol=atol)
+            if int8:
+                check_pools8(name + " unfused vs fused", unfused[1:], fused[1:])
+            elif not all(torch.equal(a, b_) for a, b_ in zip(unfused[1:], fused[1:])):
+                raise AssertionError(f"{name}: the unfused route's pools differ from the fused "
+                                     "kernel's")
+        del before, pools2
+        k_ms = time_ms(lambda *a: fn(*a, pos), sets)
+        k_wall = wall_ms(lambda *a: fn(*a, pos), sets)
+        p_ms = time_ms(lambda *a: plain(*a, pos), sets[:1], min_iters=5)
+        mask = (torch.arange(s_len, device="cuda") <= min(pos, s_len - 1))[None]
+        if int8:
+            lib_sets = [(s_[0].transpose(1, 2),
+                         (s_[3].float() * s_[5][..., None]).to(torch.bfloat16),
+                         (s_[4].float() * s_[6][..., None]).to(torch.bfloat16)) for s_ in sets[:2]]
+        else:
+            lib_sets = [(s_[0].transpose(1, 2), s_[3], s_[4]) for s_ in sets]
         lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask), lib_sets)
-        kr.record("decode_attention_mha8", f"{tag} B={b} NKV={nkv} R=1 HD={hd} S={s_len} pos={pos}",
-                  max_err(got[0], want[0]), k_ms, k_wall, p_ms, lib_ms, nbytes, flops)
+            qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
+        kr.record(kernel, f"{tag} B={b} NKV={nkv} R={r} HD={hd} S={s_len} pos={pos}"
+                  + (" separate-qkv" if separate else ""),
+                  max_err(out_g, out_w), k_ms, k_wall, p_ms, lib_ms, nbytes, flops)
         del sets, lib_sets
 
 
@@ -497,10 +526,12 @@ def _kv_chunk_views(kr, b, sq, nkv, hd):
 
 
 def _kernels_slab(kr, tag, b, nkv, hd, s_len, sq, positions):
+    """write_kv_layer: a chunk (kv_write) or one token (sq 1: kv_write_col)."""
     import torch
 
     from accessory_tpu_torch.ops.decode_attention import write_kv_layer, write_kv_layer_plain
 
+    kernel = "kv_write_col" if sq == 1 else "kv_write"
     for pos in positions:
         nbytes = 2 * 2 * b * sq * nkv * hd * 2
         sets = [(kr.randn(b, nkv, s_len, hd), kr.randn(b, nkv, s_len, hd))
@@ -511,24 +542,26 @@ def _kernels_slab(kr, tag, b, nkv, hd, s_len, sq, positions):
         write_kv_layer_plain(ck2, cv2, nk, nv, pos)
         torch.cuda.synchronize()
         if not (torch.equal(ck, ck2) and torch.equal(cv, cv2)):
-            raise AssertionError(f"kv_write pos={pos}: cache differs from the plain copy_")
+            raise AssertionError(f"{kernel} pos={pos}: cache differs from the plain copy_")
         k_ms = time_ms(lambda *a: write_kv_layer(*a, pos), sets)
         k_wall = wall_ms(lambda *a: write_kv_layer(*a, pos), sets)
         p_ms = time_ms(lambda *a: write_kv_layer_plain(*a, pos), sets)
         lib_ms = time_ms(lambda ck, cv, nk, nv: (ck[:, :, pos:pos + sq].copy_(nk.transpose(1, 2)),
                                                  cv[:, :, pos:pos + sq].copy_(nv.transpose(1, 2))),
                          sets)
-        kr.record("kv_write", f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
+        kr.record(kernel, f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
                   (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0)
 
 
 def _kernels_slab8(kr, tag, b, nkv, hd, s_len, sq, positions):
-    """The quantizing slab write; no single PyTorch call computes it, so it
-    has no library yardstick."""
+    """write_kv_layer8: the quantizing write of a chunk (kv_write_q8) or of one
+    token (sq 1: kv_write_col_q8). No single PyTorch call computes a
+    quantizing strided write, so it has no library yardstick."""
     import torch
 
     from accessory_tpu_torch.ops.decode_attention import write_kv_layer8, write_kv_layer8_plain
 
+    kernel = "kv_write_col_q8" if sq == 1 else "kv_write_q8"
     for pos in positions:
         nbytes = 2 * b * sq * nkv * (hd * 2 + hd + 4)
         sets = [_int8_pools(kr, b, nkv, s_len, hd) + _kv_chunk_views(kr, b, sq, nkv, hd)
@@ -537,12 +570,58 @@ def _kernels_slab8(kr, tag, b, nkv, hd, s_len, sq, positions):
         got = write_kv_layer8(*sets[0], pos)
         want = write_kv_layer8_plain(*pools2, *sets[0][4:], pos)
         torch.cuda.synchronize()
-        check_pools8(f"kv_write_q8 pos={pos}", got, want)
+        check_pools8(f"{kernel} pos={pos}", got, want)
         k_ms = time_ms(lambda *a: write_kv_layer8(*a, pos), sets)
         k_wall = wall_ms(lambda *a: write_kv_layer8(*a, pos), sets)
         p_ms = time_ms(lambda *a: write_kv_layer8_plain(*a, pos), sets)
-        kr.record("kv_write_q8", f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
+        kr.record(kernel, f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
                   (0.0, 0.0), k_ms, k_wall, p_ms, None, nbytes, 0.0)
+
+
+def _kernels_stacked(kr, tag, n_layers, b, nkv, hd, s_len, sq, pos, int8):
+    """write_kv_t / write_kv_t8: all layers' new k/v into the stacked cache in
+    one launch, from a torch.stack of per-layer chunks as the model makes it
+    (the stack's own device time is reported beside the kernel's)."""
+    import torch
+
+    from accessory_tpu_torch.ops import decode_attention as da
+
+    kernel = "kv_write_stacked_q8" if int8 else \
+        ("kv_write_stacked_col" if sq == 1 else "kv_write_stacked")
+    vec = n_layers * b * sq * nkv
+    nbytes = 2 * vec * (hd * 2 + hd + 4) if int8 else 2 * 2 * vec * hd * 2
+    chunks = [(kr.randn(b, sq, nkv, hd), kr.randn(b, sq, nkv, hd)) for _ in range(n_layers)]
+    stack_ms = time_ms(lambda: (torch.stack([c[0] for c in chunks]),
+                                torch.stack([c[1] for c in chunks])), [()])
+    nk, nv = torch.stack([c[0] for c in chunks]), torch.stack([c[1] for c in chunks])
+    if int8:
+        def pools():
+            return tuple(torch.stack(ps) for ps in zip(*(_int8_pools(kr, b, nkv, s_len, hd)
+                                                         for _ in range(n_layers))))
+        fn, plain = da.write_kv_t8, da.write_kv_t8_plain
+    else:
+        def pools():
+            return (kr.randn(n_layers, b, nkv, s_len, hd), kr.randn(n_layers, b, nkv, s_len, hd))
+        fn, plain = da.write_kv_t, da.write_kv_t_plain
+    pool_bytes = sum(p.numel() * p.element_size() for p in pools())
+    sets = [pools() + (nk, nv) for _ in range(max(1, min(4, 2 * L2_BYTES // pool_bytes)))]
+    pools2 = tuple(p.clone() for p in sets[0][:-2])
+    got = fn(*sets[0], pos)
+    want = plain(*pools2, nk, nv, pos)
+    torch.cuda.synchronize()
+    if int8:
+        check_pools8(f"{kernel} pos={pos}", got, want)
+    elif not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{kernel} pos={pos}: stacked cache differs from the plain copy_")
+    del pools2
+    k_ms = time_ms(lambda *a: fn(*a, pos), sets)
+    k_wall = wall_ms(lambda *a: fn(*a, pos), sets)
+    p_ms = time_ms(lambda *a: plain(*a, pos), sets)
+    lib_ms = None if int8 else time_ms(
+        lambda ck, cv, k, v: (ck[:, :, :, pos:pos + sq].copy_(k.transpose(2, 3)),
+                              cv[:, :, :, pos:pos + sq].copy_(v.transpose(2, 3))), sets)
+    kr.record(kernel, f"{tag} L={n_layers} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
+              (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0, stack_ms=stack_ms)
 
 
 def phase_kernels(seed: int):
@@ -551,13 +630,19 @@ def phase_kernels(seed: int):
 
     kr = KernelRows(seed)
 
-    # -- TinyLlama-1.1B (GQA) path: the four decode-layer projections at M 4 (the
-    #    serve phase's decode batch), 8 (the decode phase's) and 512 (its prefill)
+    # -- TinyLlama-1.1B (GQA) path: the four decode-layer projections at M 1 (the
+    #    stream phase's decode: the one-row GEMV), 4 (the serve phases' decode
+    #    batch), 8 (the decode phases'), 128 (the stream phase's prefill) and 512
+    #    (the serve phases' prefill)
     cos, sin = precompute_rope(64, 1024, device="cuda")
     rope = rope_rows(cos, sin, 36, 4, 64, "interleaved") + ("interleaved", 64)
     _kernels_w4(kr, "tiny", [("wqkv", 2048, 2560, "norm+rope"), ("wo", 2048, 2048, "res"),
                              ("w13", 2048, 11264, "norm"), ("w2", 5632, 2048, "res")],
-                (4, 8, 512), rope)
+                (1, 4, 8, 128, 512), rope)
+    # -- the stacked path's separate projections, with no prologue or epilogue
+    #    (wk and wv, w1 and w3 share a shape; its wo and w2 are the rows above)
+    _kernels_w4(kr, "tiny", [("wq", 2048, 2048, ""), ("wk/wv", 2048, 256, ""),
+                             ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope)
     # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 (K 11008 is
     #    padded to 11264 in the weight; RoPE at head_dim 128)
     cos, sin = precompute_rope(128, 1024, device="cuda")
@@ -571,29 +656,66 @@ def phase_kernels(seed: int):
                        ("wo", 4096, 4096, 1000)])
 
     # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
-    #    phase's batch 8 and 1024-token cache, a cache length not a multiple
-    #    of 128, and the serve phase's batch 4 over its 192-token cache
-    _kernels_decode_attention(kr, "tiny", 32, 4, 64,
-                              ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023),
-                               (8, 1000, 999), (4, 192, 150)))
+    #    phases' batch 8 and 1024-token cache, a cache length not a multiple
+    #    of 128, and the serve phases' batch 4 and the stream phase's batch 1
+    #    over their 192-token caches
+    tiny_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (4, 192, 150),
+                  (1, 192, 150))
+    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases + ((8, 1000, 999),))
+    # -- its int8 form (_kernel_bloop_w8) and the read-only forms (_kernel_bloop
+    #    / _kernel, _kernel_bloop8), each also held as "read-only + one-token
+    #    write == fused"; an HD 128 GQA shape (NKV 8, R 4)
+    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True)
+    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, write=False)
+    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True, write=False)
+    for int8, write in ((True, True), (False, False), (True, False)):
+        _kernels_decode(kr, "hd128", 32, 8, 128, ((8, 1024, 511),), int8=int8, write=write,
+                        most_copies=8)
+    # -- the read-only forms as the stacked path calls them: q, k, v each a
+    #    tensor of its own (separate projections), not views of one wqkv output
+    for int8 in (False, True):
+        _kernels_decode(kr, "tiny", 32, 4, 64, ((4, 192, 150), (8, 1024, 511)), int8=int8,
+                        write=False, separate=True)
     # -- the same for MHA (_kernel_hgrp_w) and its int8 form (_kernel_hgrp_w8)
     #    at the 7B shape, the 7B serve phase's 192-token cache, and one
     #    head_dim-64 shape. The caches are 134 MB a copy, so at most 4 copies
     #    rotate (a short read then stays in L2, as it would in the model).
     mha_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (8, 192, 150))
-    _kernels_decode_attention(kr, "7b", 32, 32, 128, mha_cases, most_copies=4)
-    _kernels_decode_attention(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), most_copies=4)
-    _kernels_decode_attention8(kr, "7b", 32, 128, mha_cases, most_copies=4)
-    _kernels_decode_attention8(kr, "hd64", 16, 64, ((8, 1000, 999),), most_copies=4)
+    _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, most_copies=4)
+    _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), most_copies=4)
+    _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, int8=True, most_copies=4)
+    _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), int8=True, most_copies=4)
+    # -- the read-only forms at one query head per KV head (the MHA kernel
+    #    without its write), 7B shape
+    ro_cases = ((8, 1024, 511), (8, 1024, 1023))
+    _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, write=False, most_copies=4)
+    _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, int8=True, write=False, most_copies=4)
 
     # -- causal prefill flash attention (splash)
-    _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 4, 200, 32, 4, 64),
+    _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 1, 128, 32, 4, 64),
+                        ("tiny", 4, 200, 32, 4, 64),
                         ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128)))
 
     # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
+    #    at the serve phases' batch 4 / 8 and the stream phase's batch 1
     _kernels_slab(kr, "tiny", 4, 4, 64, 192, 128, (0, 37))
+    _kernels_slab(kr, "tiny", 1, 4, 64, 192, 128, (0,))
     _kernels_slab(kr, "7b", 8, 32, 128, 192, 128, (0,))
+    _kernels_slab8(kr, "tiny", 4, 4, 64, 192, 128, (0,))
+    _kernels_slab8(kr, "tiny", 1, 4, 64, 192, 128, (0,))
     _kernels_slab8(kr, "7b", 8, 32, 128, 192, 128, (0, 37))
+    # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
+    #    shapes, and the stacked writes of all 22 layers in one launch
+    #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
+    #    write_kv_t8)
+    _kernels_slab(kr, "tiny", 8, 4, 64, 1024, 1, (0, 511, 1023))
+    _kernels_slab8(kr, "tiny", 8, 4, 64, 1024, 1, (0, 511, 1023))
+    _kernels_slab(kr, "7b", 8, 32, 128, 1024, 1, (511,))
+    _kernels_slab8(kr, "7b", 8, 32, 128, 1024, 1, (511,))
+    for int8 in (False, True):
+        _kernels_stacked(kr, "tiny", 22, 8, 4, 64, 1024, 1, 511, int8)
+        _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 1, 150, int8)
+        _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 128, 0, int8)
     return kr.rows
 
 
@@ -616,10 +738,11 @@ LOGIT_REL_L2 = 2e-2   # ||gpu - cpu|| / ||cpu||
 
 
 def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: int, steps: int,
-                 s_len: int, kv_dtypes=(None,)):
+                 s_len: int, kv_dtypes=(None,), stacked: bool = False):
     """Same weights, CPU through the plain versions vs the card through the
     kernels: prefill logits, then ``steps`` decode steps fed the CPU's greedy
-    tokens, once per KV-cache dtype."""
+    tokens, once per KV-cache dtype. ``stacked``: the stacked-cache path
+    (separate projections, read-only attention, one bulk write per forward)."""
     import torch
 
     from accessory_tpu_torch.config import LLaMAArgs
@@ -628,13 +751,16 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
     from accessory_tpu_torch.quant.quantize import quantize_params
 
     args = LLaMAArgs(**dict(cfg, n_layers=n_layers), max_seq_len=s_len)
-    params_gpu = fuse_for_decode(quantize_params(llama.init_params(args, seed=seed)))
+    params_gpu = quantize_params(llama.init_params(args, seed=seed))
+    if not stacked:
+        params_gpu = fuse_for_decode(params_gpu)
     params_cpu = _tree_to(params_gpu, "cpu")
     g = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, args.vocab_size, (b, plen), generator=g)
     for kv_dtype in kv_dtypes:
-        cache_g = llama.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype)
-        cache_c = llama.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, device="cpu")
+        cache_g = llama.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, stacked=stacked)
+        cache_c = llama.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, device="cpu",
+                                      stacked=stacked)
         cpu_s = 0.0
 
         def cpu_forward(tokens, pos):
@@ -669,8 +795,9 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
             lc = cpu_forward(tok[:, None], plen + i)
             compare(lg, lc)
             tok = lc[:, -1].argmax(-1)
-        row = {"phase": phase, "layers": args.n_layers, "dim": args.dim, "batch": b,
-               "prompt": plen, "prefill_rows": b * plen, "decode_steps": steps,
+        row = {"phase": phase, "path": "stacked" if stacked else "unrolled",
+               "layers": args.n_layers, "dim": args.dim, "batch": b, "prompt": plen,
+               "prefill_rows": b * plen, "decode_steps": steps,
                "kv_dtype": kv_dtype or "bf16", "cpu_seconds": round(cpu_s, 2),
                "max_abs_logit_err": worst_abs, "max_rel_l2_err": worst_rel,
                "logit_absmax": tol_abs / LOGIT_TOL_FRAC, "tol_abs": tol_abs,
@@ -754,17 +881,23 @@ def _counted_generate(model, prompts, max_gen_len: int):
     return outs, kernels.launch_counts(), model.generator.last_decode_steps, secs
 
 
-def phase_serve(seed: int):
-    """The 22-layer TinyLlama shape (GQA) through MetaModel.generate, launch-counted."""
+def phase_serve(phase: str, model, setup_s: float, kv_dtype=None):
+    """The 22-layer TinyLlama shape (GQA) through MetaModel.generate with the
+    bf16 (serve) or the int8 (serve8) KV cache, launch-counted."""
     prompts = PROMPTS[:4]
     assert all(100 <= len(p) <= 126 for p in prompts), [len(p) for p in prompts]
-    model, setup_s, _ = _quantized_model(TINYLLAMA, 512, seed)
+    int8 = kv_dtype == "int8"
+    model.kv_dtype = kv_dtype
+    model._reset_generator()
     n_layers = model.args.n_layers
-    prefill_ms = _timed_prefill(model, 4, 128, 192, None)
+    prefill_ms = _timed_prefill(model, 4, 128, 192, kv_dtype)
     outs, counts, steps, total_s = _counted_generate(model, prompts, 64)
-    want = _zero_counts(w4_matmul=4 * n_layers * (1 + steps), decode_attention=n_layers * steps,
-                        flash_attention=n_layers, kv_write=n_layers)
-    row = {"phase": "serve", "model": "TinyLlama-1.1B shape", "layers": n_layers,
+    want = _zero_counts(
+        w4_matmul=4 * n_layers * (1 + steps), flash_attention=n_layers,
+        **{"decode_attention8" if int8 else "decode_attention": n_layers * steps,
+           "kv_write_q8" if int8 else "kv_write": n_layers})
+    row = {"phase": phase, "model": "TinyLlama-1.1B shape", "kv_dtype": kv_dtype or "bf16",
+           "layers": n_layers,
            "batch": len(prompts), "prompt_tokens": [len(p) + 1 for p in prompts],
            "prefill_rows": 4 * 128, "decode_steps": steps,
            "launches": counts, "launches_expected": want, "setup_s": setup_s,
@@ -773,8 +906,183 @@ def phase_serve(seed: int):
            "outputs_chars": [len(o) for o in outs]}
     emit(row)
     if counts != want or steps < 1 or len(outs) != len(prompts):
-        raise AssertionError(f"serve: launch counts {counts} != expected {want}")
-    return model, counts
+        raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+    return counts
+
+
+def _same_params(a, b, path=""):
+    """Every tensor of two params trees equal bit for bit; returns the count."""
+    import torch
+
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"checkpoint: keys differ at {path}: {set(a) ^ set(b)}")
+        return sum(_same_params(a[k], b[k], f"{path}/{k}") for k in a)
+    if isinstance(a, list):
+        if len(a) != len(b):
+            raise AssertionError(f"checkpoint: {len(b)} layers came back, {len(a)} were saved")
+        return sum(_same_params(x, y, f"{path}/{i}") for i, (x, y) in enumerate(zip(a, b)))
+    if isinstance(a, QuantizedWeight):
+        ma, mb = ((w.bits, w.group_size, w.in_dim, w.out_dim, w.act_dtype, w.layout)
+                  for w in (a, b))
+        if ma != mb:
+            raise AssertionError(f"checkpoint: {path} came back as {mb}, was {ma}")
+        return sum(_same_params(getattr(a, f), getattr(b, f), f"{path}#{f}")
+                   for f in ("packed", "scales", "zeros"))
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        raise AssertionError(f"checkpoint: tensor {path} differs after the round trip")
+    return 1
+
+
+def phase_checkpoint(model):
+    """save_pretrained of the quantized 22-layer model into a temporary
+    directory, MetaModel.from_pretrained on it (meta.json and config.json
+    probed; the byte-level stub tokenizer writes no file, so the tokenizer
+    object is handed over; quant=True must leave the W4 leaves as they are),
+    every tensor compared bit for bit. Returns the loaded MetaModel."""
+    import os
+
+    import torch
+
+    from accessory_tpu_torch.meta import MetaModel
+
+    tmp = tempfile.mkdtemp(prefix="accessory_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        model.save_pretrained(tmp)
+        save_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+        t0 = time.perf_counter()
+        loaded = MetaModel.from_pretrained(tmp, max_seq_len=model.args.max_seq_len, quant=True,
+                                           kv_dtype="int8", tokenizer=ByteTokenizer())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if loaded.args != model.args:
+        raise AssertionError(f"checkpoint: config.json gave {loaded.args}, saved {model.args}")
+    if loaded.llama_type != model.llama_type or loaded.kv_dtype != "int8":
+        raise AssertionError("checkpoint: from_pretrained lost llama_type or kv_dtype")
+    n = _same_params(model.params, loaded.params)
+    emit({"phase": "checkpoint", "layers": model.args.n_layers, "files": files,
+          "bytes": sum(files.values()), "save_s": save_s, "load_s": load_s,
+          "tensors_compared_bit_for_bit": n, "w4_layout_on_disk": "planes"})
+    return loaded
+
+
+def phase_stream(model):
+    """MetaModel.stream_generate: one prompt, 64 new tokens, both cache types.
+    The concatenated stream must equal generate([prompt])'s greedy text."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+
+    prompt = PROMPTS[0]
+    n_layers = model.args.n_layers
+    total = {name: 0 for name in KERNEL_NAMES}
+    for kv_dtype in (None, "int8"):
+        int8 = kv_dtype == "int8"
+        model.kv_dtype = kv_dtype
+        model._reset_generator()
+        list(model.stream_generate(prompt, max_gen_len=4))        # warm-up
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        chunks = list(model.stream_generate(prompt, max_gen_len=64))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        steps = model.generator.last_decode_steps
+        want = _zero_counts(
+            w4_matmul=4 * n_layers * (1 + steps), flash_attention=n_layers,
+            **{"decode_attention8" if int8 else "decode_attention": n_layers * steps,
+               "kv_write_q8" if int8 else "kv_write": n_layers})
+        whole = model.generate([prompt], max_gen_len=64)[0]
+        row = {"phase": "stream", "kv_dtype": kv_dtype or "bf16", "layers": n_layers,
+               "prompt_tokens": len(prompt) + 1, "yields": len(chunks), "decode_steps": steps,
+               "seconds": secs, "tok_s": steps / secs, "launches": counts,
+               "launches_expected": want, "chars": len(chunks[-1]["text"]),
+               "equals_generate": chunks[-1]["text"] == whole}
+        emit(row)
+        if (counts != want or steps < 1 or not chunks[-1]["end_of_content"]
+                or any(c["end_of_content"] for c in chunks[:-1]) or not row["equals_generate"]):
+            raise AssertionError(f"stream failed: {row}")
+        for name in total:
+            total[name] += counts[name]
+    return total
+
+
+def phase_stacked(model):
+    """Generator(unroll_decode=False).generate on the loaded weights, both
+    cache types: separate projections (7 W4 launches a layer), read-only
+    attention, one stacked write per forward. Its greedy tokens are compared
+    with the unrolled path's (share printed) and its logits of the prefill
+    and the first decode step held to the parity tolerance against the
+    unrolled path's."""
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.engine.generate import Generator
+    from accessory_tpu_torch.models import llama
+
+    prompts = PROMPTS[:4]
+    args, n_layers = model.args, model.args.n_layers
+    total = {name: 0 for name in KERNEL_NAMES}
+    toks = torch.randint(0, 256, (4, 129), device="cuda")
+    for kv_dtype in (None, "int8"):
+        int8 = kv_dtype == "int8"
+        model.kv_dtype = kv_dtype
+        model._reset_generator()
+        model.generate(prompts, max_gen_len=64)
+        unrolled_tokens = model.generator.last_tokens
+        gen = Generator(llama, args, model.params, model.tokenizer, kv_dtype=kv_dtype,
+                        unroll_decode=False)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = gen.generate(prompts, max_gen_len=64)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, steps = kernels.launch_counts(), gen.last_decode_steps
+        want = _zero_counts(
+            w4_matmul=7 * n_layers * (1 + steps), flash_attention=n_layers,
+            **{"decode_attention8_ro" if int8 else "decode_attention_ro": n_layers * steps})
+        if int8:
+            want["kv_write_stacked_q8"] = 1 + steps
+        else:
+            want.update(kv_write_stacked=1, kv_write_stacked_col=steps)
+        plens = [len(p) + 1 for p in prompts]
+        same = [unrolled_tokens[i, n:n + 64] == gen.last_tokens[i, n:n + 64]
+                for i, n in enumerate(plens)]
+        # logits: a 128-token prefill and one decode step through both paths
+        logits = {}
+        for name, params, stacked in (("unrolled", model.generator.params, False),
+                                      ("stacked", gen.params, True)):
+            cache = llama.init_kv_cache(args, 4, 192, kv_dtype=kv_dtype, stacked=stacked)
+            pre, _ = llama.forward(params, args, toks[:, :128], cache=cache, cur_pos=0)
+            dec, _ = llama.forward(params, args, toks[:, 128:], cache=cache, cur_pos=128)
+            logits[name] = torch.cat([pre, dec], dim=1).float()
+        ref = logits["unrolled"]
+        tol_abs = LOGIT_TOL_FRAC * float(ref.abs().max())
+        err = float((logits["stacked"] - ref).abs().max())
+        step_err = float((logits["stacked"][:, -1] - ref[:, -1]).abs().max())
+        rel = float((logits["stacked"] - ref).norm() / ref.norm())
+        row = {"phase": "stacked", "kv_dtype": kv_dtype or "bf16", "layers": n_layers,
+               "batch": len(prompts), "decode_steps": steps, "generate_s": secs,
+               "launches": counts, "launches_expected": want,
+               "greedy_share_equal_to_unrolled": float(np.mean(np.concatenate(same))),
+               "max_abs_logit_err_vs_unrolled": err, "first_decode_step_err": step_err,
+               "rel_l2_vs_unrolled": rel, "tol_abs": tol_abs, "tol_rel_l2": LOGIT_REL_L2,
+               "outputs_chars": [len(o) for o in outs]}
+        emit(row)
+        if (counts != want or steps < 1 or err > tol_abs or rel > LOGIT_REL_L2
+                or not torch.isfinite(logits["stacked"]).all()):
+            raise AssertionError(f"stacked failed: {row}")
+        for name in total:
+            total[name] += counts[name]
+        _add_counts(total, phase_decode("stacked", model, kv_dtype, steps=50, stacked=True))
+    return total
 
 
 def phase_serve7b(seed: int):
@@ -825,17 +1133,21 @@ def phase_serve7b(seed: int):
     return model, total
 
 
-def phase_decode(phase: str, model, kv_dtype, steps: int):
-    """bench.py's shape: batch 8, cache 1024, ``steps`` forward steps from pos 512."""
+def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool = True,
+                 stacked: bool = False):
+    """The bench shape: batch 8, cache 1024, ``steps`` forward steps from pos
+    512; with ``fused_attn_write=False`` through read-only attention and the
+    one-token write; with ``stacked`` over the unfused params and a stacked
+    cache. Returns the launch counts of the timed steps."""
     import torch
 
     from accessory_tpu_torch import kernels
     from accessory_tpu_torch.models import llama
     from accessory_tpu_torch.quant.qtensor import QuantizedWeight
 
-    args, params = model.args, model.generator.params
+    args, params = model.args, (model.params if stacked else model.generator.params)
     batch, cache_len, pos0 = 8, 1024, 512
-    cache = llama.init_kv_cache(args, batch, cache_len, kv_dtype=kv_dtype)
+    cache = llama.init_kv_cache(args, batch, cache_len, kv_dtype=kv_dtype, stacked=stacked)
     tok = torch.ones((batch, 1), dtype=torch.int64, device="cuda")
     int8 = "ks" in cache
     mha = args.kv_heads == args.n_heads
@@ -853,24 +1165,32 @@ def phase_decode(phase: str, model, kv_dtype, steps: int):
     mid = pos0 + steps // 2
     token_bytes = sum(c[0].numel() * c[0].element_size() for c in cache.values()) \
         // (batch * args.kv_heads * cache_len)   # k + v (+ scales) of one cached token of a head
+    fused_attn_write = fused_attn_write and not stacked   # a stacked cache is only read in a layer
     kv_bytes = args.n_layers * batch * args.kv_heads * mid * token_bytes
     b_ms, _ = bound_ms(w_bytes + kv_bytes, 0.0)
+    kw = dict(fused_attn_write=fused_attn_write)
     for i in range(5):
-        llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for i in range(steps):
-        logits, _ = llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        logits, _ = llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     counts = kernels.launch_counts()
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{phase}: non-finite logits")
-    attn = ("decode_attention_mha8" if int8 else "decode_attention_mha") if mha \
-        else "decode_attention"
-    want = _zero_counts(w4_matmul=4 * args.n_layers * steps, **{attn: args.n_layers * steps})
+    attn = ("decode_attention_mha" if mha else "decode_attention") + ("8" if int8 else "") \
+        + ("" if fused_attn_write else "_ro")
+    want = _zero_counts(w4_matmul=(7 if stacked else 4) * args.n_layers * steps,
+                        **{attn: args.n_layers * steps})
+    if stacked:
+        want["kv_write_stacked_q8" if int8 else "kv_write_stacked_col"] = steps
+    elif not fused_attn_write:
+        want["kv_write_col_q8" if int8 else "kv_write_col"] = args.n_layers * steps
     row = {"phase": phase, "kv_dtype": kv_dtype or "bf16", "layers": args.n_layers,
+           "path": "stacked" if stacked else "unrolled", "fused_attn_write": fused_attn_write,
            "batch": batch, "cache_len": cache_len, "steps": steps,
            "ms_per_step": ms, "tok_s": batch / ms * 1e3, "bound_ms_per_step": b_ms,
            "bound_tok_s": batch / b_ms * 1e3, "weight_bytes": w_bytes,
@@ -878,11 +1198,12 @@ def phase_decode(phase: str, model, kv_dtype, steps: int):
     if counts != want:
         emit(row)
         raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
-    row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms)
+    row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms, **kw)
     emit(row)
+    return counts
 
 
-def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: int = 10):
+def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: int = 10, **kw):
     """Device time by kernel over a few decode steps (torch.profiler). Only
     the trace's device events are summed: an aten op's row repeats the time
     of the kernels it launched. The idle share is taken against the
@@ -897,7 +1218,7 @@ def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: in
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         for i in range(steps):
-            llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+            llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -923,21 +1244,43 @@ KERNELS = {
                        "accessory_tpu/ops/quant_matmul_bigm.py:93", "7b w13 M=1024"),
     "decode_attention": ("accessory_tpu_torch/csrc/decode_attention.cu",
                          "accessory_tpu/ops/decode_attention.py:123", "tiny B=4 S=192"),
+    "decode_attention8": ("accessory_tpu_torch/csrc/decode_attention.cu",
+                          "accessory_tpu/ops/decode_attention.py:740", "tiny B=4 S=192"),
+    # _decode_attn_bloop; the (B, NKV)-grid entry _decode_attn_pallas (:327) is the same kernel here
+    "decode_attention_ro": ("accessory_tpu_torch/csrc/decode_attention.cu",
+                            "accessory_tpu/ops/decode_attention.py:296", "tiny B=4 S=192"),
+    "decode_attention8_ro": ("accessory_tpu_torch/csrc/decode_attention.cu",
+                             "accessory_tpu/ops/decode_attention.py:1106", "tiny B=4 S=192"),
     "decode_attention_mha": ("accessory_tpu_torch/csrc/decode_attention_mha.cu",
                              "accessory_tpu/ops/decode_attention.py:884", "7b B=8 S=192"),
     "decode_attention_mha8": ("accessory_tpu_torch/csrc/decode_attention_mha.cu",
                               "accessory_tpu/ops/decode_attention.py:988", "7b B=8 S=192"),
+    # the same two read-only TPU entries at one query head per KV head
+    "decode_attention_mha_ro": ("accessory_tpu_torch/csrc/decode_attention_mha.cu",
+                                "accessory_tpu/ops/decode_attention.py:296", "7b B=8 pos=511"),
+    "decode_attention_mha8_ro": ("accessory_tpu_torch/csrc/decode_attention_mha.cu",
+                                 "accessory_tpu/ops/decode_attention.py:1106", "7b B=8 pos=511"),
     "flash_attention": ("accessory_tpu_torch/csrc/flash_attention.cu",
                         "accessory_tpu/ops/flash_attention.py:86", "7b B=8 S=128"),
     "kv_write": ("accessory_tpu_torch/csrc/kv_write.cu",
                  "accessory_tpu/ops/decode_attention.py:581", "7b B=8 pos=0"),
     "kv_write_q8": ("accessory_tpu_torch/csrc/kv_write.cu",
                     "accessory_tpu/ops/decode_attention.py:1291", "7b B=8 pos=0"),
+    "kv_write_col": ("accessory_tpu_torch/csrc/kv_write.cu",
+                     "accessory_tpu/ops/decode_attention.py:540", "tiny B=8 pos=511"),
+    "kv_write_col_q8": ("accessory_tpu_torch/csrc/kv_write.cu",
+                        "accessory_tpu/ops/decode_attention.py:1228", "tiny B=8 pos=511"),
+    "kv_write_stacked": ("accessory_tpu_torch/csrc/kv_write.cu",
+                         "accessory_tpu/ops/decode_attention.py:506", "tiny L=22 sq=128"),
+    "kv_write_stacked_col": ("accessory_tpu_torch/csrc/kv_write.cu",
+                             "accessory_tpu/ops/decode_attention.py:458", "tiny L=22 sq=1"),
+    "kv_write_stacked_q8": ("accessory_tpu_torch/csrc/kv_write.cu",
+                            "accessory_tpu/ops/decode_attention.py:1349", "tiny L=22 sq=1"),
 }
 
 
 def summary(rows, counts_by_path):
-    """The kernel table. ``launches`` sums the serve phases' counted runs (each
+    """The kernel table. ``launches`` sums the main paths' counted runs (each
     run's counts were set to 0 just before it and read just after)."""
     out = []
     for name, (src, replaces, shape) in KERNELS.items():
@@ -955,7 +1298,16 @@ def summary(rows, counts_by_path):
     return {"kernels": out}
 
 
-ALL_PHASES = "device,build,kernels,parity,serve,decode,parity7b,serve7b,decode7b"
+ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,serve8,stream,stacked,"
+              "decode8,decode_unfused,parity7b,serve7b,decode7b")
+TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "decode8",
+                     "decode_unfused")
+
+
+def _add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
 
 
 def main() -> int:
@@ -991,10 +1343,42 @@ def main() -> int:
                   "seconds_so_far": round(time.perf_counter() - t_start, 1)})
         if "parity" in phases:
             phase_parity(opts.seed, "parity", TINYLLAMA, 2, b=2, plen=64, steps=16, s_len=128)
-        if "serve" in phases:
-            model, counts_by_path["tiny"] = phase_serve(opts.seed)
+        if "parity8" in phases:
+            phase_parity(opts.seed, "parity8", TINYLLAMA, 2, b=2, plen=64, steps=16, s_len=128,
+                         kv_dtypes=("int8",))
+            phase_parity(opts.seed, "parity8", TINYLLAMA, 2, b=2, plen=64, steps=8, s_len=128,
+                         kv_dtypes=(None, "int8"), stacked=True)
+        if any(ph in phases for ph in TINY_MODEL_PHASES):
+            model, setup_s, _ = _quantized_model(TINYLLAMA, 512, opts.seed)
+            if "serve" in phases:
+                counts_by_path["tiny"] = phase_serve("serve", model, setup_s)
             if "decode" in phases:
                 phase_decode("decode", model, None, steps=100)
+            if "checkpoint" in phases:
+                # from here on the paths run the weights that came back from the file
+                loaded = phase_checkpoint(model)
+                del model
+                model = loaded
+                torch.cuda.empty_cache()
+            if "serve8" in phases:
+                counts_by_path["tiny int8"] = phase_serve("serve8", model, setup_s, "int8")
+            if "stream" in phases:
+                counts_by_path["stream"] = phase_stream(model)
+            if "stacked" in phases:
+                counts_by_path["stacked"] = phase_stacked(model)
+            bench = {}
+            if "decode8" in phases:
+                model.kv_dtype = "int8"
+                model._reset_generator()
+                _add_counts(bench, phase_decode("decode8", model, "int8", steps=100))
+            if "decode_unfused" in phases:
+                for kv_dtype in (None, "int8"):
+                    model.kv_dtype = kv_dtype
+                    model._reset_generator()
+                    _add_counts(bench, phase_decode("decode_unfused", model, kv_dtype, steps=100,
+                                                    fused_attn_write=False))
+            if bench:
+                counts_by_path["tiny bench"] = bench
             del model
             torch.cuda.empty_cache()
         if "parity7b" in phases:
@@ -1009,6 +1393,13 @@ def main() -> int:
                     model.kv_dtype = kv_dtype
                     model._reset_generator()
                     phase_decode("decode7b", model, kv_dtype, steps=50)
+                bench = {}
+                for kv_dtype in (None, "int8"):
+                    model.kv_dtype = kv_dtype
+                    model._reset_generator()
+                    _add_counts(bench, phase_decode("decode7b", model, kv_dtype, steps=20,
+                                                    fused_attn_write=False))
+                counts_by_path["7b unfused"] = bench
             del model
             torch.cuda.empty_cache()
         if set(ALL_PHASES.split(",")) <= set(phases):

@@ -5,7 +5,10 @@ template and ragged mma tiles, both RoPE styles at head_dim 64 and 128,
 padded in_dim, the LLaMA2-7B projection shapes, the many-row W4 kernel at
 ragged row counts and a narrow x, decode attention at R = 1..8 (R = 1 is the
 MHA kernel) and head_dim 128 over the bf16 and the int8 cache, flash
-attention at lengths 1..130, bf16 and int8 slab writes of one token. Each test carries the
+attention at lengths 1..130, bf16 and int8 slab writes; the GQA int8 fused
+kernel, the read-only decode kernels (fused result == read-only + one-token
+write), the one-token and the stacked writes, and the stacked-cache and unfused
+model paths against the CPU. Each test carries the
 ``cuda`` marker, needs a CUDA device and skips without one (decided inside the
 fixture). On the card:
 
@@ -26,13 +29,18 @@ from accessory_tpu_torch import kernels
 from accessory_tpu_torch.config import LLaMAArgs
 from accessory_tpu_torch.models import llama
 from accessory_tpu_torch.ops.attention import grouped_attention
-from accessory_tpu_torch.ops.decode_attention import (decode_attention_update,
+from accessory_tpu_torch.ops.decode_attention import (cached_attention_decode8_plain,
+                                                      cached_attention_decode_plain,
+                                                      cached_attention_t, cached_attention_t8,
+                                                      decode_attention_update,
                                                       decode_attention_update8,
                                                       decode_attention_update8_plain,
                                                       decode_attention_update_plain,
                                                       write_kv_layer, write_kv_layer8,
                                                       write_kv_layer8_plain,
-                                                      write_kv_layer_plain)
+                                                      write_kv_layer_plain, write_kv_t,
+                                                      write_kv_t8, write_kv_t8_plain,
+                                                      write_kv_t_plain)
 from accessory_tpu_torch.ops.flash_attention import flash_attention
 from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm, planes_qmm_bigm_plain
 from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm, planes_qmm_plain
@@ -271,13 +279,125 @@ def test_decode_attention_int8(gen, hd, s_len, pos):
 
 
 def test_decode_attention_int8_refuses_gqa(gen):
-    """int8 with more than one query head per KV head waits for its kernel."""
-    q, kn = randn(gen, 1, 1, 4, 64), randn(gen, 1, 1, 2, 64)
+    """What the int8 wrapper still refuses: a scale pool on another device, a
+    position as a tensor (int8 GQA itself is served, see
+    test_decode_attention_int8_gqa)."""
+    kn = randn(gen, 1, 1, 2, 64)
     pools = _int8_pools(gen, 1, 2, 16, 64)
-    with pytest.raises(NotImplementedError, match="row 13"):
-        decode_attention_update8(q, kn, kn, *pools, 3)
     with pytest.raises(ValueError, match="device"):
         decode_attention_update8(kn, kn, kn, pools[0], pools[1], pools[2].cpu(), pools[3], 3)
+    with pytest.raises(NotImplementedError, match="A7"):
+        decode_attention_update8(kn, kn, kn, *pools, torch.tensor([3]))
+
+
+def _qkv(gen, b, nq, nkv, hd):
+    qkv = randn(gen, b, 1, (nq + 2 * nkv) * hd)
+    return (qkv[..., :nq * hd].view(b, 1, nq, hd),
+            qkv[..., nq * hd:(nq + nkv) * hd].view(b, 1, nkv, hd),
+            qkv[..., (nq + nkv) * hd:].view(b, 1, nkv, hd))
+
+
+def _one_more(name, fn):
+    """Run fn; exactly one launch, of entry ``name``, must have been counted."""
+    before = kernels.launch_counts()
+    out = fn()
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 1, (name, before, after)
+    assert sum(after.values()) == sum(before.values()) + 1
+    return out
+
+
+@pytest.mark.parametrize("hd,r", [(64, 2), (64, 8), (64, 32), (128, 4), (128, 16)])
+@pytest.mark.parametrize("s_len,pos", [(64, 0), (64, 1), (64, 63), (200, 64), (200, 199),
+                                       (1024, 700)])
+def test_decode_attention_int8_gqa(gen, hd, r, s_len, pos):
+    """The fused GQA int8 kernel (_kernel_bloop_w8) against its plain version:
+    outputs inside the kernel tolerance, int8 pools equal, scales to f32
+    rounding; an all-zero new vector keeps scale 1e-6 / 127."""
+    b, nkv = 3, 2
+    q, kn, vn = _qkv(gen, b, nkv * r, nkv, hd)
+    if pos == 1:
+        kn[0, 0, 0] = 0
+    pools = _int8_pools(gen, b, nkv, s_len, hd)
+    pools2 = tuple(p.clone() for p in pools)
+    got = _one_more("decode_attention8", lambda: decode_attention_update8(q, kn, vn, *pools, pos))
+    want = decode_attention_update8_plain(q, kn, vn, *pools2, pos)
+    assert_close(got[0], want[0])
+    assert_pools8(got[1:], want[1:])
+    if pos == 1:
+        assert float(got[3][0, 0, 1]) == pytest.approx(1e-6 / 127, rel=1e-6)
+        assert not got[1][0, 0, 1].any()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hd,r", [(64, 1), (64, 4), (64, 8), (128, 1), (128, 4)])
+@pytest.mark.parametrize("s_len,pos", [(64, 0), (64, 1), (200, 127), (200, 128), (200, 199),
+                                       (200, 200)])
+def test_read_only_decode_attention(gen, int8, hd, r, s_len, pos):
+    """cached_attention_t / cached_attention_t8 at one token (_kernel_bloop,
+    _kernel, _kernel_bloop8): the read-only kernel against its plain version,
+    pools untouched, R == 1 on the one-query-head kernel; and (pos < S) the
+    unfused route (read-only attention + one-token write) against the fused
+    kernel: the same pools, outputs inside the kernel tolerance."""
+    b, nkv = 3, 2
+    q, kn, vn = _qkv(gen, b, nkv * r, nkv, hd)
+    pools = _int8_pools(gen, b, nkv, s_len, hd) if int8 else (randn(gen, b, nkv, s_len, hd),
+                                                              randn(gen, b, nkv, s_len, hd))
+    keep = tuple(p.clone() for p in pools)
+    name = ("decode_attention_mha" if r == 1 else "decode_attention") \
+        + ("8" if int8 else "") + "_ro"
+    attn, plain = (cached_attention_t8, cached_attention_decode8_plain) if int8 \
+        else (cached_attention_t, cached_attention_decode_plain)
+    got = _one_more(name, lambda: attn(q, kn, vn, *pools, pos))
+    assert_close(got, plain(q, kn, vn, *keep, pos))
+    assert all(torch.equal(a, b_) for a, b_ in zip(pools, keep))
+    if pos == s_len:
+        return
+    update = decode_attention_update8 if int8 else decode_attention_update
+    fused = update(q, kn, vn, *keep, pos)
+    before = kernels.launch_counts()
+    unfused = update(q, kn, vn, *pools, pos, fused_attn_write=False)
+    after = kernels.launch_counts()
+    col = "kv_write_col_q8" if int8 else "kv_write_col"
+    assert after[name] == before[name] + 1 and after[col] == before[col] + 1
+    assert sum(after.values()) == sum(before.values()) + 2
+    assert_close(unfused[0], fused[0])
+    if int8:
+        assert_pools8(unfused[1:], fused[1:])
+    else:
+        assert all(torch.equal(a, b_) for a, b_ in zip(unfused[1:], fused[1:]))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,pos", [(1, 0), (1, 77), (1, 159), (128, 0), (7, 150)])
+def test_stacked_write(gen, int8, hd, sq, pos):
+    """write_kv_t / write_kv_t8: all layers in one launch against the plain
+    copy, from a torch.stack of per-layer chunks (strided views stacked)."""
+    n_layers, b, nkv, s_len = 3, 2, 2, 160
+    chunks = []
+    for _ in range(n_layers):
+        buf = randn(gen, b, sq, 3 * nkv * hd, scale=2.0)
+        chunks.append((buf[..., :nkv * hd].view(b, sq, nkv, hd),
+                       buf[..., 2 * nkv * hd:].view(b, sq, nkv, hd)))
+    nk, nv = torch.stack([c[0] for c in chunks]), torch.stack([c[1] for c in chunks])
+    if int8:
+        pools = tuple(torch.stack(ps) for ps in zip(*(_int8_pools(gen, b, nkv, s_len, hd)
+                                                      for _ in range(n_layers))))
+        pools2 = tuple(p.clone() for p in pools)
+        got = _one_more("kv_write_stacked_q8", lambda: write_kv_t8(*pools, nk, nv, pos))
+        assert_pools8(got, write_kv_t8_plain(*pools2, nk, nv, pos))
+        return
+    pools = (randn(gen, n_layers, b, nkv, s_len, hd), randn(gen, n_layers, b, nkv, s_len, hd))
+    pools2 = tuple(p.clone() for p in pools)
+    name = "kv_write_stacked_col" if sq == 1 else "kv_write_stacked"
+    got = _one_more(name, lambda: write_kv_t(*pools, nk, nv, pos))
+    want = write_kv_t_plain(*pools2, nk, nv, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="stacked evenly"):
+        # layers not a whole number of batch strides apart: not one (L * B)-row problem
+        write_kv_t(*pools, randn(gen, n_layers, 2, b, sq, nkv, hd)[:, 0], nv, pos)
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -290,9 +410,9 @@ def test_slab_write8(gen, hd, sq, pos):
     nk[0, 0, 0] = 0
     pools = _int8_pools(gen, b, nkv, s_len, hd)
     pools2 = tuple(p.clone() for p in pools)
-    before = kernels.launch_counts()["kv_write_q8"]
-    got = write_kv_layer8(*pools, nk, nv, pos)
-    assert kernels.launch_counts()["kv_write_q8"] == before + 1
+    # one token goes to the column-write entry (_col_write_kernel4_q8)
+    got = _one_more("kv_write_col_q8" if sq == 1 else "kv_write_q8",
+                    lambda: write_kv_layer8(*pools, nk, nv, pos))
     want = write_kv_layer8_plain(*pools2, nk, nv, pos)
     assert_pools8(got, want)
     with pytest.raises(ValueError, match="device"):
@@ -316,7 +436,9 @@ def test_slab_write(gen, sq, pos):
     nv = buf[..., 2 * nkv * hd:].view(b, sq, nkv, hd)
     ck, cv = randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd)
     ck2, cv2 = ck.clone(), cv.clone()
-    write_kv_layer(ck, cv, nk, nv, pos)
+    # one token goes to the column-write entry (_col_write_kernel4)
+    _one_more("kv_write_col" if sq == 1 else "kv_write",
+              lambda: write_kv_layer(ck, cv, nk, nv, pos))
     write_kv_layer_plain(ck2, cv2, nk, nv, pos)
     torch.cuda.synchronize()
     assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
@@ -364,10 +486,65 @@ def test_small_mha_model_cuda_matches_cpu(gen, kv_dtype):
         lc, _ = llama.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p)
         pairs.append((lg, lc))
     int8 = kv_dtype == "int8"
-    assert kernels.launch_counts() == {
-        "w4_matmul": 4 * 2 * 6, "w4_matmul_bigm": 4 * 2, "decode_attention": 0,
-        "decode_attention_mha": 0 if int8 else 2 * 6, "decode_attention_mha8": 2 * 6 if int8 else 0,
-        "flash_attention": 2, "kv_write": 0 if int8 else 2, "kv_write_q8": 2 if int8 else 0}
+    want = {name: 0 for name in kernels.KERNELS}
+    want.update({"w4_matmul": 4 * 2 * 6, "w4_matmul_bigm": 4 * 2, "flash_attention": 2,
+                 "decode_attention_mha8" if int8 else "decode_attention_mha": 2 * 6,
+                 "kv_write_q8" if int8 else "kv_write": 2})
+    assert kernels.launch_counts() == want
+    for g, c in pairs:
+        g = g.cpu()
+        assert float((g - c).norm() / c.norm()) < 2e-2
+        assert float((g - c).abs().max()) < 2e-2 * float(c.abs().max()) + 2e-2
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("path", ["fused", "unfused", "stacked"])
+def test_small_gqa_model_paths_cuda_match_cpu(gen, kv_dtype, path):
+    """A 3-layer dim-256 GQA W4 model over the bf16 or the int8 cache, card vs
+    CPU, on the fused per-layer path, the unfused per-layer route
+    (fused_attn_write=False) and the stacked-cache path (separate projections,
+    read-only attention, one bulk write, plus a chunk after cached tokens);
+    every kernel of the path is launched exactly as often as the path says
+    and no other."""
+    args = LLaMAArgs(dim=256, n_layers=3, n_heads=4, n_kv_heads=2, vocab_size=512,
+                     multiple_of=128, max_seq_len=128)
+    params = quantize_params(llama.init_params(args, seed=3))
+    stacked = path == "stacked"
+    if not stacked:
+        params = fuse_for_decode(params)
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (3, 50), generator=torch.Generator().manual_seed(0))
+    cg = llama.init_kv_cache(args, 3, 64, kv_dtype=kv_dtype, stacked=stacked)
+    cc = llama.init_kv_cache(args, 3, 64, kv_dtype=kv_dtype, device="cpu", stacked=stacked)
+    kw = dict(fused_attn_write=path != "unfused")
+    kernels.reset_launch_counts()
+    steps = [(0, 32)] + ([(32, 40)] if stacked else []) + [(p, p + 1) for p in
+                                                           range(40 if stacked else 32, 46)]
+    pairs = []
+    for lo, hi in steps:
+        lg, _ = llama.forward(params, args, toks[:, lo:hi].cuda(), cache=cg, cur_pos=lo, **kw)
+        lc, _ = llama.forward(cpu, args, toks[:, lo:hi], cache=cc, cur_pos=lo, **kw)
+        pairs.append((lg, lc))
+    int8 = kv_dtype == "int8"
+    n_dec = sum(hi - lo == 1 for lo, hi in steps)
+    want = {name: 0 for name in kernels.KERNELS}
+    sfx = "8" if int8 else ""
+    if stacked:
+        want.update({"w4_matmul": 7 * 3 * len(steps), "flash_attention": 3,
+                     f"decode_attention{sfx}_ro": 3 * n_dec})
+        if int8:
+            want["kv_write_stacked_q8"] = len(steps)
+        else:
+            want.update(kv_write_stacked=2, kv_write_stacked_col=n_dec)
+    else:
+        want.update({"w4_matmul": 4 * 3 * len(steps), "flash_attention": 3,
+                     "kv_write_q8" if int8 else "kv_write": 3})
+        if path == "fused":
+            want[f"decode_attention{sfx}"] = 3 * n_dec
+        else:
+            want[f"decode_attention{sfx}_ro"] = 3 * n_dec
+            want["kv_write_col_q8" if int8 else "kv_write_col"] = 3 * n_dec
+    assert kernels.launch_counts() == want
     for g, c in pairs:
         g = g.cpu()
         assert float((g - c).norm() / c.norm()) < 2e-2

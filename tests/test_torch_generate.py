@@ -163,14 +163,21 @@ def test_logits_bf16(tok_path):
 
 
 def test_forward_takes_fused_params_only():
-    """forward has one block path, over fused wqkv / w13 weights: unfused
-    params raise and name fuse_for_decode; fused ones give finite logits."""
+    """forward takes layers with fused wqkv / w13 weights or with the separate
+    projections (the stacked-cache path's form), and gives the same f32 logits
+    over both (1e-4: the same sums split at other points); a layer that has
+    neither raises and names fuse_for_decode."""
     args = LLaMAArgs(dim=256, n_layers=1, n_heads=4, n_kv_heads=2, multiple_of=128,
                      vocab_size=64, max_seq_len=64, dtype="float32")
     params = quantize_params(llama.init_params(args, seed=0, device="cpu"))
     toks = torch.zeros((1, 4), dtype=torch.int64)
+    broken = dict(params, layers=[dict(params["layers"][0], attention={
+        k: v for k, v in params["layers"][0]["attention"].items() if k != "wk"})])
     with pytest.raises(ValueError, match="fuse_for_decode"):
-        llama.forward(params, args, toks, cache=llama.init_kv_cache(args, 1, device="cpu"))
+        llama.forward(broken, args, toks, cache=llama.init_kv_cache(args, 1, device="cpu"))
     logits, _ = llama.forward(fuse_for_decode(params), args, toks,
                               cache=llama.init_kv_cache(args, 1, device="cpu"))
     assert logits.shape == (1, 4, 64) and torch.isfinite(logits).all()
+    unfused, _ = llama.forward(params, args, toks,
+                               cache=llama.init_kv_cache(args, 1, device="cpu"))
+    np.testing.assert_allclose(unfused.numpy(), logits.numpy(), atol=1e-4, rtol=1e-4)

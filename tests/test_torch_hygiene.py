@@ -1,7 +1,8 @@
 """Port hygiene: accessory_tpu_torch imports neither JAX nor accessory_tpu
-(checked in a fresh interpreter and by an AST scan), and its entry points
-default to the CUDA device, so on a host without one they raise instead of
-quietly running on the CPU."""
+(checked in a fresh interpreter and by an AST scan), its serving and
+checkpoint paths need neither ``safetensors`` nor ``tokenizers``, and its
+entry points default to the CUDA device, so on a host without one they raise
+instead of quietly running on the CPU."""
 
 import ast
 import inspect
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 import accessory_tpu_torch
+from accessory_tpu_torch.checkpoint import load_checkpoint, load_checkpoint_list
 from accessory_tpu_torch.config import LLaMAArgs
 from accessory_tpu_torch.convert import params_from_jax
 from accessory_tpu_torch.engine.generate import Generator
@@ -46,6 +48,51 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_checkpoint_and_serving_need_no_safetensors_or_tokenizers(tmp_path):
+    """A machine with neither library saves, loads and serves: in a fresh
+    interpreter where both imports are blocked, every module imports, a
+    quantized model is saved with save_pretrained, read back bit for bit and
+    generates through a stub tokenizer. (``tokenizers`` is imported only by
+    ``Tokenizer`` for a tokenizer.json, ``safetensors`` nowhere.)"""
+    code = f"""
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('safetensors', 'tokenizers', 'jax'):
+            raise ImportError(name + ' is blocked in this test')
+sys.meta_path.insert(0, Block())
+for m in {_modules()!r}:
+    importlib.import_module(m)
+import torch
+from accessory_tpu_torch.checkpoint import load_checkpoint
+from accessory_tpu_torch.meta import MetaModel
+class Tok:
+    bos_id, eos_id, n_words = 62, 63, 64
+    def encode(self, s, bos, eos): return [self.bos_id] * bos + [ord(c) % 62 for c in s]
+    def decode(self, t): return ''.join(chr(48 + x) for x in t)
+    def encode_segment(self, s): return self.encode(s, False, False)
+    encode_wo_prefix_space = encode_segment
+cfg = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, multiple_of=128, vocab_size=64)
+m = MetaModel('llama', cfg, max_seq_len=64, device='cpu').quantize()
+m.tokenizer = Tok()
+m.save_pretrained({str(tmp_path)!r})
+back = load_checkpoint({str(tmp_path)!r}, m.args, device='cpu')
+w, b = (p['layers'][1]['feed_forward']['w2']['weight'] for p in (m.params, back))
+assert torch.equal(w.packed, b.packed) and torch.equal(w.zeros, b.zeros)
+assert torch.equal(m.params['output']['weight'], back['output']['weight'])
+m.params = back
+assert len(m.generate(['hello'], max_gen_len=4)) == 1
+assert list(m.stream_generate('hello', max_gen_len=3))[-1]['end_of_content']
+assert not [k for k in sys.modules if k.split('.')[0] in ('safetensors', 'tokenizers', 'jax')]
+print('ok')
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_no_jax_or_reference_imports_in_source():
     offenders = []
     for path in sorted(PKG_DIR.rglob("*.py")):
@@ -63,7 +110,9 @@ def test_no_jax_or_reference_imports_in_source():
 
 
 @pytest.mark.parametrize("fn", [llama.init_kv_cache, llama.init_params, params_from_jax,
-                                Generator.__init__, MetaModel.__init__])
+                                Generator.__init__, MetaModel.__init__,
+                                MetaModel.from_pretrained.__func__, load_checkpoint,
+                                load_checkpoint_list])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
