@@ -17,7 +17,9 @@ converted, and ``cast`` gives dense floating leaves another dtype on the way.
 numpy tree the JAX package stores, quantized leaves in its ``planes`` layout.
 
 ``cache_from_jax`` does the same for a KV cache: the JAX package's lane-major
-pools become the port's token-major ones.
+pools become the port's token-major ones; ``paged_cache_from_jax`` for a paged
+cache: its fold-stored pages and 128-lane scale rows become the port's
+token-major pages.
 """
 
 from __future__ import annotations
@@ -263,3 +265,37 @@ def cache_from_jax(cache_np: Dict[str, Any], device="cuda", stacked: bool = Fals
     if stacked:
         out = {key: torch.stack(pools) for key, pools in out.items()}
     return out
+
+
+def paged_cache_from_jax(pcache_np: Dict[str, Any], device="cuda"):
+    """A JAX ``PagedKVCache`` as numpy -> the port's ``engine.kvcache.
+    PagedKVCache`` on ``device``.
+
+    ``pcache_np`` holds the dataclass's fields: ``k_pages`` / ``v_pages``
+    (L, NKV, P, psk, fold * hd) fold-stored (token t of a page at row t % psk,
+    lanes (t // psk) * hd ...), ``page_indices``, ``lengths``, ``head_dim``,
+    and for int8 pools ``ks_pages`` / ``vs_pages`` (L, NKV, P, srows, 128), the
+    scale of token t at (t // 128, t % 128). The pools come out token-major
+    (L, NKV, P, page_size, hd), the scale pools (L, NKV, P, page_size)."""
+    from accessory_tpu_torch.engine.kvcache import PagedKVCache
+
+    n_layers, nkv, n_pages, psk, minor = np.asarray(pcache_np["k_pages"]).shape
+    hd = int(pcache_np.get("head_dim") or minor)
+    fold = minor // hd
+    ps = psk * fold
+
+    def unfold(a):
+        t = _tensor(np.asarray(a), device).reshape(n_layers, nkv, n_pages, psk, fold, hd)
+        return t.transpose(3, 4).reshape(n_layers, nkv, n_pages, ps, hd).contiguous()
+
+    def scales(a):
+        if a is None:
+            return None
+        t = _tensor(np.asarray(a), device)
+        return t.reshape(n_layers, nkv, n_pages, -1)[..., :ps].contiguous()
+
+    return PagedKVCache(
+        k_pages=unfold(pcache_np["k_pages"]), v_pages=unfold(pcache_np["v_pages"]),
+        page_indices=_tensor(np.asarray(pcache_np["page_indices"]).astype(np.int32), device),
+        lengths=_tensor(np.asarray(pcache_np["lengths"]).astype(np.int32), device),
+        ks_pages=scales(pcache_np.get("ks_pages")), vs_pages=scales(pcache_np.get("vs_pages")))

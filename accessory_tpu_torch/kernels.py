@@ -14,7 +14,8 @@ the launch when it returned 0, and nowhere else, so a run can show which
 kernels its main path went through (``launch_counts`` /
 ``reset_launch_counts``). Counts are kept per C entry point (``KERNELS``), not
 per source file: the GQA and MHA decode kernels, their bf16 and int8, fused
-and read-only forms, and each of the cache writes show their own count.
+and read-only forms, each of the cache writes, and the paged decode and
+paged write entries show their own count.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention_mha",
-           "flash_attention", "kv_write")
+           "flash_attention", "kv_write", "paged_decode", "paged_write")
 # launch-count name of each C entry point -> the source that holds it
 KERNELS = {
     "w4_matmul": "w4_matmul",
@@ -54,6 +55,10 @@ KERNELS = {
     "kv_write_stacked": "kv_write",
     "kv_write_stacked_col": "kv_write",
     "kv_write_stacked_q8": "kv_write",
+    "paged_decode": "paged_decode",
+    "paged_decode8": "paged_decode",
+    "paged_write": "paged_write",
+    "paged_write_q8": "paged_write",
 }
 # -Xptxas=-v: registers, shared memory and spills land in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -20,16 +20,25 @@ int8 KV cache (``kv_dtype="int8"``: int8 ``k``/``v`` pools plus f32 ``ks``/
 kernels; the prefill still attends over the exact new k/v and only the write
 quantizes. The output head is the final RMSNorm plus a dense matmul, outside
 any kernel, as in the JAX package.
+
+``init_paged_cache`` / ``forward_paged`` (reference :574-731) serve the
+continuous batcher over a paged KV cache (engine/kvcache.py): per-slot
+positions, pools read-only inside the layer loop (paged decode attention, or
+flash for a fresh prefill) and one paged write of every layer's new k/v per
+forward.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from accessory_tpu_torch.config import LLaMAArgs
+from accessory_tpu_torch.engine import kvcache
+from accessory_tpu_torch.ops.attention import attention
 from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached_attention_t8,
                                                       decode_attention_update,
                                                       decode_attention_update8, write_kv_layer,
@@ -40,6 +49,14 @@ from accessory_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
 from accessory_tpu_torch.util import resolve_kv_dtype
 
 Params = Dict[str, Any]
+
+# the capability flags the engines read with getattr, as the reference sets
+# them (accessory_tpu/models/llama.py:51-62)
+SUPPORTS_UNROLLED_DECODE = True
+SUPPORTS_UNROLLED_PAGED = True     # forward_paged takes per-layer params
+SUPPORTS_CHUNKED_PREFILL = True    # forward_paged(continuation=True)
+SUPPORTS_KV_INT8 = True
+SUPPORTS_FUSED_QKV = True
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -243,3 +260,101 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
             write_kv_t(cache["k"], cache["v"], new_k, new_v, cur_pos)
     logits = module_linear_nr(h, params["output"], norm=params["norm"], eps=args.norm_eps)
     return logits.to(torch.float32), cache
+
+
+# ---------------------------------------------------------------- paged KV cache
+
+
+def init_paged_cache(args: LLaMAArgs, slots: int, total_pages: int, page_size: int = 64,
+                     pages_per_seq: Optional[int] = None, dtype=None,
+                     kv_dtype: Optional[str] = None, device="cuda") -> kvcache.PagedKVCache:
+    """A paged KV cache for this model (engine.kvcache.init_paged_cache): pools
+    (n_layers, n_kv_heads, total_pages, page_size, head_dim) in ``dtype`` (the
+    activation dtype by default) or int8 with scale pools."""
+    pages_per_seq = pages_per_seq or (args.max_seq_len // page_size)
+    return kvcache.init_paged_cache(args.n_layers, args.kv_heads, args.head_dim, total_pages,
+                                    page_size, slots, pages_per_seq,
+                                    dtype=torch_dtype(dtype or args.dtype), kv_dtype=kv_dtype,
+                                    device=device)
+
+
+def forward_paged(params: Params, args: LLaMAArgs, tokens: torch.Tensor,
+                  pcache: kvcache.PagedKVCache, active_pages: Optional[int] = None,
+                  continuation: bool = False) -> Tuple[torch.Tensor, kvcache.PagedKVCache]:
+    """A forward over a paged KV cache, per-slot positions, in three modes:
+
+    * sq > 1: a fresh prefill of every slot from position 0 (causal flash
+      attention over the chunk);
+    * sq > 1, ``continuation``: each slot's chunk continues at its own
+      ``pcache.lengths`` (per-slot RoPE positions, attention over the cached
+      pages plus causally the chunk: the paged decode kernel up to 16 tokens,
+      the gather route above); with lengths 0 this is the fresh prefill;
+    * sq == 1: one decode token per slot at position ``pcache.lengths``.
+
+    Params are per-layer, fused (wqkv / w13) or separate. RoPE is applied
+    after the projection at each slot's positions (the decode-RoPE epilogue
+    of the static path needs one shared position). The pools are only read in
+    the layer loop; after the last layer one ``write_tokens_all_layers`` call
+    stores every layer's new k/v at each slot's positions. ``active_pages``
+    bounds the pages read. Positions past the cache's capacity (a chunk's
+    padded tail) take the last RoPE row: their k/v land in the TRASH page and
+    their logits are discarded. Returns (logits f32 (b, sq, vocab), the cache
+    with lengths + sq); the pools are updated in place."""
+    _check_layers(params)
+    b, sq = tokens.shape
+    hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
+    h = params["tok_embeddings"]["weight"][tokens]
+    dev = h.device
+    max_pos = pcache.pages_per_seq * pcache.page_size
+    cos_full, sin_full, _, _ = _rope_tables(hd, max_pos, args.rope_theta, args.rope_scaling,
+                                            args.rope_style, nq + nkv, nkv, str(dev))
+    lengths = pcache.lengths
+    if sq == 1 or continuation:
+        pos = lengths.to(torch.int64)[:, None] + torch.arange(sq, device=dev)[None, :]
+        pos = pos.clamp(max=max_pos - 1)
+        cos, sin = cos_full[pos], sin_full[pos]                  # (b, sq, hd / 2)
+        start = lengths
+    else:
+        cos, sin = cos_full[:sq], sin_full[:sq]
+        start = torch.zeros((b,), dtype=torch.int32, device=dev)
+    new_k, new_v = [], []
+    for i, layer in enumerate(params["layers"]):
+        att = layer["attention"]
+        if "wqkv" in att:
+            qkv = module_linear_nr(h, att["wqkv"], norm=layer["attention_norm"],
+                                   eps=args.norm_eps)
+            q = qkv[..., :nq * hd].reshape(b, sq, nq, hd)
+            k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, sq, nkv, hd)
+            v = qkv[..., (nq + nkv) * hd:].reshape(b, sq, nkv, hd)
+        else:
+            x = rms_norm(h, layer["attention_norm"]["weight"], args.norm_eps)
+            q = module_linear(x, att["wq"]).reshape(b, sq, nq, hd)
+            k = module_linear(x, att["wk"]).reshape(b, sq, nkv, hd)
+            v = module_linear(x, att["wv"]).reshape(b, sq, nkv, hd)
+        q = apply_rope(q, cos, sin, args.rope_style)
+        k = apply_rope(k, cos, sin, args.rope_style)
+        if sq == 1 or continuation:
+            out = kvcache.paged_cached_attention(
+                q, k, v, pcache.k_pages, pcache.v_pages, lengths, pcache.page_indices,
+                active_pages, pcache.ks_pages, pcache.vs_pages, layer=i)
+        else:
+            out = attention(q, k, v, causal=True, q_offset=0)
+        h = module_linear_nr(out.reshape(b, sq, nq * hd), att["wo"], residual=h)
+        ff = layer["feed_forward"]
+        if "w13" in ff:
+            gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps)
+            hidden = gu.shape[-1] // 2
+            gate = torch.nn.functional.silu(gu[..., :hidden])
+            h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h)
+        else:
+            x = rms_norm(h, layer["ffn_norm"]["weight"], args.norm_eps)
+            gate = torch.nn.functional.silu(module_linear(x, ff["w1"]))
+            h = module_linear_nr(gate * module_linear(x, ff["w3"]), ff["w2"], residual=h)
+        new_k.append(k)
+        new_v.append(v)
+    # one paged write of every layer's new k/v (the stack is a copy of them)
+    kvcache.write_tokens_all_layers(
+        pcache.k_pages, pcache.v_pages, torch.stack(new_k), torch.stack(new_v),
+        pcache.page_indices, start, pcache.ks_pages, pcache.vs_pages)
+    logits = module_linear_nr(h, params["output"], norm=params["norm"], eps=args.norm_eps)
+    return logits.to(torch.float32), dataclasses.replace(pcache, lengths=lengths + sq)

@@ -25,7 +25,9 @@ The port's cache layout is (B, NKV, S, HD), stacked (L, B, NKV, S, HD): each
 cached token of a head is one contiguous row, and the int8 cache's scale
 pools are (B, NKV, S) f32. (The JAX package's lane-major (B, NKV, HD, S)
 layout is a TPU choice.) Caches are updated in place. Every position is one
-int shared by the batch.
+int shared by the batch (the reference's cached_attention_t also takes a
+(b,) tensor, which no caller there passes; per-row positions are the paged
+cache's, engine/kvcache.py).
 
 CUDA kernels: ``csrc/decode_attention.cu`` (GQA), ``csrc/decode_attention_mha.cu``
 (one query head per KV head) and ``csrc/kv_write.cu`` (all writes). Their
@@ -80,7 +82,8 @@ def _int_pos(fn: str, pos) -> int:
     if isinstance(pos, bool) or not isinstance(pos, int):
         raise NotImplementedError(
             f"{fn}: pos must be one int shared by the batch, got {type(pos).__name__}; "
-            "per-row positions come with the paged cache and the scheduler (ROADMAP A7)")
+            "per-row positions are served by the paged cache (engine.kvcache."
+            "paged_cached_attention, models.llama.forward_paged)")
     return pos
 
 

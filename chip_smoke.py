@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (accessory_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--phases device,build,kernels,parity,serve,decode,
-                                               checkpoint,parity8,serve8,stream,stacked,
+                                               checkpoint,parity8,paged_parity,serve8,stream,
+                                               stacked,batcher,batcher8,preempt,server,
                                                decode8,decode_unfused,
                                                parity7b,serve7b,decode7b] [--out FILE]
 
@@ -33,6 +34,11 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   parity8   as parity with the int8 KV cache (the fused GQA int8 kernel), and
             once over the stacked-cache path (separate projections, read-only
             attention, one bulk write), bf16 and int8;
+  paged_parity  the paged path (forward_paged), TinyLlama width, 2 layers, bf16
+            and int8 pools: 4 slots of 37 / 64 / 100 / 128 prompt tokens in one
+            128-token prefill, 16 teacher-forced decode steps, a 5-token and a
+            64-token continuation chunk, CPU against the card; a shuffled page
+            table gives bit-identical logits to the identity table on the card;
   serve8    the loaded model through MetaModel.generate with kv_dtype="int8":
             4 prompts x 64 new tokens, launch counts exact;
   stream    MetaModel.stream_generate, one prompt, 64 new tokens, both cache
@@ -40,6 +46,16 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   stacked   Generator(unroll_decode=False).generate, both cache types: per step
             7 W4 launches and one read-only attention a layer and ONE stacked
             write, greedy tokens and first-step logits against the unrolled path;
+  batcher, batcher8  continuous batching (ContinuousBatcher: 8 slots, 64-token
+            pages, decode_steps=8) on the loaded weights with bf16 / int8 page
+            pools: 16 requests of 128-token prompts, 64 new tokens; decode
+            tok/s, time to first token, device busy ms per step and idle share,
+            greedy tokens against the static Generator (printed); launches exact
+            (from the batcher's forward_paged calls), the allocator balanced;
+  preempt   the same over total_pages=17 (preemption must happen), then short
+            passes with prefill_chunk=64, prefix_cache and spec_lookup=4;
+  server    the HTTP server (demos/server.py, --continuous) on 127.0.0.1 with the
+            loaded model: 8 concurrent /generate, /health, /chat, /stream_generate;
   decode8, decode_unfused  the bench shape with the int8 GQA cache, and with
             fused_attn_write=False (read-only attention + one-token write) for
             both cache types;
@@ -84,7 +100,8 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
                 "decode_attention_ro", "decode_attention8_ro", "decode_attention_mha",
                 "decode_attention_mha8", "decode_attention_mha_ro", "decode_attention_mha8_ro",
                 "flash_attention", "kv_write", "kv_write_q8", "kv_write_col", "kv_write_col_q8",
-                "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8")
+                "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8",
+                "paged_decode", "paged_decode8", "paged_write", "paged_write_q8")
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
@@ -624,6 +641,189 @@ def _kernels_stacked(kr, tag, n_layers, b, nkv, hd, s_len, sq, pos, int8):
               (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0, stack_ms=stack_ms)
 
 
+def _paged_table(b, pps, n_pages, lengths, ps, seed, share=True):
+    """A shuffled page table (b, pps) int32 on the card: each slot's pages
+    drawn from a permutation of the pool (page 0 is TRASH), with ``share``
+    every slot's first page the same physical page (a prefix-cache hit), and
+    the entries past a slot's allocation TRASH."""
+    import torch
+
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm[:b * pps].reshape(b, pps).to(torch.int32)
+    if share:
+        table[:, 0] = table[0, 0]
+    for i, n in enumerate(lengths):
+        table[i, max(1, -(-n // ps)):] = 0
+    return table.cuda()
+
+
+def _paged_pools(kr, n_layers, nkv, n_pages, ps, hd, int8):
+    import torch
+
+    shape = (n_layers, nkv, n_pages, ps, hd)
+    if int8:
+        return (torch.randint(-127, 128, shape, generator=kr.gen, device="cuda", dtype=torch.int8),
+                torch.randint(-127, 128, shape, generator=kr.gen, device="cuda", dtype=torch.int8),
+                0.005 + 0.015 * torch.rand(shape[:-1], generator=kr.gen, device="cuda"),
+                0.005 + 0.015 * torch.rand(shape[:-1], generator=kr.gen, device="cuda"))
+    return kr.randn(*shape), kr.randn(*shape)
+
+
+def _kernels_paged_decode(kr, tag, nkv, r, hd, sq, lengths, int8, ps=64, pps=8, most_copies=32):
+    """paged_decode_attention (paged_decode / paged_decode8) over one layer of
+    stacked pools through a shuffled table with a shared page and TRASH
+    entries, ragged lengths, all ``pps`` pages active, sq new tokens a slot.
+    The library yardstick is SDPA over each slot's pages gathered into a
+    dense cache beforehand (int8 dequantized to bf16 beforehand), the length
+    as a mask; neither step of the preparation is timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.engine.kvcache import gather_pages
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                      paged_decode_attention_plain)
+
+    kernel = "paged_decode8" if int8 else "paged_decode"
+    b, nq = len(lengths), nkv * r
+    n_pages = b * pps + 1
+    table = _paged_table(b, pps, n_pages, lengths, ps, seed=b * pps + sq)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    tok_bytes = 2 * (hd + 4) if int8 else 2 * 2 * hd       # one cached token's k and v
+    cached = sum(min(n, pps * ps) for n in lengths)
+    nbytes = cached * nkv * tok_bytes + 2 * b * sq * nq * hd * 2 + 2 * b * sq * nkv * hd * 2 \
+        + b * pps * 4 + b * 4
+    flops = sum(4.0 * nq * hd * sq * (n + (sq + 1) / 2) for n in lengths)
+    pool_bytes = 2 * nkv * n_pages * ps * (hd + 4 if int8 else 2 * hd)
+    sets = [(kr.randn(b, sq, nq, hd), kr.randn(b, sq, nkv, hd), kr.randn(b, sq, nkv, hd))
+            + _paged_pools(kr, 1, nkv, n_pages, ps, hd, int8)
+            for _ in range(n_copies(pool_bytes, most_copies))]
+
+    def call(q, kn, vn, *pools):
+        return paged_decode_attention(q, kn, vn, pools[0], pools[1], lens, table, pps,
+                                      *(pools[2:] if int8 else (None, None)), layer=0)
+
+    def plain(q, kn, vn, *pools):
+        return paged_decode_attention_plain(q, kn, vn, pools[0], pools[1], lens, table, pps,
+                                            *(pools[2:] if int8 else (None, None)), layer=0)
+
+    first = sets[0]
+    before = tuple(p.clone() for p in first[3:])
+    got, want = call(*first), plain(*first)
+    torch.cuda.synchronize()
+    name = f"{kernel} {tag} SQ={sq}"
+    atol = 4 * bf16_ulp(float(want.float().abs().max()))
+    check_close(name, got, want, rtol=1e-2, atol=atol)
+    if not all(torch.equal(a, b_) for a, b_ in zip(first[3:], before)):
+        raise AssertionError(f"{name}: the paged decode kernel changed its pools")
+    del before
+    k_ms = time_ms(call, sets)
+    k_wall = wall_ms(call, sets)
+    p_ms = time_ms(plain, sets[:1], min_iters=3)
+    mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    lib_sets = []
+    for s_ in sets[:4]:
+        kd, vd = gather_pages(s_[3][0], s_[4][0], table, None,
+                              *((s_[5][0], s_[6][0]) if int8 else (None, None)))
+        lib_sets.append((s_[0].transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)))
+    lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
+    kr.record(kernel, f"{tag} B={b} NKV={nkv} R={r} HD={hd} SQ={sq} PS={ps} J={pps} "
+              f"lengths={','.join(map(str, lengths))}", max_err(got, want), k_ms, k_wall, p_ms,
+              lib_ms, nbytes, flops)
+    del sets, lib_sets
+
+
+def _kernels_paged_identity(kr, int8, b=8, nkv=4, r=8, hd=64, ps=64, pps=8, pos=300):
+    """Over an identity page table the paged kernel computes what the static
+    cache's read-only kernel (decode_attention[8]_ro) computes on the same
+    contents, within the decode rows' tolerance."""
+    import torch
+
+    from accessory_tpu_torch.ops.decode_attention import cached_attention_t, cached_attention_t8
+    from accessory_tpu_torch.ops.paged_decode import paged_decode_attention
+
+    s_len = ps * pps
+    static = _int8_pools(kr, b, nkv, s_len, hd) if int8 else \
+        (kr.randn(b, nkv, s_len, hd), kr.randn(b, nkv, s_len, hd))
+    q, kn, vn = kr.randn(b, 1, nkv * r, hd), kr.randn(b, 1, nkv, hd), kr.randn(b, 1, nkv, hd)
+    want = (cached_attention_t8 if int8 else cached_attention_t)(q, kn, vn, *static, pos)
+    # page j of slot i is physical page i * pps + j
+    paged = [p.reshape(b, nkv, pps, ps, *p.shape[3:]).transpose(0, 1)
+             .reshape(nkv, b * pps, ps, *p.shape[3:]).contiguous() for p in static]
+    table = torch.arange(b * pps, dtype=torch.int32, device="cuda").reshape(b, pps)
+    lens = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    got = paged_decode_attention(q, kn, vn, paged[0], paged[1], lens, table, None,
+                                 *(paged[2:] if int8 else (None, None)))
+    torch.cuda.synchronize()
+    name = f"{'paged_decode8' if int8 else 'paged_decode'} identity table vs static read-only"
+    check_close(name, got, want, rtol=1e-2, atol=4 * bf16_ulp(float(want.float().abs().max())))
+    emit({"phase": "kernels", "check": name, "shape": f"B={b} NKV={nkv} R={r} HD={hd} pos={pos}",
+          "max_abs_err": max_err(got, want)[0]})
+
+
+def _kernels_paged_write(kr, tag, n_layers, b, s, nkv, hd, int8, ps=64, pps=8):
+    """paged_write_tokens (paged_write / paged_write_q8): every layer's s new
+    tokens a slot into the stacked pools at starts that cross page
+    boundaries, one slot's positions running past its table into TRASH.
+    Library yardstick (bf16): one index_put_ per pool with the flat row
+    indices computed beforehand; the quantizing write has none."""
+    import torch
+
+    from accessory_tpu_torch.ops.paged_write import (paged_write_tokens, paged_write_tokens_plain,
+                                                     token_slots)
+
+    kernel = "paged_write_q8" if int8 else "paged_write"
+    n_pages = b * pps + 1
+    table = _paged_table(b, pps, n_pages, [pps * ps] * b, ps, seed=s, share=False)
+    cap = pps * ps
+    starts = [min(x, cap - s) for x in (0, ps - 2, 2 * ps + 7, 3 * ps - 1, 200, 300, 5 * ps)]
+    starts = (starts * b)[:b - 1] + [cap - s // 2]     # the last slot runs past its table
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    vec = n_layers * b * s * nkv
+    nbytes = 2 * vec * (hd * 2 + hd + 4) if int8 else 2 * 2 * vec * hd * 2
+    kn, vn = kr.randn(n_layers, b, s, nkv, hd), kr.randn(n_layers, b, s, nkv, hd)
+    pool_bytes = 2 * n_layers * nkv * n_pages * ps * (hd + 4 if int8 else 2 * hd)
+    sets = [_paged_pools(kr, n_layers, nkv, n_pages, ps, hd, int8) + (kn, vn)
+            for _ in range(max(1, min(4, 2 * L2_BYTES // pool_bytes)))]
+
+    def call(*a):
+        return paged_write_tokens(a[0], a[1], a[-2], a[-1], table, start, *a[2:-2])
+
+    def plain(*a):
+        return paged_write_tokens_plain(a[0], a[1], a[-2], a[-1], table, start, *a[2:-2])
+
+    pools2 = tuple(p.clone() for p in sets[0][:-2])
+    got = call(*sets[0])
+    want = plain(*pools2, kn, vn)
+    torch.cuda.synchronize()
+    name = f"{kernel} {tag} L={n_layers} s={s}"
+    # the TRASH page takes the overflowing slot's junk from concurrent stores
+    # in the kernel and from an indexed store with repeated rows in the plain
+    # version: it is compared nowhere
+    live = [g[:, :, 1:] for g in got], [w[:, :, 1:] for w in want]
+    if int8:
+        check_pools8(name, *live)
+    elif not all(torch.equal(g, w) for g, w in zip(*live)):
+        raise AssertionError(f"{name}: pools differ from the plain indexed store")
+    del pools2
+    k_ms = time_ms(call, sets)
+    k_wall = wall_ms(call, sets)
+    p_ms = time_ms(plain, sets)
+    lib_ms = None
+    if not int8:
+        page, off = token_slots(table, start, s, ps)                 # (b * s,)
+        lh = torch.arange(n_layers * nkv, device="cuda")[:, None]   # (l, h) pairs
+        rows = ((lh * n_pages + page[None, :]) * ps + off[None, :])  # (L * nkv, b * s)
+        rows = rows.reshape(n_layers, nkv, b * s).transpose(1, 2).reshape(-1)
+        vals = [t.reshape(n_layers, b * s, nkv, hd).reshape(-1, hd) for t in (kn, vn)]
+        lib_ms = time_ms(lambda kp, vp, *_: (kp.view(-1, hd).index_put_((rows,), vals[0]),
+                                             vp.view(-1, hd).index_put_((rows,), vals[1])), sets)
+    kr.record(kernel, f"{tag} L={n_layers} B={b} s={s} NKV={nkv} HD={hd} PS={ps} "
+              f"starts={','.join(map(str, starts))}", (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms,
+              nbytes, 0.0)
+    del sets
+
+
 def phase_kernels(seed: int):
     """Every kernel against its plain version at the main paths' shapes."""
     from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
@@ -716,6 +916,20 @@ def phase_kernels(seed: int):
         _kernels_stacked(kr, "tiny", 22, 8, 4, 64, 1024, 1, 511, int8)
         _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 1, 150, int8)
         _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 128, 0, int8)
+
+    # -- the paged KV cache (continuous batching): paged decode attention over
+    #    8 slots of ragged lengths (0, 1, page edges, 511) at the decode step
+    #    and the speculative verify width 5, TinyLlama (GQA) and the 7B shape
+    #    (one query head per KV head); the paged writes of all 22 layers at the
+    #    decode step, the verify width and the 128-token prefill bucket
+    ragged = [0, 1, 63, 64, 65, 130, 300, 511]
+    for int8 in (False, True):
+        for sq in (1, 5):
+            _kernels_paged_decode(kr, "tiny", 4, 8, 64, sq, ragged, int8)
+        _kernels_paged_decode(kr, "7b", 32, 1, 128, 1, ragged, int8, most_copies=4)
+        _kernels_paged_identity(kr, int8)
+        for s in (1, 5, 128):
+            _kernels_paged_write(kr, "tiny", 22, 8, s, 4, 64, int8)
     return kr.rows
 
 
@@ -1085,6 +1299,419 @@ def phase_stacked(model):
     return total
 
 
+def phase_paged_parity(seed: int):
+    """The paged path, CPU through the plain versions against the card
+    through the kernels, TinyLlama width, 2 layers, bf16 and int8 pools: 4
+    slots with prompts of 37 / 64 / 100 / 128 tokens in one 128-token fresh
+    prefill (lengths then set to the prompts', as the batcher does), 16
+    one-token decode steps teacher-forced on the CPU's greedy tokens, a
+    5-token continuation chunk (the paged decode kernel's multi-query form)
+    and a 64-token one (gather + cached_attention). Logits at the valid
+    positions are held to the parity tolerance; on the card a shuffled page
+    table gives logits bit-identical to the identity table's."""
+    import dataclasses
+
+    import torch
+
+    from accessory_tpu_torch.config import LLaMAArgs
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.quant.fuse import fuse_for_decode
+    from accessory_tpu_torch.quant.quantize import quantize_params
+
+    args = LLaMAArgs(**dict(TINYLLAMA, n_layers=2), max_seq_len=256)
+    params_gpu = fuse_for_decode(quantize_params(llama.init_params(args, seed=seed)))
+    params_cpu = _tree_to(params_gpu, "cpu")
+    plens, steps, ps, pps = [37, 64, 100, 128], 16, 64, 4
+    b = len(plens)
+    g = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, args.vocab_size, (b, 128), generator=g)
+    chunks = [torch.randint(0, args.vocab_size, (b, n), generator=g) for n in (5, 64)]
+    final = [n + steps + 5 + 64 for n in plens]
+    # identity allocation (slot i holds pages 1 + i * pps ...) and a shuffled
+    # one, each slot holding only the pages its final length needs
+    identity = torch.arange(1, b * pps + 1, dtype=torch.int32).reshape(b, pps)
+    shuffled = (torch.randperm(b * pps, generator=g) + 1).to(torch.int32).reshape(b, pps)
+    for t in (identity, shuffled):
+        for i, n in enumerate(final):
+            t[i, -(-n // ps):] = 0
+
+    def run(params, device, table, kv_dtype, feed=None):
+        """Logits of every forward (valid positions only, f32 on the CPU) and
+        the greedy tokens fed to the decode steps."""
+        pc = llama.init_paged_cache(args, slots=b, total_pages=b * pps + 1, page_size=ps,
+                                    pages_per_seq=pps, kv_dtype=kv_dtype, device=device)
+        pc = dataclasses.replace(pc, page_indices=table.to(device))
+        t0 = time.perf_counter()
+        lg, pc = llama.forward_paged(params, args, prompt.to(device), pc)
+        out = [torch.cat([lg[i, :n].float().cpu() for i, n in enumerate(plens)])]
+        pc = dataclasses.replace(pc, lengths=torch.tensor(plens, dtype=torch.int32,
+                                                          device=device))
+        tok = torch.stack([lg[i, n - 1] for i, n in enumerate(plens)]).argmax(-1).cpu()
+        fed = []
+        for i in range(steps):
+            tok = tok if feed is None else feed[i]
+            fed.append(tok)
+            lg, pc = llama.forward_paged(params, args, tok[:, None].to(device), pc,
+                                         active_pages=pps)
+            out.append(lg[:, 0].float().cpu())
+            tok = lg[:, 0].argmax(-1).cpu()
+        for ch in chunks:
+            lg, pc = llama.forward_paged(params, args, ch.to(device), pc, active_pages=pps,
+                                         continuation=True)
+            out.append(lg.float().cpu().reshape(-1, lg.shape[-1]))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        if pc.lengths.cpu().tolist() != final:
+            raise AssertionError(f"paged_parity: lengths {pc.lengths.tolist()} != {final}")
+        return out, fed, time.perf_counter() - t0
+
+    for kv_dtype in (None, "int8"):
+        cpu, fed, cpu_s = run(params_cpu, "cpu", identity, kv_dtype)
+        gpu, _, _ = run(params_gpu, "cuda", identity, kv_dtype, feed=fed)
+        gpu_shuffled, _, _ = run(params_gpu, "cuda", shuffled, kv_dtype, feed=fed)
+        tol_abs = LOGIT_TOL_FRAC * float(cpu[0].abs().max())
+        worst_abs = max(float((gg - c).abs().max()) for gg, c in zip(gpu, cpu))
+        worst_rel = max(float((gg - c).norm() / c.norm()) for gg, c in zip(gpu, cpu))
+        checked = agreed = 0
+        for gg, c in zip(gpu, cpu):
+            top2 = c.topk(2, dim=-1).values
+            sure = (top2[..., 0] - top2[..., 1]) > tol_abs
+            checked += int(sure.sum())
+            agreed += int((gg.argmax(-1) == c.argmax(-1))[sure].sum())
+        after_prefill = max(float((gg - c).abs().max()) for gg, c in zip(gpu[1:], cpu[1:]))
+        bit_identical = all(torch.equal(a, c) for a, c in zip(gpu, gpu_shuffled))
+        row = {"phase": "paged_parity", "kv_dtype": kv_dtype or "bf16", "layers": 2,
+               "dim": args.dim, "slots": b, "prompts": plens, "prefill_rows": b * 128,
+               "decode_steps": steps, "chunks": [5, 64], "cpu_seconds": round(cpu_s, 2),
+               "max_abs_logit_err": worst_abs, "max_abs_logit_err_after_prefill": after_prefill,
+               "max_rel_l2_err": worst_rel,
+               "tol_abs": tol_abs, "tol_rel_l2": LOGIT_REL_L2, "tokens_checked": checked,
+               "tokens_agreed": agreed, "shuffled_table_bit_identical": bit_identical,
+               "finite": all(bool(torch.isfinite(gg).all()) for gg in gpu)}
+        emit(row)
+        if (worst_abs > tol_abs or worst_rel > LOGIT_REL_L2 or agreed != checked
+                or not bit_identical or not row["finite"]):
+            raise AssertionError(f"paged_parity failed: {row}")
+
+
+class _CountingModule:
+    """The model module as the batcher sees it, recording the shape of every
+    forward_paged call, from which the launches of each kernel follow."""
+
+    def __init__(self, module):
+        self._module = module
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def forward_paged(self, params, args, tokens, pcache, active_pages=None, continuation=False):
+        self.calls.append((tokens.shape[0], tokens.shape[1], continuation))
+        return self._module.forward_paged(params, args, tokens, pcache,
+                                          active_pages=active_pages, continuation=continuation)
+
+    def expected(self, n_layers, int8):
+        """Per call: 4 W4 launches a layer (the many-row kernel from 1024
+        rows), causal flash for a fresh prefill, the paged decode kernel for
+        a decode step or a continuation of up to 16 tokens (a longer one
+        gathers), and one paged write."""
+        want = _zero_counts()
+        for b, sq, continuation in self.calls:
+            want["w4_matmul_bigm" if b * sq >= 1024 else "w4_matmul"] += 4 * n_layers
+            if sq > 1 and not continuation:
+                want["flash_attention"] += n_layers
+            elif sq <= 16:
+                want["paged_decode8" if int8 else "paged_decode"] += n_layers
+            want["paged_write_q8" if int8 else "paged_write"] += 1
+        return want
+
+
+def _p5_prompts(n: int):
+    """n prompts of 127 bytes: 128 tokens with BOS, the serving bench's length."""
+    text = " ".join(PROMPTS)
+    return [(text[i * 41:] + " " + text)[:127] for i in range(n)]
+
+
+def _batcher(model, module, kv_dtype, **kw):
+    from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
+
+    return ContinuousBatcher(module, model.args, model.params, model.tokenizer, slots=8,
+                             page_size=64, decode_steps=8, kv_dtype=kv_dtype, seed=0, **kw)
+
+
+def _balanced(cb):
+    return (cb.pool.free_pages + len(cb._prefix_map) == cb.total_pages - 1
+            and all(not v for v in cb.slot_pages.values()))
+
+
+def _drive(cb, prompts, max_gen_len):
+    """Submit every prompt, step until drained. Returns (requests in
+    submission order, seconds, time to first token of each, decode dispatch
+    seconds and steps). The first token of a request shows when the step()
+    whose admission sampled it returns."""
+    import torch
+
+    dispatch = []
+    real = cb._decode
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        dispatch.append((time.perf_counter() - t, a[2]))
+        return out
+
+    cb._decode = timed
+    t0 = time.perf_counter()
+    uids = [cb.add_request(p, max_gen_len=max_gen_len) for p in prompts]
+    first = {}
+    while cb.pending or any(r is not None for r in cb.active.values()):
+        cb.step()
+        now = time.perf_counter() - t0
+        for req in list(cb.active.values()) + cb.finished:
+            if req is not None and req.uid not in first and req.output_tokens:
+                first[req.uid] = now
+    secs = time.perf_counter() - t0
+    del cb._decode
+    by_uid = {r.uid: r for r in cb.finished}
+    return [by_uid[u] for u in uids], secs, [first[u] for u in uids], dispatch
+
+
+def _profile_dispatch(cb, prompts):
+    """Device time of one decode dispatch with every slot busy (torch.profiler
+    CUDA trace) against the same dispatch's wall time unprofiled: device busy
+    ms per step and the idle share; and from the same trace the device
+    kernels a step and the host operations with the most self CPU time (the
+    profiler slows the host, so those are shares, not times to quote)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        cb.add_request(p, max_gen_len=64)
+    cb.step()                                  # admission + the first dispatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cb.step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in dev) / 1e3
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    host_total = sum(e.self_cpu_time_total for e in host) or 1
+    while cb.pending or any(r is not None for r in cb.active.values()):
+        cb.step()
+    n = cb.decode_steps
+    out = {"wall_ms_per_step": wall / n,
+           "device_kernels_per_step": sum(e.count for e in dev) / n,
+           "host_ops_per_step": sum(e.count for e in host) / n,
+           "host_self_cpu_share_top": {e.key[:60]: round(e.self_cpu_time_total / host_total, 4)
+                                       for e in host[:8]}}
+    if busy == 0:
+        return {**out, "device_busy_ms_per_step": "not measured (no device events)"}
+    return {**out, "device_busy_ms_per_step": busy / n,
+            "device_idle_share": max(0.0, 1 - busy / wall)}
+
+
+def phase_batcher(phase: str, model, kv_dtype):
+    """P5: the 22-layer TinyLlama shape through ContinuousBatcher (8 slots,
+    64-token pages, decode_steps=8), 16 requests of 128-token prompts and 64
+    new tokens. Every request finishes, the allocator balances, and each
+    kernel's launches equal what the batcher's forward_paged calls imply.
+    Decode tok/s, time to first token, device busy ms per step and the idle
+    share are printed, and how many greedy tokens equal the static
+    Generator's on the same prompts (random weights tie: not asserted)."""
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import llama
+
+    int8 = kv_dtype == "int8"
+    prompts = _p5_prompts(16)
+    module = _CountingModule(llama)
+    _drive(_batcher(model, module, kv_dtype), prompts[:8], 8)          # warm-up
+    module.calls.clear()
+    cb = _batcher(model, module, kv_dtype)
+    kernels.reset_launch_counts()
+    reqs, secs, ttft, dispatch = _drive(cb, prompts, 64)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = module.expected(model.args.n_layers, int8)
+    n_tok = sum(len(r.output_tokens) for r in reqs)
+    dec_s = sum(t for t, _ in dispatch)
+    dec_steps = sum(n for _, n in dispatch)
+    prof = _profile_dispatch(_batcher(model, llama, kv_dtype), prompts[:8])
+    # the static Generator on the same prompts, 8 at a time
+    model.kv_dtype = kv_dtype
+    model._reset_generator()
+    same = []
+    for lo in (0, 8):
+        model.generate(prompts[lo:lo + 8], max_gen_len=64)
+        for i, req in enumerate(reqs[lo:lo + 8]):
+            ref = model.generator.last_tokens[i, 128:128 + 64]
+            got = np.asarray(req.output_tokens[:len(ref)])
+            same.append(got == ref[:len(got)])
+    row = {"phase": phase, "model": "TinyLlama-1.1B shape", "kv_dtype": kv_dtype or "bf16",
+           "layers": model.args.n_layers, "slots": 8, "page_size": 64, "decode_steps": 8,
+           "requests": len(prompts), "prompt_tokens": 128, "max_gen_len": 64,
+           "generated_tokens": n_tok, "run_s": secs, "tok_s": n_tok / secs,
+           "decode_tok_s": 8 * dec_steps / dec_s if dec_s else None,
+           "decode_dispatches": len(dispatch), "decode_ms_per_step": dec_s * 1e3 / dec_steps,
+           "ttft_s_median": statistics.median(ttft), "ttft_s_first_wave_median":
+           statistics.median(ttft[:8]), "ttft_s_max": max(ttft),
+           "forward_calls": len(module.calls), "launches": counts, "launches_expected": want,
+           "balanced": _balanced(cb), "preemptions": cb.preemptions, **prof,
+           "greedy_share_equal_to_static_generator": float(np.mean(np.concatenate(same)))}
+    emit(row)
+    if (counts != want or not row["balanced"] or len(reqs) != 16
+            or not all(r.done and len(r.output_tokens) for r in reqs)):
+        raise AssertionError(f"{phase} failed: {row}")
+    return counts
+
+
+def phase_preempt(model):
+    """P5 over an oversubscribed pool (total_pages=17, 16 usable pages for 8
+    slots of 3 pages' need): preemption of the youngest with recompute must
+    happen. Then short passes through the batcher's options: prefill_chunk=64
+    (64-token continuation chunks), prefix_cache (a shared 64-token prefix
+    served from a shared page) and spec_lookup=4 (verify dispatches of 5
+    tokens a slot: the paged decode kernel at SQ 5). Launch counts exact,
+    allocator balanced, every request finished."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import llama
+
+    prompts = _p5_prompts(16)
+    shared = prompts[0][:63]                    # BOS + 63 bytes: one full page
+    total = {name: 0 for name in KERNEL_NAMES}
+    with_prefix = [shared + p[63:] for p in prompts[1:5]]
+    # each pass: the batcher's options and its groups of prompts, each group
+    # drained before the next is submitted (the prefix cache serves later
+    # admissions from what earlier ones registered)
+    passes = (("preempt", dict(total_pages=17), [prompts], 64),
+              ("prefill_chunk", dict(prefill_chunk=64), [prompts[:4]], 16),
+              ("prefix_cache", dict(prefix_cache=True), [with_prefix[:1], with_prefix[1:]], 16),
+              ("spec_lookup", dict(spec_lookup=4), [prompts[:4]], 24))
+    for name, kw, groups, max_gen in passes:
+        module = _CountingModule(llama)
+        cb = _batcher(model, module, None, **kw)
+        kernels.reset_launch_counts()
+        reqs, secs = [], 0.0
+        for group in groups:
+            r, t, _, _ = _drive(cb, group, max_gen)
+            reqs, secs = reqs + r, secs + t
+        torch.cuda.synchronize()
+        ps = [p for group in groups for p in group]
+        counts = kernels.launch_counts()
+        want = module.expected(model.args.n_layers, False)
+        sq5 = sum(model.args.n_layers for _, sq, c in module.calls if c and sq == 5)
+        row = {"phase": "preempt", "pass": name, "options": kw, "requests": len(ps),
+               "max_gen_len": max_gen, "seconds": secs, "preemptions": cb.preemptions,
+               "prefix_hits": cb.prefix_hits, "spec_steps": cb.spec_steps,
+               "spec_accepted": cb.spec_accepted, "paged_decode_sq5_launches": sq5,
+               "forward_calls": len(module.calls), "launches": counts,
+               "launches_expected": want, "balanced": _balanced(cb)}
+        emit(row)
+        ok = (counts == want and row["balanced"] and len(reqs) == len(ps)
+              and all(r.done and len(r.output_tokens) for r in reqs))
+        ok = ok and {"preempt": cb.preemptions > 0, "prefill_chunk": True,
+                     "prefix_cache": cb.prefix_hits > 0,
+                     "spec_lookup": cb.spec_steps > 0 and sq5 > 0}[name]
+        if not ok:
+            raise AssertionError(f"preempt ({name}) failed: {row}")
+        _add_counts(total, counts)
+    return total
+
+
+def phase_server(model):
+    """P6: serve(model, port=0, continuous=True, slots=8, decode_steps=8) on
+    127.0.0.1: 8 concurrent /generate posts, then /health, /chat and
+    /stream_generate; every answer 200 and well formed; shutdown stops the
+    batching thread. The batcher's paged launches equal what its
+    forward_paged calls imply (the other kernels are shared with the
+    /chat and /stream_generate routes' static path)."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.demos.server import serve
+    from accessory_tpu_torch.models import llama
+
+    module = _CountingModule(llama)
+    real_module = model.module
+    model.module = module
+    model.kv_dtype = None
+    model._reset_generator()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = serve(model, host="127.0.0.1", port=0, continuous=True, slots=8, decode_steps=8)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read().decode()
+
+    results = {}
+    try:
+        def gen(i):
+            results[i] = post("/generate", {"prompts": [PROMPTS[i]], "max_gen_len": 32})
+
+        ts = [threading.Thread(target=gen, args=(i,)) for i in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = (r.status, json.loads(r.read()))
+        chat = post("/chat", {"qas": [["Name three colours.", None]], "max_gen_len": 16})
+        stream = post("/stream_generate", {"prompt": PROMPTS[0], "max_gen_len": 16})
+    finally:
+        server.shutdown()
+        server.server_close()
+        model.module = real_module
+        model._reset_generator()
+    thread.join(timeout=60)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = module.expected(model.args.n_layers, False)
+    events = [json.loads(x[len("data: "):]) for x in stream[1].split("\n\n") if x]
+    gens = [results.get(i) for i in range(8)]
+    ok_gen = all(g is not None and g[0] == 200 and isinstance(json.loads(g[1])["outputs"][0], str)
+                 for g in gens)
+    paged = ("paged_decode", "paged_write")
+    row = {"phase": "server", "requests": 8, "seconds": secs, "generate_ok": ok_gen,
+           "health": health, "chat_status": chat[0],
+           "chat_response_chars": len(json.loads(chat[1])["response"]),
+           "stream_status": stream[0], "stream_events": len(events),
+           "batcher_forward_calls": len(module.calls), "launches": counts,
+           "paged_launches_expected": {k: want[k] for k in paged},
+           "server_thread_stopped": not thread.is_alive(),
+           "batching_thread_stopped": not server.engine._thread.is_alive()}
+    emit(row)
+    if not (ok_gen and health == (200, {"status": "ok"}) and chat[0] == 200
+            and stream[0] == 200 and events and events[-1]["end_of_content"]
+            and all(counts[k] == want[k] for k in paged) and want["paged_decode"] > 0
+            and row["server_thread_stopped"] and row["batching_thread_stopped"]
+            and server.engine.error is None):
+        raise AssertionError(f"server failed: {row}")
+    return counts
+
+
 def phase_serve7b(seed: int):
     """The 32-layer LLaMA2-7B shape (MHA) through MetaModel.generate: 8 prompts
     in the 128-token bucket (1024 prefill rows), 32 new tokens, with the bf16
@@ -1276,6 +1903,16 @@ KERNELS = {
                              "accessory_tpu/ops/decode_attention.py:458", "tiny L=22 sq=1"),
     "kv_write_stacked_q8": ("accessory_tpu_torch/csrc/kv_write.cu",
                             "accessory_tpu/ops/decode_attention.py:1349", "tiny L=22 sq=1"),
+    "paged_decode": ("accessory_tpu_torch/csrc/paged_decode.cu",
+                     "accessory_tpu/ops/paged_decode.py:264", "tiny R=8 SQ=1"),
+    "paged_decode8": ("accessory_tpu_torch/csrc/paged_decode.cu",
+                      "accessory_tpu/ops/paged_decode.py:304", "tiny R=8 SQ=1"),
+    "paged_write": ("accessory_tpu_torch/csrc/paged_write.cu",
+                    "accessory_tpu/ops/paged_write.py:179", "tiny s=1"),
+    # one launch quantizes, stores the values (_write_kv :179) and the scales
+    # (_write_scales :222)
+    "paged_write_q8": ("accessory_tpu_torch/csrc/paged_write.cu",
+                       "accessory_tpu/ops/paged_write.py:222", "tiny s=1"),
 }
 
 
@@ -1298,10 +1935,11 @@ def summary(rows, counts_by_path):
     return {"kernels": out}
 
 
-ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,serve8,stream,stacked,"
-              "decode8,decode_unfused,parity7b,serve7b,decode7b")
-TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "decode8",
-                     "decode_unfused")
+ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
+              "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
+              "serve7b,decode7b")
+TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
+                     "batcher8", "preempt", "server", "decode8", "decode_unfused")
 
 
 def _add_counts(total, counts):
@@ -1348,6 +1986,8 @@ def main() -> int:
                          kv_dtypes=("int8",))
             phase_parity(opts.seed, "parity8", TINYLLAMA, 2, b=2, plen=64, steps=8, s_len=128,
                          kv_dtypes=(None, "int8"), stacked=True)
+        if "paged_parity" in phases:
+            phase_paged_parity(opts.seed)
         if any(ph in phases for ph in TINY_MODEL_PHASES):
             model, setup_s, _ = _quantized_model(TINYLLAMA, 512, opts.seed)
             if "serve" in phases:
@@ -1366,6 +2006,14 @@ def main() -> int:
                 counts_by_path["stream"] = phase_stream(model)
             if "stacked" in phases:
                 counts_by_path["stacked"] = phase_stacked(model)
+            if "batcher" in phases:
+                counts_by_path["batcher"] = phase_batcher("batcher", model, None)
+            if "batcher8" in phases:
+                counts_by_path["batcher int8"] = phase_batcher("batcher8", model, "int8")
+            if "preempt" in phases:
+                counts_by_path["batcher options"] = phase_preempt(model)
+            if "server" in phases:
+                counts_by_path["server"] = phase_server(model)
             bench = {}
             if "decode8" in phases:
                 model.kv_dtype = "int8"

@@ -286,7 +286,7 @@ def test_decode_attention_int8_refuses_gqa(gen):
     pools = _int8_pools(gen, 1, 2, 16, 64)
     with pytest.raises(ValueError, match="device"):
         decode_attention_update8(kn, kn, kn, pools[0], pools[1], pools[2].cpu(), pools[3], 3)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="paged_cached_attention"):
         decode_attention_update8(kn, kn, kn, *pools, torch.tensor([3]))
 
 
@@ -557,3 +557,188 @@ def _to(node, device):
     if isinstance(node, list):
         return [_to(v, device) for v in node]
     return node.to(device)
+
+
+# ---------------------------------------------------------------- paged KV cache
+
+
+def _paged_case(gen, b, nkv, hd, ps, pps, n_pages, int8, lengths, layers=1):
+    """Random pools (layers, nkv, n_pages, ps, hd), a shuffled page table whose
+    rows share their first page and end in TRASH entries, and the lengths."""
+    shape = (layers, nkv, n_pages, ps, hd)
+    if int8:
+        pools = (torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+                 torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+                 0.005 + 0.015 * torch.rand(shape[:-1], generator=gen, device="cuda"),
+                 0.005 + 0.015 * torch.rand(shape[:-1], generator=gen, device="cuda"))
+    else:
+        pools = (randn(gen, *shape), randn(gen, *shape), None, None)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(b * pps)) + 1
+    table = perm[:b * pps].reshape(b, pps).to(torch.int32)
+    table[:, 0] = table[0, 0]                 # a page every slot shares (a prefix-cache hit)
+    table[:, -1] = 0                          # TRASH past the allocation
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return pools, table.cuda(), lens.cuda()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hd,r", [(64, 8), (64, 1), (128, 1), (128, 4)])
+@pytest.mark.parametrize("sq", [1, 5, 16])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_paged_decode(gen, int8, hd, r, sq, ps):
+    """paged_decode_attention (both entries) against its plain version:
+    lengths 0, 1, ps - 1, ps, ps + 1 and the whole active range, a shared
+    page, a shuffled table, sq new tokens causal among themselves, GQA and
+    one query head per KV head; the pools are not written."""
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                      paged_decode_attention_plain)
+
+    nkv, pps, active = 2, 6, 5
+    lengths = [0, 1, ps - 1, ps, ps + 1, active * ps]
+    b = len(lengths)
+    pools, table, lens = _paged_case(gen, b, nkv, hd, ps, pps, b * pps + 3, int8, lengths)
+    keep = [p.clone() for p in pools if p is not None]
+    q, kn, vn = randn(gen, b, sq, nkv * r, hd), randn(gen, b, sq, nkv, hd), randn(gen, b, sq, nkv, hd)
+    name = "paged_decode8" if int8 else "paged_decode"
+    before = kernels.launch_counts()[name]
+    got = paged_decode_attention(q, kn, vn, pools[0], pools[1], lens, table, active,
+                                 pools[2], pools[3], layer=0)
+    assert kernels.launch_counts()[name] == before + 1
+    want = paged_decode_attention_plain(q, kn, vn, pools[0], pools[1], lens, table, active,
+                                        pools[2], pools[3], layer=0)
+    assert_close(got, want)
+    assert all(torch.equal(a, b_) for a, b_ in zip([p for p in pools if p is not None], keep))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_identity_table_is_the_static_kernel(gen, int8):
+    """Over an identity page table the paged kernel computes what the static
+    cache's read-only kernel computes on the same contents."""
+    from accessory_tpu_torch.ops.paged_decode import paged_decode_attention
+
+    b, nkv, r, hd, ps, pps, pos = 4, 4, 8, 64, 64, 4, 150
+    s_len = ps * pps
+    if int8:
+        pools = _int8_pools_static(gen, b, nkv, s_len, hd)
+    else:
+        pools = (randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd))
+    q, kn, vn = randn(gen, b, 1, nkv * r, hd), randn(gen, b, 1, nkv, hd), randn(gen, b, 1, nkv, hd)
+    want = (cached_attention_t8 if int8 else cached_attention_t)(q, kn, vn, *pools, pos)
+    # slot-major pages: page j of slot i is the i * pps + j'th physical page
+    paged = [p.reshape(b, nkv, pps, ps, *p.shape[3:]).transpose(0, 1)
+             .reshape(nkv, b * pps, ps, *p.shape[3:]).contiguous() for p in pools]
+    table = torch.arange(b * pps, dtype=torch.int32, device="cuda").reshape(b, pps)
+    lens = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    got = paged_decode_attention(q, kn, vn, paged[0], paged[1], lens, table, None,
+                                 *(paged[2:] if int8 else (None, None)))
+    assert_close(got, want)
+
+
+def _int8_pools_static(gen, b, nkv, s_len, hd):
+    shape = (b, nkv, s_len, hd)
+    return (torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+            torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8),
+            0.005 + 0.015 * torch.rand(shape[:-1], generator=gen, device="cuda"),
+            0.005 + 0.015 * torch.rand(shape[:-1], generator=gen, device="cuda"))
+
+
+def test_paged_decode_refuses(gen):
+    """A call the kernel cannot take raises: head_dim 32, f32 q, int64 lengths."""
+    from accessory_tpu_torch.ops.paged_decode import paged_decode_attention
+
+    pools, table, lens = _paged_case(gen, 2, 2, 64, 16, 4, 12, False, [3, 5])
+    q, kn, vn = randn(gen, 2, 1, 4, 64), randn(gen, 2, 1, 2, 64), randn(gen, 2, 1, 2, 64)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q.float(), kn, vn, pools[0], pools[1], lens, table, layer=0)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, kn, vn, pools[0], pools[1], lens.long(), table, layer=0)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q[..., :32], kn[..., :32], vn[..., :32],
+                               pools[0][..., :32].contiguous(), pools[1][..., :32].contiguous(),
+                               lens, table, layer=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 5, 128])
+def test_paged_write(gen, int8, hd, s):
+    """paged_write_tokens (both entries) against its plain version across
+    page boundaries, a slot whose positions run past its table (TRASH), and
+    k/v as strided views of a wider buffer: the pools outside the TRASH page
+    equal (int8 values equal, scales to f32 rounding)."""
+    from accessory_tpu_torch.ops.paged_write import paged_write_tokens, paged_write_tokens_plain
+
+    n_layers, b, nkv, ps, pps = 3, 4, 2, 64, 4
+    pools, _, _ = _paged_case(gen, b, nkv, hd, ps, pps, b * pps + 2, int8, [0] * b,
+                              layers=n_layers)
+    # distinct pages (no two slots write one page), slot 3's last entry TRASH
+    perm = torch.randperm(b * pps + 1, generator=torch.Generator().manual_seed(s)) + 1
+    table = perm[:b * pps].reshape(b, pps).to(torch.int32)
+    table[3, -1] = 0
+    table = table.cuda()
+    # slot 3's positions run past its table (into TRASH); the others stay inside
+    start = [0, ps - 2, 2 * ps + 7]
+    start = torch.tensor([min(x, pps * ps - s) for x in start] + [pps * ps - 3],
+                         dtype=torch.int32, device="cuda")
+    buf = randn(gen, n_layers, b, s, 3 * nkv * hd)
+    kn = buf[..., :nkv * hd].view(n_layers, b, s, nkv, hd)
+    vn = buf[..., 2 * nkv * hd:].view(n_layers, b, s, nkv, hd)
+    pools = [p for p in pools if p is not None]
+    plain = [p.clone() for p in pools]
+    name = "paged_write_q8" if int8 else "paged_write"
+    before = kernels.launch_counts()[name]
+    paged_write_tokens(*pools[:2], kn, vn, table, start, *pools[2:])
+    assert kernels.launch_counts()[name] == before + 1
+    paged_write_tokens_plain(*plain[:2], kn, vn, table, start, *plain[2:])
+    torch.cuda.synchronize()
+    for got, want in zip(pools, plain):
+        g, w = got[:, :, 1:], want[:, :, 1:]
+        if got.dtype == torch.float32:
+            assert not bool(((g - w).abs() > 2e-7 * w.abs()).any())
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_small_model_batcher_cuda_matches_cpu(gen, kv_dtype):
+    """A 2-layer dim-256 W4 GQA model through the ContinuousBatcher on the
+    card and on the CPU: the same greedy tokens wherever the CPU's logits are
+    sure (printed margin), the allocator balanced, and the card run launched
+    the paged kernels and no static-cache attention."""
+    from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
+
+    class Tok:
+        bos_id, eos_id, n_words = 510, 511, 512
+
+        def encode(self, s, bos, eos):
+            return [self.bos_id] * bos + list(s.encode())
+
+        def decode(self, t):
+            return ",".join(map(str, t))
+
+        def encode_segment(self, s):
+            return self.encode(s, False, False)
+
+        encode_wo_prefix_space = encode_segment
+
+    args = LLaMAArgs(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512,
+                     multiple_of=128, max_seq_len=256)
+    params = quantize_params(llama.init_params(args, seed=4))
+    cpu = _to(params, "cpu")
+    prompts = ["the quick brown fox", "hello", "a" * 70, "jumps over the lazy dog"]
+    outs = {}
+    for device, p in (("cuda", params), ("cpu", cpu)):
+        kernels.reset_launch_counts()
+        cb = ContinuousBatcher(llama, args, p, Tok(), slots=2, page_size=64, decode_steps=4,
+                               kv_dtype=kv_dtype, device=device)
+        outs[device] = cb.run(prompts, max_gen_len=12)
+        assert cb.pool.free_pages == cb.total_pages - 1
+        assert all(not v for v in cb.slot_pages.values())
+        counts = kernels.launch_counts()
+        if device == "cuda":
+            sfx = "8" if kv_dtype else ""
+            assert counts[f"paged_decode{sfx}"] > 0 and counts[f"paged_write{'_q8' if kv_dtype else ''}"] > 0
+            assert counts["flash_attention"] > 0 and counts["decode_attention"] == 0
+    assert all(len(o) > 0 for o in outs["cuda"])
+    same = sum(a == b_ for a, b_ in zip(outs["cuda"], outs["cpu"]))
+    print(f"batcher cuda vs cpu: {same} of {len(prompts)} texts equal")

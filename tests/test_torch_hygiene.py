@@ -18,8 +18,11 @@ import torch
 import accessory_tpu_torch
 from accessory_tpu_torch.checkpoint import load_checkpoint, load_checkpoint_list
 from accessory_tpu_torch.config import LLaMAArgs
-from accessory_tpu_torch.convert import params_from_jax
+from accessory_tpu_torch.convert import paged_cache_from_jax, params_from_jax
+from accessory_tpu_torch.demos.server import serve
+from accessory_tpu_torch.engine import kvcache
 from accessory_tpu_torch.engine.generate import Generator
+from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
 from accessory_tpu_torch.meta import MetaModel
 from accessory_tpu_torch.models import llama
 
@@ -33,7 +36,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "accessory_tpu_torch.ops.quant_matmul_planes" in mods
+    for name in ("ops.quant_matmul_planes", "ops.paged_decode", "ops.paged_write",
+                 "engine.kvcache", "engine.scheduler", "demos.server", "data.conversation"):
+        assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -112,7 +117,9 @@ def test_no_jax_or_reference_imports_in_source():
 @pytest.mark.parametrize("fn", [llama.init_kv_cache, llama.init_params, params_from_jax,
                                 Generator.__init__, MetaModel.__init__,
                                 MetaModel.from_pretrained.__func__, load_checkpoint,
-                                load_checkpoint_list])
+                                load_checkpoint_list, llama.init_paged_cache,
+                                kvcache.init_paged_cache, paged_cache_from_jax,
+                                ContinuousBatcher.__init__, serve])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -128,3 +135,8 @@ def test_default_device_raises_without_cuda():
         llama.init_kv_cache(args, 1, 8)
     with pytest.raises((RuntimeError, AssertionError)):
         llama.init_params(args)
+    with pytest.raises((RuntimeError, AssertionError)):
+        llama.init_paged_cache(args, slots=1, total_pages=3, page_size=8)
+    params = llama.init_params(args, device="cpu")
+    with pytest.raises((RuntimeError, AssertionError)):
+        ContinuousBatcher(llama, args, params, None, slots=1, page_size=8)

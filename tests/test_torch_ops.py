@@ -277,7 +277,7 @@ def test_unported_paths_name_their_queue_item():
     assert cache["k"][0].dtype == torch.int8 and cache["vs"][0].shape == (1, 2, 16)
     with pytest.raises(KeyError, match="A9"):
         get_model_module("mixtral")
-    # per-row positions belong to the paged cache and its scheduler
+    # per-row positions are served by the paged cache, whose path the message names
     q = torch.zeros((1, 1, 2, 64))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="paged_cached_attention"):
         tda.cached_attention_t(q, q, q, q.transpose(1, 2), q.transpose(1, 2), torch.tensor([3]))

@@ -337,11 +337,11 @@ def test_stacked_write8(pos, sq):
 
 
 def test_positions_are_one_int():
-    """The port's paths share one position per batch: an int. A tensor raises
-    and names the queue item that brings per-row positions."""
+    """The static cache's paths share one position per batch: an int. A
+    tensor raises and names the paged path, which serves per-row positions."""
     q = torch.zeros((1, 1, 2, 64))
     c = torch.zeros((1, 2, 8, 64))
     for fn, args in ((tda.cached_attention_t, (q, q, q, c, c)),
                      (tda.decode_attention_update, (q, q, q, c, c))):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="paged_cached_attention"):
             fn(*args, torch.tensor([3]))
