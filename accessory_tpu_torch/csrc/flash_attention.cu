@@ -18,6 +18,11 @@
 // shorter prefills (the main path's 128-token bucket) are bound by bytes,
 // longer ones by the tensor cores. This first version keeps Q fragments in
 // registers and does not double-buffer K/V, so it runs well below either.
+//
+// For training, an optional lse (B, NQ, S) f32 output receives each row's
+// log-sum-exp of the scaled scores, m + log(l) from the f32 running max and
+// the f32 sum (before P is rounded to bf16): csrc/flash_attention_bwd.cu
+// recomputes P = exp(s * scale - lse) from it.
 
 #include "common.cuh"
 
@@ -30,7 +35,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
                  const bf16* __restrict__ k, long long k_bs, long long k_ts,
                  const bf16* __restrict__ v, long long v_bs, long long v_ts,
-                 bf16* __restrict__ out, int S, int NQ, int NKV, float scale) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int S, int NQ, int NKV,
+                 float scale) {
   constexpr int LD = HD + 8;  // padded smem row (bf16), 16-byte aligned
   constexpr int KT = HD / 16; // k16 steps over the head dim
   constexpr int DT = HD / 8;  // n8 tiles over the head dim
@@ -146,6 +152,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    float* lp = lse + ((size_t)b * NQ + hq) * S;
+    if (r0 < S) lp[r0] = m0 + logf(l0);
+    if (r1 < S) lp[r1] = m1 + logf(l1);
+  }
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = d * 8 + 2 * t;
@@ -164,12 +175,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
 
 // q (B, S, NQ, HD), k/v (B, S, NKV, HD), each with the given batch and token
 // strides (elements) and heads contiguous inside a token; out (B, S, NQ, HD)
-// contiguous. Requires HD in {64, 128}, NQ % NKV == 0, even strides.
+// contiguous; lse (B, NQ, S) f32 or null (serving passes null). Requires HD
+// in {64, 128}, NQ % NKV == 0, even strides.
 extern "C" int flash_attention_fwd(const void* q, long long q_bs, long long q_ts,
                                    const void* k, long long k_bs, long long k_ts,
                                    const void* v, long long v_bs, long long v_ts, void* out,
                                    int B, int S, int NQ, int NKV, int HD, float scale,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (S < 1 || NKV < 1 || NQ % NKV != 0) return (int)cudaErrorInvalidValue;
   dim3 grid((S + BQ - 1) / BQ, NQ, B);
@@ -177,12 +189,13 @@ extern "C" int flash_attention_fwd(const void* q, long long q_bs, long long q_ts
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* o = static_cast<bf16*>(out);
+  float* l = static_cast<float*>(lse);
   if (HD == 64) {
     flash_fwd_kernel<64><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                   v_ts, o, S, NQ, NKV, scale);
+                                                   v_ts, o, l, S, NQ, NKV, scale);
   } else if (HD == 128) {
     flash_fwd_kernel<128><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                    v_ts, o, S, NQ, NKV, scale);
+                                                    v_ts, o, l, S, NQ, NKV, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -14,8 +14,9 @@ the launch when it returned 0, and nowhere else, so a run can show which
 kernels its main path went through (``launch_counts`` /
 ``reset_launch_counts``). Counts are kept per C entry point (``KERNELS``), not
 per source file: the GQA and MHA decode kernels, their bf16 and int8, fused
-and read-only forms, each of the cache writes, and the paged decode and
-paged write entries show their own count.
+and read-only forms, each of the cache writes, the paged decode and
+paged write entries, and the two passes of the flash-attention backward show
+their own count.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention_mha",
-           "flash_attention", "kv_write", "paged_decode", "paged_write")
+           "flash_attention", "kv_write", "paged_decode", "paged_write", "w4_dequant",
+           "flash_attention_bwd")
 # launch-count name of each C entry point -> the source that holds it
 KERNELS = {
     "w4_matmul": "w4_matmul",
@@ -59,6 +61,9 @@ KERNELS = {
     "paged_decode8": "paged_decode",
     "paged_write": "paged_write",
     "paged_write_q8": "paged_write",
+    "w4_dequant": "w4_dequant",
+    "flash_attention_bwd_dq": "flash_attention_bwd",
+    "flash_attention_bwd_dkdv": "flash_attention_bwd",
 }
 # -Xptxas=-v: registers, shared memory and spills land in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,6 +1,6 @@
 """MetaModel facade over the port. Port of ``accessory_tpu/meta.py``
-(``__init__``, ``quantize``, ``generate``, ``stream_generate``,
-``save_pretrained``, ``from_pretrained``). A checkpoint directory written by
+(``__init__``, ``get_quant_blocklist``, ``quantize``, ``generate``,
+``stream_generate``, ``save_pretrained``, ``from_pretrained``). A checkpoint directory written by
 either package's ``save_pretrained`` loads in the other."""
 
 from __future__ import annotations
@@ -68,6 +68,12 @@ class MetaModel:
                                               temperature=temperature, top_p=top_p,
                                               additional_stop_symbols=additional_stop_symbols,
                                               seed=seed)
+
+    def get_quant_blocklist(self) -> List[str]:
+        """Model-specific path substrings never quantized (the module's
+        ``get_quant_blocklist``, none for LLaMA)."""
+        fn = getattr(self.module, "get_quant_blocklist", None)
+        return list(fn(self.args)) if fn else []
 
     def quantize(self, bits: int = 4, group_size: int = 128):
         from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params

@@ -1,5 +1,6 @@
-"""LLaMA forward for serving: prefill, a chunk after cached tokens, and
-one-token decode, over a per-layer or a stacked KV cache.
+"""LLaMA forward: training (no cache), and for serving a prefill, a chunk
+after cached tokens and one-token decode, over a per-layer or a stacked KV
+cache.
 
 Port of ``accessory_tpu/models/llama.py`` (init_params, init_kv_cache,
 _block, forward): its unrolled per-layer decode path and its stacked-cache
@@ -20,6 +21,14 @@ int8 KV cache (``kv_dtype="int8"``: int8 ``k``/``v`` pools plus f32 ``ks``/
 kernels; the prefill still attends over the exact new k/v and only the write
 quantizes. The output head is the final RMSNorm plus a dense matmul, outside
 any kernel, as in the JAX package.
+
+``forward`` without a cache is the training forward (reference :552-567):
+every block attends causally through ``ops.flash_attention`` (differentiable:
+the flash backward kernel on the card) and composes its W4 matmuls unfused
+(``allow_fused=False``: the fused kernel call has no backward), each layer
+optionally checkpointed (``util.remat_policy``). ``init_params`` adds the
+PEFT leaves (``lora_rank``: lora_a random, lora_b zero; ``bias_tuning``:
+zero biases) and ``get_trainable_params_filter`` names the trainable ones.
 
 ``init_paged_cache`` / ``forward_paged`` (reference :574-731) serve the
 continuous batcher over a paged KV cache (engine/kvcache.py): per-slot
@@ -46,7 +55,7 @@ from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached
 from accessory_tpu_torch.ops.linear import module_linear, module_linear_nr
 from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
-from accessory_tpu_torch.util import resolve_kv_dtype
+from accessory_tpu_torch.util import remat_policy, resolve_kv_dtype
 
 Params = Dict[str, Any]
 
@@ -67,7 +76,12 @@ def torch_dtype(name) -> torch.dtype:
 
 def init_params(args: LLaMAArgs, seed: int = 0, device="cuda") -> Params:
     """Random per-layer params from ``seed`` (normal, fan-in scaled; the exact
-    init does not matter for serving). Norm weights start at one."""
+    init does not matter for serving). Norm weights start at one. PEFT leaves
+    (reference :106-126): with ``lora_rank > 0`` every projection gets
+    ``lora_a`` (in_dim, r) random and ``lora_b`` (r, out_dim) zero, so the
+    adapter starts as the identity; with ``bias_tuning`` zero biases. They
+    are drawn after the base weights, which a seed gives the same with or
+    without them."""
     dtype = torch_dtype(args.dtype)
     hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
     ffn = args.ffn_hidden_dim
@@ -96,12 +110,39 @@ def init_params(args: LLaMAArgs, seed: int = 0, device="cuda") -> Params:
                 "w3": {"weight": dense((args.dim, ffn))},
             },
         })
-    return {
+    params = {
         "tok_embeddings": {"weight": tok},
         "layers": layers,
         "norm": {"weight": torch.ones(args.dim, dtype=dtype, device=device)},
         "output": {"weight": dense((args.dim, args.vocab_size))},
     }
+    dims = {("attention", "wq"): (args.dim, nq * hd), ("attention", "wk"): (args.dim, nkv * hd),
+            ("attention", "wv"): (args.dim, nkv * hd), ("attention", "wo"): (nq * hd, args.dim),
+            ("feed_forward", "w1"): (args.dim, ffn), ("feed_forward", "w2"): (ffn, args.dim),
+            ("feed_forward", "w3"): (args.dim, ffn)}
+    for layer in layers:
+        for (part, name), (din, dout) in dims.items():
+            mod = layer[part][name]
+            if args.lora_rank > 0:
+                mod["lora_a"] = dense((din, args.lora_rank))
+                mod["lora_b"] = torch.zeros((args.lora_rank, dout), dtype=dtype, device=device)
+            if args.bias_tuning:
+                mod["bias"] = torch.zeros(dout, dtype=dtype, device=device)
+    return params
+
+
+def get_trainable_params_filter(args: LLaMAArgs):
+    """Name predicate of the trainable subset (reference :129): PEFT trains
+    only lora / bias / norm leaves, full finetuning everything."""
+    if not (args.lora_rank > 0 or args.bias_tuning or args.norm_tuning):
+        return lambda name: True
+
+    def f(name: str) -> bool:
+        return ((args.lora_rank > 0 and "lora" in name)
+                or (args.bias_tuning and name.endswith("bias"))
+                or (args.norm_tuning and "norm" in name))
+
+    return f
 
 
 def init_kv_cache(args: LLaMAArgs, batch: int, max_len: Optional[int] = None,
@@ -156,9 +197,12 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
     b, sq, _ = h.shape
     hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
     att = layer["attention"]
+    # training (no cache) differentiates through every matmul: the fused
+    # kernel call has no backward, so the unfused composition is forced
+    fuse_ok = cache_k is not None
     if "wqkv" in att:
         qkv = module_linear_nr(h, att["wqkv"], norm=layer["attention_norm"],
-                               eps=args.norm_eps, rope=rope_t)
+                               eps=args.norm_eps, rope=rope_t, allow_fused=fuse_ok)
         q = qkv[..., :nq * hd].reshape(b, sq, nq, hd)
         k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, sq, nkv, hd)
         v = qkv[..., (nq + nkv) * hd:].reshape(b, sq, nkv, hd)
@@ -173,7 +217,9 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
         q = apply_rope(q, cos, sin, args.rope_style)
         k = apply_rope(k, cos, sin, args.rope_style)
 
-    if update_cache and cache_ks is not None:
+    if cache_k is None:
+        out = attention(q, k, v, causal=True, q_offset=0)
+    elif update_cache and cache_ks is not None:
         out, k, v, _, _ = decode_attention_update8(q, k, v, cache_k, cache_v, cache_ks,
                                                    cache_vs, pos, fused_attn_write)
     elif update_cache:
@@ -183,17 +229,21 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
     else:
         out = cached_attention_t(q, k, v, cache_k, cache_v, pos)
 
-    h = module_linear_nr(out.reshape(b, sq, nq * hd), att["wo"], residual=h)
+    h = module_linear_nr(out.reshape(b, sq, nq * hd), att["wo"], residual=h,
+                         allow_fused=fuse_ok)
     ff = layer["feed_forward"]
     if "w13" in ff:
-        gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps)
+        gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps,
+                              allow_fused=fuse_ok)
         hidden = gu.shape[-1] // 2
         gate = torch.nn.functional.silu(gu[..., :hidden])
-        h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h)
+        h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h,
+                             allow_fused=fuse_ok)
     else:
         x = rms_norm(h, layer["ffn_norm"]["weight"], args.norm_eps)
         gate = torch.nn.functional.silu(module_linear(x, ff["w1"]))
-        h = module_linear_nr(gate * module_linear(x, ff["w3"]), ff["w2"], residual=h)
+        h = module_linear_nr(gate * module_linear(x, ff["w3"]), ff["w2"], residual=h,
+                             allow_fused=fuse_ok)
     return h, k, v
 
 
@@ -208,12 +258,17 @@ def _check_layers(params: Params) -> None:
 
 
 def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
-            cache: Dict[str, Any], cur_pos: int = 0, fused_attn_write: bool = True
-            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
+            fused_attn_write: bool = True, remat=False
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """A chunk of tokens at position ``cur_pos`` (a prefill at 0, a chunk
     after cached tokens, or one decode token) over per-layer params, fused
     by ``quant.fuse.fuse_for_decode`` or not. Returns (logits f32
     (b, sq, vocab), cache); the cache is updated in place.
+
+    ``cache=None``: the training forward (reference :552-567), differentiable,
+    returning (logits f32, None); ``remat`` (``util.remat_policy``)
+    checkpoints each layer, whose forward then runs again in the backward.
 
     Per-layer pools (lists): a decode step's attention writes its own layer's
     slot (one fused kernel, or read-only attention plus a one-token write with
@@ -223,6 +278,19 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     _check_layers(params)
     h = params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
+    if cache is None:
+        cos, sin, _, _ = _rope_tables(args.head_dim, sq, args.rope_theta, args.rope_scaling,
+                                      args.rope_style, args.n_heads + args.kv_heads,
+                                      args.kv_heads, str(h.device))
+        checkpoint = remat_policy(remat)
+
+        def block(h, layer):
+            return _block(h, layer, args, cos, sin, 0, None, None, False)[0]
+
+        for layer in params["layers"]:
+            h = block(h, layer) if checkpoint is None else checkpoint(block, h, layer)
+        logits = module_linear_nr(h, params["output"], norm=params["norm"], eps=args.norm_eps)
+        return logits.to(torch.float32), None
     stacked = isinstance(cache["k"], torch.Tensor)
     s_len = cache["k"].shape[3] if stacked else cache["k"][0].shape[2]
     cos_full, sin_full, cos_rows, sin_rows = _rope_tables(

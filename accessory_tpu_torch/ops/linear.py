@@ -39,15 +39,20 @@ def module_linear(x: torch.Tensor, mod: dict) -> torch.Tensor:
 
 def module_linear_nr(x: torch.Tensor, mod: dict, *, norm: Optional[dict] = None,
                      eps: float = 1e-5, residual: Optional[torch.Tensor] = None,
-                     rope: Optional[tuple] = None) -> torch.Tensor:
+                     rope: Optional[tuple] = None, allow_fused: bool = True) -> torch.Tensor:
     """``residual + rope(module_linear(rms_norm(x), mod))``, folded into one
     W4 kernel call when the weight allows it.
 
     ``rope``: (cos_row, sin_row, style, head_dim) decode-RoPE rows
-    (ops.rope.rope_rows) for the fused wqkv projection."""
+    (ops.rope.rope_rows) for the fused wqkv projection. ``allow_fused=False``
+    forces the unfused composition: training passes it, because the fused
+    kernel call has no backward (only the plain W4 product does), and e.g.
+    norm-only QPEFT differentiates through wo / w2 modules that would
+    otherwise fuse (reference ops/linear.py:37-71)."""
     w = mod.get("weight")
     m_rows = x.numel() // x.shape[-1]
-    if (m_rows < BIGM_ROWS and isinstance(w, QuantizedWeight) and w.layout == "folded"
+    if (allow_fused and m_rows < BIGM_ROWS and isinstance(w, QuantizedWeight)
+            and w.layout == "folded"
             and "lora_a" not in mod and mod.get("bias") is None and x.shape[-1] <= w.in_dim):
         return quant_matmul(x, w, norm_weight=None if norm is None else norm["weight"],
                             norm_eps=eps, residual=residual, rope=rope)

@@ -1,10 +1,12 @@
-"""W4A16 matmul for many rows (M >= 1024: a batched prefill).
+"""W4A16 matmul for many rows (M >= 1024: a batched prefill), and the
+one-pass W4 dequant of the QPEFT backward.
 
-Port of ``accessory_tpu/ops/quant_matmul_bigm.py::planes_qmm_bigm``. The CUDA
-kernel is ``csrc/w4_matmul_bigm.cu`` (a 128-row tile, so a dequantized weight
-stage is shared by twice the rows of ``planes_qmm``'s tile kernel);
-``planes_qmm_bigm_plain`` is its plain PyTorch version and the path for
-tensors on the CPU.
+Port of ``accessory_tpu/ops/quant_matmul_bigm.py::planes_qmm_bigm`` and
+``planes_dequant``. The CUDA kernels are ``csrc/w4_matmul_bigm.cu`` (a
+128-row tile, so a dequantized weight stage is shared by twice the rows of
+``planes_qmm``'s tile kernel) and ``csrc/w4_dequant.cu``;
+``planes_qmm_bigm_plain`` and ``quant.qtensor.dequantize_weight`` are their
+plain PyTorch versions and the paths for tensors on the CPU.
 
 Numerics are the TPU kernel's and differ from ``planes_qmm``'s: here every
 weight is dequantized ``w = q * s - zs`` in f32 and rounded once to bf16, and
@@ -27,6 +29,8 @@ from accessory_tpu_torch.quant.qtensor import QuantizedWeight, dequantize_weight
 
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.L, kernels.P, kernels.P, kernels.P,
          kernels.I, kernels.I, kernels.P, kernels.P]
+_DEQUANT_ARGS = [kernels.P, kernels.P, kernels.P, kernels.P, kernels.I, kernels.I, kernels.I,
+                 kernels.I, kernels.P]
 
 
 def planes_qmm_bigm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -74,6 +78,45 @@ def planes_qmm_bigm_plain(x2d, packed, scales, zs, *, in_dim: int,
                          layout="folded")
     w = dequantize_weight(qw, torch.bfloat16)[:x2d.shape[1]]
     return (x2d.to(torch.float32) @ w.to(torch.float32)).to(x2d.dtype)
+
+
+def planes_dequant(packed: torch.Tensor, scales: torch.Tensor, zs: torch.Tensor, *,
+                   in_dim: int, group_size: int,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Folded W4 (in_dim, N) -> dense (in_dim, N) ``dtype`` (bf16 or f32):
+    q * s - zs in f32, cast once. packed (in_dim/8, N) int32 words; scales /
+    zs (>= in_dim/gs, N) f32. Bit-equal to ``dequantize_weight``, which is
+    its plain version and the path for tensors on the CPU."""
+    if packed.device.type == "cpu":
+        qw = QuantizedWeight(packed=packed, scales=scales, zeros=zs, bits=4,
+                             group_size=group_size, in_dim=in_dim, out_dim=packed.shape[1],
+                             layout="folded")
+        return dequantize_weight(qw, dtype)
+    if packed.device.type != "cuda":
+        raise RuntimeError(f"planes_dequant: no kernel for device {packed.device}")
+    n = packed.shape[1]
+
+    def check(ok, msg):
+        if not ok:
+            raise ValueError(f"planes_dequant: {msg}")
+
+    check(dtype in (torch.bfloat16, torch.float32), f"dtype {dtype} (bf16 or f32)")
+    check(in_dim % group_size == 0 and group_size % 8 == 0,
+          f"in_dim {in_dim} must be a multiple of group_size {group_size}, itself of 8")
+    check(packed.dtype == torch.int32 and packed.is_contiguous()
+          and packed.shape[0] * 8 >= in_dim and n % 8 == 0 and packed.data_ptr() % 16 == 0,
+          "packed must be contiguous int32 (in_dim/8, N) with N a multiple of 8")
+    for t in (scales, zs):
+        check(t.device == packed.device and t.dtype == torch.float32 and t.is_contiguous()
+              and t.shape[1] == n and t.shape[0] >= in_dim // group_size
+              and t.data_ptr() % 16 == 0, "scales/zs must be contiguous f32 (G, N) on "
+              "packed's device")
+    out = torch.empty((in_dim, n), dtype=dtype, device=packed.device)
+    fn = kernels.function("w4_dequant", "w4_dequant", _DEQUANT_ARGS)
+    rc = fn(packed.data_ptr(), scales.data_ptr(), zs.data_ptr(), out.data_ptr(), in_dim, n,
+            group_size, int(dtype == torch.float32), kernels.stream_ptr(packed))
+    kernels.check("w4_dequant", rc)
+    return out
 
 
 def _check(ok: bool, msg: str) -> None:

@@ -16,6 +16,12 @@ kernel layout, produced by ``quantize_params`` and ``params_from_jax``) holds
 zs = zeros * scales in the ``zeros`` field, dequant q * s - zs, the same math
 as the TPU planes kernel (ops/quant_matmul_planes.py there). One layout
 serves the CPU and the GPU alike.
+
+The plain (no-fusion) W4 product is differentiable in x (``_KernelQmm``, the
+port of the reference's ``_kernel_qmm`` custom VJP): QPEFT trains LoRA, bias
+and norm weights over a frozen W4 base, so activation gradients cross every
+frozen matmul as dx = g @ dense_weight(w)^T; packed words, scales and zeros
+get no gradient.
 """
 
 from __future__ import annotations
@@ -131,6 +137,56 @@ def dequantize_weight(qw: QuantizedWeight, dtype: Optional[torch.dtype] = None) 
     return w.reshape(qw.in_dim, qw.out_dim).to(dtype)
 
 
+def dense_weight(qw: QuantizedWeight, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Dense (in_dim, out_dim) weight of either layout. The folded layout goes
+    through ``ops.quant_matmul_bigm.planes_dequant`` (the one-pass dequant
+    kernel on the card, ``dequantize_weight`` on the CPU); port of the
+    reference's dense_weight (quant/qtensor.py:285-315) for the port's
+    layouts."""
+    dtype = dtype or qw.act_dtype
+    if qw.layout == "std":
+        return dequantize_weight(qw, dtype)
+    if qw.layout != "folded" or qw.bits != 4:
+        raise NotImplementedError(f"dense_weight for layout {qw.layout!r} W{qw.bits}: "
+                                  f"{W3_W8_QUEUE}")
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_dequant
+
+    return planes_dequant(qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                          group_size=qw.group_size, dtype=dtype)
+
+
+def _kernel_qmm_impl(x2d: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
+    """The no-fusion W4 product: ``planes_qmm`` below BIGM_ROWS rows, the
+    many-row kernel from there on (reference :333-357)."""
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm
+    from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm
+
+    if x2d.shape[0] >= BIGM_ROWS:
+        return planes_qmm_bigm(x2d, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                               group_size=qw.group_size)
+    return planes_qmm(x2d, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                      group_size=qw.group_size)
+
+
+class _KernelQmm(torch.autograd.Function):
+    """x2d @ W4 with the reference's backward (quant/qtensor.py:373-379):
+    dx = (g in the weight's dtype) @ dense_weight(w)^T, cast to the
+    activation dtype; the weight's arrays get no gradient. The product is a
+    plain matmul outside any kernel, as the reference leaves it to XLA."""
+
+    @staticmethod
+    def forward(ctx, x2d, qw):
+        ctx.qw = qw
+        ctx.kx = x2d.shape[1]
+        return _kernel_qmm_impl(x2d, qw)
+
+    @staticmethod
+    def backward(ctx, g):
+        qw = ctx.qw
+        w = dense_weight(qw)[:ctx.kx]
+        return torch.matmul(g.to(w.dtype), w.t()).to(qw.act_dtype), None
+
+
 def quant_matmul(x: torch.Tensor, qw: QuantizedWeight,
                  norm_weight: Optional[torch.Tensor] = None, norm_eps: float = 1e-5,
                  residual: Optional[torch.Tensor] = None,
@@ -140,24 +196,27 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedWeight,
     residual add, all in one W4 kernel call (ops/quant_matmul_planes.py).
     Activations narrower than a padded in_dim count as zero-padded.
 
-    A call of ``BIGM_ROWS`` rows or more without fusion operands goes to the
-    many-row kernel (ops/quant_matmul_bigm.py), as in the JAX package; with
-    fusion operands it stays on ``planes_qmm`` (whose CUDA kernel refuses that
-    many rows: ``ops.linear.module_linear_nr`` composes such calls unfused)."""
+    A call without fusion operands is the differentiable ``_KernelQmm``
+    (when x needs a gradient) and goes to the many-row kernel
+    (ops/quant_matmul_bigm.py) from ``BIGM_ROWS`` rows on, as in the JAX
+    package; with fusion operands it stays on ``planes_qmm``, which has no
+    backward (training passes ``allow_fused=False`` to
+    ``ops.linear.module_linear_nr``) and whose CUDA kernel refuses that many
+    rows (``module_linear_nr`` composes such calls unfused)."""
     if qw.bits != 4:
         raise NotImplementedError(f"W{qw.bits} matmul: {W3_W8_QUEUE}")
     if qw.layout != "folded":
         raise ValueError("quant_matmul serves the folded layout; convert with "
                          "to_folded_layout (quantize_params does)")
-    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm
     from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm
 
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).to(qw.act_dtype)
-    if (x2d.shape[0] >= BIGM_ROWS and norm_weight is None and residual is None
-            and rope is None):
-        out = planes_qmm_bigm(x2d, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
-                              group_size=qw.group_size)
+    if norm_weight is None and residual is None and rope is None:
+        if torch.is_grad_enabled() and x2d.requires_grad:
+            out = _KernelQmm.apply(x2d, qw)
+        else:
+            out = _kernel_qmm_impl(x2d, qw)
         return out.reshape(*lead, qw.out_dim)
     res2d = None if residual is None else residual.reshape(-1, qw.out_dim)
     cos_row, sin_row, style, hd = rope if rope is not None else (None, None, "", 0)

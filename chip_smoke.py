@@ -5,7 +5,8 @@
                                                checkpoint,parity8,paged_parity,serve8,stream,
                                                stacked,batcher,batcher8,preempt,server,
                                                decode8,decode_unfused,
-                                               parity7b,serve7b,decode7b] [--out FILE]
+                                               parity7b,serve7b,decode7b,train_parity,
+                                               train_qpeft7b,train_full,finetune] [--out FILE]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -70,7 +71,24 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   decode7b  that model at batch 8, 1024-token cache, 50 forward steps from
             position 512, in turns bf16, int8, int8, bf16 KV: ms per step
             against the bytes bound; then 20 steps with fused_attn_write=False
-            for each cache type (the read-only one-query-head kernels).
+            for each cache type (the read-only one-query-head kernels);
+  train_parity  TinyLlama width, 2 layers, QPEFT (W4 base, LoRA 16, bias and
+            norm tuning), bf16, batch 4 x 256, every layer checkpointed: one
+            training step on the CPU (plain versions) and one on the card
+            (kernels) from the same weights and batch: loss, every trainable
+            gradient and the updated leaves within stated tolerances;
+  train_qpeft7b  the repo's QPEFT configuration (bench_all.py's LLaMA2-7B: 32
+            layers, W4 g128, LoRA 16, bias and norm tuning, batch 8 x 512, full
+            remat): 1 warm-up and 5 timed steps: ms per step, tokens/s, model
+            flops per second, peak memory, the losses (finite, falling: the same
+            batch each step), launches per step (forward, recompute, backward),
+            a profiled step split by kernel with the device's idle share;
+  train_full  the 700M-class full finetune (dim 2048, 12 layers, 16 / 8 heads,
+            batch 2 x 2048, f32 masters, AdamW on every leaf), the same figures;
+  finetune  main_finetune.main at tiny size: a generated alpaca JSON through a
+            YAML META config and the byte tokenizer, one epoch with --quant
+            --only_save_trainable, the optimizer state read back bit for bit,
+            and a second call that resumes for the next epoch.
 The line before the last holds the kernel table ({"kernels": [...]}, launches
 summed over the counted main-path runs); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
@@ -90,6 +108,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 
 TINYLLAMA = dict(dim=2048, n_layers=22, n_heads=32, n_kv_heads=4, vocab_size=32000,
@@ -101,7 +120,8 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
                 "decode_attention_mha8", "decode_attention_mha_ro", "decode_attention_mha8_ro",
                 "flash_attention", "kv_write", "kv_write_q8", "kv_write_col", "kv_write_col_q8",
                 "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8",
-                "paged_decode", "paged_decode8", "paged_write", "paged_write_q8")
+                "paged_decode", "paged_decode8", "paged_write", "paged_write_q8",
+                "w4_dequant", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
@@ -134,19 +154,21 @@ class ByteTokenizer:
         return self.encode(s, False, False)
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3) -> float:
+def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3, by=None):
     """Device ms per call over round-robin argument sets: the summed duration
     of every kernel the calls launched, from the profiler's CUDA trace, so
     host overhead between launches is not counted; the median of ``repeats``
     traces, so one stray in a trace does not make the reading. A trace
     that comes back without device events (the CUDA trace is sometimes
     empty) is taken again, up to 5 times, and counted in ``_empty_traces``;
-    then it raises: no other clock stands in for it."""
+    then it raises: no other clock stands in for it. ``by``: kernel-name
+    substrings; then {substring: ms per call} of the kernels whose name holds
+    each."""
     global _empty_traces
     import torch
     from torch.autograd import DeviceType
@@ -163,15 +185,21 @@ def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3) -> float:
                 for i in range(n):
                     fn(*arg_sets[i % len(arg_sets)])
                 torch.cuda.synchronize()
-            dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA)
-            if dev_us > 0:
+            events = [(e.key, getattr(e, "self_device_time_total", 0))
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if sum(us for _, us in events) > 0:
                 break
             _empty_traces += 1
         else:
             raise RuntimeError("time_ms: 5 profiler traces in a row held no device time")
-        per_call.append(dev_us / 1e3 / n)
-    return statistics.median(per_call)
+        if by is None:
+            per_call.append(sum(us for _, us in events) / 1e3 / n)
+        else:
+            per_call.append({sub: sum(us for key, us in events if sub in key) / 1e3 / n
+                             for sub in by})
+    if by is None:
+        return statistics.median(per_call)
+    return {sub: statistics.median(c[sub] for c in per_call) for sub in by}
 
 
 def wall_ms(fn, arg_sets, min_iters: int = 30) -> float:
@@ -285,8 +313,9 @@ class KernelRows:
         x = torch.randn(shape, generator=self.gen, device="cuda") * scale
         return x.to(dtype or torch.bfloat16)
 
-    def record(self, kernel, shape, err, k_ms, k_wall, p_ms, lib_ms, nbytes, flops, **extra):
-        b_ms, b_by = bound_ms(nbytes, flops)
+    def record(self, kernel, shape, err, k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
+               rate=BF16_FLOPS_PER_S, **extra):
+        b_ms, b_by = bound_ms(nbytes, flops, rate)
         row = {"kernel": kernel, "shape": shape, "max_abs_err": err[0], "max_rel_err": err[1],
                "ms": k_ms, "wall_ms": k_wall, "plain_ms": p_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops, **extra}
@@ -824,6 +853,102 @@ def _kernels_paged_write(kr, tag, n_layers, b, s, nkv, hd, int8, ps=64, pps=8):
     del sets
 
 
+def _kernels_dequant(kr, specs):
+    """planes_dequant (the QPEFT backward's one pass per frozen W4 weight)
+    against dequantize_weight, bit for bit, at the training path's weight
+    shapes (in_dim as quantize_params pads it)."""
+    import torch
+
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_dequant
+    from accessory_tpu_torch.quant.qtensor import (dequantize_weight, quantize_weight,
+                                                   to_folded_layout)
+
+    for tag, k, n in specs:
+        nbytes = k * n / 2 + k * n * 2 + 2 * (k // 128) * n * 4
+        sets = []
+        for _ in range(n_copies(nbytes, most=8)):
+            qw = to_folded_layout(quantize_weight(kr.randn(k, n, dtype=torch.float32,
+                                                           scale=k ** -0.5), 4, 128))
+            sets.append((qw.packed, qw.scales, qw.zeros))
+        qw_args = dict(in_dim=k, group_size=128)
+        got = planes_dequant(*sets[0], **qw_args)
+        want = dequantize_weight(_folded_from(sets[0], k, n))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"w4_dequant {tag}: not bit-equal to dequantize_weight "
+                                 f"({int((got != want).sum())} elements differ)")
+        fn = lambda p, sc, z: planes_dequant(p, sc, z, **qw_args)  # noqa: E731
+        k_ms = time_ms(fn, sets)
+        k_wall = wall_ms(fn, sets)
+        p_ms = time_ms(lambda p, sc, z: dequantize_weight(_folded_from((p, sc, z), k, n)),
+                       sets[:1], min_iters=5)
+        kr.record("w4_dequant", f"{tag} K={k} N={n} g=128", (0.0, 0.0), k_ms, k_wall, p_ms,
+                  None, nbytes, 2.0 * k * n, rate=F32_FLOPS_PER_S)
+        del sets
+
+
+def _folded_from(arrays, k, n):
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    p, sc, z = arrays
+    return QuantizedWeight(packed=p, scales=sc, zeros=z, bits=4, group_size=128, in_dim=k,
+                           out_dim=n, layout="folded")
+
+
+def _kernels_flash_bwd(kr, cases):
+    """flash_attention_bwd (its dq and dk/dv launches) against the plain
+    formula over the same forward output and lse; each entry timed from its
+    own kernel's device time; the library yardstick is the backward of
+    scaled_dot_product_attention (is_causal, enable_gqa) at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.ops.flash_attention import (_forward, flash_attention_bwd,
+                                                         flash_attention_bwd_plain)
+
+    for tag, b, s, nq, nkv, hd in cases:
+        tok = b * s * hd * 2                       # bytes of one head's rows
+        # dq: q, k, v, o, dO and lse read, dq and D written; dk/dv: q, k, v,
+        # dO, lse and D read, dk and dv written
+        bytes_dq = tok * (4 * nq + 2 * nkv) + 2 * 4 * b * nq * s
+        bytes_dkdv = tok * (2 * nq + 4 * nkv) + 2 * 4 * b * nq * s
+        causal = b * nq * hd * s * (s + 1) / 2     # one causal product's multiply-adds
+        flops_dq, flops_dkdv = 3 * 2 * causal, 4 * 2 * causal   # S, dP, dQ | S, dP, dV, dK
+        sets = []
+        for _ in range(n_copies(bytes_dq + bytes_dkdv, most=4)):
+            q, k, v = kr.randn(b, s, nq, hd), kr.randn(b, s, nkv, hd), kr.randn(b, s, nkv, hd)
+            out, lse = _forward(q, k, v, None, with_lse=True)
+            sets.append((q, k, v, out, kr.randn(b, s, nq, hd), lse))
+        got = flash_attention_bwd(*sets[0])
+        want = flash_attention_bwd_plain(*sets[0])
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            top = float(w.float().abs().max())
+            check_close(f"flash_attention_bwd {name} {tag} s={s}", g, w, rtol=2e-2,
+                        atol=2e-2 * top, rel_l2=2e-2)
+            errs.append(max_err(g, w))
+        names = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+        k_ms = time_ms(flash_attention_bwd, sets, by=names)
+        k_wall = wall_ms(flash_attention_bwd, sets)
+        p_ms = time_ms(flash_attention_bwd_plain, sets[:1], min_iters=3)
+        q, k, v, _, dout, _ = sets[0]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                         [()], min_iters=10)
+        shape = f"{tag} B={b} S={s} NQ={nq} NKV={nkv} HD={hd}"
+        err = (max(e[0] for e in errs), max(e[1] for e in errs))
+        # the plain and library times are those of the whole backward (both
+        # entries), written on each entry's row
+        kr.record("flash_attention_bwd_dq", shape, err, k_ms[names[0]], k_wall, p_ms, lib_ms,
+                  bytes_dq, flops_dq, both_entries_ms=k_ms[names[0]] + k_ms[names[1]])
+        kr.record("flash_attention_bwd_dkdv", shape, err, k_ms[names[1]], k_wall, p_ms, lib_ms,
+                  bytes_dkdv, flops_dkdv, both_entries_ms=k_ms[names[0]] + k_ms[names[1]])
+        del sets, o, qt, kt, vt
+
+
 def phase_kernels(seed: int):
     """Every kernel against its plain version at the main paths' shapes."""
     from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
@@ -930,6 +1055,17 @@ def phase_kernels(seed: int):
         _kernels_paged_identity(kr, int8)
         for s in (1, 5, 128):
             _kernels_paged_write(kr, "tiny", 22, 8, s, 4, 64, int8)
+
+    # -- training: the one-pass W4 dequant of the QPEFT backward at the 7B
+    #    projections (w2's in_dim 11008 is padded to 11264 in the weight) and
+    #    TinyLlama's w1 / w3; the flash-attention backward at the 7B QPEFT
+    #    step (8 x 512, MHA), the 700M full finetune (2 x 2048, 16 / 8 heads),
+    #    train_parity's TinyLlama GQA (4 x 256, 32 / 4, head_dim 64) and a
+    #    ragged length
+    _kernels_dequant(kr, [("7b wq/wk/wv/wo", 4096, 4096), ("7b w1/w3", 4096, 11008),
+                          ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)])
+    _kernels_flash_bwd(kr, [("7b", 8, 512, 32, 32, 128), ("700m", 2, 2048, 16, 8, 128),
+                            ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64)])
     return kr.rows
 
 
@@ -1862,6 +1998,311 @@ def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: in
             "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
 
 
+# ---------------------------------------------------------------- training
+
+
+QPEFT = dict(lora_rank=16, bias_tuning=True, norm_tuning=True)
+LLAMA_700M = dict(dim=2048, n_layers=12, n_heads=16, n_kv_heads=8, vocab_size=32000,
+                  multiple_of=256, dtype="bfloat16")
+# the device's kernels by what they do in a training step (name substrings)
+TRAIN_SPLIT = (("forward W4 (many-row)", ("w4_bigm_kernel",)),
+               ("forward W4 (tile / GEMV)", ("w4_mma_kernel", "w4_gemv_kernel")),
+               ("W4 dequant", ("w4_dequant_kernel",)),
+               ("attention forward", ("flash_fwd_kernel",)),
+               ("attention backward", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+               ("dense products (dx, LoRA, head, full-finetune dW)",
+                ("gemm", "nvjet", "xmma", "cutlass", "sm90", "Kernel2")))
+
+
+def _train_model(cfg: dict, seed: int, qpeft: bool, device="cuda", seq_len: int = 512):
+    """Random weights from ``seed`` (QPEFT: the W4 base quantized layer by
+    layer), trainable leaves promoted to f32 masters. Returns (args, params,
+    trainable)."""
+    from accessory_tpu_torch.meta import MetaModel
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+
+    model = MetaModel("llama", dict(cfg), max_seq_len=seq_len, seed=seed, device=device)
+    if qpeft:
+        model.quantize()
+    trainable = llama.get_trainable_params_filter(model.args)
+    return model.args, promote_trainable_params_to_fp32(model.params, trainable), trainable
+
+
+def _train_step(args, params, trainable, lr, remat, device="cuda"):
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    tx = make_optimizer(params, lr, weight_decay=0.02, clip_norm=2.0, trainable=trainable)
+    return tx, TrainState.create(params, tx), make_train_step(llama, args, tx, remat=remat,
+                                                              device=device)
+
+
+def _token_batch(seed: int, b: int, s: int, vocab: int):
+    """Random token ids as bench_all.py's train bench draws them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"examples": rng.randint(3, vocab, (b, s)).astype(np.int32),
+            "labels": rng.randint(3, vocab, (b, s)).astype(np.int32)}
+
+
+def _train_counts(n_layers: int, qpeft: bool, bigm: bool, steps: int = 1):
+    """Launches of ``steps`` training steps with every layer checkpointed:
+    the forward, its recompute in the backward, and the backward."""
+    w4 = "w4_matmul_bigm" if bigm else "w4_matmul"
+    fwd = _zero_counts(flash_attention=n_layers, **({w4: 7 * n_layers} if qpeft else {}))
+    bwd = _zero_counts(flash_attention_bwd_dq=n_layers, flash_attention_bwd_dkdv=n_layers,
+                       **({"w4_dequant": 7 * n_layers} if qpeft else {}))
+    total = {k: steps * (2 * fwd[k] + bwd[k]) for k in fwd}
+    return {"forward": fwd, "recompute": fwd, "backward": bwd}, total
+
+
+def phase_train_parity(seed: int):
+    """TinyLlama width, 2 layers, W4 base, LoRA 16 + bias + norm tuning, bf16
+    compute, batch 4 x 256 (1024 rows: the many-row W4 kernel), every layer
+    checkpointed: one step on the CPU through the plain versions and one on
+    the card through the kernels, from the same weights and batch. Held: the
+    loss to 1e-2 relative, every trainable leaf's gradient to 6e-2 relative
+    L2 (bf16 activations round at other points on the two sides, as in
+    tests/test_torch_train_step.py against JAX), and each updated leaf where
+    its CPU gradient is at least a tenth of the leaf's largest (there the first
+    AdamW step is lr * sign(g)) to 1e-2 of an lr."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.train.train_step import grads_of
+    from accessory_tpu_torch.train.tree import named_leaves
+
+    cfg = dict(TINYLLAMA, n_layers=2, **QPEFT)
+    args, params, trainable = _train_model(cfg, seed, True, device="cpu", seq_len=256)
+    gen = torch.Generator().manual_seed(seed)
+    for layer in params["layers"]:          # non-zero lora_b / bias: every gradient moves
+        for part in ("attention", "feed_forward"):
+            for mod in layer[part].values():
+                for name in ("lora_b", "bias"):
+                    mod[name] = torch.randn(mod[name].shape, generator=gen) * 0.02
+    card = _tree_to(params, "cuda")
+    batch = _token_batch(seed, 4, 256, args.vocab_size)
+    lr = 1e-3
+    res = {}
+    for device, p in (("cpu", params), ("cuda", card)):
+        before = {k: v.detach().clone() for k, v in named_leaves(p) if trainable(k)}
+        _, state, step = _train_step(args, p, trainable, lr, "full", device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["c_loss"])
+        secs = time.perf_counter() - t0
+        res[device] = dict(loss=loss, secs=secs, counts=kernels.launch_counts(),
+                           grads={k: g.float().cpu() for k, g in grads_of(state).items()},
+                           before=before, after=dict(named_leaves(state.params)))
+    c, g = res["cpu"], res["cuda"]
+    _, want_counts = _train_counts(2, True, True)
+    leaves = {}
+    worst = {"grad_rel_l2": 0.0, "update_err": 0.0}
+    for path in c["before"]:
+        gc, gg = c["grads"][path], g["grads"][path]
+        rel = float((gg - gc).norm() / gc.norm().clamp_min(1e-30))
+        uc = (c["after"][path].detach().float() - c["before"][path].float()) / lr
+        ug = (g["after"][path].detach().float().cpu() - g["before"][path].float().cpu()) / lr
+        sure = gc.abs() >= 0.1 * gc.abs().max()
+        uerr = float((ug - uc).abs()[sure].max())
+        leaves[path] = {"grad_max_abs_err": float((gg - gc).abs().max()), "grad_rel_l2": rel,
+                        "update_max_err_lr": uerr}
+        worst["grad_rel_l2"] = max(worst["grad_rel_l2"], rel)
+        worst["update_err"] = max(worst["update_err"], uerr)
+    row = {"phase": "train_parity", "model": "TinyLlama width, 2 layers, QPEFT (W4 g128, "
+           "LoRA 16, bias, norm)", "batch": [4, 256], "remat": "full", "lr": lr,
+           "loss_cpu": c["loss"], "loss_cuda": g["loss"], "cpu_s": c["secs"],
+           "cuda_s": g["secs"], "tolerances": {"loss_rel": 1e-2, "grad_rel_l2": 6e-2,
+                                              "update_err_lr": 1e-2},
+           "worst": worst, "launches": g["counts"], "launches_expected": want_counts,
+           "leaves": leaves}
+    emit(row)
+    if not (abs(g["loss"] - c["loss"]) <= 1e-2 * abs(c["loss"]) and worst["grad_rel_l2"] <= 6e-2
+            and worst["update_err"] <= 1e-2):
+        raise AssertionError(f"train_parity: card step disagrees with the CPU step ({worst}, "
+                             f"loss {g['loss']} vs {c['loss']})")
+    if g["counts"] != want_counts:
+        raise AssertionError(f"train_parity: launch counts {g['counts']} != {want_counts}")
+    return g["counts"]
+
+
+def _split_profile(step_fn, state, batch, step_ms: float):
+    """Device time of one step by kernel (torch.profiler), grouped by
+    TRAIN_SPLIT; the idle share against the unprofiled step time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        state, m = step_fn(state, batch)
+        float(m["c_loss"])
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in p.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+    busy = sum(by_kernel.values())
+    if busy == 0:
+        return state, {"device_time": "not measured (no device events in the trace)"}
+    split, seen = {}, set()
+    for label, subs in TRAIN_SPLIT:
+        keys = [k for k in by_kernel if k not in seen and any(sub in k for sub in subs)]
+        seen.update(keys)
+        split[label] = sum(by_kernel[k] for k in keys)
+    split["other (elementwise, norms, loss, optimizer)"] = busy - sum(split.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return state, {"device_busy_ms_per_step": busy,
+                   "device_idle_share": max(0.0, 1 - busy / step_ms),
+                   "split_ms": split, "top_kernels_ms": {k[:90]: v for k, v in top}}
+
+
+def _matmul_params(params) -> int:
+    """Matmul-visited parameter count as bench_all.py counts it (embedding
+    lookup and norms excluded, the output head included; a W4 weight counts
+    its padded in_dim x out_dim)."""
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+    from accessory_tpu_torch.train.tree import named_leaves
+
+    total = 0
+    for path, leaf in named_leaves(params):
+        if "tok_embeddings" in path or "norm" in path:
+            continue
+        total += leaf.in_dim * leaf.out_dim if isinstance(leaf, QuantizedWeight) else leaf.numel()
+    return total
+
+
+def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpeft: bool,
+                lr: float, steps: int = 5):
+    """One model's training step at full width and depth: 1 warm-up step and
+    ``steps`` timed steps on the same random token batch (so the loss must
+    fall), every layer checkpointed; ms per step, tokens/s, model flops per
+    second against 989 TFLOP/s (bench_all.py's count: 4N + 3 attention for
+    QPEFT, 6N + 3 attention for full finetuning), peak memory, each step's
+    loss, launch counts per step (exact), and one profiled step split by
+    kernel."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    args, params, trainable = _train_model(cfg, seed, qpeft, seq_len=seq_len)
+    tx, state, step = _train_step(args, params, trainable, lr, "full")
+    data = _token_batch(seed, batch, seq_len, args.vocab_size)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = []
+    state, m = step(state, data)                      # warm-up
+    losses.append(float(m["c_loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, m = step(state, data)
+        losses.append(float(m["c_loss"]))         # a host fetch each step, as main_finetune
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    by_pass, want = _train_counts(args.n_layers, qpeft, batch * seq_len >= 1024, steps)
+    ms = statistics.median(times)
+    tok_s = batch * seq_len / ms * 1e3
+    n_mm = _matmul_params(state.params)
+    attn = 2 * seq_len * args.n_heads * args.head_dim * args.n_layers
+    model_tok = (4 if qpeft else 6) * n_mm + 3 * attn
+    hw_tok = (6 if qpeft else 8) * n_mm + 4 * attn
+    state, prof = _split_profile(step, state, data, ms)
+    row = {"phase": phase, "layers": args.n_layers, "dim": args.dim,
+           "heads": [args.n_heads, args.kv_heads], "batch": [batch, seq_len],
+           "mode": "QPEFT (W4 g128 base, LoRA 16, bias, norm)" if qpeft
+           else "full finetune (f32 masters, AdamW on every leaf)", "remat": "full", "lr": lr,
+           "setup_s": setup_s, "ms_per_step": ms, "ms_per_step_all": times, "tok_s": tok_s,
+           "matmul_params": n_mm, "model_flops_per_token": model_tok,
+           "model_tflop_s": model_tok * tok_s / 1e12,
+           "mfu_vs_989": model_tok * tok_s / BF16_FLOPS_PER_S,
+           "hw_flops_per_token": hw_tok, "peak_bytes": peak, "losses": losses,
+           "launches_per_step": {k: v // steps for k, v in counts.items()},
+           "launches_per_step_by_pass": by_pass, "launches": counts,
+           "launches_expected": want, "profile": prof}
+    emit(row)
+    if counts != want:
+        raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: losses not finite and falling: {losses}")
+    del state, params, step, tx
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_finetune(seed: int):
+    """main_finetune.main on the card at tiny size: a generated alpaca JSON
+    read through a YAML META config and the byte tokenizer, one epoch with
+    --quant --only_save_trainable --checkpointing, the checkpoint's optimizer
+    state read back bit for bit, then a second call that resumes from it and
+    runs the next epoch (the step count goes on from the saved one). Launch
+    counts of the first call are exact."""
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch import kernels, main_finetune
+    from accessory_tpu_torch.train.ckpt import resume_stage2
+
+    rng = np.random.RandomState(seed)
+    words = "the of a kernel card train token step layer weight loss".split()
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, rng.randint(lo, hi)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = [{"instruction": text(3, 9), "input": text(1, 4) if i % 2 else "",
+                 "output": text(3, 12)} for i in range(16)]
+        with open(f"{tmp}/alpaca.json", "w") as f:
+            json.dump(data, f)
+        with open(f"{tmp}/data.yaml", "w") as f:
+            f.write(f"META:\n  - path: {tmp}/alpaca.json\n    type: text\n"
+                    "    prompt_type: None\n")
+        with open(f"{tmp}/llama.json", "w") as f:
+            json.dump(dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=258,
+                           multiple_of=128, lora_rank=8, bias_tuning=True, norm_tuning=True), f)
+
+        def args(epochs):
+            return main_finetune.get_args_parser().parse_args([
+                "--llama_config", f"{tmp}/llama.json", "--tokenizer_path", "unused",
+                "--data_config", f"{tmp}/data.yaml", "--output_dir", f"{tmp}/out",
+                "--batch_size", "4", "--epochs", str(epochs), "--max_words", "128",
+                "--quant", "--only_save_trainable", "--checkpointing", "--lr", "1e-3",
+                "--warmup_epochs", "0", "--log_every", "1000", "--seed", str(seed)])
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = main_finetune.main(args(1), tokenizer=ByteTokenizer())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        steps = int(state.step)
+        _, want = _train_counts(2, True, False, steps)
+        back, _, _ = resume_stage2(f"{tmp}/out/epoch0", state)
+        same = all(torch.equal(back.opt_state[part][k], v)
+                   for part in ("mu", "nu") for k, v in state.opt_state[part].items())
+        same = same and back.opt_state["count"] == state.opt_state["count"] == steps
+        state2 = main_finetune.main(args(2), tokenizer=ByteTokenizer())
+        logs = [json.loads(x) for x in open(f"{tmp}/out/log.txt").read().splitlines()]
+    row = {"phase": "finetune", "steps_epoch0": steps, "seconds_epoch0": secs,
+           "resumed_step_after_epoch1": int(state2.step), "opt_state_bit_equal": same,
+           "log": logs, "launches": counts, "launches_expected": want}
+    emit(row)
+    if counts != want or steps != 4 or not same or int(state2.step) != 2 * steps \
+            or len(logs) != 2 or not all(math.isfinite(x["closs"]) for x in logs):
+        raise AssertionError(f"finetune: {row}")
+    return counts
+
+
 # kernel -> (source, the TPU kernel it replaces, the main-path shape whose row
 # the summary line reports: the 7B serve phase's where the kernel runs there)
 KERNELS = {
@@ -1913,6 +2354,15 @@ KERNELS = {
     # (_write_scales :222)
     "paged_write_q8": ("accessory_tpu_torch/csrc/paged_write.cu",
                        "accessory_tpu/ops/paged_write.py:222", "tiny s=1"),
+    # planes_dequant (:185), its Pallas body _dequant_kernel at :162
+    "w4_dequant": ("accessory_tpu_torch/csrc/w4_dequant.cu",
+                   "accessory_tpu/ops/quant_matmul_bigm.py:185", "7b w1/w3"),
+    # the splash kernel's custom VJP (_splash_kernel :61): JAX's bundled
+    # _splash_attention_bwd_dq and _splash_attention_bwd_dkv
+    "flash_attention_bwd_dq": ("accessory_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "accessory_tpu/ops/flash_attention.py:61", "7b B=8 S=512"),
+    "flash_attention_bwd_dkdv": ("accessory_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "accessory_tpu/ops/flash_attention.py:61", "7b B=8 S=512"),
 }
 
 
@@ -1937,7 +2387,7 @@ def summary(rows, counts_by_path):
 
 ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
-              "serve7b,decode7b")
+              "serve7b,decode7b,train_parity,train_qpeft7b,train_full,finetune")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused")
 
@@ -2050,6 +2500,17 @@ def main() -> int:
                 counts_by_path["7b unfused"] = bench
             del model
             torch.cuda.empty_cache()
+        if "train_parity" in phases:
+            counts_by_path["train parity"] = phase_train_parity(opts.seed)
+        if "train_qpeft7b" in phases:
+            counts_by_path["train qpeft7b"] = phase_train(
+                "train_qpeft7b", dict(LLAMA2_7B, **QPEFT), opts.seed, 8, 512, qpeft=True,
+                lr=1e-3)
+        if "train_full" in phases:
+            counts_by_path["train full"] = phase_train("train_full", LLAMA_700M, opts.seed, 2,
+                                                       2048, qpeft=False, lr=1e-4)
+        if "finetune" in phases:
+            counts_by_path["finetune"] = phase_finetune(opts.seed)
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES
                     if not sum(c.get(n, 0) for c in counts_by_path.values())]

@@ -742,3 +742,206 @@ def test_small_model_batcher_cuda_matches_cpu(gen, kv_dtype):
     assert all(len(o) > 0 for o in outs["cuda"])
     same = sum(a == b_ for a, b_ in zip(outs["cuda"], outs["cpu"]))
     print(f"batcher cuda vs cpu: {same} of {len(prompts)} texts equal")
+
+
+# ---------------------------------------------------------------- training kernels
+
+
+def _folded(gen, k, n, gs, pad_scale_rows=0):
+    """A folded W4 weight (K, N) with group gs; ``pad_scale_rows`` extra scale /
+    zs rows of NaN that the dequant must not read."""
+    qw = to_folded_layout(quantize_weight(randn(gen, k, n, dtype=torch.float32), 4, gs))
+    if pad_scale_rows:
+        nan = torch.full((pad_scale_rows, n), float("nan"), device="cuda")
+        qw.scales = torch.cat([qw.scales, nan])
+        qw.zeros = torch.cat([qw.zeros, nan])
+    return qw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n,gs,pad", [(64, 8, 64, 0), (96, 24, 32, 0), (1088, 40, 64, 3),
+                                        (1152, 1000, 128, 0), (4096, 4096, 128, 0),
+                                        (11264, 4096, 128, 2)])
+def test_w4_dequant_bit_equal(gen, dtype, k, n, gs, pad):
+    """planes_dequant == dequantize_weight bit for bit: K not a multiple of the
+    64-row tile (96, 1088), N an odd multiple of 8 (8, 24, 40, 1000), padded
+    scale rows (NaN, not read), bf16 and f32 output."""
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_dequant
+    from accessory_tpu_torch.quant.qtensor import dequantize_weight
+
+    qw = _folded(gen, k, n, gs, pad)
+    got = _one_more("w4_dequant", lambda: planes_dequant(
+        qw.packed, qw.scales, qw.zeros, in_dim=k, group_size=gs, dtype=dtype))
+    want = dequantize_weight(qw.to("cpu"), dtype)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def test_w4_dequant_refuses(gen):
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_dequant
+
+    qw = _folded(gen, 128, 16, 64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        planes_dequant(qw.packed[:, :12].contiguous(), qw.scales[:, :12].contiguous(),
+                       qw.zeros[:, :12].contiguous(), in_dim=128, group_size=64)
+    with pytest.raises(ValueError, match="dtype"):
+        planes_dequant(qw.packed, qw.scales, qw.zeros, in_dim=128, group_size=64,
+                       dtype=torch.float16)
+    with pytest.raises(ValueError, match="device"):
+        planes_dequant(qw.packed, qw.scales.cpu(), qw.zeros, in_dim=128, group_size=64)
+
+
+def _attn_inputs(gen, b, s, nq, nkv, hd, fused_qkv):
+    if fused_qkv:   # strided views of one projection output, as the model makes them
+        qkv = randn(gen, b, s, (nq + 2 * nkv) * hd)
+        return (qkv[..., :nq * hd].view(b, s, nq, hd),
+                qkv[..., nq * hd:(nq + nkv) * hd].view(b, s, nkv, hd),
+                qkv[..., (nq + nkv) * hd:].view(b, s, nkv, hd))
+    return randn(gen, b, s, nq, hd), randn(gen, b, s, nkv, hd), randn(gen, b, s, nkv, hd)
+
+
+def assert_grad_close(name, got, want, rel_l2=2e-2):
+    """bf16 gradients against the plain f32 formula: elementwise within
+    2e-2 of the largest |want| plus 2e-2 relative, and 2e-2 relative L2."""
+    torch.cuda.synchronize()
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all(), name
+    top = float(w.abs().max())
+    bad = (g - w).abs() > 2e-2 * top + 2e-2 * w.abs()
+    l2 = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    assert not bad.any() and l2 <= rel_l2, (name, int(bad.sum()), l2)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 2048])
+@pytest.mark.parametrize("hd,nq,nkv", [(64, 4, 4), (64, 8, 4), (64, 16, 2), (128, 4, 4),
+                                       (128, 8, 1)])
+def test_flash_attention_bwd(gen, s, hd, nq, nkv):
+    """dq, dk, dv of the two backward launches against the plain formula over
+    the same forward output and lse (R = 1, 2, 8; a ragged end at 63 / 65;
+    dk / dv summed over each group), and the forward's lse against the plain
+    log-sum-exp."""
+    from accessory_tpu_torch.ops.flash_attention import (_forward, attention_lse,
+                                                         flash_attention_bwd,
+                                                         flash_attention_bwd_plain)
+
+    b = 2 if s < 2048 else 1
+    q, k, v = _attn_inputs(gen, b, s, nq, nkv, hd, fused_qkv=False)
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    lse_plain = attention_lse(q, k)
+    torch.cuda.synchronize()
+    assert float((lse - lse_plain).abs().max()) <= 1e-4 * float(lse_plain.abs().max()) + 1e-5
+    dout = randn(gen, b, s, nq, hd)
+    before = kernels.launch_counts()
+    got = flash_attention_bwd(q, k, v, out, dout, lse)
+    after = kernels.launch_counts()
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dkdv"] == before["flash_attention_bwd_dkdv"] + 1
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        if s == 1 and name in ("dq", "dk"):
+            # one key per query: P = 1 and dS = 0 in exact arithmetic, so dq
+            # and dk are rounding noise here (dv = dO)
+            assert float(g.abs().max()) <= 1e-2 and float(w.abs().max()) <= 1e-2
+        else:
+            assert_grad_close(name, g, w)
+
+
+@pytest.mark.parametrize("s,hd,nq,nkv", [(77, 64, 32, 4), (130, 128, 8, 2)])
+def test_flash_attention_bwd_strided_views(gen, s, hd, nq, nkv):
+    """q / k / v as strided views of one fused-qkv buffer: the same
+    gradients as from contiguous copies."""
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+
+    q, k, v = _attn_inputs(gen, 2, s, nq, nkv, hd, fused_qkv=True)
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    dout = randn(gen, 2, s, nq, hd)
+    got = flash_attention_bwd(q, k, v, out, dout, lse)
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out, dout, lse)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s,hd,nq,nkv", [(1, 64, 4, 2), (65, 64, 8, 2), (200, 128, 4, 4)])
+def test_flash_attention_autograd_against_f32(gen, s, hd, nq, nkv):
+    """The whole differentiable attention in bf16 on the kernels (forward
+    with lse, then the backward launches) against autograd through the
+    plain grouped attention in f32 on the same (bf16-representable) inputs:
+    output and input gradients within 3e-2 relative L2 (bf16 P and dS in the
+    kernels' products, bf16 outputs)."""
+    q, k, v = _attn_inputs(gen, 2, s, nq, nkv, hd, fused_qkv=False)
+    dout = randn(gen, 2, s, nq, hd)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves)
+    out.backward(dout)
+    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = grouped_attention(*ref, causal=True)
+    want.backward(dout.float())
+    assert_grad_close("out", out.detach(), want.detach(), rel_l2=3e-2)
+    for name, a, r in zip(("dq", "dk", "dv"), leaves, ref):
+        if s == 1 and name in ("dq", "dk"):   # 0 in exact arithmetic (one key per query)
+            assert float(a.grad.abs().max()) <= 1e-2 and float(r.grad.abs().max()) <= 1e-5
+        else:
+            assert_grad_close(name, a.grad, r.grad, rel_l2=3e-2)
+
+
+def test_flash_attention_bwd_refuses(gen):
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+
+    q, k, v = _attn_inputs(gen, 1, 64, 4, 2, 64, fused_qkv=False)
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, out, lse.to(torch.bfloat16))
+    q32, k32, v32 = _attn_inputs(gen, 1, 64, 4, 2, 32, fused_qkv=False)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q32, k32, v32, q32, q32, lse)
+
+
+@pytest.mark.parametrize("peft", ["qpeft", "full"])
+def test_small_model_train_step_cuda_matches_cpu(gen, peft):
+    """One training step of a 2-layer dim-256 model (QPEFT: W4 base with LoRA,
+    bias and norm tuning; full: every leaf) on the card and on the CPU from
+    the same weights and batch: loss to 1e-2 relative, every trainable
+    gradient to 5e-2 relative L2, and the card step launched the dequant
+    (QPEFT) and both flash-backward entries."""
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.train_step import grads_of
+
+    kw = dict(lora_rank=8, bias_tuning=True, norm_tuning=True) if peft == "qpeft" else {}
+    args = LLaMAArgs(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512,
+                     multiple_of=128, max_seq_len=128, dtype="bfloat16", **kw)
+    params = llama.init_params(args, seed=5)
+    for layer in params["layers"]:       # non-zero lora_b / bias: every gradient moves
+        for part in ("attention", "feed_forward"):
+            for mod in layer[part].values():
+                for name in ("lora_b", "bias"):
+                    if name in mod:
+                        mod[name] = randn(gen, *mod[name].shape, scale=0.05)
+    if peft == "qpeft":
+        params = quantize_params(params)
+    trainable = llama.get_trainable_params_filter(args)
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+
+    params = promote_trainable_params_to_fp32(params, trainable)
+    toks = torch.randint(1, 512, (2, 2, 96), generator=torch.Generator().manual_seed(0))
+    batch = {"examples": toks[0], "labels": toks[1]}
+    res = {}
+    for device in ("cpu", "cuda"):     # the CPU copies first: the card run marks its leaves
+        p = _to(params, device)
+        tx = make_optimizer(p, 1e-3, clip_norm=1.0, trainable=trainable)
+        kernels.reset_launch_counts()
+        state, m = make_train_step(llama, args, tx, remat="full", device=device)(
+            TrainState.create(p, tx), batch)
+        res[device] = (float(m["c_loss"]), {k: g.float().cpu() for k, g in
+                                            grads_of(state).items()}, kernels.launch_counts())
+    (lg, gg, counts), (lc, gc, _) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 1e-2 * abs(lc)
+    for path in tx.labels:
+        if tx.labels[path] != "frozen":
+            err = float((gg[path] - gc[path]).norm() / gc[path].norm().clamp_min(1e-30))
+            assert err <= 5e-2, (path, err)
+    assert counts["flash_attention_bwd_dq"] == 2 and counts["flash_attention_bwd_dkdv"] == 2
+    # remat: each layer's forward runs twice (the recompute in the backward)
+    assert counts["flash_attention"] == 4
+    if peft == "qpeft":
+        assert counts["w4_dequant"] == 14 and counts["w4_matmul"] == 28

@@ -23,8 +23,11 @@ from accessory_tpu_torch.demos.server import serve
 from accessory_tpu_torch.engine import kvcache
 from accessory_tpu_torch.engine.generate import Generator
 from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
+from accessory_tpu_torch.main_finetune import main as finetune_main
 from accessory_tpu_torch.meta import MetaModel
 from accessory_tpu_torch.models import llama
+from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+from accessory_tpu_torch.train.ckpt import resume_stage1
 
 PKG_DIR = Path(accessory_tpu_torch.__file__).parent
 REPO = PKG_DIR.parent
@@ -37,7 +40,10 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     for name in ("ops.quant_matmul_planes", "ops.paged_decode", "ops.paged_write",
-                 "engine.kvcache", "engine.scheduler", "demos.server", "data.conversation"):
+                 "engine.kvcache", "engine.scheduler", "demos.server", "data.conversation",
+                 "data.alpaca", "data.system_prompt", "train.loss", "train.lr_sched",
+                 "train.optim", "train.precision", "train.train_step", "train.ckpt",
+                 "train.tree", "util.logging", "main_finetune"):
         assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -119,7 +125,8 @@ def test_no_jax_or_reference_imports_in_source():
                                 MetaModel.from_pretrained.__func__, load_checkpoint,
                                 load_checkpoint_list, llama.init_paged_cache,
                                 kvcache.init_paged_cache, paged_cache_from_jax,
-                                ContinuousBatcher.__init__, serve])
+                                ContinuousBatcher.__init__, serve, make_train_step,
+                                finetune_main, resume_stage1])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -140,3 +147,51 @@ def test_default_device_raises_without_cuda():
     params = llama.init_params(args, device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
         ContinuousBatcher(llama, args, params, None, slots=1, page_size=8)
+    tx = make_optimizer(params, 1e-3)
+    step = make_train_step(llama, args, tx)
+    batch = {"examples": torch.ones((1, 8), dtype=torch.int32),
+             "labels": torch.ones((1, 8), dtype=torch.int32)}
+    with pytest.raises((RuntimeError, AssertionError)):
+        step(TrainState.create(params, tx), batch)
+
+
+def test_finetune_needs_no_yaml_optax_orbax_or_safetensors(tmp_path):
+    """The card's machine has no PyYAML, optax, orbax, safetensors, tokenizers
+    or jax: with all of them blocked, main_finetune reads a YAML data config,
+    trains a QPEFT epoch on the CPU, saves and resumes."""
+    (tmp_path / "a.json").write_text(
+        '[{"instruction": "add two and two", "input": "", "output": "four"},'
+        ' {"instruction": "name a colour", "input": "", "output": "blue"}]')
+    (tmp_path / "data.yaml").write_text(f"META:\n  - path: {tmp_path / 'a.json'}\n"
+                                        "    type: text\n    prompt_type: None\n")
+    (tmp_path / "llama.json").write_text(
+        '{"dim": 128, "n_layers": 1, "n_heads": 2, "vocab_size": 258, "multiple_of": 64,'
+        ' "lora_rank": 2, "bias_tuning": true, "norm_tuning": true}')
+    code = f"""
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('yaml', 'optax', 'orbax', 'safetensors', 'tokenizers', 'jax'):
+            raise ImportError(name + ' is blocked in this test')
+sys.meta_path.insert(0, Block())
+from accessory_tpu_torch import main_finetune
+class Tok:
+    bos_id, eos_id, n_words = 256, 257, 258
+    def encode(self, s, bos, eos): return [256] * bos + list(s.encode()) + [257] * eos
+t = {str(tmp_path)!r}
+for epochs in ("1", "2"):
+    a = main_finetune.get_args_parser().parse_args([
+        "--llama_config", t + "/llama.json", "--tokenizer_path", "unused",
+        "--data_config", t + "/data.yaml", "--output_dir", t + "/out", "--batch_size", "2",
+        "--epochs", epochs, "--max_words", "64", "--quant", "--only_save_trainable"])
+    state = main_finetune.main(a, tokenizer=Tok(), device="cpu")
+assert state.step == 2, state.step
+assert not [k for k in sys.modules
+            if k.split('.')[0] in ('yaml', 'optax', 'orbax', 'safetensors', 'tokenizers', 'jax')]
+print('ok')
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
