@@ -9,7 +9,9 @@ package is read by the other. Layout of a checkpoint dir:
                        leaf is stored as its raw bits (uint16) under
                        <path>@bf16
   quant.json           {path: {bits, group_size, in_dim, out_dim, act_dtype,
-                       layout, tile_k}}
+                       layout, tile_k[, serve_layout]}} (serve_layout: the
+                       port's own record of the layout it serves the leaf in;
+                       the JAX package does not read it)
   (plus config.json / meta.json / tokenizer files written by MetaModel)
 
 The safetensors container is read and written here with numpy alone (an
@@ -20,10 +22,11 @@ are read only as it is converted and sent to the device.
 
 On the way in, a flat dict becomes the JAX package's nested tree (quantized
 leaves as dicts of their fields) and goes through ``convert.params_from_jax``:
-the ``std`` and ``planes`` W4 layouts, stacked layers and padded scale rows
-come out as the port's per-layer, folded-layout params. On the way out
-``convert.params_to_jax`` stacks the layers and emits quantized leaves in the
-``planes`` layout, which the JAX package loads as it stands.
+W3, W4 and W8 leaves in the ``std``, ``planes``, ``w8`` and ``magic``
+layouts, stacked layers and padded scale rows come out as the port's
+per-layer params in its layouts. On the way out ``convert.params_to_jax``
+stacks the layers and emits folded W4 leaves in the ``planes`` layout and
+the others in their own, which the JAX package loads as they stand.
 
 Sequential multi-path loading (``load_checkpoint_list``) has the JAX
 package's override/add semantics. A directory of PyTorch ``consolidated.*``
@@ -49,7 +52,8 @@ from accessory_tpu_torch.models.llama import torch_dtype
 WEIGHTS_FILE = "weights.safetensors"
 QUANT_FILE = "quant.json"
 _BF16 = "@bf16"
-_QMETA = ("bits", "group_size", "in_dim", "out_dim", "act_dtype", "layout", "tile_k")
+_QMETA = ("bits", "group_size", "in_dim", "out_dim", "act_dtype", "layout", "tile_k",
+          "serve_layout")
 
 _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
               "I32": np.int32, "I16": np.int16, "I8": np.int8, "U64": np.uint64,
@@ -120,7 +124,7 @@ def flatten_params(params) -> Dict[str, Any]:
             base = prefix[:-1]
             for field in _QFIELDS:
                 flat[f"{base}#{field}"] = node[field]
-            flat[base + "#meta"] = {k: node[k] for k in _QMETA}
+            flat[base + "#meta"] = {k: node[k] for k in _QMETA if k in node}
         elif isinstance(node, dict):
             for k, v in node.items():
                 visit(v, prefix + k + "/")
@@ -195,7 +199,7 @@ def unflatten_params(flat: Dict[str, Any], quant_meta: Dict[str, Any]) -> Dict[s
             parts, bits=int(meta["bits"]), group_size=int(meta["group_size"]),
             in_dim=int(meta["in_dim"]), out_dim=int(meta["out_dim"]),
             act_dtype=meta.get("act_dtype"), layout=meta.get("layout", "std"),
-            tile_k=int(meta.get("tile_k", 0))))
+            tile_k=int(meta.get("tile_k", 0)), serve_layout=meta.get("serve_layout")))
     return tree
 
 
@@ -245,7 +249,7 @@ def load_checkpoint_list(paths: Sequence[str], template_params=None,
             if any(Path(p).glob("consolidated.*")):
                 raise NotImplementedError(
                     f"{p} holds PyTorch consolidated.* files: importing that format "
-                    "(checkpoint/torch_import.py) is not ported yet (ROADMAP A6)")
+                    "(checkpoint/torch_import.py) is not ported yet (ROADMAP A5)")
             raise FileNotFoundError(f"no {WEIGHTS_FILE} under {p}")
         src = _read_flat(p)
         meta = _read_quant_meta(p)

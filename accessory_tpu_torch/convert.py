@@ -6,15 +6,19 @@ leaf is a dict with the fields the native checkpoint stores for it
 ``out_dim``, ``layout``, ``tile_k``; accessory_tpu/checkpoint/native.py), a
 dense leaf is an array (bf16 arrays may come as numpy's bfloat16 extension
 dtype or any dtype torch reads). It accepts stacked (L, ...) or per-layer
-``layers``, fused (wqkv / w13) or separate projections, the ``std`` and
-``planes`` W4 layouts, and scale rows padded past in_dim // group_size.
-Every quantized leaf comes out in the port's folded layout. The native
-checkpoint reader (``checkpoint/native.py``) hands its tensors over through
-the same function: its bf16 leaves come as ``BF16Bits`` (raw bits, the
-checkpoint's ``@bf16`` form), each leaf is read from the file only as it is
-converted, and ``cast`` gives dense floating leaves another dtype on the way.
-``params_to_jax`` is the way back: the port's per-layer tree as the stacked
-numpy tree the JAX package stores, quantized leaves in its ``planes`` layout.
+``layers``, fused (wqkv / w13) or separate projections, W3, W4 and W8
+leaves in the ``std``, ``planes``, ``w8`` and ``magic`` layouts, and scale
+rows padded past in_dim // group_size. A leaf comes out in the port's layout
+for it: W4 std and planes folded, W8 std and w8 as w8, W3 std as std, magic
+as magic; a record the port wrote names its own (``serve_layout``, which
+the JAX package does not read), so a std W4 weight (a GPTQ import) comes
+back std. The native checkpoint reader (``checkpoint/native.py``) hands its
+tensors over through the same function: its bf16 leaves come as
+``BF16Bits`` (raw bits, the checkpoint's ``@bf16`` form), each leaf is read
+from the file only as it is converted, and ``cast`` gives dense floating
+leaves another dtype on the way. ``params_to_jax`` is the way back: the
+port's per-layer tree as the stacked numpy tree the JAX package stores,
+folded leaves in its ``planes`` layout, the others in their own.
 
 ``cache_from_jax`` does the same for a KV cache: the JAX package's lane-major
 pools become the port's token-major ones; ``paged_cache_from_jax`` for a paged
@@ -32,7 +36,8 @@ import torch
 
 from accessory_tpu_torch.config import LLaMAArgs
 from accessory_tpu_torch.models.llama import torch_dtype
-from accessory_tpu_torch.quant.qtensor import QuantizedWeight, pack_int
+from accessory_tpu_torch.quant.qtensor import (QuantizedWeight, pack_int, to_folded_layout,
+                                               to_w8_layout, unpack_int)
 
 _QFIELDS = ("packed", "scales", "zeros")
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32", torch.float16: "float16"}
@@ -115,30 +120,43 @@ def _f32(arr) -> np.ndarray:
     return np.asarray(arr).astype(np.float32)
 
 
+# the layout a leaf the JAX package wrote takes in the port, by (bits, layout)
+_PORT_LAYOUT = {(4, "std"): "folded", (4, "planes"): "folded", (4, "magic"): "magic",
+                (8, "std"): "w8", (8, "w8"): "w8", (3, "std"): "std"}
+
+
 def _quantized(leaf: Dict[str, Any], act_dtype: torch.dtype, device) -> QuantizedWeight:
     bits, gs = int(leaf["bits"]), int(leaf["group_size"])
     in_dim, out_dim = int(leaf["in_dim"]), int(leaf["out_dim"])
     layout = leaf.get("layout", "std")
-    if bits != 4:
-        raise NotImplementedError(f"W{bits} weights: only W4 is ported (ROADMAP A1/B10)")
+    if (bits, layout) not in _PORT_LAYOUT:
+        raise ValueError(f"W{bits} weights in the {layout!r} layout: the formats are "
+                         f"{sorted(_PORT_LAYOUT)}")
+    target = leaf.get("serve_layout") or _PORT_LAYOUT[bits, layout]
     rows = in_dim // gs
     scales, zeros = _f32(leaf["scales"])[:rows], _f32(leaf["zeros"])[:rows]
-    if layout == "std":
-        packed = _tensor(np.asarray(leaf["packed"]).astype(np.uint32), device)
-        zs = zeros * scales
-    elif layout == "planes":
+    if leaf.get("act_dtype") is not None:  # the checkpoint's own record wins
+        act_dtype = torch_dtype(leaf["act_dtype"])
+    if layout == "planes":
         # planes words re-emitted in std order; zeros already hold zs
         q = unpack_tile_words(leaf["packed"], in_dim, int(leaf["tile_k"]))
         packed = pack_int(torch.from_numpy(q.astype(np.int32)), 4).to(device)
-        zs = zeros
+        layout = "folded"
+    elif layout == "w8":
+        packed = _tensor(np.asarray(leaf["packed"]).astype(np.int8), device)
     else:
-        raise NotImplementedError(f"W4 layout {layout!r}: the port reads std and planes")
-    if leaf.get("act_dtype") is not None:  # the checkpoint's own record wins
-        act_dtype = torch_dtype(leaf["act_dtype"])
-    return QuantizedWeight(packed=packed,
-                           scales=_tensor(scales, device), zeros=_tensor(zs, device),
-                           bits=4, group_size=gs, in_dim=in_dim, out_dim=out_dim,
-                           act_dtype=act_dtype, layout="folded")
+        packed = _tensor(np.asarray(leaf["packed"]).astype(np.uint32), device)
+    qw = QuantizedWeight(packed=packed, scales=_tensor(scales, device),
+                         zeros=_tensor(zeros, device), bits=bits, group_size=gs, in_dim=in_dim,
+                         out_dim=out_dim, act_dtype=act_dtype, layout=layout,
+                         tile_k=int(leaf.get("tile_k", 0)) if layout in ("w8", "magic") else 0)
+    if qw.layout == target:
+        return qw
+    if (qw.layout, target) == ("std", "folded"):
+        return to_folded_layout(qw)
+    if (qw.layout, target) == ("std", "w8"):
+        return to_w8_layout(qw)
+    raise ValueError(f"a {qw.layout!r} W{bits} leaf cannot be served as {target!r}")
 
 
 def _is_quantized(node) -> bool:
@@ -193,27 +211,31 @@ def _np(t: torch.Tensor):
 
 
 def _quantized_to_jax(qw: QuantizedWeight) -> Dict[str, Any]:
-    """A W4 weight as the JAX package stores it. The port's folded layout
-    (std nibble order, zeros = zeros * scales) is none of its layouts, so it
-    goes out as ``planes`` (the same folded zeros, words re-ordered by
-    pack_tile_words: exact) or, where in_dim admits no planes k-tile, as
-    ``std`` with the zeros recovered by rounding zs / scales."""
-    if qw.bits != 4:
-        raise NotImplementedError(f"W{qw.bits} weights: only W4 is ported (ROADMAP A1/B10)")
-    leaf = {"bits": 4, "group_size": qw.group_size, "in_dim": qw.in_dim, "out_dim": qw.out_dim,
-            "act_dtype": _DTYPE_NAMES[qw.act_dtype], "layout": "std", "tile_k": 0,
+    """A quantized weight as the JAX package stores it, with the port's
+    ``serve_layout``. The std, w8 and magic layouts are the JAX package's own
+    (a w8 leaf with the K tile ``choose_tile_k_w8`` gives, which its kernel
+    takes). The port's folded layout (std nibble order, zeros = zeros *
+    scales) is none of its layouts, so it goes out as ``planes`` (the same
+    folded zeros, words re-ordered by pack_tile_words: exact) or, where in_dim
+    admits no planes k-tile, as ``std`` with the zeros recovered by rounding
+    zs / scales."""
+    leaf = {"bits": qw.bits, "group_size": qw.group_size, "in_dim": qw.in_dim,
+            "out_dim": qw.out_dim, "act_dtype": _DTYPE_NAMES[qw.act_dtype],
+            "layout": qw.layout, "tile_k": qw.tile_k, "serve_layout": qw.layout,
             "packed": _np(qw.packed), "scales": _np(qw.scales.to(torch.float32)),
             "zeros": _np(qw.zeros.to(torch.float32))}
-    if qw.layout == "std":
+    if qw.layout == "w8":
+        from accessory_tpu_torch.ops.quant_matmul_w8 import choose_tile_k_w8
+
+        return dict(leaf, tile_k=choose_tile_k_w8(qw.in_dim, qw.group_size))
+    if qw.layout != "folded":
         return leaf
     if qw.in_dim % (2 * qw.group_size) == 0:
-        from accessory_tpu_torch.quant.qtensor import unpack_int
-
         tk = choose_tile_k(qw.in_dim, qw.group_size)
         q = unpack_int(qw.packed.cpu(), 4, qw.in_dim).numpy()
         return dict(leaf, layout="planes", tile_k=tk, packed=pack_tile_words(q, tk))
     zeros = torch.round(qw.zeros.to(torch.float32) / qw.scales.to(torch.float32))
-    return dict(leaf, zeros=_np(zeros))
+    return dict(leaf, layout="std", zeros=_np(zeros))
 
 
 def _to_jax(node):

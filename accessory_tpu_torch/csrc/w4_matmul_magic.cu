@@ -1,0 +1,72 @@
+// W4A16 matmul over the magic layout (bf16 bit-pattern unpack).
+//
+// Replaces: accessory_tpu/ops/quant_matmul_magic.py::magic_qmm (Pallas kernel
+// `_kernel`).
+//
+//   y = x @ ((v - z') * s')         bf16 weight arithmetic, f32 accumulation
+//
+// A nibble q becomes the bf16 value v = 256 + 16 q with no conversion: the
+// bit pattern 0x4380 | (q << 3) (exponent 135, mantissa q << 3), the trick of
+// the lop3 / magic-number unpacks used by NVIDIA's own int4 kernels. The
+// affine map is folded into the constants at repack time: s' = s / 16 and
+// z' = 256 + 16 z, so (v - z') * s' = (q - z) * s. As in the TPU kernel, s'
+// and z' are rounded to bf16 and the subtraction and the product are bf16
+// operations (v - z' is an exact multiple of 16; the product rounds once), so
+// the weight can differ from the f32-scale kernels' by the rounding of s'.
+//
+// Weight layout (repack_for_magic): per K tile of tk rows, word w of the
+// tile holds at nibble i + 4h the tile's row i * tk/4 + 2w + h. The kernel
+// reads the words as stored: a unit of 8 word rows gives four 16-row
+// segments, one from each quarter of its tile (w4_elem.cuh), so a stage of 64
+// rows is whole and the tile order never has to be undone in memory. Requires
+// tk % 4 == 0, (tk / 4) % gs == 0 and K % tk == 0.
+//
+// Bound: bytes at decode, operations from ~80 rows on (as w4_matmul_std.cu).
+
+#include "w4_elem.cuh"
+
+namespace {
+
+constexpr uint16_t MAGIC16 = 0x4380;   // bf16 bit pattern of 256.0
+
+struct MagicLayout {
+  struct Coef {
+    bf16 s, z;
+  };
+  __device__ static __forceinline__ Coef coef(float s, float z) { return {f2bf(s), f2bf(z)}; }
+  // nibble p of a unit's word wl holds row 2 * wl + p / 4 of segment p % 4
+  __device__ static __forceinline__ int stage_index(int wl, int p) {
+    return 16 * (p & 3) + 2 * wl + (p >> 2);
+  }
+  __device__ static __forceinline__ int pair_lo(int j) { return j; }
+  __device__ static __forceinline__ int pair_hi(int j) { return j + 4; }
+  __device__ static __forceinline__ int seg_base(int u, int i, int tk) {
+    const int per_tile = tk / w4elem::UNIT_ROWS;
+    const int tile = u / per_tile, s = u % per_tile;
+    return tile * tk + i * (tk / 4) + 16 * s;
+  }
+  __device__ static __forceinline__ float value(uint32_t q, Coef c) {
+    const bf16 v = __ushort_as_bfloat16(static_cast<unsigned short>(MAGIC16 | (q << 3)));
+    return bf2f(__hmul(__hsub(v, c.z), c.s));
+  }
+  __device__ static __forceinline__ void store_word(bf16* col, int wl, const bf16 v[8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(col + 16 * j + 2 * wl) = pack_bf16_pair(v[j], v[j + 4]);
+  }
+  static bool tile_ok(int K, int gs, int tk) {
+    return tk > 0 && tk % 4 == 0 && (tk / 4) % gs == 0 && K % tk == 0;
+  }
+};
+
+}  // namespace
+
+// x (M, Kx) bf16, row stride x_stride; packed (K/8, N) magic words of tile
+// tk; scales (>= K/gs, N) f32 holding s / 16, zeros_plus the same holding
+// 256 + 16 z; out (M, N) bf16. See w4elem::launch for the shape conditions.
+extern "C" int w4_matmul_magic(const void* x, int M, int Kx, long long x_stride,
+                               const void* packed, const void* scales, const void* zeros_plus,
+                               int K, int N, int gs, int tk, void* out, void* stream) {
+  return w4elem::launch<MagicLayout>(x, M, Kx, x_stride, packed, scales, zeros_plus, K, N, gs,
+                                     tk, out, stream);
+}

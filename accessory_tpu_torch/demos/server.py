@@ -32,8 +32,7 @@ def get_args_parser():
     p.add_argument("--llama_type", default=None, type=str)
     p.add_argument("--max_seq_len", default=2048, type=int)
     p.add_argument("--quant", action="store_true")
-    p.add_argument("--quant_bits", default=4, type=int, choices=(4,),
-                   help="the port serves W4 (W3 / W8 are not ported)")
+    p.add_argument("--quant_bits", default=4, type=int, choices=(3, 4, 8))
     p.add_argument("--kv_dtype", default=None, choices=(None, "int8"),
                    help="int8: quantized KV cache (2x context per GB)")
     p.add_argument("--host", default="127.0.0.1", type=str)

@@ -76,9 +76,13 @@ class MetaModel:
         return list(fn(self.args)) if fn else []
 
     def quantize(self, bits: int = 4, group_size: int = 128):
+        """Quantize the dense weights to W``bits`` (3, 4 or 8) in the layout
+        ``quantize_params`` picks for it, keeping dense every path on the
+        default blocklist or the model's own (``get_quant_blocklist``)."""
         from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
 
-        kw = dict(bits=bits, group_size=group_size, blocklist=DEFAULT_BLOCKLIST)
+        block = tuple(DEFAULT_BLOCKLIST) + tuple(self.get_quant_blocklist())
+        kw = dict(bits=bits, group_size=group_size, blocklist=block)
         layers = self.params.get("layers")
         if isinstance(layers, list):
             # one layer at a time, each replacing its dense weights, so the

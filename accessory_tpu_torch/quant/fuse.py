@@ -1,8 +1,9 @@
 """Decode-time weight fusion: wq|wk|wv -> wqkv and w1|w3 -> w13.
 
-Port of ``accessory_tpu/quant/fuse.py::fuse_for_decode``: both packings pack
-along K, so fusion is a concatenation along the output axis (packed words,
-scales and zs alike). Two launches per layer replace five, and the fused wqkv
+Port of ``accessory_tpu/quant/fuse.py::fuse_for_decode``: every layout packs
+along K (std and folded words, w8's int8 rows, magic's per-tile words), so
+fusion is a concatenation along the output axis (packed, scales and zeros
+alike) of weights that agree on bits, group, in_dim, layout and tile. Two launches per layer replace five, and the fused wqkv
 carries the decode-RoPE epilogue. The TPU re-tiling (retile_for_decode) and
 kernel_prep's scale-row padding do not carry over; kernel_prep's other half,
 norm weights stored as f32 for the fused-norm kernel operand, does (math
@@ -26,7 +27,8 @@ def _concat_weights(mods):
     ws = [m["weight"] for m in mods]
     if all(isinstance(w, QuantizedWeight) for w in ws):
         w0 = ws[0]
-        key = lambda w: (w.bits, w.group_size, w.in_dim, w.layout, w.scales.shape[0])  # noqa: E731
+        key = lambda w: (w.bits, w.group_size, w.in_dim, w.layout, w.tile_k,  # noqa: E731
+                         w.scales.shape[0])
         if any(key(w) != key(w0) for w in ws[1:]):
             return None
         return QuantizedWeight(
@@ -35,7 +37,7 @@ def _concat_weights(mods):
             zeros=torch.cat([w.zeros for w in ws], dim=-1),
             bits=w0.bits, group_size=w0.group_size, in_dim=w0.in_dim,
             out_dim=sum(w.out_dim for w in ws), act_dtype=w0.act_dtype,
-            layout=w0.layout)
+            layout=w0.layout, tile_k=w0.tile_k)
     if any(isinstance(w, QuantizedWeight) for w in ws):
         return None
     if len({tuple(w.shape[:-1]) for w in ws}) != 1:

@@ -1,6 +1,6 @@
 """Whole-model quantization: swap eligible dense weights in a params tree for
-folded-layout W4 QuantizedWeights. Port of ``accessory_tpu/quant/quantize.py``
-(same blocklist, output-head exclusion and in_dim padding rule)."""
+QuantizedWeights. Port of ``accessory_tpu/quant/quantize.py`` (same
+blocklist, output-head exclusion and in_dim padding rule)."""
 
 from __future__ import annotations
 
@@ -8,8 +8,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from accessory_tpu_torch.quant.qtensor import (W3_W8_QUEUE, quantize_weight,
-                                               to_folded_layout)
+from accessory_tpu_torch.quant.qtensor import (quantize_weight, to_folded_layout,
+                                               to_w8_layout)
 
 # path substrings never quantized
 DEFAULT_BLOCKLIST = (
@@ -21,6 +21,10 @@ DEFAULT_BLOCKLIST = (
     "visual",
     "rope",
 )
+# the layout "auto" picks for each bit width: each one's kernel layout
+# (W3 has no kernel: its std weights take the dequant + plain matmul)
+AUTO_LAYOUT = {3: "std", 4: "folded", 8: "w8"}
+_CONVERT = {"std": lambda qw: qw, "folded": to_folded_layout, "w8": to_w8_layout}
 
 
 def pad_to(in_dim: int, group_size: int) -> int:
@@ -32,13 +36,21 @@ def pad_to(in_dim: int, group_size: int) -> int:
 def quantize_params(params, bits: int = 4, group_size: int = 128,
                     blocklist: Sequence[str] = DEFAULT_BLOCKLIST,
                     quantize_output: bool = False,
-                    predicate: Optional[Callable[[str, torch.Tensor], bool]] = None):
+                    predicate: Optional[Callable[[str, torch.Tensor], bool]] = None,
+                    layout: str = "auto"):
     """Return a params tree (dicts / lists of tensors) with every eligible 2-D
     floating weight quantized: path not on the blocklist (nor "output" unless
     ``quantize_output``), in_dim a multiple of ``group_size``. The port's
-    trees hold per-layer weights, so only 2-D leaves are visited."""
-    if bits != 4:
-        raise NotImplementedError(f"W{bits} quantize_params: {W3_W8_QUEUE}")
+    trees hold per-layer weights, so only 2-D leaves are visited.
+
+    ``layout``: "auto" (the same on the CPU and the GPU: folded for W4, w8
+    for W8, std for W3), or "std", "folded" (W4) or "w8" (W8) explicitly."""
+    if bits not in AUTO_LAYOUT:
+        raise ValueError(f"bits {bits}: quantize_params takes {sorted(AUTO_LAYOUT)}")
+    layout = AUTO_LAYOUT[bits] if layout == "auto" else layout
+    if layout not in _CONVERT:
+        raise ValueError(f"layout {layout!r}: one of 'auto', {sorted(_CONVERT)}")
+    convert = _CONVERT[layout]
     block = tuple(blocklist) + (() if quantize_output else ("output",))
 
     def visit(node, path):
@@ -53,7 +65,7 @@ def quantize_params(params, bits: int = 4, group_size: int = 128,
         if predicate is not None and not predicate(path, node):
             return node
         if node.ndim == 2 and node.shape[0] % group_size == 0:
-            return to_folded_layout(quantize_weight(
+            return convert(quantize_weight(
                 node, bits=bits, group_size=group_size, act_dtype=node.dtype,
                 pad_in_to=pad_to(node.shape[0], group_size)))
         return node

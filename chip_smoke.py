@@ -5,8 +5,11 @@
                                                checkpoint,parity8,paged_parity,serve8,stream,
                                                stacked,batcher,batcher8,preempt,server,
                                                decode8,decode_unfused,
-                                               parity7b,serve7b,decode7b,train_parity,
-                                               train_qpeft7b,train_full,finetune] [--out FILE]
+                                               parity7b,serve7b,decode7b,parity_w8,
+                                               parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,
+                                               decode_gptq,serve_magic,decode_magic,serve_w3,
+                                               train_parity,train_qpeft7b,train_full,
+                                               finetune] [--out FILE]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -72,6 +75,23 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             position 512, in turns bf16, int8, int8, bf16 KV: ms per step
             against the bytes bound; then 20 steps with fused_attn_write=False
             for each cache type (the read-only one-query-head kernels);
+  parity_w8  TinyLlama width, 2 layers, W8A16 (the w8 layout): CPU against the
+            card as in parity (the W8 kernel's fused and unfused calls);
+  parity_gptq  the same over GPTQ-style std W4 weights (zeros up to 16: the std
+            kernel) and their magic repack (the magic kernel), and on the card
+            the std model's prefill logits against the same weights folded
+            (the W4 planes kernel) and magic;
+  serve7b_w8, decode7b_w8  serve7b and decode7b (bf16 KV, 50 steps) with W8
+            weights: every projection on the W8 kernel (decode and the 1024-row
+            prefill), launch counts exact, the W8 kernel's share of a step;
+  serve_gptq, decode_gptq, serve_magic, decode_magic  TinyLlama shape, 22
+            layers, from an AutoGPTQ-format directory the script writes from
+            --seed (load_gptq_dir + install_gptq_weights, rotary un-permuted):
+            serve (4 prompts, 64 new tokens) and decode (batch 8, cache 1024,
+            100 steps) on the std weights, then on their magic repack, launch
+            counts exact (no w4_matmul);
+  serve_w3  TinyLlama shape, W3 RTN (no kernel: dequant + matmul each call):
+            4 prompts, 8 new tokens, wall ms a token step;
   train_parity  TinyLlama width, 2 layers, QPEFT (W4 base, LoRA 16, bias and
             norm tuning), bf16, batch 4 x 256, every layer checkpointed: one
             training step on the CPU (plain versions) and one on the card
@@ -121,7 +141,8 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
                 "flash_attention", "kv_write", "kv_write_q8", "kv_write_col", "kv_write_col_q8",
                 "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8",
                 "paged_decode", "paged_decode8", "paged_write", "paged_write_q8",
-                "w4_dequant", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+                "w4_dequant", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                "w8_matmul", "w4_matmul_std", "w4_matmul_magic")
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
@@ -949,6 +970,112 @@ def _kernels_flash_bwd(kr, cases):
         del sets, o, qt, kt, vt
 
 
+def _w8_weight_sets(kr, m, k, n, fusion, rope):
+    """Argument sets for one W8 projection (a fresh weight per copy, so a
+    round-robin spills L2) plus the dense bf16 weight for the yardstick."""
+    import torch
+
+    from accessory_tpu_torch.quant.qtensor import dense_weight, quantize_weight, to_w8_layout
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    cos_rows, sin_rows, style, hd = rope
+    kp = k + (-k) % pad_to(k, 128)
+    qw_bytes = kp * n + 2 * (kp // 128) * n * 4
+    io_bytes = m * k * 2 + m * n * 2 + (m * n * 2 if fusion == "res" else 0) \
+        + (k * 4 if "norm" in fusion else 0) + (2 * n * 4 if "rope" in fusion else 0)
+    sets = []
+    for _ in range(n_copies(qw_bytes + io_bytes)):
+        w = kr.randn(k, n, dtype=torch.float32, scale=k ** -0.5)
+        qw = to_w8_layout(quantize_weight(w, 8, 128, pad_in_to=pad_to(k, 128)))
+        del w
+        args = dict(x2d=kr.randn(m, k), q8=qw.packed, scales=qw.scales, zs=qw.zeros,
+                    norm_weight=(1 + 0.1 * kr.randn(k, dtype=torch.float32))
+                    if "norm" in fusion else None,
+                    residual=kr.randn(m, n) if fusion == "res" else None,
+                    rope_cos=cos_rows[511] if "rope" in fusion else None,
+                    rope_sin=sin_rows[511] if "rope" in fusion else None,
+                    group_size=128, rope_style=style if "rope" in fusion else "",
+                    rope_hd=hd if "rope" in fusion else 0)
+        sets.append((args, dense_weight(qw, torch.bfloat16)[:k]))
+    return sets, qw_bytes + io_bytes
+
+
+def _kernels_w8(kr, tag, specs, rope):
+    """w8_qmm (GEMV for M <= 8, the mma tile above) with its fusions."""
+    import torch
+
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    for name, k, n, m, fusion in specs:
+        sets, nbytes = _w8_weight_sets(kr, m, k, n, fusion, rope)
+        a0 = sets[0][0]
+        got = w8_qmm(**a0)
+        want = w8_qmm_plain(**a0)
+        torch.cuda.synchronize()
+        # the same bf16 weights and f32 sums in another order: a rounding step or two
+        check_close(f"w8_matmul {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
+        calls = [(s[0],) for s in sets]
+        k_ms = time_ms(lambda a: w8_qmm(**a), calls)
+        k_wall = wall_ms(lambda a: w8_qmm(**a), calls)
+        p_ms = time_ms(lambda a: w8_qmm_plain(**a), calls[:1], min_iters=3)
+        lib_ms = time_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
+        kr.record("w8_matmul", f"{tag} {name} M={m} K={k} N={n} {fusion or 'none'}",
+                  max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n)
+        del sets
+
+
+def _gptq_like_weight(gen, k, n, gs=128):
+    """A std-layout W4 weight as a GPTQ import gives it: random nibbles,
+    zeros z + 1 in [1, 16], small positive scales, on the card."""
+    import torch
+
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    words = torch.randint(-2 ** 31, 2 ** 31, (k // 8, n), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+    zeros = torch.randint(1, 17, (k // gs, n), generator=gen, device="cuda").to(torch.float32)
+    scales = torch.rand((k // gs, n), generator=gen, device="cuda") * 0.004 + 5e-4
+    return QuantizedWeight(packed=words, scales=scales, zeros=zeros, bits=4, group_size=gs,
+                           in_dim=k, out_dim=n)
+
+
+def _kernels_w4elem(kr, tag, specs):
+    """quant_matmul_pallas (std W4, GPTQ zeros) and magic_qmm (the magic words
+    of the same weight) at the GPTQ serve paths' shapes."""
+    import torch
+
+    from accessory_tpu_torch.ops.quant_matmul_magic import magic_qmm, magic_qmm_plain
+    from accessory_tpu_torch.ops.quant_matmul_pallas import (quant_matmul_pallas,
+                                                             quant_matmul_pallas_plain)
+    from accessory_tpu_torch.quant.qtensor import dense_weight, to_magic_layout
+
+    for name, k, n, m in specs:
+        nbytes = k * n / 2 + 2 * (k // 128) * n * 4 + m * k * 2 + m * n * 2
+        std = [_gptq_like_weight(kr.gen, k, n) for _ in range(n_copies(nbytes))]
+        xs = [kr.randn(m, k) for _ in std]
+        for kernel, fn, plain in (
+                ("w4_matmul_std", quant_matmul_pallas, quant_matmul_pallas_plain),
+                ("w4_matmul_magic",
+                 lambda x, q: magic_qmm(x, q.packed, q.scales, q.zeros, group_size=128,
+                                        tk=q.tile_k),
+                 lambda x, q: magic_qmm_plain(x, q.packed, q.scales, q.zeros, group_size=128,
+                                              tk=q.tile_k))):
+            qws = std if kernel == "w4_matmul_std" else [to_magic_layout(q) for q in std]
+            calls = list(zip(xs, qws))
+            got, want = fn(*calls[0]), plain(*calls[0])
+            torch.cuda.synchronize()
+            check_close(f"{kernel} {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
+            dense = [(x, dense_weight(q, torch.bfloat16)) for x, q in calls]
+            k_ms = time_ms(fn, calls)
+            k_wall = wall_ms(fn, calls)
+            p_ms = time_ms(plain, calls[:1], min_iters=3)
+            lib_ms = time_ms(lambda x, d: torch.matmul(x, d), dense)
+            kr.record(kernel, f"{tag} {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
+                      k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n)
+            del dense, qws, calls
+        del std, xs
+
+
 def phase_kernels(seed: int):
     """Every kernel against its plain version at the main paths' shapes."""
     from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
@@ -1066,6 +1193,21 @@ def phase_kernels(seed: int):
                           ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)])
     _kernels_flash_bwd(kr, [("7b", 8, 512, 32, 32, 128), ("700m", 2, 2048, 16, 8, 128),
                             ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64)])
+
+    # -- W8A16 (serve7b_w8 / decode7b_w8): the 7B projections at the decode
+    #    batch 8 with their fusions, at one row (the GEMV's smallest form), and
+    #    w13 at the 1024 prefill rows, unfused (the mma tile)
+    cos, sin = precompute_rope(128, 1024, device="cuda")
+    rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
+    proj7b = [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
+              ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")]
+    _kernels_w8(kr, "7b", [(nm, k, n, m, f) for m in (8, 1) for nm, k, n, f in proj7b]
+                + [("w13", 4096, 22016, 1024, "")], rope)
+    # -- std W4 (GPTQ imports) and its magic repack: TinyLlama's w13 at the
+    #    stream / serve / decode batches and the serve prefill's 4 x 64 rows,
+    #    and the 7B w13 at batch 8
+    _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, m) for m in (1, 4, 8, 256, 512)])
+    _kernels_w4elem(kr, "7b", [("w13", 4096, 22016, 8)])
     return kr.rows
 
 
@@ -1078,6 +1220,10 @@ def _tree_to(node, device):
     return node.to(device)
 
 
+# kernel-name substring of each new weight format's matmul in a profiler trace
+_MATMUL_SYMBOLS = {"w8_matmul": "w8_", "w4_matmul_std": "StdLayout",
+                   "w4_matmul_magic": "MagicLayout"}
+
 # bf16 activations round (2^-8 relative) at different points on the two
 # sides (kernel sums in another order, so a rounding may flip by one ulp and
 # carry through the layers): logits are held to 2% of the largest |logit| and
@@ -1088,11 +1234,14 @@ LOGIT_REL_L2 = 2e-2   # ||gpu - cpu|| / ||cpu||
 
 
 def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: int, steps: int,
-                 s_len: int, kv_dtypes=(None,), stacked: bool = False):
+                 s_len: int, kv_dtypes=(None,), stacked: bool = False, make_params=None,
+                 label: str = "W4"):
     """Same weights, CPU through the plain versions vs the card through the
     kernels: prefill logits, then ``steps`` decode steps fed the CPU's greedy
     tokens, once per KV-cache dtype. ``stacked``: the stacked-cache path
-    (separate projections, read-only attention, one bulk write per forward)."""
+    (separate projections, read-only attention, one bulk write per forward).
+    ``make_params(args)``: the quantized (unfused) params on the card, W4 RTN
+    by default. Returns the card's prefill logits of the last run."""
     import torch
 
     from accessory_tpu_torch.config import LLaMAArgs
@@ -1101,7 +1250,8 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
     from accessory_tpu_torch.quant.quantize import quantize_params
 
     args = LLaMAArgs(**dict(cfg, n_layers=n_layers), max_seq_len=s_len)
-    params_gpu = quantize_params(llama.init_params(args, seed=seed))
+    params_gpu = (make_params(args) if make_params is not None
+                  else quantize_params(llama.init_params(args, seed=seed)))
     if not stacked:
         params_gpu = fuse_for_decode(params_gpu)
     params_cpu = _tree_to(params_gpu, "cpu")
@@ -1121,6 +1271,7 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
             return out
 
         lg, _ = llama.forward(params_gpu, args, prompt.cuda(), cache=cache_g, cur_pos=0)
+        first = lg
         lc = cpu_forward(prompt, 0)
         worst_abs, worst_rel, checked, agreed = 0.0, 0.0, 0, 0
         tol_abs = LOGIT_TOL_FRAC * float(lc.abs().max())
@@ -1145,7 +1296,7 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
             lc = cpu_forward(tok[:, None], plen + i)
             compare(lg, lc)
             tok = lc[:, -1].argmax(-1)
-        row = {"phase": phase, "path": "stacked" if stacked else "unrolled",
+        row = {"phase": phase, "path": "stacked" if stacked else "unrolled", "weights": label,
                "layers": args.n_layers, "dim": args.dim, "batch": b, "prompt": plen,
                "prefill_rows": b * plen, "decode_steps": steps,
                "kv_dtype": kv_dtype or "bf16", "cpu_seconds": round(cpu_s, 2),
@@ -1156,6 +1307,7 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
         emit(row)
         if worst_abs > tol_abs or worst_rel > LOGIT_REL_L2 or agreed != checked:
             raise AssertionError(f"{phase} failed: {row}")
+    return first
 
 
 PROMPTS = [
@@ -1182,7 +1334,7 @@ def _zero_counts(**kw):
     return {**{name: 0 for name in KERNEL_NAMES}, **kw}
 
 
-def _quantized_model(cfg: dict, max_seq_len: int, seed: int):
+def _quantized_model(cfg: dict, max_seq_len: int, seed: int, bits: int = 4):
     import torch
 
     from accessory_tpu_torch.meta import MetaModel
@@ -1191,7 +1343,7 @@ def _quantized_model(cfg: dict, max_seq_len: int, seed: int):
     torch.cuda.reset_peak_memory_stats()
     model = MetaModel("llama", dict(cfg), max_seq_len=max_seq_len, seed=seed)
     model.tokenizer = ByteTokenizer()
-    model.quantize()
+    model.quantize(bits=bits)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
@@ -1231,9 +1383,12 @@ def _counted_generate(model, prompts, max_gen_len: int):
     return outs, kernels.launch_counts(), model.generator.last_decode_steps, secs
 
 
-def phase_serve(phase: str, model, setup_s: float, kv_dtype=None):
+def phase_serve(phase: str, model, setup_s: float, kv_dtype=None, matmul="w4_matmul",
+                max_gen_len: int = 64):
     """The 22-layer TinyLlama shape (GQA) through MetaModel.generate with the
-    bf16 (serve) or the int8 (serve8) KV cache, launch-counted."""
+    bf16 (serve) or the int8 (serve8) KV cache, launch-counted. ``matmul``:
+    the quantized-matmul entry every projection must take (None: the weights
+    have no kernel, W3)."""
     prompts = PROMPTS[:4]
     assert all(100 <= len(p) <= 126 for p in prompts), [len(p) for p in prompts]
     int8 = kv_dtype == "int8"
@@ -1241,11 +1396,13 @@ def phase_serve(phase: str, model, setup_s: float, kv_dtype=None):
     model._reset_generator()
     n_layers = model.args.n_layers
     prefill_ms = _timed_prefill(model, 4, 128, 192, kv_dtype)
-    outs, counts, steps, total_s = _counted_generate(model, prompts, 64)
+    outs, counts, steps, total_s = _counted_generate(model, prompts, max_gen_len)
     want = _zero_counts(
-        w4_matmul=4 * n_layers * (1 + steps), flash_attention=n_layers,
+        flash_attention=n_layers,
         **{"decode_attention8" if int8 else "decode_attention": n_layers * steps,
            "kv_write_q8" if int8 else "kv_write": n_layers})
+    if matmul:
+        want[matmul] = 4 * n_layers * (1 + steps)
     row = {"phase": phase, "model": "TinyLlama-1.1B shape", "kv_dtype": kv_dtype or "bf16",
            "layers": n_layers,
            "batch": len(prompts), "prompt_tokens": [len(p) + 1 for p in prompts],
@@ -1253,6 +1410,7 @@ def phase_serve(phase: str, model, setup_s: float, kv_dtype=None):
            "launches": counts, "launches_expected": want, "setup_s": setup_s,
            "prefill_ms": prefill_ms, "generate_s": total_s,
            "decode_tok_s": len(prompts) * steps / max(total_s - prefill_ms / 1e3, 1e-9),
+           "wall_ms_per_token_step": (total_s * 1e3 - prefill_ms) / max(steps, 1),
            "outputs_chars": [len(o) for o in outs]}
     emit(row)
     if counts != want or steps < 1 or len(outs) != len(prompts):
@@ -1848,16 +2006,17 @@ def phase_server(model):
     return counts
 
 
-def phase_serve7b(seed: int):
+def phase_serve7b(seed: int, bits: int = 4, phase: str = "serve7b"):
     """The 32-layer LLaMA2-7B shape (MHA) through MetaModel.generate: 8 prompts
     in the 128-token bucket (1024 prefill rows), 32 new tokens, with the bf16
-    and then the int8 KV cache on the same weights, launch-counted."""
+    and then the int8 KV cache on the same weights, launch-counted. ``bits``
+    8: W8A16, every projection on the W8 kernel (its 1024-row prefill too)."""
     import numpy as np
 
     prompts = PROMPTS
     assert len(prompts) == 8 and all(100 <= len(p) <= 126 for p in prompts), \
         [len(p) for p in prompts]
-    model, setup_s, setup_peak = _quantized_model(LLAMA2_7B, 512, seed)
+    model, setup_s, setup_peak = _quantized_model(LLAMA2_7B, 512, seed, bits)
     n_layers = model.args.n_layers
     plens = [len(p) + 1 for p in prompts]
     total = {name: 0 for name in KERNEL_NAMES}
@@ -1868,13 +2027,15 @@ def phase_serve7b(seed: int):
         int8 = kv_dtype == "int8"
         prefill_ms = _timed_prefill(model, 8, 128, 192, kv_dtype)
         outs, counts, steps, total_s = _counted_generate(model, prompts, 32)
+        matmuls = ({"w4_matmul": 4 * n_layers * steps, "w4_matmul_bigm": 4 * n_layers}
+                   if bits == 4 else {"w8_matmul": 4 * n_layers * (steps + 1)})
         want = _zero_counts(
-            w4_matmul=4 * n_layers * steps, w4_matmul_bigm=4 * n_layers,
-            flash_attention=n_layers,
+            flash_attention=n_layers, **matmuls,
             **{"decode_attention_mha8" if int8 else "decode_attention_mha": n_layers * steps,
                "kv_write_q8" if int8 else "kv_write": n_layers})
         tokens[kv_dtype] = model.generator.last_tokens
-        row = {"phase": "serve7b", "model": "LLaMA2-7B shape", "kv_dtype": kv_dtype or "bf16",
+        row = {"phase": phase, "model": "LLaMA2-7B shape", "kv_dtype": kv_dtype or "bf16",
+               "weight_bits": bits,
                "layers": n_layers, "batch": len(prompts), "prompt_tokens": plens,
                "prefill_rows": 8 * 128, "decode_steps": steps, "launches": counts,
                "launches_expected": want, "setup_s": setup_s,
@@ -1883,25 +2044,168 @@ def phase_serve7b(seed: int):
                "outputs_chars": [len(o) for o in outs]}
         emit(row)
         if counts != want or steps < 32 or len(outs) != len(prompts):
-            raise AssertionError(f"serve7b {kv_dtype}: launch counts {counts} != expected {want}")
+            raise AssertionError(f"{phase} {kv_dtype}: launch counts {counts} != expected {want}")
         for name in total:
             total[name] += counts[name]
     # greedy tokens of the two runs over the generated positions (printed, not
     # asserted: random weights give flat logits)
     a, b = tokens[None], tokens["int8"]
     same = [a[i, n:n + 32] == b[i, n:n + 32] for i, n in enumerate(plens)]
-    emit({"phase": "serve7b", "compare": "greedy tokens, bf16 KV vs int8 KV",
+    emit({"phase": phase, "compare": "greedy tokens, bf16 KV vs int8 KV",
           "generated_tokens": int(sum(s.size for s in same)),
           "share_equal": float(np.mean(np.concatenate(same)))})
     return model, total
 
 
+def _gptq_params(args, seed: int):
+    """Per-layer llama params on the card whose projections are std-layout
+    W4 weights as a GPTQ import gives them (``_gptq_like_weight``), drawn from
+    ``seed``: the same weights for every call."""
+    import torch
+
+    from accessory_tpu_torch.models import llama
+
+    params = llama.init_params(args, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for layer in params["layers"]:
+        for part in ("attention", "feed_forward"):
+            for mod in layer[part].values():
+                k, n = mod["weight"].shape
+                mod["weight"] = _gptq_like_weight(gen, k, n)
+    return params
+
+
+def _map_weights(params, fn):
+    """Every projection of per-layer params through ``fn`` (in place)."""
+    for layer in params["layers"]:
+        for part in ("attention", "feed_forward"):
+            for mod in layer[part].values():
+                mod["weight"] = fn(mod["weight"])
+    return params
+
+
+def phase_parity_gptq(seed: int):
+    """GPTQ-style std W4 (row 24) at TinyLlama width, 2 layers, CPU against
+    the card, and its magic repack (row 25) the same way; then on the card
+    the prefill logits of the std model against the same weights folded (row
+    1: the same weights, held to the parity tolerances) and in the magic
+    layout. The magic layout rounds s / 16 to bf16 (the reference's design),
+    a relative change of up to 2^-9 in every group's scale: another model,
+    held to the relative-L2 tolerance only, its largest deviation printed."""
+    import torch
+
+    from accessory_tpu_torch.config import LLaMAArgs
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.quant.fuse import fuse_for_decode
+    from accessory_tpu_torch.quant.qtensor import to_folded_layout, to_magic_layout
+
+    kw = dict(b=2, plen=64, s_len=128)
+    std = phase_parity(seed, "parity_gptq", TINYLLAMA, 2, steps=8,
+                       make_params=lambda a: _gptq_params(a, seed), label="GPTQ W4 std", **kw)
+    magic = phase_parity(seed, "parity_gptq", TINYLLAMA, 2, steps=4,
+                         make_params=lambda a: _map_weights(_gptq_params(a, seed),
+                                                            to_magic_layout),
+                         label="GPTQ W4 magic", **kw)
+    args = LLaMAArgs(**dict(TINYLLAMA, n_layers=2), max_seq_len=kw["s_len"])
+    folded_params = fuse_for_decode(_map_weights(_gptq_params(args, seed), to_folded_layout))
+    prompt = torch.randint(0, args.vocab_size, (kw["b"], kw["plen"]),
+                           generator=torch.Generator().manual_seed(seed))
+    folded, _ = llama.forward(folded_params, args, prompt.cuda(),
+                              cache=llama.init_kv_cache(args, kw["b"], kw["s_len"]), cur_pos=0)
+    ref = std.float()
+    tol = LOGIT_TOL_FRAC * float(ref.abs().max())
+    for label, other, same_weights in (("folded (w4_matmul)", folded, True),
+                                       ("magic (w4_matmul_magic)", magic, False)):
+        d = other.float() - ref
+        row = {"phase": "parity_gptq", "compare": f"std (w4_matmul_std) vs {label}, card",
+               "max_abs_logit_err": float(d.abs().max()),
+               "tol_abs": tol if same_weights else None,
+               "rel_l2": float(d.norm() / ref.norm()), "tol_rel_l2": LOGIT_REL_L2}
+        emit(row)
+        if (same_weights and row["max_abs_logit_err"] > tol) or row["rel_l2"] > LOGIT_REL_L2:
+            raise AssertionError(f"parity_gptq: {row}")
+
+
+def _write_gptq_dir(path: str, cfg: dict, seed: int) -> int:
+    """An AutoGPTQ-format safetensors file for the llama shape ``cfg``: per
+    layer and projection ``model.layers.{i}.{module}.qweight`` (K/8, N) int32,
+    ``.qzeros`` (K/128, N/8) int32 (stored zero points, GPTQ's z + 1 = 1..16)
+    and ``.scales`` (K/128, N) f16, random from ``seed``, written with the
+    port's own numpy writer. Returns the file's bytes."""
+    import os
+
+    import torch
+
+    from accessory_tpu_torch.checkpoint.native import write_safetensors
+    from accessory_tpu_torch.config import LLaMAArgs
+
+    args = LLaMAArgs(**cfg)
+    dim, hd = args.dim, args.dim // args.n_heads
+    hidden = args.ffn_hidden_dim
+    shapes = {"self_attn.q_proj": (dim, args.n_heads * hd),
+              "self_attn.k_proj": (dim, args.kv_heads * hd),
+              "self_attn.v_proj": (dim, args.kv_heads * hd),
+              "self_attn.o_proj": (args.n_heads * hd, dim),
+              "mlp.gate_proj": (dim, hidden), "mlp.up_proj": (dim, hidden),
+              "mlp.down_proj": (hidden, dim)}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def words(rows, cols):
+        return torch.randint(-2 ** 31, 2 ** 31, (rows, cols), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32).cpu().numpy()
+
+    tensors = {}
+    for i in range(args.n_layers):
+        for mod, (k, n) in shapes.items():
+            base = f"model.layers.{i}.{mod}"
+            tensors[base + ".qweight"] = words(k // 8, n)
+            tensors[base + ".qzeros"] = words(k // 128, n // 8)
+            tensors[base + ".scales"] = (torch.rand((k // 128, n), generator=gen, device="cuda")
+                                         * 0.004 + 5e-4).to(torch.float16).cpu().numpy()
+    f = os.path.join(path, "model.safetensors")
+    write_safetensors(f, tensors)
+    return os.path.getsize(f)
+
+
+def _gptq_model(seed: int):
+    """The TinyLlama shape (22 layers) served from a GPTQ directory written
+    from ``seed``: MetaModel's random dense weights, then load_gptq_dir +
+    install_gptq_weights (rotary un-permuted) for every projection. Returns
+    (model, setup seconds, setup row)."""
+    import torch
+
+    from accessory_tpu_torch.meta import MetaModel
+    from accessory_tpu_torch.quant.omniquant import install_gptq_weights, load_gptq_dir
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nbytes = _write_gptq_dir(tmp, TINYLLAMA, seed)
+        t1 = time.perf_counter()
+        model = MetaModel("llama", dict(TINYLLAMA), max_seq_len=512, seed=seed)
+        model.tokenizer = ByteTokenizer()
+        gptq = load_gptq_dir(tmp, n_heads=model.args.n_heads, n_kv_heads=model.args.kv_heads)
+        install_gptq_weights(model.params, gptq)
+        del gptq
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    wq = model.params["layers"][0]["attention"]["wq"]["weight"]
+    row = {"phase": "serve_gptq", "setup": "GPTQ dir -> load_gptq_dir -> install_gptq_weights",
+           "dir_bytes": nbytes, "write_s": t1 - t0, "load_install_s": t2 - t1,
+           "layout": wq.layout, "bits": wq.bits, "zeros_max": float(wq.zeros.max())}
+    emit(row)
+    if wq.layout != "std" or wq.bits != 4 or row["zeros_max"] != 16.0:
+        raise AssertionError(f"serve_gptq: the imported weights are not GPTQ std W4: {row}")
+    model._reset_generator()
+    return model, t2 - t0
+
+
 def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool = True,
-                 stacked: bool = False):
+                 stacked: bool = False, matmul: str = "w4_matmul"):
     """The bench shape: batch 8, cache 1024, ``steps`` forward steps from pos
     512; with ``fused_attn_write=False`` through read-only attention and the
     one-token write; with ``stacked`` over the unfused params and a stacked
-    cache. Returns the launch counts of the timed steps."""
+    cache; ``matmul``: the quantized-matmul entry of the weights. Returns the
+    launch counts of the timed steps."""
     import torch
 
     from accessory_tpu_torch import kernels
@@ -1946,8 +2250,8 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
         raise AssertionError(f"{phase}: non-finite logits")
     attn = ("decode_attention_mha" if mha else "decode_attention") + ("8" if int8 else "") \
         + ("" if fused_attn_write else "_ro")
-    want = _zero_counts(w4_matmul=(7 if stacked else 4) * args.n_layers * steps,
-                        **{attn: args.n_layers * steps})
+    want = _zero_counts(**{matmul: (7 if stacked else 4) * args.n_layers * steps,
+                           attn: args.n_layers * steps})
     if stacked:
         want["kv_write_stacked_q8" if int8 else "kv_write_stacked_col"] = steps
     elif not fused_attn_write:
@@ -1962,6 +2266,13 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
         emit(row)
         raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
     row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms, **kw)
+    if matmul != "w4_matmul":   # the new weight formats' kernel share of the device time
+        prof = row["profile"]
+        busy = prof.get("device_busy_ms_per_step")
+        mm = sum(v for k, v in prof.get("top_kernels_ms_per_step", {}).items()
+                 if _MATMUL_SYMBOLS[matmul] in k)
+        row["matmul_ms_per_step"] = mm
+        row["matmul_share_of_busy"] = mm / busy if busy else None
     emit(row)
     return counts
 
@@ -2363,6 +2674,15 @@ KERNELS = {
                                "accessory_tpu/ops/flash_attention.py:61", "7b B=8 S=512"),
     "flash_attention_bwd_dkdv": ("accessory_tpu_torch/csrc/flash_attention_bwd.cu",
                                  "accessory_tpu/ops/flash_attention.py:61", "7b B=8 S=512"),
+    # w8_qmm :119, its Pallas body _kernel at :46
+    "w8_matmul": ("accessory_tpu_torch/csrc/w8_matmul.cu",
+                  "accessory_tpu/ops/quant_matmul_w8.py:119", "7b w13 M=8"),
+    # _qmm :83 (entry quant_matmul_pallas :134), its Pallas body _kernel at :33
+    "w4_matmul_std": ("accessory_tpu_torch/csrc/w4_matmul_std.cu",
+                      "accessory_tpu/ops/quant_matmul_pallas.py:83", "tiny w13 M=8"),
+    # magic_qmm :120, its Pallas body _kernel at :74
+    "w4_matmul_magic": ("accessory_tpu_torch/csrc/w4_matmul_magic.cu",
+                        "accessory_tpu/ops/quant_matmul_magic.py:120", "tiny w13 M=8"),
 }
 
 
@@ -2387,7 +2707,9 @@ def summary(rows, counts_by_path):
 
 ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
-              "serve7b,decode7b,train_parity,train_qpeft7b,train_full,finetune")
+              "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
+              "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
+              "train_full,finetune")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused")
 
@@ -2414,6 +2736,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from accessory_tpu_torch import kernels  # noqa: F401  (fails outside the repo)
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.quant.qtensor import to_magic_layout
+    from accessory_tpu_torch.quant.quantize import quantize_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2498,6 +2823,47 @@ def main() -> int:
                     _add_counts(bench, phase_decode("decode7b", model, kv_dtype, steps=20,
                                                     fused_attn_write=False))
                 counts_by_path["7b unfused"] = bench
+            del model
+            torch.cuda.empty_cache()
+        if "parity_w8" in phases:
+            phase_parity(opts.seed, "parity_w8", TINYLLAMA, 2, b=2, plen=64, steps=16, s_len=128,
+                         make_params=lambda a: quantize_params(
+                             llama.init_params(a, seed=opts.seed), bits=8), label="W8")
+        if "parity_gptq" in phases:
+            phase_parity_gptq(opts.seed)
+        if "serve7b_w8" in phases:
+            model, counts_by_path["7b w8"] = phase_serve7b(opts.seed, bits=8, phase="serve7b_w8")
+            if "decode7b_w8" in phases:
+                model.kv_dtype = None
+                model._reset_generator()
+                counts_by_path["7b w8 bench"] = phase_decode("decode7b_w8", model, None,
+                                                             steps=50, matmul="w8_matmul")
+            del model
+            torch.cuda.empty_cache()
+        if any(ph in phases for ph in ("serve_gptq", "decode_gptq", "serve_magic",
+                                       "decode_magic")):
+            model, setup_s = _gptq_model(opts.seed)
+            if "serve_gptq" in phases:
+                counts_by_path["gptq"] = phase_serve("serve_gptq", model, setup_s,
+                                                     matmul="w4_matmul_std")
+            if "decode_gptq" in phases:
+                counts_by_path["gptq bench"] = phase_decode("decode_gptq", model, None,
+                                                            steps=100, matmul="w4_matmul_std")
+            _map_weights(model.params, to_magic_layout)
+            model._reset_generator()
+            if "serve_magic" in phases:
+                counts_by_path["magic"] = phase_serve("serve_magic", model, setup_s,
+                                                      matmul="w4_matmul_magic")
+            if "decode_magic" in phases:
+                counts_by_path["magic bench"] = phase_decode("decode_magic", model, None,
+                                                             steps=100,
+                                                             matmul="w4_matmul_magic")
+            del model
+            torch.cuda.empty_cache()
+        if "serve_w3" in phases:
+            model, setup_s, _ = _quantized_model(TINYLLAMA, 512, opts.seed, bits=3)
+            counts_by_path["w3"] = phase_serve("serve_w3", model, setup_s, matmul=None,
+                                               max_gen_len=8)
             del model
             torch.cuda.empty_cache()
         if "train_parity" in phases:

@@ -391,22 +391,28 @@ def test_save_filter_flatten_and_stream(tmp_path, tok_path):  # noqa: F811
 
 
 def test_unported_checkpoints_raise(tmp_path, tok_path):  # noqa: F811
-    """A directory of PyTorch consolidated.* files names ROADMAP A6; a W8 leaf
-    names its queue item (B10); a directory without weights is a
-    FileNotFoundError; from_pretrained without a tokenizer says so."""
+    """A directory of PyTorch consolidated.* files names ROADMAP A5; a W8 leaf
+    of the JAX package loads, in the port's w8 layout; a directory without
+    weights is a FileNotFoundError; from_pretrained without a tokenizer says
+    so."""
     args = LLaMAArgs(**CFG, vocab_size=32, dtype="float32")
     ref = tmp_path / "ref"
     ref.mkdir()
     (ref / "consolidated.00-of-01.model.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A5"):
         load_checkpoint_list([str(ref)], args=args, device="cpu")
     with pytest.raises(FileNotFoundError):
         load_checkpoint_list([str(tmp_path / "nothing")], args=args, device="cpu")
     jmodel = _jax_model(tok_path, "dense")
     w8 = jquantize_params(jmodel.params, bits=8, layout="std")
     jsave_checkpoint(str(tmp_path / "w8"), w8)
-    with pytest.raises(NotImplementedError, match="B10"):
-        load_checkpoint(str(tmp_path / "w8"), args, device="cpu")
+    w = load_checkpoint(str(tmp_path / "w8"), args, device="cpu")["layers"][1]["attention"][
+        "wq"]["weight"]
+    assert (w.layout, w.bits) == ("w8", 8)
+    np.testing.assert_array_equal(
+        tq.dense_weight(w, torch.float32).numpy(),
+        np.asarray(jq.dense_weight(jq.to_w8_layout(jax.tree.map(
+            lambda x: x[1], w8["layers"]["attention"]["wq"]["weight"])), jnp.float32)))
     jsave_checkpoint(str(tmp_path / "bare"), jmodel.params)
     with pytest.raises(FileNotFoundError, match="tokenizer"):
         MetaModel.from_pretrained(str(tmp_path / "bare"), llama_type="llama", device="cpu")

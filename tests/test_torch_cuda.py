@@ -945,3 +945,164 @@ def test_small_model_train_step_cuda_matches_cpu(gen, peft):
     assert counts["flash_attention"] == 4
     if peft == "qpeft":
         assert counts["w4_dequant"] == 14 and counts["w4_matmul"] == 28
+
+
+# ---------------------------------------------------------------- W8, std W4, magic W4
+
+
+def _w8(gen, k, n, gs=128, pad_in_to=None):
+    from accessory_tpu_torch.quant.qtensor import to_w8_layout
+
+    w = randn(gen, k, n, dtype=torch.float32, scale=k ** -0.5)
+    return to_w8_layout(quantize_weight(w, 8, gs, pad_in_to=pad_in_to))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 17, 100, 300, 1024])
+@pytest.mark.parametrize("fusion", ["none", "norm+res", "rope_interleaved", "rope_half",
+                                    "rope_half128"])
+def test_w8_matmul(gen, m, fusion):
+    """Every GEMV row template and ragged mma tiles, each fusion, RoPE at
+    head_dim 64 and 128 in both styles; kernel vs plain version."""
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    k, n = 512, 768
+    qw = _w8(gen, k, n)
+    kw = {}
+    if fusion == "norm+res":
+        kw.update(norm_weight=1 + 0.1 * randn(gen, k, dtype=torch.float32),
+                  residual=randn(gen, m, n))
+    if fusion.startswith("rope"):
+        style = fusion.split("_")[1].rstrip("128")
+        hd = 128 if fusion.endswith("128") else 64
+        cos, sin = precompute_rope(hd, 64, device="cuda")
+        cr, sr = rope_rows(cos[13], sin[13], n // hd - 2, 2, hd, style)
+        kw.update(rope_cos=cr, rope_sin=sr, rope_style=style, rope_hd=hd)
+    args = (randn(gen, m, k), qw.packed, qw.scales, qw.zeros)
+    got = w8_qmm(*args, group_size=128, **kw)
+    assert_close(got, w8_qmm_plain(*args, group_size=128, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 1024])
+@pytest.mark.parametrize("k,kx,n,gs", [(1152, 1152, 64, 64), (2048, 1152, 264, 128),
+                                       (11264, 11008, 256, 128)])
+def test_w8_matmul_shapes(gen, m, k, kx, n, gs):
+    """Group size 64, x narrower than a padded in_dim (11008 -> 11264), N
+    neither a multiple of 64 nor of 128."""
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    qw = _w8(gen, k, n, gs)
+    args = (randn(gen, m, kx), qw.packed, qw.scales, qw.zeros)
+    kw = dict(norm_weight=1 + 0.1 * randn(gen, kx, dtype=torch.float32),
+              residual=randn(gen, m, n), group_size=gs)
+    assert_close(w8_qmm(*args, **kw), w8_qmm_plain(*args, **kw))
+
+
+def _std_gptq_like(gen, k, n, gs=128):
+    """A std-layout W4 weight with GPTQ-style zeros z + 1 in [1, 16]."""
+    q = torch.randint(0, 16, (k, n), generator=torch.Generator().manual_seed(k + n))
+    z = torch.randint(1, 17, (k // gs, n), generator=torch.Generator().manual_seed(n))
+    s = torch.rand((k // gs, n), generator=torch.Generator().manual_seed(k)) * 0.02 + 1e-3
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight, pack_int
+
+    return QuantizedWeight(packed=pack_int(q, 4).cuda(), scales=s.cuda(),
+                           zeros=z.to(torch.float32).cuda(), bits=4, group_size=gs,
+                           in_dim=k, out_dim=n)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 100, 256, 1030])
+@pytest.mark.parametrize("k,kx,n,gs", [(2048, 2048, 2560, 128), (512, 384, 136, 64),
+                                       (5632, 5632, 256, 128)])
+def test_w4_matmul_std(gen, m, k, kx, n, gs):
+    """GPTQ zeros up to 16 (no nibble could hold them), x narrower than
+    in_dim, N not a multiple of 128 on a direct call."""
+    from accessory_tpu_torch.ops.quant_matmul_pallas import (quant_matmul_pallas,
+                                                             quant_matmul_pallas_plain)
+
+    qw = _std_gptq_like(gen, k, n, gs)
+    assert float(qw.zeros.max()) == 16.0
+    x = randn(gen, m, kx)
+    assert_close(quant_matmul_pallas(x, qw), quant_matmul_pallas_plain(x, qw))
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 256, 1030])
+@pytest.mark.parametrize("k,n,gs", [(2048, 2560, 128), (5632, 256, 128), (512, 128, 64),
+                                    (4096, 512, 128)])
+def test_w4_matmul_magic(gen, m, k, n, gs):
+    """The magic words as stored (tiles of 2048, 512 and 256 rows), GPTQ
+    zeros up to 16; the kernel's bf16 weight arithmetic against the plain
+    version's."""
+    from accessory_tpu_torch.ops.quant_matmul_magic import magic_qmm, magic_qmm_plain
+    from accessory_tpu_torch.quant.qtensor import to_magic_layout
+
+    qw = to_magic_layout(_std_gptq_like(gen, k, n, gs))
+    x = randn(gen, m, k)
+    kw = dict(group_size=gs, tk=qw.tile_k)
+    assert_close(magic_qmm(x, qw.packed, qw.scales, qw.zeros, **kw),
+                 magic_qmm_plain(x, qw.packed, qw.scales, qw.zeros, **kw))
+
+
+def test_new_quant_wrappers_refuse(gen):
+    """Each new wrapper raises on what its kernel does not take, and never
+    falls back to its plain version on a CUDA tensor."""
+    from accessory_tpu_torch.ops.quant_matmul_magic import magic_qmm
+    from accessory_tpu_torch.ops.quant_matmul_pallas import quant_matmul_pallas
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm
+    from accessory_tpu_torch.quant.qtensor import to_magic_layout
+
+    qw8 = _w8(gen, 256, 256)
+    with pytest.raises(ValueError, match="bf16"):
+        w8_qmm(randn(gen, 4, 256, dtype=torch.float32), qw8.packed, qw8.scales, qw8.zeros,
+               group_size=128)
+    with pytest.raises(ValueError, match="group_size"):
+        w8_qmm(randn(gen, 4, 256), qw8.packed, qw8.scales, qw8.zeros, group_size=32)
+    std = _std_gptq_like(gen, 512, 256)
+    with pytest.raises(ValueError, match="in_dim"):
+        quant_matmul_pallas(randn(gen, 4, 96), std)
+    mq = to_magic_layout(std)
+    with pytest.raises(ValueError, match="tile"):
+        magic_qmm(randn(gen, 4, 512), mq.packed, mq.scales, mq.zeros, group_size=128, tk=256)
+    before = kernels.launch_counts()
+    magic_qmm(randn(gen, 4, 512), mq.packed, mq.scales, mq.zeros, group_size=128, tk=mq.tile_k)
+    assert kernels.launch_counts()["w4_matmul_magic"] == before["w4_matmul_magic"] + 1
+
+
+@pytest.mark.parametrize("route", ["w8", "gptq", "magic", "w3"])
+def test_small_model_new_formats_cuda_match_cpu(gen, route):
+    """A 2-layer dim-512 model in each new weight format: prefill (96 rows:
+    the mma tiles) and decode logits, card vs CPU, and the route's launches."""
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight, to_magic_layout
+
+    args = LLaMAArgs(dim=512, n_layers=2, n_heads=8, n_kv_heads=2, vocab_size=512,
+                     multiple_of=256, max_seq_len=128)
+    params = llama.init_params(args, seed=3)
+    if route in ("w8", "w3"):
+        params = quantize_params(params, bits=8 if route == "w8" else 3)
+    else:
+        for layer in params["layers"]:
+            for part in ("attention", "feed_forward"):
+                for mod in layer[part].values():
+                    w = mod["weight"]
+                    qw = _std_gptq_like(gen, w.shape[0], w.shape[1])
+                    mod["weight"] = to_magic_layout(qw) if route == "magic" else qw
+    params = fuse_for_decode(params)
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (3, 36), generator=torch.Generator().manual_seed(0))
+    cg, cc = llama.init_kv_cache(args, 3, 64), llama.init_kv_cache(args, 3, 64, device="cpu")
+    kernels.reset_launch_counts()
+    lg, _ = llama.forward(params, args, toks[:, :32].cuda(), cache=cg, cur_pos=0)
+    lc, _ = llama.forward(cpu, args, toks[:, :32], cache=cc, cur_pos=0)
+    pairs = [(lg, lc)]
+    for p in range(32, 36):
+        lg, _ = llama.forward(params, args, toks[:, p:p + 1].cuda(), cache=cg, cur_pos=p)
+        lc, _ = llama.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p)
+        pairs.append((lg, lc))
+    counts = kernels.launch_counts()
+    entry = {"w8": "w8_matmul", "gptq": "w4_matmul_std", "magic": "w4_matmul_magic"}.get(route)
+    assert counts["w4_matmul"] == 0 and counts["w4_matmul_bigm"] == 0
+    if entry:
+        assert counts[entry] == 4 * 2 * 5
+    assert isinstance(params["layers"][0]["attention"]["wqkv"]["weight"], QuantizedWeight)
+    for g, c in pairs:
+        g = g.cpu()
+        assert float((g - c).norm() / c.norm()) < 2e-2
+        assert float((g - c).abs().max()) < 2e-2 * float(c.abs().max()) + 2e-2
