@@ -6,7 +6,13 @@
 // Replaces, in accessory_tpu/ops/paged_decode.py:
 //   _paged_kernel   (via _paged_decode / paged_decode_attention)   paged_decode
 //   _paged_kernel8  (via _paged_decode8 / paged_decode_attention)  paged_decode8
-// and their shared epilogue _finish (the new tokens' part of the softmax).
+// and their shared epilogue _finish (the new tokens' part of the softmax);
+// and, in accessory_tpu/engine/kvcache.py, JAX's bundled paged_attention
+// kernel (via paged_attention_decode :414)                         paged_decode_ro
+// the read-only form: one query token a slot whose k/v the pools already
+// hold (its length counts it), so the new-token part is skipped and a slot
+// of length 0 gets zeros. It is scaled by hd^-0.5 as the reference's oracle
+// paged_attention_xla is (the bundled kernel applies no scale).
 //
 // Pools (NKV, P, PS, HD): one layer of the port's stacked (L, NKV, P, PS, HD)
 // pools, every cached token of a head one contiguous row; int8 pools carry
@@ -44,7 +50,7 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int T = 64;  // cached tokens per chunk
 
-template <int HD, typename CT>
+template <int HD, typename CT, bool RO>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
                     const bf16* __restrict__ kn, long long kn_bs, long long kn_ts,
@@ -178,7 +184,7 @@ paged_decode_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
     if (r >= nrows) break;
     const int m = row0 + r, t = m / R, g = m % R;
     float mr = m_run[i], lr = l_run[i];
-    for (int tn = 0; tn <= t; ++tn) {
+    for (int tn = 0; !RO && tn <= t; ++tn) {
       const bf16* knb = kn + b * kn_bs + tn * kn_ts + (long long)h * HD;
       const bf16* vnb = vn + b * vn_bs + tn * vn_ts + (long long)h * HD;
       float dot = 0.f;
@@ -195,11 +201,11 @@ paged_decode_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
     }
     bf16* ob = out + (((long long)b * SQ + t) * NQ + h * R + g) * HD;
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) ob[lane * DPL + d] = f2bf(acc[i][d] / lr);
+    for (int d = 0; d < DPL; ++d) ob[lane * DPL + d] = f2bf(lr > 0.f ? acc[i][d] / lr : 0.f);
   }
 }
 
-template <typename CT>
+template <typename CT, bool RO>
 cudaError_t launch(const void* q, long long q_bs, long long q_ts, const void* kn, long long kn_bs,
                    long long kn_ts, const void* vn, long long vn_bs, long long vn_ts,
                    const void* kp, const void* vp, const void* ksp, const void* vsp,
@@ -221,11 +227,11 @@ cudaError_t launch(const void* q, long long q_bs, long long q_ts, const void* kn
   const int* table = static_cast<const int*>(pt);
   bf16* o = static_cast<bf16*>(out);
   if (HD == 64) {
-    paged_decode_kernel<64, CT><<<grid, THREADS, 0, st>>>(
+    paged_decode_kernel<64, CT, RO><<<grid, THREADS, 0, st>>>(
         qp, q_bs, q_ts, knp, kn_bs, kn_ts, vnp, vn_bs, vn_ts, k, v, ks, vs, len, table, PPS, J,
         NKV, P, PS, SQ, R, scale, o);
   } else if (HD == 128) {
-    paged_decode_kernel<128, CT><<<grid, THREADS, 0, st>>>(
+    paged_decode_kernel<128, CT, RO><<<grid, THREADS, 0, st>>>(
         qp, q_bs, q_ts, knp, kn_bs, kn_ts, vnp, vn_bs, vn_ts, k, v, ks, vs, len, table, PPS, J,
         NKV, P, PS, SQ, R, scale, o);
   } else {
@@ -247,7 +253,7 @@ extern "C" int paged_decode(const void* q, long long q_bs, long long q_ts, const
                             const void* lengths, const void* page_table, int PPS, int J, int B,
                             int NKV, int P, int PS, int SQ, int R, int HD, float scale, void* out,
                             void* stream) {
-  return (int)launch<bf16>(q, q_bs, q_ts, kn, kn_bs, kn_ts, vn, vn_bs, vn_ts, k_pages, v_pages,
+  return (int)launch<bf16, false>(q, q_bs, q_ts, kn, kn_bs, kn_ts, vn, vn_bs, vn_ts, k_pages, v_pages,
                            nullptr, nullptr, lengths, page_table, PPS, J, B, NKV, P, PS, SQ, R,
                            HD, scale, out, stream);
 }
@@ -260,7 +266,20 @@ extern "C" int paged_decode8(const void* q, long long q_bs, long long q_ts, cons
                              const void* page_table, int PPS, int J, int B, int NKV, int P,
                              int PS, int SQ, int R, int HD, float scale, void* out,
                              void* stream) {
-  return (int)launch<int8_t>(q, q_bs, q_ts, kn, kn_bs, kn_ts, vn, vn_bs, vn_ts, k_pages, v_pages,
+  return (int)launch<int8_t, false>(q, q_bs, q_ts, kn, kn_bs, kn_ts, vn, vn_bs, vn_ts, k_pages, v_pages,
                              ks_pages, vs_pages, lengths, page_table, PPS, J, B, NKV, P, PS, SQ,
                              R, HD, scale, out, stream);
+}
+
+// The read-only form (bf16 pools): q (B, NKV * R, HD) bf16, batch stride
+// q_bs in elements, contiguous heads; lengths (B,) int32 counting the token
+// whose k/v the pools already hold; page table rows of stride PPS, of
+// which the first J pages may be read. out (B, NKV * R, HD) bf16 contiguous.
+extern "C" int paged_decode_ro(const void* q, long long q_bs, const void* k_pages,
+                               const void* v_pages, const void* lengths, const void* page_table,
+                               int PPS, int J, int B, int NKV, int P, int PS, int R, int HD,
+                               float scale, void* out, void* stream) {
+  return (int)launch<bf16, true>(q, q_bs, 0, nullptr, 0, 0, nullptr, 0, 0, k_pages, v_pages,
+                                 nullptr, nullptr, lengths, page_table, PPS, J, B, NKV, P, PS,
+                                 1, R, HD, scale, out, stream);
 }

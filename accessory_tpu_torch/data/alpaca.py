@@ -9,7 +9,7 @@ resumable at (epoch, start_iter). Outputs are numpy.
 The card's machine has no PyYAML, so the config is read by
 ``read_meta_config``: the reference's shape (a ``META:`` list of flat
 mappings of scalars, comments, quoted or plain values) or a ``.json`` file of
-the same structure. Not ported yet (ROADMAP A12): ``.csv`` annotation files
+the same structure. Not ported yet (ROADMAP A8): ``.csv`` annotation files
 (pandas), the h5 on-disk annotation cache (``cache_on_disk``) and items with
 an image.
 """
@@ -149,7 +149,7 @@ def _read_meta_file(meta_path: str) -> List[Dict]:
             return [json.loads(line) for line in f]
     if ext == ".csv":
         raise NotImplementedError(f"{meta_path}: .csv annotation files (read with pandas in "
-                                  "the reference) are not ported yet (ROADMAP A12)")
+                                  "the reference) are not ported yet (ROADMAP A8)")
     raise NotImplementedError(f"unknown meta extension {ext}")
 
 
@@ -159,7 +159,7 @@ class FinetuneDataset:
                  rank: int = 0):
         if cache_on_disk:
             raise NotImplementedError("cache_on_disk (the h5 annotation cache) is not ported "
-                                      "yet (ROADMAP A12)")
+                                      "yet (ROADMAP A8)")
         self.config = read_meta_config(config_path)
         group_ann: Dict[str, List[Dict]] = {}
         for meta in self.config["META"]:
@@ -198,7 +198,7 @@ class FinetuneDataset:
         item = self.ann[index]
         if item.get("image") is not None:
             raise NotImplementedError("items with an image: the multimodal families are not "
-                                      "ported (ROADMAP A12)")
+                                      "ported (ROADMAP A8)")
         answer = item["output"]
         prompt = format_prompt(item, item["sys_prompt"])
         t_prompt = self.tokenizer.encode(prompt, bos=True, eos=False)
@@ -227,7 +227,7 @@ class FinetuneDistSampler:
     """Distributed grouped sampler: every global batch comes from a single
     dataset type; resumable via ``set_epoch(epoch, start_iter)``. On one
     device num_replicas is 1 (the rank / replica arithmetic is kept for the
-    data-parallel port, ROADMAP A11)."""
+    data-parallel port, ROADMAP A10)."""
 
     def __init__(self, dataset: FinetuneDataset, num_replicas: int, rank: int,
                  shuffle: bool = True, seed: int = 0, batch_size: int = None,

@@ -14,6 +14,10 @@ the output, which is sliced at each row's stop position).
 ``stream_generate`` is a host loop over single-token forwards, as in the JAX
 package: streaming needs each token on the host.
 
+``ffn_fuse=True`` runs each decode step's FFN as one fused kernel call where
+the weights allow it (models/llama.py ``_block``), the reference's
+``ACCESSORY_FFN_FUSE=1``; off by default, as there.
+
 ``unroll_decode=True`` (the default: the card is this package's accelerator)
 fuses wqkv / w13 and decodes over per-layer caches with the fused attention +
 write kernels. ``False`` keeps the separate projections and serves from a
@@ -60,13 +64,14 @@ class Generator:
     per-layer params on ``device`` and a tokenizer."""
 
     def __init__(self, module, args, params, tokenizer, kv_dtype=None, device="cuda",
-                 unroll_decode: bool = True):
+                 unroll_decode: bool = True, ffn_fuse: bool = False):
         self.module = module
         self.args = args
         self.tokenizer = tokenizer
         self.kv_dtype = kv_dtype
         self.device = torch.device(device)
         self.unroll_decode = bool(unroll_decode)
+        self.ffn_fuse = bool(ffn_fuse)
         self.params = fuse_for_decode(params) if self.unroll_decode else params
         self.last_decode_steps = 0
         self.last_tokens = None  # the last run's token buffer (batch, buf_len), numpy
@@ -113,7 +118,8 @@ class Generator:
         cache = self.module.init_kv_cache(args, bsz, max_len=buf_len, kv_dtype=self.kv_dtype,
                                           device=dev, stacked=not self.unroll_decode)
         logits, cache = self.module.forward(self.params, args, tokens[:, :prefill_len],
-                                            cache=cache, cur_pos=0)
+                                            cache=cache, cur_pos=0,
+                                            ffn_fuse=self.ffn_fuse)
         last = logits[:, start_pos - 1]
         stopped = torch.zeros(bsz, dtype=torch.bool, device=dev)
         stop_pos = torch.full((bsz,), start_pos + 1, dtype=torch.int64, device=dev)
@@ -136,7 +142,8 @@ class Generator:
                 stop_pos = torch.where(hit, torch.full_like(stop_pos, first), stop_pos)
                 stopped = stopped | hit
             logits, cache = self.module.forward(self.params, args, tokens[:, cur:cur + 1],
-                                                cache=cache, cur_pos=cur)
+                                                cache=cache, cur_pos=cur,
+                                                ffn_fuse=self.ffn_fuse)
             last = logits[:, 0]
             cur += 1
             steps += 1
@@ -167,7 +174,8 @@ class Generator:
         cache = self.module.init_kv_cache(args, 1, max_len=buf_len, kv_dtype=self.kv_dtype,
                                           device=dev, stacked=not self.unroll_decode)
         logits, cache = self.module.forward(self.params, args, tokens[:, :prefill_len],
-                                            cache=cache, cur_pos=0)
+                                            cache=cache, cur_pos=0,
+                                            ffn_fuse=self.ffn_fuse)
         last = logits[0, start - 1]
         generated: List[int] = []
         steps = 0
@@ -185,7 +193,8 @@ class Generator:
             yield {"text": text, "end_of_content": False}
             tokens[0, cur] = nxt
             logits, cache = self.module.forward(self.params, args, tokens[:, cur:cur + 1],
-                                                cache=cache, cur_pos=cur)
+                                                cache=cache, cur_pos=cur,
+                                                ffn_fuse=self.ffn_fuse)
             last = logits[0, 0]
             steps += 1
         self.last_decode_steps = steps

@@ -2,8 +2,9 @@
 
 Port of ``accessory_tpu/engine/kvcache.py`` (PagedKVCache, init_paged_cache,
 PagePool, write_tokens, write_tokens_all_layers, paged_attention_xla,
-gather_pages, paged_cached_attention). Sequences own pages on demand, so a
-slot pays for the context it holds, not for max_seq_len.
+paged_attention_decode, gather_pages, paged_cached_attention). Sequences own
+pages on demand, so a slot pays for the context it holds, not for
+max_seq_len.
 
 The port's layout (the static cache's token-major convention; the reference
 folds pages into 128-lane rows and pads its scale rows to 128 lanes, both
@@ -31,7 +32,8 @@ from typing import Dict, Optional
 import torch
 
 from accessory_tpu_torch.ops.attention import cached_attention
-from accessory_tpu_torch.ops.paged_decode import paged_decode_attention
+from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention, paged_decode_ro,
+                                                  paged_decode_ro_plain)
 from accessory_tpu_torch.ops.paged_write import paged_write_tokens, paged_write_tokens_plain
 from accessory_tpu_torch.util import resolve_kv_dtype
 
@@ -164,22 +166,21 @@ def write_tokens_all_layers(k_pages, v_pages, k_new, v_new, page_indices, start_
 write_tokens_all_layers_plain = paged_write_tokens_plain
 
 
-def paged_attention_xla(q, k_pages, v_pages, lengths, page_indices):
-    """The oracle: gather each slot's pages into a dense (b, ctx, n_kv, hd)
-    view and run masked attention. q (b, nq, hd), one token per slot whose
-    k/v are already in the pools; lengths include it. Plain PyTorch (XLA in
-    the reference)."""
-    b, nq, hd = q.shape
-    n_kv = k_pages.shape[0]
-    k, v = gather_pages(k_pages, v_pages, page_indices)
-    ctx = k.shape[1]
-    qg = q.reshape(b, n_kv, nq // n_kv, hd).to(torch.float32)
-    scores = torch.einsum("bkrh,bskh->bkrs", qg, k.to(torch.float32)) * hd ** -0.5
-    mask = torch.arange(ctx, device=q.device)[None, :] < lengths.to(torch.int64)[:, None]
-    scores = torch.where(mask[:, None, None, :], scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkrs,bskh->bkrh", probs, v.to(torch.float32))
-    return out.reshape(b, nq, hd).to(q.dtype)
+# the oracle: each slot's pages gathered dense and a masked, scaled softmax
+# (q (b, nq, hd), one token a slot already in the pools, lengths counting it);
+# the plain version of the read-only paged kernel, XLA in the reference
+paged_attention_xla = paged_decode_ro_plain
+
+
+def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices):
+    """One-token decode attention over pages that already hold the token
+    (lengths count it): q (b, nq, hd), one layer's bf16 pools (n_kv, P, ps,
+    hd). The read-only paged kernel on the card (ops.paged_decode.
+    paged_decode_ro), the oracle on the CPU. The reference sends this to
+    JAX's bundled paged kernel on its accelerator, which applies no softmax
+    scale; the port follows the oracle's hd ** -0.5 (ROADMAP C5). Nothing on
+    the serving path calls it, as in the reference."""
+    return paged_decode_ro(q, k_pages, v_pages, lengths, page_indices)
 
 
 def gather_pages(k_pages, v_pages, page_indices, active_pages: Optional[int] = None,

@@ -15,8 +15,9 @@ kernels its main path went through (``launch_counts`` /
 ``reset_launch_counts``). Counts are kept per C entry point (``KERNELS``), not
 per source file: the GQA and MHA decode kernels, their bf16 and int8, fused
 and read-only forms, each of the cache writes, the paged decode and
-paged write entries, the two passes of the flash-attention backward, and the
-W8, std-W4 and magic-W4 matmuls show their own count.
+paged write entries (the read-only paged decode too), the two passes of the
+flash-attention backward, the W8, std-W4 and magic-W4 matmuls and the fused
+W4 FFN show their own count.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention_mha",
            "flash_attention", "kv_write", "paged_decode", "paged_write", "w4_dequant",
-           "flash_attention_bwd", "w8_matmul", "w4_matmul_std", "w4_matmul_magic")
+           "flash_attention_bwd", "w8_matmul", "w4_matmul_std", "w4_matmul_magic", "ffn_fused")
 # launch-count name of each C entry point -> the source that holds it
 KERNELS = {
     "w4_matmul": "w4_matmul",
@@ -59,6 +60,7 @@ KERNELS = {
     "kv_write_stacked_q8": "kv_write",
     "paged_decode": "paged_decode",
     "paged_decode8": "paged_decode",
+    "paged_decode_ro": "paged_decode",
     "paged_write": "paged_write",
     "paged_write_q8": "paged_write",
     "w4_dequant": "w4_dequant",
@@ -67,6 +69,7 @@ KERNELS = {
     "w8_matmul": "w8_matmul",
     "w4_matmul_std": "w4_matmul_std",
     "w4_matmul_magic": "w4_matmul_magic",
+    "ffn_fused": "ffn_fused",
 }
 # -Xptxas=-v: registers, shared memory and spills land in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

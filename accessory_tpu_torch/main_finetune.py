@@ -13,7 +13,7 @@ checkpoint is saved every ``--save_interval`` epochs and every
 ``output_dir/log.txt`` (no TensorBoard).
 
 On one card every ``--data_parallel`` mode is the same single-device step;
-``--model_parallel_size`` other than 1 waits for ROADMAP A11.
+``--model_parallel_size`` other than 1 waits for ROADMAP A10.
 
     python -m accessory_tpu_torch.main_finetune --llama_config cfg.json \\
         --tokenizer_path tokenizer.model --data_config data.yaml \\
@@ -81,7 +81,7 @@ def main(args, tokenizer=None, device="cuda"):
 
     if args.model_parallel_size != 1:
         raise NotImplementedError("--model_parallel_size > 1: tensor parallelism waits for "
-                                  "the parallel package (ROADMAP A11)")
+                                  "the parallel package (ROADMAP A10)")
     os.makedirs(args.output_dir, exist_ok=True)
     print(f"device: {device}", flush=True)
 

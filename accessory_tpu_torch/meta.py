@@ -39,6 +39,10 @@ class MetaModel:
         # KV-cache dtype the Generator allocates (None: the activation dtype,
         # "int8": the int8 cache); set it, then call _reset_generator
         self.kv_dtype: Optional[str] = None
+        # whether a decode step's FFN takes the fused kernel where the weights
+        # allow it (the reference's ACCESSORY_FFN_FUSE=1); set it, then call
+        # _reset_generator
+        self.ffn_fuse = False
         self._generator: Optional[Generator] = None
 
     @property
@@ -47,7 +51,8 @@ class MetaModel:
             if self.params is None or self.tokenizer is None:
                 raise RuntimeError("MetaModel.generate needs params and a tokenizer")
             self._generator = Generator(self.module, self.args, self.params, self.tokenizer,
-                                        kv_dtype=self.kv_dtype, device=self.device)
+                                        kv_dtype=self.kv_dtype, device=self.device,
+                                        ffn_fuse=self.ffn_fuse)
         return self._generator
 
     def _reset_generator(self):
@@ -117,14 +122,17 @@ class MetaModel:
                         tokenizer_path: Optional[str] = None, max_seq_len: int = 4096,
                         quant: bool = False, quant_bits: int = 4,
                         kv_dtype: Optional[str] = None, dtype: str = "bfloat16",
-                        device="cuda", tokenizer=None) -> "MetaModel":
+                        device="cuda", tokenizer=None, ffn_fuse: bool = False) -> "MetaModel":
         """Probe a checkpoint dir for meta.json / config.json / tokenizer and
         load its weights onto ``device`` tensor by tensor. ``pretrained_path``
         may be a list: later entries override / add. ``quant`` quantizes the
         dense weights after loading (a checkpoint that is already quantized
         stays as it is); ``kv_dtype`` is the KV-cache dtype the Generator
-        allocates; ``dtype`` casts dense floating weights; ``tokenizer``: a
-        tokenizer object that takes the place of the probed tokenizer file."""
+        allocates; ``ffn_fuse`` runs each decode step's FFN as one fused
+        kernel where the weights allow it (off by default, as the reference's
+        ``ACCESSORY_FFN_FUSE``); ``dtype`` casts dense floating weights;
+        ``tokenizer``: a tokenizer object that takes the place of the probed
+        tokenizer file."""
         paths = [pretrained_path] if isinstance(pretrained_path, str) else list(pretrained_path)
         root = paths[-1]
         if llama_type is None:
@@ -156,5 +164,6 @@ class MetaModel:
         if quant:
             model.quantize(bits=quant_bits)
         model.kv_dtype = kv_dtype
+        model.ffn_fuse = ffn_fuse
         model._reset_generator()
         return model

@@ -10,5 +10,5 @@ _MODULES = {"llama": "accessory_tpu_torch.models.llama"}
 def get_model_module(llama_type: str):
     if llama_type not in _MODULES:
         raise KeyError(f"llama_type {llama_type!r} is not ported (ported: {sorted(_MODULES)}; "
-                       "the rest of the model zoo is ROADMAP A9)")
+                       "the rest of the model zoo is ROADMAP A6)")
     return importlib.import_module(_MODULES[llama_type])

@@ -12,7 +12,8 @@ whose ``layers`` is a list of per-layer dicts; weights are stored
 (``quant.fuse.fuse_for_decode``) or separate wq, wk, wv / w1, w3. Each fused
 decode layer runs: the wqkv W4 kernel with the
 RMSNorm prologue and RoPE epilogue; the fused decode attention + KV write;
-wo W4 + residual; w13 W4 with the norm; SwiGLU; w2 W4 + residual. A
+wo W4 + residual; w13 W4 with the norm; SwiGLU; w2 W4 + residual (or, with
+``ffn_fuse``, the last three in one fused FFN kernel, ops/ffn_fused.py). A
 position-0 prefill runs the same matmuls, causal flash attention and one
 slab write of the prompt's K/V per layer; with 1024 prompt rows or more the
 W4 matmuls go unfused through the many-row kernel (ops/linear.py). With an
@@ -52,6 +53,7 @@ from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached
                                                       decode_attention_update,
                                                       decode_attention_update8, write_kv_layer,
                                                       write_kv_layer8, write_kv_t, write_kv_t8)
+from accessory_tpu_torch.ops.ffn_fused import ffn_fusible, ffn_qmm
 from accessory_tpu_torch.ops.linear import module_linear, module_linear_nr
 from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
@@ -185,7 +187,7 @@ def _rope_tables(head_dim: int, max_len: int, theta: float, scaling, style: str,
 
 def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
            update_cache: bool, rope_t=None, cache_ks=None, cache_vs=None,
-           fused_attn_write: bool = True):
+           fused_attn_write: bool = True, ffn_fuse: bool = False):
     """One transformer block, over fused (wqkv / w13) or separate (wq, wk, wv /
     w1, w3) layer params. With ``update_cache`` (a decode step over per-layer
     pools) the attention call also writes the new token's k/v into the cache
@@ -193,7 +195,10 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
     given), in one kernel or, without ``fused_attn_write``, in a read-only
     attention and a one-token write, and (h, cache_k, cache_v) is returned;
     otherwise the cache is only read and (h, k, v) goes back for the caller's
-    write."""
+    write. ``ffn_fuse``: a one-token step over a cache runs the FFN (norm,
+    w13, SwiGLU, w2 and the residual) as one fused kernel call where
+    ``ops.ffn_fused.ffn_fusible`` holds and w2 has no LoRA or bias, the
+    reference's conditions (its ``ACCESSORY_FFN_FUSE=1``)."""
     b, sq, _ = h.shape
     hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
     att = layer["attention"]
@@ -233,12 +238,20 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
                          allow_fused=fuse_ok)
     ff = layer["feed_forward"]
     if "w13" in ff:
-        gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps,
-                              allow_fused=fuse_ok)
-        hidden = gu.shape[-1] // 2
-        gate = torch.nn.functional.silu(gu[..., :hidden])
-        h = module_linear_nr(gate * gu[..., hidden:], ff["w2"], residual=h,
-                             allow_fused=fuse_ok)
+        w13, w2 = ff["w13"]["weight"], ff["w2"]
+        m_rows = b * sq
+        if (ffn_fuse and fuse_ok and sq == 1 and "lora_a" not in w2 and w2.get("bias") is None
+                and ffn_fusible(w13, w2["weight"], m_rows)):
+            x2d = h.reshape(m_rows, h.shape[-1])
+            h = ffn_qmm(x2d, w13, w2["weight"], residual=x2d,
+                        norm_weight=layer["ffn_norm"]["weight"],
+                        norm_eps=args.norm_eps).reshape(h.shape)
+        else:
+            gu = module_linear_nr(h, ff["w13"], norm=layer["ffn_norm"], eps=args.norm_eps,
+                                  allow_fused=fuse_ok)
+            hidden = gu.shape[-1] // 2
+            gate = torch.nn.functional.silu(gu[..., :hidden])
+            h = module_linear_nr(gate * gu[..., hidden:], w2, residual=h, allow_fused=fuse_ok)
     else:
         x = rms_norm(h, layer["ffn_norm"]["weight"], args.norm_eps)
         gate = torch.nn.functional.silu(module_linear(x, ff["w1"]))
@@ -259,7 +272,7 @@ def _check_layers(params: Params) -> None:
 
 def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
             cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
-            fused_attn_write: bool = True, remat=False
+            fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """A chunk of tokens at position ``cur_pos`` (a prefill at 0, a chunk
     after cached tokens, or one decode token) over per-layer params, fused
@@ -274,7 +287,9 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     slot (one fused kernel, or read-only attention plus a one-token write with
     ``fused_attn_write=False``); a longer chunk is written layer by layer.
     A stacked cache (one tensor per pool): every layer reads its slice of the
-    cache and all layers' new k/v are written by one call after the last."""
+    cache and all layers' new k/v are written by one call after the last.
+    ``ffn_fuse``: a decode step's FFN takes the fused kernel where it can
+    (``_block``); a prefill and the training forward never fuse."""
     _check_layers(params)
     h = params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
@@ -309,7 +324,8 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
         cvs = cache["vs"][i] if int8_kv else None
         ck, cv = cache["k"][i], cache["v"][i]
         h, k_new, v_new = _block(h, layer, args, cos, sin, cur_pos, ck, cv,
-                                 decode and not stacked, rope_t, cks, cvs, fused_attn_write)
+                                 decode and not stacked, rope_t, cks, cvs, fused_attn_write,
+                                 ffn_fuse)
         if stacked:
             new_k.append(k_new)
             new_v.append(v_new)

@@ -21,6 +21,14 @@ CUDA kernel: ``csrc/paged_decode.cu`` (entries ``paged_decode`` and
 ``paged_decode8``). ``paged_decode_attention_plain`` follows the TPU kernel's
 op order (a page at a time, online softmax, masked scores at the finite
 -1e30, then the new tokens' part) and runs for tensors on the CPU.
+
+``paged_decode_ro`` is the read-only form (entry ``paged_decode_ro``), the
+port of JAX's bundled ``paged_attention`` kernel behind
+``accessory_tpu/engine/kvcache.py::paged_attention_decode``: one query token
+a slot whose k/v the bf16 pools already hold, ``lengths`` counting it. Its
+plain version ``paged_decode_ro_plain`` is the reference's oracle
+(``paged_attention_xla``: pages gathered dense, a masked f32 softmax scaled
+by hd ** -0.5).
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ _HEAD = [P, L, L] * 3
 _TAIL = [I] * 9 + [F, P, P]
 _ARGS = _HEAD + [P, P] + [P, P] + _TAIL
 _ARGS8 = _HEAD + [P, P, P, P] + [P, P] + _TAIL
+# q, batch stride, pools, lengths, page table + PPS J B NKV P PS R HD + scale, out, stream
+_ARGS_RO = [P, L, P, P, P, P] + [I] * 8 + [F, P, P]
 
 
 def _layer_view(pools, layer):
@@ -162,3 +172,62 @@ def paged_decode_attention_plain(q, k_new, v_new, k_pages, v_pages, lengths_old,
     out = acc * a_fin + torch.einsum("bkmt,bkth->bkmh", p_new, vn)
     out = (out / denom).to(q.dtype)
     return out.reshape(b, nkv, sq, r, hd).transpose(1, 2).reshape(b, sq, nq, hd)
+
+
+def paged_decode_ro(q, k_pages, v_pages, lengths, page_indices):
+    """One query token a slot, q (b, nq, hd), over one layer's bf16 pools
+    (nkv, P, ps, hd) that already hold its k/v; ``lengths`` (b,) int32
+    counts it, ``page_indices`` (b, pages_per_seq) int32. Returns (b, nq,
+    hd). A slot of length 0 gets zeros on the card."""
+    if not _device_route("paged_decode_ro", q):
+        return paged_decode_ro_plain(q, k_pages, v_pages, lengths, page_indices)
+    b, nq, hd = q.shape
+    nkv, n_pages, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    dev = q.device
+    ok = (q.dtype == torch.bfloat16 and q.stride(2) == 1 and q.stride(1) == hd
+          and k_pages.ndim == 4 and nkv > 0 and nq % nkv == 0 and hd in (64, 128)
+          and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                  and tuple(t.shape) == (nkv, n_pages, ps, hd) for t in (k_pages, v_pages))
+          and lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
+          and lengths.is_contiguous()
+          and page_indices.dtype == torch.int32 and page_indices.ndim == 2
+          and page_indices.shape[0] == b and page_indices.stride(1) == 1
+          and all(t.device == dev for t in (k_pages, v_pages, lengths, page_indices)))
+    if not ok:
+        raise ValueError(
+            "paged_decode_ro: needs bf16 q (b,nq,hd) with contiguous heads, contiguous "
+            "16-byte aligned bf16 pools (nkv,P,ps,hd) with nq a multiple of nkv, int32 lengths "
+            "(b,) and page table (b,pps), all on one device, hd 64/128; got q "
+            f"{tuple(q.shape)} {q.dtype}, pools {tuple(k_pages.shape)} {k_pages.dtype}, "
+            f"lengths {lengths.dtype}, page table {tuple(page_indices.shape)} "
+            f"{page_indices.dtype}")
+    out = torch.empty((b, nq, hd), dtype=torch.bfloat16, device=dev)
+    rc = kernels.function("paged_decode", "paged_decode_ro", _ARGS_RO)(
+        q.data_ptr(), q.stride(0), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+        page_indices.data_ptr(), page_indices.stride(0), page_indices.shape[1], b, nkv,
+        n_pages, ps, nq // nkv, hd, hd ** -0.5, out.data_ptr(), kernels.stream_ptr(q))
+    kernels.check("paged_decode_ro", rc)
+    return out
+
+
+def paged_decode_ro_plain(q, k_pages, v_pages, lengths, page_indices):
+    """Plain version, the reference's oracle ``paged_attention_xla``: each
+    slot's pages gathered into a dense (b, ctx, nkv, hd) view, scores in f32
+    scaled by hd ** -0.5, columns at or past the length masked to -1e30, a
+    softmax, the value product in f32."""
+    b, nq, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    pages = page_indices.shape[1]
+    idx = page_indices.to(torch.int64)
+
+    def dense(p):  # (nkv, b, pages, ps, hd) -> (b, ctx, nkv, hd)
+        return p[:, idx].permute(1, 2, 3, 0, 4).reshape(b, pages * ps, nkv, hd)
+
+    k, v = dense(k_pages), dense(v_pages)
+    qg = q.reshape(b, nkv, nq // nkv, hd).to(torch.float32)
+    scores = torch.einsum("bkrh,bskh->bkrs", qg, k.to(torch.float32)) * hd ** -0.5
+    mask = torch.arange(pages * ps, device=q.device)[None, :] < lengths.to(torch.int64)[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrs,bskh->bkrh", probs, v.to(torch.float32))
+    return out.reshape(b, nq, hd).to(q.dtype)

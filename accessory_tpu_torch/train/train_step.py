@@ -62,10 +62,10 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
     divided by ``accum_steps`` and their metrics averaged. Metrics: loss,
     c_loss, aux_loss, n_tokens and grad_norm, as 0-d tensors on the device."""
     if moe_aux:
-        raise NotImplementedError("the MoE auxiliary loss: mixtral is not ported (ROADMAP A9)")
+        raise NotImplementedError("the MoE auxiliary loss: mixtral is not ported (ROADMAP A6)")
     if attn_fn is not None:
         raise NotImplementedError("attn_fn (context-parallel attention) waits for the "
-                                  "parallel package (ROADMAP A11)")
+                                  "parallel package (ROADMAP A10)")
     compute_dtype = torch_dtype(args.dtype)
 
     def _autocast(params):
@@ -84,7 +84,7 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
     def train_step(state: TrainState, batch: Dict[str, Any]):
         if batch.get("images") is not None:
             raise NotImplementedError("multimodal batches: the image families are not "
-                                      "ported (ROADMAP A12)")
+                                      "ported (ROADMAP A8)")
         examples, labels = (_ids(batch[k], device) for k in ("examples", "labels"))
         diff = partition_params(state.params)
         for p in diff.values():

@@ -34,7 +34,7 @@ def remat_policy(remat) -> Optional[Callable]:
     the reference's policy (save nothing inside the block). ``True`` /
     ``"dots"`` (the reference saves the matmul and attention outputs and
     recomputes the rest) take the same full route here: the same numbers,
-    more recompute; a selective policy is later work (ROADMAP A10)."""
+    more recompute; a selective policy is later work (ROADMAP A7)."""
     if remat is None or remat is False:
         return None
     if remat is True or remat in ("dots", "full"):

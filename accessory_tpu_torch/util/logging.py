@@ -1,9 +1,11 @@
 """Training metrics and logging. Port of ``accessory_tpu/util/logging.py``
-(SmoothedValue, MetricLogger, write_log_line); the memory figure is
-``torch.cuda.max_memory_allocated`` (0 on a host without a card)."""
+(setup_for_distributed, SmoothedValue, MetricLogger, write_log_line); the
+memory figure is ``torch.cuda.max_memory_allocated`` (0 on a host without a
+card)."""
 
 from __future__ import annotations
 
+import builtins
 import datetime
 import json
 import os
@@ -13,6 +15,20 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+
+def setup_for_distributed(is_master: bool) -> None:
+    """Silence ``print`` on every process but the master (``force=True``
+    prints anyway) and prefix each line with a timestamp."""
+    builtin_print = builtins.print
+
+    def print_fn(*args, **kwargs):
+        force = kwargs.pop("force", False)
+        if is_master or force:
+            now = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S")
+            builtin_print(f"[{now}]", *args, **kwargs)
+
+    builtins.print = print_fn
 
 
 class SmoothedValue:
@@ -67,6 +83,16 @@ class MetricLogger:
         for k, v in kwargs.items():
             if v is not None:
                 self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        # only called for names that are not attributes: a meter by its name
+        meters = self.__dict__.get("meters", {})
+        if attr in meters:
+            return meters[attr]
+        raise AttributeError(attr)
+
+    def add_meter(self, name: str, meter: SmoothedValue) -> None:
+        self.meters[name] = meter
 
     def __str__(self) -> str:
         return self.delimiter.join(f"{n}: {m}" for n, m in self.meters.items())

@@ -9,7 +9,8 @@
                                                parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,
                                                decode_gptq,serve_magic,decode_magic,serve_w3,
                                                train_parity,train_qpeft7b,train_full,
-                                               finetune] [--out FILE]
+                                               finetune,parity_ffn,serve_ffn,decode_ffn,
+                                               decode7b_ffn,paged_ro] [--out FILE]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -20,7 +21,9 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             median of 3; inputs rotated through enough copies to spill the
             50 MB L2 where the model reads them cold), the kernel's wall time
             between CUDA events, and the bound from bytes and operations at the
-            H100's 3.35 TB/s and 989 TFLOP/s;
+            H100's 3.35 TB/s and 989 TFLOP/s (the fused FFN beside the unfused
+            chain's device time, the read-only paged decode also against the
+            paged decode after the token's paged write);
   parity    TinyLlama width, 2 layers: CPU through the plain versions against
             the card through the kernels, prefill logits and 16 greedy decode
             steps (teacher-forced on the CPU tokens);
@@ -108,7 +111,20 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   finetune  main_finetune.main at tiny size: a generated alpaca JSON through a
             YAML META config and the byte tokenizer, one epoch with --quant
             --only_save_trainable, the optimizer state read back bit for bit,
-            and a second call that resumes for the next epoch.
+            and a second call that resumes for the next epoch;
+  parity_ffn  as parity with ffn_fuse (each decode step's FFN one fused kernel
+            call: CPU plain version vs card kernel), then on the card the fused
+            route against the unfused one (logits at parity's tolerances,
+            confident greedy tokens equal);
+  serve_ffn, decode_ffn  (run after the loaded weights' decode phases) serve
+            through MetaModel.generate with ffn_fuse, launch counts exact (2
+            w4_matmul + 1 ffn_fused a layer a decode step), the text against
+            the unfused route's and both routes' logits teacher-forced; decode
+            at the bench shape in turns fused, unfused, unfused, fused;
+  decode7b_ffn  (after decode7b) the 7B decode with ffn_fuse in the same turns;
+  paged_ro  engine.kvcache.paged_attention_decode driven as a caller would (the
+            reference has none): a one-token loop of paged writes and read-only
+            paged attention at the TinyLlama shape, launch counts exact.
 The line before the last holds the kernel table ({"kernels": [...]}, launches
 summed over the counted main-path runs); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
@@ -142,7 +158,7 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
                 "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8",
                 "paged_decode", "paged_decode8", "paged_write", "paged_write_q8",
                 "w4_dequant", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
-                "w8_matmul", "w4_matmul_std", "w4_matmul_magic")
+                "w8_matmul", "w4_matmul_std", "w4_matmul_magic", "paged_decode_ro", "ffn_fused")
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
@@ -1076,6 +1092,139 @@ def _kernels_w4elem(kr, tag, specs):
         del std, xs
 
 
+def _kernels_ffn(kr, tag, k, ffn, n2, ms):
+    """ffn_qmm (one cooperative launch: w13 with the norm prologue, SwiGLU,
+    w2 plus the residual) against ffn_qmm_plain at a decode FFN's widths,
+    W4 g128, w2's in_dim padded as quantize_params pads it; each row count
+    with and without the norm and the residual, timed with both (the model's
+    call) beside the unfused chain the path takes without ffn_fuse (w13
+    w4_matmul with the norm, silu, the product, w2 w4_matmul with the
+    residual: all of its kernels' device time). No single PyTorch call
+    computes the function: no library time. The bound counts the weights'
+    bytes the function reads (w2's padded rows are not read)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.ops.ffn_fused import ffn_qmm, ffn_qmm_plain
+    from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm
+    from accessory_tpu_torch.quant.qtensor import quantize_weight, to_folded_layout
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    def w4(kk, nn):
+        w = kr.randn(kk, nn, dtype=torch.float32, scale=kk ** -0.5)
+        return to_folded_layout(quantize_weight(w, 4, 128, pad_in_to=pad_to(kk, 128)))
+
+    w_bytes = (k * ffn + 2 * (k // 128) * 2 * ffn * 4) + (ffn * n2 // 2 + 2 * (ffn // 128) * n2 * 4)
+    weights = [(w4(k, 2 * ffn), w4(ffn, n2)) for _ in range(n_copies(w_bytes))]
+
+    def fused(x, a, b, r, nw):
+        return ffn_qmm(x, a, b, residual=r, norm_weight=nw)
+
+    def plain(x, a, b, r, nw):
+        return ffn_qmm_plain(x, a, b, residual=r, norm_weight=nw)
+
+    def chain(x, a, b, r, nw):
+        gu = planes_qmm(x, a.packed, a.scales, a.zeros, nw, in_dim=a.in_dim, group_size=128)
+        hh = F.silu(gu[:, :ffn]) * gu[:, ffn:]
+        return planes_qmm(hh, b.packed, b.scales, b.zeros, residual=r, in_dim=b.in_dim,
+                          group_size=128)
+
+    for m in ms:
+        calls = [(kr.randn(m, k), a, b, kr.randn(m, n2),
+                  1 + 0.1 * kr.randn(k, dtype=torch.float32)) for a, b in weights]
+        x, a, b, r, nw = calls[0]
+        errs = {}
+        for fusion, extra in (("none", (None, None)), ("norm+res", (r, nw))):
+            got, want = fused(x, a, b, *extra), plain(x, a, b, *extra)
+            torch.cuda.synchronize()
+            check_close(f"ffn_fused {tag} M={m} {fusion}", got, want, rtol=2e-2, atol=2e-2)
+            errs[fusion] = max_err(got, want)
+        # the unfused chain rounds silu and the product apart: printed, held by parity_ffn
+        vs_chain = max_err(fused(*calls[0]), chain(*calls[0]))[0]
+        k_ms = time_ms(fused, calls)
+        k_wall = wall_ms(fused, calls)
+        p_ms = time_ms(plain, calls[:1], min_iters=3)
+        chain_ms = time_ms(chain, calls)
+        nbytes = w_bytes + m * k * 2 + 2 * m * n2 * 2 + k * 4
+        worst = max(errs.values())
+        kr.record("ffn_fused", f"{tag} M={m} K={k} FFN={ffn} N2={n2} norm+res", worst, k_ms,
+                  k_wall, p_ms, None, nbytes, 2.0 * m * (k * 2 * ffn + ffn * n2),
+                  unfused_chain_ms=chain_ms, max_abs_err_no_fusion=errs["none"][0],
+                  max_abs_diff_vs_unfused_chain=vs_chain, weight_bytes=w_bytes)
+        del calls
+    del weights
+
+
+def _kernels_paged_ro(kr, tag, nkv, r, hd, lengths, ps=64, most_copies=32):
+    """paged_decode_ro (kvcache.paged_attention_decode's kernel: one token a
+    slot whose k/v the bf16 pools already hold, lengths counting it) against
+    its plain version (the reference's oracle) through a shuffled table with
+    a shared page and TRASH entries; then, on a table of each slot's own
+    pages, against paged_decode with sq = 1 over the old lengths after the
+    same token's paged write. Library yardstick: SDPA over each slot's pages
+    gathered into a dense cache beforehand, the length as a mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.engine.kvcache import gather_pages
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention, paged_decode_ro,
+                                                      paged_decode_ro_plain)
+    from accessory_tpu_torch.ops.paged_write import paged_write_tokens
+
+    b, nq = len(lengths), nkv * r
+    pps = -(-max(lengths) // ps)
+    n_pages = b * pps + 1
+    table = _paged_table(b, pps, n_pages, lengths, ps, seed=b * pps + r)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    pool_bytes = 2 * nkv * n_pages * ps * hd * 2
+    sets = [(kr.randn(b, nq, hd),) + _paged_pools(kr, 1, nkv, n_pages, ps, hd, False)
+            for _ in range(n_copies(pool_bytes, most_copies))]
+
+    def call(q, kp, vp):
+        return paged_decode_ro(q, kp[0], vp[0], lens, table)
+
+    def plain(q, kp, vp):
+        return paged_decode_ro_plain(q, kp[0], vp[0], lens, table)
+
+    q, kp, vp = sets[0]
+    before = (kp.clone(), vp.clone())
+    got, want = call(*sets[0]), plain(*sets[0])
+    torch.cuda.synchronize()
+    name = f"paged_decode_ro {tag}"
+    check_close(name, got, want, rtol=1e-2, atol=4 * bf16_ulp(float(want.float().abs().max())))
+    if not (torch.equal(kp, before[0]) and torch.equal(vp, before[1])):
+        raise AssertionError(f"{name}: the read-only kernel changed its pools")
+    # the write + read-only form against the paged decode that takes the token as new
+    own = _paged_table(b, pps, n_pages, lengths, ps, seed=7, share=False)
+    old = (lens - 1).clamp_min(0)
+    kn, vn = kr.randn(b, 1, nkv, hd), kr.randn(b, 1, nkv, hd)
+    kp2, vp2 = before           # the untouched copies take the write
+    ref = paged_decode_attention(q[:, None], kn, vn, kp2, vp2, old, own, None, layer=0)[:, 0]
+    paged_write_tokens(kp2, vp2, kn[None], vn[None], own, old)
+    after = paged_decode_ro(q, kp2[0], vp2[0], old + 1, own)
+    torch.cuda.synchronize()
+    check_close(f"{name} after paged_write vs paged_decode", after, ref, rtol=1e-2,
+                atol=4 * bf16_ulp(float(ref.float().abs().max())))
+    del before, kp2, vp2
+    k_ms = time_ms(call, sets)
+    k_wall = wall_ms(call, sets)
+    p_ms = time_ms(plain, sets[:1], min_iters=3)
+    mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    lib_sets = []
+    for q_, kp_, vp_ in sets[:4]:
+        kd, vd = gather_pages(kp_[0], vp_[0], table)
+        lib_sets.append((q_[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))
+    lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
+    cached = sum(lengths)
+    nbytes = cached * nkv * 2 * hd * 2 + 2 * b * nq * hd * 2 + b * pps * 4 + b * 4
+    kr.record("paged_decode_ro", f"{tag} B={b} NKV={nkv} R={r} HD={hd} PS={ps} J={pps} "
+              f"lengths={','.join(map(str, lengths))}", max_err(got, want), k_ms, k_wall, p_ms,
+              lib_ms, nbytes, 4.0 * nq * hd * cached,
+              after_write_max_abs_err=max_err(after, ref)[0])
+    del sets, lib_sets
+
+
 def phase_kernels(seed: int):
     """Every kernel against its plain version at the main paths' shapes."""
     from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
@@ -1208,6 +1357,17 @@ def phase_kernels(seed: int):
     #    and the 7B w13 at batch 8
     _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, m) for m in (1, 4, 8, 256, 512)])
     _kernels_w4elem(kr, "7b", [("w13", 4096, 22016, 8)])
+
+    # -- the fused W4 decode FFN (ffn_fuse): TinyLlama and 7B widths at the
+    #    stream (1), serve (4), a ragged (5) and the decode (8) batches, and
+    #    its largest row count (128)
+    _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 128))
+    _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 128))
+    # -- the read-only paged decode (kvcache.paged_attention_decode): 8 slots of
+    #    lengths 1..1024 over 64-token pages, TinyLlama (GQA) and 7B (MHA)
+    tokens = [1, 63, 64, 65, 300, 511, 777, 1024]
+    _kernels_paged_ro(kr, "tiny", 4, 8, 64, tokens)
+    _kernels_paged_ro(kr, "7b", 32, 1, 128, tokens, most_copies=4)
     return kr.rows
 
 
@@ -1235,13 +1395,14 @@ LOGIT_REL_L2 = 2e-2   # ||gpu - cpu|| / ||cpu||
 
 def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: int, steps: int,
                  s_len: int, kv_dtypes=(None,), stacked: bool = False, make_params=None,
-                 label: str = "W4"):
+                 label: str = "W4", ffn_fuse: bool = False):
     """Same weights, CPU through the plain versions vs the card through the
     kernels: prefill logits, then ``steps`` decode steps fed the CPU's greedy
     tokens, once per KV-cache dtype. ``stacked``: the stacked-cache path
     (separate projections, read-only attention, one bulk write per forward).
     ``make_params(args)``: the quantized (unfused) params on the card, W4 RTN
-    by default. Returns the card's prefill logits of the last run."""
+    by default. ``ffn_fuse``: both sides' decode steps take the fused FFN.
+    Returns the card's prefill logits of the last run."""
     import torch
 
     from accessory_tpu_torch.config import LLaMAArgs
@@ -1266,7 +1427,8 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
         def cpu_forward(tokens, pos):
             nonlocal cpu_s
             t0 = time.perf_counter()
-            out, _ = llama.forward(params_cpu, args, tokens, cache=cache_c, cur_pos=pos)
+            out, _ = llama.forward(params_cpu, args, tokens, cache=cache_c, cur_pos=pos,
+                                   ffn_fuse=ffn_fuse)
             cpu_s += time.perf_counter() - t0
             return out
 
@@ -1292,11 +1454,12 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
         tok = lc[:, -1].argmax(-1)
         for i in range(steps):
             lg, _ = llama.forward(params_gpu, args, tok[:, None].cuda(), cache=cache_g,
-                                  cur_pos=plen + i)
+                                  cur_pos=plen + i, ffn_fuse=ffn_fuse)
             lc = cpu_forward(tok[:, None], plen + i)
             compare(lg, lc)
             tok = lc[:, -1].argmax(-1)
         row = {"phase": phase, "path": "stacked" if stacked else "unrolled", "weights": label,
+               "ffn_fuse": ffn_fuse,
                "layers": args.n_layers, "dim": args.dim, "batch": b, "prompt": plen,
                "prefill_rows": b * plen, "decode_steps": steps,
                "kv_dtype": kv_dtype or "bf16", "cpu_seconds": round(cpu_s, 2),
@@ -1308,6 +1471,94 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
         if worst_abs > tol_abs or worst_rel > LOGIT_REL_L2 or agreed != checked:
             raise AssertionError(f"{phase} failed: {row}")
     return first
+
+
+def _route_logits(params, args, toks, prefill_len: int, start: int, end: int, ffn_fuse: bool):
+    """Logits that pick the tokens at positions start .. end - 1, teacher-
+    forced on ``toks`` (b, >= end) as the Generator feeds them: a prefill of
+    the first ``prefill_len`` tokens, then one decode step a position.
+    Returns (b, end - start, vocab) f32."""
+    import torch
+
+    from accessory_tpu_torch.models import llama
+
+    cache = llama.init_kv_cache(args, toks.shape[0], toks.shape[1])
+    lg, _ = llama.forward(params, args, toks[:, :prefill_len], cache=cache, cur_pos=0,
+                          ffn_fuse=ffn_fuse)
+    out = [lg[:, start - 1]]
+    for cur in range(start, end - 1):
+        lg, _ = llama.forward(params, args, toks[:, cur:cur + 1], cache=cache, cur_pos=cur,
+                              ffn_fuse=ffn_fuse)
+        out.append(lg[:, 0])
+    return torch.stack(out, dim=1).float()
+
+
+def _compare_routes(fused, unfused, picked=None):
+    """The fused FFN route's logits against the unfused route's at the
+    parity tolerances: 2% of the largest |logit| and 2% relative L2; the
+    greedy token must agree wherever the unfused top-2 margin exceeds the
+    absolute tolerance (``picked``: the positions whose token was sampled,
+    not forced by the prompt)."""
+    import torch
+
+    tol_abs = LOGIT_TOL_FRAC * float(unfused.abs().max())
+    top2 = unfused.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol_abs
+    differ = fused.argmax(-1) != unfused.argmax(-1)
+    if picked is not None:
+        sure, differ = sure & picked, differ & picked
+    row = {"max_abs_logit_err": float((fused - unfused).abs().max()),
+           "rel_l2_err": float((fused - unfused).norm() / unfused.norm()), "tol_abs": tol_abs,
+           "tol_rel_l2": LOGIT_REL_L2, "tokens_checked": int(sure.sum()),
+           "tokens_agreed": int((sure & ~differ).sum()),
+           "greedy_disagreements_at_near_ties": int((differ & ~sure).sum())}
+    row["ok"] = bool(torch.isfinite(fused).all()) and row["max_abs_logit_err"] <= tol_abs \
+        and row["rel_l2_err"] <= LOGIT_REL_L2 and row["tokens_agreed"] == row["tokens_checked"]
+    return row
+
+
+def phase_parity_ffn(seed: int):
+    """ffn_fuse at TinyLlama width, 2 layers: the CPU (the fused FFN's plain
+    version) against the card (the kernel) as in parity, a 64-token prefill
+    and 16 teacher-forced decode steps; then on the card the fused route
+    against the unfused one over the same prompt and the unfused route's
+    greedy tokens, with each route's decode launches counted."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.config import LLaMAArgs
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.quant.fuse import fuse_for_decode
+    from accessory_tpu_torch.quant.quantize import quantize_params
+
+    phase_parity(seed, "parity_ffn", TINYLLAMA, 2, b=2, plen=64, steps=16, s_len=128,
+                 ffn_fuse=True)
+    args = LLaMAArgs(**dict(TINYLLAMA, n_layers=2), max_seq_len=128)
+    params = fuse_for_decode(quantize_params(llama.init_params(args, seed=seed)))
+    b, plen, steps = 2, 64, 16
+    toks = torch.zeros((b, plen + steps), dtype=torch.int64, device="cuda")
+    toks[:, :plen] = torch.randint(0, args.vocab_size, (b, plen),
+                                   generator=torch.Generator().manual_seed(seed + 1))
+    cache = llama.init_kv_cache(args, b, 128)
+    lg, _ = llama.forward(params, args, toks[:, :plen], cache=cache, cur_pos=0)
+    for i in range(steps):           # the unfused route's greedy tokens
+        toks[:, plen + i] = lg[:, -1].argmax(-1)
+        lg, _ = llama.forward(params, args, toks[:, plen + i:plen + i + 1], cache=cache,
+                              cur_pos=plen + i)
+    logits, counts = {}, {}
+    for fuse in (True, False):
+        kernels.reset_launch_counts()
+        logits[fuse] = _route_logits(params, args, toks, plen, plen, plen + steps, fuse)
+        counts[fuse] = {k: v for k, v in kernels.launch_counts().items() if v}
+    row = {"phase": "parity_ffn", "compare": "card, fused FFN vs unfused route",
+           "layers": 2, "batch": b, "prompt": plen, "decode_steps": steps - 1,
+           "launches_fused": counts[True], "launches_unfused": counts[False],
+           **_compare_routes(logits[True], logits[False])}
+    emit(row)
+    want_ffn = args.n_layers * (steps - 1)
+    if (not row["ok"] or counts[True].get("ffn_fused") != want_ffn
+            or "ffn_fused" in counts[False]):
+        raise AssertionError(f"parity_ffn failed: {row}")
 
 
 PROMPTS = [
@@ -1384,15 +1635,17 @@ def _counted_generate(model, prompts, max_gen_len: int):
 
 
 def phase_serve(phase: str, model, setup_s: float, kv_dtype=None, matmul="w4_matmul",
-                max_gen_len: int = 64):
+                max_gen_len: int = 64, ffn_fuse: bool = False):
     """The 22-layer TinyLlama shape (GQA) through MetaModel.generate with the
     bf16 (serve) or the int8 (serve8) KV cache, launch-counted. ``matmul``:
     the quantized-matmul entry every projection must take (None: the weights
-    have no kernel, W3)."""
+    have no kernel, W3). ``ffn_fuse``: each decode step's FFN is one fused
+    kernel call (serve_ffn). Returns the counts and the texts."""
     prompts = PROMPTS[:4]
     assert all(100 <= len(p) <= 126 for p in prompts), [len(p) for p in prompts]
     int8 = kv_dtype == "int8"
     model.kv_dtype = kv_dtype
+    model.ffn_fuse = ffn_fuse
     model._reset_generator()
     n_layers = model.args.n_layers
     prefill_ms = _timed_prefill(model, 4, 128, 192, kv_dtype)
@@ -1403,8 +1656,10 @@ def phase_serve(phase: str, model, setup_s: float, kv_dtype=None, matmul="w4_mat
            "kv_write_q8" if int8 else "kv_write": n_layers})
     if matmul:
         want[matmul] = 4 * n_layers * (1 + steps)
+    if ffn_fuse:
+        want.update(w4_matmul=4 * n_layers + 2 * n_layers * steps, ffn_fused=n_layers * steps)
     row = {"phase": phase, "model": "TinyLlama-1.1B shape", "kv_dtype": kv_dtype or "bf16",
-           "layers": n_layers,
+           "layers": n_layers, "ffn_fuse": ffn_fuse,
            "batch": len(prompts), "prompt_tokens": [len(p) + 1 for p in prompts],
            "prefill_rows": 4 * 128, "decode_steps": steps,
            "launches": counts, "launches_expected": want, "setup_s": setup_s,
@@ -1415,6 +1670,44 @@ def phase_serve(phase: str, model, setup_s: float, kv_dtype=None, matmul="w4_mat
     emit(row)
     if counts != want or steps < 1 or len(outs) != len(prompts):
         raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+    return counts, outs
+
+
+def phase_serve_ffn(model, setup_s: float):
+    """serve with ffn_fuse on the loaded weights (4 prompts x 64 new tokens
+    through MetaModel.generate): launch counts exact (per decode step 2
+    w4_matmul and 1 ffn_fused a layer); the greedy text against the unfused
+    route's on the same weights (serve's route); and both routes' logits,
+    teacher-forced on the unfused route's tokens, held to the parity
+    tolerances, the greedy token equal wherever the unfused choice is
+    confident, so a difference in text can only start at a near-tie."""
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch.engine.generate import _round_up
+
+    counts, fused = phase_serve("serve_ffn", model, setup_s, ffn_fuse=True)
+    fused_tokens = model.generator.last_tokens
+    model.ffn_fuse = False
+    model._reset_generator()
+    unfused = model.generate(PROMPTS[:4], max_gen_len=64)
+    gen = model.generator
+    toks_np = gen.last_tokens
+    plens = [len(gen.tokenizer.encode(p, bos=True, eos=False)) for p in PROMPTS[:4]]
+    start, end = min(plens), min(model.args.max_seq_len, 64 + max(plens))
+    prefill_len = min(_round_up(start), toks_np.shape[1])
+    toks = torch.from_numpy(toks_np).cuda()
+    logits = {f: _route_logits(gen.params, model.args, toks, prefill_len, start, end, f)
+              for f in (True, False)}
+    picked = torch.tensor([[j >= n for j in range(start, end)] for n in plens], device="cuda")
+    same = [fused_tokens[i, n:n + 64] == toks_np[i, n:n + 64] for i, n in enumerate(plens)]
+    row = {"phase": "serve_ffn", "compare": "fused FFN vs unfused route, loaded weights",
+           "text_equal": fused == unfused,
+           "greedy_share_equal": float(np.mean(np.concatenate(same))),
+           **_compare_routes(logits[True], logits[False], picked)}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"serve_ffn failed: {row}")
     return counts
 
 
@@ -1718,6 +2011,57 @@ class _CountingModule:
                 want["paged_decode8" if int8 else "paged_decode"] += n_layers
             want["paged_write_q8" if int8 else "paged_write"] += 1
         return want
+
+
+def phase_paged_ro(seed: int, steps: int = 32):
+    """kvcache.paged_attention_decode as a caller drives it (the reference
+    has no caller of its own): one layer's bf16 pools at the TinyLlama shape
+    (8 slots, 4 KV heads, head_dim 64, 64-token pages, 16 a slot, a shuffled
+    table), ``steps`` one-token steps from ragged lengths, each writing every
+    slot's new k/v (kvcache.write_tokens, the paged write) and then attending
+    read-only with the lengths counting it. Launch counts exact; the last
+    step's output finite and within the kernel rows' tolerance of the
+    oracle (its plain version)."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.engine import kvcache
+
+    b, nkv, r, hd, ps, pps = 8, 4, 8, 64, 64, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    start = [0, 1, 63, 64, 200, 511, 700, 1024 - steps]
+    pools = kvcache.init_paged_cache(1, nkv, hd, b * pps + 1, ps, b, pps)
+    kp, vp = pools.k_pages[0], pools.v_pages[0]
+    kp.copy_(torch.randn(kp.shape, generator=gen, device="cuda"))
+    vp.copy_(torch.randn(vp.shape, generator=gen, device="cuda"))
+    table = _paged_table(b, pps, b * pps + 1, [pps * ps] * b, ps, seed=seed, share=False)
+    lengths = torch.tensor(start, dtype=torch.int32, device="cuda")
+    qs = torch.randn((steps, b, nkv * r, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kvs = torch.randn((steps, 2, b, 1, nkv, hd), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        kvcache.write_tokens(kp, vp, kvs[i, 0], kvs[i, 1], table, lengths)
+        lengths = lengths + 1
+        out = kvcache.paged_attention_decode(qs[i], kp, vp, lengths, table)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = _zero_counts(paged_write=steps, paged_decode_ro=steps)
+    ref = kvcache.paged_attention_xla(qs[-1], kp, vp, lengths, table)
+    row = {"phase": "paged_ro", "entry": "engine.kvcache.paged_attention_decode",
+           "slots": b, "kv_heads": nkv, "group": r, "head_dim": hd, "page_size": ps,
+           "lengths_first": start, "steps": steps, "ms_per_step": secs * 1e3 / steps,
+           "launches": counts, "launches_expected": want,
+           "max_abs_err_vs_oracle": max_err(out, ref)[0]}
+    emit(row)
+    check_close("paged_ro last step vs the oracle", out, ref, rtol=1e-2,
+                atol=4 * bf16_ulp(float(ref.float().abs().max())))
+    if counts != want:
+        raise AssertionError(f"paged_ro: launch counts {counts} != expected {want}")
+    return counts
 
 
 def _p5_prompts(n: int):
@@ -2200,11 +2544,12 @@ def _gptq_model(seed: int):
 
 
 def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool = True,
-                 stacked: bool = False, matmul: str = "w4_matmul"):
+                 stacked: bool = False, matmul: str = "w4_matmul", ffn_fuse: bool = False):
     """The bench shape: batch 8, cache 1024, ``steps`` forward steps from pos
     512; with ``fused_attn_write=False`` through read-only attention and the
     one-token write; with ``stacked`` over the unfused params and a stacked
-    cache; ``matmul``: the quantized-matmul entry of the weights. Returns the
+    cache; ``matmul``: the quantized-matmul entry of the weights; with
+    ``ffn_fuse`` each layer's FFN in one fused kernel call. Returns the
     launch counts of the timed steps."""
     import torch
 
@@ -2235,7 +2580,7 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
     fused_attn_write = fused_attn_write and not stacked   # a stacked cache is only read in a layer
     kv_bytes = args.n_layers * batch * args.kv_heads * mid * token_bytes
     b_ms, _ = bound_ms(w_bytes + kv_bytes, 0.0)
-    kw = dict(fused_attn_write=fused_attn_write)
+    kw = dict(fused_attn_write=fused_attn_write, ffn_fuse=ffn_fuse)
     for i in range(5):
         llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
     torch.cuda.synchronize()
@@ -2250,14 +2595,17 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
         raise AssertionError(f"{phase}: non-finite logits")
     attn = ("decode_attention_mha" if mha else "decode_attention") + ("8" if int8 else "") \
         + ("" if fused_attn_write else "_ro")
-    want = _zero_counts(**{matmul: (7 if stacked else 4) * args.n_layers * steps,
-                           attn: args.n_layers * steps})
+    want = _zero_counts(**{matmul: (7 if stacked else 2 if ffn_fuse else 4) * args.n_layers
+                           * steps, attn: args.n_layers * steps})
+    if ffn_fuse:
+        want["ffn_fused"] = args.n_layers * steps
     if stacked:
         want["kv_write_stacked_q8" if int8 else "kv_write_stacked_col"] = steps
     elif not fused_attn_write:
         want["kv_write_col_q8" if int8 else "kv_write_col"] = args.n_layers * steps
     row = {"phase": phase, "kv_dtype": kv_dtype or "bf16", "layers": args.n_layers,
            "path": "stacked" if stacked else "unrolled", "fused_attn_write": fused_attn_write,
+           "ffn_fuse": ffn_fuse,
            "batch": batch, "cache_len": cache_len, "steps": steps,
            "ms_per_step": ms, "tok_s": batch / ms * 1e3, "bound_ms_per_step": b_ms,
            "bound_tok_s": batch / b_ms * 1e3, "weight_bytes": w_bytes,
@@ -2266,6 +2614,9 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
         emit(row)
         raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
     row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms, **kw)
+    top = row["profile"].get("top_kernels_ms_per_step", {})
+    row["ffn_kernels_ms_per_step"] = {    # the FFN's kernels' device time: fused, or GEMVs
+        sym: sum(v for k, v in top.items() if sym in k) for sym in ("ffn_fused", "w4_gemv")}
     if matmul != "w4_matmul":   # the new weight formats' kernel share of the device time
         prof = row["profile"]
         busy = prof.get("device_busy_ms_per_step")
@@ -2683,6 +3034,12 @@ KERNELS = {
     # magic_qmm :120, its Pallas body _kernel at :74
     "w4_matmul_magic": ("accessory_tpu_torch/csrc/w4_matmul_magic.cu",
                         "accessory_tpu/ops/quant_matmul_magic.py:120", "tiny w13 M=8"),
+    # paged_attention_decode :414 -> JAX's bundled paged_attention (called at :431)
+    "paged_decode_ro": ("accessory_tpu_torch/csrc/paged_decode.cu",
+                        "accessory_tpu/engine/kvcache.py:414", "tiny R=8"),
+    # ffn_qmm :121, its Pallas body _ffn_kernel at :44
+    "ffn_fused": ("accessory_tpu_torch/csrc/ffn_fused.cu",
+                  "accessory_tpu/ops/ffn_fused.py:121", "7b M=8"),
 }
 
 
@@ -2709,9 +3066,10 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
-              "train_full,finetune")
+              "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
-                     "batcher8", "preempt", "server", "decode8", "decode_unfused")
+                     "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
+                     "decode_ffn")
 
 
 def _add_counts(total, counts):
@@ -2763,10 +3121,14 @@ def main() -> int:
                          kv_dtypes=(None, "int8"), stacked=True)
         if "paged_parity" in phases:
             phase_paged_parity(opts.seed)
+        if "parity_ffn" in phases:
+            phase_parity_ffn(opts.seed)
+        if "paged_ro" in phases:
+            counts_by_path["paged ro"] = phase_paged_ro(opts.seed)
         if any(ph in phases for ph in TINY_MODEL_PHASES):
             model, setup_s, _ = _quantized_model(TINYLLAMA, 512, opts.seed)
             if "serve" in phases:
-                counts_by_path["tiny"] = phase_serve("serve", model, setup_s)
+                counts_by_path["tiny"] = phase_serve("serve", model, setup_s)[0]
             if "decode" in phases:
                 phase_decode("decode", model, None, steps=100)
             if "checkpoint" in phases:
@@ -2776,7 +3138,7 @@ def main() -> int:
                 model = loaded
                 torch.cuda.empty_cache()
             if "serve8" in phases:
-                counts_by_path["tiny int8"] = phase_serve("serve8", model, setup_s, "int8")
+                counts_by_path["tiny int8"] = phase_serve("serve8", model, setup_s, "int8")[0]
             if "stream" in phases:
                 counts_by_path["stream"] = phase_stream(model)
             if "stacked" in phases:
@@ -2802,6 +3164,18 @@ def main() -> int:
                                                     fused_attn_write=False))
             if bench:
                 counts_by_path["tiny bench"] = bench
+            if "serve_ffn" in phases:
+                counts_by_path["tiny ffn"] = phase_serve_ffn(model, setup_s)
+            if "decode_ffn" in phases:
+                # in turns with the unfused route (fused, unfused, unfused, fused)
+                bench = {}
+                model.kv_dtype = None
+                model._reset_generator()
+                for fuse in (True, False, False, True):
+                    counts = phase_decode("decode_ffn", model, None, steps=100, ffn_fuse=fuse)
+                    if fuse:
+                        _add_counts(bench, counts)
+                counts_by_path["tiny ffn bench"] = bench
             del model
             torch.cuda.empty_cache()
         if "parity7b" in phases:
@@ -2823,6 +3197,15 @@ def main() -> int:
                     _add_counts(bench, phase_decode("decode7b", model, kv_dtype, steps=20,
                                                     fused_attn_write=False))
                 counts_by_path["7b unfused"] = bench
+            if "decode7b_ffn" in phases:
+                bench = {}
+                model.kv_dtype = None
+                model._reset_generator()
+                for fuse in (True, False, False, True):
+                    counts = phase_decode("decode7b_ffn", model, None, steps=50, ffn_fuse=fuse)
+                    if fuse:
+                        _add_counts(bench, counts)
+                counts_by_path["7b ffn"] = bench
             del model
             torch.cuda.empty_cache()
         if "parity_w8" in phases:
@@ -2845,7 +3228,7 @@ def main() -> int:
             model, setup_s = _gptq_model(opts.seed)
             if "serve_gptq" in phases:
                 counts_by_path["gptq"] = phase_serve("serve_gptq", model, setup_s,
-                                                     matmul="w4_matmul_std")
+                                                     matmul="w4_matmul_std")[0]
             if "decode_gptq" in phases:
                 counts_by_path["gptq bench"] = phase_decode("decode_gptq", model, None,
                                                             steps=100, matmul="w4_matmul_std")
@@ -2853,7 +3236,7 @@ def main() -> int:
             model._reset_generator()
             if "serve_magic" in phases:
                 counts_by_path["magic"] = phase_serve("serve_magic", model, setup_s,
-                                                      matmul="w4_matmul_magic")
+                                                      matmul="w4_matmul_magic")[0]
             if "decode_magic" in phases:
                 counts_by_path["magic bench"] = phase_decode("decode_magic", model, None,
                                                              steps=100,
@@ -2863,7 +3246,7 @@ def main() -> int:
         if "serve_w3" in phases:
             model, setup_s, _ = _quantized_model(TINYLLAMA, 512, opts.seed, bits=3)
             counts_by_path["w3"] = phase_serve("serve_w3", model, setup_s, matmul=None,
-                                               max_gen_len=8)
+                                               max_gen_len=8)[0]
             del model
             torch.cuda.empty_cache()
         if "train_parity" in phases:

@@ -1106,3 +1106,139 @@ def test_small_model_new_formats_cuda_match_cpu(gen, route):
         g = g.cpu()
         assert float((g - c).norm() / c.norm()) < 2e-2
         assert float((g - c).abs().max()) < 2e-2 * float(c.abs().max()) + 2e-2
+
+
+# ---------------------------------------------------------------- fused W4 FFN
+
+
+def _ffn_weights(gen, k, ffn, n2, gs=128):
+    """[W1|W3] (k, 2 ffn) and W2 (ffn, n2), folded W4, w2's in_dim padded by
+    the quantizer's rule (quant.quantize.pad_to), as quantize_params pads it."""
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    w1, w3 = _w4(gen, k, ffn, pad_in_to=pad_to(k, gs)), _w4(gen, k, ffn, pad_in_to=pad_to(k, gs))
+    w13 = fuse_for_decode({"layers": [{"attention": {}, "feed_forward": {
+        "w1": {"weight": w1}, "w3": {"weight": w3}}}]})["layers"][0]["feed_forward"]["w13"]
+    return w13["weight"], _w4(gen, ffn, n2, pad_in_to=pad_to(ffn, gs))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 16, 17, 100, 128])
+@pytest.mark.parametrize("fusion", ["none", "norm", "res", "norm+res"])
+@pytest.mark.parametrize("k,ffn,n2", [(512, 1408, 512), (2048, 5632, 2048)])
+def test_ffn_fused(gen, m, fusion, k, ffn, n2):
+    """ffn_qmm (one cooperative launch) against its plain version at every
+    row-count template and ragged row passes, a w2 padded by the quantizer
+    (1408 -> 2048, 5632 -> 6144), with and without the norm and residual."""
+    from accessory_tpu_torch.ops.ffn_fused import ffn_qmm, ffn_qmm_plain
+
+    w13, w2 = _ffn_weights(gen, k, ffn, n2)
+    x = randn(gen, m, k)
+    kw = dict(norm_weight=(1 + 0.1 * randn(gen, k, dtype=torch.float32)) if "norm" in fusion
+              else None, residual=randn(gen, m, n2) if "res" in fusion else None)
+    before = kernels.launch_counts()["ffn_fused"]
+    got = ffn_qmm(x, w13, w2, **kw)
+    assert kernels.launch_counts()["ffn_fused"] == before + 1
+    assert_close(got, ffn_qmm_plain(x, w13, w2, **kw))
+
+
+def test_ffn_fused_refuses(gen):
+    """No fallback: 129 rows, a std or a magic w2, a group-size mismatch and
+    an f32 x raise on the card."""
+    from accessory_tpu_torch.ops.ffn_fused import ffn_qmm
+    from accessory_tpu_torch.quant.qtensor import to_magic_layout
+
+    w13, w2 = _ffn_weights(gen, 512, 1024, 512)
+    with pytest.raises(ValueError, match="128 rows"):
+        ffn_qmm(randn(gen, 129, 512), w13, w2)
+    std = quantize_weight(randn(gen, 1024, 512, dtype=torch.float32), 4, 128)
+    for other in (std, to_magic_layout(std)):
+        with pytest.raises(ValueError, match="folded"):
+            ffn_qmm(randn(gen, 8, 512), w13, other)
+    with pytest.raises(ValueError, match="group sizes"):
+        ffn_qmm(randn(gen, 8, 512), w13,
+                to_folded_layout(quantize_weight(randn(gen, 1024, 512, dtype=torch.float32), 4,
+                                                 64)))
+    with pytest.raises(ValueError, match="bf16"):
+        ffn_qmm(randn(gen, 8, 512, dtype=torch.float32), w13, w2)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_small_model_decode_with_ffn_fuse(gen, b):
+    """A 2-layer TinyLlama-width model: with ffn_fuse each decode step takes
+    2 w4_matmul (wqkv, wo) and 1 ffn_fused a layer, the prefill none of the
+    fused FFN; logits against the unfused route on the card (2% relative L2)
+    and against the CPU's fused route (its plain version)."""
+    args = LLaMAArgs(dim=2048, n_layers=2, n_heads=32, n_kv_heads=4, vocab_size=512,
+                     multiple_of=256, max_seq_len=128)
+    params = fuse_for_decode(quantize_params(llama.init_params(args, seed=5)))
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (b, 36), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for fuse in (True, False):
+        cache = llama.init_kv_cache(args, b, 64)
+        llama.forward(params, args, toks[:, :32].cuda(), cache=cache, cur_pos=0, ffn_fuse=fuse)
+        kernels.reset_launch_counts()
+        out[fuse] = [llama.forward(params, args, toks[:, p:p + 1].cuda(), cache=cache,
+                                   cur_pos=p, ffn_fuse=fuse)[0].cpu() for p in range(32, 36)]
+        counts = kernels.launch_counts()
+        assert counts["w4_matmul"] == (2 if fuse else 4) * 2 * 4
+        assert counts["ffn_fused"] == (2 * 4 if fuse else 0)
+    cc = llama.init_kv_cache(args, b, 64, device="cpu")
+    llama.forward(cpu, args, toks[:, :32], cache=cc, cur_pos=0, ffn_fuse=True)
+    for i, p in enumerate(range(32, 36)):
+        lc, _ = llama.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p, ffn_fuse=True)
+        for g, c in ((out[True][i], out[False][i]), (out[True][i], lc)):
+            assert float((g - c).norm() / c.norm()) < 2e-2
+            assert float((g - c).abs().max()) < 2e-2 * float(c.abs().max()) + 2e-2
+
+
+# ---------------------------------------------------------------- read-only paged decode
+
+
+@pytest.mark.parametrize("hd,r", [(64, 8), (64, 1), (128, 1), (128, 4)])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_paged_decode_ro(gen, hd, r, ps):
+    """paged_attention_decode (the read-only kernel) against the oracle:
+    lengths 1, ps - 1, ps, ps + 1, a whole table and a zero-length slot
+    (zeros); a shared page and a shuffled table; the pools are not written.
+    Also the paged decode with the token as its new one over the old length
+    after the token's paged write."""
+    from accessory_tpu_torch.engine import kvcache
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                      paged_decode_ro_plain)
+
+    nkv, pps = 2, 6
+    lengths = [1, ps - 1, ps, ps + 1, (pps - 1) * ps, 0]
+    b = len(lengths)
+    pools, table, lens = _paged_case(gen, b, nkv, hd, ps, pps, b * pps + 3, False, lengths)
+    kp, vp = pools[0][0], pools[1][0]
+    keep = (kp.clone(), vp.clone())
+    q = randn(gen, b, nkv * r, hd)
+    before = kernels.launch_counts()["paged_decode_ro"]
+    got = kvcache.paged_attention_decode(q, kp, vp, lens, table)
+    assert kernels.launch_counts()["paged_decode_ro"] == before + 1
+    assert torch.equal(kp, keep[0]) and torch.equal(vp, keep[1])
+    assert_close(got[:-1], paged_decode_ro_plain(q, kp, vp, lens, table)[:-1])
+    assert float(got[-1].abs().max()) == 0.0
+    # the same token through the write + the paged decode that takes it as
+    # new (a table of pages of each slot's own: the writes must not collide)
+    own = torch.arange(1, b * pps + 1, dtype=torch.int32, device="cuda").reshape(b, pps)
+    old = (lens - 1).clamp_min(0)
+    kn, vn = randn(gen, b, 1, nkv, hd), randn(gen, b, 1, nkv, hd)
+    want = paged_decode_attention(q[:, None], kn, vn, kp, vp, old, own)[:, 0]
+    kvcache.write_tokens(kp, vp, kn, vn, own, old)
+    got = kvcache.paged_attention_decode(q, kp, vp, old + 1, own)
+    assert_close(got, want)
+
+
+def test_paged_decode_ro_refuses(gen):
+    from accessory_tpu_torch.engine import kvcache
+
+    pools, table, lens = _paged_case(gen, 2, 2, 64, 16, 4, 12, False, [3, 5])
+    q = randn(gen, 2, 4, 64)
+    with pytest.raises(ValueError):
+        kvcache.paged_attention_decode(q.float(), pools[0][0], pools[1][0], lens, table)
+    with pytest.raises(ValueError):
+        kvcache.paged_attention_decode(q, pools[0][0], pools[1][0], lens.long(), table)
+    with pytest.raises(ValueError):
+        kvcache.paged_attention_decode(q, pools[0][0].float(), pools[1][0].float(), lens, table)
