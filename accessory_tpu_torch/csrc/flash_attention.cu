@@ -23,6 +23,18 @@
 // log-sum-exp of the scaled scores, m + log(l) from the f32 running max and
 // the f32 sum (before P is rounded to bf16): csrc/flash_attention_bwd.cu
 // recomputes P = exp(s * scale - lse) from it.
+//
+// The same body is the forward of context-parallel (sequence-sharded)
+// attention, entry flash_attention_cp_fwd. It replaces accessory_tpu/
+// parallel/context.py::_splash_cp_kernel (:46), JAX's bundled splash kernel
+// with q_seq_shards, reached through cp_attention (:77). A shard's SQ query
+// rows sit at global positions q0 .. q0 + SQ - 1 of a sequence whose SK keys
+// were all-gathered: row i sees keys 0 .. q0 + i, and a block stops at the
+// key tile that holds its last row's diagonal, so a late shard does more work
+// than an early one and nothing is computed twice. flash_attention_fwd is the
+// case q0 = 0, SK = SQ of the one body, so both entries give the same bits
+// there. Bound: 4 * HD * (SQ * q0 + SQ^2 / 2) flops per query head, on the
+// tensor cores from a few hundred rows on, like the unsharded pass.
 
 #include "common.cuh"
 
@@ -35,8 +47,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
                  const bf16* __restrict__ k, long long k_bs, long long k_ts,
                  const bf16* __restrict__ v, long long v_bs, long long v_ts,
-                 bf16* __restrict__ out, float* __restrict__ lse, int S, int NQ, int NKV,
-                 float scale) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int SQ, int SK, int q0,
+                 int NQ, int NKV, float scale) {
   constexpr int LD = HD + 8;  // padded smem row (bf16), 16-byte aligned
   constexpr int KT = HD / 16; // k16 steps over the head dim
   constexpr int DT = HD / 8;  // n8 tiles over the head dim
@@ -47,7 +59,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
   const int hk = hq / (NQ / NKV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;  // local rows, at q0 + r
 
   const bf16* qb = q + b * q_bs + (size_t)hq * HD;
   const bf16* kb = k + b * k_bs + (size_t)hk * HD;
@@ -57,10 +69,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
     const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < S ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + c) : 0u;
-    qf[kk][1] = r1 < S ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + c) : 0u;
-    qf[kk][2] = r0 < S ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + c + 8) : 0u;
-    qf[kk][3] = r1 < S ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + c + 8) : 0u;
+    qf[kk][0] = r0 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + c) : 0u;
+    qf[kk][1] = r1 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + c) : 0u;
+    qf[kk][2] = r0 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + c + 8) : 0u;
+    qf[kk][3] = r1 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + c + 8) : 0u;
   }
 
   float o[DT][4];
@@ -68,15 +80,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
   for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m0 = NEG_INF_F, m1 = NEG_INF_F, l0 = 0.f, l1 = 0.f;
 
-  const int last_row = min(S, (qt + 1) * BQ) - 1;
-  const int n_tiles = last_row / BKV + 1;
+  // the global position of the tile's last row: no key past it is read
+  const int last_row = q0 + min(SQ, (qt + 1) * BQ) - 1;
+  const int n_tiles = min(last_row, SK - 1) / BKV + 1;
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BKV;
     __syncthreads();
     for (int i = tid; i < BKV * HD / 8; i += THREADS) {
       const int tok = i / (HD / 8), d8 = (i % (HD / 8)) * 8;
       uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (kv0 + tok < S) {
+      if (kv0 + tok < SK) {
         kr = *reinterpret_cast<const uint4*>(kb + (kv0 + tok) * k_ts + d8);
         vr = *reinterpret_cast<const uint4*>(vb + (kv0 + tok) * v_ts + d8);
       }
@@ -103,7 +116,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
       for (int e = 0; e < 4; ++e) {
         const int key = kv0 + nt * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? r0 : r1;
-        const float val = (key <= row && key < S) ? s[nt][e] * scale : NEG_INF_F;
+        const float val = (key <= q0 + row && key < SK) ? s[nt][e] * scale : NEG_INF_F;
         s[nt][e] = val;
         if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
       }
@@ -153,22 +166,47 @@ flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   if (lse != nullptr && t == 0) {
-    float* lp = lse + ((size_t)b * NQ + hq) * S;
-    if (r0 < S) lp[r0] = m0 + logf(l0);
-    if (r1 < S) lp[r1] = m1 + logf(l1);
+    float* lp = lse + ((size_t)b * NQ + hq) * SQ;
+    if (r0 < SQ) lp[r0] = m0 + logf(l0);
+    if (r1 < SQ) lp[r1] = m1 + logf(l1);
   }
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = d * 8 + 2 * t;
-    if (r0 < S) {
-      bf16* op = out + (((size_t)b * S + r0) * NQ + hq) * HD + col;
+    if (r0 < SQ) {
+      bf16* op = out + (((size_t)b * SQ + r0) * NQ + hq) * HD + col;
       *reinterpret_cast<uint32_t*>(op) = pack_bf16x2(o[d][0] * inv0, o[d][1] * inv0);
     }
-    if (r1 < S) {
-      bf16* op = out + (((size_t)b * S + r1) * NQ + hq) * HD + col;
+    if (r1 < SQ) {
+      bf16* op = out + (((size_t)b * SQ + r1) * NQ + hq) * HD + col;
       *reinterpret_cast<uint32_t*>(op) = pack_bf16x2(o[d][2] * inv1, o[d][3] * inv1);
     }
   }
+}
+
+int launch_fwd(const void* q, long long q_bs, long long q_ts, const void* k, long long k_bs,
+               long long k_ts, const void* v, long long v_bs, long long v_ts, void* out, int B,
+               int SQ, int SK, int q0, int NQ, int NKV, int HD, float scale, void* lse,
+               void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (SQ < 1 || q0 < 0 || q0 + SQ > SK || NKV < 1 || NQ % NKV != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((SQ + BQ - 1) / BQ, NQ, B);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* o = static_cast<bf16*>(out);
+  float* l = static_cast<float*>(lse);
+  if (HD == 64) {
+    flash_fwd_kernel<64><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
+                                                   v_ts, o, l, SQ, SK, q0, NQ, NKV, scale);
+  } else if (HD == 128) {
+    flash_fwd_kernel<128><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
+                                                    v_ts, o, l, SQ, SK, q0, NQ, NKV, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -182,22 +220,20 @@ extern "C" int flash_attention_fwd(const void* q, long long q_bs, long long q_ts
                                    const void* v, long long v_bs, long long v_ts, void* out,
                                    int B, int S, int NQ, int NKV, int HD, float scale,
                                    void* lse, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (S < 1 || NKV < 1 || NQ % NKV != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((S + BQ - 1) / BQ, NQ, B);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* o = static_cast<bf16*>(out);
-  float* l = static_cast<float*>(lse);
-  if (HD == 64) {
-    flash_fwd_kernel<64><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                   v_ts, o, l, S, NQ, NKV, scale);
-  } else if (HD == 128) {
-    flash_fwd_kernel<128><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                    v_ts, o, l, S, NQ, NKV, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, out, B, S, S, 0, NQ, NKV, HD,
+                    scale, lse, stream);
+}
+
+// One context-parallel shard: q (B, SQ, NQ, HD) at global positions q0 ..
+// q0 + SQ - 1, k/v (B, SK, NKV, HD) the gathered keys (any batch and token
+// strides: a token-major gather buffer is read as it is); out (B, SQ, NQ, HD)
+// contiguous; lse (B, NQ, SQ) f32 or null. Requires q0 >= 0 and q0 + SQ <= SK,
+// and what flash_attention_fwd requires.
+extern "C" int flash_attention_cp_fwd(const void* q, long long q_bs, long long q_ts,
+                                      const void* k, long long k_bs, long long k_ts,
+                                      const void* v, long long v_bs, long long v_ts, void* out,
+                                      int B, int SQ, int SK, int q0, int NQ, int NKV, int HD,
+                                      float scale, void* lse, void* stream) {
+  return launch_fwd(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, out, B, SQ, SK, q0, NQ, NKV,
+                    HD, scale, lse, stream);
 }

@@ -34,6 +34,17 @@
 // loads and no double buffering, and reads B fragments with 16-bit shared
 // loads where the layout needs a transpose, so it runs well below the bound
 // (wgmma, TMA and pipelining are later work).
+//
+// The same two bodies are the backward of context-parallel (sequence-sharded)
+// attention, entries flash_attention_cp_bwd_dq and flash_attention_cp_bwd_dkdv:
+// the custom VJP of accessory_tpu/parallel/context.py::_splash_cp_kernel (:46).
+// A shard's SQ query rows sit at global positions q_off .. q_off + SQ - 1 over
+// SK gathered keys. dq walks the key tiles up to its rows' diagonal. dk / dv
+// covers all SK keys (a block per key tile): a tile before q_off sees every
+// row unmasked, one past the shard's last row loops over nothing and stores
+// zeros, so the reduce-scatter that returns each shard its own keys' gradient
+// adds no stale memory. The unsharded entries are the case q_off = 0,
+// SK = SQ of the same bodies.
 
 #include "common.cuh"
 
@@ -76,7 +87,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
                     const bf16* __restrict__ o, long long o_bs, long long o_ts,
                     const bf16* __restrict__ dout, long long d_bs, long long d_ts,
                     const float* __restrict__ lse, float* __restrict__ Dbuf,
-                    bf16* __restrict__ dq, int S, int NQ, int NKV, float scale) {
+                    bf16* __restrict__ dq, int SQ, int SK, int q_off, int NQ, int NKV,
+                    float scale) {
   constexpr int BKV = HD == 128 ? 32 : 64;  // key columns per step (registers)
   constexpr int LD = HD + 8;
   constexpr int KT = HD / 16, DT = HD / 8, NT = BKV / 8;
@@ -87,7 +99,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
   const int hk = hq / (NQ / NKV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;  // local rows, at q_off + r
 
   const bf16* qb = q + b * q_bs + (size_t)hq * HD;
   const bf16* ob = o + b * o_bs + (size_t)hq * HD;
@@ -105,12 +117,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
     for (int h = 0; h < 2; ++h) {
       const int cc = c + 8 * h;
       uint32_t q0 = 0u, q1 = 0u, d0 = 0u, d1 = 0u, o0 = 0u, o1 = 0u;
-      if (r0 < S) {
+      if (r0 < SQ) {
         q0 = *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + cc);
         d0 = *reinterpret_cast<const uint32_t*>(db + r0 * d_ts + cc);
         o0 = *reinterpret_cast<const uint32_t*>(ob + r0 * o_ts + cc);
       }
-      if (r1 < S) {
+      if (r1 < SQ) {
         q1 = *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + cc);
         d1 = *reinterpret_cast<const uint32_t*>(db + r1 * d_ts + cc);
         o1 = *reinterpret_cast<const uint32_t*>(ob + r1 * o_ts + cc);
@@ -131,13 +143,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
   D0 += __shfl_xor_sync(0xffffffffu, D0, 2);
   D1 += __shfl_xor_sync(0xffffffffu, D1, 1);
   D1 += __shfl_xor_sync(0xffffffffu, D1, 2);
-  const size_t row_base = ((size_t)b * NQ + hq) * S;
+  const size_t row_base = ((size_t)b * NQ + hq) * SQ;
   float lse0 = 0.f, lse1 = 0.f;
-  if (r0 < S) {
+  if (r0 < SQ) {
     lse0 = lse[row_base + r0];
     if (t == 0) Dbuf[row_base + r0] = D0;
   }
-  if (r1 < S) {
+  if (r1 < SQ) {
     lse1 = lse[row_base + r1];
     if (t == 0) Dbuf[row_base + r1] = D1;
   }
@@ -146,13 +158,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
 #pragma unroll
   for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  const int last_row = min(S, (qt + 1) * BQ) - 1;
-  const int n_tiles = last_row / BKV + 1;
+  // the global position of the tile's last row: no key past it is read
+  const int last_row = q_off + min(SQ, (qt + 1) * BQ) - 1;
+  const int n_tiles = min(last_row, SK - 1) / BKV + 1;
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BKV;
     __syncthreads();
-    stage<BKV, HD, LD>(Ks, kb, k_ts, kv0, S, tid);
-    stage<BKV, HD, LD>(Vs, vb, v_ts, kv0, S, tid);
+    stage<BKV, HD, LD>(Ks, kb, k_ts, kv0, SK, tid);
+    stage<BKV, HD, LD>(Vs, vb, v_ts, kv0, SK, tid);
     __syncthreads();
 
     float p[NT][4], dp[NT][4];
@@ -177,7 +190,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
       for (int e = 0; e < 4; ++e) {
         const int key = kv0 + nt * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? r0 : r1;
-        const bool ok = key <= row && row < S;
+        const bool ok = key <= q_off + row && row < SQ;
         const float pe = ok ? expf(p[nt][e] * scale - (e < 2 ? lse0 : lse1)) : 0.f;
         p[nt][e] = pe * (dp[nt][e] - (e < 2 ? D0 : D1));
       }
@@ -203,12 +216,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = d * 8 + 2 * t;
-    if (r0 < S) {
-      bf16* op = dq + (((size_t)b * S + r0) * NQ + hq) * HD + col;
+    if (r0 < SQ) {
+      bf16* op = dq + (((size_t)b * SQ + r0) * NQ + hq) * HD + col;
       *reinterpret_cast<uint32_t*>(op) = pack_bf16x2(acc[d][0] * scale, acc[d][1] * scale);
     }
-    if (r1 < S) {
-      bf16* op = dq + (((size_t)b * S + r1) * NQ + hq) * HD + col;
+    if (r1 < SQ) {
+      bf16* op = dq + (((size_t)b * SQ + r1) * NQ + hq) * HD + col;
       *reinterpret_cast<uint32_t*>(op) = pack_bf16x2(acc[d][2] * scale, acc[d][3] * scale);
     }
   }
@@ -230,8 +243,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts
                       const bf16* __restrict__ v, long long v_bs, long long v_ts,
                       const bf16* __restrict__ dout, long long d_bs, long long d_ts,
                       const float* __restrict__ lse, const float* __restrict__ Dbuf,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int NQ, int NKV,
-                      float scale) {
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int SQ, int SK, int q_off,
+                      int NQ, int NKV, float scale) {
   constexpr int LD = DkdvSmem<HD>::LD, BQI = DkdvSmem<HD>::BQI;
   constexpr int KT = HD / 16, DT = HD / 8, NT = BQI / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -250,8 +263,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts
   const int wr = warp * 16;               // the warp's first key row in the tile
   const int kr0 = k0 + wr + g, kr1 = kr0 + 8;
 
-  stage<BK, HD, LD>(Ks, k + b * k_bs + (size_t)hk * HD, k_ts, k0, S, tid);
-  stage<BK, HD, LD>(Vs, v + b * v_bs + (size_t)hk * HD, v_ts, k0, S, tid);
+  stage<BK, HD, LD>(Ks, k + b * k_bs + (size_t)hk * HD, k_ts, k0, SK, tid);
+  stage<BK, HD, LD>(Vs, v + b * v_bs + (size_t)hk * HD, v_ts, k0, SK, tid);
 
   float dka[DT][4], dva[DT][4];
 #pragma unroll
@@ -260,24 +273,26 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts
     dva[d][0] = dva[d][1] = dva[d][2] = dva[d][3] = 0.f;
   }
 
-  const int i_first = k0 / BQI, i_end = (S + BQI - 1) / BQI;
+  // the first local query tile with a row at or past the tile's first key; a
+  // key tile past the shard's last row loops over nothing and stores zeros
+  const int i_first = max(0, k0 - q_off) / BQI, i_end = (SQ + BQI - 1) / BQI;
   for (int hq = hk * R; hq < (hk + 1) * R; ++hq) {
     const bf16* qb = q + b * q_bs + (size_t)hq * HD;
     const bf16* db = dout + b * d_bs + (size_t)hq * HD;
-    const size_t row_base = ((size_t)b * NQ + hq) * S;
+    const size_t row_base = ((size_t)b * NQ + hq) * SQ;
     for (int i = i_first; i < i_end; ++i) {
       const int q0 = i * BQI;
       __syncthreads();
-      stage<BQI, HD, LD>(Qs, qb, q_ts, q0, S, tid);
-      stage<BQI, HD, LD>(Ds, db, d_ts, q0, S, tid);
+      stage<BQI, HD, LD>(Qs, qb, q_ts, q0, SQ, tid);
+      stage<BQI, HD, LD>(Ds, db, d_ts, q0, SQ, tid);
       for (int r = tid; r < BQI; r += THREADS) {
-        const bool ok = q0 + r < S;
+        const bool ok = q0 + r < SQ;
         lse_s[r] = ok ? lse[row_base + q0 + r] : 0.f;
         D_s[r] = ok ? Dbuf[row_base + q0 + r] : 0.f;
       }
       __syncthreads();
       // every key row of this warp is past every query row of the tile
-      if (q0 + BQI - 1 < k0 + wr) continue;
+      if (q_off + q0 + BQI - 1 < k0 + wr) continue;
 
       // S^T = K Q^T and dP^T = V dO^T (16 key rows x BQI query columns)
       float p[NT][4], dp[NT][4];
@@ -308,7 +323,7 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts
         for (int e = 0; e < 4; ++e) {
           const int qc = nt * 8 + 2 * t + (e & 1);
           const int key = e < 2 ? kr0 : kr1;
-          const bool ok = key <= q0 + qc && q0 + qc < S;
+          const bool ok = key <= q_off + q0 + qc && q0 + qc < SQ;
           const float pe = ok ? expf(p[nt][e] * scale - lse_s[qc]) : 0.f;
           p[nt][e] = pe;
           dp[nt][e] = pe * (dp[nt][e] - D_s[qc]);
@@ -343,13 +358,13 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = d * 8 + 2 * t;
-    if (kr0 < S) {
-      const size_t off = (((size_t)b * S + kr0) * NKV + hk) * HD + col;
+    if (kr0 < SK) {
+      const size_t off = (((size_t)b * SK + kr0) * NKV + hk) * HD + col;
       *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16x2(dka[d][0] * scale, dka[d][1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16x2(dva[d][0], dva[d][1]);
     }
-    if (kr1 < S) {
-      const size_t off = (((size_t)b * S + kr1) * NKV + hk) * HD + col;
+    if (kr1 < SK) {
+      const size_t off = (((size_t)b * SK + kr1) * NKV + hk) * HD + col;
       *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16x2(dka[d][2] * scale, dka[d][3] * scale);
       *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16x2(dva[d][2], dva[d][3]);
     }
@@ -360,16 +375,69 @@ template <int HD>
 int launch_dkdv(dim3 grid, cudaStream_t st, const bf16* q, long long q_bs, long long q_ts,
                 const bf16* k, long long k_bs, long long k_ts, const bf16* v, long long v_bs,
                 long long v_ts, const bf16* dout, long long d_bs, long long d_ts,
-                const float* lse, const float* D, bf16* dk, bf16* dv, int S, int NQ, int NKV,
-                float scale) {
+                const float* lse, const float* D, bf16* dk, bf16* dv, int SQ, int SK, int q_off,
+                int NQ, int NKV, float scale) {
   const int bytes = DkdvSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkdv_kernel<HD><<<grid, THREADS, bytes, st>>>(q, q_bs, q_ts, k, k_bs, k_ts, v,
                                                           v_bs, v_ts, dout, d_bs, d_ts, lse, D,
-                                                          dk, dv, S, NQ, NKV, scale);
+                                                          dk, dv, SQ, SK, q_off, NQ, NKV,
+                                                          scale);
   return (int)cudaGetLastError();
+}
+
+int launch_dq(const void* q, long long q_bs, long long q_ts, const void* k, long long k_bs,
+              long long k_ts, const void* v, long long v_bs, long long v_ts, const void* o,
+              long long o_bs, long long o_ts, const void* dout, long long d_bs, long long d_ts,
+              const void* lse, void* D, void* dq, int B, int SQ, int SK, int q_off, int NQ,
+              int NKV, int HD, float scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (SQ < 1 || q_off < 0 || q_off + SQ > SK || NKV < 1 || NQ % NKV != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((SQ + BQ - 1) / BQ, NQ, B);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
+             *dp = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  float* Dp = static_cast<float*>(D);
+  bf16* dqp = static_cast<bf16*>(dq);
+  if (HD == 64) {
+    flash_bwd_dq_kernel<64><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
+                                                      v_ts, op, o_bs, o_ts, dp, d_bs, d_ts, lp,
+                                                      Dp, dqp, SQ, SK, q_off, NQ, NKV, scale);
+  } else if (HD == 128) {
+    flash_bwd_dq_kernel<128><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp,
+                                                       v_bs, v_ts, op, o_bs, o_ts, dp, d_bs,
+                                                       d_ts, lp, Dp, dqp, SQ, SK, q_off, NQ,
+                                                       NKV, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_dkdv_hd(const void* q, long long q_bs, long long q_ts, const void* k,
+                   long long k_bs, long long k_ts, const void* v, long long v_bs,
+                   long long v_ts, const void* dout, long long d_bs, long long d_ts,
+                   const void* lse, const void* D, void* dk, void* dv, int B, int SQ, int SK,
+                   int q_off, int NQ, int NKV, int HD, float scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (SQ < 1 || q_off < 0 || q_off + SQ > SK || NKV < 1 || NQ % NKV != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((SK + BK - 1) / BK, NKV, B);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *dp = static_cast<const bf16*>(dout);
+  const float *lp = static_cast<const float*>(lse), *Dp = static_cast<const float*>(D);
+  bf16 *dkp = static_cast<bf16*>(dk), *dvp = static_cast<bf16*>(dv);
+  if (HD == 64)
+    return launch_dkdv<64>(grid, st, qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs, v_ts, dp, d_bs,
+                           d_ts, lp, Dp, dkp, dvp, SQ, SK, q_off, NQ, NKV, scale);
+  if (HD == 128)
+    return launch_dkdv<128>(grid, st, qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs, v_ts, dp, d_bs,
+                            d_ts, lp, Dp, dkp, dvp, SQ, SK, q_off, NQ, NKV, scale);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -386,27 +454,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, long long q_bs, long long q
                                       const void* dout, long long d_bs, long long d_ts,
                                       const void* lse, void* D, void* dq, int B, int S, int NQ,
                                       int NKV, int HD, float scale, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (S < 1 || NKV < 1 || NQ % NKV != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((S + BQ - 1) / BQ, NQ, B);
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
-             *dp = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  float* Dp = static_cast<float*>(D);
-  bf16* dqp = static_cast<bf16*>(dq);
-  if (HD == 64) {
-    flash_bwd_dq_kernel<64><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                      v_ts, op, o_bs, o_ts, dp, d_bs, d_ts, lp,
-                                                      Dp, dqp, S, NQ, NKV, scale);
-  } else if (HD == 128) {
-    flash_bwd_dq_kernel<128><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp,
-                                                       v_bs, v_ts, op, o_bs, o_ts, dp, d_bs,
-                                                       d_ts, lp, Dp, dqp, S, NQ, NKV, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_dq(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, o, o_bs, o_ts, dout, d_bs,
+                   d_ts, lse, D, dq, B, S, S, 0, NQ, NKV, HD, scale, stream);
 }
 
 // The same operands minus o; D as written by flash_attention_bwd_dq; dk / dv
@@ -419,18 +468,35 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, long long q_bs, long long
                                         const void* lse, const void* D, void* dk, void* dv,
                                         int B, int S, int NQ, int NKV, int HD, float scale,
                                         void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (S < 1 || NKV < 1 || NQ % NKV != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((S + BK - 1) / BK, NKV, B);
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *dp = static_cast<const bf16*>(dout);
-  const float *lp = static_cast<const float*>(lse), *Dp = static_cast<const float*>(D);
-  bf16 *dkp = static_cast<bf16*>(dk), *dvp = static_cast<bf16*>(dv);
-  if (HD == 64)
-    return launch_dkdv<64>(grid, st, qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs, v_ts, dp, d_bs,
-                           d_ts, lp, Dp, dkp, dvp, S, NQ, NKV, scale);
-  if (HD == 128)
-    return launch_dkdv<128>(grid, st, qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs, v_ts, dp, d_bs,
-                            d_ts, lp, Dp, dkp, dvp, S, NQ, NKV, scale);
-  return (int)cudaErrorInvalidValue;
+  return launch_dkdv_hd(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, dout, d_bs, d_ts, lse, D,
+                        dk, dv, B, S, S, 0, NQ, NKV, HD, scale, stream);
+}
+
+// One context-parallel shard: q, o, dout (B, SQ, NQ, HD) at global positions
+// q_off .. q_off + SQ - 1, k / v (B, SK, NKV, HD) the gathered keys (any batch
+// and token strides); lse and D (B, NQ, SQ) f32; dq (B, SQ, NQ, HD)
+// contiguous. Requires q_off >= 0 and q_off + SQ <= SK.
+extern "C" int flash_attention_cp_bwd_dq(const void* q, long long q_bs, long long q_ts,
+                                         const void* k, long long k_bs, long long k_ts,
+                                         const void* v, long long v_bs, long long v_ts,
+                                         const void* o, long long o_bs, long long o_ts,
+                                         const void* dout, long long d_bs, long long d_ts,
+                                         const void* lse, void* D, void* dq, int B, int SQ,
+                                         int SK, int q_off, int NQ, int NKV, int HD,
+                                         float scale, void* stream) {
+  return launch_dq(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, o, o_bs, o_ts, dout, d_bs,
+                   d_ts, lse, D, dq, B, SQ, SK, q_off, NQ, NKV, HD, scale, stream);
+}
+
+// dk / dv (B, SK, NKV, HD) contiguous: this shard's part of every gathered
+// key's gradient, zero for keys past its last row.
+extern "C" int flash_attention_cp_bwd_dkdv(const void* q, long long q_bs, long long q_ts,
+                                           const void* k, long long k_bs, long long k_ts,
+                                           const void* v, long long v_bs, long long v_ts,
+                                           const void* dout, long long d_bs, long long d_ts,
+                                           const void* lse, const void* D, void* dk, void* dv,
+                                           int B, int SQ, int SK, int q_off, int NQ, int NKV,
+                                           int HD, float scale, void* stream) {
+  return launch_dkdv_hd(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, dout, d_bs, d_ts, lse, D,
+                        dk, dv, B, SQ, SK, q_off, NQ, NKV, HD, scale, stream);
 }

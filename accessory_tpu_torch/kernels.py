@@ -16,8 +16,9 @@ kernels its main path went through (``launch_counts`` /
 per source file: the GQA and MHA decode kernels, their bf16 and int8, fused
 and read-only forms, each of the cache writes, the paged decode and
 paged write entries (the read-only paged decode too), the two passes of the
-flash-attention backward, the W8, std-W4 and magic-W4 matmuls and the fused
-W4 FFN show their own count.
+flash-attention backward, the context-parallel (sequence-sharded) forward and
+its two backward passes, the W8, std-W4 and magic-W4 matmuls and the fused W4
+FFN show their own count.
 """
 
 from __future__ import annotations
@@ -70,6 +71,9 @@ KERNELS = {
     "w4_matmul_std": "w4_matmul_std",
     "w4_matmul_magic": "w4_matmul_magic",
     "ffn_fused": "ffn_fused",
+    "flash_attention_cp": "flash_attention",
+    "flash_attention_cp_bwd_dq": "flash_attention_bwd",
+    "flash_attention_cp_bwd_dkdv": "flash_attention_bwd",
 }
 # -Xptxas=-v: registers, shared memory and spills land in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -25,7 +25,9 @@ any kernel, as in the JAX package.
 
 ``forward`` without a cache is the training forward (reference :552-567):
 every block attends causally through ``ops.flash_attention`` (differentiable:
-the flash backward kernel on the card) and composes its W4 matmuls unfused
+the flash backward kernel on the card), or through an injected ``attn_fn``
+(``parallel.make_cp_attn_fn``: the tokens are one rank's sequence shard,
+starting at ``cur_pos``), and composes its W4 matmuls unfused
 (``allow_fused=False``: the fused kernel call has no backward), each layer
 optionally checkpointed (``util.remat_policy``). ``init_params`` adds the
 PEFT leaves (``lora_rank``: lora_a random, lora_b zero; ``bias_tuning``:
@@ -187,7 +189,7 @@ def _rope_tables(head_dim: int, max_len: int, theta: float, scaling, style: str,
 
 def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
            update_cache: bool, rope_t=None, cache_ks=None, cache_vs=None,
-           fused_attn_write: bool = True, ffn_fuse: bool = False):
+           fused_attn_write: bool = True, ffn_fuse: bool = False, attn_fn=None):
     """One transformer block, over fused (wqkv / w13) or separate (wq, wk, wv /
     w1, w3) layer params. With ``update_cache`` (a decode step over per-layer
     pools) the attention call also writes the new token's k/v into the cache
@@ -198,7 +200,9 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
     write. ``ffn_fuse``: a one-token step over a cache runs the FFN (norm,
     w13, SwiGLU, w2 and the residual) as one fused kernel call where
     ``ops.ffn_fused.ffn_fusible`` holds and w2 has no LoRA or bias, the
-    reference's conditions (its ``ACCESSORY_FFN_FUSE=1``)."""
+    reference's conditions (its ``ACCESSORY_FFN_FUSE=1``). ``attn_fn``: the
+    cache-free forward's attention, in place of causal attention at offset 0
+    (the context-parallel seam, reference :364-368)."""
     b, sq, _ = h.shape
     hd, nq, nkv = args.head_dim, args.n_heads, args.kv_heads
     att = layer["attention"]
@@ -222,7 +226,9 @@ def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
         q = apply_rope(q, cos, sin, args.rope_style)
         k = apply_rope(k, cos, sin, args.rope_style)
 
-    if cache_k is None:
+    if cache_k is None and attn_fn is not None:
+        out = attn_fn(q, k, v)
+    elif cache_k is None:
         out = attention(q, k, v, causal=True, q_offset=0)
     elif update_cache and cache_ks is not None:
         out, k, v, _, _ = decode_attention_update8(q, k, v, cache_k, cache_v, cache_ks,
@@ -272,8 +278,8 @@ def _check_layers(params: Params) -> None:
 
 def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
             cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
-            fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False
-            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+            fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False,
+            attn_fn=None) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """A chunk of tokens at position ``cur_pos`` (a prefill at 0, a chunk
     after cached tokens, or one decode token) over per-layer params, fused
     by ``quant.fuse.fuse_for_decode`` or not. Returns (logits f32
@@ -282,6 +288,10 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     ``cache=None``: the training forward (reference :552-567), differentiable,
     returning (logits f32, None); ``remat`` (``util.remat_policy``)
     checkpoints each layer, whose forward then runs again in the backward.
+    ``attn_fn(q, k, v)`` replaces its causal attention (bound inside the
+    checkpointed block, so remat keeps it); the tokens then sit at positions
+    ``cur_pos`` onwards (a context-parallel rank's shard), where RoPE reads
+    its tables.
 
     Per-layer pools (lists): a decode step's attention writes its own layer's
     slot (one fused kernel, or read-only attention plus a one-token write with
@@ -294,13 +304,14 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     h = params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
     if cache is None:
-        cos, sin, _, _ = _rope_tables(args.head_dim, sq, args.rope_theta, args.rope_scaling,
-                                      args.rope_style, args.n_heads + args.kv_heads,
-                                      args.kv_heads, str(h.device))
+        cos, sin, _, _ = _rope_tables(args.head_dim, cur_pos + sq, args.rope_theta,
+                                      args.rope_scaling, args.rope_style,
+                                      args.n_heads + args.kv_heads, args.kv_heads, str(h.device))
+        cos, sin = cos[cur_pos:], sin[cur_pos:]
         checkpoint = remat_policy(remat)
 
         def block(h, layer):
-            return _block(h, layer, args, cos, sin, 0, None, None, False)[0]
+            return _block(h, layer, args, cos, sin, 0, None, None, False, attn_fn=attn_fn)[0]
 
         for layer in params["layers"]:
             h = block(h, layer) if checkpoint is None else checkpoint(block, h, layer)

@@ -14,6 +14,18 @@ to 128 and required q_len >= 128).
 ``flash_attention`` is differentiable in q, k and v (``_FlashAttention``);
 called where no gradient is wanted (serving) it runs the forward alone,
 without the lse.
+
+``flash_attention_cp`` is one context-parallel shard of the same attention
+(port of ``accessory_tpu/parallel/context.py::_splash_cp_kernel``, the splash
+kernel with ``q_seq_shards``): the shard's query rows at global positions
+``q_offset`` onwards against the all-gathered keys, forward and backward
+(``flash_attention_bwd(..., q_offset=)``) through the same two CUDA sources, whose bodies
+take a query offset and a longer key axis (entries ``flash_attention_cp_fwd``,
+``flash_attention_cp_bwd_dq``, ``flash_attention_cp_bwd_dkdv``). One set of
+wrappers serves both: ``q_offset=None`` launches the flash entries (as many
+keys as queries), an int the cp entries, so each shows its own launch count.
+Its plain versions are ``grouped_attention(..., q_offset=)`` (the JAX package's XLA
+branch of ``cp_attention``) and ``flash_attention_bwd_plain(..., q_offset=)``.
 """
 
 from __future__ import annotations
@@ -29,14 +41,36 @@ _P, _L, _I, _F = kernels.P, kernels.L, kernels.I, kernels.F
 _ARGS = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _F, _P, _P]
 _BWD_DQ_ARGS = [_P, _L, _L] * 5 + [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
 _BWD_DKDV_ARGS = [_P, _L, _L] * 4 + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+# the cp entries: (B, SQ, SK, q_off, NQ, NKV, HD) in place of (B, S, NQ, NKV, HD)
+_CP_ARGS = [_P, _L, _L] * 3 + [_P] + [_I] * 7 + [_F, _P, _P]
+_CP_BWD_DQ_ARGS = [_P, _L, _L] * 5 + [_P, _P, _P] + [_I] * 7 + [_F, _P]
+_CP_BWD_DKDV_ARGS = [_P, _L, _L] * 4 + [_P, _P, _P, _P] + [_I] * 7 + [_F, _P]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention: q (b, s, nq, hd), k/v (b, s, nkv, hd) -> (b, s, nq, hd)."""
+    return _attention(q, k, v, None, scale)
+
+
+def flash_attention_cp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """One context-parallel shard of causal attention: q (b, s_l, nq, hd) holds
+    the rows at global positions q_offset .. q_offset + s_l - 1, k / v
+    (b, S, nkv, hd) every key (gathered over the shards, any batch and token
+    strides); row i sees keys 0 .. q_offset + i. Returns (b, s_l, nq, hd);
+    differentiable in q, k and v."""
+    if not isinstance(q_offset, int):
+        raise ValueError(f"flash_attention_cp: q_offset {q_offset!r} must be an int")
+    return _attention(q, k, v, q_offset, scale)
+
+
+def _attention(q, k, v, q_offset: Optional[int], scale):
+    """Differentiable where a gradient is wanted; the forward alone (no lse)
+    where none is (serving)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, scale)
-    return _forward(q, k, v, scale, with_lse=False)[0]
+        return _FlashAttention.apply(q, k, v, q_offset, scale)
+    return _forward(q, k, v, scale, with_lse=False, q_offset=q_offset)[0]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -44,26 +78,40 @@ class _FlashAttention(torch.autograd.Function):
     backward is ``flash_attention_bwd`` (the splash custom VJP's role)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = _forward(q, k, v, scale, with_lse=True)
+    def forward(ctx, q, k, v, q_offset, scale):
+        out, lse = _forward(q, k, v, scale, with_lse=True, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+        ctx.q_offset, ctx.scale = q_offset, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.scale)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, ctx.scale, ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
-def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               more=()) -> None:
+def _check_offset(name: str, q: torch.Tensor, k: torch.Tensor,
+                  q_offset: Optional[int]) -> None:
+    """As many keys as query rows (q_offset None), or the gathered keys of a
+    context-parallel shard: 0 <= q_offset and q_offset + s <= S."""
+    s, skv = q.shape[1], k.shape[1]
+    if (q_offset is None and skv != s) or (q_offset is not None
+                                           and not 0 <= q_offset <= skv - s):
+        raise ValueError(f"{name}: q_offset {q_offset} with {s} query rows and {skv} keys")
+
+
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, more=(),
+               q_offset: Optional[int] = None) -> None:
+    """q and ``more`` (tag, tensor, heads) are (b, s, heads, hd); k / v are
+    (b, S, nkv, hd) with S as ``_check_offset`` allows."""
+    _check_offset(name, q, k, q_offset)
     b, s, nq, hd = q.shape
-    nkv = k.shape[2]
-    for tag, t, heads in (("q", q, nq), ("k", k, nkv), ("v", v, nkv)) + tuple(more):
+    nkv, skv = k.shape[2], k.shape[1]
+    for tag, t, rows, heads in ((("q", q, s, nq), ("k", k, skv, nkv), ("v", v, skv, nkv))
+                                + tuple((tg, tt, s, hh) for tg, tt, hh in more)):
         if not (t.device == q.device and t.dtype == torch.bfloat16
-                and tuple(t.shape) == (b, s, heads, hd)
+                and tuple(t.shape) == (b, rows, heads, hd)
                 and t.stride(3) == 1 and t.stride(2) == hd and t.stride(0) % 8 == 0
                 and t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0):
             raise ValueError(f"{name}: {tag} must be bf16 (b, s, heads, hd) on q's device, "
@@ -72,95 +120,128 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: head_dim {hd} (64 or 128), heads {nq}/{nkv}")
 
 
-def _forward(q, k, v, scale, with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _dims(q, k, q_offset: Optional[int]):
+    """The kernels' shape arguments: (B, S, NQ, NKV, HD) of a flash entry,
+    (B, SQ, SK, q_off, NQ, NKV, HD) of a cp entry."""
+    b, s, nq, hd = q.shape
+    if q_offset is None:
+        return (b, s, nq, k.shape[2], hd)
+    return (b, s, k.shape[1], q_offset, nq, k.shape[2], hd)
+
+
+def _strided(t: torch.Tensor):
+    return t.data_ptr(), t.stride(0), t.stride(1)
+
+
+def _forward(q, k, v, scale, with_lse: bool, q_offset: Optional[int] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out (b, s, nq, hd), lse (b, nq, s) f32 or None): the kernel on a CUDA
+    tensor (head_dim 64 or 128, else it raises: there is no other form on the
+    card), the plain version on a CPU one. ``q_offset`` None launches the
+    flash entry, an int the cp entry (see ``flash_attention_cp``)."""
+    name = "flash_attention" if q_offset is None else "flash_attention_cp"
     if q.device.type == "cpu":
-        out = grouped_attention(q, k, v, causal=True, scale=scale)
-        return out, (attention_lse(q, k, scale) if with_lse else None)
+        _check_offset(name, q, k, q_offset)
+        off = q_offset or 0
+        out = grouped_attention(q, k, v, causal=True, q_offset=off, scale=scale)
+        return out, (attention_lse(q, k, scale, off) if with_lse else None)
     if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    _check_qkv("flash_attention", q, k, v)
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
+    _check_qkv(name, q, k, v, q_offset=q_offset)
     b, s, nq, hd = q.shape
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty((b, s, nq, hd), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device) if with_lse else None
-    fn = kernels.function("flash_attention", "flash_attention_fwd", _ARGS)
-    rc = fn(q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0), k.stride(1),
-            v.data_ptr(), v.stride(0), v.stride(1), out.data_ptr(), b, s, nq, k.shape[2], hd,
+    fn = kernels.function("flash_attention", f"{name}_fwd",
+                          _ARGS if q_offset is None else _CP_ARGS)
+    rc = fn(*_strided(q), *_strided(k), *_strided(v), out.data_ptr(), *_dims(q, k, q_offset),
             scale, None if lse is None else lse.data_ptr(), kernels.stream_ptr(q))
-    kernels.check("flash_attention", rc)
+    kernels.check(name, rc)
     return out, lse
 
 
-def attention_lse(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None
-                  ) -> torch.Tensor:
+def attention_lse(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None,
+                  q_offset: int = 0) -> torch.Tensor:
     """Per-row log-sum-exp (b, nq, s) f32 of the causal scaled scores, the
-    plain counterpart of the forward kernel's lse output."""
+    plain counterpart of the forward kernel's lse output (q's rows at global
+    positions ``q_offset`` onwards)."""
     b, s, nq, hd = q.shape
     scale = hd ** -0.5 if scale is None else scale
-    scores = _scores(q, k, scale)
+    scores = _scores(q, k, scale, q_offset)
     return torch.logsumexp(scores, dim=-1).reshape(b, nq, s)
 
 
-def _scores(q, k, scale):
-    """Causal scaled scores (b, nkv, R, s, s) f32, masked with NEG_INF."""
+def _scores(q, k, scale, q_offset: int = 0):
+    """Causal scaled scores (b, nkv, R, sq, sk) f32, masked with NEG_INF: query
+    row i (global position q_offset + i) sees keys 0 .. q_offset + i."""
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(b, s, nkv, nq // nkv, hd).to(torch.float32)
     scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k.to(torch.float32)) * scale
-    idx = torch.arange(s, device=q.device)
-    causal = idx[None, :] <= idx[:, None]
+    qi = q_offset + torch.arange(s, device=q.device)
+    causal = torch.arange(k.shape[1], device=q.device)[None, :] <= qi[:, None]
     return torch.where(causal, scores, torch.full_like(scores, NEG_INF))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                        dout: torch.Tensor, lse: torch.Tensor, scale: Optional[float] = None
+                        dout: torch.Tensor, lse: torch.Tensor, scale: Optional[float] = None,
+                        q_offset: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq (b, s, nq, hd), dk / dv (b, s, nkv, hd) of causal attention, from the
     forward's output and f32 lse (b, nq, s): two kernel launches on a CUDA
     tensor (dq with D = rowsum(dout * out), then dk / dv), the plain formula
-    on a CPU one."""
+    on a CPU one. With ``q_offset`` (a context-parallel shard: the cp
+    entries) k / v are the gathered (b, S, nkv, hd) and dk / dv this shard's
+    part of every key's gradient, zero for keys past its last row; the caller
+    sums the shards' parts (a reduce-scatter)."""
+    name = "flash_attention_bwd" if q_offset is None else "flash_attention_cp_bwd"
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, dout, lse, scale)
+        _check_offset(name, q, k, q_offset)
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, scale, q_offset or 0)
     if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_bwd: no kernel for device {q.device}")
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
     dout = dout.contiguous()
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
-    _check_qkv("flash_attention_bwd", q, k, v, (("out", out, nq), ("dout", dout, nq)))
+    _check_qkv(name, q, k, v, (("out", out, nq), ("dout", dout, nq)), q_offset=q_offset)
     if not (lse.device == q.device and lse.dtype == torch.float32 and lse.is_contiguous()
             and tuple(lse.shape) == (b, nq, s)):
-        raise ValueError("flash_attention_bwd: lse must be contiguous f32 (b, nq, s)")
+        raise ValueError(f"{name}: lse must be contiguous f32 (b, nq, s)")
     scale = hd ** -0.5 if scale is None else scale
     d = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, s, nq, hd), dtype=torch.bfloat16, device=q.device)
-    dk = torch.empty((b, s, nkv, hd), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((b, k.shape[1], nkv, hd), dtype=torch.bfloat16, device=q.device)
     dv = torch.empty_like(dk)
-    st = kernels.stream_ptr(q)
-    strided = lambda t: (t.data_ptr(), t.stride(0), t.stride(1))  # noqa: E731
-    fn = kernels.function("flash_attention_bwd", "flash_attention_bwd_dq", _BWD_DQ_ARGS)
-    rc = fn(*strided(q), *strided(k), *strided(v), *strided(out), *strided(dout),
-            lse.data_ptr(), d.data_ptr(), dq.data_ptr(), b, s, nq, nkv, hd, scale, st)
-    kernels.check("flash_attention_bwd_dq", rc)
-    fn = kernels.function("flash_attention_bwd", "flash_attention_bwd_dkdv", _BWD_DKDV_ARGS)
-    rc = fn(*strided(q), *strided(k), *strided(v), *strided(dout), lse.data_ptr(),
-            d.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, nq, nkv, hd, scale, st)
-    kernels.check("flash_attention_bwd_dkdv", rc)
+    shape = (*_dims(q, k, q_offset), scale, kernels.stream_ptr(q))
+    dq_args, dkdv_args = ((_BWD_DQ_ARGS, _BWD_DKDV_ARGS) if q_offset is None
+                          else (_CP_BWD_DQ_ARGS, _CP_BWD_DKDV_ARGS))
+    fn = kernels.function("flash_attention_bwd", f"{name}_dq", dq_args)
+    rc = fn(*_strided(q), *_strided(k), *_strided(v), *_strided(out), *_strided(dout),
+            lse.data_ptr(), d.data_ptr(), dq.data_ptr(), *shape)
+    kernels.check(f"{name}_dq", rc)
+    fn = kernels.function("flash_attention_bwd", f"{name}_dkdv", dkdv_args)
+    rc = fn(*_strided(q), *_strided(k), *_strided(v), *_strided(dout), lse.data_ptr(),
+            d.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape)
+    kernels.check(f"{name}_dkdv", rc)
     return dq, dk, dv
 
 
-def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: Optional[float] = None):
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: Optional[float] = None,
+                              q_offset: int = 0):
     """The explicit backward in f32: P = exp(S - lse) (causal), dV = P^T dO
     (P in v's dtype, as the forward's value product takes it), dP = dO V^T,
     dS = P (dP - D) with D = rowsum(dO * O), dQ = scale dS K,
     dK = scale dS^T Q, dK / dV summed over each KV head's group. It gives the
     gradients ``grouped_attention`` has under autograd, up to where bf16
-    rounds."""
+    rounds. With ``q_offset`` (a context-parallel shard) q, out and dout hold
+    the rows at global positions q_offset onwards and k / v every key; dk / dv
+    are then this shard's part of every key's gradient."""
     b, s, nq, hd = q.shape
     nkv = k.shape[2]
     r = nq // nkv
     scale = hd ** -0.5 if scale is None else scale
     f32 = torch.float32
-    p = torch.exp(_scores(q, k, scale) - lse.reshape(b, nkv, r, s)[..., None])
+    p = torch.exp(_scores(q, k, scale, q_offset) - lse.reshape(b, nkv, r, s)[..., None])
     do = dout.reshape(b, s, nkv, r, hd).to(f32)
     dv = torch.einsum("bkrqs,bqkrh->bskh", p.to(v.dtype).to(f32), do)
     dp = torch.einsum("bqkrh,bskh->bkrqs", do, v.to(f32))

@@ -12,6 +12,19 @@ floating tensor that is not a quantized weight: frozen dense leaves (the
 embedding, the output head, norms without norm tuning) get gradients too,
 which count in ``grad_norm`` and in the clip, and are not updated (their
 optimizer label is "frozen"). QPEFT's W4 base gets none.
+
+With ``attn_fn`` from ``parallel.make_cp_attn_fn(mesh)`` (the only attn_fn it
+takes: the mesh it carries decides each rank's slice) the step is
+context-parallel (the reference jits it over the mesh with the batch and the
+sequence sharded): each rank takes its dp slice of the batch's rows and its cp
+slice of the sequence, and attention gathers the rest (parallel/context.py).
+The labels are shifted once on the whole sequence (the last position
+ignored) and scored unshifted, so no label is lost at a shard boundary; each
+microbatch's loss is normalized by its token count summed over dp x cp, the
+global mean; the gradients are summed over dp x cp (not tp, whose ranks hold
+equal ones) before the norm and the update, flattened into buckets of at most
+2**27 elements a dtype (one all-reduce a bucket and group, not one a leaf), so
+every rank keeps the same parameters. Metrics are the global ones.
 """
 
 from __future__ import annotations
@@ -21,8 +34,11 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from accessory_tpu_torch.models.llama import torch_dtype
+from accessory_tpu_torch.parallel.context import CPAttention, seq_shard
+from accessory_tpu_torch.parallel.mesh import axis_rank, axis_size
 from accessory_tpu_torch.train.loss import cross_entropy_loss
 from accessory_tpu_torch.train.optim import global_norm
 from accessory_tpu_torch.train.tree import map_leaves, named_leaves
@@ -60,13 +76,13 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
     moved to ``device``). With ``accum_steps > 1`` the batch splits into that
     many microbatches along its first axis; their gradients are summed and
     divided by ``accum_steps`` and their metrics averaged. Metrics: loss,
-    c_loss, aux_loss, n_tokens and grad_norm, as 0-d tensors on the device."""
+    c_loss, aux_loss, n_tokens and grad_norm, as 0-d tensors on the device.
+    ``attn_fn``: None, or ``parallel.make_cp_attn_fn(mesh)``, which makes the
+    step context-parallel over its mesh (see above); any other raises."""
     if moe_aux:
         raise NotImplementedError("the MoE auxiliary loss: mixtral is not ported (ROADMAP A6)")
-    if attn_fn is not None:
-        raise NotImplementedError("attn_fn (context-parallel attention) waits for the "
-                                  "parallel package (ROADMAP A10)")
     compute_dtype = torch_dtype(args.dtype)
+    layout = None if attn_fn is None else _CPLayout.of(attn_fn)
 
     def _autocast(params):
         """f32 masters cast to the compute dtype inside the differentiated
@@ -78,8 +94,16 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
                           and x.dtype == torch.float32 else x, params)
 
     def loss_fn(params, examples, labels):
-        logits, _ = module.forward(_autocast(params), args, examples, remat=remat)
-        return cross_entropy_loss(logits, labels, ignore_index)
+        if layout is None:
+            logits, _ = module.forward(_autocast(params), args, examples, remat=remat)
+            return cross_entropy_loss(logits, labels, ignore_index)
+        ex, lab, start = layout.shard(examples, labels, ignore_index)
+        logits, _ = module.forward(_autocast(params), args, ex, remat=remat, attn_fn=attn_fn,
+                                   cur_pos=start)
+        loss, n_tok = cross_entropy_loss(logits, lab, ignore_index, shift=False)
+        n_all = layout.sum(n_tok.clone())
+        # this rank's share of the global mean (the factor is 1 on one rank)
+        return loss * (n_tok.clamp_min(1) / n_all.clamp_min(1)), n_all
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         if batch.get("images") is not None:
@@ -100,6 +124,9 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
             counts.append(n_tok)
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in diff.items()}
+        if layout is not None:
+            layout.sum_all(list(grads.values()))
+            losses = list(layout.sum(torch.stack(losses)))
         if accum_steps > 1:
             grads = {k: g / accum_steps for k, g in grads.items()}
             c_loss = torch.stack(losses).mean()
@@ -113,6 +140,64 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
         return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
 
     return train_step
+
+
+class _CPLayout:
+    """Where a context-parallel rank sits on its mesh: its dp slice of the
+    batch rows, its cp slice of the sequence, and the groups that sum over
+    dp x cp."""
+
+    BUCKET = 1 << 27          # elements of one gradient all-reduce (512 MiB of f32)
+
+    def __init__(self, mesh, cp_axis: str):
+        if axis_size(mesh, "fsdp") > 1 or axis_size(mesh, "ep") > 1:
+            raise NotImplementedError("fsdp / ep mesh axes: FSDP and expert sharding of the "
+                                      "model wait (ROADMAP A10)")
+        self.dp, self.cp = axis_size(mesh, "dp"), axis_size(mesh, cp_axis)
+        self.dp_rank, self.cp_rank = axis_rank(mesh, "dp"), axis_rank(mesh, cp_axis)
+        self.groups = [mesh.get_group(a) for a in ("dp", cp_axis) if axis_size(mesh, a) > 1]
+
+    @classmethod
+    def of(cls, attn_fn) -> "_CPLayout":
+        if not isinstance(attn_fn, CPAttention):
+            raise TypeError(f"make_train_step: attn_fn {attn_fn!r} is not one of "
+                            "parallel.make_cp_attn_fn(mesh): the step slices each rank's batch "
+                            "and sequence by the mesh that carries")
+        return cls(attn_fn.mesh, attn_fn.cp_axis)
+
+    def shard(self, examples: torch.Tensor, labels: torch.Tensor, ignore_index: int):
+        """This rank's rows and positions and its first position; labels
+        shifted on the whole sequence first (label t = the token at t + 1;
+        the last ignored)."""
+        b, s = examples.shape
+        shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], ignore_index)], 1)
+        rows, cols = seq_shard(b, self.dp, self.dp_rank), seq_shard(s, self.cp, self.cp_rank)
+        return examples[rows, cols], shifted[rows, cols], cols.start
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """All-reduce (sum) over dp x cp, in place; returns t."""
+        for group in self.groups:
+            dist.all_reduce(t, group=group)
+        return t
+
+    def sum_all(self, tensors) -> None:
+        """``sum`` of every tensor, in place: same-dtype tensors flattened into
+        buckets of at most ``BUCKET`` elements (a larger one alone), one
+        all-reduce a bucket and group."""
+        if not self.groups:
+            return
+        buckets, size = {}, {}
+        for t in tensors:
+            key = t.dtype
+            if not buckets.get(key) or size[key] + t.numel() > self.BUCKET:
+                buckets.setdefault(key, []).append([])
+                size[key] = 0
+            buckets[key][-1].append(t)
+            size[key] += t.numel()
+        for ts in (b for per_dtype in buckets.values() for b in per_dtype):
+            flat = self.sum(torch.cat([t.reshape(-1) for t in ts]))
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
 
 
 def _ids(x, device) -> torch.Tensor:

@@ -10,7 +10,8 @@
                                                decode_gptq,serve_magic,decode_magic,serve_w3,
                                                train_parity,train_qpeft7b,train_full,
                                                finetune,parity_ffn,serve_ffn,decode_ffn,
-                                               decode7b_ffn,paged_ro] [--out FILE]
+                                               decode7b_ffn,paged_ro,cp_shards,train_cp]
+                          [--out FILE]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -124,7 +125,19 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   decode7b_ffn  (after decode7b) the 7B decode with ffn_fuse in the same turns;
   paged_ro  engine.kvcache.paged_attention_decode driven as a caller would (the
             reference has none): a one-token loop of paged writes and read-only
-            paged attention at the TinyLlama shape, launch counts exact.
+            paged attention at the TinyLlama shape, launch counts exact;
+  cp_shards  context parallelism on the one card: at cp 2, 4 and 8 every shard's
+            parallel.cp_shard_attention (the gather a torch.cat, the
+            reduce-scatter a sum over shards), LLaMA2-7B width, S 8192, against
+            the unsharded flash attention and its backward (outputs, lse and dq
+            bit for bit); the shards' summed device time beside the unsharded
+            kernels';
+  train_cp  the context-parallel training step (make_train_step with
+            attn_fn=parallel.make_cp_attn_fn(mesh)) in a one-rank NCCL group,
+            the 7B QPEFT configuration at b 1, S 4096: one step against the same
+            step without attn_fn (loss, gradients, updated leaves), then timed
+            steps with the flash_attention_cp entries' launch counts exact (a
+            cp group of more ranks needs a card a rank).
 The line before the last holds the kernel table ({"kernels": [...]}, launches
 summed over the counted main-path runs); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
@@ -158,7 +171,8 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
                 "kv_write_stacked", "kv_write_stacked_col", "kv_write_stacked_q8",
                 "paged_decode", "paged_decode8", "paged_write", "paged_write_q8",
                 "w4_dequant", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
-                "w8_matmul", "w4_matmul_std", "w4_matmul_magic", "paged_decode_ro", "ffn_fused")
+                "w8_matmul", "w4_matmul_std", "w4_matmul_magic", "paged_decode_ro", "ffn_fused",
+                "flash_attention_cp", "flash_attention_cp_bwd_dq", "flash_attention_cp_bwd_dkdv")
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
@@ -986,6 +1000,128 @@ def _kernels_flash_bwd(kr, cases):
         del sets, o, qt, kt, vt
 
 
+def _cp_work(b, s_l, q0, nq, hd):
+    """Multiply-adds of one causal product of a cp shard: its s_l rows at
+    positions q0 .. q0 + s_l - 1 each see q0 + i + 1 keys."""
+    return b * nq * hd * (s_l * q0 + s_l * (s_l + 1) / 2)
+
+
+def _masked_sdpa(q, k, v, q0):
+    """The library yardstick of a cp shard: scaled_dot_product_attention over
+    the gathered keys with an explicit boolean mask (row i sees keys up to
+    q0 + i)."""
+    import torch
+    import torch.nn.functional as F
+
+    s_l, s_k = q.shape[1], k.shape[1]
+    mask = (torch.arange(s_k, device=q.device)[None, :]
+            <= q0 + torch.arange(s_l, device=q.device)[:, None])
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+
+def _kernels_cp(kr, cases):
+    """Row 26: flash_attention_cp (forward with the lse) and its two backward
+    entries at each named shard of a sequence split over cp, against the plain
+    versions (grouped attention at the shard's offset, the explicit backward),
+    the library yardstick SDPA with a boolean mask over the gathered keys (and
+    its backward). Bounds count the keys the shard needs (0 .. its last row)."""
+    import torch
+
+    from accessory_tpu_torch.ops.attention import grouped_attention
+    from accessory_tpu_torch.ops.flash_attention import (_forward, attention_lse,
+                                                         flash_attention_bwd,
+                                                         flash_attention_bwd_plain)
+
+    names = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    for tag, b, s, nq, nkv, hd, cp, ranks in cases:
+        s_l = s // cp
+        k, v = kr.randn(b, s, nkv, hd), kr.randn(b, s, nkv, hd)
+        for r in ranks:
+            q0 = r * s_l
+            q, dout = kr.randn(b, s_l, nq, hd), kr.randn(b, s_l, nq, hd)
+            fwd = lambda q, k, v: _forward(q, k, v, None, with_lse=True, q_offset=q0)  # noqa: E731
+            out, lse = fwd(q, k, v)
+            want = grouped_attention(q, k, v, causal=True, q_offset=q0)
+            want_lse = attention_lse(q, k, None, q0)
+            torch.cuda.synchronize()
+            shape = f"{tag} B={b} S={s} cp={cp} rank={r} NQ={nq} NKV={nkv} HD={hd}"
+            check_close(f"flash_attention_cp {shape}", out, want, rtol=2e-2, atol=2e-2)
+            lse_err = float((lse - want_lse).abs().max())
+            if lse_err > 1e-4 * float(want_lse.abs().max()) + 1e-5:
+                raise AssertionError(f"flash_attention_cp {shape}: lse off by {lse_err}")
+            work = _cp_work(b, s_l, q0, nq, hd)
+            tok = b * hd * 2                               # bytes of one head's token row
+            keys = (q0 + s_l) * tok * nkv                  # the gathered keys the shard reads
+            sets = [(q, k, v)]
+            k_ms = time_ms(fwd, sets)
+            p_ms = time_ms(lambda *a: grouped_attention(*a, causal=True, q_offset=q0), sets,
+                           min_iters=3)
+            lib_ms = time_ms(lambda *a: _masked_sdpa(*a, q0), sets, min_iters=10)
+            kr.record("flash_attention_cp", shape, max_err(out, want), k_ms, wall_ms(fwd, sets),
+                      p_ms, lib_ms, 2 * s_l * tok * nq + 2 * keys + 4 * b * nq * s_l, 4 * work)
+            del want, want_lse
+            bwd = lambda *a: flash_attention_bwd(*a, None, q0)  # noqa: E731
+            got = bwd(q, k, v, out, dout, lse)
+            want = flash_attention_bwd_plain(q, k, v, out, dout, lse, None, q0)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                top = float(w.float().abs().max())
+                check_close(f"flash_attention_cp_bwd {name} {shape}", g, w, rtol=2e-2,
+                            atol=2e-2 * top, rel_l2=2e-2)
+                errs.append(max_err(g, w))
+            if got[1][:, q0 + s_l:].any() or got[2][:, q0 + s_l:].any():
+                raise AssertionError(f"flash_attention_cp_bwd {shape}: dk / dv not zero past "
+                                     "the shard's last row")
+            del want
+            bsets = [(q, k, v, out, dout, lse)]
+            kb_ms = time_ms(bwd, bsets, by=names)
+            kb_wall = wall_ms(bwd, bsets)
+            pb_ms = time_ms(flash_attention_bwd_plain, [(q, k, v, out, dout, lse, None, q0)],
+                            min_iters=3)
+            qt, kt, vt = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = _masked_sdpa(qt, kt, vt, q0)
+            dot = dout.transpose(1, 2)
+            lb_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                            [()], min_iters=10)
+            err = (max(e[0] for e in errs), max(e[1] for e in errs))
+            both = kb_ms[names[0]] + kb_ms[names[1]]
+            # dq: q, o, dO, k / v (the needed keys), lse read, D and dq written;
+            # dk / dv: q, dO, the needed k / v, lse and D read, all S rows of
+            # dk and dv written
+            kr.record("flash_attention_cp_bwd_dq", shape, err, kb_ms[names[0]], kb_wall, pb_ms,
+                      lb_ms, 4 * s_l * tok * nq + 2 * keys + 8 * b * nq * s_l, 3 * 2 * work,
+                      both_entries_ms=both)
+            kr.record("flash_attention_cp_bwd_dkdv", shape, err, kb_ms[names[1]], kb_wall, pb_ms,
+                      lb_ms, 2 * s_l * tok * nq + 2 * keys + 8 * b * nq * s_l
+                      + 2 * s * tok * nkv, 4 * 2 * work, both_entries_ms=both)
+            del got, o, qt, kt, vt
+
+
+def _kernels_cp_identity(kr, cases):
+    """At q0 = 0 and SK = SQ the cp entries run the flash entries' body: the
+    same bits, forward (with the lse) and both backward launches."""
+    import torch
+
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+
+    for tag, b, s, nq, nkv, hd in cases:
+        q, k, v, dout = (kr.randn(b, s, n, hd) for n in (nq, nkv, nkv, nq))
+        got = _forward(q, k, v, None, with_lse=True, q_offset=0)
+        want = _forward(q, k, v, None, with_lse=True)
+        got += flash_attention_bwd(q, k, v, got[0], dout, got[1], None, 0)
+        want += flash_attention_bwd(q, k, v, want[0], dout, want[1])
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+        emit({"phase": "kernels", "kernel": "flash_attention_cp", "check": "q0 = 0, SK = SQ: "
+              "bit-equal to the flash entries (out, lse, dq, dk, dv)",
+              "shape": f"{tag} B={b} S={s} NQ={nq} NKV={nkv} HD={hd}", "equal": same})
+        if not all(same):
+            raise AssertionError(f"flash_attention_cp at q0 = 0 differs from flash_attention "
+                                 f"({tag}: {same})")
+
+
 def _w8_weight_sets(kr, m, k, n, fusion, rope):
     """Argument sets for one W8 projection (a fresh weight per copy, so a
     round-robin spills L2) plus the dense bf16 weight for the yardstick."""
@@ -1368,6 +1504,17 @@ def phase_kernels(seed: int):
     tokens = [1, 63, 64, 65, 300, 511, 777, 1024]
     _kernels_paged_ro(kr, "tiny", 4, 8, 64, tokens)
     _kernels_paged_ro(kr, "7b", 32, 1, 128, tokens, most_copies=4)
+
+    # -- context parallelism (row 26): train_cp's shape (the 7B step's b 1 x
+    #    4096 on one rank: q0 0, SK = SQ), the first and the last of four
+    #    shards of an 8192-token sequence at 7B (MHA, head_dim 128) and TinyLlama
+    #    (GQA 32 / 4, head_dim 64) widths, a ragged split (S 8000: 2000-row
+    #    shards, not a multiple of the 64-row tile), and the q0 = 0 identity
+    _kernels_cp(kr, [("train_cp", 1, 4096, 32, 32, 128, 1, (0,)),
+                     ("7b", 1, 8192, 32, 32, 128, 4, (0, 3)),
+                     ("tiny", 1, 8192, 32, 4, 64, 4, (0, 3)),
+                     ("ragged", 1, 8000, 32, 4, 64, 4, (2,))])
+    _kernels_cp_identity(kr, [("7b", 1, 2048, 32, 32, 128), ("tiny", 2, 1000, 32, 4, 64)])
     return kr.rows
 
 
@@ -2902,6 +3049,226 @@ def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpef
     return counts
 
 
+def phase_cp_shards(seed: int, s: int = 8192):
+    """Context parallelism on one card at cp 2, 4 and 8: every shard's
+    parallel.cp_shard_attention (the step each rank runs between its
+    collectives; here the gather is a torch.cat of the shards' keys and the
+    reduce-scatter a sum over the shards' dk / dv), LLaMA2-7B width (32 / 32
+    heads, head_dim 128), b 1, S 8192. Held against the unsharded
+    flash_attention and its backward: the concatenated outputs, lse and dq
+    bit for bit (the shards' row tiles are the unsharded kernel's, 64-row
+    aligned), the summed dk / dv within a rounding step. Times between CUDA
+    events around back-to-back calls (each call is 0.2-13 ms of kernel work,
+    far above its host cost): the shards' forward and backward summed, beside
+    the unsharded kernels' and each shard's own; the profiler's device time of
+    the unsharded calls is printed beside them as a cross-check. Launch
+    counts are set to 0 just before each shard's cp_shard_attention forward
+    and backward and read just after (one launch of each row-26 entry a
+    shard: 14 over cp 2, 4 and 8); they are the phase's return."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+    from accessory_tpu_torch.parallel.context import cp_shard_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, nq, nkv, hd = 1, 32, 32, 128
+    q, k, v, dout = (torch.randn((b, s, n, hd), generator=gen, device="cuda")
+                     .to(torch.bfloat16) for n in (nq, nkv, nkv, nq))
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse)
+    fwd_names, bwd_names = ("flash_fwd_kernel",), ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    full_fwd = wall_ms(lambda: _forward(q, k, v, None, with_lse=True), [()], min_iters=10)
+    full_bwd = wall_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse), [()], min_iters=10)
+    prof_fwd = time_ms(lambda: _forward(q, k, v, None, with_lse=True), [()], min_iters=10,
+                       by=fwd_names)
+    prof_bwd = time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse), [()], min_iters=10,
+                       by=bwd_names)
+    flops = 4.0 * b * nq * hd * s * (s + 1) / 2
+    counts = {}
+    for cp in (2, 4, 8):
+        s_l = s // cp
+        shards = [slice(r * s_l, (r + 1) * s_l) for r in range(cp)]
+        kg = torch.cat([k[:, sl] for sl in shards], 1)          # the all-gather
+        vg = torch.cat([v[:, sl] for sl in shards], 1)
+        outs, lses, dqs = [], [], []
+        dk_sum = torch.zeros(k.shape, dtype=torch.float32, device="cuda")
+        dv_sum = torch.zeros_like(dk_sum)
+        for r, sl in enumerate(shards):
+            leaves = [q[:, sl].detach().clone().requires_grad_(True),
+                      kg.detach().clone().requires_grad_(True),
+                      vg.detach().clone().requires_grad_(True)]
+            kernels.reset_launch_counts()
+            o = cp_shard_attention(*leaves, r)
+            o.backward(dout[:, sl])
+            _add_counts(counts, kernels.launch_counts())
+            outs.append(o.detach())
+            lses.append(_forward(leaves[0].detach(), kg, vg, None, with_lse=True,
+                                 q_offset=r * s_l)[1])
+            dqs.append(leaves[0].grad)
+            dk_sum += leaves[1].grad.float()                      # the reduce-scatter
+            dv_sum += leaves[2].grad.float()
+        torch.cuda.synchronize()
+        exact = {"out": bool(torch.equal(torch.cat(outs, 1), out)),
+                 "lse": bool(torch.equal(torch.cat(lses, 2), lse)),
+                 "dq": bool(torch.equal(torch.cat(dqs, 1), dq))}
+        for name, got, want in (("dk", dk_sum, dk), ("dv", dv_sum, dv)):
+            check_close(f"cp_shards cp={cp} {name}", got, want.float(), rtol=2e-2,
+                        atol=2e-2 * float(want.float().abs().max()), rel_l2=2e-2)
+        errs = {"dk": max_err(dk_sum, dk)[0], "dv": max_err(dv_sum, dv)[0]}
+        shard_args = [(q[:, sl].contiguous(), r * s_l) for r, sl in enumerate(shards)]
+        per_fwd, per_bwd = [], []
+        saved = [_forward(qs, kg, vg, None, with_lse=True, q_offset=off)
+                 for qs, off in shard_args]
+        for (qs, off), (o, l), sl in zip(shard_args, saved, shards):
+            per_fwd.append(wall_ms(lambda: _forward(qs, kg, vg, None, with_lse=True,
+                                                    q_offset=off), [()], min_iters=10))
+            per_bwd.append(wall_ms(lambda: flash_attention_bwd(qs, kg, vg, o, dout[:, sl], l,
+                                                               None, off), [()], min_iters=10))
+        row = {"phase": "cp_shards", "cp": cp, "shape": f"7b B={b} S={s} NQ={nq} NKV={nkv} "
+               f"HD={hd}", "exact": exact, "max_abs_err": errs,
+               "clock": "CUDA events", "fwd_ms_shards_sum": sum(per_fwd),
+               "fwd_ms_unsharded": full_fwd, "bwd_ms_shards_sum": sum(per_bwd),
+               "bwd_ms_unsharded": full_bwd,
+               "profiler_ms_unsharded": {"fwd": prof_fwd[fwd_names[0]],
+                                         "bwd": prof_bwd[bwd_names[0]] + prof_bwd[bwd_names[1]]},
+               "fwd_ms_by_shard": per_fwd, "bwd_ms_by_shard": per_bwd,
+               "fwd_bound_ms_by_shard": [bound_ms(0, 4 * _cp_work(b, s_l, r * s_l, nq, hd))[0]
+                                         for r in range(cp)],
+               "fwd_bound_ms_unsharded": bound_ms(0, flops)[0]}
+        emit(row)
+        if not all(exact.values()):
+            raise AssertionError(f"cp_shards cp={cp}: shards differ from the unsharded kernel "
+                                 f"({exact})")
+        del saved, kg, vg, dk_sum, dv_sum, outs, dqs, lses
+    counts = {n: c for n, c in counts.items() if c}
+    want = {n: 2 + 4 + 8 for n in ("flash_attention_cp", "flash_attention_cp_bwd_dq",
+                                   "flash_attention_cp_bwd_dkdv")}
+    emit({"phase": "cp_shards", "launches": counts, "launches_expected": want})
+    if counts != want:
+        raise AssertionError(f"cp_shards: launch counts {counts} != expected {want}")
+    return counts
+
+
+def phase_train_cp(seed: int, batch: int = 1, seq_len: int = 4096, steps: int = 3):
+    """The context-parallel training path on one card: a one-rank NCCL group
+    (init_distributed_mode over a FileStore in a temporary directory), mesh
+    (dp 1, cp 1, tp 1), the 7B QPEFT configuration (train_qpeft7b's: 32
+    layers, W4 g128 base, LoRA 16, bias and norm tuning, full remat) at b 1,
+    S 4096, with attn_fn=make_cp_attn_fn(mesh): labels shifted up front, the
+    loss normalized by the all-reduced count, row 26's three entries in place
+    of the flash ones. One step against the same step without attn_fn from
+    the same weights: loss to 1e-5 relative, every gradient to 1e-3 relative
+    L2 and the updated trainable leaves to 1e-2 of an lr where the gradient is
+    at least a tenth of its leaf's largest (bit-equality is reported). Then
+    1 warm-up and ``steps`` timed steps: ms per step, tokens/s, model flops
+    against 989 TFLOP/s, the device's busy share and peak memory; launch
+    counts exact."""
+    import torch
+    import torch.distributed as dist
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.parallel import (init_distributed_mode, local_mesh,
+                                              make_cp_attn_fn)
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.train_step import grads_of
+    from accessory_tpu_torch.train.tree import named_leaves
+
+    lr = 1e-3
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        info = init_distributed_mode(init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = local_mesh()
+            args, params, trainable = _train_model(dict(LLAMA2_7B, **QPEFT), seed, True,
+                                                   seq_len=seq_len)
+            data = _token_batch(seed, batch, seq_len, args.vocab_size)
+            before = {k: v.detach().clone() for k, v in named_leaves(params) if trainable(k)}
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            res = {}
+            for tag, attn_fn in (("plain", None), ("cp", make_cp_attn_fn(mesh))):
+                for k, v in named_leaves(params):
+                    if k in before:
+                        v.data.copy_(before[k])
+                tx = make_optimizer(params, lr, weight_decay=0.02, clip_norm=2.0,
+                                    trainable=trainable)
+                state = TrainState.create(params, tx)
+                step = make_train_step(llama, args, tx, remat="full", attn_fn=attn_fn)
+                kernels.reset_launch_counts()
+                state, m = step(state, data)
+                loss = float(m["c_loss"])
+                res[tag] = dict(loss=loss, counts=kernels.launch_counts(),
+                                grads={k: g.detach().clone() for k, g in grads_of(state).items()},
+                                after={k: v.detach().clone() for k, v in named_leaves(params)
+                                       if k in before})
+            p, c = res.pop("plain"), res.pop("cp")
+            worst, bit_equal = {"grad_rel_l2": 0.0, "update_err_lr": 0.0}, 0
+            for k, gp in p["grads"].items():
+                gc = c["grads"][k]
+                bit_equal += bool(torch.equal(gp, gc))
+                rel = float((gc.float() - gp.float()).norm() / gp.float().norm().clamp_min(1e-30))
+                worst["grad_rel_l2"] = max(worst["grad_rel_l2"], rel)
+            for k, b0 in before.items():
+                g = p["grads"][k].float()
+                sure = g.abs() >= 0.1 * g.abs().max()
+                if sure.any():
+                    d = ((c["after"][k].float() - p["after"][k].float()) / lr).abs()[sure]
+                    worst["update_err_lr"] = max(worst["update_err_lr"], float(d.max()))
+            want = {n: v for n, v in _train_counts(args.n_layers, True, True)[1].items()}
+            want_cp = dict(want, flash_attention=0, flash_attention_bwd_dq=0,
+                           flash_attention_bwd_dkdv=0,
+                           flash_attention_cp=want["flash_attention"],
+                           flash_attention_cp_bwd_dq=want["flash_attention_bwd_dq"],
+                           flash_attention_cp_bwd_dkdv=want["flash_attention_bwd_dkdv"])
+            step_counts = c["counts"]
+            n_grads = len(p["grads"])
+            for r in (p, c):
+                del r["grads"], r["after"]
+            # timed: the cp step from here on (the comparison's step was the warm-up)
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [c["loss"]], []
+            for _ in range(steps):
+                t1 = time.perf_counter()
+                state, m = step(state, data)
+                losses.append(float(m["c_loss"]))
+                times.append((time.perf_counter() - t1) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            ms = statistics.median(times)
+            tok_s = batch * seq_len / ms * 1e3
+            n_mm = _matmul_params(state.params)
+            attn = 2 * seq_len * args.n_heads * args.head_dim * args.n_layers
+            model_tok = 4 * n_mm + 3 * attn
+            state, prof = _split_profile(step, state, data, ms)
+        finally:
+            dist.destroy_process_group()
+    row = {"phase": "train_cp", "process_group": {k: info[k] for k in ("world_size", "backend")},
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "layers": args.n_layers,
+           "dim": args.dim, "heads": [args.n_heads, args.kv_heads], "batch": [batch, seq_len],
+           "mode": "QPEFT (W4 g128 base, LoRA 16, bias, norm)", "remat": "full", "lr": lr,
+           "setup_s": setup_s, "loss_plain": p["loss"], "loss_cp": c["loss"],
+           "grads_bit_equal": f"{bit_equal} of {n_grads}", "worst": worst,
+           "tolerances": {"loss_rel": 1e-5, "grad_rel_l2": 1e-3, "update_err_lr": 1e-2},
+           "ms_per_step": ms, "ms_per_step_all": times, "tok_s": tok_s,
+           "model_flops_per_token": model_tok, "model_tflop_s": model_tok * tok_s / 1e12,
+           "mfu_vs_989": model_tok * tok_s / BF16_FLOPS_PER_S, "peak_bytes": peak,
+           "losses": losses, "launches": step_counts, "launches_expected": want_cp,
+           "profile": prof}
+    emit(row)
+    if not (abs(c["loss"] - p["loss"]) <= 1e-5 * abs(p["loss"]) and worst["grad_rel_l2"] <= 1e-3
+            and worst["update_err_lr"] <= 1e-2):
+        raise AssertionError(f"train_cp: the cp step disagrees with the plain step ({worst}, "
+                             f"loss {c['loss']} vs {p['loss']})")
+    if step_counts != want_cp:
+        raise AssertionError(f"train_cp: launch counts {step_counts} != {want_cp}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_cp: losses not finite and falling: {losses}")
+    del state, params, step, tx
+    torch.cuda.empty_cache()
+    return step_counts
+
+
 def phase_finetune(seed: int):
     """main_finetune.main on the card at tiny size: a generated alpaca JSON
     read through a YAML META config and the byte tokenizer, one epoch with
@@ -3040,6 +3407,14 @@ KERNELS = {
     # ffn_qmm :121, its Pallas body _ffn_kernel at :44
     "ffn_fused": ("accessory_tpu_torch/csrc/ffn_fused.cu",
                   "accessory_tpu/ops/ffn_fused.py:121", "7b M=8"),
+    # _splash_cp_kernel :46 (reached through cp_attention :77): JAX's bundled
+    # splash kernel with q_seq_shards, its forward and its custom VJP
+    "flash_attention_cp": ("accessory_tpu_torch/csrc/flash_attention.cu",
+                           "accessory_tpu/parallel/context.py:46", "train_cp"),
+    "flash_attention_cp_bwd_dq": ("accessory_tpu_torch/csrc/flash_attention_bwd.cu",
+                                  "accessory_tpu/parallel/context.py:46", "train_cp"),
+    "flash_attention_cp_bwd_dkdv": ("accessory_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "accessory_tpu/parallel/context.py:46", "train_cp"),
 }
 
 
@@ -3066,7 +3441,8 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
-              "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro")
+              "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
+              "cp_shards,train_cp")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
                      "decode_ffn")
@@ -3260,6 +3636,10 @@ def main() -> int:
                                                        2048, qpeft=False, lr=1e-4)
         if "finetune" in phases:
             counts_by_path["finetune"] = phase_finetune(opts.seed)
+        if "cp_shards" in phases:
+            counts_by_path["cp shards"] = phase_cp_shards(opts.seed)
+        if "train_cp" in phases:
+            counts_by_path["train cp"] = phase_train_cp(opts.seed)
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES
                     if not sum(c.get(n, 0) for c in counts_by_path.values())]

@@ -1242,3 +1242,156 @@ def test_paged_decode_ro_refuses(gen):
         kvcache.paged_attention_decode(q, pools[0][0], pools[1][0], lens.long(), table)
     with pytest.raises(ValueError):
         kvcache.paged_attention_decode(q, pools[0][0].float(), pools[1][0].float(), lens, table)
+
+
+# ---------------------------------------------------------------- context parallel (row 26)
+
+
+def _cp_case(gen, b, s, nq, nkv, hd):
+    q, k, v = _attn_inputs(gen, b, s, nq, nkv, hd, fused_qkv=False)
+    return q, k, v, randn(gen, b, s, nq, hd)
+
+
+@pytest.mark.parametrize("s,cp", [(256, 4), (200, 2), (130, 5)])
+@pytest.mark.parametrize("hd,nq,nkv", [(64, 4, 4), (64, 8, 4), (64, 16, 4), (128, 8, 1),
+                                       (128, 4, 4)])
+def test_flash_attention_cp_every_shard(gen, s, cp, hd, nq, nkv):
+    """Each shard's forward (output, lse) and backward (dq, dk / dv over every
+    gathered key) against the plain versions at its query offset (R = 1, 2,
+    4, 8; shards of 64, 100 and 26 rows: aligned and ragged tiles); keys past
+    the shard's last row get exact zeros."""
+    from accessory_tpu_torch.ops.flash_attention import (_forward, attention_lse,
+                                                         flash_attention_bwd,
+                                                         flash_attention_bwd_plain)
+
+    b, s_l = 2, s // cp
+    q, k, v, dout = _cp_case(gen, b, s, nq, nkv, hd)
+    for r in range(cp):
+        rows = slice(r * s_l, (r + 1) * s_l)
+        qs, ds = q[:, rows], dout[:, rows].contiguous()
+        before = kernels.launch_counts()
+        out, lse = _forward(qs, k, v, None, with_lse=True, q_offset=r * s_l)
+        assert_close(out, grouped_attention(qs, k, v, causal=True, q_offset=r * s_l))
+        lse_plain = attention_lse(qs, k, None, r * s_l)
+        torch.cuda.synchronize()
+        assert float((lse - lse_plain).abs().max()) <= 1e-4 * float(lse_plain.abs().max()) + 1e-5
+        got = flash_attention_bwd(qs, k, v, out, ds, lse, None, r * s_l)
+        after = kernels.launch_counts()
+        for name in ("flash_attention_cp", "flash_attention_cp_bwd_dq",
+                     "flash_attention_cp_bwd_dkdv"):
+            assert after[name] == before[name] + 1, name
+        want = flash_attention_bwd_plain(qs, k, v, out, ds, lse, None, r * s_l)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.shape == w.shape and g.dtype == torch.bfloat16
+            assert_grad_close(f"{name} shard {r}", g, w)
+        for g in got[1:]:
+            assert not g[:, (r + 1) * s_l:].any()
+
+
+@pytest.mark.parametrize("s,hd,nq,nkv", [(1, 64, 4, 2), (77, 64, 32, 4), (130, 128, 8, 8),
+                                         (512, 128, 32, 32)])
+def test_flash_attention_cp_at_offset_zero_is_the_flash_kernel(gen, s, hd, nq, nkv):
+    """q0 = 0 and SK = SQ: the cp entries give the flash entries' bits (one
+    body), forward with the lse and both backward launches."""
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+
+    q, k, v, dout = _cp_case(gen, 2, s, nq, nkv, hd)
+    want = _forward(q, k, v, None, with_lse=True)
+    got = _forward(q, k, v, None, with_lse=True, q_offset=0)
+    gb = flash_attention_bwd(q, k, v, got[0], dout, got[1], None, 0)
+    wb = flash_attention_bwd(q, k, v, want[0], dout, want[1])
+    torch.cuda.synchronize()
+    for g, w in zip(got + gb, want + wb):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_flash_attention_cp_token_major_gathered_kv(gen, b):
+    """k / v as the strided (b, S, nkv, hd) view of a token-major gather
+    buffer (S, b, nkv, hd), as parallel.cp_attention hands them over: the
+    same bits as from contiguous copies."""
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+
+    s, nq, nkv, hd, cp = 256, 8, 2, 128, 4
+    kt, vt = randn(gen, s, b, nkv, hd), randn(gen, s, b, nkv, hd)
+    k, v = kt.transpose(0, 1), vt.transpose(0, 1)
+    q, dout = randn(gen, b, s // cp, nq, hd), randn(gen, b, s // cp, nq, hd)
+    for off in (0, 64, 192):
+        runs = []
+        for kk, vv in ((k, v), (k.contiguous(), v.contiguous())):
+            out, lse = _forward(q, kk, vv, None, with_lse=True, q_offset=off)
+            runs.append((out, lse) + flash_attention_bwd(q, kk, vv, out, dout, lse, None, off))
+        torch.cuda.synchronize()
+        for g, w in zip(*runs):
+            assert torch.equal(g, w)
+
+
+def test_cp_shards_sum_to_the_unsharded_kernel(gen):
+    """Four shards through parallel.cp_shard_attention (the gather a cat, the
+    reduce-scatter a sum over shards): outputs and dq the unsharded kernel's
+    bits (the shards' tiles are the unsharded kernel's), dk / dv within a
+    rounding step of it (a sum of four bf16 parts)."""
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+    from accessory_tpu_torch.parallel.context import cp_shard_attention
+
+    b, s, nq, nkv, hd, cp = 1, 512, 8, 2, 64, 4
+    q, k, v, dout = _cp_case(gen, b, s, nq, nkv, hd)
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    want = flash_attention_bwd(q, k, v, out, dout, lse)
+    s_l = s // cp
+    outs, dqs = [], []
+    dk = torch.zeros(k.shape, dtype=torch.float32, device="cuda")
+    dv = torch.zeros_like(dk)
+    for r in range(cp):
+        leaves = [q[:, r * s_l:(r + 1) * s_l].detach().clone().requires_grad_(True),
+                  k.detach().clone().requires_grad_(True), v.detach().clone().requires_grad_(True)]
+        o = cp_shard_attention(*leaves, r)
+        o.backward(dout[:, r * s_l:(r + 1) * s_l])
+        outs.append(o.detach())
+        dqs.append(leaves[0].grad)
+        dk += leaves[1].grad.float()
+        dv += leaves[2].grad.float()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, 1), out)
+    assert torch.equal(torch.cat(dqs, 1), want[0])
+    assert_grad_close("dk", dk, want[1].float())
+    assert_grad_close("dv", dv, want[2].float())
+
+
+@pytest.mark.parametrize("s,cp,hd,nq,nkv", [(130, 2, 64, 8, 2), (256, 4, 128, 4, 4)])
+def test_flash_attention_cp_autograd_against_f32(gen, s, cp, hd, nq, nkv):
+    """flash_attention_cp differentiated on the kernels (bf16) at each shard
+    against autograd through the plain grouped attention in f32 with the same
+    offset: output and input gradients within 3e-2 relative L2."""
+    from accessory_tpu_torch.ops.flash_attention import flash_attention_cp
+
+    q, k, v, dout = _cp_case(gen, 2, s, nq, nkv, hd)
+    s_l = s // cp
+    for r in range(cp):
+        rows = slice(r * s_l, (r + 1) * s_l)
+        leaves = [q[:, rows].detach().clone().requires_grad_(True),
+                  k.detach().clone().requires_grad_(True), v.detach().clone().requires_grad_(True)]
+        out = flash_attention_cp(*leaves, r * s_l)
+        out.backward(dout[:, rows])
+        ref = [t.detach().float().requires_grad_(True) for t in (q[:, rows], k, v)]
+        want = grouped_attention(*ref, causal=True, q_offset=r * s_l)
+        want.backward(dout[:, rows].float())
+        assert_grad_close("out", out.detach(), want.detach(), rel_l2=3e-2)
+        for name, a, w in zip(("dq", "dk", "dv"), leaves, ref):
+            assert_grad_close(f"{name} shard {r}", a.grad[:, :(r + 1) * s_l],
+                              w.grad[:, :(r + 1) * s_l], rel_l2=3e-2)
+
+
+def test_flash_attention_cp_refuses(gen):
+    from accessory_tpu_torch.ops.flash_attention import (_forward, flash_attention_bwd,
+                                                         flash_attention_cp)
+
+    q, k, v, _ = _cp_case(gen, 1, 128, 4, 2, 64)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_cp(q[:, :64], k, v, 96)
+    out, lse = _forward(q[:, :64], k, v, None, with_lse=True, q_offset=64)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q[:, :64], k, v, out, out, lse.to(torch.bfloat16), None, 64)
+    q32, k32, v32, _ = _cp_case(gen, 1, 128, 4, 2, 32)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_attention_cp(q32[:, :64], k32, v32, 64)

@@ -26,6 +26,8 @@ from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
 from accessory_tpu_torch.main_finetune import main as finetune_main
 from accessory_tpu_torch.meta import MetaModel
 from accessory_tpu_torch.models import llama
+from accessory_tpu_torch.parallel import (init_distributed_mode, local_mesh, make_global_mesh,
+                                          make_mesh)
 from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
 from accessory_tpu_torch.train.ckpt import resume_stage1
 
@@ -43,7 +45,8 @@ def test_every_module_imports_without_jax():
                  "engine.kvcache", "engine.scheduler", "demos.server", "data.conversation",
                  "data.alpaca", "data.system_prompt", "train.loss", "train.lr_sched",
                  "train.optim", "train.precision", "train.train_step", "train.ckpt",
-                 "train.tree", "util.logging", "main_finetune"):
+                 "train.tree", "util.logging", "main_finetune", "parallel.mesh",
+                 "parallel.distributed", "parallel.context"):
         assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -126,7 +129,8 @@ def test_no_jax_or_reference_imports_in_source():
                                 load_checkpoint_list, llama.init_paged_cache,
                                 kvcache.init_paged_cache, paged_cache_from_jax,
                                 ContinuousBatcher.__init__, serve, make_train_step,
-                                finetune_main, resume_stage1])
+                                finetune_main, resume_stage1, init_distributed_mode,
+                                make_mesh, local_mesh, make_global_mesh])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -153,6 +157,8 @@ def test_default_device_raises_without_cuda():
              "labels": torch.ones((1, 8), dtype=torch.int32)}
     with pytest.raises((RuntimeError, AssertionError)):
         step(TrainState.create(params, tx), batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed_mode()
 
 
 def test_finetune_needs_no_yaml_optax_orbax_or_safetensors(tmp_path):
