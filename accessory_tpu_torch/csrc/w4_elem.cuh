@@ -21,28 +21,34 @@
 //    block's 8 warps and the partials summed in shared memory; the x values
 //    a word needs are read from global memory (the same address in every
 //    lane: a broadcast, L1-resident).
-//  * mma.sync tile for M > 8: a 128 x 128 output tile, 256 threads (2 x 4
-//    warps of 64 x 32), a unit's weights dequantized to bf16 in shared memory
-//    ([column][stage index], the A tile in the same stage order), m16n8k16
-//    bf16 products with f32 accumulators; the next unit's global loads are
-//    issued into registers before the current unit's products.
+//  * M > 8: the many-row mainloop of w4_tile.cuh with the ElemB policy
+//    below (64 x 128 tiles, one warpgroup, wgmma with the weight as its
+//    register operand): the row-prep pass tiles x in the unit's segment
+//    order, a stage (a unit) arrives by bulk copies (the x tile, the raw
+//    words, the unit's scales / zeros), each weight is computed by the
+//    Layout in registers just before its product (std: f32 (q - z) * s from
+//    the bit pattern 0x4B000000 | q, no int -> float convert; magic: the
+//    bf16 pattern 0x4380 | q << 3 and two bf16x2 operations), and K is split
+//    over blocks where the tiles are too few for the card (the wrapper's
+//    plan, ops/w4_tile.py; the reduction pass sums the splits in order).
+//    The replaced tile (mma.sync, 128 x 128) dequantized a unit into shared
+//    memory behind one register prefetch, spilled (224 bytes of stack), and
+//    took 234.9 / 272.6 us (std / magic) for TinyLlama's w13 at M = 512 on
+//    an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md rows 24 / 25 hold this
+//    design's times.
 //
 // Bound on the H100: bytes at decode (K*N/2 bytes of nibbles plus 8 bytes of
 // f32 scale and zero per column per group), operations from M ~ 80 rows.
 
 #pragma once
 
-#include "common.cuh"
+#include "w4_tile.cuh"
 
 namespace w4elem {
 
 constexpr int UNIT_ROWS = 64;           // K rows per unit (8 words)
 constexpr int GEMV_WARPS = 8;
 constexpr int GEMV_THREADS = GEMV_WARPS * 32;
-constexpr int BM = 128, BN = 128, THREADS = 256;
-constexpr int LD = UNIT_ROWS + 8;       // bf16 per staged row (16 B aligned, no bank conflicts)
-constexpr int A_VECS = BM * UNIT_ROWS / 8 / THREADS;   // uint4 of x per thread per unit (4)
-constexpr int B_WORDS = 8 * BN / THREADS;              // words per thread per unit (4)
 
 // x[m][base + off .. +1] (two bf16) as floats; zero when the segment is masked
 __device__ __forceinline__ void load_x2(const bf16* row, int k, bool on, float& a, float& b) {
@@ -129,125 +135,53 @@ gemv_kernel(const bf16* __restrict__ x, int M, int Kx, long long x_stride,
   }
 }
 
+// The elem weight operand of w4_tile.cuh: a unit a stage; the Layout places the
+// segments (seg_base), gives COEF_ROWS coefficient rows a unit (1 for std,
+// whose unit lies in one group; 4 for magic, one a segment) and computes
+// the bf16 fragments (stage_ctx, slab_raw, convert).
 template <class Layout>
-__global__ void __launch_bounds__(THREADS, 2)
-mma_kernel(const bf16* __restrict__ x, int M, int Kx, long long x_stride,
-           const uint32_t* __restrict__ packed, const float* __restrict__ scales,
-           const float* __restrict__ zeros, int K, int N, int gs, int tk,
-           bf16* __restrict__ out) {
-  __shared__ __align__(16) bf16 As[BM * LD];   // [row][stage index]
-  __shared__ __align__(16) bf16 Bs[BN * LD];   // [column][stage index]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;     // 2 x 4 warps, 64 x 32 outputs each
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int bc = tid % BN, bw = tid / BN;      // this thread's weight column and first word row
-  const bool col_ok = n0 + bc < N;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
-
-  uint4 a_reg[A_VECS];
-  uint32_t b_reg[B_WORDS];
-  typename Layout::Coef c_reg[4];
-
-  auto load_unit = [&](int u) {
-    int base[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) base[i] = Layout::seg_base(u, i, tk);
-#pragma unroll
-    for (int p = 0; p < A_VECS; ++p) {
-      const int i = tid + p * THREADS;
-      const int r = i / 8, c8 = i % 8;
-      const int k = base[c8 / 2] + 8 * (c8 % 2);
-      a_reg[p] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && base[c8 / 2] < Kx)
-        a_reg[p] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * x_stride + k);
-    }
-#pragma unroll
-    for (int p = 0; p < B_WORDS; ++p)
-      b_reg[p] = col_ok ? __ldg(packed + (size_t)(u * 8 + bw + 2 * p) * N + n0 + bc) : 0u;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t gi = (size_t)(base[i] / gs) * N + n0 + bc;
-      c_reg[i] = Layout::coef(col_ok ? __ldg(scales + gi) : 0.f, col_ok ? __ldg(zeros + gi) : 0.f);
-    }
-  };
-
-  const int units = K / UNIT_ROWS;
-  load_unit(0);
-  for (int u = 0; u < units; ++u) {
-    __syncthreads();   // the previous unit's mma reads are done
-#pragma unroll
-    for (int p = 0; p < A_VECS; ++p) {
-      const int i = tid + p * THREADS;
-      *reinterpret_cast<uint4*>(As + (i / 8) * LD + (i % 8) * 8) = a_reg[p];
-    }
-#pragma unroll
-    for (int p = 0; p < B_WORDS; ++p) {
-      const int wl = bw + 2 * p;
-      bf16 v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        v[q] = f2bf(Layout::value((b_reg[p] >> (4 * q)) & 15u, c_reg[Layout::stage_index(wl, q) / 16]));
-      Layout::store_word(Bs + bc * LD, wl, v);
-    }
-    __syncthreads();
-    if (u + 1 < units) load_unit(u + 1);   // in flight during the products below
-#pragma unroll
-    for (int kk = 0; kk < UNIT_ROWS; kk += 16) {
-      uint32_t afr[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* base = As + (wm * 64 + mt * 16 + g) * LD + kk + 2 * t;
-        afr[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-        afr[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-        afr[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        afr[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bb = Bs + (wn * 32 + nt * 8 + g) * LD + kk + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bb + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16_16816(acc[mt][nt], afr[mt], b0, b1);
-      }
-    }
+struct ElemB {
+  static constexpr int COEF_ROWS = Layout::COEF_ROWS;
+  static constexpr bool FOLDED = false;
+  __device__ static __forceinline__ int unit_base(int step, int tk) {
+    return Layout::seg_base(step, 0, tk);
   }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int r0 = m0 + wm * 64 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int cn = n0 + wn * 32 + nt * 8 + 2 * t;
-      if (cn >= N) continue;
-      if (r0 < M)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r0 * N + cn) =
-            pack_bf16x2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r0 + 8 < M)
-        *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * N + cn) =
-            pack_bf16x2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
+  // chunk c: segment c / 2, its half c % 2
+  __device__ static __forceinline__ int chunk_off(int c, int tk) {
+    return Layout::seg_base(0, c >> 1, tk) + 8 * (c & 1);
   }
-}
+  // segments of a unit lie a fixed distance apart (std 16 rows, one group;
+  // magic a quarter of the tile, a whole number of groups)
+  __device__ static __forceinline__ int coef_stride(int gs, int tk) {
+    return (Layout::seg_base(0, 1, tk) - Layout::seg_base(0, 0, tk)) / gs;
+  }
+  using Ctx = typename Layout::Ctx;
+  using Raw = typename Layout::Raw;
+  __device__ static __forceinline__ Ctx stage_ctx(const uint32_t* Bs, const float* Cf, int nb,
+                                                  int t) {
+    return Layout::stage_ctx(Bs, Cf, nb, t);
+  }
+  __device__ static __forceinline__ Raw slab_raw(const uint32_t* Bs, const float* Cf, int nb,
+                                                 int j) {
+    return Layout::slab_raw(Bs, Cf, nb, j);
+  }
+  __device__ static __forceinline__ void convert(const Ctx& c, const Raw& r, int j, int t,
+                                                 uint32_t b[4][2]) {
+    Layout::convert(c, r, j, t, b);
+  }
+};
 
 // x (M, Kx) bf16, row stride x_stride (elements, a multiple of 8, rows 16-byte
 // aligned); packed (K/8, N) words in the Layout's order; scales / zeros
-// (>= K/gs, N) f32 in the Layout's form; out (M, N) bf16 contiguous.
+// (>= K/gs, N) f32 in the Layout's form; out (M, N) bf16 contiguous; M > 8
+// only, the wrapper's plan: xt (Mpad x units x 64) bf16 with Mpad = M
+// rounded up to 64, ws (split, M, N) f32 when split > 1.
 // Requires K % 64 == 0, gs % 64 == 0, Kx % 64 == 0, Kx <= K, N % 8 == 0, and
 // the Layout's own conditions on tk.
 template <class Layout>
 int launch(const void* x, int M, int Kx, long long x_stride, const void* packed,
            const void* scales, const void* zeros, int K, int N, int gs, int tk, void* out,
-           void* stream) {
+           void* xt, void* ws, int split, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (M <= 0 || K <= 0 || K % UNIT_ROWS != 0 || gs % UNIT_ROWS != 0 || Kx <= 0 ||
       Kx % UNIT_ROWS != 0 || Kx > K || N <= 0 || N % 8 != 0 || !Layout::tile_ok(K, gs, tk))
@@ -260,11 +194,29 @@ int launch(const void* x, int M, int Kx, long long x_stride, const void* packed,
   if (M <= 8) {
     gemv_kernel<Layout><<<(N + 31) / 32, GEMV_THREADS, 0, st>>>(xb, M, Kx, x_stride, pk, sc, z,
                                                                  K, N, gs, tk, o);
-  } else {
-    dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    mma_kernel<Layout><<<grid, THREADS, 0, st>>>(xb, M, Kx, x_stride, pk, sc, z, K, N, gs, tk, o);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (split < 1 || xt == nullptr || (split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  w4tile::TileArgs a{};
+  a.x = xb;
+  a.x_stride = x_stride;
+  a.M = M;
+  a.Kx = Kx;
+  a.xt = static_cast<bf16*>(xt);
+  a.Mpad = (M + w4tile::BM - 1) / w4tile::BM * w4tile::BM;
+  a.packed = pk;
+  a.scales = sc;
+  a.zs = z;
+  a.N = N;
+  a.gs = gs;
+  a.tk = tk;
+  a.granules = Layout::units(Kx, tk);
+  a.granule_steps = 1;
+  a.split = split;
+  a.ws = static_cast<float*>(ws);
+  a.out = o;
+  return (int)w4tile::launch<ElemB<Layout>>(a, st);
 }
 
 }  // namespace w4elem

@@ -10,8 +10,7 @@
 // scales and zs = zeros * scales are (K/gs, N) f32. The zero point is folded
 // out as in the TPU kernel: per group g,
 //   y += s_g * (x_g . q_g) - zs_g * sum(x_g)
-// so per weight element the work is one int->float convert and one FMA per
-// row, with the group product accumulated in f32 over exact integer q.
+// with the group product accumulated in f32 over exact integer q.
 //
 // Bound on the H100: at decode (M <= 16) the call is a GEMV that must stream
 // K*N/2 bytes of nibbles plus 8*N*K/gs bytes of scales, so it is bound by
@@ -21,24 +20,40 @@
 // outputs keep 16 warps of loads in flight per block, and the split partials
 // are reduced in shared memory. x is staged (normalized, bf16-rounded) in
 // shared memory once per block and read back as broadcasts.
+//
 // For prefill rows (16 < M < 1024) the work does about 3.6 * M flops per
 // weight byte (nibbles plus f32 scales and zs, group 128), so from M ~ 83 on
 // (the card's ~295 bf16 flops per byte) it is bound by operations, as the
-// main path's M = 512 prefill is; a tiled mma.sync m16n8k16 bf16 kernel
-// (64x128 tile, 8 warps) dequantizes each 64-row slab of packed words into
-// shared memory as exact bf16 integers and applies the per-group scale to an
-// f32 group accumulator.
+// main path's M = 512 prefill is. That path is the many-row tile of
+// w4_tile.cuh with the folded policy below, three or four device passes
+// inside one C call (one counted launch):
+//  1. with a norm, rms_kernel: 1 / rms of each row over its Kx columns;
+//  2. prep_kernel: the normalized x rounded to bf16 (or x), its 8-column
+//     chunks reordered for the nibble pairs and tiled in the order the
+//     stages copy it, into the wrapper's scratch, and sum(x) per group (the
+//     folded zero point's factor), so no tile block re-reads whole rows (the
+//     replaced tile read each row N / 128 times for its norm);
+//  3. the tile: 64 rows x 128 columns a warpgroup, exact q in bf16 from the
+//     bit pattern 0x4300 | q (a shift, one lop3 and one bf16x2 subtraction
+//     a pair; no int -> float convert) as wgmma's register operand, a
+//     per-group f32 accumulator folded into the output at each group's end;
+//  4. where the output tiles are too few to fill the card (wo, wqkv, w2 and
+//     wk/wv at 128-512 rows) the wrapper's plan (ops/w4_tile.py) splits K
+//     over blocks in whole groups, and the reduction pass sums the partials
+//     in split order, then runs the epilogue once.
+// The replaced tile (mma.sync, 64 x 128) spent ~3.5 us per 64-deep K step:
+// 303.3 us for w2 at M = 128 and 361.1 for w13 at M = 512 on an NVIDIA H100
+// 80GB HBM3, 700.00 W; PERF.md, row 1, holds this design's times.
 //
-// The norm prologue reads the whole x row in every block (the TPU kernel's
-// in_dim == tile_k rule does not apply: any K folds). The normalized x is
-// rounded to bf16 before the product and RoPE runs in f32 before the output
-// cast, then the residual is added in bf16, the same op order as the TPU
-// kernel. The N tile holds whole heads so each column's RoPE partner
-// (n^1 interleaved, n +- hd/2 half) is in the same block.
+// The normalized x is rounded to bf16 before the product and RoPE runs in
+// f32 before the output cast, then the residual is added in bf16, the same
+// op order as the TPU kernel. The N tile holds whole heads so each column's
+// RoPE partner (n^1 interleaved, n +- hd/2 half) is in the same block.
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "w4_tile.cuh"
 
 namespace {
 
@@ -186,178 +201,39 @@ w4_gemv_kernel(const bf16* __restrict__ x, int M, int Kx, int x_stride,
   }
 }
 
-constexpr int MM_BM = 64, MM_BN = 128, MM_BK = 64, MM_THREADS = 256;
-constexpr int A_LD = MM_BK + 8;  // bf16 elements per staged row (16 B aligned)
-constexpr int B_LD = MM_BK + 8;
-constexpr int C_LD = MM_BN + 4;
-constexpr int AB_BYTES = (MM_BM * A_LD + MM_BN * B_LD) * 2;
-constexpr int C_BYTES = MM_BM * C_LD * 4;
-constexpr int MM_SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-
-__global__ void __launch_bounds__(MM_THREADS)
-w4_mma_kernel(const bf16* __restrict__ x, int M, int Kx, int x_stride,
-              const uint32_t* __restrict__ packed, const float* __restrict__ scales,
-              const float* __restrict__ zs, int N, int gs,
-              const float* __restrict__ norm, float eps,
-              const bf16* __restrict__ residual,
-              const float* __restrict__ cos_row, const float* __restrict__ sin_row,
-              int rope_style, int rope_hd, bf16* __restrict__ out) {
-  __shared__ __align__(16) unsigned char smem_raw[MM_SMEM];
-  __shared__ float rinv_s[MM_BM];
-  __shared__ float xsum_s[MM_BM];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [BM][A_LD]
-  bf16* Bs = As + MM_BM * A_LD;                   // [BN][B_LD], k contiguous per column
-  float* Cs = reinterpret_cast<float*>(smem_raw); // [BM][C_LD], epilogue only
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 32 x 32 each
-  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
-
-  if (norm != nullptr) {
-    const int r = tid >> 2, q4 = tid & 3;
-    float ss = 0.f;
-    if (m0 + r < M) {
-      const bf16* row = x + (size_t)(m0 + r) * x_stride;
-      for (int k = q4 * 8; k < Kx; k += 32) {
-        uint4 raw = *reinterpret_cast<const uint4*>(row + k);
-        const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float f = bf2f(v[j]);
-          ss += f * f;
-        }
-      }
-    }
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-    if (q4 == 0) rinv_s[r] = 1.f / sqrtf(ss / (float)Kx + eps);
+// The folded weight operand of w4_tile.cuh: exact q. The row-prep pass
+// stores x with each 8-column chunk in the order (0, 4, 1, 5, 2, 6, 3, 7), so
+// in slab j of a stage b0 holds K rows 16j + t and 16j + t + 4 (word row 2j,
+// nibbles t and t + 4: one shift and one mask make the bf16 pair) and b1
+// the same of word row 2j + 1, for the thread's four columns nb..nb+3.
+struct FoldedB {
+  static constexpr int COEF_ROWS = 1;   // scales and zs of the stage's group
+  static constexpr bool FOLDED = true;
+  struct Ctx {};
+  struct Raw {
+    uint4 w0, w1;
+  };
+  __device__ static __forceinline__ int unit_base(int step, int) { return step * w4tile::BK; }
+  __device__ static __forceinline__ int chunk_off(int c, int) { return 8 * c; }
+  __device__ static __forceinline__ int coef_stride(int, int) { return 0; }
+  __device__ static __forceinline__ Ctx stage_ctx(const uint32_t*, const float*, int, int) {
+    return {};
   }
-
-  float acc[2][4][4], gacc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = gacc[a][b][e] = 0.f;
-
-  for (int k0 = 0; k0 < Kx; k0 += MM_BK) {
-    const int grp = k0 / gs;
-    const bool first = (k0 % gs) == 0;
-    const bool last = ((k0 + MM_BK) % gs) == 0;
-    __syncthreads();
-    for (int i = tid; i < MM_BM * MM_BK / 8; i += MM_THREADS) {
-      const int r = i / (MM_BK / 8), c8 = i % (MM_BK / 8);
-      const int row = m0 + r, k = k0 + c8 * 8;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M) {
-        raw = *reinterpret_cast<const uint4*>(x + (size_t)row * x_stride + k);
-        if (norm != nullptr) {
-          bf16* v = reinterpret_cast<bf16*>(&raw);
-          const float rr = rinv_s[r];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = f2bf((bf2f(v[j]) * rr) * norm[k + j]);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * A_LD + c8 * 8) = raw;
-    }
-    for (int i = tid; i < (MM_BK / 8) * MM_BN; i += MM_THREADS) {
-      const int wr = i / MM_BN, c = i % MM_BN;
-      const uint32_t wd = __ldg(packed + (size_t)(k0 / 8 + wr) * N + n0 + c);
-      uint4 v;
-      v.x = pack_bf16x2((float)(wd & 15u), (float)((wd >> 4) & 15u));
-      v.y = pack_bf16x2((float)((wd >> 8) & 15u), (float)((wd >> 12) & 15u));
-      v.z = pack_bf16x2((float)((wd >> 16) & 15u), (float)((wd >> 20) & 15u));
-      v.w = pack_bf16x2((float)((wd >> 24) & 15u), (float)((wd >> 28) & 15u));
-      *reinterpret_cast<uint4*>(Bs + c * B_LD + wr * 8) = v;
-    }
-    __syncthreads();
-    {
-      const int r = tid >> 2, q4 = tid & 3;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < MM_BK / 4; ++j) s += bf2f(As[r * A_LD + q4 * (MM_BK / 4) + j]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (q4 == 0) xsum_s[r] = first ? s : xsum_s[r] + s;
-    }
-    if (first) {
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) gacc[a][b][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < MM_BK; kk += 16) {
-      uint32_t afr[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* base = As + (wm * 32 + mt * 16 + g) * A_LD + kk + 2 * t;
-        afr[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-        afr[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * A_LD);
-        afr[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        afr[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * A_LD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bb = Bs + (wn * 32 + nt * 8 + g) * B_LD + kk + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bb + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(gacc[mt][nt], afr[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-    if (last) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int cn = n0 + wn * 32 + nt * 8 + 2 * t;
-        const float s0 = scales[(size_t)grp * N + cn], s1 = scales[(size_t)grp * N + cn + 1];
-        const float z0 = zs[(size_t)grp * N + cn], z1 = zs[(size_t)grp * N + cn + 1];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int r0 = wm * 32 + mt * 16 + g;
-          const float x0 = xsum_s[r0], x1 = xsum_s[r0 + 8];
-          float* a = acc[mt][nt];
-          const float* ga = gacc[mt][nt];
-          a[0] += s0 * ga[0] - z0 * x0;
-          a[1] += s1 * ga[1] - z1 * x0;
-          a[2] += s0 * ga[2] - z0 * x1;
-          a[3] += s1 * ga[3] - z1 * x1;
-        }
-      }
-    }
+  __device__ static __forceinline__ Raw slab_raw(const uint32_t* Bs, const float*, int nb, int j) {
+    return {*reinterpret_cast<const uint4*>(Bs + (2 * j) * w4tile::BN + nb),
+            *reinterpret_cast<const uint4*>(Bs + (2 * j + 1) * w4tile::BN + nb)};
   }
-  __syncthreads();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  __device__ static __forceinline__ void convert(const Ctx&, const Raw& r, int, int t,
+                                                 uint32_t b[4][2]) {
+    const uint32_t a0[4] = {r.w0.x, r.w0.y, r.w0.z, r.w0.w};
+    const uint32_t a1[4] = {r.w1.x, r.w1.y, r.w1.z, r.w1.w};
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const int r0 = wm * 32 + mt * 16 + g, cl = wn * 32 + nt * 8 + 2 * t;
-      Cs[r0 * C_LD + cl] = acc[mt][nt][0];
-      Cs[r0 * C_LD + cl + 1] = acc[mt][nt][1];
-      Cs[(r0 + 8) * C_LD + cl] = acc[mt][nt][2];
-      Cs[(r0 + 8) * C_LD + cl + 1] = acc[mt][nt][3];
+      b[nt][0] = w4tile::q_pair(a0[nt], t);
+      b[nt][1] = w4tile::q_pair(a1[nt], t);
     }
-  __syncthreads();
-  for (int i = tid; i < MM_BM * MM_BN; i += MM_THREADS) {
-    const int r = i / MM_BN, c = i % MM_BN;
-    const int row = m0 + r, n = n0 + c;
-    if (row >= M) continue;
-    float y = Cs[r * C_LD + c];
-    if (rope_style != 0) {
-      const int half = rope_hd / 2;
-      const int pc = rope_style == 1 ? (c ^ 1) : ((c % rope_hd) < half ? c + half : c - half);
-      y = y * cos_row[n] + Cs[r * C_LD + pc] * sin_row[n];
-    }
-    bf16 o = f2bf(y);
-    if (residual != nullptr) o = f2bf(bf2f(residual[(size_t)row * N + n]) + bf2f(o));
-    out[(size_t)row * N + n] = o;
   }
-}
+};
 
 template <int MT>
 cudaError_t launch_gemv(int BN, size_t smem, cudaStream_t st, const bf16* x, int M, int Kx,
@@ -382,11 +258,16 @@ cudaError_t launch_gemv(int BN, size_t smem, cudaStream_t st, const bf16* x, int
 // rope_style: 0 none, 1 interleaved, 2 half. norm/residual/cos/sin may be null.
 // Requires Kx % gs == 0, gs % 64 == 0, 16-byte aligned x rows; N % 64 == 0
 // (M <= 16) or N % 128 == 0 (M > 16).
+// Scratch of the many-row path (M > 16; ignored at M <= 16), allocated by
+// the wrapper with the plan of ops/w4_tile.py: xsum (Kx/gs + 1, Mpad) f32 and xt
+// (Mpad x Kx) bf16 (the prepared x) with Mpad = M rounded up to 64; ws
+// (split, M, N) f32 when split > 1. split: K splits, whole groups each.
 extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void* packed,
                          const void* scales, const void* zs, int N, int gs,
                          const void* norm, float eps, const void* residual,
                          const void* cos_row, const void* sin_row, int rope_style,
-                         int rope_hd, void* out, void* stream) {
+                         int rope_hd, void* out, void* xsum, void* xt, void* ws, int split,
+                         void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const uint32_t* pk = static_cast<const uint32_t*>(packed);
@@ -416,9 +297,34 @@ extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void*
     }
     return (int)e;
   }
-  if (N % MM_BN != 0 || (rope_style == 2 && MM_BN % rope_hd != 0)) return (int)cudaErrorInvalidValue;
-  dim3 grid(N / MM_BN, (M + MM_BM - 1) / MM_BM);
-  w4_mma_kernel<<<grid, MM_THREADS, 0, st>>>(xb, M, Kx, x_stride, pk, sc, z, N, gs, nw, eps,
-                                             res, cr, sr, rope_style, rope_hd, o);
-  return (int)cudaGetLastError();
+  if (N % w4tile::RED_BN != 0 || (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) || split < 1 ||
+      xsum == nullptr || xt == nullptr || (split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  w4tile::TileArgs a{};
+  a.x = xb;
+  a.x_stride = x_stride;
+  a.M = M;
+  a.Kx = Kx;
+  a.xt = static_cast<bf16*>(xt);
+  a.norm = nw;
+  a.eps = eps;
+  a.packed = pk;
+  a.scales = sc;
+  a.zs = z;
+  a.xsum = static_cast<float*>(xsum);
+  a.N = N;
+  a.gs = gs;
+  a.tk = 0;
+  a.Mpad = (M + w4tile::BM - 1) / w4tile::BM * w4tile::BM;
+  a.granules = Kx / gs;
+  a.granule_steps = gs / w4tile::BK;
+  a.split = split;
+  a.ws = static_cast<float*>(ws);
+  a.out = o;
+  a.residual = res;
+  a.cos_row = cr;
+  a.sin_row = sr;
+  a.rope_style = rope_style;
+  a.rope_hd = rope_hd;
+  return (int)w4tile::launch<FoldedB>(a, st);
 }

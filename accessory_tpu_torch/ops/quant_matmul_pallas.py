@@ -2,8 +2,9 @@
 give (``quant/omniquant.py``), zeros in quantized units and not folded.
 
 Port of ``accessory_tpu/ops/quant_matmul_pallas.py::quant_matmul_pallas``.
-The CUDA kernel is ``csrc/w4_matmul_std.cu`` (a GEMV for M <= 8 rows, a
-tiled mma.sync kernel above); ``quant_matmul_pallas_plain`` is its plain
+The CUDA kernel is ``csrc/w4_matmul_std.cu`` (a GEMV for M <= 8 rows, the
+many-row tile of ``csrc/w4_tile.cuh`` above, K split over blocks by the plan
+of ``ops/w4_tile.py``); ``quant_matmul_pallas_plain`` is its plain
 PyTorch version and the path for tensors on the CPU. Both compute the TPU
 kernel's numerics: each weight (q - z) * s in f32, rounded to the
 activation dtype, then an f32 product. No prologue or epilogue.
@@ -11,18 +12,23 @@ activation dtype, then an f32 product. No prologue or epilogue.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from accessory_tpu_torch import kernels
+from accessory_tpu_torch.ops import w4_tile
 from accessory_tpu_torch.quant.qtensor import QuantizedWeight, dequantize_weight
 
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.L, kernels.P, kernels.P, kernels.P,
-         kernels.I, kernels.I, kernels.I, kernels.P, kernels.P]
+         kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.I, kernels.P]
 
 
-def quant_matmul_pallas(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
+def quant_matmul_pallas(x: torch.Tensor, qw: QuantizedWeight, *,
+                        split: Optional[int] = None) -> torch.Tensor:
     """x (..., Kx) @ std-layout W4 qw (in_dim, out_dim) -> (..., out_dim) in
-    qw.act_dtype; Kx <= in_dim (missing columns count as zero)."""
+    qw.act_dtype; Kx <= in_dim (missing columns count as zero). ``split``:
+    the many-row tile's K split on the card (None: ``w4_tile.elem_plan``'s)."""
     if qw.layout != "std" or qw.bits != 4:
         raise ValueError(f"quant_matmul_pallas takes std-layout W4 weights, not "
                          f"{qw.layout!r} W{qw.bits}")
@@ -48,10 +54,20 @@ def quant_matmul_pallas(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     for t in (qw.scales, qw.zeros):
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= k // gs, "scales/zeros must be contiguous f32 (G, N)")
+    _check(m <= 8 or all(t.data_ptr() % 16 == 0 for t in (qw.packed, qw.scales, qw.zeros)),
+           "the many-row tile bulk-copies packed, scales and zeros rows: they must be "
+           "16-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
+    buf = xt = ws = None
+    nsplit = 1
+    if m > 8:
+        plan = w4_tile.elem_plan(m, n, kx, split=split)
+        buf, xt, _, ws = w4_tile.scratch(plan, x2d.device, xsum=False)   # buf: held to the launch
+        nsplit = plan.split
     fn = kernels.function("w4_matmul_std", "w4_matmul_std", _ARGS)
     rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), qw.packed.data_ptr(), qw.scales.data_ptr(),
-            qw.zeros.data_ptr(), k, n, gs, out.data_ptr(), kernels.stream_ptr(x2d))
+            qw.zeros.data_ptr(), k, n, gs, out.data_ptr(), xt, ws, nsplit,
+            kernels.stream_ptr(x2d))
     kernels.check("w4_matmul_std", rc)
     return out.reshape(*lead, n)
 

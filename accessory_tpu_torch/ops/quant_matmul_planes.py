@@ -1,9 +1,11 @@
 """W4A16 matmul with fused RMSNorm prologue, RoPE and residual epilogues.
 
 Port of ``accessory_tpu/ops/quant_matmul_planes.py::planes_qmm``. The CUDA
-kernel is ``csrc/w4_matmul.cu`` (a GEMV for M <= 16 rows, a tiled mma.sync
-kernel above); ``planes_qmm_plain`` is its plain PyTorch version and the
-path for tensors on the CPU. Both fold the zero point out per group:
+kernel is ``csrc/w4_matmul.cu`` (a GEMV for M <= 16 rows; above, a row-prep
+pass and the many-row tile of ``csrc/w4_tile.cuh``, K split over blocks by
+the plan of ``ops/w4_tile.py``); ``planes_qmm_plain`` is its plain PyTorch
+version and the path for tensors on the CPU. Both fold the zero point out
+per group:
 
     y = sum_g  s_g * (x_g @ q_g)  -  sum(x_g) * zs_g
 
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from accessory_tpu_torch import kernels
+from accessory_tpu_torch.ops import w4_tile
 from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import rotate_flat
 from accessory_tpu_torch.quant.qtensor import BIGM_ROWS, unpack_int
@@ -28,7 +31,8 @@ from accessory_tpu_torch.quant.qtensor import BIGM_ROWS, unpack_int
 _STYLES = {"": 0, "interleaved": 1, "half": 2}
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
          kernels.I, kernels.I, kernels.P, kernels.F, kernels.P, kernels.P, kernels.P,
-         kernels.I, kernels.I, kernels.P, kernels.P]
+         kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I,
+         kernels.P]
 
 
 def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -37,13 +41,14 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                rope_cos: Optional[torch.Tensor] = None,
                rope_sin: Optional[torch.Tensor] = None, *, in_dim: int,
                group_size: int, norm_eps: float = 1e-5, rope_style: str = "",
-               rope_hd: int = 0) -> torch.Tensor:
+               rope_hd: int = 0, split: Optional[int] = None) -> torch.Tensor:
     """x2d (M, Kx) @ folded W4 (in_dim, N) -> (M, N) in x2d's dtype.
 
     packed (in_dim/8, N) int32 words; scales/zs (>= in_dim/gs, N) f32;
     Kx <= in_dim (missing columns count as zero). norm_weight (Kx,): RMSNorm
     prologue over the Kx columns; residual (M, N): added after the cast;
-    rope_cos/rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows)."""
+    rope_cos/rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows). ``split``:
+    the many-row tile's K split on the card (None: ``w4_tile.folded_plan``'s)."""
     if (rope_cos is None) != (not rope_style):
         raise ValueError("rope rows and rope_style go together")
     if x2d.device.type == "cpu":
@@ -62,6 +67,10 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
             "unfused as ops.linear.module_linear_nr does")
     _check(x2d.dtype == torch.bfloat16 and x2d.stride(1) == 1 and x2d.stride(0) % 8 == 0
            and x2d.data_ptr() % 16 == 0, "x2d must be bf16 with 16-byte aligned rows")
+    _check(m <= 16 or (all(t.data_ptr() % 16 == 0 for t in (packed, scales, zs))
+                       and (residual is None or residual.data_ptr() % 8 == 0)),
+           "the many-row tile bulk-copies packed, scales and zs rows (16-byte aligned) "
+           "and reads the residual 8 bytes at a time (8-byte aligned)")
     _check(kx <= in_dim and kx % group_size == 0 and group_size % 64 == 0,
            f"Kx {kx} must be <= in_dim {in_dim} and a multiple of group_size "
            f"{group_size}, itself a multiple of 64")
@@ -74,7 +83,7 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= in_dim // group_size, "scales/zs must be contiguous f32 (G, N)")
     tile_n = 64 if m <= 16 else 128
-    if rope_style == "half":
+    if rope_style == "half" and m <= 16:   # the GEMV widens its tile to a head
         tile_n = max(tile_n, rope_hd)
     _check(n % tile_n == 0 and (rope_style != "half" or tile_n % rope_hd == 0),
            f"N {n} must be a multiple of the kernel's {tile_n}-column tile holding whole heads")
@@ -84,14 +93,36 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
             _check(t.dtype == dt and t.is_contiguous() and tuple(t.shape) == shape,
                    f"fusion operand must be contiguous {dt} {shape}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
+    kernels.check("w4_matmul", _kernel_call(x2d, packed, scales, zs, norm_weight, residual,
+                                            rope_cos, rope_sin, out, group_size=group_size,
+                                            norm_eps=norm_eps, rope_style=rope_style,
+                                            rope_hd=rope_hd, split=split))
+    return out
+
+
+def _kernel_call(x2d, packed, scales, zs, norm_weight, residual, rope_cos, rope_sin, out, *,
+                 group_size: int, norm_eps: float = 1e-5, rope_style: str = "",
+                 rope_hd: int = 0, split: Optional[int] = None) -> int:
+    """One call of the C entry on operands ``planes_qmm`` has checked (or
+    that a measurement script vouches for): the scratch of the many-row
+    path from ``w4_tile.folded_plan`` (``split`` None: the plan's own), the
+    CUDA error code back; counts nothing."""
+    m, kx = x2d.shape
+    n = packed.shape[1]
+    buf = xt = xsum = ws = None
+    nsplit = 1
+    if m > 16:
+        plan = w4_tile.folded_plan(m, n, kx, group_size, split)
+        buf, xt, xsum, ws = w4_tile.scratch(plan, x2d.device, xsum=True)
+        nsplit = plan.split
     fn = kernels.function("w4_matmul", "w4_matmul", _ARGS)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), packed.data_ptr(), scales.data_ptr(),
             zs.data_ptr(), n, group_size, ptr(norm_weight), norm_eps, ptr(residual),
             ptr(rope_cos), ptr(rope_sin), _STYLES[rope_style], rope_hd, out.data_ptr(),
-            kernels.stream_ptr(x2d))
-    kernels.check("w4_matmul", rc)
-    return out
+            xsum, xt, ws, nsplit, kernels.stream_ptr(x2d))
+    del buf   # the launches are queued: the stream orders any reuse after them
+    return rc
 
 
 def planes_qmm_plain(x2d, packed, scales, zs, norm_weight=None, residual=None,

@@ -1,0 +1,153 @@
+"""Launch plan of the many-row W4 tile (``csrc/w4_tile.cuh``).
+
+Row 1's fused tile (``csrc/w4_matmul.cu``, M > 16) and the std / magic tile
+(``csrc/w4_elem.cuh``, M > 8) cover the output with tiles of ``TILE_M`` rows
+and ``TILE_N`` columns. Where those tiles are too few to fill the blocks the
+H100's 132 SMs hold at once, K is split over blocks: split i
+takes granules [i * G // split, (i + 1) * G // split) of the G K granules
+(whole quantization groups for the folded layout, whose zero point is folded
+per group; 64-row units for std / magic), writes its f32 partial tile to a
+(split, M, N) workspace, and the C call's reduction pass sums the partials
+in split order (deterministic) before the epilogue. The C call's row-prep
+pass first writes x, tiled in the order the stages copy it, to a scratch of
+``xt_shape``.
+
+``plan`` is a pure function of the shape (cached: a model calls a few shapes
+many times), so the CPU tests check its rules; the wrappers allocate the
+scratch it names with one ``torch.empty`` (``scratch``).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+SMS = 132               # streaming multiprocessors of the H100 SXM
+TILE_N = 128
+TILE_K = 64             # K rows of a pipeline stage
+TILE_M = 64             # csrc/w4_tile.cuh BM (wgmma's N)
+# tile blocks an SM holds at once (the compiled kernels' registers and shared
+# memory, chip_smoke.py's build line: folded 161 registers a thread, std 116
+# and 53 KB, magic 106 and 65 KB)
+FOLDED_SLOTS, STD_SLOTS, MAGIC_SLOTS = 3, 4, 3
+MIN_SPLIT_STEPS = 2     # K stages a split takes at least
+MAX_SPLIT = 16
+BLOCK_OVERHEAD_STEPS = 4   # a block's fill, epilogue and partial write, in K stages
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    m: int
+    n: int
+    tile_m: int
+    granules: int        # K granules: groups (folded) or 64-row units (std / magic)
+    granule_rows: int    # K rows per granule
+    split: int
+
+    @property
+    def tiles(self) -> int:
+        return math.ceil(self.m / self.tile_m) * math.ceil(self.n / TILE_N)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.split
+
+    def ranges(self):
+        """[first, last) granule of each split, as the kernel computes them."""
+        g, s = self.granules, self.split
+        return [(i * g // s, (i + 1) * g // s) for i in range(s)]
+
+    @property
+    def ws_shape(self) -> Optional[Tuple[int, int, int]]:
+        return (self.split, self.m, self.n) if self.split > 1 else None
+
+    @property
+    def m_pad(self) -> int:
+        return math.ceil(self.m / self.tile_m) * self.tile_m
+
+    @property
+    def xt_shape(self) -> Tuple[int, int]:
+        """The row-prep pass's x, tiled for the stages' bulk copies: every
+        padded row over every K row the tile walks."""
+        return (self.m_pad, self.granules * self.granule_rows)
+
+    @property
+    def xsum_shape(self) -> Tuple[int, int]:
+        """Folded only: sum(x) per (group, row), then 1 / rms per row (the
+        norm's), rows padded to the tile."""
+        return (self.granules + 1, self.m_pad)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, granules: int, granule_rows: int, tile_m: int, slots: int,
+         split: Optional[int] = None) -> TilePlan:
+    """The tile plan of an (m, n) output over ``granules`` K granules.
+
+    ``split`` None: 1 when the output tiles alone fill half the blocks the
+    card holds at once (``slots`` a SM; past that the partials' traffic
+    costs more than the idle slots); else the split (up to ``MAX_SPLIT``,
+    each split at least ``MIN_SPLIT_STEPS`` stages) that minimises the waves
+    of blocks times a block's stages (its longest split plus
+    ``BLOCK_OVERHEAD_STEPS``), the smaller on a tie: a model fitted to the
+    card's times at the serving shapes (PERF.md, rows 1, 24 and 25)."""
+    if split is None:
+        tiles = math.ceil(m / tile_m) * math.ceil(n / TILE_N)
+        split = 1
+        if 2 * tiles < SMS * slots:
+            steps_per_granule = granule_rows // TILE_K
+            most = min(MAX_SPLIT, granules,
+                       max(1, granules * steps_per_granule // MIN_SPLIT_STEPS))
+
+            def cost(s: int) -> int:
+                waves = math.ceil(tiles * s / (SMS * slots))
+                return waves * (math.ceil(granules / s) * steps_per_granule
+                                + BLOCK_OVERHEAD_STEPS)
+
+            split = min(range(1, most + 1), key=lambda s: (cost(s), s))
+    if not 1 <= split <= max(1, granules):
+        raise ValueError(f"split {split} must lie in [1, {granules}] granules")
+    return TilePlan(m, n, tile_m, granules, granule_rows, split)
+
+
+def folded_plan(m: int, n: int, kx: int, group_size: int,
+                split: Optional[int] = None) -> TilePlan:
+    """Row 1 (``planes_qmm``, M > 16): K split in whole groups."""
+    return plan(m, n, kx // group_size, group_size, TILE_M, FOLDED_SLOTS, split)
+
+
+def elem_units(kx: int, tk: Optional[int] = None) -> int:
+    """64-row units the std (tk None) or magic (tile tk) tile walks for Kx
+    columns of x: std stops at Kx; magic takes whole K tiles, since a unit
+    holds a slice of each quarter of its tile."""
+    if tk is None:
+        return kx // TILE_K
+    return math.ceil(kx / tk) * (tk // TILE_K)
+
+
+def elem_plan(m: int, n: int, kx: int, tk: Optional[int] = None,
+              split: Optional[int] = None) -> TilePlan:
+    """Rows 24 / 25 (std / magic, M > 8): K split in whole units."""
+    return plan(m, n, elem_units(kx, tk), TILE_K, TILE_M,
+                STD_SLOTS if tk is None else MAGIC_SLOTS, split)
+
+
+def scratch(p: TilePlan, device, xsum: bool):
+    """One allocation for the C call's scratch, and the addresses in it of
+    the tiled x (bf16 ``xt_shape``), the x sums (f32 ``xsum_shape``, folded
+    only, else None) and the split partials (f32 ``ws_shape``, None unless K
+    is split), each 256-byte aligned. The tensor must outlive the launch (the
+    caching allocator reuses it only for later work on the stream)."""
+    sizes = [math.prod(p.xt_shape) * 2, math.prod(p.xsum_shape) * 4 if xsum else 0,
+             math.prod(p.ws_shape) * 4 if p.ws_shape else 0]
+    offs, total = [], 0
+    for size in sizes:
+        offs.append(total)
+        total += -(-size // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, base + offs[0], (base + offs[1] if xsum else None), \
+        (base + offs[2] if p.ws_shape else None)

@@ -24,7 +24,9 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             between CUDA events, and the bound from bytes and operations at the
             H100's 3.35 TB/s and 989 TFLOP/s (the fused FFN beside the unfused
             chain's device time, the read-only paged decode also against the
-            paged decode after the token's paged write);
+            paged decode after the token's paged write; where the many-row W4
+            tile splits K, a second launch bit-equal to the first and the
+            unsplit plan within tolerance);
   parity    TinyLlama width, 2 layers: CPU through the plain versions against
             the card through the kernels, prefill logits and 16 greedy decode
             steps (teacher-forced on the CPU tokens);
@@ -405,10 +407,30 @@ def _w4_weight_sets(kr, m, k, n, fusion, rope, copies=None):
     return sets, qw_bytes + io_bytes
 
 
-def _kernels_w4(kr, tag, specs, ms, rope):
-    """planes_qmm (GEMV for M <= 16, the 64-row tile kernel above) with its fusions."""
+def _split_check(label, split, got, want, launch):
+    """Where a many-row W4 tile's plan splits K: a second launch bit-equal to
+    the first (the partials are summed in split order) and the unsplit plan
+    (``launch(1)``) within the rows' tolerance; the row's extra fields."""
     import torch
 
+    extra = {"split": split}
+    if split > 1:
+        again, unsplit = launch(None), launch(1)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two launches of the split-{split} plan differ")
+        check_close(f"{label} unsplit", unsplit, want, rtol=2e-2, atol=2e-2)
+        extra.update(split_bit_equal=True,
+                     split_vs_unsplit_max_abs_err=max_err(got, unsplit)[0])
+    return extra
+
+
+def _kernels_w4(kr, tag, specs, ms, rope):
+    """planes_qmm (GEMV for M <= 16, the many-row tile above) with its
+    fusions; the tile's K split checked (``_split_check``)."""
+    import torch
+
+    from accessory_tpu_torch.ops import w4_tile
     from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm, planes_qmm_plain
 
     for m in ms:
@@ -419,6 +441,9 @@ def _kernels_w4(kr, tag, specs, ms, rope):
             want = planes_qmm_plain(**a0)
             torch.cuda.synchronize()
             check_close(f"w4_matmul {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
+            extra = {} if m <= 16 else _split_check(
+                f"w4_matmul {tag} {name} M={m}", w4_tile.folded_plan(m, n, k, 128).split, got,
+                want, lambda sp: planes_qmm(**a0, split=sp))
             k_ms = time_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
             k_wall = wall_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
             p_ms = time_ms(lambda a: planes_qmm_plain(**a), [(s[0],) for s in sets[:1]],
@@ -426,29 +451,27 @@ def _kernels_w4(kr, tag, specs, ms, rope):
             lib_ms = time_ms(lambda x, d: torch.matmul(x, d),
                              [(s[0]["x2d"], s[1]) for s in sets])
             kr.record("w4_matmul", f"{tag} {name} M={m} K={k} N={n} {fusion}",
-                      max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n)
+                      max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n,
+                      **extra)
             del sets
 
 
 def _kernels_bigm(kr, specs):
     """planes_qmm_bigm at the 7B prefill's 1024 rows (and one ragged row
-    count), beside the 64-row tile kernel of w4_matmul.cu on the same inputs:
-    its C entry is called directly, since planes_qmm refuses M >= 1024."""
+    count), beside row 1's many-row tile (w4_matmul.cu, M > 16) on the same
+    inputs: its C entry is called directly (``_kernel_call``, not counted),
+    since planes_qmm refuses M >= 1024."""
     import torch
 
-    from accessory_tpu_torch import kernels
     from accessory_tpu_torch.ops.quant_matmul_bigm import (planes_qmm_bigm,
                                                            planes_qmm_bigm_plain)
-    from accessory_tpu_torch.ops.quant_matmul_planes import _ARGS as TILE_ARGS
-
-    tile_fn = kernels.function("w4_matmul", "w4_matmul", TILE_ARGS)
+    from accessory_tpu_torch.ops.quant_matmul_planes import _kernel_call
 
     def tile_kernel(x2d, packed, scales, zs, in_dim, group_size):
-        m, kx = x2d.shape
-        out = torch.empty((m, packed.shape[1]), dtype=torch.bfloat16, device=x2d.device)
-        rc = tile_fn(x2d.data_ptr(), m, kx, x2d.stride(0), packed.data_ptr(), scales.data_ptr(),
-                     zs.data_ptr(), packed.shape[1], group_size, None, 1e-5, None, None, None, 0,
-                     0, out.data_ptr(), kernels.stream_ptr(x2d))
+        out = torch.empty((x2d.shape[0], packed.shape[1]), dtype=torch.bfloat16,
+                          device=x2d.device)
+        rc = _kernel_call(x2d, packed, scales, zs, None, None, None, None, out,
+                          group_size=group_size)
         if rc != 0:
             raise RuntimeError(f"w4_matmul tile kernel launch failed: CUDA error {rc}")
         return out
@@ -1193,9 +1216,11 @@ def _gptq_like_weight(gen, k, n, gs=128):
 
 def _kernels_w4elem(kr, tag, specs):
     """quant_matmul_pallas (std W4, GPTQ zeros) and magic_qmm (the magic words
-    of the same weight) at the GPTQ serve paths' shapes."""
+    of the same weight) at the GPTQ serve paths' shapes; the many-row tile's
+    K split checked (``_split_check``)."""
     import torch
 
+    from accessory_tpu_torch.ops import w4_tile
     from accessory_tpu_torch.ops.quant_matmul_magic import magic_qmm, magic_qmm_plain
     from accessory_tpu_torch.ops.quant_matmul_pallas import (quant_matmul_pallas,
                                                              quant_matmul_pallas_plain)
@@ -1208,8 +1233,8 @@ def _kernels_w4elem(kr, tag, specs):
         for kernel, fn, plain in (
                 ("w4_matmul_std", quant_matmul_pallas, quant_matmul_pallas_plain),
                 ("w4_matmul_magic",
-                 lambda x, q: magic_qmm(x, q.packed, q.scales, q.zeros, group_size=128,
-                                        tk=q.tile_k),
+                 lambda x, q, split=None: magic_qmm(x, q.packed, q.scales, q.zeros,
+                                                    group_size=128, tk=q.tile_k, split=split),
                  lambda x, q: magic_qmm_plain(x, q.packed, q.scales, q.zeros, group_size=128,
                                               tk=q.tile_k))):
             qws = std if kernel == "w4_matmul_std" else [to_magic_layout(q) for q in std]
@@ -1217,13 +1242,17 @@ def _kernels_w4elem(kr, tag, specs):
             got, want = fn(*calls[0]), plain(*calls[0])
             torch.cuda.synchronize()
             check_close(f"{kernel} {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
+            tk = None if kernel == "w4_matmul_std" else qws[0].tile_k
+            extra = {} if m <= 8 else _split_check(
+                f"{kernel} {tag} {name} M={m}", w4_tile.elem_plan(m, n, k, tk).split, got, want,
+                lambda sp: fn(*calls[0], split=sp))
             dense = [(x, dense_weight(q, torch.bfloat16)) for x, q in calls]
             k_ms = time_ms(fn, calls)
             k_wall = wall_ms(fn, calls)
             p_ms = time_ms(plain, calls[:1], min_iters=3)
             lib_ms = time_ms(lambda x, d: torch.matmul(x, d), dense)
             kr.record(kernel, f"{tag} {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
-                      k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n)
+                      k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n, **extra)
             del dense, qws, calls
         del std, xs
 
@@ -1490,8 +1519,13 @@ def phase_kernels(seed: int):
                 + [("w13", 4096, 22016, 1024, "")], rope)
     # -- std W4 (GPTQ imports) and its magic repack: TinyLlama's w13 at the
     #    stream / serve / decode batches and the serve prefill's 4 x 64 rows,
-    #    and the 7B w13 at batch 8
-    _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, m) for m in (1, 4, 8, 256, 512)])
+    #    all four projections of the GPTQ serve path at the 128-row (stream
+    #    and batcher prefill) and 512-row (serve prefill) tiles, and the 7B
+    #    w13 at batch 8
+    _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, m) for m in (1, 4, 8, 256)])
+    _kernels_w4elem(kr, "tiny", [(nm, k, n, m) for m in (128, 512)
+                                 for nm, k, n in (("wqkv", 2048, 2560), ("wo", 2048, 2048),
+                                                  ("w13", 2048, 11264), ("w2", 5632, 2048))])
     _kernels_w4elem(kr, "7b", [("w13", 4096, 22016, 8)])
 
     # -- the fused W4 decode FFN (ffn_fuse): TinyLlama and 7B widths at the
@@ -2815,7 +2849,7 @@ LLAMA_700M = dict(dim=2048, n_layers=12, n_heads=16, n_kv_heads=8, vocab_size=32
                   multiple_of=256, dtype="bfloat16")
 # the device's kernels by what they do in a training step (name substrings)
 TRAIN_SPLIT = (("forward W4 (many-row)", ("w4_bigm_kernel",)),
-               ("forward W4 (tile / GEMV)", ("w4_mma_kernel", "w4_gemv_kernel")),
+               ("forward W4 (tile / GEMV)", ("FoldedB", "w4_gemv_kernel")),
                ("W4 dequant", ("w4_dequant_kernel",)),
                ("attention forward", ("flash_fwd_kernel",)),
                ("attention backward", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),

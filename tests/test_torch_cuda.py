@@ -7,8 +7,11 @@ ragged row counts and a narrow x, decode attention at R = 1..8 (R = 1 is the
 MHA kernel) and head_dim 128 over the bf16 and the int8 cache, flash
 attention at lengths 1..130, bf16 and int8 slab writes; the GQA int8 fused
 kernel, the read-only decode kernels (fused result == read-only + one-token
-write), the one-token and the stacked writes, and the stacked-cache and unfused
-model paths against the CPU. Each test carries the
+write), the one-token and the stacked writes, the stacked-cache and unfused
+model paths against the CPU, and the many-row W4 tiles (row 1 at 17-1023
+rows with every fusion, std / magic from 9 rows, N = 136; every K split bit
+for bit across launches and within tolerance of the unsplit plan). Each
+test carries the
 ``cuda`` marker, needs a CUDA device and skips without one (decided inside the
 fixture). On the card:
 
@@ -1395,3 +1398,140 @@ def test_flash_attention_cp_refuses(gen):
     q32, k32, v32, _ = _cp_case(gen, 1, 128, 4, 2, 32)
     with pytest.raises(ValueError, match="head_dim 32"):
         flash_attention_cp(q32[:, :64], k32, v32, 64)
+
+
+# -- the many-row W4 tile (csrc/w4_tile.cuh): row 1's fused tile and the std /
+#    magic tile, at ragged row counts around the 64- and 128-row tiles, the
+#    TinyLlama widths, a padded in_dim, strided x, every fusion, and the K
+#    split of ops/w4_tile.py (bit-equal across launches, and within the rows'
+#    tolerance of the unsplit plan)
+
+_TILE_MS = [17, 63, 64, 65, 127, 129, 511, 1000, 1023]
+_TILE_KN = [(2048, 256), (2048, 2048), (2048, 2560), (5632, 256), (5632, 2048), (5632, 2560)]
+
+
+def _tile_case(gen, m, k, n, fusion="none", strided=False, hd=64):
+    """planes_qmm's arguments: W4 g128 with in_dim padded as quantize_params
+    pads it (5632 -> 6144), x optionally a strided view of a wider tensor."""
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    qw = _w4(gen, k, n, pad_in_to=pad_to(k, 128))
+    x = randn(gen, m, k + 64)[:, :k] if strided else randn(gen, m, k)
+    kw = dict(in_dim=qw.in_dim, group_size=128)
+    if "norm" in fusion:
+        kw["norm_weight"] = 1 + 0.1 * randn(gen, k, dtype=torch.float32)
+    if "res" in fusion:
+        kw["residual"] = randn(gen, m, n)
+    if fusion.startswith("rope"):
+        style = fusion.split("_")[1]
+        cos, sin = precompute_rope(hd, 2048, device="cuda")
+        cr, sr = rope_rows(cos[1500], sin[1500], n // hd - 4, 4, hd, style)
+        kw.update(rope_cos=cr, rope_sin=sr, rope_style=style, rope_hd=hd)
+    return (x, qw.packed, qw.scales, qw.zeros), kw
+
+
+@pytest.mark.parametrize("m", _TILE_MS)
+@pytest.mark.parametrize("k,n", _TILE_KN)
+def test_w4_tile(gen, m, k, n):
+    """Row 1's many-row path with the norm and the residual, strided x rows,
+    w2's padded in_dim."""
+    args, kw = _tile_case(gen, m, k, n, "norm+res", strided=True)
+    assert args[0].stride(0) == k + 64 and kw["in_dim"] >= k
+    assert_close(planes_qmm(*args, **kw), planes_qmm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("m", [17, 129, 511, 1023])
+@pytest.mark.parametrize("style", ["interleaved", "half"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_w4_tile_rope(gen, m, style, hd):
+    """The RoPE epilogue with its column partner in the 128-column tile."""
+    args, kw = _tile_case(gen, m, 2048, 2560, f"rope_{style}", hd=hd)
+    assert_close(planes_qmm(*args, **kw), planes_qmm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("m,k,n,fusion", [(128, 2048, 2048, "res"), (512, 2048, 2048, "res"),
+                                          (128, 5632, 2048, "res"), (512, 5632, 2048, "res"),
+                                          (128, 2048, 2560, "norm"), (512, 2048, 256, "none"),
+                                          (1023, 2048, 256, "norm+res"),
+                                          (129, 2048, 2560, "rope_half")])
+def test_w4_tile_split_k(gen, m, k, n, fusion):
+    """Each shape whose plan splits K: two launches bit-equal (partials summed
+    in split order), the unsplit plan within tolerance, no float atomics."""
+    from accessory_tpu_torch.ops import w4_tile
+
+    args, kw = _tile_case(gen, m, k, n, fusion)
+    p = w4_tile.folded_plan(m, n, k, 128)
+    assert p.split > 1
+    one, two = planes_qmm(*args, **kw), planes_qmm(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    assert_close(one, planes_qmm(*args, split=1, **kw))
+    assert_close(one, planes_qmm_plain(*args, **kw))
+
+
+def test_w4_tile_refuses(gen):
+    """The many-row path raises on what its tile does not take: N not a
+    multiple of 128, half RoPE heads wider than the tile, a split past the
+    groups; one counted launch a call."""
+    qw = _w4(gen, 256, 192)
+    x = randn(gen, 40, 256)
+    with pytest.raises(ValueError, match="128-column"):
+        planes_qmm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128)
+    qw = _w4(gen, 256, 512)
+    cos, sin = precompute_rope(256, 64, device="cuda")
+    cr, sr = rope_rows(cos[3], sin[3], 1, 1, 256, "half")
+    with pytest.raises(ValueError, match="whole heads"):
+        planes_qmm(x, qw.packed, qw.scales, qw.zeros, None, None, cr, sr, in_dim=256,
+                   group_size=128, rope_style="half", rope_hd=256)
+    with pytest.raises(ValueError, match="split"):
+        planes_qmm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128, split=3)
+    before = kernels.launch_counts()["w4_matmul"]
+    planes_qmm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128, split=2)
+    assert kernels.launch_counts()["w4_matmul"] == before + 1
+
+
+def _elem_call(kind, x, qw, split=None):
+    from accessory_tpu_torch.ops.quant_matmul_magic import magic_qmm, magic_qmm_plain
+    from accessory_tpu_torch.ops.quant_matmul_pallas import (quant_matmul_pallas,
+                                                             quant_matmul_pallas_plain)
+
+    if kind == "std":
+        return quant_matmul_pallas(x, qw, split=split), quant_matmul_pallas_plain(x, qw)
+    kw = dict(group_size=qw.group_size, tk=qw.tile_k)
+    return (magic_qmm(x, qw.packed, qw.scales, qw.zeros, split=split, **kw),
+            magic_qmm_plain(x, qw.packed, qw.scales, qw.zeros, **kw))
+
+
+@pytest.mark.parametrize("kind", ["std", "magic"])
+@pytest.mark.parametrize("m", [9, 65, 129, 513, 1030])
+@pytest.mark.parametrize("n", [136, 2560])
+def test_w4_elem_tile(gen, kind, m, n):
+    """The std / magic tile at K 5632 (magic tiles of 512 rows), N a multiple
+    of 8 only (136) and TinyLlama's 2560, ragged row counts; where the plan
+    splits K, two launches bit-equal and the unsplit plan within tolerance."""
+    from accessory_tpu_torch.ops import w4_tile
+    from accessory_tpu_torch.quant.qtensor import to_magic_layout
+
+    qw = _std_gptq_like(gen, 5632, n)
+    tk = None
+    if kind == "magic":
+        qw = to_magic_layout(qw)
+        tk = qw.tile_k
+    x = randn(gen, m, 5632)
+    got, want = _elem_call(kind, x, qw)
+    assert_close(got, want)
+    if w4_tile.elem_plan(m, n, 5632, tk).split > 1:
+        again = _elem_call(kind, x, qw)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert_close(got, _elem_call(kind, x, qw, split=1)[0])
+
+
+def test_w4_elem_tile_refuses(gen):
+    from accessory_tpu_torch.ops.quant_matmul_pallas import quant_matmul_pallas
+
+    std = _std_gptq_like(gen, 512, 256)
+    with pytest.raises(ValueError, match="split"):
+        quant_matmul_pallas(randn(gen, 40, 512), std, split=9)
+    with pytest.raises(ValueError, match="N % 8"):
+        quant_matmul_pallas(randn(gen, 40, 512), _std_gptq_like(gen, 512, 132))
