@@ -46,6 +46,32 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Per-thread asynchronous copy of BYTES (4, 8 or 16) from global to shared
+// memory; src_bytes 0 writes zeros and reads nothing. Completion is tracked
+// per thread in commit groups (cp_async_commit / cp_async_wait).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but the newest PENDING commit groups are done
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

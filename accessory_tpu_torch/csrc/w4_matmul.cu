@@ -209,6 +209,7 @@ w4_gemv_kernel(const bf16* __restrict__ x, int M, int Kx, int x_stride,
 struct FoldedB {
   static constexpr int COEF_ROWS = 1;   // scales and zs of the stage's group
   static constexpr bool FOLDED = true;
+  static constexpr bool PAIRED = true;    // the row prep stores x in nibble-pair order
   struct Ctx {};
   struct Raw {
     uint4 w0, w1;

@@ -19,9 +19,9 @@
 // reads the words as stored: a unit of 8 word rows gives four 16-row
 // segments, one from each quarter of its tile (w4_elem.cuh), so a stage of 64
 // rows is whole and the tile order never has to be undone in memory; in the
-// many-row tile a nibble pair (j, j + 4) of a word is two adjacent K rows,
-// one bf16x2 register of an m16n8k16 B fragment as it stands. Requires
-// tk % 4 == 0, (tk / 4) % gs == 0 and K % tk == 0.
+// GEMV and the many-row tile a nibble pair (j, j + 4) of a word is two
+// adjacent K rows, one bf16x2 register of an m16n8k16 fragment as it
+// stands. Requires tk % 4 == 0, (tk / 4) % gs == 0 and K % tk == 0.
 //
 // Bound: bytes at decode, operations from ~80 rows on (as w4_matmul_std.cu).
 
@@ -29,29 +29,13 @@
 
 namespace {
 
-constexpr uint16_t MAGIC16 = 0x4380;   // bf16 bit pattern of 256.0
-
 struct MagicLayout {
-  struct Coef {
-    bf16 s, z;
-  };
-  __device__ static __forceinline__ Coef coef(float s, float z) { return {f2bf(s), f2bf(z)}; }
-  // nibble p of a unit's word wl holds row 2 * wl + p / 4 of segment p % 4
-  __device__ static __forceinline__ int stage_index(int wl, int p) {
-    return 16 * (p & 3) + 2 * wl + (p >> 2);
-  }
-  __device__ static __forceinline__ int pair_lo(int j) { return j; }
-  __device__ static __forceinline__ int pair_hi(int j) { return j + 4; }
   __device__ static __forceinline__ int seg_base(int u, int i, int tk) {
     const int per_tile = tk / w4elem::UNIT_ROWS;
     const int tile = u / per_tile, s = u % per_tile;
     return tile * tk + i * (tk / 4) + 16 * s;
   }
-  __device__ static __forceinline__ float value(uint32_t q, Coef c) {
-    const bf16 v = __ushort_as_bfloat16(static_cast<unsigned short>(MAGIC16 | (q << 3)));
-    return bf2f(__hmul(__hsub(v, c.z), c.s));
-  }
-  // the tile (w4_tile.cuh): one coefficient row per segment (quarter)
+  // the GEMV and the tile: one coefficient row per segment (quarter)
   static constexpr int COEF_ROWS = 4;
   static int units(int Kx, int tk) { return (Kx + tk - 1) / tk * (tk / w4elem::UNIT_ROWS); }
   // slab j of a unit is segment j: b0 = its rows 2t, 2t + 1 (word row t,

@@ -10,8 +10,9 @@
 // (K/gs, N) f32, zeros in quantized units and NOT folded: a GPTQ export's
 // zero is z + 1, up to 16, so no nibble could hold it. Each weight is
 // computed as in the TPU kernel, (q - z) in f32 (exact), times s in f32,
-// rounded once to bf16, then multiplied with x in the tensor cores or the
-// GEMV's f32 FMAs. No prologue or epilogue (the TPU kernel has none).
+// rounded once to bf16, then multiplied with x in the tensor cores (the
+// GEMV's mma.sync, the tile's wgmma). No prologue or epilogue (the TPU
+// kernel has none).
 //
 // The GEMV (M <= 8) and the many-row tile (M > 8) are w4_elem.cuh's and
 // w4_tile.cuh's; this file gives them the std row order and value. Bound:
@@ -23,21 +24,11 @@
 namespace {
 
 struct StdLayout {
-  struct Coef {
-    float s, z;
-  };
-  __device__ static __forceinline__ Coef coef(float s, float z) { return {s, z}; }
-  // nibble p of a unit's word wl holds the unit's row 8 * wl + p
-  __device__ static __forceinline__ int stage_index(int wl, int p) { return 8 * wl + p; }
-  __device__ static __forceinline__ int pair_lo(int j) { return 2 * j; }
-  __device__ static __forceinline__ int pair_hi(int j) { return 2 * j + 1; }
   __device__ static __forceinline__ int seg_base(int u, int i, int) {
     return u * w4elem::UNIT_ROWS + 16 * i;
   }
-  __device__ static __forceinline__ float value(uint32_t q, Coef c) {
-    return round_bf16(__fmul_rn((float)q - c.z, c.s));
-  }
-  // the tile (w4_tile.cuh): a unit lies in one group (gs % 64 == 0)
+  // the GEMV and the tile (w4_elem.cuh, w4_tile.cuh): a unit lies in one
+  // group (gs % 64 == 0)
   static constexpr int COEF_ROWS = 1;
   static int units(int Kx, int) { return Kx / w4elem::UNIT_ROWS; }
   // slab j of a unit: b0 = rows 16j + 2t, +1 (word row 2j, byte t), b1 = rows

@@ -261,9 +261,10 @@ __device__ __forceinline__ void finish4(const float* rowbuf, int c, int row, int
 // unit's four segments); K rows at or past Kx and rows past M are zero.
 // Folded also: the RMSNorm (1 / rms over the Kx columns, rms_kernel; the
 // normalized x rounded to bf16), each 8-column chunk stored in the order
-// (0, 4, 1, 5, 2, 6, 3, 7) that its nibble pairs take, and sum(x) per group
-// of the stored values into xsum (Kx / gs, Mpad), so no tile block re-reads
-// whole rows.
+// (0, 4, 1, 5, 2, 6, 3, 7) that its nibble pairs take (P::PAIRED; the W8
+// tile of w8_matmul.cu, whose zero point is folded out too, keeps K order),
+// and sum(x) per group of the stored values into xsum (Kx / gs, Mpad), so no
+// tile block re-reads whole rows.
 constexpr int PREP_THREADS = 256;
 
 __device__ __forceinline__ float prep_value(float f, float rinv, const float* norm, int k) {
@@ -315,10 +316,17 @@ __global__ void __launch_bounds__(PREP_THREADS) prep_kernel(const TileArgs a) {
         float f[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) f[j] = prep_value(bf2f(v[j]), rinv, norm, k + j);
-        o.x = pack_bf16x2(f[0], f[4]);
-        o.y = pack_bf16x2(f[1], f[5]);
-        o.z = pack_bf16x2(f[2], f[6]);
-        o.w = pack_bf16x2(f[3], f[7]);
+        if constexpr (P::PAIRED) {
+          o.x = pack_bf16x2(f[0], f[4]);
+          o.y = pack_bf16x2(f[1], f[5]);
+          o.z = pack_bf16x2(f[2], f[6]);
+          o.w = pack_bf16x2(f[3], f[7]);
+        } else {
+          o.x = pack_bf16x2(f[0], f[1]);
+          o.y = pack_bf16x2(f[2], f[3]);
+          o.z = pack_bf16x2(f[4], f[5]);
+          o.w = pack_bf16x2(f[6], f[7]);
+        }
       }
     }
     *reinterpret_cast<uint4*>(xt + (size_t)st * (BM * BK) + c * 64 + r * 8) = o;

@@ -27,22 +27,54 @@
 //    at a time and read back as broadcasts. The zero-point term is folded in
 //    per thread over its own rows: sum_k x_k w_k - (sum_k x_k) zs_g summed
 //    over the row lanes is the group's xsum_g * zs_g.
-//  * mma.sync tile for M > 8 (the 1024-row prefill, and any fused call of
+//  * wgmma tile for M > 8 (the 1024-row prefill, and any fused call of
 //    9..1023 rows). Bound: operations from ~300 rows (about 2 M flops a
-//    byte). A 128 x 128 output tile, 256 threads (2 x 4 warps of 64 x 32),
-//    m16n8k16 bf16 products with f32 accumulators. A stage is 64 K rows
-//    (one group or part of one): the int8 rows are read 4 columns x 8 rows
-//    a thread, scaled and rounded to bf16 into shared memory [column][k];
-//    the row sums of the staged x feed the zero-point term at each group's
-//    end; the next stage's global loads are issued into registers before
-//    the current stage's products. The epilogue goes through shared memory
-//    (half a tile at a time) so the RoPE partner column is at hand.
+//    weight byte). A row-prep pass (w4_tile.cuh's prep_kernel, and its
+//    rms_kernel for the norm) writes x once, normalized and rounded, tiled in
+//    wgmma's core matrices, with sum(x) per (group, row) beside it, so no
+//    block re-reads x rows. The product is computed transposed, y^T = w^T
+//    x^T: a block is two warpgroups over 256 x rows and 128 weight columns,
+//    each warpgroup one wgmma m64n256k16 a 16-deep slab with the weight as
+//    its register operand A (the int8 values of its two columns and four k
+//    rows a thread read from the staged rows, made bf16(q8 * s) in
+//    registers: the pattern 0x4B000000 | (q8 ^ 0x80) less 2^23 + 128, one f32
+//    product, one rounding, no int -> float convert) and the stage's x rows
+//    its shared-memory operand B; slab j + 1 is converted while slab j's
+//    products run, and each weight is converted once for 256 rows. A ring
+//    of 5 stages (64 K rows each) is filled by thread 0's bulk copies (the
+//    x tiles and the group's scale row, on an mbarrier) and every thread's
+//    cp.async pieces of the int8 rows. The zero-point term leaves the K
+//    loop: the epilogue stages the sums and zs rows of a chunk of groups in
+//    shared memory and subtracts sum_g xsum_g * zs_g in f32, then RoPE (the
+//    partner column is in the staged f32 row), the cast and the residual.
+//    Where the tiles are too few for the card, K is split in whole groups
+//    (ops/w4_tile.py w8_plan) and w4_tile.cuh's reduction pass sums the
+//    partials in split order (deterministic, no atomics). What the card
+//    taught (stripped builds on an NVIDIA H100 80GB HBM3, 700.00 W, not
+//    kept): 64 bulk copies a stage, one a 256-byte int8 row, kept the SM's
+//    copy engine busier than the stage's products; dequantizing into a shared bf16 tile for
+//    two shared-memory operands needs fence.proxy.async before the wgmma,
+//    which compiles to MEMBAR.ALL.CTA and so waits for the thread's
+//    outstanding cp.async copies every stage; per-group zs loads from
+//    global memory in the epilogue ran one after another; and a 128-row
+//    tile converted each weight twice as often. This design takes 478.6 us
+//    for 7B's w13 at 1024 rows (wqkv 246.2, wo 90.6, w2 226.2), 2.03x
+//    torch.matmul on the dense weight, on an NVIDIA H100 80GB HBM3,
+//    700.00 W: about 39% of the bf16 peak. The tile it replaces
+//    (mma.sync m16n8k16 on 128 x 128 tiles) staged one prefetch in
+//    registers between two barriers, converted every weight int -> float
+//    once per 128-row block, read its fragments with 32-bit shared loads,
+//    subtracted the zero-point term inside the K loop and re-read whole x
+//    rows for the norm in every block: 1259.2 us for 7B's w13 at 1024 rows
+//    on an NVIDIA H100 80GB HBM3, 700.00 W, 5.37x torch.matmul on the dense
+//    weight. PERF.md row 22 holds both designs' times, measured by
+//    chip_smoke.py.
 //
-// The norm prologue reads the whole x row in every block (any K folds). The
-// N tile holds whole heads for RoPE (interleaved partner n ^ 1, half n +-
-// hd/2).
+// The GEMV's norm prologue reads the whole x row in every block (any K
+// folds). The N tile holds whole heads for RoPE (interleaved partner n ^ 1,
+// half n +- hd/2; the tile's 128 columns and the reduction's 128).
 
-#include "common.cuh"
+#include "w4_tile.cuh"
 
 namespace {
 
@@ -193,213 +225,309 @@ w8_gemv_kernel(const bf16* __restrict__ x, int M, int Kx, long long x_stride,
   }
 }
 
-constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256;
-constexpr int LD = BK + 8;                      // bf16 per staged row (16 B aligned)
-constexpr int C_LD = BN + 4;                    // f32 per staged output row
-constexpr int A_VECS = BM * BK / 8 / THREADS;   // uint4 of x per thread per stage (4)
-constexpr int AB_BYTES = (BM + BN) * LD * 2;
-constexpr int C_BYTES = (BM / 2) * C_LD * 4;
-constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+// ---------------------------------------------------------------- the tile (M > 8)
 
-__global__ void __launch_bounds__(THREADS, 2)
-w8_mma_kernel(const bf16* __restrict__ x, int M, int Kx, long long x_stride,
-              const int8_t* __restrict__ q8, const float* __restrict__ scales,
-              const float* __restrict__ zs, int N, int gs, const float* __restrict__ norm,
-              float eps, const bf16* __restrict__ residual, const float* __restrict__ cos_row,
-              const float* __restrict__ sin_row, int rope_style, int rope_hd,
-              bf16* __restrict__ out) {
-  __shared__ __align__(16) unsigned char smem_raw[SMEM_BYTES];
-  __shared__ float rinv_s[BM];
-  __shared__ float xsum_s[BM];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // [row][k]
-  bf16* Bs = As + BM * LD;                         // [column][k], k contiguous per column
-  float* Cs = reinterpret_cast<float*>(smem_raw);  // [64][C_LD], epilogue only
+constexpr int TBM = 256;                 // x rows a block (wgmma N)
+constexpr int TBN = 128;                 // weight columns a block: a warpgroup's 64 (wgmma M)
+constexpr int TBK = 64;                  // K rows a stage
+constexpr int TTHREADS = 256;
+constexpr int TSTAGES = 5;
+constexpr int X_TILES = TBM / w4tile::BM;   // the prep's 64-row x tiles a stage copies
+constexpr int X_BYTES = TBM * TBK * 2;
+// a staged int8 row: the 16 bytes past 128 make the fragment loads (rows
+// 2t.., columns 2g..) free of bank conflicts
+constexpr int RAW_LD = TBN + 16;
+constexpr int RAW_OFF = X_BYTES;
+constexpr int SC_OFF = RAW_OFF + TBK * RAW_LD;
+constexpr int STAGE_BYTES = SC_OFF + TBN * 4;
+constexpr int TSMEM = TSTAGES * STAGE_BYTES;
+constexpr int TC_LD = TBN + 4;           // f32 per row of the epilogue tile
+constexpr int ZG = 32;                   // groups of the epilogue's zero-point term a chunk
+constexpr int Z_OFF = TBM * TC_LD * 4;   // the chunk's sums and zs, past the epilogue tile
+static_assert(Z_OFF + ZG * (TBM + TBN) * 4 <= TSMEM, "the epilogue fits the ring");
+static_assert(TBK == w4tile::BK && TBM % w4tile::BM == 0, "x comes tiled by w4_tile's row prep");
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// The row-prep, rms and split-K reduction passes of w4_tile.cuh as the W8
+// tile takes them: the norm applied and rounded in the prep, x stored in K
+// order, sum(x) per (group, row) for the zero-point term.
+struct w8_prep {
+  static constexpr bool FOLDED = true;    // the zero point is folded out: sum(x) per group
+  static constexpr bool PAIRED = false;
+  __device__ static __forceinline__ int unit_base(int step, int) { return step * TBK; }
+  __device__ static __forceinline__ int chunk_off(int c, int) { return 8 * c; }
+};
+
+struct W8Tile {
+  w4tile::TileArgs t;   // x, the prepared xt and xsum, scales, zs, the split and the epilogue
+  const int8_t* q8;
+};
+
+// d (64 x 256 f32; thread (g, t) of warp w of the warpgroup holds rows
+// 16w + g (d[4j], d[4j+1]) and 16w + g + 8 (d[4j+2], d[4j+3]), columns
+// 8j + 2t, + 1) += a (64 x 16 bf16 in registers, the m16n8k16 A layout per
+// warp) x B (16 x 256 bf16, K-major in shared memory, descriptor b)
+__device__ __forceinline__ void wgmma_64x256x16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// a use of r the compiler cannot see through (w4tile::reg_keep for one
+// slab's A registers)
+__device__ __forceinline__ void reg_keep4(const uint32_t (&r)[4]) {
+  asm volatile("" ::"r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
+// q8 byte e of w (already XORed with 0x80) times s as the f32 product, exact
+// q8 from the float pattern 0x4B000000 | (q8 + 128) less 2^23 + 128
+__device__ __forceinline__ float w8_value(uint32_t w, int e, float s) {
+  return __fmul_rn(__fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | e)),
+                           8388736.f),
+                   s);
+}
+
+// A 256-row x 128-column output tile over the K steps of its split,
+// computed transposed: y^T = w^T x^T. Warpgroup wg owns weight columns
+// 64 wg .. 64 wg + 63 as one wgmma m64n256k16 a 16-deep slab (A: the
+// dequantized weight in registers; B: the stage's 256 x rows in shared
+// memory), so each weight is converted once for 256 rows. Thread (g, t) of
+// warp q of the warpgroup converts the columns cb and cb + 1, cb = 64 wg +
+// 16 q + 2 g (its A rows g and g + 8), k pairs (2t, 2t + 1) and (2t + 8,
+// 2t + 9) of each slab: four 2-byte loads of the staged int8 rows. Slab
+// j + 1 is converted while slab j's products run.
+__global__ void __launch_bounds__(TTHREADS, 1) w8_tile_kernel(const W8Tile A) {
+  const w4tile::TileArgs& a = A.t;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[TSTAGES];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;        // 2 x 4 warps, 64 x 32 outputs each
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int cq = tid % 32, rb = tid / 32;         // B stage: columns 4cq..4cq+3, rows 8rb..8rb+7
-  const int bn = n0 + 4 * cq;
-  const bool bcol_ok = bn < N;                     // N % 8 == 0: the 4 columns are all in or out
+  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * TBN;
+  const int gr0 = (int)((long long)blockIdx.z * a.granules / a.split);
+  const int gr1 = (int)((long long)(blockIdx.z + 1) * a.granules / a.split);
+  const int steps = a.granules * a.granule_steps;   // xt's K steps (all of Kx)
+  const int s0 = gr0 * a.granule_steps, nsteps = (gr1 - gr0) * a.granule_steps;
+  const int ncols = min(TBN, a.N - n0);
+  // the block's first 64-row x tile of the prep; the next X_TILES - 1 follow
+  const bf16* xtile = a.xt + (size_t)(X_TILES * blockIdx.x) * steps * (w4tile::BM * TBK);
 
-  if (norm != nullptr) {
-    const int r = tid >> 1, h = tid & 1;
-    float ss = 0.f;
-    if (m0 + r < M) {
-      const bf16* row = x + (size_t)(m0 + r) * x_stride;
-      for (int k = h * 8; k < Kx; k += 16) {
-        uint4 raw = *reinterpret_cast<const uint4*>(row + k);
-        const bf16* v = reinterpret_cast<const bf16*>(&raw);
+  // a stage: thread 0 bulk-copies its X_TILES x tiles and the group's scale
+  // row (the stage's mbarrier counts their bytes); every thread copies its
+  // pieces of the 64 int8 rows by cp.async (16 bytes, or 8 where N % 16 !=
+  // 0 leaves the rows 8-byte aligned; columns past N as zeros), one commit
+  // group a stage, empty past the last. (A bulk copy a row kept the SM's
+  // copy engine busier than the products; per-thread pieces recomputing
+  // their addresses cost more issue slots than the products leave free.)
+  if (tid == 0) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float f = bf2f(v[j]);
-          ss += f * f;
-        }
+    for (int i = 0; i < TSTAGES; ++i) w4tile::mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint32_t tx = X_BYTES + 4 * ncols;
+  const bool wide = a.N % 16 == 0;
+  // this thread's pieces: rows prow + 32 i (16 i for 8-byte pieces), columns pcol ..
+  const int piece = wide ? 16 : 8, prow = tid / (TBN / piece), pcol = piece * (tid % (TBN / piece));
+  const bool pon = pcol < ncols;
+  const int8_t* psrc = A.q8 + (size_t)(s0 * TBK + prow) * a.N + n0 + (pon ? pcol : 0);
+  auto load_stage = [&](int it) {
+    if (it < nsteps) {
+      const int step = s0 + it;
+      unsigned char* st = smem + (it % TSTAGES) * STAGE_BYTES;
+      if (tid == 0) {
+        uint64_t* bar = &full[it % TSTAGES];
+        w4tile::mbar_expect_tx(bar, tx);
+#pragma unroll
+        for (int x = 0; x < X_TILES; ++x)
+          w4tile::bulk_copy(st + x * (X_BYTES / X_TILES),
+                            xtile + ((size_t)x * steps + step) * (w4tile::BM * TBK),
+                            X_BYTES / X_TILES, bar);
+        w4tile::bulk_copy(st + SC_OFF, a.scales + (size_t)(step * TBK / a.gs) * a.N + n0,
+                          4 * ncols, bar);
+      }
+      const int8_t* src = psrc + (size_t)it * TBK * a.N;
+      unsigned char* dst = st + RAW_OFF + prow * RAW_LD + pcol;
+      if (wide) {
+#pragma unroll
+        for (int i = 0; i < TBK / 32; ++i)
+          cp_async<16>(dst + i * 32 * RAW_LD, src + (size_t)i * 32 * a.N, pon ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TBK / 16; ++i)
+          cp_async<8>(dst + i * 16 * RAW_LD, src + (size_t)i * 16 * a.N, pon ? 8 : 0);
       }
     }
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    if (h == 0) rinv_s[r] = 1.f / sqrtf(ss / (float)Kx + eps);
-  }
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
-
-  uint4 a_reg[A_VECS];
-  uint32_t b_reg[8];
-  float4 s_reg;
-
-  auto load_stage = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < A_VECS; ++p) {
-      const int i = tid + p * THREADS;
-      const int r = i / (BK / 8), c8 = i % (BK / 8);
-      a_reg[p] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
-        a_reg[p] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * x_stride + k0 + c8 * 8);
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      b_reg[r] = bcol_ok ? __ldg(reinterpret_cast<const unsigned int*>(
-                               q8 + (size_t)(k0 + 8 * rb + r) * N + bn))
-                         : 0u;
-    s_reg = bcol_ok ? __ldg(reinterpret_cast<const float4*>(scales + (size_t)(k0 / gs) * N + bn))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    cp_async_commit();
   };
+#pragma unroll
+  for (int s = 0; s < TSTAGES - 2; ++s) load_stage(s);
 
-  load_stage(0);
-  for (int k0 = 0; k0 < Kx; k0 += BK) {
-    const int grp = k0 / gs;
-    const bool first = (k0 % gs) == 0;
-    const bool last = ((k0 + BK) % gs) == 0;
-    __syncthreads();   // the previous stage's mma reads are done
+  const int cb = 64 * wg + 16 * (warp & 3) + 2 * g;
+  float acc[128];
 #pragma unroll
-    for (int p = 0; p < A_VECS; ++p) {
-      const int i = tid + p * THREADS;
-      const int r = i / (BK / 8), c8 = i % (BK / 8);
-      uint4 raw = a_reg[p];
-      bf16* v = reinterpret_cast<bf16*>(&raw);
-      if (norm != nullptr && m0 + r < M) {
-        const float rr = rinv_s[r];
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  uint32_t afr[2][4];   // [slab parity]: weight registers in flight
+
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<TSTAGES - 3>();   // stage it's int8 rows, this thread's pieces
+    w4tile::mbar_wait(&full[it % TSTAGES], (it / TSTAGES) & 1);   // its x and scales
+    __syncthreads();   // everyone's pieces; every warpgroup is done with stage it - 2: refill it
+    load_stage(it + TSTAGES - 2);
+    const unsigned char* st = smem + (it % TSTAGES) * STAGE_BYTES;
+    const unsigned char* raw = st + RAW_OFF + cb;
+    const float2 s2 = *reinterpret_cast<const float2*>(st + SC_OFF + 4 * cb);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = f2bf((bf2f(v[j]) * rr) * norm[k0 + c8 * 8 + j]);
-      }
-      *reinterpret_cast<uint4*>(As + r * LD + c8 * 8) = raw;
-      float s = 0.f;
+    for (int j = 0; j < 4; ++j) {   // 16-deep slabs of the stage
+      uint32_t w[4];   // k rows 16j + 2t, + 1, + 8, + 9: the thread's two columns
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s += bf2f(v[j]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);   // the 8 lanes of one row (c8 = lane % 8)
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      if (c8 == 0) xsum_s[r] = first ? s : xsum_s[r] + s;
-    }
-    {
-      const float sc[4] = {s_reg.x, s_reg.y, s_reg.z, s_reg.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bf16 v[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-          v[r] = f2bf(__fmul_rn((float)(int8_t)((b_reg[r] >> (8 * j)) & 0xffu), sc[j]));
-        uint4 u;
-        u.x = pack_bf16_pair(v[0], v[1]);
-        u.y = pack_bf16_pair(v[2], v[3]);
-        u.z = pack_bf16_pair(v[4], v[5]);
-        u.w = pack_bf16_pair(v[6], v[7]);
-        *reinterpret_cast<uint4*>(Bs + (4 * cq + j) * LD + 8 * rb) = u;
-      }
-    }
-    __syncthreads();
-    if (k0 + BK < Kx) load_stage(k0 + BK);   // in flight during the mma loop below
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t afr[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* base = As + (wm * 64 + mt * 16 + g) * LD + kk + 2 * t;
-        afr[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-        afr[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-        afr[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        afr[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bb = Bs + (wn * 32 + nt * 8 + g) * LD + kk + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bb + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16_16816(acc[mt][nt], afr[mt], b0, b1);
-      }
-    }
-    if (last) {   // the group's zero-point term: acc -= xsum_g * zs_g
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int cn = n0 + wn * 32 + nt * 8 + 2 * t;
-        const float z0 = cn < N ? __ldg(zs + (size_t)grp * N + cn) : 0.f;
-        const float z1 = cn < N ? __ldg(zs + (size_t)grp * N + cn + 1) : 0.f;
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int r0 = wm * 64 + mt * 16 + g;
-          const float x0 = xsum_s[r0], x1 = xsum_s[r0 + 8];
-          float* a = acc[mt][nt];
-          a[0] -= x0 * z0;
-          a[1] -= x0 * z1;
-          a[2] -= x1 * z0;
-          a[3] -= x1 * z1;
-        }
-      }
+      for (int r = 0; r < 4; ++r)
+        w[r] = *reinterpret_cast<const uint16_t*>(
+                   raw + (16 * j + 2 * t + (r & 1) + 8 * (r >> 1)) * RAW_LD) ^
+               0x8080u;
+      uint32_t(&af)[4] = afr[j & 1];
+      af[0] = pack_bf16x2(w8_value(w[0], 0, s2.x), w8_value(w[1], 0, s2.x));
+      af[1] = pack_bf16x2(w8_value(w[0], 1, s2.y), w8_value(w[1], 1, s2.y));
+      af[2] = pack_bf16x2(w8_value(w[2], 0, s2.x), w8_value(w[3], 0, s2.x));
+      af[3] = pack_bf16x2(w8_value(w[2], 1, s2.y), w8_value(w[3], 1, s2.y));
+      w4tile::wgmma_fence();
+      wgmma_64x256x16_rs(acc, af, w4tile::desc_kmajor(st + j * 256));   // k chunks 2j, 2j + 1
+      w4tile::wgmma_commit();
+      // slab j - 1's products are done (slab j's may run on): its weight
+      // registers, held live until here, are free for slab j + 1
+      w4tile::wgmma_wait<1>();
+      reg_keep4(afr[(j + 1) & 1]);
     }
   }
+  w4tile::wgmma_wait<0>();
+  w4tile::reg_keep(afr);
+  w4tile::reg_fence(acc);
 
-  for (int h = 0; h < 2; ++h) {   // rows 64h .. 64h + 63 of the tile
-    __syncthreads();
-    if (wm == h) {
+  // epilogue: the f32 tile [x row][column] into the idle ring, the split's
+  // zero-point term sum_g xsum_g * zs_g (f32, from the prep's sums), then
+  // RoPE, the cast and the residual (w4_tile.cuh's finish4), or the split's
+  // partial tile
+  cp_async_wait<0>();
+  __syncthreads();
+  float* Cs = reinterpret_cast<float*>(smem);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int r0 = mt * 16 + g, cl = wn * 32 + nt * 8 + 2 * t;
-          Cs[r0 * C_LD + cl] = acc[mt][nt][0];
-          Cs[r0 * C_LD + cl + 1] = acc[mt][nt][1];
-          Cs[(r0 + 8) * C_LD + cl] = acc[mt][nt][2];
-          Cs[(r0 + 8) * C_LD + cl + 1] = acc[mt][nt][3];
-        }
-    }
-    __syncthreads();
-    for (int i = tid; i < (BM / 2) * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int row = m0 + 64 * h + r, n = n0 + c;
-      if (row >= M || n >= N) continue;
-      float y = Cs[r * C_LD + c];
-      if (rope_style != 0) {
-        const int half = rope_hd / 2;
-        const int pc = rope_style == 1 ? (c ^ 1) : ((c % rope_hd) < half ? c + half : c - half);
-        y = y * cos_row[n] + Cs[r * C_LD + pc] * sin_row[n];
+  for (int j = 0; j < TBM / 8; ++j) {
+    const int r = 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(Cs + r * TC_LD + cb) = make_float2(acc[4 * j], acc[4 * j + 2]);
+    *reinterpret_cast<float2*>(Cs + (r + 1) * TC_LD + cb) =
+        make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+  __syncthreads();
+  {   // groups in chunks of ZG: their sum(x) rows (the tile's 256 rows) and zs
+      // rows (its 128 columns) copied past the f32 tile, then thread: columns
+      // 4 cq .. 4 cq + 3, rows rb .. rb + 31, 8 at a time
+    float* Xz = reinterpret_cast<float*>(smem + Z_OFF);   // [ZG][TBM]
+    float* Zz = Xz + ZG * TBM;                            // [ZG][TBN]
+    const int cq = tid % (TBN / 4), rb = (tid / (TBN / 4)) * 32, n = n0 + 4 * cq;
+    static_assert(TTHREADS / (TBN / 4) * 32 == TBM, "the threads cover the tile");
+    for (int gc = gr0; gc < gr1; gc += ZG) {
+      const int ng = min(ZG, gr1 - gc);
+      for (int c = tid; c < ng * (TBM / 4); c += TTHREADS) {
+        const int r = c / (TBM / 4), q = 4 * (c % (TBM / 4));
+        cp_async<16>(Xz + r * TBM + q, a.xsum + (size_t)(gc + r) * a.Mpad + m0 + q, 16);
       }
-      bf16 o = f2bf(y);
-      if (residual != nullptr) o = f2bf(bf2f(residual[(size_t)row * N + n]) + bf2f(o));
-      out[(size_t)row * N + n] = o;
+      for (int c = tid; c < ng * (TBN / 4); c += TTHREADS) {
+        const int r = c / (TBN / 4), q = 4 * (c % (TBN / 4));
+        const bool on = n0 + q < a.N;
+        cp_async<16>(Zz + r * TBN + q, on ? a.zs + (size_t)(gc + r) * a.N + n0 + q : a.zs,
+                     on ? 16 : 0);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (n < a.N) {
+        for (int r8 = rb; r8 < rb + 32; r8 += 8) {
+          float4 c[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            c[i] = *reinterpret_cast<const float4*>(Cs + (r8 + i) * TC_LD + 4 * cq);
+          for (int gi = 0; gi < ng; ++gi) {
+            const float4 z = *reinterpret_cast<const float4*>(Zz + gi * TBN + 4 * cq);
+            const float4 x0 = *reinterpret_cast<const float4*>(Xz + gi * TBM + r8);
+            const float4 x1 = *reinterpret_cast<const float4*>(Xz + gi * TBM + r8 + 4);
+            const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              c[i].x = fmaf(-xs[i], z.x, c[i].x);
+              c[i].y = fmaf(-xs[i], z.y, c[i].y);
+              c[i].z = fmaf(-xs[i], z.z, c[i].z);
+              c[i].w = fmaf(-xs[i], z.w, c[i].w);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            *reinterpret_cast<float4*>(Cs + (r8 + i) * TC_LD + 4 * cq) = c[i];
+        }
+      }
+      __syncthreads();   // the chunk's rows are read before the next chunk's copies
     }
+  }
+#pragma unroll 4
+  for (int idx = tid; idx < TBM * (TBN / 4); idx += TTHREADS) {
+    const int r = idx / (TBN / 4), c = 4 * (idx % (TBN / 4));
+    const int row = m0 + r, n = n0 + c;
+    if (row >= a.M || n >= a.N) continue;
+    if (a.split == 1)
+      w4tile::finish4(Cs + r * TC_LD, c, row, n, a);
+    else
+      *reinterpret_cast<float4*>(a.ws + ((size_t)blockIdx.z * a.M + row) * a.N + n) =
+          *reinterpret_cast<const float4*>(Cs + r * TC_LD + c);
   }
 }
 
 }  // namespace
 
 // x (M, Kx) bf16, row stride x_stride (elements, a multiple of 8, rows 16-byte
-// aligned); q8 (>= Kx, N) int8 rows; scales / zs (>= Kx/gs, N) f32; out (M, N)
-// bf16 contiguous. rope_style: 0 none, 1 interleaved, 2 half; norm / residual
-// / cos / sin may be null. Requires Kx % gs == 0, gs % 64 == 0, N % 8 == 0,
-// and with RoPE N % rope_hd == 0 and whole heads in the N tile.
+// aligned); q8 (>= Kx, N) int8 rows; scales / zs (>= Kx/gs, N) f32; q8,
+// scales and zs 16-byte aligned; out (M, N) bf16 contiguous. rope_style: 0
+// none, 1 interleaved, 2 half; norm / residual / cos / sin may be null.
+// M > 8 also takes the wrapper's plan (ops/w4_tile.py w8_plan): xt (Mpad x
+// Kx) bf16 and xsum (Kx/gs + 1, Mpad) f32 with Mpad = M rounded up to 256,
+// ws (split, M, N) f32 when K is split; null and 1 for M <= 8. Requires
+// Kx % gs == 0, gs % 64 == 0, N % 8 == 0, and with RoPE N % rope_hd == 0 and
+// whole heads in the 128-column tile (the GEMV's 64 for M <= 8 unless
+// half-style heads are wider than 64).
 extern "C" int w8_matmul(const void* x, int M, int Kx, long long x_stride, const void* q8,
                          const void* scales, const void* zs, int N, int gs, const void* norm,
                          float eps, const void* residual, const void* cos_row,
-                         const void* sin_row, int rope_style, int rope_hd, void* out,
-                         void* stream) {
+                         const void* sin_row, int rope_style, int rope_hd, void* out, void* xt,
+                         void* xsum, void* ws, int split, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const int8_t* q = static_cast<const int8_t*>(q8);
@@ -410,7 +538,7 @@ extern "C" int w8_matmul(const void* x, int M, int Kx, long long x_stride, const
   const float* cr = static_cast<const float*>(cos_row);
   const float* sr = static_cast<const float*>(sin_row);
   bf16* o = static_cast<bf16*>(out);
-  if (M <= 0 || Kx <= 0 || gs % BK != 0 || Kx % gs != 0 || N <= 0 || N % 8 != 0)
+  if (M <= 0 || Kx <= 0 || gs % TBK != 0 || Kx % gs != 0 || N <= 0 || N % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (rope_style != 0 && (rope_hd <= 0 || rope_hd % 2 != 0 || N % rope_hd != 0))
     return (int)cudaErrorInvalidValue;
@@ -442,9 +570,51 @@ extern "C" int w8_matmul(const void* x, int M, int Kx, long long x_stride, const
     }
     return (int)cudaGetLastError();
   }
-  if (rope_style == 2 && BN % rope_hd != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  w8_mma_kernel<<<grid, THREADS, 0, st>>>(xb, M, Kx, x_stride, q, sc, z, N, gs, nw, eps, res, cr,
-                                          sr, rope_style, rope_hd, o);
+  const int granules = Kx / gs;
+  if (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) return (int)cudaErrorInvalidValue;
+  if (split < 1 || split > granules || xt == nullptr || xsum == nullptr ||
+      (split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  W8Tile A{};
+  w4tile::TileArgs& a = A.t;
+  a.x = xb;
+  a.x_stride = x_stride;
+  a.M = M;
+  a.Kx = Kx;
+  a.xt = static_cast<bf16*>(xt);
+  a.norm = nw;
+  a.eps = eps;
+  a.scales = sc;
+  a.zs = z;
+  a.xsum = static_cast<float*>(xsum);
+  a.N = N;
+  a.gs = gs;
+  a.Mpad = (M + TBM - 1) / TBM * TBM;
+  a.granules = granules;
+  a.granule_steps = gs / TBK;
+  a.split = split;
+  a.ws = static_cast<float*>(ws);
+  a.out = o;
+  a.residual = res;
+  a.cos_row = cr;
+  a.sin_row = sr;
+  a.rope_style = rope_style;
+  a.rope_hd = rope_hd;
+  A.q8 = q;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      w8_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TSMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaError_t e;
+  if (nw != nullptr) {
+    w4tile::rms_kernel<w8_prep><<<a.Mpad / 8, w4tile::PREP_THREADS, 0, st>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  w4tile::prep_kernel<w8_prep><<<dim3(a.Mpad / 8, granules), w4tile::PREP_THREADS, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  w8_tile_kernel<<<dim3(a.Mpad / TBM, (N + TBN - 1) / TBN, split), TTHREADS, TSMEM, st>>>(A);
+  if ((e = cudaGetLastError()) != cudaSuccess || split == 1) return (int)e;
+  w4tile::reduce_kernel<w8_prep>
+      <<<dim3((N + w4tile::RED_BN - 1) / w4tile::RED_BN, (M + w4tile::RED_ROWS - 1) / w4tile::RED_ROWS),
+         w4tile::RED_ROWS * 32, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

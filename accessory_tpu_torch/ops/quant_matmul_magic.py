@@ -10,10 +10,10 @@ bf16 and the weight is computed in bf16 arithmetic.
 Words are packed per K tile of ``tk`` rows so that the kernel's natural
 extraction order is row order: word w of a tile holds, at nibble i + 4h,
 the tile's row i * tk/4 + 2w + h. The CUDA kernel is
-``csrc/w4_matmul_magic.cu`` (a GEMV for M <= 8 rows, the many-row tile of
-``csrc/w4_tile.cuh`` above, K split over blocks by the plan of
-``ops/w4_tile.py``); ``magic_qmm_plain`` is its plain PyTorch version and
-the path for tensors on the CPU.
+``csrc/w4_matmul_magic.cu`` (a tensor-core GEMV for M <= 8 rows, the
+many-row tile of ``csrc/w4_tile.cuh`` above, K split over blocks by the
+plans of ``ops/w4_tile.py``); ``magic_qmm_plain`` is its plain PyTorch
+version and the path for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -23,12 +23,8 @@ from typing import Optional
 import torch
 
 from accessory_tpu_torch import kernels
-from accessory_tpu_torch.ops import w4_tile
+from accessory_tpu_torch.ops.quant_matmul_pallas import elem_kernel_call
 from accessory_tpu_torch.quant.qtensor import pack_int, unpack_int
-
-_ARGS = [kernels.P, kernels.I, kernels.I, kernels.L, kernels.P, kernels.P, kernels.P,
-         kernels.I, kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.I,
-         kernels.P]
 
 
 def _perm(in_dim: int, tk: int, device) -> torch.Tensor:
@@ -84,8 +80,8 @@ def magic_qmm(x2d: torch.Tensor, packed_magic: torch.Tensor, scales: torch.Tenso
 
     packed_magic (K/8, N) int32 words (``repack_for_magic``); scales = s / 16
     and zeros_plus = 256 + 16 z, (>= K/gs, N) f32 (``magic_constants``);
-    Kx <= K (missing columns count as zero). ``split``: the many-row tile's
-    K split on the card (None: ``w4_tile.elem_plan``'s)."""
+    Kx <= K (missing columns count as zero). ``split``: the K split on the
+    card (None: the plan's, as ``quant_matmul_pallas``)."""
     k = packed_magic.shape[0] * 8
     if x2d.device.type == "cpu":
         return magic_qmm_plain(x2d, packed_magic, scales, zeros_plus, group_size=group_size,
@@ -108,20 +104,9 @@ def magic_qmm(x2d: torch.Tensor, packed_magic: torch.Tensor, scales: torch.Tenso
     for t in (scales, zeros_plus):
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= k // group_size, "scales/zeros_plus must be contiguous f32 (G, N)")
-    _check(m <= 8 or all(t.data_ptr() % 16 == 0 for t in (packed_magic, scales, zeros_plus)),
-           "the many-row tile bulk-copies packed_magic, scales and zeros_plus rows: they "
-           "must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
-    buf = xt = ws = None
-    nsplit = 1
-    if m > 8:
-        plan = w4_tile.elem_plan(m, n, kx, tk, split=split)
-        buf, xt, _, ws = w4_tile.scratch(plan, x2d.device, xsum=False)   # buf: held to the launch
-        nsplit = plan.split
-    fn = kernels.function("w4_matmul_magic", "w4_matmul_magic", _ARGS)
-    rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), packed_magic.data_ptr(), scales.data_ptr(),
-            zeros_plus.data_ptr(), k, n, group_size, tk, out.data_ptr(), xt, ws,
-            nsplit, kernels.stream_ptr(x2d))
+    rc = elem_kernel_call(x2d, packed_magic, scales, zeros_plus, out, k=k,
+                          group_size=group_size, tk=tk, split=split)
     kernels.check("w4_matmul_magic", rc)
     return out
 

@@ -2,9 +2,9 @@
 give (``quant/omniquant.py``), zeros in quantized units and not folded.
 
 Port of ``accessory_tpu/ops/quant_matmul_pallas.py::quant_matmul_pallas``.
-The CUDA kernel is ``csrc/w4_matmul_std.cu`` (a GEMV for M <= 8 rows, the
-many-row tile of ``csrc/w4_tile.cuh`` above, K split over blocks by the plan
-of ``ops/w4_tile.py``); ``quant_matmul_pallas_plain`` is its plain
+The CUDA kernel is ``csrc/w4_matmul_std.cu`` (a tensor-core GEMV for M <= 8
+rows, the many-row tile of ``csrc/w4_tile.cuh`` above, K split over blocks by
+the plans of ``ops/w4_tile.py``); ``quant_matmul_pallas_plain`` is its plain
 PyTorch version and the path for tensors on the CPU. Both compute the TPU
 kernel's numerics: each weight (q - z) * s in f32, rounded to the
 activation dtype, then an f32 product. No prologue or epilogue.
@@ -22,13 +22,16 @@ from accessory_tpu_torch.quant.qtensor import QuantizedWeight, dequantize_weight
 
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.L, kernels.P, kernels.P, kernels.P,
          kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.I, kernels.P]
+# w4_matmul_magic: the same with the magic tile tk after group_size
+_MAGIC_ARGS = _ARGS[:10] + [kernels.I] + _ARGS[10:]
 
 
 def quant_matmul_pallas(x: torch.Tensor, qw: QuantizedWeight, *,
                         split: Optional[int] = None) -> torch.Tensor:
     """x (..., Kx) @ std-layout W4 qw (in_dim, out_dim) -> (..., out_dim) in
     qw.act_dtype; Kx <= in_dim (missing columns count as zero). ``split``:
-    the many-row tile's K split on the card (None: ``w4_tile.elem_plan``'s)."""
+    the K split on the card (None: the plan's, ``w4_tile.gemv_split`` for
+    the GEMV at M <= 8, ``w4_tile.elem_plan`` for the many-row tile)."""
     if qw.layout != "std" or qw.bits != 4:
         raise ValueError(f"quant_matmul_pallas takes std-layout W4 weights, not "
                          f"{qw.layout!r} W{qw.bits}")
@@ -54,22 +57,48 @@ def quant_matmul_pallas(x: torch.Tensor, qw: QuantizedWeight, *,
     for t in (qw.scales, qw.zeros):
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= k // gs, "scales/zeros must be contiguous f32 (G, N)")
-    _check(m <= 8 or all(t.data_ptr() % 16 == 0 for t in (qw.packed, qw.scales, qw.zeros)),
-           "the many-row tile bulk-copies packed, scales and zeros rows: they must be "
-           "16-byte aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
-    buf = xt = ws = None
-    nsplit = 1
-    if m > 8:
-        plan = w4_tile.elem_plan(m, n, kx, split=split)
-        buf, xt, _, ws = w4_tile.scratch(plan, x2d.device, xsum=False)   # buf: held to the launch
-        nsplit = plan.split
-    fn = kernels.function("w4_matmul_std", "w4_matmul_std", _ARGS)
-    rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), qw.packed.data_ptr(), qw.scales.data_ptr(),
-            qw.zeros.data_ptr(), k, n, gs, out.data_ptr(), xt, ws, nsplit,
-            kernels.stream_ptr(x2d))
+    rc = elem_kernel_call(x2d, qw.packed, qw.scales, qw.zeros, out, k=k, group_size=gs,
+                          split=split)
     kernels.check("w4_matmul_std", rc)
     return out.reshape(*lead, n)
+
+
+def elem_kernel_call(x2d, packed, scales, zeros, out, *, k: int, group_size: int,
+                     tk: Optional[int] = None, split: Optional[int] = None) -> int:
+    """The std (tk None) or magic (tile tk) C call on operands the wrapper
+    checked: the 16-byte alignment every row count needs (the GEMV and the
+    tile copy packed, scales and zeros rows in 16-byte pieces; rows of N
+    words or floats, N % 8 == 0, are then aligned too), the plan's K split
+    and, for M > 8, the tile's scratch, held to the launch. Returns the C
+    entry's cudaError_t."""
+    m, kx = x2d.shape
+    n = packed.shape[1]
+    name = "quant_matmul_pallas" if tk is None else "magic_qmm"
+    if not all(t.data_ptr() % 16 == 0 for t in (packed, scales, zeros)):
+        raise ValueError(f"{name}: the kernels copy packed, scales and zeros rows in 16-byte "
+                         "pieces: they must be 16-byte aligned")
+    buf, xt, ws, nsplit = _plan_scratch(m, n, kx, tk, split, x2d.device)
+    entry = "w4_matmul_std" if tk is None else "w4_matmul_magic"
+    fn = kernels.function(entry, entry, _ARGS if tk is None else _MAGIC_ARGS)
+    rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), packed.data_ptr(), scales.data_ptr(),
+            zeros.data_ptr(), k, n, group_size, *(() if tk is None else (tk,)), out.data_ptr(),
+            xt, ws, nsplit, kernels.stream_ptr(x2d))
+    del buf   # the caching allocator reuses it only for later work on the stream
+    return rc
+
+
+def _plan_scratch(m: int, n: int, kx: int, tk: Optional[int], split: Optional[int], device):
+    """The K split of the std (tk None) or magic kernel, and for M > 8 the
+    tile's scratch (one allocation: the tiled x, the split's partials):
+    (buffer, xt, ws, split). The GEMV (M <= 8) splits K over a cluster and
+    needs none."""
+    units = w4_tile.elem_units(kx, tk)
+    if m <= 8:
+        return None, None, None, w4_tile.gemv_split(n, units, split)
+    plan = w4_tile.elem_plan(m, n, kx, tk, split=split)
+    buf, xt, _, ws = w4_tile.scratch(plan, device, xsum=False)
+    return buf, xt, ws, plan.split
 
 
 def quant_matmul_pallas_plain(x2d: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Port of ``accessory_tpu/ops/quant_matmul_w8.py`` (``repack_for_w8``,
 ``w8_qmm``, ``choose_tile_k_w8``). The CUDA kernel is ``csrc/w8_matmul.cu``
-(a GEMV for M <= 8 rows, a tiled mma.sync kernel above, any M);
+(a GEMV for M <= 8 rows, a wgmma tile above with a row-prep pass and K split
+by the plan of ``ops/w4_tile.py``, any M);
 ``w8_qmm_plain`` is its plain PyTorch version and the path for tensors on the
 CPU. Both compute the TPU kernel's numerics:
 
@@ -22,13 +23,15 @@ from typing import Optional
 import torch
 
 from accessory_tpu_torch import kernels
+from accessory_tpu_torch.ops import w4_tile
 from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import rotate_flat
 
 _STYLES = {"": 0, "interleaved": 1, "half": 2}
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.L, kernels.P, kernels.P, kernels.P,
          kernels.I, kernels.I, kernels.P, kernels.F, kernels.P, kernels.P, kernels.P,
-         kernels.I, kernels.I, kernels.P, kernels.P]
+         kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I,
+         kernels.P]
 
 
 def repack_for_w8(packed_std: torch.Tensor, in_dim: int) -> torch.Tensor:
@@ -57,13 +60,15 @@ def w8_qmm(x2d: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zs: torch.
            residual: Optional[torch.Tensor] = None,
            rope_cos: Optional[torch.Tensor] = None,
            rope_sin: Optional[torch.Tensor] = None, *, group_size: int,
-           norm_eps: float = 1e-5, rope_style: str = "", rope_hd: int = 0) -> torch.Tensor:
+           norm_eps: float = 1e-5, rope_style: str = "", rope_hd: int = 0,
+           split: Optional[int] = None) -> torch.Tensor:
     """x2d (M, Kx) @ W8 (K, N) -> (M, N) in x2d's dtype.
 
     q8 (K, N) int8 (q - 128); scales / zs (>= K/gs, N) f32, zs = (zeros - 128)
     * scales; Kx <= K (missing columns count as zero). norm_weight (Kx,):
     RMSNorm prologue; residual (M, N): added after the cast; rope_cos /
-    rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows)."""
+    rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows). ``split``: the
+    tile's K split on the card, M > 8 (None: ``w4_tile.w8_plan``'s)."""
     if (rope_cos is None) != (not rope_style):
         raise ValueError("rope rows and rope_style go together")
     if x2d.device.type == "cpu":
@@ -100,14 +105,35 @@ def w8_qmm(x2d: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zs: torch.
             _check(t.dtype == dt and t.is_contiguous() and tuple(t.shape) == shape,
                    f"fusion operand must be contiguous {dt} {shape}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
+    rc = _kernel_call(x2d, q8, scales, zs, norm_weight, residual, rope_cos, rope_sin, out,
+                      group_size=group_size, norm_eps=norm_eps, rope_style=rope_style,
+                      rope_hd=rope_hd, split=split)
+    kernels.check("w8_matmul", rc)
+    return out
+
+
+def _kernel_call(x2d, q8, scales, zs, norm_weight, residual, rope_cos, rope_sin, out, *,
+                 group_size: int, norm_eps: float, rope_style: str, rope_hd: int,
+                 split: Optional[int]) -> int:
+    """The C call on checked operands; M > 8 with the plan's scratch (the
+    tiled x, sum(x) per group and 1 / rms, the split's partials) in one
+    allocation held to the launch. Returns the C entry's cudaError_t."""
+    m, kx = x2d.shape
+    n = q8.shape[1]
+    buf = xt = xsum = ws = None
+    nsplit = 1
+    if m > 8:
+        plan = w4_tile.w8_plan(m, n, kx, group_size, split)
+        buf, xt, xsum, ws = w4_tile.scratch(plan, x2d.device, xsum=True)
+        nsplit = plan.split
     fn = kernels.function("w8_matmul", "w8_matmul", _ARGS)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), q8.data_ptr(), scales.data_ptr(),
             zs.data_ptr(), n, group_size, ptr(norm_weight), norm_eps, ptr(residual),
-            ptr(rope_cos), ptr(rope_sin), _STYLES[rope_style], rope_hd, out.data_ptr(),
-            kernels.stream_ptr(x2d))
-    kernels.check("w8_matmul", rc)
-    return out
+            ptr(rope_cos), ptr(rope_sin), _STYLES[rope_style], rope_hd, out.data_ptr(), xt,
+            xsum, ws, nsplit, kernels.stream_ptr(x2d))
+    del buf   # the caching allocator reuses it only for later work on the stream
+    return rc
 
 
 def w8_dequant(q8: torch.Tensor, scales: torch.Tensor, kx: int, group_size: int,

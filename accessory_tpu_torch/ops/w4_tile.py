@@ -1,16 +1,21 @@
-"""Launch plan of the many-row W4 tile (``csrc/w4_tile.cuh``).
+"""Launch plans of the many-row W4 tile (``csrc/w4_tile.cuh``), the W8 tile
+(``csrc/w8_matmul.cu``) and the std / magic GEMV (``csrc/w4_elem.cuh``).
 
-Row 1's fused tile (``csrc/w4_matmul.cu``, M > 16) and the std / magic tile
-(``csrc/w4_elem.cuh``, M > 8) cover the output with tiles of ``TILE_M`` rows
-and ``TILE_N`` columns. Where those tiles are too few to fill the blocks the
-H100's 132 SMs hold at once, K is split over blocks: split i
-takes granules [i * G // split, (i + 1) * G // split) of the G K granules
-(whole quantization groups for the folded layout, whose zero point is folded
-per group; 64-row units for std / magic), writes its f32 partial tile to a
-(split, M, N) workspace, and the C call's reduction pass sums the partials
-in split order (deterministic) before the epilogue. The C call's row-prep
-pass first writes x, tiled in the order the stages copy it, to a scratch of
-``xt_shape``.
+Row 1's fused tile (``csrc/w4_matmul.cu``, M > 16), the std / magic tile
+(``csrc/w4_elem.cuh``, M > 8) and the W8 tile (M > 8) cover the output with
+tiles of ``tile_m`` rows and ``tile_n`` columns. Where those tiles are too
+few to fill the blocks the H100's 132 SMs hold at once, K is split over
+blocks: split i takes granules [i * G // split, (i + 1) * G // split) of the
+G K granules (whole quantization groups for the folded layout and W8, whose
+zero point is folded out per group; 64-row units for std / magic), writes
+its f32 partial tile to a (split, M, N) workspace, and the C call's
+reduction pass sums the partials in split order (deterministic) before the
+epilogue. The C call's row-prep pass first writes x, tiled in the order the
+stages copy it, to a scratch of ``xt_shape``.
+
+The std / magic GEMV (M <= 8) splits K over the blocks of a cluster
+(``gemv_split``): the blocks' partial tiles are summed in rank order through
+distributed shared memory, so it needs no scratch.
 
 ``plan`` is a pure function of the shape (cached: a model calls a few shapes
 many times), so the CPU tests check its rules; the wrappers allocate the
@@ -30,10 +35,12 @@ SMS = 132               # streaming multiprocessors of the H100 SXM
 TILE_N = 128
 TILE_K = 64             # K rows of a pipeline stage
 TILE_M = 64             # csrc/w4_tile.cuh BM (wgmma's N)
+W8_TILE_M, W8_TILE_N = 256, 128   # csrc/w8_matmul.cu TBM x TBN
 # tile blocks an SM holds at once (the compiled kernels' registers and shared
 # memory, chip_smoke.py's build line: folded 161 registers a thread, std 116
 # and 53 KB, magic 106 and 65 KB)
 FOLDED_SLOTS, STD_SLOTS, MAGIC_SLOTS = 3, 4, 3
+W8_SLOTS = 1            # the W8 tile's 208 KB of shared memory: one block an SM
 MIN_SPLIT_STEPS = 2     # K stages a split takes at least
 MAX_SPLIT = 16
 BLOCK_OVERHEAD_STEPS = 4   # a block's fill, epilogue and partial write, in K stages
@@ -44,13 +51,14 @@ class TilePlan:
     m: int
     n: int
     tile_m: int
-    granules: int        # K granules: groups (folded) or 64-row units (std / magic)
+    granules: int        # K granules: groups (folded, W8) or 64-row units (std / magic)
     granule_rows: int    # K rows per granule
     split: int
+    tile_n: int = TILE_N
 
     @property
     def tiles(self) -> int:
-        return math.ceil(self.m / self.tile_m) * math.ceil(self.n / TILE_N)
+        return math.ceil(self.m / self.tile_m) * math.ceil(self.n / self.tile_n)
 
     @property
     def blocks(self) -> int:
@@ -77,14 +85,14 @@ class TilePlan:
 
     @property
     def xsum_shape(self) -> Tuple[int, int]:
-        """Folded only: sum(x) per (group, row), then 1 / rms per row (the
-        norm's), rows padded to the tile."""
+        """Folded and W8 only: sum(x) per (group, row), then 1 / rms per row
+        (the norm's), rows padded to the tile."""
         return (self.granules + 1, self.m_pad)
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(m: int, n: int, granules: int, granule_rows: int, tile_m: int, slots: int,
-         split: Optional[int] = None) -> TilePlan:
+         split: Optional[int] = None, tile_n: int = TILE_N) -> TilePlan:
     """The tile plan of an (m, n) output over ``granules`` K granules.
 
     ``split`` None: 1 when the output tiles alone fill half the blocks the
@@ -95,7 +103,7 @@ def plan(m: int, n: int, granules: int, granule_rows: int, tile_m: int, slots: i
     ``BLOCK_OVERHEAD_STEPS``), the smaller on a tie: a model fitted to the
     card's times at the serving shapes (PERF.md, rows 1, 24 and 25)."""
     if split is None:
-        tiles = math.ceil(m / tile_m) * math.ceil(n / TILE_N)
+        tiles = math.ceil(m / tile_m) * math.ceil(n / tile_n)
         split = 1
         if 2 * tiles < SMS * slots:
             steps_per_granule = granule_rows // TILE_K
@@ -110,13 +118,20 @@ def plan(m: int, n: int, granules: int, granule_rows: int, tile_m: int, slots: i
             split = min(range(1, most + 1), key=lambda s: (cost(s), s))
     if not 1 <= split <= max(1, granules):
         raise ValueError(f"split {split} must lie in [1, {granules}] granules")
-    return TilePlan(m, n, tile_m, granules, granule_rows, split)
+    return TilePlan(m, n, tile_m, granules, granule_rows, split, tile_n)
 
 
 def folded_plan(m: int, n: int, kx: int, group_size: int,
                 split: Optional[int] = None) -> TilePlan:
     """Row 1 (``planes_qmm``, M > 16): K split in whole groups."""
     return plan(m, n, kx // group_size, group_size, TILE_M, FOLDED_SLOTS, split)
+
+
+def w8_plan(m: int, n: int, kx: int, group_size: int,
+             split: Optional[int] = None) -> TilePlan:
+    """Row 22's tile (``w8_qmm``, M > 8): 256 x 128 tiles, K split in whole
+    groups (the zero-point term is summed per split)."""
+    return plan(m, n, kx // group_size, group_size, W8_TILE_M, W8_SLOTS, split, W8_TILE_N)
 
 
 def elem_units(kx: int, tk: Optional[int] = None) -> int:
@@ -135,10 +150,34 @@ def elem_plan(m: int, n: int, kx: int, tk: Optional[int] = None,
                 STD_SLOTS if tk is None else MAGIC_SLOTS, split)
 
 
+GEMV_TILE_N = 128        # csrc/w4_elem.cuh GEMV_BN
+GEMV_MAX_SPLIT = 8       # blocks of a cluster (the portable most)
+GEMV_BLOCKS = 352        # blocks the GEMV aims at, ~2.7 an SM
+GEMV_MIN_UNITS = 2       # 64-row units a split takes at least
+
+
+@functools.lru_cache(maxsize=4096)
+def gemv_split(n: int, units: int, split: Optional[int] = None) -> int:
+    """Rows 24 / 25's GEMV (M <= 8): the K split (the cluster's blocks) for
+    ``ceil(n / 128)`` column tiles over ``units`` 64-row units. None: the
+    split nearest ``GEMV_BLOCKS`` blocks, at most ``GEMV_MAX_SPLIT`` and
+    each split at least ``GEMV_MIN_UNITS`` units: a model fitted to a sweep
+    of every split at the GPTQ decode's shapes on the card (PERF.md, rows
+    24 and 25)."""
+    if split is None:
+        tiles = math.ceil(n / GEMV_TILE_N)
+        split = max(1, min(GEMV_MAX_SPLIT, units // GEMV_MIN_UNITS,
+                           int(GEMV_BLOCKS / tiles + 0.5)))
+    if not 1 <= split <= min(GEMV_MAX_SPLIT, units):
+        raise ValueError(f"split {split} must lie in [1, {min(GEMV_MAX_SPLIT, units)}]: "
+                         f"a cluster of at most {GEMV_MAX_SPLIT} blocks over {units} units")
+    return split
+
+
 def scratch(p: TilePlan, device, xsum: bool):
     """One allocation for the C call's scratch, and the addresses in it of
     the tiled x (bf16 ``xt_shape``), the x sums (f32 ``xsum_shape``, folded
-    only, else None) and the split partials (f32 ``ws_shape``, None unless K
+    and W8 only, else None) and the split partials (f32 ``ws_shape``, None unless K
     is split), each 256-byte aligned. The tensor must outlive the launch (the
     caching allocator reuses it only for later work on the stream)."""
     sizes = [math.prod(p.xt_shape) * 2, math.prod(p.xsum_shape) * 4 if xsum else 0,

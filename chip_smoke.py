@@ -11,7 +11,7 @@
                                                train_parity,train_qpeft7b,train_full,
                                                finetune,parity_ffn,serve_ffn,decode_ffn,
                                                decode7b_ffn,paged_ro,cp_shards,train_cp]
-                          [--out FILE]
+                          [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -24,9 +24,10 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             between CUDA events, and the bound from bytes and operations at the
             H100's 3.35 TB/s and 989 TFLOP/s (the fused FFN beside the unfused
             chain's device time, the read-only paged decode also against the
-            paged decode after the token's paged write; where the many-row W4
-            tile splits K, a second launch bit-equal to the first and the
-            unsplit plan within tolerance);
+            paged decode after the token's paged write; where a plan splits K
+            (the many-row W4 and W8 tiles, the std / magic GEMV's cluster), a
+            second launch bit-equal to the first and the unsplit plan within
+            tolerance); --kernel_names keeps the rows of some kernels only;
   parity    TinyLlama width, 2 layers: CPU through the plain versions against
             the card through the kernels, prefill logits and 16 greedy decode
             steps (teacher-forced on the CPU tokens);
@@ -164,6 +165,10 @@ L2_BYTES = 50 * 2 ** 20
 
 TINYLLAMA = dict(dim=2048, n_layers=22, n_heads=32, n_kv_heads=4, vocab_size=32000,
                  multiple_of=256, dtype="bfloat16")
+# TinyLlama's decode-layer projections (name, K, N, the fusion the decode
+# path gives them)
+TINY_PROJ = [("wqkv", 2048, 2560, "norm+rope"), ("wo", 2048, 2048, "res"),
+             ("w13", 2048, 11264, "norm"), ("w2", 5632, 2048, "res")]
 LLAMA2_7B = dict(dim=4096, n_layers=32, n_heads=32, vocab_size=32000, multiple_of=256,
                  dtype="bfloat16")
 KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention8",
@@ -178,6 +183,7 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
 
 _out_file = None
 _empty_traces = 0   # profiler traces that came back without device events
+_short_traces = 0   # profiler traces that lost some kernel events
 
 
 def emit(obj) -> None:
@@ -216,13 +222,16 @@ def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3, by=None):
     """Device ms per call over round-robin argument sets: the summed duration
     of every kernel the calls launched, from the profiler's CUDA trace, so
     host overhead between launches is not counted; the median of ``repeats``
-    traces, so one stray in a trace does not make the reading. A trace
-    that comes back without device events (the CUDA trace is sometimes
-    empty) is taken again, up to 5 times, and counted in ``_empty_traces``;
-    then it raises: no other clock stands in for it. ``by``: kernel-name
-    substrings; then {substring: ms per call} of the kernels whose name holds
-    each."""
-    global _empty_traces
+    traces, so one stray in a trace does not make the reading. The CUDA
+    trace sometimes loses kernel events (all, or a few of a run's), and the
+    sum of a trace that lost some reads low. A trace without device time is
+    taken again, up to 5 times in all, and then it raises: no other clock
+    stands in for it. A trace that holds fewer kernel events than calls
+    (every call launches one at least), or than another trace of the same
+    calls, is taken again up to twice, then used. Both are counted
+    (``_empty_traces``, ``_short_traces``). ``by``: kernel-name substrings;
+    then {substring: ms per call} of the kernels whose name holds each."""
+    global _empty_traces, _short_traces
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -231,24 +240,33 @@ def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3, by=None):
         fn(*a)
     torch.cuda.synchronize()
     n = len(arg_sets) * max(1, math.ceil(min_iters / len(arg_sets)))
-    per_call = []
+    per_call, most = [], 0
     for _ in range(repeats):
+        events, shorts = None, 0
         for _attempt in range(5):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for i in range(n):
                     fn(*arg_sets[i % len(arg_sets)])
                 torch.cuda.synchronize()
-            events = [(e.key, getattr(e, "self_device_time_total", 0))
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            if sum(us for _, us in events) > 0:
+            got = [(e.key, getattr(e, "self_device_time_total", 0), e.count)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if sum(us for _, us, _ in got) <= 0:
+                _empty_traces += 1
+                continue
+            events, count = got, sum(c for _, _, c in got)
+            most = max(most, count)
+            if count >= max(n, most):
                 break
-            _empty_traces += 1
-        else:
+            _short_traces += 1
+            shorts += 1
+            if shorts == 3:
+                break
+        if events is None:
             raise RuntimeError("time_ms: 5 profiler traces in a row held no device time")
         if by is None:
-            per_call.append(sum(us for _, us in events) / 1e3 / n)
+            per_call.append(sum(us for _, us, _ in events) / 1e3 / n)
         else:
-            per_call.append({sub: sum(us for key, us in events if sub in key) / 1e3 / n
+            per_call.append({sub: sum(us for key, us, _ in events if sub in key) / 1e3 / n
                              for sub in by})
     if by is None:
         return statistics.median(per_call)
@@ -408,8 +426,9 @@ def _w4_weight_sets(kr, m, k, n, fusion, rope, copies=None):
 
 
 def _split_check(label, split, got, want, launch):
-    """Where a many-row W4 tile's plan splits K: a second launch bit-equal to
-    the first (the partials are summed in split order) and the unsplit plan
+    """Where a kernel's plan splits K (the many-row W4 and W8 tiles, the std
+    / magic GEMV's cluster): a second launch bit-equal to the first (the
+    partials are summed in split order) and the unsplit plan
     (``launch(1)``) within the rows' tolerance; the row's extra fields."""
     import torch
 
@@ -1172,13 +1191,16 @@ def _w8_weight_sets(kr, m, k, n, fusion, rope):
                     group_size=128, rope_style=style if "rope" in fusion else "",
                     rope_hd=hd if "rope" in fusion else 0)
         sets.append((args, dense_weight(qw, torch.bfloat16)[:k]))
-    return sets, qw_bytes + io_bytes
+    # the bound counts the rows and groups the function reads: k's, not the padding's
+    return sets, k * n + 2 * -(-k // 128) * n * 4 + io_bytes
 
 
 def _kernels_w8(kr, tag, specs, rope):
-    """w8_qmm (GEMV for M <= 8, the mma tile above) with its fusions."""
+    """w8_qmm (GEMV for M <= 8, the wgmma tile above) with its fusions; the
+    tile's K split checked (``_split_check``)."""
     import torch
 
+    from accessory_tpu_torch.ops import w4_tile
     from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
 
     for name, k, n, m, fusion in specs:
@@ -1188,14 +1210,19 @@ def _kernels_w8(kr, tag, specs, rope):
         want = w8_qmm_plain(**a0)
         torch.cuda.synchronize()
         # the same bf16 weights and f32 sums in another order: a rounding step or two
-        check_close(f"w8_matmul {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
+        label = f"w8_matmul {tag} {name} M={m}"
+        check_close(label, got, want, rtol=2e-2, atol=2e-2)
+        extra = {} if m <= 8 else _split_check(
+            label, w4_tile.w8_plan(m, n, k, 128).split, got, want,
+            lambda sp: w8_qmm(**a0, split=sp))
         calls = [(s[0],) for s in sets]
         k_ms = time_ms(lambda a: w8_qmm(**a), calls)
         k_wall = wall_ms(lambda a: w8_qmm(**a), calls)
         p_ms = time_ms(lambda a: w8_qmm_plain(**a), calls[:1], min_iters=3)
         lib_ms = time_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
         kr.record("w8_matmul", f"{tag} {name} M={m} K={k} N={n} {fusion or 'none'}",
-                  max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n)
+                  max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n,
+                  **extra)
         del sets
 
 
@@ -1216,8 +1243,9 @@ def _gptq_like_weight(gen, k, n, gs=128):
 
 def _kernels_w4elem(kr, tag, specs):
     """quant_matmul_pallas (std W4, GPTQ zeros) and magic_qmm (the magic words
-    of the same weight) at the GPTQ serve paths' shapes; the many-row tile's
-    K split checked (``_split_check``)."""
+    of the same weight) at the GPTQ serve paths' shapes; the GEMV's cluster
+    split and the many-row tile's K split checked (``_split_check``). A spec
+    (name, K, N, M[, Kx]): Kx < K is x narrower than a padded in_dim."""
     import torch
 
     from accessory_tpu_torch.ops import w4_tile
@@ -1226,10 +1254,14 @@ def _kernels_w4elem(kr, tag, specs):
                                                              quant_matmul_pallas_plain)
     from accessory_tpu_torch.quant.qtensor import dense_weight, to_magic_layout
 
-    for name, k, n, m in specs:
-        nbytes = k * n / 2 + 2 * (k // 128) * n * 4 + m * k * 2 + m * n * 2
-        std = [_gptq_like_weight(kr.gen, k, n) for _ in range(n_copies(nbytes))]
-        xs = [kr.randn(m, k) for _ in std]
+    for name, k, n, m, *rest in specs:
+        kx = rest[0] if rest else k
+        io_bytes = m * kx * 2 + m * n * 2
+        std = [_gptq_like_weight(kr.gen, k, n)
+               for _ in range(n_copies(k * n / 2 + 2 * (k // 128) * n * 4 + io_bytes))]
+        # the bound counts the weight rows and groups the function reads: Kx's
+        nbytes = kx * n / 2 + 2 * -(-kx // 128) * n * 4 + io_bytes
+        xs = [kr.randn(m, kx) for _ in std]
         for kernel, fn, plain in (
                 ("w4_matmul_std", quant_matmul_pallas, quant_matmul_pallas_plain),
                 ("w4_matmul_magic",
@@ -1241,18 +1273,21 @@ def _kernels_w4elem(kr, tag, specs):
             calls = list(zip(xs, qws))
             got, want = fn(*calls[0]), plain(*calls[0])
             torch.cuda.synchronize()
-            check_close(f"{kernel} {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
+            label = f"{kernel} {tag} {name} M={m}"
+            check_close(label, got, want, rtol=2e-2, atol=2e-2)
             tk = None if kernel == "w4_matmul_std" else qws[0].tile_k
-            extra = {} if m <= 8 else _split_check(
-                f"{kernel} {tag} {name} M={m}", w4_tile.elem_plan(m, n, k, tk).split, got, want,
-                lambda sp: fn(*calls[0], split=sp))
-            dense = [(x, dense_weight(q, torch.bfloat16)) for x, q in calls]
+            split = (w4_tile.elem_plan(m, n, kx, tk).split if m > 8 else
+                     w4_tile.gemv_split(n, w4_tile.elem_units(kx, tk)))
+            extra = _split_check(
+                label, split, got, want, lambda sp: fn(*calls[0], split=sp))
+            dense = [(x, dense_weight(q, torch.bfloat16)[:kx]) for x, q in calls]
             k_ms = time_ms(fn, calls)
             k_wall = wall_ms(fn, calls)
             p_ms = time_ms(plain, calls[:1], min_iters=3)
             lib_ms = time_ms(lambda x, d: torch.matmul(x, d), dense)
-            kr.record(kernel, f"{tag} {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
-                      k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n, **extra)
+            kr.record(kernel, f"{tag} {name} M={m} K={k} N={n}" + (f" Kx={kx}" if kx < k else ""),
+                      max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * kx * n,
+                      **extra)
             del dense, qws, calls
         del std, xs
 
@@ -1390,165 +1425,191 @@ def _kernels_paged_ro(kr, tag, nkv, r, hd, lengths, ps=64, most_copies=32):
     del sets, lib_sets
 
 
-def phase_kernels(seed: int):
-    """Every kernel against its plain version at the main paths' shapes."""
+def phase_kernels(seed: int, names=None):
+    """Every kernel against its plain version at the main paths' shapes;
+    ``names``: only the groups of rows of these kernels (all when None)."""
     from accessory_tpu_torch.ops.rope import precompute_rope, rope_rows
 
     kr = KernelRows(seed)
 
-    # -- TinyLlama-1.1B (GQA) path: the four decode-layer projections at M 1 (the
-    #    stream phase's decode: the one-row GEMV), 4 (the serve phases' decode
-    #    batch), 8 (the decode phases'), 128 (the stream phase's prefill) and 512
-    #    (the serve phases' prefill)
-    cos, sin = precompute_rope(64, 1024, device="cuda")
-    rope = rope_rows(cos, sin, 36, 4, 64, "interleaved") + ("interleaved", 64)
-    _kernels_w4(kr, "tiny", [("wqkv", 2048, 2560, "norm+rope"), ("wo", 2048, 2048, "res"),
-                             ("w13", 2048, 11264, "norm"), ("w2", 5632, 2048, "res")],
-                (1, 4, 8, 128, 512), rope)
-    # -- the stacked path's separate projections, with no prologue or epilogue
-    #    (wk and wv, w1 and w3 share a shape; its wo and w2 are the rows above)
-    _kernels_w4(kr, "tiny", [("wq", 2048, 2048, ""), ("wk/wv", 2048, 256, ""),
-                             ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope)
-    # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 (K 11008 is
-    #    padded to 11264 in the weight; RoPE at head_dim 128)
-    cos, sin = precompute_rope(128, 1024, device="cuda")
-    rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
-    _kernels_w4(kr, "7b", [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
-                           ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")], (8,), rope)
-    # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, and one row
-    #    count that is not a multiple of the 128-row tile
-    _kernels_bigm(kr, [("wqkv", 4096, 12288, 1024), ("wo", 4096, 4096, 1024),
-                       ("w13", 4096, 22016, 1024), ("w2", 11008, 4096, 1024),
-                       ("wo", 4096, 4096, 1000)])
+    def want(kernel):
+        return names is None or kernel in names
 
-    # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
-    #    phases' batch 8 and 1024-token cache, a cache length not a multiple
-    #    of 128, and the serve phases' batch 4 and the stream phase's batch 1
-    #    over their 192-token caches
-    tiny_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (4, 192, 150),
-                  (1, 192, 150))
-    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases + ((8, 1000, 999),))
-    # -- its int8 form (_kernel_bloop_w8) and the read-only forms (_kernel_bloop
-    #    / _kernel, _kernel_bloop8), each also held as "read-only + one-token
-    #    write == fused"; an HD 128 GQA shape (NKV 8, R 4)
-    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True)
-    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, write=False)
-    _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True, write=False)
-    for int8, write in ((True, True), (False, False), (True, False)):
-        _kernels_decode(kr, "hd128", 32, 8, 128, ((8, 1024, 511),), int8=int8, write=write,
-                        most_copies=8)
-    # -- the read-only forms as the stacked path calls them: q, k, v each a
-    #    tensor of its own (separate projections), not views of one wqkv output
-    for int8 in (False, True):
-        _kernels_decode(kr, "tiny", 32, 4, 64, ((4, 192, 150), (8, 1024, 511)), int8=int8,
-                        write=False, separate=True)
-    # -- the same for MHA (_kernel_hgrp_w) and its int8 form (_kernel_hgrp_w8)
-    #    at the 7B shape, the 7B serve phase's 192-token cache, and one
-    #    head_dim-64 shape. The caches are 134 MB a copy, so at most 4 copies
-    #    rotate (a short read then stays in L2, as it would in the model).
-    mha_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (8, 192, 150))
-    _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, most_copies=4)
-    _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), most_copies=4)
-    _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, int8=True, most_copies=4)
-    _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), int8=True, most_copies=4)
-    # -- the read-only forms at one query head per KV head (the MHA kernel
-    #    without its write), 7B shape
-    ro_cases = ((8, 1024, 511), (8, 1024, 1023))
-    _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, write=False, most_copies=4)
-    _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, int8=True, write=False, most_copies=4)
+    if want("w4_matmul"):
+        # -- TinyLlama-1.1B (GQA) path: the four decode-layer projections at M 1 (the
+        #    stream phase's decode: the one-row GEMV), 4 (the serve phases' decode
+        #    batch), 8 (the decode phases'), 128 (the stream phase's prefill) and 512
+        #    (the serve phases' prefill)
+        cos, sin = precompute_rope(64, 1024, device="cuda")
+        rope = rope_rows(cos, sin, 36, 4, 64, "interleaved") + ("interleaved", 64)
+        _kernels_w4(kr, "tiny", TINY_PROJ, (1, 4, 8, 128, 512), rope)
+        # -- the stacked path's separate projections, with no prologue or epilogue
+        #    (wk and wv, w1 and w3 share a shape; its wo and w2 are the rows above)
+        _kernels_w4(kr, "tiny", [("wq", 2048, 2048, ""), ("wk/wv", 2048, 256, ""),
+                                 ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope)
+        # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 (K 11008 is
+        #    padded to 11264 in the weight; RoPE at head_dim 128)
+        cos, sin = precompute_rope(128, 1024, device="cuda")
+        rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
+        _kernels_w4(kr, "7b", [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
+                               ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")],
+                    (8,), rope)
 
-    # -- causal prefill flash attention (splash)
-    _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 1, 128, 32, 4, 64),
-                        ("tiny", 4, 200, 32, 4, 64),
-                        ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128)))
+    if want("w4_matmul_bigm"):
+        # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, and one row
+        #    count that is not a multiple of the 128-row tile
+        _kernels_bigm(kr, [("wqkv", 4096, 12288, 1024), ("wo", 4096, 4096, 1024),
+                           ("w13", 4096, 22016, 1024), ("w2", 11008, 4096, 1024),
+                           ("wo", 4096, 4096, 1000)])
 
-    # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
-    #    at the serve phases' batch 4 / 8 and the stream phase's batch 1
-    _kernels_slab(kr, "tiny", 4, 4, 64, 192, 128, (0, 37))
-    _kernels_slab(kr, "tiny", 1, 4, 64, 192, 128, (0,))
-    _kernels_slab(kr, "7b", 8, 32, 128, 192, 128, (0,))
-    _kernels_slab8(kr, "tiny", 4, 4, 64, 192, 128, (0,))
-    _kernels_slab8(kr, "tiny", 1, 4, 64, 192, 128, (0,))
-    _kernels_slab8(kr, "7b", 8, 32, 128, 192, 128, (0, 37))
-    # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
-    #    shapes, and the stacked writes of all 22 layers in one launch
-    #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
-    #    write_kv_t8)
-    _kernels_slab(kr, "tiny", 8, 4, 64, 1024, 1, (0, 511, 1023))
-    _kernels_slab8(kr, "tiny", 8, 4, 64, 1024, 1, (0, 511, 1023))
-    _kernels_slab(kr, "7b", 8, 32, 128, 1024, 1, (511,))
-    _kernels_slab8(kr, "7b", 8, 32, 128, 1024, 1, (511,))
-    for int8 in (False, True):
-        _kernels_stacked(kr, "tiny", 22, 8, 4, 64, 1024, 1, 511, int8)
-        _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 1, 150, int8)
-        _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 128, 0, int8)
+    if want("decode_attention"):
+        # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
+        #    phases' batch 8 and 1024-token cache, a cache length not a multiple
+        #    of 128, and the serve phases' batch 4 and the stream phase's batch 1
+        #    over their 192-token caches
+        tiny_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (4, 192, 150),
+                      (1, 192, 150))
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases + ((8, 1000, 999),))
+        # -- its int8 form (_kernel_bloop_w8) and the read-only forms (_kernel_bloop
+        #    / _kernel, _kernel_bloop8), each also held as "read-only + one-token
+        #    write == fused"; an HD 128 GQA shape (NKV 8, R 4)
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True)
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, write=False)
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True, write=False)
+        for int8, write in ((True, True), (False, False), (True, False)):
+            _kernels_decode(kr, "hd128", 32, 8, 128, ((8, 1024, 511),), int8=int8, write=write,
+                            most_copies=8)
+        # -- the read-only forms as the stacked path calls them: q, k, v each a
+        #    tensor of its own (separate projections), not views of one wqkv output
+        for int8 in (False, True):
+            _kernels_decode(kr, "tiny", 32, 4, 64, ((4, 192, 150), (8, 1024, 511)), int8=int8,
+                            write=False, separate=True)
 
-    # -- the paged KV cache (continuous batching): paged decode attention over
-    #    8 slots of ragged lengths (0, 1, page edges, 511) at the decode step
-    #    and the speculative verify width 5, TinyLlama (GQA) and the 7B shape
-    #    (one query head per KV head); the paged writes of all 22 layers at the
-    #    decode step, the verify width and the 128-token prefill bucket
-    ragged = [0, 1, 63, 64, 65, 130, 300, 511]
-    for int8 in (False, True):
-        for sq in (1, 5):
-            _kernels_paged_decode(kr, "tiny", 4, 8, 64, sq, ragged, int8)
-        _kernels_paged_decode(kr, "7b", 32, 1, 128, 1, ragged, int8, most_copies=4)
-        _kernels_paged_identity(kr, int8)
-        for s in (1, 5, 128):
-            _kernels_paged_write(kr, "tiny", 22, 8, s, 4, 64, int8)
+    if want("decode_attention_mha"):
+        # -- the same for MHA (_kernel_hgrp_w) and its int8 form (_kernel_hgrp_w8)
+        #    at the 7B shape, the 7B serve phase's 192-token cache, and one
+        #    head_dim-64 shape. The caches are 134 MB a copy, so at most 4 copies
+        #    rotate (a short read then stays in L2, as it would in the model).
+        mha_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (8, 192, 150))
+        _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, most_copies=4)
+        _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), most_copies=4)
+        _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, int8=True, most_copies=4)
+        _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), int8=True, most_copies=4)
+        # -- the read-only forms at one query head per KV head (the MHA kernel
+        #    without its write), 7B shape
+        ro_cases = ((8, 1024, 511), (8, 1024, 1023))
+        _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, write=False, most_copies=4)
+        _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, int8=True, write=False, most_copies=4)
 
-    # -- training: the one-pass W4 dequant of the QPEFT backward at the 7B
-    #    projections (w2's in_dim 11008 is padded to 11264 in the weight) and
-    #    TinyLlama's w1 / w3; the flash-attention backward at the 7B QPEFT
-    #    step (8 x 512, MHA), the 700M full finetune (2 x 2048, 16 / 8 heads),
-    #    train_parity's TinyLlama GQA (4 x 256, 32 / 4, head_dim 64) and a
-    #    ragged length
-    _kernels_dequant(kr, [("7b wq/wk/wv/wo", 4096, 4096), ("7b w1/w3", 4096, 11008),
-                          ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)])
-    _kernels_flash_bwd(kr, [("7b", 8, 512, 32, 32, 128), ("700m", 2, 2048, 16, 8, 128),
-                            ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64)])
+    if want("flash_attention"):
+        # -- causal prefill flash attention (splash)
+        _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 1, 128, 32, 4, 64),
+                            ("tiny", 4, 200, 32, 4, 64),
+                            ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128)))
 
-    # -- W8A16 (serve7b_w8 / decode7b_w8): the 7B projections at the decode
-    #    batch 8 with their fusions, at one row (the GEMV's smallest form), and
-    #    w13 at the 1024 prefill rows, unfused (the mma tile)
-    cos, sin = precompute_rope(128, 1024, device="cuda")
-    rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
-    proj7b = [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
-              ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")]
-    _kernels_w8(kr, "7b", [(nm, k, n, m, f) for m in (8, 1) for nm, k, n, f in proj7b]
-                + [("w13", 4096, 22016, 1024, "")], rope)
-    # -- std W4 (GPTQ imports) and its magic repack: TinyLlama's w13 at the
-    #    stream / serve / decode batches and the serve prefill's 4 x 64 rows,
-    #    all four projections of the GPTQ serve path at the 128-row (stream
-    #    and batcher prefill) and 512-row (serve prefill) tiles, and the 7B
-    #    w13 at batch 8
-    _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, m) for m in (1, 4, 8, 256)])
-    _kernels_w4elem(kr, "tiny", [(nm, k, n, m) for m in (128, 512)
-                                 for nm, k, n in (("wqkv", 2048, 2560), ("wo", 2048, 2048),
-                                                  ("w13", 2048, 11264), ("w2", 5632, 2048))])
-    _kernels_w4elem(kr, "7b", [("w13", 4096, 22016, 8)])
+    if want("kv_write"):
+        # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
+        #    at the serve phases' batch 4 / 8 and the stream phase's batch 1
+        _kernels_slab(kr, "tiny", 4, 4, 64, 192, 128, (0, 37))
+        _kernels_slab(kr, "tiny", 1, 4, 64, 192, 128, (0,))
+        _kernels_slab(kr, "7b", 8, 32, 128, 192, 128, (0,))
+        _kernels_slab8(kr, "tiny", 4, 4, 64, 192, 128, (0,))
+        _kernels_slab8(kr, "tiny", 1, 4, 64, 192, 128, (0,))
+        _kernels_slab8(kr, "7b", 8, 32, 128, 192, 128, (0, 37))
+        # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
+        #    shapes, and the stacked writes of all 22 layers in one launch
+        #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
+        #    write_kv_t8)
+        _kernels_slab(kr, "tiny", 8, 4, 64, 1024, 1, (0, 511, 1023))
+        _kernels_slab8(kr, "tiny", 8, 4, 64, 1024, 1, (0, 511, 1023))
+        _kernels_slab(kr, "7b", 8, 32, 128, 1024, 1, (511,))
+        _kernels_slab8(kr, "7b", 8, 32, 128, 1024, 1, (511,))
+        for int8 in (False, True):
+            _kernels_stacked(kr, "tiny", 22, 8, 4, 64, 1024, 1, 511, int8)
+            _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 1, 150, int8)
+            _kernels_stacked(kr, "tiny", 22, 4, 4, 64, 192, 128, 0, int8)
 
-    # -- the fused W4 decode FFN (ffn_fuse): TinyLlama and 7B widths at the
-    #    stream (1), serve (4), a ragged (5) and the decode (8) batches, and
-    #    its largest row count (128)
-    _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 128))
-    _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 128))
-    # -- the read-only paged decode (kvcache.paged_attention_decode): 8 slots of
-    #    lengths 1..1024 over 64-token pages, TinyLlama (GQA) and 7B (MHA)
-    tokens = [1, 63, 64, 65, 300, 511, 777, 1024]
-    _kernels_paged_ro(kr, "tiny", 4, 8, 64, tokens)
-    _kernels_paged_ro(kr, "7b", 32, 1, 128, tokens, most_copies=4)
+    if want("paged_decode"):
+        # -- the paged KV cache (continuous batching): paged decode attention over
+        #    8 slots of ragged lengths (0, 1, page edges, 511) at the decode step
+        #    and the speculative verify width 5, TinyLlama (GQA) and the 7B shape
+        #    (one query head per KV head); the paged writes of all 22 layers at the
+        #    decode step, the verify width and the 128-token prefill bucket
+        ragged = [0, 1, 63, 64, 65, 130, 300, 511]
+        for int8 in (False, True):
+            for sq in (1, 5):
+                _kernels_paged_decode(kr, "tiny", 4, 8, 64, sq, ragged, int8)
+            _kernels_paged_decode(kr, "7b", 32, 1, 128, 1, ragged, int8, most_copies=4)
+            _kernels_paged_identity(kr, int8)
+            for s in (1, 5, 128):
+                _kernels_paged_write(kr, "tiny", 22, 8, s, 4, 64, int8)
 
-    # -- context parallelism (row 26): train_cp's shape (the 7B step's b 1 x
-    #    4096 on one rank: q0 0, SK = SQ), the first and the last of four
-    #    shards of an 8192-token sequence at 7B (MHA, head_dim 128) and TinyLlama
-    #    (GQA 32 / 4, head_dim 64) widths, a ragged split (S 8000: 2000-row
-    #    shards, not a multiple of the 64-row tile), and the q0 = 0 identity
-    _kernels_cp(kr, [("train_cp", 1, 4096, 32, 32, 128, 1, (0,)),
-                     ("7b", 1, 8192, 32, 32, 128, 4, (0, 3)),
-                     ("tiny", 1, 8192, 32, 4, 64, 4, (0, 3)),
-                     ("ragged", 1, 8000, 32, 4, 64, 4, (2,))])
-    _kernels_cp_identity(kr, [("7b", 1, 2048, 32, 32, 128), ("tiny", 2, 1000, 32, 4, 64)])
+    if want("w4_dequant") or want("flash_attention_bwd_dq"):
+        # -- training: the one-pass W4 dequant of the QPEFT backward at the 7B
+        #    projections (w2's in_dim 11008 is padded to 11264 in the weight) and
+        #    TinyLlama's w1 / w3; the flash-attention backward at the 7B QPEFT
+        #    step (8 x 512, MHA), the 700M full finetune (2 x 2048, 16 / 8 heads),
+        #    train_parity's TinyLlama GQA (4 x 256, 32 / 4, head_dim 64) and a
+        #    ragged length
+        _kernels_dequant(kr, [("7b wq/wk/wv/wo", 4096, 4096), ("7b w1/w3", 4096, 11008),
+                              ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)])
+        _kernels_flash_bwd(kr, [("7b", 8, 512, 32, 32, 128), ("700m", 2, 2048, 16, 8, 128),
+                                ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64)])
+
+    if want("w8_matmul"):
+        # -- W8A16 (serve7b_w8 / decode7b_w8 / parity_w8): the 7B projections at
+        #    the decode batch 8 with their fusions and at one row (the GEMV's
+        #    smallest form), at the 1024 prefill rows unfused (the prefill's
+        #    route, module_linear_nr) and at 128 rows fused (the wgmma tile, K
+        #    split), and TinyLlama's fused at parity_w8's 512 rows
+        cos, sin = precompute_rope(128, 1024, device="cuda")
+        rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
+        proj7b = [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
+                  ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")]
+        _kernels_w8(kr, "7b", [(nm, k, n, m, f) for m in (8, 1) for nm, k, n, f in proj7b]
+                    + [(nm, k, n, 1024, "") for nm, k, n, _ in proj7b]
+                    + [(nm, k, n, 128, f) for nm, k, n, f in proj7b], rope)
+        cos, sin = precompute_rope(64, 1024, device="cuda")
+        rope = rope_rows(cos, sin, 36, 4, 64, "interleaved") + ("interleaved", 64)
+        _kernels_w8(kr, "tiny", [(nm, k, n, 512, f) for nm, k, n, f in TINY_PROJ], rope)
+    if want("w4_matmul_std") or want("w4_matmul_magic"):
+        # -- std W4 (GPTQ imports) and its magic repack: the four projections of
+        #    the GPTQ decode at the stream / serve / decode batches (the GEMV),
+        #    TinyLlama's w13 at the serve prefill's 4 x 64 rows, all four at the
+        #    128-row (stream and batcher prefill) and 512-row (serve prefill)
+        #    tiles, and the 7B w13 and w2 (in_dim 11008 in a weight padded to
+        #    11264, the magic tile's) at batch 8
+        _kernels_w4elem(kr, "tiny", [(nm, k, n, m) for m in (1, 4, 8)
+                                     for nm, k, n, _ in TINY_PROJ])
+        _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, 256)])
+        _kernels_w4elem(kr, "tiny", [(nm, k, n, m) for m in (128, 512)
+                                     for nm, k, n, _ in TINY_PROJ])
+        _kernels_w4elem(kr, "7b", [("w13", 4096, 22016, 8), ("w2", 11264, 4096, 8, 11008)])
+
+    if want("ffn_fused"):
+        # -- the fused W4 decode FFN (ffn_fuse): TinyLlama and 7B widths at the
+        #    stream (1), serve (4), a ragged (5) and the decode (8) batches, and
+        #    its largest row count (128)
+        _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 128))
+        _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 128))
+    if want("paged_decode_ro"):
+        # -- the read-only paged decode (kvcache.paged_attention_decode): 8 slots of
+        #    lengths 1..1024 over 64-token pages, TinyLlama (GQA) and 7B (MHA)
+        tokens = [1, 63, 64, 65, 300, 511, 777, 1024]
+        _kernels_paged_ro(kr, "tiny", 4, 8, 64, tokens)
+        _kernels_paged_ro(kr, "7b", 32, 1, 128, tokens, most_copies=4)
+    if want("flash_attention_cp"):
+        # -- context parallelism (row 26): train_cp's shape (the 7B step's b 1 x
+        #    4096 on one rank: q0 0, SK = SQ), the first and the last of four
+        #    shards of an 8192-token sequence at 7B (MHA, head_dim 128) and
+        #    TinyLlama (GQA 32 / 4, head_dim 64) widths, a ragged split (S 8000:
+        #    2000-row shards, not a multiple of the 64-row tile), and the q0 = 0
+        #    identity
+        _kernels_cp(kr, [("train_cp", 1, 4096, 32, 32, 128, 1, (0,)),
+                         ("7b", 1, 8192, 32, 32, 128, 4, (0, 3)),
+                         ("tiny", 1, 8192, 32, 4, 64, 4, (0, 3)),
+                         ("ragged", 1, 8000, 32, 4, 64, 4, (2,))])
+        _kernels_cp_identity(kr, [("7b", 1, 2048, 32, 32, 128), ("tiny", 2, 1000, 32, 4, 64)])
     return kr.rows
 
 
@@ -3494,6 +3555,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=ALL_PHASES)
     ap.add_argument("--out", default=None, help="also append every JSON line to this file")
+    ap.add_argument("--kernel_names", default=None,
+                    help="kernels phase: only the rows of these kernels (comma-separated)")
     opts = ap.parse_args()
     phases = opts.phases.split(",")
 
@@ -3519,8 +3582,9 @@ def main() -> int:
             phase_build()
         rows, counts_by_path = {}, {}
         if "kernels" in phases:
-            rows = phase_kernels(opts.seed)
+            rows = phase_kernels(opts.seed, opts.kernel_names and opts.kernel_names.split(","))
             emit({"phase": "timing", "empty_traces_retried": _empty_traces,
+                  "short_traces": _short_traces,
                   "seconds_so_far": round(time.perf_counter() - t_start, 1)})
         if "parity" in phases:
             phase_parity(opts.seed, "parity", TINYLLAMA, 2, b=2, plen=64, steps=16, s_len=128)

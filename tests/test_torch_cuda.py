@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Edge shapes beyond chip_smoke.py's main-path shapes: every GEMV row-count
-template and ragged mma tiles, both RoPE styles at head_dim 64 and 128,
+template and ragged tiles, both RoPE styles at head_dim 64 and 128,
 padded in_dim, the LLaMA2-7B projection shapes, the many-row W4 kernel at
 ragged row counts and a narrow x, decode attention at R = 1..8 (R = 1 is the
 MHA kernel) and head_dim 128 over the bf16 and the int8 cache, flash
@@ -10,10 +10,11 @@ kernel, the read-only decode kernels (fused result == read-only + one-token
 write), the one-token and the stacked writes, the stacked-cache and unfused
 model paths against the CPU, and the many-row W4 tiles (row 1 at 17-1023
 rows with every fusion, std / magic from 9 rows, N = 136; every K split bit
-for bit across launches and within tolerance of the unsplit plan). Each
-test carries the
-``cuda`` marker, needs a CUDA device and skips without one (decided inside the
-fixture). On the card:
+for bit across launches and within tolerance of the unsplit plan), the W8
+tile (9-1030 rows, every fusion, N % 16 == 8) and the std / magic GEMV
+(every row count 1-8, each cluster split twice bit for bit). Each test
+carries the ``cuda`` marker, needs a CUDA device and skips without one
+(decided inside the fixture). On the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -24,6 +25,8 @@ Tolerances: kernel and plain version compute the same f32 sums in another
 order, so bf16 outputs differ by at most a rounding step or two: 2e-2
 relative plus 2e-2 absolute on values of magnitude ~1-4.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -964,7 +967,7 @@ def _w8(gen, k, n, gs=128, pad_in_to=None):
 @pytest.mark.parametrize("fusion", ["none", "norm+res", "rope_interleaved", "rope_half",
                                     "rope_half128"])
 def test_w8_matmul(gen, m, fusion):
-    """Every GEMV row template and ragged mma tiles, each fusion, RoPE at
+    """Every GEMV row template and ragged tiles, each fusion, RoPE at
     head_dim 64 and 128 in both styles; kernel vs plain version."""
     from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
 
@@ -1072,7 +1075,8 @@ def test_new_quant_wrappers_refuse(gen):
 @pytest.mark.parametrize("route", ["w8", "gptq", "magic", "w3"])
 def test_small_model_new_formats_cuda_match_cpu(gen, route):
     """A 2-layer dim-512 model in each new weight format: prefill (96 rows:
-    the mma tiles) and decode logits, card vs CPU, and the route's launches."""
+    the many-row tiles) and decode logits, card vs CPU, and the route's
+    launches."""
     from accessory_tpu_torch.quant.qtensor import QuantizedWeight, to_magic_layout
 
     args = LLaMAArgs(dim=512, n_layers=2, n_heads=8, n_kv_heads=2, vocab_size=512,
@@ -1535,3 +1539,140 @@ def test_w4_elem_tile_refuses(gen):
         quant_matmul_pallas(randn(gen, 40, 512), std, split=9)
     with pytest.raises(ValueError, match="N % 8"):
         quant_matmul_pallas(randn(gen, 40, 512), _std_gptq_like(gen, 512, 132))
+
+
+# -- row 22's W8 tile (csrc/w8_matmul.cu, M > 8: wgmma, the row-prep pass and
+#    the K split of ops/w4_tile.py w8_plan) and rows 24 / 25's tensor-core
+#    GEMV (csrc/w4_elem.cuh, M <= 8, K split over a cluster)
+
+_W8_FUSIONS = ["none", "norm+rope_interleaved", "norm+rope_half", "res", "norm+rope_half+res"]
+
+
+def _w8_case(gen, m, k, kx, n, fusion, gs=128, hd=128, strided=False):
+    """w8_qmm's arguments: a W8 weight of in_dim k (x narrower where kx < k)
+    and the fusion's operands (RoPE rows of heads of ``hd``)."""
+    qw = _w8(gen, k, n, gs)
+    x = randn(gen, m, kx + 64)[:, :kx] if strided else randn(gen, m, kx)
+    kw = dict(group_size=gs)
+    if "norm" in fusion:
+        kw["norm_weight"] = 1 + 0.1 * randn(gen, kx, dtype=torch.float32)
+    if "res" in fusion:
+        kw["residual"] = randn(gen, m, n)
+    if "rope" in fusion:
+        style = "half" if "half" in fusion else "interleaved"
+        cos, sin = precompute_rope(hd, 2048, device="cuda")
+        cr, sr = rope_rows(cos[1500], sin[1500], n // hd - 1, 1, hd, style)
+        kw.update(rope_cos=cr, rope_sin=sr, rope_style=style, rope_hd=hd)
+    return (x, qw.packed, qw.scales, qw.zeros), kw
+
+
+@pytest.mark.parametrize("m", [9, 17, 128, 1024, 1030])
+@pytest.mark.parametrize("fusion", _W8_FUSIONS)
+def test_w8_tile(gen, m, fusion):
+    """The W8 tile at ragged row counts around its 256-row tile, N 640 (5
+    tiles of 128 columns), RoPE at head_dim 128 in both styles, the norm and
+    the residual, and all three; one counted launch a call."""
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    args, kw = _w8_case(gen, m, 1024, 1024, 640, fusion)
+    before = kernels.launch_counts()["w8_matmul"]
+    got = w8_qmm(*args, **kw)
+    assert kernels.launch_counts()["w8_matmul"] == before + 1
+    assert_close(got, w8_qmm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("m", [9, 130, 1030])
+@pytest.mark.parametrize("k,kx,n,gs", [(2048, 1152, 768, 128), (11264, 11008, 512, 128),
+                                       (1152, 1152, 264, 64), (2048, 2048, 2056, 128),
+                                       (512, 512, 4104, 64)])
+def test_w8_tile_shapes(gen, m, k, kx, n, gs):
+    """x narrower than a padded in_dim (11008 -> 11264), group size 64, strided
+    x rows, and N not a multiple of the 128-column tile, also N % 16 == 8
+    (264, 2056, 4104: the int8 rows then arrive by 8-byte cp.async pieces,
+    not 16-byte ones)."""
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    args, kw = _w8_case(gen, m, k, kx, n, "norm+res", gs=gs, strided=True)
+    assert_close(w8_qmm(*args, **kw), w8_qmm_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("m,k,n,fusion", [(9, 4096, 4096, "res"), (128, 4096, 4096, "res"),
+                                          (128, 4096, 12288, "norm+rope_interleaved"),
+                                          (128, 11008, 4096, "res"), (512, 2048, 2560, "norm"),
+                                          (1030, 2048, 2048, "norm+rope_half+res")])
+def test_w8_tile_split_k(gen, m, k, n, fusion):
+    """The plan's split and every other split the tile takes (1 .. 16 whole
+    groups): each launched twice bit-equal (partials summed in split order,
+    no atomics), each within tolerance of the plain version."""
+    from accessory_tpu_torch.ops import w4_tile
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    args, kw = _w8_case(gen, m, k, k, n, fusion)
+    want = w8_qmm_plain(*args, **kw)
+    chosen = w4_tile.w8_plan(m, n, k, 128).split
+    for split in sorted({None, 1, 2, 3, 5, 8, 16, chosen}, key=lambda s: s or 0):
+        one, two = w8_qmm(*args, split=split, **kw), w8_qmm(*args, split=split, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two), f"split {split}: two launches differ"
+        assert_close(one, want)
+
+
+def _gemv_weight(gen, kind, k, n, gs=128):
+    from accessory_tpu_torch.quant.qtensor import to_magic_layout
+
+    qw = _std_gptq_like(gen, k, n, gs)
+    return to_magic_layout(qw) if kind == "magic" else qw
+
+
+@pytest.mark.parametrize("kind", ["std", "magic"])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("k,kx,n", [(2048, 2048, 2560), (5632, 5632, 2048), (2048, 1152, 2056),
+                                    (11264, 11008, 512), (4096, 4096, 136)])
+def test_w4_gemv(gen, kind, m, k, kx, n):
+    """The std / magic GEMV at every row count it takes, TinyLlama's widths
+    (magic tiles of 2048 and 512 rows), x narrower than in_dim (magic: a
+    padded 7B in_dim, tile 1024), N = 2056 and 136 (not multiples of the
+    128-column block); strided x rows; one counted launch a call."""
+    qw = _gemv_weight(gen, kind, k, n)
+    x = randn(gen, m, kx + 64)[:, :kx]
+    entry = "w4_matmul_std" if kind == "std" else "w4_matmul_magic"
+    before = kernels.launch_counts()[entry]
+    got, want = _elem_call(kind, x, qw)
+    assert kernels.launch_counts()[entry] == before + 1
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["std", "magic"])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", [(2048, 11264), (5632, 2048), (4096, 22016)])
+def test_w4_gemv_splits(gen, kind, m, k, n):
+    """Every cluster split (1 .. 8 blocks over K): each launched twice
+    bit-equal (each rank sums its share of the columns over the blocks'
+    partial tiles in rank order), each within tolerance of the plain
+    version; the plan's own split among them."""
+    from accessory_tpu_torch.ops import w4_tile
+
+    qw = _gemv_weight(gen, kind, k, n)
+    x = randn(gen, m, k)
+    want = _elem_call(kind, x, qw)[1]
+    units = w4_tile.elem_units(k, None if kind == "std" else qw.tile_k)
+    assert 1 <= w4_tile.gemv_split(n, units) <= 8
+    for split in range(1, 9):
+        one, two = _elem_call(kind, x, qw, split)[0], _elem_call(kind, x, qw, split)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(one, two), f"split {split}: two launches differ"
+        assert_close(one, want)
+
+
+def test_w4_gemv_refuses(gen):
+    """The GEMV's split lies in 1 .. 8 and within the units; its operands
+    must be 16-byte aligned at every row count."""
+    from accessory_tpu_torch.ops.quant_matmul_pallas import quant_matmul_pallas
+
+    std = _std_gptq_like(gen, 512, 256)
+    with pytest.raises(ValueError, match="split"):
+        quant_matmul_pallas(randn(gen, 4, 512), std, split=9)
+    words = torch.zeros(512 // 8 * 256 + 2, dtype=torch.int32, device="cuda")[2:]
+    bad = dataclasses.replace(std, packed=words.view(512 // 8, 256))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant_matmul_pallas(randn(gen, 4, 512), bad)

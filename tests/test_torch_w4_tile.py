@@ -1,7 +1,9 @@
 """The many-row W4 tile on the CPU: row 1's plain version at prefill row
-counts against the JAX planes kernel (interpret mode), and the launch plan
-of ``ops/w4_tile.py`` (tile, K split, scratch shapes) over the main path's
-shapes. The kernels themselves run only on the card (tests/test_torch_cuda.py).
+counts against the JAX planes kernel (interpret mode), and the launch plans
+of ``ops/w4_tile.py`` (tile, K split, scratch shapes; the W8 tile's and the
+std / magic GEMV's too) over the main path's shapes, with the C-call
+arguments the wrappers pass. The kernels themselves run only on the card
+(tests/test_torch_cuda.py).
 
 Tolerances as tests/test_torch_ops.py: f32 inputs ~2e-5 relative (same op
 order, sums in another order); bf16 1.5e-2 of the output scale (the JAX
@@ -81,14 +83,22 @@ ROWS = [17, 105, 128, 256, 512, 1023]
 
 
 def _check_plan(p: w4_tile.TilePlan, m: int, n: int, granule_rows: int, slots: int):
-    assert p.tiles == math.ceil(m / p.tile_m) * math.ceil(n / w4_tile.TILE_N)
+    assert p.tiles == math.ceil(m / p.tile_m) * math.ceil(n / p.tile_n)
     # K is split only where the tiles leave half the resident blocks idle,
-    # and then the blocks fill the card unless K has no more splits to give
+    # and then the blocks fill the card unless K has no more splits to give;
+    # with one block an SM (the W8 tile) they stay in one wave, with as few
+    # K granules a block as any split that does
     if 2 * p.tiles >= w4_tile.SMS * slots:
         assert p.split == 1
     steps = p.granules * granule_rows // w4_tile.TILE_K
     most = min(w4_tile.MAX_SPLIT, p.granules, max(1, steps // w4_tile.MIN_SPLIT_STEPS))
-    assert p.blocks >= w4_tile.SMS or p.tiles * most < w4_tile.SMS
+    if slots > 1:
+        assert p.blocks >= w4_tile.SMS or p.tiles * most < w4_tile.SMS
+    elif p.split > 1:
+        assert p.blocks <= w4_tile.SMS
+        one_wave = [s for s in range(1, most + 1) if p.tiles * s <= w4_tile.SMS]
+        assert math.ceil(p.granules / p.split) == min(math.ceil(p.granules / s)
+                                                      for s in one_wave)
     # each split covers whole granules, contiguous, in order, none empty
     r = p.ranges()
     assert r[0][0] == 0 and r[-1][1] == p.granules
@@ -175,3 +185,160 @@ def test_planes_kernel_call_abi(monkeypatch, m, norm, split):
     p = w4_tile.folded_plan(m, n, k, 128, split)
     assert xsum is not None and xt is not None and nsplit == p.split
     assert (ws is not None) == (p.split > 1)
+
+
+# LLaMA2-7B's projections (K 11008 unpadded: the W8 layout keeps in_dim)
+LLAMA7B = [("wqkv", 4096, 12288), ("wo", 4096, 4096), ("w13", 4096, 22016), ("w2", 11008, 4096)]
+
+
+@pytest.mark.parametrize("m", [9, 17, 128, 512, 1024, 1030])
+@pytest.mark.parametrize("name,k,n", TINY[:4] + LLAMA7B + [("N 264", 1152, 264)])
+def test_w8_plan_rules(m, name, k, n):
+    """Row 22's tile: 256 x-row x 128-column tiles, K split in whole groups
+    of 128 rows, sum(x) per (group, row) and 1 / rms per row with the rows
+    padded to the tile."""
+    p = w4_tile.w8_plan(m, n, k, 128)
+    assert (p.tile_m, p.tile_n) == (w4_tile.W8_TILE_M, w4_tile.W8_TILE_N) == (256, 128)
+    assert p.granules == k // 128
+    _check_plan(p, m, n, 128, w4_tile.W8_SLOTS)
+    assert p.xt_shape == (math.ceil(m / 256) * 256, k)
+    assert p.xsum_shape == (k // 128 + 1, math.ceil(m / 256) * 256)
+
+
+def test_w8_plan_main_path_splits():
+    """The splits the W8 paths take: none at the 7B prefill's 1024 rows (the
+    tiles fill the card), whole groups where a fused call leaves the card
+    idle (PERF.md, row 22)."""
+    assert [w4_tile.w8_plan(1024, n, k, 128).split for _, k, n in LLAMA7B] == [1, 1, 1, 1]
+    assert [w4_tile.w8_plan(128, n, k, 128).split for _, k, n in LLAMA7B] == [1, 4, 1, 4]
+    assert [w4_tile.w8_plan(512, n, k, 128).split for _, k, n in TINY[:4]] == [3, 4, 1, 4]
+    with pytest.raises(ValueError, match="split"):
+        w4_tile.w8_plan(40, 256, 256, 128, split=3)
+
+
+@pytest.mark.parametrize("name,k,n", TINY[:4] + LLAMA7B + [("N 136", 512, 136),
+                                                           ("N 2056", 1152, 2056)])
+@pytest.mark.parametrize("tk", [None, 512])
+def test_gemv_split_rules(name, k, n, tk):
+    """Rows 24 / 25's GEMV: the cluster's blocks split K in 1 .. 8 ranges of
+    at least two 64-row units, the split nearest 352 blocks where K allows
+    it; a forced split outside 1 .. min(8, units) raises."""
+    units = w4_tile.elem_units(k, tk)
+    tiles = math.ceil(n / w4_tile.GEMV_TILE_N)
+    split = w4_tile.gemv_split(n, units)
+    assert 1 <= split <= w4_tile.GEMV_MAX_SPLIT and split <= units
+    assert units // split >= w4_tile.GEMV_MIN_UNITS or split == 1
+    if split < min(w4_tile.GEMV_MAX_SPLIT, units // w4_tile.GEMV_MIN_UNITS):
+        assert abs(split * tiles - w4_tile.GEMV_BLOCKS) <= tiles / 2
+    assert w4_tile.gemv_split(n, units, 1) == 1
+    for bad in (0, min(w4_tile.GEMV_MAX_SPLIT, units) + 1):
+        with pytest.raises(ValueError, match="split"):
+            w4_tile.gemv_split(n, units, bad)
+
+
+def test_gemv_main_path_splits():
+    """The splits the GPTQ decode's GEMVs take: the fastest of a sweep of
+    every split on the card (PERF.md, rows 24 and 25)."""
+    got = [w4_tile.gemv_split(n, w4_tile.elem_units(k)) for _, k, n in TINY[:4]]
+    assert got == [8, 8, 4, 8]
+    assert [w4_tile.gemv_split(n, w4_tile.elem_units(k)) for _, k, n in LLAMA7B[2:]] == [2, 8]
+
+
+def _fake_kernels(monkeypatch):
+    """kernels.function returns a stand-in that records the C call's
+    arguments (and the ctypes types it was given)."""
+    seen = {}
+
+    def function(lib, sym, argtypes):
+        def fake(*args):
+            seen.update(sym=sym, args=args, argtypes=argtypes)
+            return 0
+        return fake
+
+    monkeypatch.setattr(kernels, "function", function)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda t: 0)
+    return seen
+
+
+@pytest.mark.parametrize("m,split", [(5, None), (8, None), (9, None), (40, 2), (300, None),
+                                     (1030, 1)])
+def test_w8_kernel_call_abi(monkeypatch, m, split):
+    """w8_qmm's C call as the wrapper makes it: one argument per ctypes type;
+    the GEMV (M <= 8) gets no scratch and split 1, the tile the plan's tiled
+    x, sums, split and (split > 1) partials."""
+    from accessory_tpu_torch.ops import quant_matmul_w8 as tw8
+
+    seen = _fake_kernels(monkeypatch)
+    k, n = 512, 384
+    qw = tq.to_w8_layout(tq.quantize_weight(torch.randn(k, n) * 0.05, 8, 128))
+    x = torch.randn(m, k).to(torch.bfloat16)
+    out = torch.empty(m, n, dtype=torch.bfloat16)
+    rc = tw8._kernel_call(x, qw.packed, qw.scales, qw.zeros, torch.ones(k), None, None, None,
+                          out, group_size=128, norm_eps=1e-5, rope_style="", rope_hd=0,
+                          split=split)
+    args = seen["args"]
+    assert rc == 0 and seen["sym"] == "w8_matmul" and len(args) == len(tw8._ARGS) == 22
+    assert args[1:4] == (m, k, k) and args[7:9] == (n, 128)
+    xt, xsum, ws, nsplit = args[-5:-1]
+    if m <= 8:
+        assert (xt, xsum, ws, nsplit) == (None, None, None, 1)
+        return
+    p = w4_tile.w8_plan(m, n, k, 128, split)
+    assert xt is not None and xsum is not None and nsplit == p.split
+    assert (ws is not None) == (p.split > 1)
+    assert xt % 16 == 0 and xsum % 16 == 0   # the bulk copies need 16-byte aligned rows
+
+
+@pytest.mark.parametrize("kind", ["std", "magic"])
+@pytest.mark.parametrize("m,split", [(1, None), (8, None), (8, 3), (9, None), (300, 2)])
+def test_elem_kernel_call_abi(monkeypatch, kind, m, split):
+    """The std / magic C call: at M <= 8 the GEMV's cluster split (the
+    plan's, or the caller's) and no scratch, above it the tile's plan and
+    scratch; the magic call also carries its tile tk."""
+    from accessory_tpu_torch.ops import quant_matmul_pallas as tstd
+
+    seen = _fake_kernels(monkeypatch)
+    k, n, tk = 2048, 256, 512
+    packed = torch.zeros(k // 8, n, dtype=torch.int32)
+    scales, zeros = torch.ones(k // 128, n), torch.ones(k // 128, n)
+    x = torch.randn(m, k).to(torch.bfloat16)
+    out = torch.empty(m, n, dtype=torch.bfloat16)
+    rc = tstd.elem_kernel_call(x, packed, scales, zeros, out, k=k, group_size=128,
+                               tk=None if kind == "std" else tk, split=split)
+    args = seen["args"]
+    want = tstd._ARGS if kind == "std" else tstd._MAGIC_ARGS
+    assert rc == 0 and seen["sym"] == f"w4_matmul_{kind}" and len(args) == len(want)
+    assert args[7:10] == (k, n, 128) and (kind == "std" or args[10] == tk)
+    xt, ws, nsplit = args[-4:-1]
+    units = w4_tile.elem_units(k, None if kind == "std" else tk)
+    if m <= 8:
+        assert (xt, ws) == (None, None)
+        assert nsplit == (split or w4_tile.gemv_split(n, units))
+        return
+    p = w4_tile.elem_plan(m, n, k, None if kind == "std" else tk, split)
+    assert xt is not None and nsplit == p.split and (ws is not None) == (p.split > 1)
+
+
+@pytest.mark.parametrize("n", [136, 2056, 2560])
+@pytest.mark.parametrize("m", [4, 9])
+def test_elem_alignment_on_stacked_layer_slices(monkeypatch, n, m):
+    """The 16-byte alignment the std / magic kernels need now holds at every
+    row count, the GEMV's too: each layer's slice of a weight stacked over
+    layers (L, K/8, N), with its (L, G, N) scales and zeros, starts 16-byte
+    aligned since N % 8 == 0 (also where N % 16 == 8), so the check passes
+    it; a view 8 bytes off raises."""
+    from accessory_tpu_torch.ops import quant_matmul_pallas as tstd
+
+    _fake_kernels(monkeypatch)
+    layers, k = 3, 512
+    words = torch.zeros(layers, k // 8, n, dtype=torch.int32)
+    scales, zeros = torch.ones(layers, k // 128, n), torch.ones(layers, k // 128, n)
+    x = torch.randn(m, k).to(torch.bfloat16)
+    out = torch.empty(m, n, dtype=torch.bfloat16)
+    for layer in range(layers):
+        args = (x, words[layer], scales[layer], zeros[layer], out)
+        assert all(t.data_ptr() % 16 == 0 for t in args[1:4])
+        assert tstd.elem_kernel_call(*args, k=k, group_size=128) == 0
+    off = torch.zeros(k // 8 * n + 2, dtype=torch.int32)[2:].view(k // 8, n)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tstd.elem_kernel_call(x, off, scales[0], zeros[0], out, k=k, group_size=128)
