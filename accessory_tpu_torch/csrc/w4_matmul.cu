@@ -13,13 +13,18 @@
 // with the group product accumulated in f32 over exact integer q.
 //
 // Bound on the H100: at decode (M <= 16) the call is a GEMV that must stream
-// K*N/2 bytes of nibbles plus 8*N*K/gs bytes of scales, so it is bound by
-// memory bytes. The GEMV path gives each thread one output column so a warp
-// reads 128 contiguous bytes of packed words per K row; the K range is split
-// over the block's warps (one group per warp per chunk) so even 2048-wide
-// outputs keep 16 warps of loads in flight per block, and the split partials
-// are reduced in shared memory. x is staged (normalized, bf16-rounded) in
-// shared memory once per block and read back as broadcasts.
+// K*N/2 bytes of nibbles plus 8*N*K/gs bytes of scales and zs, so it is
+// bound by memory bytes. That path is qgemv.cuh's tensor-core GEMV with the
+// folded policy: exact q in bf16 as mma.sync's A operand, a per-group f32
+// accumulator folded into the output at the group's end (a K split that
+// cuts a group folds each rank's part), the RMSNorm's sum of squares summed
+// over the cluster, RoPE and the residual in its epilogue. It takes 12.7 us
+// for TinyLlama's w13 at M = 8 and 34.5 for 7B's (torch.matmul on the dense
+// weight 17.3 / 60.1) on an NVIDIA H100 80GB HBM3, 700.00 W. The GEMV it
+// replaces gave each thread one output column and did f32 FMAs on the CUDA
+// cores behind an int -> float convert a nibble, its time growing with M:
+// 40.2 / 121.3 us on the same shapes and card. PERF.md, row 1, holds both
+// designs' times, measured by chip_smoke.py.
 //
 // For prefill rows (16 < M < 1024) the work does about 3.6 * M flops per
 // weight byte (nibbles plus f32 scales and zs, group 128), so from M ~ 83 on
@@ -50,156 +55,9 @@
 // op order as the TPU kernel. The N tile holds whole heads so each column's
 // RoPE partner (n^1 interleaved, n +- hd/2 half) is in the same block.
 
-#include <algorithm>
-
-#include "common.cuh"
-#include "w4_tile.cuh"
+#include "qgemv.cuh"
 
 namespace {
-
-constexpr int GEMV_THREADS = 512;
-
-template <int MT>
-__global__ void __launch_bounds__(GEMV_THREADS)
-w4_gemv_kernel(const bf16* __restrict__ x, int M, int Kx, int x_stride,
-               const uint32_t* __restrict__ packed, const float* __restrict__ scales,
-               const float* __restrict__ zs, int N, int gs,
-               const float* __restrict__ norm, float eps,
-               const bf16* __restrict__ residual,
-               const float* __restrict__ cos_row, const float* __restrict__ sin_row,
-               int rope_style, int rope_hd, int BN, bf16* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int KS = blockDim.x / BN;  // K splits per block
-  const int c = tid % BN, ks = tid / BN;
-  const int n = blockIdx.x * BN + c;
-  const int chunk_k = KS * gs;
-  const int big = max(MT * chunk_k, KS * MT * BN);
-  float* xs = smem;                 // [MT][chunk_k] staged x, one chunk
-  float* red = smem;                // [KS][MT][BN] split partials (after the K loop)
-  float* xsum = smem + big;         // [MT][KS] per-group sums of staged x
-  float* rinv = xsum + MT * KS;     // [MT] 1 / rms
-
-  if (norm != nullptr) {
-    for (int m = warp; m < MT; m += nwarps) {
-      float ss = 0.f;
-      if (m < M) {
-        const bf16* row = x + (size_t)m * x_stride;
-        for (int k = lane * 8; k < Kx; k += 256) {
-          uint4 raw = *reinterpret_cast<const uint4*>(row + k);
-          const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float f = bf2f(v[j]);
-            ss += f * f;
-          }
-        }
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) rinv[m] = 1.f / sqrtf(ss / (float)Kx + eps);
-    }
-  }
-
-  float part[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) part[m] = 0.f;
-
-  const int G = Kx / gs;
-  const int wpg = gs / 8;  // packed words per group (a multiple of 8)
-  for (int g0 = 0; g0 < G; g0 += KS) {
-    const int ng = min(KS, G - g0);
-    __syncthreads();
-    const int vecs = ng * gs / 8;
-    for (int i = tid; i < MT * vecs; i += blockDim.x) {
-      const int m = i / vecs, v8 = i % vecs;
-      const int k = g0 * gs + v8 * 8;
-      float f[8];
-      if (m < M) {
-        uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)m * x_stride + k);
-        const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = bf2f(v[j]);
-        if (norm != nullptr) {
-          const float r = rinv[m];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) f[j] = round_bf16((f[j] * r) * norm[k + j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = 0.f;
-      }
-      float4* dst = reinterpret_cast<float4*>(xs + m * chunk_k + v8 * 8);
-      dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-      dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-    }
-    __syncthreads();
-    for (int i = warp; i < MT * ng; i += nwarps) {
-      const int m = i / ng, gg = i % ng;
-      const float* src = xs + m * chunk_k + gg * gs;
-      float s = 0.f;
-      for (int k = lane; k < gs; k += 32) s += src[k];
-      s = warp_sum(s);
-      if (lane == 0) xsum[m * KS + gg] = s;
-    }
-    __syncthreads();
-    if (ks < ng) {
-      const int g = g0 + ks;
-      const uint32_t* wp = packed + (size_t)g * wpg * N + n;
-      const float* xg = xs + ks * gs;
-      float acc[MT];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-      for (int w0 = 0; w0 < wpg; w0 += 8) {
-        uint32_t words[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) words[u] = __ldg(wp + (size_t)(w0 + u) * N);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const uint32_t wd = words[u];
-          float q[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) q[j] = (float)((wd >> (4 * j)) & 15u);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float4 xa = *reinterpret_cast<const float4*>(xg + m * chunk_k + (w0 + u) * 8);
-            const float4 xb = *reinterpret_cast<const float4*>(xg + m * chunk_k + (w0 + u) * 8 + 4);
-            acc[m] += xa.x * q[0] + xa.y * q[1] + xa.z * q[2] + xa.w * q[3] +
-                      xb.x * q[4] + xb.y * q[5] + xb.z * q[6] + xb.w * q[7];
-          }
-        }
-      }
-      const float s = scales[(size_t)g * N + n], z = zs[(size_t)g * N + n];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) part[m] += s * acc[m] - z * xsum[m * KS + ks];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < MT; ++m) red[(ks * MT + m) * BN + c] = part[m];
-  __syncthreads();
-  if (ks == 0) {
-    for (int m = 0; m < MT; ++m) {
-      float y = 0.f;
-      for (int kk = 0; kk < KS; ++kk) y += red[(kk * MT + m) * BN + c];
-      red[m * BN + c] = y;
-    }
-  }
-  __syncthreads();
-  if (ks == 0) {
-    for (int m = 0; m < M && m < MT; ++m) {
-      float y = red[m * BN + c];
-      if (rope_style != 0) {
-        const int half = rope_hd / 2;
-        const int pc = rope_style == 1 ? (c ^ 1) : ((c % rope_hd) < half ? c + half : c - half);
-        y = y * cos_row[n] + red[m * BN + pc] * sin_row[n];
-      }
-      bf16 o = f2bf(y);
-      if (residual != nullptr) o = f2bf(bf2f(residual[(size_t)m * N + n]) + bf2f(o));
-      out[(size_t)m * N + n] = o;
-    }
-  }
-}
 
 // The folded weight operand of w4_tile.cuh: exact q. The row-prep pass
 // stores x with each 8-column chunk in the order (0, 4, 1, 5, 2, 6, 3, 7), so
@@ -236,33 +94,17 @@ struct FoldedB {
   }
 };
 
-template <int MT>
-cudaError_t launch_gemv(int BN, size_t smem, cudaStream_t st, const bf16* x, int M, int Kx,
-                        int x_stride, const uint32_t* packed, const float* scales,
-                        const float* zs, int N, int gs, const float* norm, float eps,
-                        const bf16* residual, const float* cos_row, const float* sin_row,
-                        int rope_style, int rope_hd, bf16* out) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(w4_gemv_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  w4_gemv_kernel<MT><<<N / BN, GEMV_THREADS, smem, st>>>(
-      x, M, Kx, x_stride, packed, scales, zs, N, gs, norm, eps, residual, cos_row, sin_row,
-      rope_style, rope_hd, BN, out);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // rope_style: 0 none, 1 interleaved, 2 half. norm/residual/cos/sin may be null.
 // Requires Kx % gs == 0, gs % 64 == 0, 16-byte aligned x rows; N % 64 == 0
-// (M <= 16) or N % 128 == 0 (M > 16).
-// Scratch of the many-row path (M > 16; ignored at M <= 16), allocated by
-// the wrapper with the plan of ops/w4_tile.py: xsum (Kx/gs + 1, Mpad) f32 and xt
-// (Mpad x Kx) bf16 (the prepared x) with Mpad = M rounded up to 64; ws
-// (split, M, N) f32 when split > 1. split: K splits, whole groups each.
+// (M <= 16) or N % 128 == 0 (M > 16); half-style heads that divide 128.
+// split: for M <= 16 the GEMV's cluster (1 .. 8 blocks over 64-row units,
+// ops/w4_tile.py folded_gemv_split; no scratch); for M > 16 the tile's K
+// splits, whole groups each, with the scratch the wrapper allocates by the
+// plan of ops/w4_tile.py: xsum (Kx/gs + 1, Mpad) f32 and xt (Mpad x Kx) bf16
+// (the prepared x) with Mpad = M rounded up to 64; ws (split, M, N) f32 when
+// split > 1.
 extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void* packed,
                          const void* scales, const void* zs, int N, int gs,
                          const void* norm, float eps, const void* residual,
@@ -281,22 +123,12 @@ extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void*
   bf16* o = static_cast<bf16*>(out);
   if (M <= 0 || Kx % gs != 0 || gs % 64 != 0) return (int)cudaErrorInvalidValue;
   if (M <= 16) {
-    int BN = 64;
-    if (rope_style == 2 && rope_hd > BN) BN = rope_hd;
-    if (N % BN != 0 || GEMV_THREADS % BN != 0) return (int)cudaErrorInvalidValue;
-    const int KS = GEMV_THREADS / BN;
-    const int MT = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : 16;
-    const size_t big = (size_t)std::max(MT * KS * gs, KS * MT * BN);
-    const size_t smem = (big + MT * KS + MT) * sizeof(float);
-    cudaError_t e;
-    switch (MT) {
-      case 1: e = launch_gemv<1>(BN, smem, st, xb, M, Kx, x_stride, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style, rope_hd, o); break;
-      case 2: e = launch_gemv<2>(BN, smem, st, xb, M, Kx, x_stride, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style, rope_hd, o); break;
-      case 4: e = launch_gemv<4>(BN, smem, st, xb, M, Kx, x_stride, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style, rope_hd, o); break;
-      case 8: e = launch_gemv<8>(BN, smem, st, xb, M, Kx, x_stride, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style, rope_hd, o); break;
-      default: e = launch_gemv<16>(BN, smem, st, xb, M, Kx, x_stride, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style, rope_hd, o); break;
-    }
-    return (int)e;
+    qgemv::Args g{xb, x_stride, M, Kx, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style,
+                  rope_hd, o, Kx / qgemv::UNIT};
+    const bool aligned = ((reinterpret_cast<uintptr_t>(pk) | reinterpret_cast<uintptr_t>(sc) |
+                           reinterpret_cast<uintptr_t>(z)) & 15) == 0;
+    if (N % 64 != 0) return (int)cudaErrorInvalidValue;
+    return (int)qgemv::launch<qgemv::W4Folded>(g, split, aligned ? 16 : 4, st);
   }
   if (N % w4tile::RED_BN != 0 || (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) || split < 1 ||
       xsum == nullptr || xt == nullptr || (split > 1 && ws == nullptr))

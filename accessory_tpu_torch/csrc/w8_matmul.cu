@@ -18,15 +18,17 @@
 // Two shapes, chosen by the row count:
 //  * GEMV for M <= 8 (decode). Bound: bytes, 1 B a weight plus 8 B of f32
 //    scale and zs per column per group (7B w13: 95.8 MB, 28.6 us at
-//    3.35 TB/s). A thread owns 8 columns of 8 consecutive K rows and reads
-//    them as 8 x 8-byte loads (a row of the block's columns is 64 or 128
-//    contiguous bytes); the block's 512 threads split its K chunk into 64
-//    (32) row lanes, so 16 warps of loads are in flight on each block, and
-//    the partials are summed with warp shuffles and shared memory. x is
-//    staged in shared memory (normalized, bf16-rounded, as f32) one K chunk
-//    at a time and read back as broadcasts. The zero-point term is folded in
-//    per thread over its own rows: sum_k x_k w_k - (sum_k x_k) zs_g summed
-//    over the row lanes is the group's xsum_g * zs_g.
+//    3.35 TB/s). qgemv.cuh's tensor-core GEMV with the W8 policy: each
+//    weight made bf16(q8 * s) in registers (the tile's bit pattern below) as
+//    mma.sync's A operand, the zero-point term sum_g xsum_g * zs_g in f32 at
+//    each group's end, K split over a cluster (ops/w4_tile.py
+//    w8_gemv_split). It takes 52.2 us for 7B's w13 at M = 8 (wqkv 36.7, wo
+//    13.7, w2 27.3; torch.matmul on the dense weight 60.0 / 35.5 / 13.3 /
+//    33.2) on an NVIDIA H100 80GB HBM3, 700.00 W. The GEMV it replaces (a
+//    thread 8 columns of 8 K rows, f32 FMAs on the CUDA cores, 512 threads
+//    on each of N / 64 blocks) took 163.2 / 110.9 / 49.6 / 122.2 us on the
+//    same shapes and card. PERF.md, row 22, holds both designs' times,
+//    measured by chip_smoke.py.
 //  * wgmma tile for M > 8 (the 1024-row prefill, and any fused call of
 //    9..1023 rows). Bound: operations from ~300 rows (about 2 M flops a
 //    weight byte). A row-prep pass (w4_tile.cuh's prep_kernel, and its
@@ -70,160 +72,12 @@
 //    weight. PERF.md row 22 holds both designs' times, measured by
 //    chip_smoke.py.
 //
-// The GEMV's norm prologue reads the whole x row in every block (any K
-// folds). The N tile holds whole heads for RoPE (interleaved partner n ^ 1,
-// half n +- hd/2; the tile's 128 columns and the reduction's 128).
+// The N tile holds whole heads for RoPE (interleaved partner n ^ 1, half
+// n +- hd/2; the GEMV's and the tile's 128 columns and the reduction's 128).
 
-#include "w4_tile.cuh"
+#include "qgemv.cuh"
 
 namespace {
-
-constexpr int GEMV_THREADS = 512;
-constexpr int GEMV_WARPS = GEMV_THREADS / 32;
-constexpr int GEMV_MAX_BN = 128;
-
-template <int MT>
-__global__ void __launch_bounds__(GEMV_THREADS)
-w8_gemv_kernel(const bf16* __restrict__ x, int M, int Kx, long long x_stride,
-               const int8_t* __restrict__ q8, const float* __restrict__ scales,
-               const float* __restrict__ zs, int N, int gs, const float* __restrict__ norm,
-               float eps, const bf16* __restrict__ residual, const float* __restrict__ cos_row,
-               const float* __restrict__ sin_row, int rope_style, int rope_hd, int BN,
-               bf16* __restrict__ out) {
-  __shared__ __align__(16) float xs[MT * 512];   // [MT][CK] staged x of one K chunk
-  __shared__ float red[GEMV_WARPS][GEMV_MAX_BN]; // one row's warp partials
-  __shared__ float yv[MT][GEMV_MAX_BN];          // the block's sums, before the epilogue
-  __shared__ float rinv[MT];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int CG = BN / 8, RL = GEMV_THREADS / CG, CK = RL * 8;
-  const int cg = tid % CG, rl = tid / CG;
-  const int n = blockIdx.x * BN + cg * 8;
-  const bool col_ok = n < N;
-
-  if (norm != nullptr) {
-    for (int m = warp; m < MT; m += GEMV_WARPS) {
-      float ss = 0.f;
-      if (m < M) {
-        const bf16* row = x + (size_t)m * x_stride;
-        for (int k = lane * 8; k < Kx; k += 256) {
-          uint4 raw = *reinterpret_cast<const uint4*>(row + k);
-          const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float f = bf2f(v[j]);
-            ss += f * f;
-          }
-        }
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) rinv[m] = 1.f / sqrtf(ss / (float)Kx + eps);
-    }
-  }
-
-  float acc[MT][8];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-
-  for (int k0 = 0; k0 < Kx; k0 += CK) {
-    __syncthreads();
-    const int vecs = CK / 8;
-    for (int i = tid; i < MT * vecs; i += GEMV_THREADS) {
-      const int m = i / vecs, v8 = i % vecs;
-      const int k = k0 + v8 * 8;
-      float f[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = 0.f;
-      if (m < M && k < Kx) {
-        uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)m * x_stride + k);
-        const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = bf2f(v[j]);
-        if (norm != nullptr) {
-          const float r = rinv[m];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) f[j] = round_bf16((f[j] * r) * norm[k + j]);
-        }
-      }
-      float4* dst = reinterpret_cast<float4*>(xs + m * CK + v8 * 8);
-      dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-      dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-    }
-    __syncthreads();
-    const int kr = k0 + rl * 8;
-    if (col_ok && kr < Kx) {
-      const size_t gi = (size_t)(kr / gs) * N + n;   // 8 rows never straddle a group
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(scales + gi));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(scales + gi + 4));
-      const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-      uint2 qv[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        qv[r] = __ldg(reinterpret_cast<const uint2*>(q8 + (size_t)(kr + r) * N + n));
-      float xp[MT];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) xp[m] = 0.f;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int8_t* qb = reinterpret_cast<const int8_t*>(&qv[r]);
-        float w[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) w[j] = round_bf16(__fmul_rn((float)qb[j], s[j]));
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float xv = xs[m * CK + rl * 8 + r];
-          xp[m] += xv;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[m][j] += xv * w[j];
-        }
-      }
-      const float4 z0 = __ldg(reinterpret_cast<const float4*>(zs + gi));
-      const float4 z1 = __ldg(reinterpret_cast<const float4*>(zs + gi + 4));
-      const float z[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m][j] -= xp[m] * z[j];
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = acc[m][j];
-      for (int off = CG; off < 32; off <<= 1) v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
-    }
-    __syncthreads();   // the previous row's partials are read
-    if (lane < CG) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][cg * 8 + j] = v[j];
-    }
-    __syncthreads();
-    if (tid < BN) {
-      float y = 0.f;
-      for (int w = 0; w < GEMV_WARPS; ++w) y += red[w][tid];
-      yv[m][tid] = y;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < M * BN; i += GEMV_THREADS) {
-    const int m = i / BN, c = i % BN;
-    const int nn = blockIdx.x * BN + c;
-    if (m >= MT || nn >= N) continue;
-    float y = yv[m][c];
-    if (rope_style != 0) {
-      const int half = rope_hd / 2;
-      const int pc = rope_style == 1 ? (c ^ 1) : ((c % rope_hd) < half ? c + half : c - half);
-      y = y * cos_row[nn] + yv[m][pc] * sin_row[nn];
-    }
-    bf16 o = f2bf(y);
-    if (residual != nullptr) o = f2bf(bf2f(residual[(size_t)m * N + nn]) + bf2f(o));
-    out[(size_t)m * N + nn] = o;
-  }
-}
 
 // ---------------------------------------------------------------- the tile (M > 8)
 
@@ -308,14 +162,6 @@ __device__ __forceinline__ void wgmma_64x256x16_rs(float (&d)[128], const uint32
 // slab's A registers)
 __device__ __forceinline__ void reg_keep4(const uint32_t (&r)[4]) {
   asm volatile("" ::"r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
-}
-
-// q8 byte e of w (already XORed with 0x80) times s as the f32 product, exact
-// q8 from the float pattern 0x4B000000 | (q8 + 128) less 2^23 + 128
-__device__ __forceinline__ float w8_value(uint32_t w, int e, float s) {
-  return __fmul_rn(__fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | e)),
-                           8388736.f),
-                   s);
 }
 
 // A 256-row x 128-column output tile over the K steps of its split,
@@ -417,6 +263,7 @@ __global__ void __launch_bounds__(TTHREADS, 1) w8_tile_kernel(const W8Tile A) {
                    raw + (16 * j + 2 * t + (r & 1) + 8 * (r >> 1)) * RAW_LD) ^
                0x8080u;
       uint32_t(&af)[4] = afr[j & 1];
+      using qgemv::w8_value;
       af[0] = pack_bf16x2(w8_value(w[0], 0, s2.x), w8_value(w[1], 0, s2.x));
       af[1] = pack_bf16x2(w8_value(w[0], 1, s2.y), w8_value(w[1], 1, s2.y));
       af[2] = pack_bf16x2(w8_value(w[2], 0, s2.x), w8_value(w[3], 0, s2.x));
@@ -517,12 +364,13 @@ __global__ void __launch_bounds__(TTHREADS, 1) w8_tile_kernel(const W8Tile A) {
 // aligned); q8 (>= Kx, N) int8 rows; scales / zs (>= Kx/gs, N) f32; q8,
 // scales and zs 16-byte aligned; out (M, N) bf16 contiguous. rope_style: 0
 // none, 1 interleaved, 2 half; norm / residual / cos / sin may be null.
-// M > 8 also takes the wrapper's plan (ops/w4_tile.py w8_plan): xt (Mpad x
-// Kx) bf16 and xsum (Kx/gs + 1, Mpad) f32 with Mpad = M rounded up to 256,
-// ws (split, M, N) f32 when K is split; null and 1 for M <= 8. Requires
-// Kx % gs == 0, gs % 64 == 0, N % 8 == 0, and with RoPE N % rope_hd == 0 and
-// whole heads in the 128-column tile (the GEMV's 64 for M <= 8 unless
-// half-style heads are wider than 64).
+// split: for M <= 8 the GEMV's cluster (1 .. 8 blocks over 64-row units,
+// ops/w4_tile.py w8_gemv_split; xt, xsum and ws null); for M > 8 the tile's
+// K splits with the wrapper's plan (ops/w4_tile.py w8_plan): xt (Mpad x Kx)
+// bf16 and xsum (Kx/gs + 1, Mpad) f32 with Mpad = M rounded up to 256, ws
+// (split, M, N) f32 when K is split. Requires Kx % gs == 0, gs % 64 == 0,
+// N % 8 == 0, and with RoPE N % rope_hd == 0 and whole heads in the
+// 128-column tile.
 extern "C" int w8_matmul(const void* x, int M, int Kx, long long x_stride, const void* q8,
                          const void* scales, const void* zs, int N, int gs, const void* norm,
                          float eps, const void* residual, const void* cos_row,
@@ -543,32 +391,9 @@ extern "C" int w8_matmul(const void* x, int M, int Kx, long long x_stride, const
   if (rope_style != 0 && (rope_hd <= 0 || rope_hd % 2 != 0 || N % rope_hd != 0))
     return (int)cudaErrorInvalidValue;
   if (M <= 8) {
-    const int BNg = (rope_style == 2 && rope_hd > 64) ? 128 : 64;
-    if (rope_style == 2 && BNg % rope_hd != 0) return (int)cudaErrorInvalidValue;
-    const int grid = (N + BNg - 1) / BNg;
-    switch (M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8) {
-      case 1:
-        w8_gemv_kernel<1><<<grid, GEMV_THREADS, 0, st>>>(xb, M, Kx, x_stride, q, sc, z, N, gs, nw,
-                                                         eps, res, cr, sr, rope_style, rope_hd,
-                                                         BNg, o);
-        break;
-      case 2:
-        w8_gemv_kernel<2><<<grid, GEMV_THREADS, 0, st>>>(xb, M, Kx, x_stride, q, sc, z, N, gs, nw,
-                                                         eps, res, cr, sr, rope_style, rope_hd,
-                                                         BNg, o);
-        break;
-      case 4:
-        w8_gemv_kernel<4><<<grid, GEMV_THREADS, 0, st>>>(xb, M, Kx, x_stride, q, sc, z, N, gs, nw,
-                                                         eps, res, cr, sr, rope_style, rope_hd,
-                                                         BNg, o);
-        break;
-      default:
-        w8_gemv_kernel<8><<<grid, GEMV_THREADS, 0, st>>>(xb, M, Kx, x_stride, q, sc, z, N, gs, nw,
-                                                         eps, res, cr, sr, rope_style, rope_hd,
-                                                         BNg, o);
-        break;
-    }
-    return (int)cudaGetLastError();
+    const qgemv::Args g{xb, x_stride, M, Kx, q, sc, z, N, gs, nw, eps, res, cr, sr, rope_style,
+                        rope_hd, o, Kx / qgemv::UNIT};
+    return (int)qgemv::launch<qgemv::W8>(g, split, N % 16 == 0 ? 16 : 8, st);
   }
   const int granules = Kx / gs;
   if (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) return (int)cudaErrorInvalidValue;

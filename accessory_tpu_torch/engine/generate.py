@@ -59,6 +59,14 @@ def stop_token_seqs(tokenizer, stop_symbols: Iterable[str]) -> Tuple[Tuple[int, 
     return tuple(out)
 
 
+def _no_images(images) -> None:
+    """The reference's ``images`` parameter (its second, in ``generate`` and
+    ``stream_generate``): the port serves text only so far."""
+    if images is not None:
+        raise NotImplementedError("images: the multimodal path (encode_image) is not ported "
+                                  "yet (ROADMAP A8)")
+
+
 class Generator:
     """Wraps a model module (``forward`` / ``init_kv_cache``), its args,
     per-layer params on ``device`` and a tokenizer."""
@@ -77,9 +85,10 @@ class Generator:
         self.last_tokens = None  # the last run's token buffer (batch, buf_len), numpy
 
     @torch.no_grad()
-    def generate(self, prompts: List[str], max_gen_len: int = 512, temperature: float = 0.0,
-                 top_p: float = 0.95, additional_stop_symbols: Iterable[str] = (),
-                 seed: int = 0) -> List[str]:
+    def generate(self, prompts: List[str], images=None, max_gen_len: int = 512,
+                 temperature: float = 0.0, top_p: float = 0.95,
+                 additional_stop_symbols: Iterable[str] = (), seed: int = 0) -> List[str]:
+        _no_images(images)
         if isinstance(prompts, str):
             raise ValueError("generate expects a batched LIST of prompts")
         bsz = len(prompts)
@@ -151,13 +160,21 @@ class Generator:
         self.last_tokens = tokens.cpu().numpy()
         return self.last_tokens, stop_pos.cpu().numpy()
 
-    @torch.no_grad()
-    def stream_generate(self, prompt: str, max_gen_len: int = 512, temperature: float = 0.0,
-                        top_p: float = 0.95, additional_stop_symbols: Iterable[str] = (),
+    def stream_generate(self, prompt: str, images=None, max_gen_len: int = 512,
+                        temperature: float = 0.0, top_p: float = 0.95,
+                        additional_stop_symbols: Iterable[str] = (),
                         seed: int = 0) -> Iterator[Dict[str, object]]:
         """One prompt, yielding {"text", "end_of_content"} after every token:
         the text decoded so far, cut at the first stop string once one shows
-        up in it; eos ends the stream."""
+        up in it; eos ends the stream. ``images`` raises at the call, before
+        the first token."""
+        _no_images(images)
+        return self._stream(prompt, max_gen_len, temperature, top_p,
+                            additional_stop_symbols, seed)
+
+    @torch.no_grad()
+    def _stream(self, prompt, max_gen_len, temperature, top_p, additional_stop_symbols,
+                seed):
         dev, args = self.device, self.args
         tokens_l = self.tokenizer.encode(prompt, bos=True, eos=False)
         max_seq_len = args.max_seq_len

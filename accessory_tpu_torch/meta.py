@@ -58,18 +58,18 @@ class MetaModel:
     def _reset_generator(self):
         self._generator = None
 
-    def generate(self, prompts: List[str], max_gen_len: int = 512, temperature: float = 0.0,
-                 top_p: float = 0.95, additional_stop_symbols: Iterable[str] = (),
-                 seed: int = 0) -> List[str]:
-        return self.generator.generate(prompts, max_gen_len=max_gen_len,
+    def generate(self, prompts: List[str], images=None, max_gen_len: int = 512,
+                 temperature: float = 0.0, top_p: float = 0.95,
+                 additional_stop_symbols: Iterable[str] = (), seed: int = 0) -> List[str]:
+        return self.generator.generate(prompts, images=images, max_gen_len=max_gen_len,
                                        temperature=temperature, top_p=top_p,
                                        additional_stop_symbols=additional_stop_symbols,
                                        seed=seed)
 
-    def stream_generate(self, prompt: str, max_gen_len: int = 512, temperature: float = 0.0,
-                        top_p: float = 0.95, additional_stop_symbols: Iterable[str] = (),
-                        seed: int = 0):
-        return self.generator.stream_generate(prompt, max_gen_len=max_gen_len,
+    def stream_generate(self, prompt: str, images=None, max_gen_len: int = 512,
+                        temperature: float = 0.0, top_p: float = 0.95,
+                        additional_stop_symbols: Iterable[str] = (), seed: int = 0):
+        return self.generator.stream_generate(prompt, images=images, max_gen_len=max_gen_len,
                                               temperature=temperature, top_p=top_p,
                                               additional_stop_symbols=additional_stop_symbols,
                                               seed=seed)

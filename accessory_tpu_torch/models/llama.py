@@ -150,8 +150,8 @@ def get_trainable_params_filter(args: LLaMAArgs):
 
 
 def init_kv_cache(args: LLaMAArgs, batch: int, max_len: Optional[int] = None,
-                  dtype=None, kv_dtype: Optional[str] = None, device="cuda",
-                  stacked: bool = False) -> Dict[str, Any]:
+                  dtype=None, stacked: bool = False, kv_dtype: Optional[str] = None,
+                  device="cuda") -> Dict[str, Any]:
     """Static KV cache. Per layer (the default, for the unrolled decode path):
     lists of pools (batch, n_kv_heads, max_len, head_dim), every cached token
     of a head one contiguous row (the port's layout). ``stacked=True``: one

@@ -1,9 +1,10 @@
 """W4A16 matmul with fused RMSNorm prologue, RoPE and residual epilogues.
 
 Port of ``accessory_tpu/ops/quant_matmul_planes.py::planes_qmm``. The CUDA
-kernel is ``csrc/w4_matmul.cu`` (a GEMV for M <= 16 rows; above, a row-prep
-pass and the many-row tile of ``csrc/w4_tile.cuh``, K split over blocks by
-the plan of ``ops/w4_tile.py``); ``planes_qmm_plain`` is its plain PyTorch
+kernel is ``csrc/w4_matmul.cu`` (for M <= 16 rows the tensor-core GEMV of
+``csrc/qgemv.cuh``, K split over a cluster; above, a row-prep pass and the
+many-row tile of ``csrc/w4_tile.cuh``, K split over blocks; both by the plans
+of ``ops/w4_tile.py``); ``planes_qmm_plain`` is its plain PyTorch
 version and the path for tensors on the CPU. Both fold the zero point out
 per group:
 
@@ -48,7 +49,8 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     Kx <= in_dim (missing columns count as zero). norm_weight (Kx,): RMSNorm
     prologue over the Kx columns; residual (M, N): added after the cast;
     rope_cos/rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows). ``split``:
-    the many-row tile's K split on the card (None: ``w4_tile.folded_plan``'s)."""
+    the K split on the card, the GEMV's cluster at M <= 16, the many-row
+    tile's above (None: ``w4_tile.folded_gemv_split``'s / ``folded_plan``'s)."""
     if (rope_cos is None) != (not rope_style):
         raise ValueError("rope rows and rope_style go together")
     if x2d.device.type == "cpu":
@@ -82,11 +84,11 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     for t in (scales, zs):
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= in_dim // group_size, "scales/zs must be contiguous f32 (G, N)")
-    tile_n = 64 if m <= 16 else 128
-    if rope_style == "half" and m <= 16:   # the GEMV widens its tile to a head
-        tile_n = max(tile_n, rope_hd)
-    _check(n % tile_n == 0 and (rope_style != "half" or tile_n % rope_hd == 0),
-           f"N {n} must be a multiple of the kernel's {tile_n}-column tile holding whole heads")
+    tile_n = 64 if m <= 16 else 128   # the GEMV takes a half-empty last 128-column tile
+    _check(n % tile_n == 0 and (rope_style != "half" or (128 % rope_hd == 0
+                                                         and n % rope_hd == 0)),
+           f"N {n} must be a multiple of {tile_n}, with whole heads in the kernel's "
+           "128-column tile")
     for t, shape, dt in ((norm_weight, (kx,), torch.float32), (residual, (m, n), torch.bfloat16),
                          (rope_cos, (n,), torch.float32), (rope_sin, (n,), torch.float32)):
         if t is not None:
@@ -104,14 +106,16 @@ def _kernel_call(x2d, packed, scales, zs, norm_weight, residual, rope_cos, rope_
                  group_size: int, norm_eps: float = 1e-5, rope_style: str = "",
                  rope_hd: int = 0, split: Optional[int] = None) -> int:
     """One call of the C entry on operands ``planes_qmm`` has checked (or
-    that a measurement script vouches for): the scratch of the many-row
-    path from ``w4_tile.folded_plan`` (``split`` None: the plan's own), the
-    CUDA error code back; counts nothing."""
+    that a measurement script vouches for): the GEMV's cluster split from
+    ``w4_tile.folded_gemv_split`` (M <= 16, no scratch), or the scratch and
+    split of the many-row path from ``w4_tile.folded_plan`` (``split`` None:
+    the plan's own), the CUDA error code back; counts nothing."""
     m, kx = x2d.shape
     n = packed.shape[1]
     buf = xt = xsum = ws = None
-    nsplit = 1
-    if m > 16:
+    if m <= 16:
+        nsplit = w4_tile.folded_gemv_split(n, kx, split)
+    else:
         plan = w4_tile.folded_plan(m, n, kx, group_size, split)
         buf, xt, xsum, ws = w4_tile.scratch(plan, x2d.device, xsum=True)
         nsplit = plan.split

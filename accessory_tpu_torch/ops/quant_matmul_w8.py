@@ -2,8 +2,9 @@
 
 Port of ``accessory_tpu/ops/quant_matmul_w8.py`` (``repack_for_w8``,
 ``w8_qmm``, ``choose_tile_k_w8``). The CUDA kernel is ``csrc/w8_matmul.cu``
-(a GEMV for M <= 8 rows, a wgmma tile above with a row-prep pass and K split
-by the plan of ``ops/w4_tile.py``, any M);
+(for M <= 8 rows the tensor-core GEMV of ``csrc/qgemv.cuh``, K split over a
+cluster; a wgmma tile above with a row-prep pass and K split over blocks;
+both by the plans of ``ops/w4_tile.py``, any M);
 ``w8_qmm_plain`` is its plain PyTorch version and the path for tensors on the
 CPU. Both compute the TPU kernel's numerics:
 
@@ -67,8 +68,9 @@ def w8_qmm(x2d: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zs: torch.
     q8 (K, N) int8 (q - 128); scales / zs (>= K/gs, N) f32, zs = (zeros - 128)
     * scales; Kx <= K (missing columns count as zero). norm_weight (Kx,):
     RMSNorm prologue; residual (M, N): added after the cast; rope_cos /
-    rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows). ``split``: the
-    tile's K split on the card, M > 8 (None: ``w4_tile.w8_plan``'s)."""
+    rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows). ``split``: the K
+    split on the card, the GEMV's cluster at M <= 8, the tile's above (None:
+    ``w4_tile.w8_gemv_split``'s / ``w8_plan``'s)."""
     if (rope_cos is None) != (not rope_style):
         raise ValueError("rope rows and rope_style go together")
     if x2d.device.type == "cpu":
@@ -95,10 +97,9 @@ def w8_qmm(x2d: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zs: torch.
                and t.shape[0] >= k // group_size and t.data_ptr() % 16 == 0,
                "scales/zs must be contiguous f32 (G, N)")
     if rope_style:
-        tile_n = 128 if m > 8 or (rope_style == "half" and rope_hd > 64) else 64
         _check(rope_hd % 2 == 0 and n % rope_hd == 0
-               and (rope_style != "half" or tile_n % rope_hd == 0),
-               f"N {n} must hold whole heads of {rope_hd} in the kernel's {tile_n}-column tile")
+               and (rope_style != "half" or 128 % rope_hd == 0),
+               f"N {n} must hold whole heads of {rope_hd} in the kernel's 128-column tile")
     for t, shape, dt in ((norm_weight, (kx,), torch.float32), (residual, (m, n), torch.bfloat16),
                          (rope_cos, (n,), torch.float32), (rope_sin, (n,), torch.float32)):
         if t is not None:
@@ -115,14 +116,17 @@ def w8_qmm(x2d: torch.Tensor, q8: torch.Tensor, scales: torch.Tensor, zs: torch.
 def _kernel_call(x2d, q8, scales, zs, norm_weight, residual, rope_cos, rope_sin, out, *,
                  group_size: int, norm_eps: float, rope_style: str, rope_hd: int,
                  split: Optional[int]) -> int:
-    """The C call on checked operands; M > 8 with the plan's scratch (the
-    tiled x, sum(x) per group and 1 / rms, the split's partials) in one
-    allocation held to the launch. Returns the C entry's cudaError_t."""
+    """The C call on checked operands: M <= 8 with the GEMV's cluster split
+    (``w4_tile.w8_gemv_split``, no scratch), M > 8 with the tile plan's
+    scratch (the tiled x, sum(x) per group and 1 / rms, the split's
+    partials) in one allocation held to the launch. Returns the C entry's
+    cudaError_t."""
     m, kx = x2d.shape
     n = q8.shape[1]
     buf = xt = xsum = ws = None
-    nsplit = 1
-    if m > 8:
+    if m <= 8:
+        nsplit = w4_tile.w8_gemv_split(n, kx, split)
+    else:
         plan = w4_tile.w8_plan(m, n, kx, group_size, split)
         buf, xt, xsum, ws = w4_tile.scratch(plan, x2d.device, xsum=True)
         nsplit = plan.split

@@ -1,5 +1,6 @@
 """Launch plans of the many-row W4 tile (``csrc/w4_tile.cuh``), the W8 tile
-(``csrc/w8_matmul.cu``) and the std / magic GEMV (``csrc/w4_elem.cuh``).
+(``csrc/w8_matmul.cu``), the std / magic GEMV (``csrc/w4_elem.cuh``) and the
+fused GEMV of rows 1 and 22 (``csrc/qgemv.cuh``).
 
 Row 1's fused tile (``csrc/w4_matmul.cu``, M > 16), the std / magic tile
 (``csrc/w4_elem.cuh``, M > 8) and the W8 tile (M > 8) cover the output with
@@ -13,9 +14,11 @@ reduction pass sums the partials in split order (deterministic) before the
 epilogue. The C call's row-prep pass first writes x, tiled in the order the
 stages copy it, to a scratch of ``xt_shape``.
 
-The std / magic GEMV (M <= 8) splits K over the blocks of a cluster
-(``gemv_split``): the blocks' partial tiles are summed in rank order through
-distributed shared memory, so it needs no scratch.
+The GEMVs split K over the blocks of a cluster: the std / magic GEMV (M <=
+8, ``gemv_split``) and the fused GEMV of rows 1 (M <= 16,
+``folded_gemv_split``) and 22 (M <= 8, ``w8_gemv_split``); the blocks'
+partial tiles are summed in rank order through distributed shared memory,
+so they need no scratch.
 
 ``plan`` is a pure function of the shape (cached: a model calls a few shapes
 many times), so the CPU tests check its rules; the wrappers allocate the
@@ -150,28 +153,54 @@ def elem_plan(m: int, n: int, kx: int, tk: Optional[int] = None,
                 STD_SLOTS if tk is None else MAGIC_SLOTS, split)
 
 
-GEMV_TILE_N = 128        # csrc/w4_elem.cuh GEMV_BN
+GEMV_TILE_N = 128        # csrc/w4_elem.cuh GEMV_BN, csrc/qgemv.cuh BN
 GEMV_MAX_SPLIT = 8       # blocks of a cluster (the portable most)
-GEMV_BLOCKS = 352        # blocks the GEMV aims at, ~2.7 an SM
+GEMV_BLOCKS = 352        # blocks the GEMVs aim at, ~2.7 an SM
 GEMV_MIN_UNITS = 2       # 64-row units a split takes at least
+# the largest cluster the W8 GEMV's plan picks: on 32 column tiles (7B wo and
+# w2) a cluster of 7 ran 10-19% faster than one of 8 in a sweep on the card
+W8_GEMV_MOST = 7
 
 
-@functools.lru_cache(maxsize=4096)
-def gemv_split(n: int, units: int, split: Optional[int] = None) -> int:
-    """Rows 24 / 25's GEMV (M <= 8): the K split (the cluster's blocks) for
-    ``ceil(n / 128)`` column tiles over ``units`` 64-row units. None: the
-    split nearest ``GEMV_BLOCKS`` blocks, at most ``GEMV_MAX_SPLIT`` and
-    each split at least ``GEMV_MIN_UNITS`` units: a model fitted to a sweep
-    of every split at the GPTQ decode's shapes on the card (PERF.md, rows
-    24 and 25)."""
+def _cluster_split(n: int, units: int, split: Optional[int],
+                   most: int = GEMV_MAX_SPLIT) -> int:
+    """The K split (a cluster's blocks) of a GEMV over ``ceil(n / 128)``
+    column tiles and ``units`` 64-row units: None gives the split nearest
+    ``GEMV_BLOCKS`` blocks, at most ``most``, each split at least
+    ``GEMV_MIN_UNITS`` units; a given split must lie in [1, min(8, units)]."""
     if split is None:
         tiles = math.ceil(n / GEMV_TILE_N)
-        split = max(1, min(GEMV_MAX_SPLIT, units // GEMV_MIN_UNITS,
-                           int(GEMV_BLOCKS / tiles + 0.5)))
+        split = max(1, min(most, units // GEMV_MIN_UNITS, int(GEMV_BLOCKS / tiles + 0.5)))
     if not 1 <= split <= min(GEMV_MAX_SPLIT, units):
         raise ValueError(f"split {split} must lie in [1, {min(GEMV_MAX_SPLIT, units)}]: "
                          f"a cluster of at most {GEMV_MAX_SPLIT} blocks over {units} units")
     return split
+
+
+@functools.lru_cache(maxsize=4096)
+def gemv_split(n: int, units: int, split: Optional[int] = None) -> int:
+    """Rows 24 / 25's GEMV (M <= 8): the K split for ``units`` 64-row units,
+    nearest ``GEMV_BLOCKS`` blocks: a model fitted to a sweep of every split
+    at the GPTQ decode's shapes on the card (PERF.md, rows 24 and 25)."""
+    return _cluster_split(n, units, split)
+
+
+@functools.lru_cache(maxsize=4096)
+def folded_gemv_split(n: int, kx: int, split: Optional[int] = None) -> int:
+    """Row 1's GEMV (``planes_qmm``, M <= 16, csrc/qgemv.cuh): the K split
+    over the Kx / 64 units of x, nearest ``GEMV_BLOCKS`` blocks (a split may
+    cut a quantization group: each rank folds its part); a sweep of every
+    split on the card put the best within 10% of it at every decode shape
+    (PERF.md, PR 11)."""
+    return _cluster_split(n, kx // TILE_K, split)
+
+
+@functools.lru_cache(maxsize=4096)
+def w8_gemv_split(n: int, kx: int, split: Optional[int] = None) -> int:
+    """Row 22's GEMV (``w8_qmm``, M <= 8, csrc/qgemv.cuh): the K split over
+    the Kx / 64 units of x, nearest ``GEMV_BLOCKS`` blocks and at most
+    ``W8_GEMV_MOST`` (PERF.md, PR 11)."""
+    return _cluster_split(n, kx // TILE_K, split, W8_GEMV_MOST)
 
 
 def scratch(p: TilePlan, device, xsum: bool):

@@ -25,7 +25,7 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             H100's 3.35 TB/s and 989 TFLOP/s (the fused FFN beside the unfused
             chain's device time, the read-only paged decode also against the
             paged decode after the token's paged write; where a plan splits K
-            (the many-row W4 and W8 tiles, the std / magic GEMV's cluster), a
+            (the many-row W4 and W8 tiles, the GEMVs' clusters), a
             second launch bit-equal to the first and the unsplit plan within
             tolerance); --kernel_names keeps the rows of some kernels only;
   parity    TinyLlama width, 2 layers: CPU through the plain versions against
@@ -426,8 +426,8 @@ def _w4_weight_sets(kr, m, k, n, fusion, rope, copies=None):
 
 
 def _split_check(label, split, got, want, launch):
-    """Where a kernel's plan splits K (the many-row W4 and W8 tiles, the std
-    / magic GEMV's cluster): a second launch bit-equal to the first (the
+    """Where a kernel's plan splits K (the many-row W4 and W8 tiles, the
+    GEMVs' clusters): a second launch bit-equal to the first (the
     partials are summed in split order) and the unsplit plan
     (``launch(1)``) within the rows' tolerance; the row's extra fields."""
     import torch
@@ -446,7 +446,8 @@ def _split_check(label, split, got, want, launch):
 
 def _kernels_w4(kr, tag, specs, ms, rope):
     """planes_qmm (GEMV for M <= 16, the many-row tile above) with its
-    fusions; the tile's K split checked (``_split_check``)."""
+    fusions; the GEMV's cluster split and the tile's K split checked
+    (``_split_check``)."""
     import torch
 
     from accessory_tpu_torch.ops import w4_tile
@@ -460,9 +461,10 @@ def _kernels_w4(kr, tag, specs, ms, rope):
             want = planes_qmm_plain(**a0)
             torch.cuda.synchronize()
             check_close(f"w4_matmul {tag} {name} M={m}", got, want, rtol=2e-2, atol=2e-2)
-            extra = {} if m <= 16 else _split_check(
-                f"w4_matmul {tag} {name} M={m}", w4_tile.folded_plan(m, n, k, 128).split, got,
-                want, lambda sp: planes_qmm(**a0, split=sp))
+            split = (w4_tile.folded_gemv_split(n, k) if m <= 16 else
+                     w4_tile.folded_plan(m, n, k, 128).split)
+            extra = _split_check(f"w4_matmul {tag} {name} M={m}", split, got, want,
+                                 lambda sp: planes_qmm(**a0, split=sp))
             k_ms = time_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
             k_wall = wall_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
             p_ms = time_ms(lambda a: planes_qmm_plain(**a), [(s[0],) for s in sets[:1]],
@@ -1197,7 +1199,7 @@ def _w8_weight_sets(kr, m, k, n, fusion, rope):
 
 def _kernels_w8(kr, tag, specs, rope):
     """w8_qmm (GEMV for M <= 8, the wgmma tile above) with its fusions; the
-    tile's K split checked (``_split_check``)."""
+    GEMV's cluster split and the tile's K split checked (``_split_check``)."""
     import torch
 
     from accessory_tpu_torch.ops import w4_tile
@@ -1212,9 +1214,8 @@ def _kernels_w8(kr, tag, specs, rope):
         # the same bf16 weights and f32 sums in another order: a rounding step or two
         label = f"w8_matmul {tag} {name} M={m}"
         check_close(label, got, want, rtol=2e-2, atol=2e-2)
-        extra = {} if m <= 8 else _split_check(
-            label, w4_tile.w8_plan(m, n, k, 128).split, got, want,
-            lambda sp: w8_qmm(**a0, split=sp))
+        split = w4_tile.w8_gemv_split(n, k) if m <= 8 else w4_tile.w8_plan(m, n, k, 128).split
+        extra = _split_check(label, split, got, want, lambda sp: w8_qmm(**a0, split=sp))
         calls = [(s[0],) for s in sets]
         k_ms = time_ms(lambda a: w8_qmm(**a), calls)
         k_wall = wall_ms(lambda a: w8_qmm(**a), calls)
@@ -1438,22 +1439,22 @@ def phase_kernels(seed: int, names=None):
     if want("w4_matmul"):
         # -- TinyLlama-1.1B (GQA) path: the four decode-layer projections at M 1 (the
         #    stream phase's decode: the one-row GEMV), 4 (the serve phases' decode
-        #    batch), 8 (the decode phases'), 128 (the stream phase's prefill) and 512
-        #    (the serve phases' prefill)
+        #    batch), 8 (the decode phases'), 16 (the GEMV's most rows), 128 (the
+        #    stream phase's prefill) and 512 (the serve phases' prefill)
         cos, sin = precompute_rope(64, 1024, device="cuda")
         rope = rope_rows(cos, sin, 36, 4, 64, "interleaved") + ("interleaved", 64)
-        _kernels_w4(kr, "tiny", TINY_PROJ, (1, 4, 8, 128, 512), rope)
+        _kernels_w4(kr, "tiny", TINY_PROJ, (1, 4, 8, 16, 128, 512), rope)
         # -- the stacked path's separate projections, with no prologue or epilogue
         #    (wk and wv, w1 and w3 share a shape; its wo and w2 are the rows above)
         _kernels_w4(kr, "tiny", [("wq", 2048, 2048, ""), ("wk/wv", 2048, 256, ""),
                                  ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope)
-        # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 (K 11008 is
-        #    padded to 11264 in the weight; RoPE at head_dim 128)
+        # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 and at M 1 and
+        #    4 (K 11008 is padded to 11264 in the weight; RoPE at head_dim 128)
         cos, sin = precompute_rope(128, 1024, device="cuda")
         rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
         _kernels_w4(kr, "7b", [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
                                ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")],
-                    (8,), rope)
+                    (1, 4, 8), rope)
 
     if want("w4_matmul_bigm"):
         # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, and one row
@@ -1622,9 +1623,10 @@ def _tree_to(node, device):
     return node.to(device)
 
 
-# kernel-name substring of each new weight format's matmul in a profiler trace
-_MATMUL_SYMBOLS = {"w8_matmul": "w8_", "w4_matmul_std": "StdLayout",
-                   "w4_matmul_magic": "MagicLayout"}
+# kernel-name substrings of each new weight format's matmul in a profiler
+# trace (W8: its tile and the fused GEMV's qgemv::W8 policy)
+_MATMUL_SYMBOLS = {"w8_matmul": ("w8_", "qgemv::W8"), "w4_matmul_std": ("StdLayout",),
+                   "w4_matmul_magic": ("MagicLayout",)}
 
 # bf16 activations round (2^-8 relative) at different points on the two
 # sides (kernel sums in another order, so a rounding may flip by one ulp and
@@ -2858,12 +2860,12 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
     row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms, **kw)
     top = row["profile"].get("top_kernels_ms_per_step", {})
     row["ffn_kernels_ms_per_step"] = {    # the FFN's kernels' device time: fused, or GEMVs
-        sym: sum(v for k, v in top.items() if sym in k) for sym in ("ffn_fused", "w4_gemv")}
+        sym: sum(v for k, v in top.items() if sym in k) for sym in ("ffn_fused", "W4Folded")}
     if matmul != "w4_matmul":   # the new weight formats' kernel share of the device time
         prof = row["profile"]
         busy = prof.get("device_busy_ms_per_step")
         mm = sum(v for k, v in prof.get("top_kernels_ms_per_step", {}).items()
-                 if _MATMUL_SYMBOLS[matmul] in k)
+                 if any(sym in k for sym in _MATMUL_SYMBOLS[matmul]))
         row["matmul_ms_per_step"] = mm
         row["matmul_share_of_busy"] = mm / busy if busy else None
     emit(row)
@@ -2910,7 +2912,7 @@ LLAMA_700M = dict(dim=2048, n_layers=12, n_heads=16, n_kv_heads=8, vocab_size=32
                   multiple_of=256, dtype="bfloat16")
 # the device's kernels by what they do in a training step (name substrings)
 TRAIN_SPLIT = (("forward W4 (many-row)", ("w4_bigm_kernel",)),
-               ("forward W4 (tile / GEMV)", ("FoldedB", "w4_gemv_kernel")),
+               ("forward W4 (tile / GEMV)", ("FoldedB", "W4Folded")),
                ("W4 dequant", ("w4_dequant_kernel",)),
                ("attention forward", ("flash_fwd_kernel",)),
                ("attention backward", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),

@@ -11,8 +11,10 @@ write), the one-token and the stacked writes, the stacked-cache and unfused
 model paths against the CPU, and the many-row W4 tiles (row 1 at 17-1023
 rows with every fusion, std / magic from 9 rows, N = 136; every K split bit
 for bit across launches and within tolerance of the unsplit plan), the W8
-tile (9-1030 rows, every fusion, N % 16 == 8) and the std / magic GEMV
-(every row count 1-8, each cluster split twice bit for bit). Each test
+tile (9-1030 rows, every fusion, N % 16 == 8), the std / magic GEMV
+(every row count 1-8, each cluster split twice bit for bit) and rows 1 and
+22's fused GEMV (M 1-16 / 1-8, every fusion, each cluster split twice bit
+for bit and within tolerance of split 1). Each test
 carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
@@ -1676,3 +1678,139 @@ def test_w4_gemv_refuses(gen):
     bad = dataclasses.replace(std, packed=words.view(512 // 8, 256))
     with pytest.raises(ValueError, match="16-byte aligned"):
         quant_matmul_pallas(randn(gen, 4, 512), bad)
+
+
+# ---------------------------------------------------------------- rows 1 and 22's fused GEMV
+#    (csrc/qgemv.cuh: w4_matmul at M <= 16, w8_matmul at M <= 8, K split
+#    over a cluster by ops/w4_tile.py folded_gemv_split / w8_gemv_split)
+
+_GEMV_FUSIONS = ["none", "norm", "res", "norm+res", "norm+rope_interleaved", "norm+rope_half",
+                 "rope_half+res"]
+
+
+def _fusion_kw(gen, m, kx, n, fusion, hd=64):
+    kw = {}
+    if "norm" in fusion:
+        kw["norm_weight"] = 1 + 0.1 * randn(gen, kx, dtype=torch.float32)
+    if "res" in fusion:
+        kw["residual"] = randn(gen, m, n)
+    if "rope" in fusion:
+        style = "half" if "half" in fusion else "interleaved"
+        cos, sin = precompute_rope(hd, 1024, device="cuda")
+        cr, sr = rope_rows(cos[700], sin[700], n // hd - 1, 1, hd, style)
+        kw.update(rope_cos=cr, rope_sin=sr, rope_style=style, rope_hd=hd)
+    return kw
+
+
+def _every_split(call, units, want):
+    """Every cluster split the GEMV takes (1 .. min(8, units)): two launches
+    bit-equal, each within tolerance of the plain version and of split 1."""
+    first = None
+    for split in range(1, min(8, units) + 1):
+        one, two = call(split), call(split)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two), f"split {split}: two launches differ"
+        assert_close(one, want)
+        if first is None:
+            first = one
+        assert_close(one, first)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("fusion", _GEMV_FUSIONS)
+def test_w4_fused_gemv(gen, m, fusion):
+    """Row 1's GEMV at every fusion: x narrower than a padded in_dim (1152 of
+    2048: 18 units, so a split cuts a group of 128 rows), N 448 (a half-empty
+    last 128-column block), strided x rows; one counted launch, every split
+    against the plain version."""
+    k, kx, n = 2048, 1152, 448
+    qw = _w4(gen, kx, n, pad_in_to=1024)
+    assert qw.in_dim == k
+    x = randn(gen, m, kx + 64)[:, :kx]
+    kw = dict(in_dim=k, group_size=128, **_fusion_kw(gen, m, kx, n, fusion))
+    args = (x, qw.packed, qw.scales, qw.zeros)
+    want = planes_qmm_plain(*args, **kw)
+    before = kernels.launch_counts()["w4_matmul"]
+    got = planes_qmm(*args, **kw)
+    assert kernels.launch_counts()["w4_matmul"] == before + 1
+    assert_close(got, want)
+    _every_split(lambda sp: planes_qmm(*args, split=sp, **kw), kx // 64, want)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("style", ["interleaved", "half"])
+def test_w4_fused_gemv_shapes(gen, m, style):
+    """RoPE at head_dim 128, group size 64, the 7B w2 width (K 11008 of
+    11264: passes of staged x), operands that are not 16-byte aligned (the
+    GEMV copies them in 4-byte pieces)."""
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    qw = _w4(gen, 1024, 768)
+    kw = dict(in_dim=1024, group_size=128, **_fusion_kw(gen, m, 1024, 768, f"norm+rope_{style}",
+                                                         hd=128))
+    args = (randn(gen, m, 1024), qw.packed, qw.scales, qw.zeros)
+    assert_close(planes_qmm(*args, **kw), planes_qmm_plain(*args, **kw))
+    w = randn(gen, 512, 256, dtype=torch.float32, scale=512 ** -0.5)
+    q64 = to_folded_layout(quantize_weight(w, 4, 64))
+    args = (randn(gen, m, 512), q64.packed, q64.scales, q64.zeros)
+    kw = dict(in_dim=512, group_size=64, residual=randn(gen, m, 256))
+    assert_close(planes_qmm(*args, **kw), planes_qmm_plain(*args, **kw))
+    words = torch.zeros(q64.packed.numel() + 1, dtype=torch.int32, device="cuda")
+    off = words[1:].view_as(q64.packed)
+    off.copy_(q64.packed)
+    sc = torch.zeros(q64.scales.numel() + 1, device="cuda")[1:].view_as(q64.scales)
+    sc.copy_(q64.scales)
+    args = (args[0], off, sc, q64.zeros)
+    assert off.data_ptr() % 16 != 0
+    assert_close(planes_qmm(*args, **kw), planes_qmm_plain(*args, **kw))
+    big = _w4(gen, 11008, 256, pad_in_to=pad_to(11008, 128))
+    args = (randn(gen, m, 11008), big.packed, big.scales, big.zeros)
+    kw = dict(in_dim=big.in_dim, group_size=128, norm_weight=1 + 0.1 * randn(
+        gen, 11008, dtype=torch.float32), residual=randn(gen, m, 256))
+    want = planes_qmm_plain(*args, **kw)
+    _every_split(lambda sp: planes_qmm(*args, split=sp, **kw), 172, want)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("fusion", _GEMV_FUSIONS)
+def test_w8_fused_gemv(gen, m, fusion):
+    """Row 22's GEMV at every row count and fusion: x narrower than a padded
+    in_dim, N 384 with RoPE (heads of 64) and N 264 (N % 16 == 8: the int8
+    rows come in 8-byte pieces) without; one counted launch, every split
+    against the plain version."""
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm, w8_qmm_plain
+
+    k, kx = 2048, 1152
+    n = 384 if "rope" in fusion else 264
+    qw = _w8(gen, k, n)
+    x = randn(gen, m, kx + 64)[:, :kx]
+    kw = dict(group_size=128, **_fusion_kw(gen, m, kx, n, fusion))
+    args = (x, qw.packed, qw.scales, qw.zeros)
+    want = w8_qmm_plain(*args, **kw)
+    before = kernels.launch_counts()["w8_matmul"]
+    got = w8_qmm(*args, **kw)
+    assert kernels.launch_counts()["w8_matmul"] == before + 1
+    assert_close(got, want)
+    _every_split(lambda sp: w8_qmm(*args, split=sp, **kw), kx // 64, want)
+
+
+def test_fused_gemv_refuses(gen):
+    """A split outside 1 .. min(8, units) raises in the wrapper; half-style
+    heads must divide the 128-column tile."""
+    from accessory_tpu_torch.ops.quant_matmul_w8 import w8_qmm
+
+    qw = _w4(gen, 256, 512)
+    x = randn(gen, 4, 256)
+    for split in (0, 5):
+        with pytest.raises(ValueError, match="split"):
+            planes_qmm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128,
+                       split=split)
+    cos, sin = precompute_rope(192, 64, device="cuda")
+    cr, sr = rope_rows(cos[3], sin[3], 2, 1, 192, "half")
+    q6 = _w4(gen, 256, 576)
+    with pytest.raises(ValueError, match="whole heads"):
+        planes_qmm(x, q6.packed, q6.scales, q6.zeros, None, None, cr, sr, in_dim=256,
+                   group_size=128, rope_style="half", rope_hd=192)
+    q8 = _w8(gen, 256, 512)
+    with pytest.raises(ValueError, match="split"):
+        w8_qmm(x, q8.packed, q8.scales, q8.zeros, group_size=128, split=9)

@@ -1,9 +1,9 @@
 """The many-row W4 tile on the CPU: row 1's plain version at prefill row
 counts against the JAX planes kernel (interpret mode), and the launch plans
-of ``ops/w4_tile.py`` (tile, K split, scratch shapes; the W8 tile's and the
-std / magic GEMV's too) over the main path's shapes, with the C-call
-arguments the wrappers pass. The kernels themselves run only on the card
-(tests/test_torch_cuda.py).
+of ``ops/w4_tile.py`` (tile, K split, scratch shapes; the W8 tile's, the
+std / magic GEMV's and rows 1 and 22's fused GEMV's cluster splits too) over
+the main path's shapes, with the C-call arguments the wrappers pass. The
+kernels themselves run only on the card (tests/test_torch_cuda.py).
 
 Tolerances as tests/test_torch_ops.py: f32 inputs ~2e-5 relative (same op
 order, sums in another order); bf16 1.5e-2 of the output scale (the JAX
@@ -155,12 +155,14 @@ def test_plan_refuses_bad_split():
 
 
 @pytest.mark.parametrize("m,norm,split", [(5, True, None), (40, False, None), (300, True, 1),
-                                          (300, True, 3)])
+                                          (300, True, 3), (1, False, None), (9, True, 2),
+                                          (16, False, 8)])
 def test_planes_kernel_call_abi(monkeypatch, m, norm, split):
     """The C entry's arguments as the wrapper passes them (a stand-in for the
     library records them): one per ctypes type in order, the scratch of the
     plan for M > 16 (sum(x), the prepared A operand, the workspace of a
-    split) and none for the GEMV."""
+    split); for the GEMV (M <= 16) no scratch and the cluster split of
+    ``folded_gemv_split``, the caller's where given."""
     k, n = 512, 256
     seen = {}
 
@@ -180,7 +182,9 @@ def test_planes_kernel_call_abi(monkeypatch, m, norm, split):
     assert rc == 0 and len(args) == len(tplanes._ARGS)
     xsum, xt, ws, nsplit = args[-5:-1]
     if m <= 16:
-        assert (xsum, xt, ws, nsplit) == (None, None, None, 1)
+        assert (xsum, xt, ws) == (None, None, None)
+        assert nsplit == (split or w4_tile.folded_gemv_split(n, k)) == \
+            w4_tile.folded_gemv_split(n, k, split)
         return
     p = w4_tile.folded_plan(m, n, k, 128, split)
     assert xsum is not None and xt is not None and nsplit == p.split
@@ -261,10 +265,11 @@ def _fake_kernels(monkeypatch):
 
 
 @pytest.mark.parametrize("m,split", [(5, None), (8, None), (9, None), (40, 2), (300, None),
-                                     (1030, 1)])
+                                     (1030, 1), (1, 3), (8, 8)])
 def test_w8_kernel_call_abi(monkeypatch, m, split):
     """w8_qmm's C call as the wrapper makes it: one argument per ctypes type;
-    the GEMV (M <= 8) gets no scratch and split 1, the tile the plan's tiled
+    the GEMV (M <= 8) gets no scratch and the cluster split of
+    ``w8_gemv_split`` (the caller's where given), the tile the plan's tiled
     x, sums, split and (split > 1) partials."""
     from accessory_tpu_torch.ops import quant_matmul_w8 as tw8
 
@@ -281,7 +286,9 @@ def test_w8_kernel_call_abi(monkeypatch, m, split):
     assert args[1:4] == (m, k, k) and args[7:9] == (n, 128)
     xt, xsum, ws, nsplit = args[-5:-1]
     if m <= 8:
-        assert (xt, xsum, ws, nsplit) == (None, None, None, 1)
+        assert (xt, xsum, ws) == (None, None, None)
+        assert nsplit == (split or w4_tile.w8_gemv_split(n, k)) == \
+            w4_tile.w8_gemv_split(n, k, split)
         return
     p = w4_tile.w8_plan(m, n, k, 128, split)
     assert xt is not None and xsum is not None and nsplit == p.split
@@ -342,3 +349,76 @@ def test_elem_alignment_on_stacked_layer_slices(monkeypatch, n, m):
     off = torch.zeros(k // 8 * n + 2, dtype=torch.int32)[2:].view(k // 8, n)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tstd.elem_kernel_call(x, off, scales[0], zeros[0], out, k=k, group_size=128)
+
+
+def _rank_ranges(units: int, split: int):
+    """[first, last) 64-row unit of each rank of a cluster, as csrc/qgemv.cuh
+    computes them."""
+    return [(r * units // split, (r + 1) * units // split) for r in range(split)]
+
+
+# (name, K, Kx, N) of the decode GEMVs: TinyLlama's four projections and the
+# stacked path's separate ones, LLaMA2-7B's four (w2's in_dim 11008 padded
+# to 11264 for W4; W8 keeps 11008), and shapes off the models'
+GEMV_SHAPES = ([(nm, k, k, n) for nm, k, n in TINY] + [(nm, k, k, n) for nm, k, n in LLAMA7B[:3]]
+               + [("7b w2", 11264, 11008, 4096), ("N 448", 2048, 1152, 448),
+                  ("K 64", 64, 64, 256)])
+
+
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+@pytest.mark.parametrize("name,k,kx,n", GEMV_SHAPES)
+def test_fused_gemv_split_rules(monkeypatch, kind, name, k, kx, n):
+    """Rows 1 and 22's GEMV: at every row count it takes (M 1-16 / 1-8) the
+    wrapper passes the plan's cluster split, which lies in [1, 8] (the W8
+    plan picks at most 7) and within the Kx / 64 units (each rank at least
+    two where K allows it), nearest ``GEMV_BLOCKS`` blocks; the ranks' unit
+    ranges partition Kx in order; every split in [1, min(8, units)] may be
+    forced, one outside raises."""
+    from accessory_tpu_torch.ops import quant_matmul_w8 as tw8
+
+    plan = w4_tile.folded_gemv_split if kind == "w4" else w4_tile.w8_gemv_split
+    most = w4_tile.GEMV_MAX_SPLIT if kind == "w4" else w4_tile.W8_GEMV_MOST
+    units, tiles = kx // 64, math.ceil(n / 128)
+    split = plan(n, kx)
+    assert 1 <= split <= min(most, units)
+    assert units // split >= w4_tile.GEMV_MIN_UNITS or split == 1
+    if split < min(most, units // w4_tile.GEMV_MIN_UNITS):
+        assert abs(split * tiles - w4_tile.GEMV_BLOCKS) <= tiles / 2
+    for s in range(1, min(w4_tile.GEMV_MAX_SPLIT, units) + 1):
+        r = _rank_ranges(units, s)
+        assert r[0][0] == 0 and r[-1][1] * 64 == kx
+        assert all(a[1] == b[0] and a[1] > a[0] for a, b in zip(r, r[1:]))
+        assert plan(n, kx, s) == s
+    for bad in (0, min(w4_tile.GEMV_MAX_SPLIT, units) + 1):
+        with pytest.raises(ValueError, match="split"):
+            plan(n, kx, bad)
+    seen = _fake_kernels(monkeypatch)
+    weight = (torch.zeros(k // 8, n, dtype=torch.int32) if kind == "w4"
+              else torch.zeros(k, n, dtype=torch.int8))
+    coef = torch.ones(k // 64, n)
+    for m in range(1, 17 if kind == "w4" else 9):
+        x = torch.zeros(m, kx, dtype=torch.bfloat16)
+        out = torch.empty(m, n, dtype=torch.bfloat16)
+        if kind == "w4":
+            tplanes._kernel_call(x, weight, coef, coef, None, None, None, None, out,
+                                 group_size=64)
+        else:
+            tw8._kernel_call(x, weight, coef, coef, None, None, None, None, out, group_size=64,
+                             norm_eps=1e-5, rope_style="", rope_hd=0, split=None)
+        assert seen["args"][-2] == split and seen["args"][1] == m
+
+
+def test_fused_gemv_main_path_splits():
+    """The splits the decode paths' GEMVs take (TinyLlama W4; LLaMA2-7B W4
+    and W8): the plan's fit to a sweep of every split on the card (PERF.md,
+    rows 1 and 22)."""
+    tiny = [w4_tile.folded_gemv_split(n, k) for _, k, n in TINY[:4]]
+    w4_7b = [w4_tile.folded_gemv_split(n, k) for _, k, n in LLAMA7B[:3]] + [
+        w4_tile.folded_gemv_split(4096, 11008)]
+    w8_7b = [w4_tile.w8_gemv_split(n, k) for _, k, n in LLAMA7B]
+    assert (tiny, w4_7b, w8_7b) == (TINY_GEMV_SPLITS, W4_7B_GEMV_SPLITS, W8_7B_GEMV_SPLITS)
+
+
+TINY_GEMV_SPLITS = [8, 8, 4, 8]
+W4_7B_GEMV_SPLITS = [4, 8, 2, 8]
+W8_7B_GEMV_SPLITS = [4, 7, 2, 7]
