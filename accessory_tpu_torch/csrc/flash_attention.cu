@@ -1,227 +1,451 @@
-// Causal self-attention forward (prefill at position 0) with native GQA.
+// Causal self-attention forward (prefill at position 0, the training
+// forward, and one context-parallel shard) with native GQA.
 //
 // Replaces: accessory_tpu/ops/flash_attention.py::flash_attention_tpu, which
-// calls JAX's bundled TPU splash kernel (`_splash_kernel`).
+// calls JAX's bundled TPU splash kernel (`_splash_kernel`), and
+// accessory_tpu/parallel/context.py::_splash_cp_kernel (:46), the same
+// splash kernel with q_seq_shards, reached through cp_attention (:77).
 //
-// One block (4 warps) per (64-row query tile, query head, batch row); each
-// warp owns 16 query rows. K/V tiles of 64 tokens, up to the diagonal, are
-// staged in shared memory; S = Q.K^T and O += P.V run on the tensor cores
-// with mma.sync m16n8k16 (bf16 in, f32 accumulate), and the softmax is the
-// online (flash) form in f32. Query head hq reads kv head hq / (NQ / NKV), so
-// K/V are never repeated in memory. The kernel masks the causal triangle and
-// a ragged sequence end itself: any S >= 1 is served (no 128-multiple rule).
+// What it computes: query head hq reads kv head hq / (NQ / NKV); query row i
+// (global position q0 + i) sees keys 0 .. q0 + i of SK. The softmax is the
+// online (flash) form in f32: per key tile the row max m, the correction
+// exp(m_old - m) of the running sum l and of the output, P = exp(s - m)
+// rounded to bf16 for the P V product, and an optional lse (B, NQ, SQ) f32
+// of m + log(l) taken before that rounding (csrc/flash_attention_bwd.cu
+// recomputes P from it). In log2 units: the max is taken on the raw scores
+// and scaled by scale * log2(e), each P is ex2 of one fused multiply-add
+// (s * scale * log2(e) - m), and lse = (m + log2(l)) * ln(2): the same
+// function to f32 rounding. flash_attention_fwd is the case q0 = 0, SK = SQ
+// of the one body, so both entries give the same bits there; a row's
+// arithmetic does not depend on which block computes it or on the tiles past
+// its diagonal (fully masked tiles leave m, l and the output exactly as they
+// were), so a shard's rows are the unsharded kernel's bits too.
 //
 // Bound on the H100: the work is about 2 * S^2 * HD flops per query head
-// against 2 * S * HD * (2 + 2 * NKV / NQ) bytes (q read, out written, k/v
-// shared by the group), so S * NQ / (2 * NQ + 2 * NKV) flops per byte. With
-// 32/4 heads that passes the card's ~295 bf16 flops per byte near S = 660:
-// shorter prefills (the main path's 128-token bucket) are bound by bytes,
-// longer ones by the tensor cores. This first version keeps Q fragments in
-// registers and does not double-buffer K/V, so it runs well below either.
+// against 2 * S * HD * (2 + 2 * NKV / NQ) bytes, so S * NQ / (2 * NQ + 2 *
+// NKV) flops per byte. With 32/4 heads that passes the card's ~295 bf16 flops
+// per byte near S = 660: the 128-token prefill bucket is bound by bytes,
+// training and context-parallel rows (512-8192) by the tensor cores.
 //
-// For training, an optional lse (B, NQ, S) f32 output receives each row's
-// log-sum-exp of the scaled scores, m + log(l) from the f32 running max and
-// the f32 sum (before P is rounded to bf16): csrc/flash_attention_bwd.cu
-// recomputes P = exp(s * scale - lse) from it.
+// Design (FlashAttention-3-like): a work item is 128 query rows, two
+// consumer warpgroups of 64, beside a producer warpgroup (registers moved to
+// the consumers by setmaxnreg). The producer loads an item's Q once and then
+// a ring of STAGES key tiles (BKV keys of K and of V, each on its own
+// mbarrier, so Q K^T starts while V lands) by TMA: boxes of 64 head-dim
+// columns (128 bytes) in the 128-byte swizzle, keys past SK as zeros; the
+// consumers hand a stage back on its `empty` mbarrier. A warpgroup computes
+// S = Q K^T as wgmma m64n128k16 with both operands in shared memory, the
+// softmax in registers (the accumulator layout is the P V product's A
+// fragment layout), then O += P V as wgmma with P as the register operand and
+// V (keys x head dim, as it lies in memory) as an MN-major shared-memory
+// operand. Only the tiles that reach past a warpgroup's first row or past SK
+// are masked, and no tile past the item's last row is loaded. The output
+// goes back through the warpgroup's Q rows in shared memory and one TMA store
+// a 64-column half. Items (a query tile of a head group of a batch row) run
+// longest first; a block walks items `ctas` apart with two Q buffers, so the
+// next item's Q and first key tiles load while this one computes and stores.
+// The wrapper's plan (ops/flash_attention.py fwd_plan) makes that grid
+// persistent (one block an SM) where every item is short, and gives long
+// items a block each, which the hardware balances over the causal triangle's
+// unequal rows better than a round-robin. For short sequences the plan packs
+// `ph` query heads of one GQA group into an item (a row is (position,
+// head): the Q box takes ph heads of BQ / ph positions), so a short
+// prefill's K / V are read by fewer blocks.
 //
-// The same body is the forward of context-parallel (sequence-sharded)
-// attention, entry flash_attention_cp_fwd. It replaces accessory_tpu/
-// parallel/context.py::_splash_cp_kernel (:46), JAX's bundled splash kernel
-// with q_seq_shards, reached through cp_attention (:77). A shard's SQ query
-// rows sit at global positions q0 .. q0 + SQ - 1 of a sequence whose SK keys
-// were all-gathered: row i sees keys 0 .. q0 + i, and a block stops at the
-// key tile that holds its last row's diagonal, so a late shard does more work
-// than an early one and nothing is computed twice. flash_attention_fwd is the
-// case q0 = 0, SK = SQ of the one body, so both entries give the same bits
-// there. Bound: 4 * HD * (SQ * q0 + SQ^2 / 2) flops per query head, on the
-// tensor cores from a few hundred rows on, like the unsharded pass.
+// What the card taught (throwaway variants timed on an NVIDIA H100 80GB
+// HBM3, not kept): the softmax's instructions set the pace, so the mask is
+// one compare a value and only on the tiles that need it, the max is taken on
+// the raw scores, each P is one ex2 of a fused multiply-add, and O's
+// correction is skipped where no row's max moved; computing tile j's scores
+// while tile j - 1's P V runs (FlashAttention-3's intra-warpgroup overlap) ran
+// slower here. This design takes 261.5 us at train_cp's shape (53% of the
+// bf16 peak) and 5.9 / 14.1 us at the two prefills (SDPA 6.0 / 14.3) on an
+// NVIDIA H100 80GB HBM3, 700.00 W (PERF.md rows 3 and 26, chip_smoke.py).
+//
+// The design it replaces (4 warps of mma.sync over 64-row tiles, K / V staged
+// with plain loads between two barriers, no double buffering) ran at 7-10% of
+// the bf16 peak at long rows: 1852.7 us at train_cp's shape (b 1, S 4096, 32
+// heads, head_dim 128) on an NVIDIA H100 80GB HBM3, 700.00 W, and 11.1 / 35.6
+// us at the tiny B4 S128 / 7B B8 S128 prefills (PERF.md rows 3 and 26,
+// measured by chip_smoke.py).
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
+constexpr int BQ = 128;                  // query rows an item: two consumer warpgroups of 64
+constexpr int BKV = 128;                 // keys a stage
+constexpr int STAGES = 2;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 32 * CONSUMER_WARPS + 128;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // setmaxnreg: 64,512 of 65,536
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_ts,
-                 const bf16* __restrict__ k, long long k_bs, long long k_ts,
-                 const bf16* __restrict__ v, long long v_bs, long long v_ts,
-                 bf16* __restrict__ out, float* __restrict__ lse, int SQ, int SK, int q0,
-                 int NQ, int NKV, float scale) {
-  constexpr int LD = HD + 8;  // padded smem row (bf16), 16-byte aligned
-  constexpr int KT = HD / 16; // k16 steps over the head dim
-  constexpr int DT = HD / 8;  // n8 tiles over the head dim
-  __shared__ __align__(16) bf16 Ks[BKV][LD];
-  __shared__ __align__(16) bf16 Vs[BKV][LD];
+struct Fwd {
+  static constexpr int HALVES = HD / 64;            // 64-column TMA boxes a row
+  static constexpr int Q_HALF = BQ * 128;
+  static constexpr int KV_HALF = BKV * 128;
+  static constexpr int Q_BYTES = HALVES * Q_HALF;
+  static constexpr int KV_BYTES = HALVES * KV_HALF;  // a K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE + 1024;   // + the alignment
+};
 
-  const int qt = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
-  const int hk = hq / (NQ / NKV);
+struct FwdArgs {
+  // 4-d maps (head dim, heads, then tokens and batch in the order of their
+  // strides); tok_inner: the token dimension comes before the batch's
+  CUtensorMap qmap, kmap, vmap;
+  CUtensorMap omap; // out, (HD, NQ, SQ, B), box (64, ph, 64 / ph): a warpgroup's rows
+  float* lse;       // (B, NQ, SQ) or null
+  int SQ, SK, q0, NQ, R, B;
+  int ph, rpb;      // query heads an item (one GQA group's), positions an item (BQ / ph)
+  int nqt, groups;  // query tiles of rpb positions; NQ / ph
+  int items;        // work items: nqt x groups x B
+  int q_tok_inner, k_tok_inner, v_tok_inner;
+  float scale_log2; // scale * log2(e)
+};
+
+__device__ __forceinline__ void load4(void* dst, const CUtensorMap* map, int tok_inner, int c0,
+                                      int head, int tok, int b, uint64_t* bar) {
+  if (tok_inner)
+    hopper::tma_load_4d(dst, map, c0, head, tok, b, bar);
+  else
+    hopper::tma_load_4d(dst, map, c0, head, b, tok, bar);
+}
+
+// One work item: a query tile of one head group of one batch row, and the
+// key tiles it walks (up to its last row's diagonal). Items run longest first.
+struct Item {
+  int b, hq0, hk, p0, n_tiles;
+  __device__ Item(const FwdArgs& a, int w) {
+    const int per = a.groups * a.B;
+    const int qt = a.nqt - 1 - w / per, hg = (w % per) % a.groups;
+    b = (w % per) / a.groups;
+    hq0 = hg * a.ph;
+    hk = hq0 / a.R;
+    p0 = qt * a.rpb;
+    n_tiles = min(a.q0 + min(a.SQ, p0 + a.rpb) - 1, a.SK - 1) / BKV + 1;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(const __grid_constant__ FwdArgs a) {
+  using F = Fwd<HD>;
+  constexpr int NS = BKV / 2, NO = HD / 2;   // accumulators a thread: S, O
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qfull[2], qempty[2], kfull[STAGES], vfull[STAGES],
+      empty[STAGES];
+  unsigned char* smem = hopper::align1024(smem_raw);   // Q buffers 0 and 1, then the ring
+  unsigned char* ring = smem + 2 * F::Q_BYTES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = qt * BQ + warp * 16 + g, r1 = r0 + 8;  // local rows, at q0 + r
 
-  const bf16* qb = q + b * q_bs + (size_t)hq * HD;
-  const bf16* kb = k + b * k_bs + (size_t)hk * HD;
-  const bf16* vb = v + b * v_bs + (size_t)hk * HD;
-
-  uint32_t qf[KT][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + c) : 0u;
-    qf[kk][1] = r1 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + c) : 0u;
-    qf[kk][2] = r0 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ts + c + 8) : 0u;
-    qf[kk][3] = r1 < SQ ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ts + c + 8) : 0u;
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&qfull[i], 1);
+      hopper::mbar_init(&qempty[i], 2);   // one arrival a consumer warpgroup
+    }
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) {
+      hopper::mbar_init(&kfull[i], 1);
+      hopper::mbar_init(&vfull[i], 1);
+      hopper::mbar_init(&empty[i], CONSUMER_WARPS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {   // the producer warpgroup: one lane issues every copy
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      hopper::prefetch_map(&a.qmap);
+      hopper::prefetch_map(&a.kmap);
+      hopper::prefetch_map(&a.vmap);
+      int it = 0, n = 0;   // key tiles and items loaded so far
+      for (int w = blockIdx.x; w < a.items; w += gridDim.x, ++n) {
+        const Item im(a, w);
+        const int qb = n & 1;
+        if (n >= 2) hopper::mbar_wait(&qempty[qb], ((n >> 1) - 1) & 1);
+        hopper::mbar_expect_tx(&qfull[qb], F::Q_BYTES);
+#pragma unroll
+        for (int h = 0; h < F::HALVES; ++h)
+          load4(smem + qb * F::Q_BYTES + h * F::Q_HALF, &a.qmap, a.q_tok_inner, 64 * h, im.hq0,
+                im.p0, im.b, &qfull[qb]);
+        for (int j = 0; j < im.n_tiles; ++j, ++it) {
+          const int slot = it % STAGES;
+          if (it >= STAGES) hopper::mbar_wait(&empty[slot], (it / STAGES - 1) & 1);
+          unsigned char* ks = ring + slot * F::STAGE;
+          hopper::mbar_expect_tx(&kfull[slot], F::KV_BYTES);
+#pragma unroll
+          for (int h = 0; h < F::HALVES; ++h)
+            load4(ks + h * F::KV_HALF, &a.kmap, a.k_tok_inner, 64 * h, im.hk, j * BKV, im.b,
+                  &kfull[slot]);
+          hopper::mbar_expect_tx(&vfull[slot], F::KV_BYTES);
+#pragma unroll
+          for (int h = 0; h < F::HALVES; ++h)
+            load4(ks + F::KV_BYTES + h * F::KV_HALF, &a.vmap, a.v_tok_inner, 64 * h, im.hk,
+                  j * BKV, im.b, &vfull[slot]);
+        }
+      }
+    }
+    return;
   }
 
-  float o[DT][4];
+  hopper::regs_inc<CONSUMER_REGS>();
+  // consumers: thread (g, t) of warp q of warpgroup wg holds block rows ra
+  // and rb = ra + 8; an item's row is (position r / ph, head r % ph)
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int ra = 64 * wg + 16 * (warp & 3) + g, rb = ra + 8;
+  int it = 0, n = 0;
+  for (int w = blockIdx.x; w < a.items; w += gridDim.x, ++n) {
+    const Item im(a, w);
+    const int qb = n & 1;
+    unsigned char* qs = smem + qb * F::Q_BYTES;
+    const int la = im.p0 + ra / a.ph, lb = im.p0 + rb / a.ph;     // local positions
+    const int pos_a = a.q0 + la, pos_b = a.q0 + lb;                 // global positions
+    const int wg_first = a.q0 + im.p0 + (64 * wg) / a.ph;           // the warpgroup's first
+    float o[NO];
 #pragma unroll
-  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m0 = NEG_INF_F, m1 = NEG_INF_F, l0 = 0.f, l1 = 0.f;
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    // the running max of the raw scores and its scaled form (log2 units),
+    // the running sums; rows a (ra) and b (rb)
+    float m_a = NEG_INF_F, m_b = NEG_INF_F, ms_a = NEG_INF_F, ms_b = NEG_INF_F;
+    float l_a = 0.f, l_b = 0.f;
+    const uint32_t qaddr = hopper::smem_addr(qs) + wg * 64 * 128;
+    uint64_t dq[HD / 16];   // the warpgroup's Q rows, k16 step kk
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      dq[kk] = hopper::desc_b128(qaddr + (kk >> 2) * F::Q_HALF + (kk & 3) * 32, 16, 1024);
+    hopper::mbar_wait(&qfull[qb], (n >> 1) & 1);
 
-  // the global position of the tile's last row: no key past it is read
-  const int last_row = q0 + min(SQ, (qt + 1) * BQ) - 1;
-  const int n_tiles = min(last_row, SK - 1) / BKV + 1;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BKV;
-    __syncthreads();
-    for (int i = tid; i < BKV * HD / 8; i += THREADS) {
-      const int tok = i / (HD / 8), d8 = (i % (HD / 8)) * 8;
-      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (kv0 + tok < SK) {
-        kr = *reinterpret_cast<const uint4*>(kb + (kv0 + tok) * k_ts + d8);
-        vr = *reinterpret_cast<const uint4*>(vb + (kv0 + tok) * v_ts + d8);
+    for (int j = 0; j < im.n_tiles; ++j, ++it) {
+      const int slot = it % STAGES, par = (it / STAGES) & 1, kv0 = j * BKV;
+      const uint32_t kaddr = hopper::smem_addr(ring + slot * F::STAGE);
+      const uint32_t vaddr = kaddr + F::KV_BYTES;
+      float s[NS];
+      uint64_t dk[HD / 16];   // k16 steps: 64-column half kk / 4, 32 bytes each
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        dk[kk] = hopper::desc_b128(kaddr + (kk >> 2) * F::KV_HALF + (kk & 3) * 32, 16, 1024);
+        hopper::pin(dk[kk]);
+        hopper::pin(dq[kk]);
       }
-      *reinterpret_cast<uint4*>(&Ks[tok][d8]) = kr;
-      *reinterpret_cast<uint4*>(&Vs[tok][d8]) = vr;
-    }
-    __syncthreads();
+      int zero = 0, one = 1;   // the accumulate flags, pinned with the descriptors
+      hopper::pin(zero);
+      hopper::pin(one);
+      hopper::mbar_wait(&kfull[slot], par);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_ss_64x128x16(s, dq[kk], dk[kk], kk > 0 ? one : zero);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(s);
 
-    float s[BKV / 8][4];
+      // the causal mask and SK, only where the tile reaches past the
+      // warpgroup's first row or past SK: column c = 8i + 2t + (e & 1) of the
+      // tile is seen by a row iff c <= its limit
+      if (kv0 + BKV - 1 > wg_first || kv0 + BKV > a.SK) {
+        const int lim_a = min(pos_a, a.SK - 1) - kv0 - 2 * t;
+        const int lim_b = min(pos_b, a.SK - 1) - kv0 - 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        for (int i = 0; i < NS / 4; ++i) {
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const bf16* kp = &Ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_bf16_16816(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                       *reinterpret_cast<const uint32_t*>(kp + 8));
+          for (int e = 0; e < 4; ++e)
+            if (8 * i + (e & 1) > (e < 2 ? lim_a : lim_b)) s[4 * i + e] = NEG_INF_F;
+        }
       }
-    }
-    float mx0 = m0, mx1 = m1;
+      // row max over the quad (raw scores), then its scaled form
+      float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const float val = (key <= q0 + row && key < SK) ? s[nt][e] * scale : NEG_INF_F;
-        s[nt][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
+      for (int i = 0; i < NS / 4; ++i) {
+        mx_a = fmaxf(mx_a, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[4 * i + 2], s[4 * i + 3]));
       }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      const float ns_a = mx_a * a.scale_log2, ns_b = mx_b * a.scale_log2;
+      const float c_a = hopper::ex2(ms_a - ns_a), c_b = hopper::ex2(ms_b - ns_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      ms_a = ns_a;
+      ms_b = ns_b;
+      // O scaled by the correction (skipped where no row's max moved: c = 1)
+      if (__any_sync(0xffffffffu, c_a != 1.f || c_b != 1.f)) {
 #pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      o[d][0] *= c0; o[d][1] *= c0; o[d][2] *= c1; o[d][3] *= c1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - m0);
-      s[nt][1] = expf(s[nt][1] - m0);
-      s[nt][2] = expf(s[nt][2] - m1);
-      s[nt][3] = expf(s[nt][3] - m1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const int kr = kc * 16 + 2 * t;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const int col = d * 8 + g;
-        const uint32_t b0 = pack_bf16_pair(Vs[kr][col], Vs[kr + 1][col]);
-        const uint32_t b1 = pack_bf16_pair(Vs[kr + 8][col], Vs[kr + 9][col]);
-        mma_bf16_16816(o[d], pa, b0, b1);
+        for (int i = 0; i < NO / 4; ++i) {
+          o[4 * i] *= c_a;
+          o[4 * i + 1] *= c_a;
+          o[4 * i + 2] *= c_b;
+          o[4 * i + 3] *= c_b;
+        }
       }
-    }
-  }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  if (lse != nullptr && t == 0) {
-    float* lp = lse + ((size_t)b * NQ + hq) * SQ;
-    if (r0 < SQ) lp[r0] = m0 + logf(l0);
-    if (r1 < SQ) lp[r1] = m1 + logf(l1);
-  }
+      // P = 2^(s * scale - m) in f32 (summed into l), rounded to bf16 as the A
+      // fragments of the P V product: k16 chunk c holds columns 16c .. 16c + 15
+      float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (r0 < SQ) {
-      bf16* op = out + (((size_t)b * SQ + r0) * NQ + hq) * HD + col;
-      *reinterpret_cast<uint32_t*>(op) = pack_bf16x2(o[d][0] * inv0, o[d][1] * inv0);
+      for (int i = 0; i < NS / 4; ++i) {
+        s[4 * i] = hopper::ex2(fmaf(s[4 * i], a.scale_log2, -ns_a));
+        s[4 * i + 1] = hopper::ex2(fmaf(s[4 * i + 1], a.scale_log2, -ns_a));
+        s[4 * i + 2] = hopper::ex2(fmaf(s[4 * i + 2], a.scale_log2, -ns_b));
+        s[4 * i + 3] = hopper::ex2(fmaf(s[4 * i + 3], a.scale_log2, -ns_b));
+        sum_a += s[4 * i] + s[4 * i + 1];
+        sum_b += s[4 * i + 2] + s[4 * i + 3];
+      }
+      l_a = l_a * c_a + sum_a;
+      l_b = l_b * c_b + sum_b;
+      uint32_t p[BKV / 16][4];
+#pragma unroll
+      for (int c = 0; c < BKV / 16; ++c) {
+        p[c][0] = pack_bf16x2(s[8 * c], s[8 * c + 1]);
+        p[c][1] = pack_bf16x2(s[8 * c + 2], s[8 * c + 3]);
+        p[c][2] = pack_bf16x2(s[8 * c + 4], s[8 * c + 5]);
+        p[c][3] = pack_bf16x2(s[8 * c + 6], s[8 * c + 7]);
+      }
+      uint64_t dv[BKV / 16];   // 16 keys: two 8-row groups of the V tile
+#pragma unroll
+      for (int c = 0; c < BKV / 16; ++c) {
+        dv[c] = hopper::desc_b128(vaddr + c * 2048, F::KV_HALF, 1024);
+        hopper::pin(dv[c]);
+        hopper::pin(p[c]);
+      }
+      hopper::pin(one);
+      hopper::reg_fence(o);
+      hopper::mbar_wait(&vfull[slot], par);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BKV / 16; ++c) {
+        if constexpr (HD == 128)
+          hopper::wgmma_rs_64x128x16<1>(o, p[c], dv[c], one);
+        else
+          hopper::wgmma_rs_64x64x16<1>(o, p[c], dv[c], one);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < BKV / 16; ++c) hopper::reg_keep(p[c]);
+      hopper::reg_fence(o);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[slot]);
     }
-    if (r1 < SQ) {
-      bf16* op = out + (((size_t)b * SQ + r1) * NQ + hq) * HD + col;
-      *reinterpret_cast<uint32_t*>(op) = pack_bf16x2(o[d][2] * inv1, o[d][3] * inv1);
+
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+    if (a.lse != nullptr && t == 0) {
+      const int ha = im.hq0 + ra % a.ph, hb = im.hq0 + rb % a.ph;
+      if (la < a.SQ) a.lse[((size_t)im.b * a.NQ + ha) * a.SQ + la] = (ms_a + log2f(l_a)) * LN2;
+      if (lb < a.SQ) a.lse[((size_t)im.b * a.NQ + hb) * a.SQ + lb] = (ms_b + log2f(l_b)) * LN2;
+    }
+    // the output: the warpgroup's rows into its (now idle) Q rows in the TMA
+    // box's swizzled layout (16-byte chunk c of row r at chunk c ^ (r % 8)),
+    // then one TMA store a 64-column half (positions past SQ are not written)
+#pragma unroll
+    for (int i = 0; i < NO / 4; ++i) {
+      unsigned char* half = qs + (i / 8) * F::Q_HALF + 4 * t;
+      const int c = i % 8;
+      *reinterpret_cast<uint32_t*>(half + ra * 128 + ((c ^ (ra & 7)) << 4)) =
+          pack_bf16x2(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
+      *reinterpret_cast<uint32_t*>(half + rb * 128 + ((c ^ (rb & 7)) << 4)) =
+          pack_bf16x2(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
+    }
+    hopper::fence_async_shared();
+    hopper::named_sync(1 + wg, 128);
+    if ((tid & 127) == 0) {
+#pragma unroll
+      for (int h = 0; h < F::HALVES; ++h)
+        hopper::tma_store_4d(&a.omap, qs + h * F::Q_HALF + wg * 64 * 128, 64 * h, im.hq0,
+                             im.p0 + (64 * wg) / a.ph, im.b);
+      hopper::tma_store_wait();
+      hopper::mbar_arrive(&qempty[qb]);   // the buffer is free for the item after next
     }
   }
 }
 
+// The 4-d map of one of q / k / v (B, T, heads, HD) with batch and token
+// strides (elements): dims (HD, heads, token, batch), or (HD, heads, batch,
+// token) where the batch stride is the smaller (a token-major gather
+// buffer); box (64, box_heads, box_tokens) along (HD, heads, token).
+cudaError_t qkv_map(CUtensorMap* map, int* tok_inner, const void* base, long long bs,
+                    long long ts, int B, int T, int heads, int HD, int box_heads, int box_tokens) {
+  if (bs % 8 != 0 || ts % 8 != 0) return cudaErrorInvalidValue;
+  *tok_inner = B == 1 || ts <= bs;
+  const cuuint64_t tb = (cuuint64_t)ts * 2;
+  const cuuint64_t bb = B == 1 ? tb * (cuuint64_t)T : (cuuint64_t)bs * 2;
+  const cuuint64_t dims_t[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t dims_b[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)B, (cuuint64_t)T};
+  const cuuint64_t str_t[3] = {(cuuint64_t)HD * 2, tb, bb};
+  const cuuint64_t str_b[3] = {(cuuint64_t)HD * 2, bb, tb};
+  const cuuint32_t box_t[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_tokens, 1};
+  const cuuint32_t box_b[4] = {64, (cuuint32_t)box_heads, 1, (cuuint32_t)box_tokens};
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4,
+                          *tok_inner ? dims_t : dims_b, *tok_inner ? str_t : str_b,
+                          *tok_inner ? box_t : box_b, true);
+}
+
+template <int HD>
+cudaError_t launch_hd(const FwdArgs& a, int ctas, cudaStream_t st) {
+  using F = Fwd<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+  if (attr != cudaSuccess) return attr;
+  flash_fwd_wgmma_kernel<HD><<<ctas < a.items ? ctas : a.items, THREADS, F::SMEM, st>>>(a);
+  return cudaGetLastError();
+}
+
 int launch_fwd(const void* q, long long q_bs, long long q_ts, const void* k, long long k_bs,
                long long k_ts, const void* v, long long v_bs, long long v_ts, void* out, int B,
-               int SQ, int SK, int q0, int NQ, int NKV, int HD, float scale, void* lse,
-               void* stream) {
+               int SQ, int SK, int q0, int NQ, int NKV, int HD, float scale, void* lse, int ph,
+               int ctas, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (SQ < 1 || q0 < 0 || q0 + SQ > SK || NKV < 1 || NQ % NKV != 0)
+  if (B < 1 || SQ < 1 || q0 < 0 || q0 + SQ > SK || NKV < 1 || NQ % NKV != 0 ||
+      (HD != 64 && HD != 128) || ph < 1 || 64 % ph != 0 || (NQ / NKV) % ph != 0 || ctas < 1)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((SQ + BQ - 1) / BQ, NQ, B);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* o = static_cast<bf16*>(out);
-  float* l = static_cast<float*>(lse);
-  if (HD == 64) {
-    flash_fwd_kernel<64><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                   v_ts, o, l, SQ, SK, q0, NQ, NKV, scale);
-  } else if (HD == 128) {
-    flash_fwd_kernel<128><<<grid, THREADS, 0, st>>>(qp, q_bs, q_ts, kp, k_bs, k_ts, vp, v_bs,
-                                                    v_ts, o, l, SQ, SK, q0, NQ, NKV, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  FwdArgs a{};
+  a.lse = static_cast<float*>(lse);
+  a.SQ = SQ;
+  a.SK = SK;
+  a.q0 = q0;
+  a.NQ = NQ;
+  a.R = NQ / NKV;
+  a.B = B;
+  a.ph = ph;
+  a.rpb = BQ / ph;
+  a.nqt = (SQ + a.rpb - 1) / a.rpb;
+  a.groups = NQ / ph;
+  a.items = a.nqt * a.groups * B;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  cudaError_t e;
+  int out_tok_inner;
+  if ((e = qkv_map(&a.qmap, &a.q_tok_inner, q, q_bs, q_ts, B, SQ, NQ, HD, ph, a.rpb)) != cudaSuccess ||
+      (e = qkv_map(&a.omap, &out_tok_inner, out, (long long)SQ * NQ * HD, (long long)NQ * HD, B, SQ,
+                   NQ, HD, ph, 64 / ph)) != cudaSuccess ||
+      (e = qkv_map(&a.kmap, &a.k_tok_inner, k, k_bs, k_ts, B, SK, NKV, HD, 1, BKV)) != cudaSuccess ||
+      (e = qkv_map(&a.vmap, &a.v_tok_inner, v, v_bs, v_ts, B, SK, NKV, HD, 1, BKV)) != cudaSuccess)
+    return (int)e;
+  return (int)(HD == 64 ? launch_hd<64>(a, ctas, st) : launch_hd<128>(a, ctas, st));
 }
 
 }  // namespace
 
 // q (B, S, NQ, HD), k/v (B, S, NKV, HD), each with the given batch and token
-// strides (elements) and heads contiguous inside a token; out (B, S, NQ, HD)
-// contiguous; lse (B, NQ, S) f32 or null (serving passes null). Requires HD
-// in {64, 128}, NQ % NKV == 0, even strides.
+// strides (elements, multiples of 8) and heads contiguous inside a token,
+// 16-byte aligned; out (B, S, NQ, HD) contiguous; lse (B, NQ, S) f32 or null
+// (serving passes null); ph: query heads an item, ctas: the blocks
+// (the wrapper's plan, ops/flash_attention.py fwd_plan; ph divides NQ / NKV
+// and 64). Requires HD in {64, 128}, NQ % NKV == 0.
 extern "C" int flash_attention_fwd(const void* q, long long q_bs, long long q_ts,
                                    const void* k, long long k_bs, long long k_ts,
                                    const void* v, long long v_bs, long long v_ts, void* out,
                                    int B, int S, int NQ, int NKV, int HD, float scale,
-                                   void* lse, void* stream) {
+                                   void* lse, int ph, int ctas, void* stream) {
   return launch_fwd(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, out, B, S, S, 0, NQ, NKV, HD,
-                    scale, lse, stream);
+                    scale, lse, ph, ctas, stream);
 }
 
 // One context-parallel shard: q (B, SQ, NQ, HD) at global positions q0 ..
@@ -233,7 +457,8 @@ extern "C" int flash_attention_cp_fwd(const void* q, long long q_bs, long long q
                                       const void* k, long long k_bs, long long k_ts,
                                       const void* v, long long v_bs, long long v_ts, void* out,
                                       int B, int SQ, int SK, int q0, int NQ, int NKV, int HD,
-                                      float scale, void* lse, void* stream) {
+                                      float scale, void* lse, int ph, int ctas,
+                                      void* stream) {
   return launch_fwd(q, q_bs, q_ts, k, k_bs, k_ts, v, v_bs, v_ts, out, B, SQ, SK, q0, NQ, NKV,
-                    HD, scale, lse, stream);
+                    HD, scale, lse, ph, ctas, stream);
 }

@@ -63,9 +63,19 @@
 
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace w4tile {
+
+using hopper::bulk_copy;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::reg_fence;
+using hopper::smem_addr;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
 constexpr int BN = 128;          // weight columns per block: two wgmma M = 64 a warpgroup
 constexpr int THREADS = BN;      // one warpgroup per 128 weight columns
@@ -103,68 +113,6 @@ struct TileArgs {
   int rope_style, rope_hd;       // 0 none, 1 interleaved, 2 half
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces the bytes the stage's copies will deliver
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16, both ends 16-byte aligned) from global to shared
-// memory by the copy engine; completion is counted on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// keeps the compiler from moving accesses of r across the asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // a use of r the compiler cannot see through: r's registers stay unchanged
 // until here
 __device__ __forceinline__ void reg_keep(const uint32_t (&r)[2][4]) {
@@ -178,29 +126,6 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((CORE_LBO >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((CORE_SBO >> 4) & 0x3FFF) << 32);
-}
-
-// d (64 x 64 f32; thread (g, t) of warp w holds rows 16w + g (d[4c], d[4c+1])
-// and 16w + g + 8 (d[4c+2], d[4c+3]), columns 8c + 2t, + 1) = a (64 x 16
-// bf16 in registers, the m16n8k16 A layout per warp) x B (16 x 64 bf16 in
-// shared memory, descriptor b) + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_64x64x16(float d[32], const uint32_t a[4], uint64_t b,
-                                               int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
@@ -463,8 +388,8 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(const TileArgs a) {
       // (its shared memory is refilled next)
       auto product = [&](float(&d0)[NACC], float(&d1)[NACC]) {
         wgmma_fence();
-        wgmma_64x64x16(d0, a0, desc, accumulate);
-        wgmma_64x64x16(d1, a1, desc, accumulate);
+        hopper::wgmma_rs_64x64x16<0>(d0, a0, desc, accumulate);
+        hopper::wgmma_rs_64x64x16<0>(d1, a1, desc, accumulate);
         wgmma_commit();
         if (j < 3) {
           wgmma_wait<1>();

@@ -3,7 +3,8 @@ cache-free training forward), with its backward.
 
 Port of ``accessory_tpu/ops/flash_attention.py::flash_attention_tpu`` (which
 calls JAX's bundled TPU splash kernel, custom VJP and all). The CUDA kernels
-are ``csrc/flash_attention.cu`` (forward; for training it also stores each
+are ``csrc/flash_attention.cu`` (forward, a warp-specialized ``wgmma`` kernel
+fed by TMA, its launch plan ``fwd_plan``; for training it also stores each
 row's f32 log-sum-exp) and ``csrc/flash_attention_bwd.cu`` (dq, then dk / dv
 summed over each KV head's group). On a CPU tensor the plain versions run:
 ``ops.attention.grouped_attention`` forward and ``flash_attention_bwd_plain``,
@@ -30,21 +31,82 @@ branch of ``cp_attention``) and ``flash_attention_bwd_plain(..., q_offset=)``.
 
 from __future__ import annotations
 
+import functools
+import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from accessory_tpu_torch import kernels
 from accessory_tpu_torch.ops.attention import NEG_INF, grouped_attention
+from accessory_tpu_torch.ops.w4_tile import SMS
 
 _P, _L, _I, _F = kernels.P, kernels.L, kernels.I, kernels.F
-_ARGS = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _F, _P, _P]
+_ARGS = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P]
 _BWD_DQ_ARGS = [_P, _L, _L] * 5 + [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
 _BWD_DKDV_ARGS = [_P, _L, _L] * 4 + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
 # the cp entries: (B, SQ, SK, q_off, NQ, NKV, HD) in place of (B, S, NQ, NKV, HD)
-_CP_ARGS = [_P, _L, _L] * 3 + [_P] + [_I] * 7 + [_F, _P, _P]
+_CP_ARGS = [_P, _L, _L] * 3 + [_P] + [_I] * 7 + [_F, _P, _I, _I, _P]
 _CP_BWD_DQ_ARGS = [_P, _L, _L] * 5 + [_P, _P, _P] + [_I] * 7 + [_F, _P]
 _CP_BWD_DKDV_ARGS = [_P, _L, _L] * 4 + [_P, _P, _P, _P] + [_I] * 7 + [_F, _P]
+
+
+FWD_ROWS = 128          # csrc/flash_attention.cu BQ: query rows a block
+FWD_KEYS = 128          # its BKV: keys a stage
+FWD_KERNEL = "flash_fwd_wgmma_kernel"   # the forward kernel's name in a profiler trace
+# items of at most this many key tiles run on the persistent grid (the next
+# item's loads hide under this one's work); longer ones take a block each,
+# and the hardware's scheduler balances the causal triangle's unequal rows
+PERSISTENT_TILES = 4
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    heads_per_block: int   # query heads of one GQA group an item packs (ph)
+    positions: int         # query positions an item: FWD_ROWS / ph
+    q_tiles: int           # items along the sequence
+    blocks: int            # work items: q_tiles x (nq / ph) x b
+    key_tiles: int         # the most key tiles an item walks (the last query tile's)
+    ctas: int              # blocks, each walking items ctas apart (one each where = blocks)
+    kernel: str = FWD_KERNEL
+
+
+@functools.lru_cache(maxsize=4096)
+def fwd_plan(b: int, sq: int, sk: int, q_offset: int, nq: int, nkv: int,
+             heads_per_block: Optional[int] = None) -> FwdPlan:
+    """The forward kernel's launch (a pure function of the shape). An item of
+    work is 128 rows of (position, head): ``heads_per_block`` query heads of
+    one GQA group, each at 128 / heads_per_block consecutive positions (a
+    warpgroup's 64 rows hold whole positions, so at most 64 heads). None: the
+    most heads (a power of two dividing nq / nkv) whose rows still fit 128
+    with all ``sq`` positions, so a sequence shorter than an item fills it
+    with the group's other heads (and its K / V are read once a group); from
+    65 rows on one head an item. Items run longest first (item w: query tile
+    q_tiles - 1 - w // (nq / ph * b)). Where no item walks more than
+    ``PERSISTENT_TILES`` key tiles they run on a persistent grid of one block
+    an SM (never more than the items), each block taking items ``ctas``
+    apart, so the next item's loads hide under this one's work; longer items
+    get a block each (``ctas`` = items), since a round-robin over them leaves
+    the causal triangle's long rows unbalanced. Which rows share an item, and
+    which block runs it, does not change a row's bits (the kernel's arithmetic
+    per row is the same)."""
+    r = nq // nkv
+    if heads_per_block is None:
+        ph = 1
+        while r % (2 * ph) == 0 and 2 * ph * sq <= FWD_ROWS and 2 * ph <= FWD_ROWS // 2:
+            ph *= 2
+    else:
+        ph = heads_per_block
+    if ph < 1 or r % ph or (FWD_ROWS // 2) % ph:
+        raise ValueError(f"fwd_plan: {ph} heads a block must divide the group's {r} query "
+                         f"heads and a warpgroup's {FWD_ROWS // 2} rows")
+    positions = FWD_ROWS // ph
+    q_tiles = math.ceil(sq / positions)
+    key_tiles = (min(q_offset + sq, sk) - 1) // FWD_KEYS + 1
+    items = q_tiles * (nq // ph) * b
+    ctas = min(SMS, items) if key_tiles <= PERSISTENT_TILES else items
+    return FwdPlan(ph, positions, q_tiles, items, key_tiles, ctas)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,12 +195,14 @@ def _strided(t: torch.Tensor):
     return t.data_ptr(), t.stride(0), t.stride(1)
 
 
-def _forward(q, k, v, scale, with_lse: bool, q_offset: Optional[int] = None
+def _forward(q, k, v, scale, with_lse: bool, q_offset: Optional[int] = None,
+             heads_per_block: Optional[int] = None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(out (b, s, nq, hd), lse (b, nq, s) f32 or None): the kernel on a CUDA
     tensor (head_dim 64 or 128, else it raises: there is no other form on the
     card), the plain version on a CPU one. ``q_offset`` None launches the
-    flash entry, an int the cp entry (see ``flash_attention_cp``)."""
+    flash entry, an int the cp entry (see ``flash_attention_cp``);
+    ``heads_per_block`` overrides ``fwd_plan``'s packing (the same bits)."""
     name = "flash_attention" if q_offset is None else "flash_attention_cp"
     if q.device.type == "cpu":
         _check_offset(name, q, k, q_offset)
@@ -152,12 +216,23 @@ def _forward(q, k, v, scale, with_lse: bool, q_offset: Optional[int] = None
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty((b, s, nq, hd), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device) if with_lse else None
-    fn = kernels.function("flash_attention", f"{name}_fwd",
-                          _ARGS if q_offset is None else _CP_ARGS)
-    rc = fn(*_strided(q), *_strided(k), *_strided(v), out.data_ptr(), *_dims(q, k, q_offset),
-            scale, None if lse is None else lse.data_ptr(), kernels.stream_ptr(q))
-    kernels.check(name, rc)
+    kernels.check(name, _fwd_call(q, k, v, out, lse, scale, q_offset, heads_per_block))
     return out, lse
+
+
+def _fwd_call(q, k, v, out, lse, scale: float, q_offset: Optional[int],
+              heads_per_block: Optional[int] = None) -> int:
+    """The forward's C call on checked operands (its return code): the flash
+    entry (``q_offset`` None) or the cp entry, with ``fwd_plan``'s heads a
+    block."""
+    b, s, nq, _ = q.shape
+    plan = fwd_plan(b, s, k.shape[1], q_offset or 0, nq, k.shape[2], heads_per_block)
+    fn = kernels.function("flash_attention",
+                          "flash_attention_fwd" if q_offset is None else "flash_attention_cp_fwd",
+                          _ARGS if q_offset is None else _CP_ARGS)
+    return fn(*_strided(q), *_strided(k), *_strided(v), out.data_ptr(), *_dims(q, k, q_offset),
+              scale, None if lse is None else lse.data_ptr(), plan.heads_per_block, plan.ctas,
+              kernels.stream_ptr(q))
 
 
 def attention_lse(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None,

@@ -1,6 +1,8 @@
 """Launch plans of the many-row W4 tile (``csrc/w4_tile.cuh``), the W8 tile
-(``csrc/w8_matmul.cu``), the std / magic GEMV (``csrc/w4_elem.cuh``) and the
-fused GEMV of rows 1 and 22 (``csrc/qgemv.cuh``).
+(``csrc/w8_matmul.cu``), the std / magic GEMV (``csrc/w4_elem.cuh``), the
+fused GEMV of rows 1 and 22 (``csrc/qgemv.cuh``) and the persistent grid of
+the many-row W4 matmul with bigm's numerics (``csrc/w4_matmul_bigm.cu``,
+``bigm_plan``).
 
 Row 1's fused tile (``csrc/w4_matmul.cu``, M > 16), the std / magic tile
 (``csrc/w4_elem.cuh``, M > 8) and the W8 tile (M > 8) cover the output with
@@ -201,6 +203,40 @@ def w8_gemv_split(n: int, kx: int, split: Optional[int] = None) -> int:
     the Kx / 64 units of x, nearest ``GEMV_BLOCKS`` blocks and at most
     ``W8_GEMV_MOST`` (PERF.md, PR 11)."""
     return _cluster_split(n, kx // TILE_K, split, W8_GEMV_MOST)
+
+
+BIGM_TILE_M, BIGM_TILE_N = 256, 128   # csrc/w4_matmul_bigm.cu BM x BN
+BIGM_SLOTS = 1          # its 190 KB ring: one block an SM
+BIGM_KERNEL = "w4_bigm_wgmma_kernel"   # the kernel's name in a profiler trace
+
+
+@dataclass(frozen=True)
+class BigmPlan:
+    m: int
+    n: int
+    tiles_m: int         # 256-row tiles (the last one ragged where m % 256 != 0)
+    tiles: int           # output tiles: tiles_m x n / 128
+    ctas: int            # the persistent grid: block c computes tiles c, c + ctas, ..., tile
+    #                      i being row tile i % tiles_m of column panel i // tiles_m
+    kernel: str = BIGM_KERNEL
+
+
+@functools.lru_cache(maxsize=4096)
+def bigm_plan(m: int, n: int, ctas: Optional[int] = None) -> BigmPlan:
+    """The many-row W4 matmul's persistent grid (``planes_qmm_bigm``, M >=
+    1024 on the model's route): 256 x 128 output tiles and ``ctas`` blocks,
+    by default one a streaming multiprocessor (never more than the tiles).
+    No K split: every output is one f32 sum over all of K, whatever the
+    grid, so any ``ctas`` gives the same bits."""
+    if m < 1 or n < 1 or n % BIGM_TILE_N:
+        raise ValueError(f"bigm_plan: m {m} >= 1 and n {n} a multiple of {BIGM_TILE_N}")
+    tiles_m = math.ceil(m / BIGM_TILE_M)
+    tiles = tiles_m * (n // BIGM_TILE_N)
+    if ctas is None:
+        ctas = SMS * BIGM_SLOTS
+    if ctas < 1:
+        raise ValueError(f"bigm_plan: ctas {ctas} must be >= 1")
+    return BigmPlan(m, n, tiles_m, tiles, min(ctas, tiles))
 
 
 def scratch(p: TilePlan, device, xsum: bool):

@@ -12,6 +12,7 @@
                                                finetune,parity_ffn,serve_ffn,decode_ffn,
                                                decode7b_ffn,paged_ro,cp_shards,train_cp]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
+    python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
 Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -140,7 +141,12 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             the 7B QPEFT configuration at b 1, S 4096: one step against the same
             step without attn_fn (loss, gradients, updated leaves), then timed
             steps with the flash_attention_cp entries' launch counts exact (a
-            cp group of more ranks needs a card a rank).
+            cp group of more ranks needs a card a rank);
+  compare   (not in the default run) rows 5, 3 and 26's forward through calls
+            every version of the package has had (planes_qmm_bigm's and the
+            flash forward's own arguments), device time and the library
+            yardstick: copied into a checkout of an earlier commit, it times
+            both trees in turns on one card.
 The line before the last holds the kernel table ({"kernels": [...]}, launches
 summed over the counted main-path runs); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
@@ -478,12 +484,15 @@ def _kernels_w4(kr, tag, specs, ms, rope):
 
 
 def _kernels_bigm(kr, specs):
-    """planes_qmm_bigm at the 7B prefill's 1024 rows (and one ragged row
-    count), beside row 1's many-row tile (w4_matmul.cu, M > 16) on the same
-    inputs: its C entry is called directly (``_kernel_call``, not counted),
-    since planes_qmm refuses M >= 1024."""
+    """planes_qmm_bigm at the 7B prefill's 1024 rows, the QPEFT step's 8 x 512
+    = 4096 and one ragged row count, beside row 1's many-row tile
+    (w4_matmul.cu, M > 16) on the same inputs: its C entry is called directly
+    (``_kernel_call``, not counted), since planes_qmm refuses M >= 1024. Two
+    launches, and a launch on another persistent grid (61 blocks), give the
+    same bits (no K split: one f32 sum an output, whatever the grid)."""
     import torch
 
+    from accessory_tpu_torch.ops import w4_tile
     from accessory_tpu_torch.ops.quant_matmul_bigm import (planes_qmm_bigm,
                                                            planes_qmm_bigm_plain)
     from accessory_tpu_torch.ops.quant_matmul_planes import _kernel_call
@@ -506,9 +515,14 @@ def _kernels_bigm(kr, specs):
         got = planes_qmm_bigm(**a0)
         want = planes_qmm_bigm_plain(**a0)
         tile = tile_kernel(**a0)
+        again, regrid = planes_qmm_bigm(**a0), planes_qmm_bigm(**a0, ctas=61)
         torch.cuda.synchronize()
         # same bf16 weights and f32 sums in another order: one bf16 rounding step
         check_close(f"w4_matmul_bigm {name} M={m}", got, want, rtol=1e-2, atol=1e-2, rel_l2=5e-3)
+        if not (torch.equal(got, again) and torch.equal(got, regrid)):
+            raise AssertionError(f"w4_matmul_bigm {name} M={m}: two launches, or two grids, "
+                                 "give different bits")
+        del again, regrid
         # the tile kernel keeps q exact (another dequant form): held as in the w4_matmul rows
         check_close(f"w4_matmul tile {name} M={m}", tile, want, rtol=2e-2, atol=2e-2)
         k_ms = time_ms(lambda a: planes_qmm_bigm(**a), calls)
@@ -516,9 +530,11 @@ def _kernels_bigm(kr, specs):
         t_ms = time_ms(lambda a: tile_kernel(**a), calls)
         p_ms = time_ms(lambda a: planes_qmm_bigm_plain(**a), calls[:1], min_iters=3)
         lib_ms = time_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
+        plan = w4_tile.bigm_plan(m, n)
         kr.record("w4_matmul_bigm", f"7b {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
                   k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n, tile_kernel_ms=t_ms,
-                  dequants_per_weight=math.ceil(m / 128),
+                  bit_equal_across_launches_and_grids=True, tiles=plan.tiles, ctas=plan.ctas,
+                  dequants_per_weight=plan.tiles_m,
                   tile_kernel_dequants_per_weight=math.ceil(m / 64))
         del sets, calls
 
@@ -630,11 +646,13 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
 
 
 def _kernels_flash(kr, cases):
+    """flash_attention (serving: no lse) against grouped attention, SDPA the
+    yardstick; the row names the plan's heads a block (fwd_plan)."""
     import torch
     import torch.nn.functional as F
 
     from accessory_tpu_torch.ops.attention import grouped_attention
-    from accessory_tpu_torch.ops.flash_attention import flash_attention
+    from accessory_tpu_torch.ops.flash_attention import flash_attention, fwd_plan
 
     for tag, b, s, nq, nkv, hd in cases:
         nbytes = b * s * (2 * nq + 2 * nkv) * hd * 2
@@ -656,7 +674,8 @@ def _kernels_flash(kr, cases):
             qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True,
             enable_gqa=True), sets)
         kr.record("flash_attention", f"{tag} B={b} S={s} NQ={nq} NKV={nkv} HD={hd}",
-                  max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, flops)
+                  max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
+                  heads_per_block=fwd_plan(b, s, s, 0, nq, nkv).heads_per_block)
 
 
 def _kv_chunk_views(kr, b, sq, nkv, hd):
@@ -1457,11 +1476,13 @@ def phase_kernels(seed: int, names=None):
                     (1, 4, 8), rope)
 
     if want("w4_matmul_bigm"):
-        # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, and one row
-        #    count that is not a multiple of the 128-row tile
-        _kernels_bigm(kr, [("wqkv", 4096, 12288, 1024), ("wo", 4096, 4096, 1024),
-                           ("w13", 4096, 22016, 1024), ("w2", 11008, 4096, 1024),
-                           ("wo", 4096, 4096, 1000)])
+        # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, the QPEFT
+        #    training step's 8 x 512 = 4096, and one row count that is not a
+        #    multiple of the 256-row tile
+        _kernels_bigm(kr, [(nm, k, n, m) for m in (1024, 4096)
+                           for nm, k, n in (("wqkv", 4096, 12288), ("wo", 4096, 4096),
+                                            ("w13", 4096, 22016), ("w2", 11008, 4096))]
+                      + [("wo", 4096, 4096, 1000)])
 
     if want("decode_attention"):
         # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
@@ -1503,10 +1524,12 @@ def phase_kernels(seed: int, names=None):
         _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, int8=True, write=False, most_copies=4)
 
     if want("flash_attention"):
-        # -- causal prefill flash attention (splash)
+        # -- causal prefill flash attention (splash), and the 700M full
+        #    finetune's forward (2 x 2048, 16 / 8 heads)
         _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 1, 128, 32, 4, 64),
                             ("tiny", 4, 200, 32, 4, 64),
-                            ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128)))
+                            ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128),
+                            ("700m", 2, 2048, 16, 8, 128)))
 
     if want("kv_write"):
         # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
@@ -2911,10 +2934,10 @@ QPEFT = dict(lora_rank=16, bias_tuning=True, norm_tuning=True)
 LLAMA_700M = dict(dim=2048, n_layers=12, n_heads=16, n_kv_heads=8, vocab_size=32000,
                   multiple_of=256, dtype="bfloat16")
 # the device's kernels by what they do in a training step (name substrings)
-TRAIN_SPLIT = (("forward W4 (many-row)", ("w4_bigm_kernel",)),
+TRAIN_SPLIT = (("forward W4 (many-row)", ("w4_bigm_wgmma_kernel",)),
                ("forward W4 (tile / GEMV)", ("FoldedB", "W4Folded")),
                ("W4 dequant", ("w4_dequant_kernel",)),
-               ("attention forward", ("flash_fwd_kernel",)),
+               ("attention forward", ("flash_fwd_wgmma_kernel",)),
                ("attention backward", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
                ("dense products (dx, LoRA, head, full-finetune dW)",
                 ("gemm", "nvjet", "xmma", "cutlass", "sm90", "Kernel2")))
@@ -3146,6 +3169,69 @@ def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpef
     return counts
 
 
+def phase_compare(seed: int):
+    """Rows 5, 3 and 26's forward through calls an earlier version of the
+    package also takes (no plan arguments), so the same script times a
+    parent checkout and this one in turns: the many-row W4 matmul at the 7B
+    projections' 1024 and 4096 rows and wo at 1000 (``torch.matmul`` on the
+    dense weight beside it), the flash forward at the prefills, the training
+    shapes and two cp shards (SDPA, with a boolean mask for a shard, beside
+    it). Device time from the profiler, inputs rotated past L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.ops.flash_attention import _forward
+    from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm
+    from accessory_tpu_torch.quant.qtensor import (dequantize_weight, quantize_weight,
+                                                   to_folded_layout)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    specs = [(m, name, k, kx, n) for m in (1024, 4096)
+             for name, k, kx, n in (("wqkv", 4096, 4096, 12288), ("wo", 4096, 4096, 4096),
+                                    ("w13", 4096, 4096, 22016), ("w2", 11264, 11008, 4096))]
+    for m, name, k, kx, n in specs + [(1000, "wo", 4096, 4096, 4096)]:
+        sets = []
+        for _ in range(n_copies(kx * n // 2 + m * kx * 2, most=4)):
+            w = torch.randn(kx, n, generator=gen, device="cuda") * kx ** -0.5
+            sets.append((randn(m, kx), to_folded_layout(quantize_weight(w, 4, 128, pad_in_to=k))))
+            del w
+        ms = time_ms(lambda x, qw: planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros,
+                                                   in_dim=qw.in_dim, group_size=128), sets)
+        lib = time_ms(lambda x, d: x @ d, [(x, dequantize_weight(qw, torch.bfloat16)[:kx])
+                                           for x, qw in sets[:2]])
+        b_ms, b_by = bound_ms(0, 2.0 * m * kx * n)
+        emit({"phase": "compare", "kernel": "w4_matmul_bigm", "shape": f"7b {name} M={m}",
+              "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        del sets
+    for tag, b, s, nq, nkv, hd, q0, sk in (
+            ("tiny", 4, 128, 32, 4, 64, 0, 128), ("7b", 8, 128, 32, 32, 128, 0, 128),
+            ("700m", 2, 2048, 16, 8, 128, 0, 2048), ("7b qpeft", 8, 512, 32, 32, 128, 0, 512),
+            ("train_cp", 1, 4096, 32, 32, 128, 0, 4096),
+            ("7b cp4 rank3", 1, 2048, 32, 32, 128, 6144, 8192),
+            ("tiny cp4 rank3", 1, 2048, 32, 4, 64, 6144, 8192)):
+        nbytes = b * s * 2 * nq * hd * 2 + b * sk * 2 * nkv * hd * 2
+        sets = [(randn(b, s, nq, hd), randn(b, sk, nkv, hd), randn(b, sk, nkv, hd))
+                for _ in range(n_copies(nbytes, most=8))]
+        if q0 == 0 and sk == s:
+            ms = time_ms(lambda q, k, v: _forward(q, k, v, None, with_lse=True), sets)
+            lib = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True), sets)
+        else:
+            ms = time_ms(lambda q, k, v: _forward(q, k, v, None, with_lse=True, q_offset=q0),
+                         sets)
+            lib = time_ms(lambda q, k, v: _masked_sdpa(q, k, v, q0), sets)
+        b_ms, b_by = bound_ms(nbytes, 4 * _cp_work(b, s, q0, nq, hd))
+        emit({"phase": "compare", "kernel": "flash_attention_fwd",
+              "shape": f"{tag} B={b} S={s} q0={q0} SK={sk} NQ={nq} NKV={nkv} HD={hd}",
+              "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        del sets
+
+
 def phase_cp_shards(seed: int, s: int = 8192):
     """Context parallelism on one card at cp 2, 4 and 8: every shard's
     parallel.cp_shard_attention (the step each rank runs between its
@@ -3153,8 +3239,9 @@ def phase_cp_shards(seed: int, s: int = 8192):
     reduce-scatter a sum over the shards' dk / dv), LLaMA2-7B width (32 / 32
     heads, head_dim 128), b 1, S 8192. Held against the unsharded
     flash_attention and its backward: the concatenated outputs, lse and dq
-    bit for bit (the shards' row tiles are the unsharded kernel's, 64-row
-    aligned), the summed dk / dv within a rounding step. Times between CUDA
+    bit for bit (a row's arithmetic in the forward does not depend on the
+    block that computes it; the backward's row tiles are the unsharded
+    kernel's, 64-row aligned), the summed dk / dv within a rounding step. Times between CUDA
     events around back-to-back calls (each call is 0.2-13 ms of kernel work,
     far above its host cost): the shards' forward and backward summed, beside
     the unsharded kernels' and each shard's own; the profiler's device time of
@@ -3174,7 +3261,8 @@ def phase_cp_shards(seed: int, s: int = 8192):
                      .to(torch.bfloat16) for n in (nq, nkv, nkv, nq))
     out, lse = _forward(q, k, v, None, with_lse=True)
     dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse)
-    fwd_names, bwd_names = ("flash_fwd_kernel",), ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    fwd_names, bwd_names = (("flash_fwd_wgmma_kernel",),
+                            ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
     full_fwd = wall_ms(lambda: _forward(q, k, v, None, with_lse=True), [()], min_iters=10)
     full_bwd = wall_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse), [()], min_iters=10)
     prof_fwd = time_ms(lambda: _forward(q, k, v, None, with_lse=True), [()], min_iters=10,
@@ -3736,6 +3824,8 @@ def main() -> int:
                                                        2048, qpeft=False, lr=1e-4)
         if "finetune" in phases:
             counts_by_path["finetune"] = phase_finetune(opts.seed)
+        if "compare" in phases:
+            phase_compare(opts.seed)
         if "cp_shards" in phases:
             counts_by_path["cp shards"] = phase_cp_shards(opts.seed)
         if "train_cp" in phases:

@@ -3,9 +3,11 @@
 Edge shapes beyond chip_smoke.py's main-path shapes: every GEMV row-count
 template and ragged tiles, both RoPE styles at head_dim 64 and 128,
 padded in_dim, the LLaMA2-7B projection shapes, the many-row W4 kernel at
-ragged row counts and a narrow x, decode attention at R = 1..8 (R = 1 is the
-MHA kernel) and head_dim 128 over the bf16 and the int8 cache, flash
-attention at lengths 1..130, bf16 and int8 slab writes; the GQA int8 fused
+ragged row counts (around its 256-row tile, up to 4096), a narrow x and the
+7B projections (bit-equal across launches and grids), decode attention at
+R = 1..8 (R = 1 is the MHA kernel) and head_dim 128 over the bf16 and the
+int8 cache, flash attention at lengths 1..4096 (its lse, and every packing
+of a group's heads into a block bit for bit), bf16 and int8 slab writes; the GQA int8 fused
 kernel, the read-only decode kernels (fused result == read-only + one-token
 write), the one-token and the stacked writes, the stacked-cache and unfused
 model paths against the CPU, and the many-row W4 tiles (row 1 at 17-1023
@@ -152,11 +154,12 @@ def test_w4_matmul_refuses(gen):
                    in_dim=256, group_size=128)
 
 
-@pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 1024, 1100])
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 255, 256, 257, 1000, 1024, 1100, 4096])
 @pytest.mark.parametrize("k,kx,n,gs", [(256, 256, 128, 128), (2048, 1152, 384, 128),
                                        (512, 512, 256, 64)])
 def test_w4_matmul_bigm(gen, m, k, kx, n, gs):
-    """Ragged row tiles, x narrower than a padded in_dim, group size 64."""
+    """Ragged row tiles (around the 256-row tile), x narrower than a padded
+    in_dim, group size 64, the QPEFT step's 4096 rows."""
     w = randn(gen, k, n, dtype=torch.float32, scale=k ** -0.5)
     qw = to_folded_layout(quantize_weight(w, 4, gs))
     x = randn(gen, m, kx)
@@ -165,16 +168,38 @@ def test_w4_matmul_bigm(gen, m, k, kx, n, gs):
                                             group_size=gs))
 
 
-def test_w4_matmul_bigm_strided_x(gen):
+@pytest.mark.parametrize("m", [1030, 1024, 4100])
+def test_w4_matmul_bigm_strided_x(gen, m):
     """x as a column slice of a wider buffer (row stride > Kx)."""
     qw = _w4(gen, 256, 128)
-    x = randn(gen, 1030, 512)[:, 128:384]
+    x = randn(gen, m, 512)[:, 128:384]
     got = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128)
     assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=256,
                                             group_size=128))
     with pytest.raises(ValueError, match="128-column"):
         qn = _w4(gen, 256, 192)
         planes_qmm_bigm(x, qn.packed, qn.scales, qn.zeros, in_dim=256, group_size=128)
+
+
+@pytest.mark.parametrize("m", [1000, 1024, 1100, 4096])
+@pytest.mark.parametrize("name,k,kx,n", [("wqkv", 4096, 4096, 12288), ("wo", 4096, 4096, 4096),
+                                         ("w13", 4096, 4096, 22016), ("w2", 11264, 11008, 4096)])
+def test_w4_matmul_bigm_llama2_7b(gen, m, name, k, kx, n):
+    """The 7B prefill's four projections (w2's in_dim 11008 in a weight padded
+    to 11264, as quantize_params pads it) at the prefill's and the QPEFT
+    step's rows: within a rounding step of the plain version, and the same
+    bits from a second launch and from another persistent grid."""
+    qw = _w4(gen, kx, n, pad_in_to=k)
+    x = randn(gen, m, kx)
+    got = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim, group_size=128)
+    want = planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                                 group_size=128)
+    assert_close(got, want)
+    for ctas in (None, 37):
+        again = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                                group_size=128, ctas=ctas)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), ctas
 
 
 @pytest.mark.parametrize("m", [8, 200])
@@ -427,13 +452,41 @@ def test_slab_write8(gen, hd, sq, pos):
         write_kv_layer8(pools[0], pools[1], pools[2], pools[3].cpu(), nk, nv, pos)
 
 
-@pytest.mark.parametrize("s", [1, 17, 64, 65, 130])
-@pytest.mark.parametrize("hd,nq,nkv", [(64, 4, 4), (64, 8, 2), (128, 4, 1)])
+@pytest.mark.parametrize("s", [1, 17, 63, 64, 65, 127, 128, 129, 130, 2048, 4096])
+@pytest.mark.parametrize("hd,nq,nkv", [(64, 4, 4), (64, 8, 4), (64, 8, 2), (128, 4, 1),
+                                       (128, 8, 1), (128, 4, 4)])
 def test_flash_attention(gen, s, hd, nq, nkv):
+    """Lengths around the 128-row and 128-key tiles and the short ones the
+    plan packs (R = 1, 2, 4, 8), v a strided view as the model passes it."""
     b = 2
     q, k = randn(gen, b, s, nq, hd), randn(gen, b, s, nkv, hd)
     v = randn(gen, b, s, 2 * nkv * hd)[..., nkv * hd:].view(b, s, nkv, hd)
     assert_close(flash_attention(q, k, v), grouped_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("s", [1, 16, 17, 63, 64, 65, 128, 129, 2048])
+@pytest.mark.parametrize("hd,nq,nkv", [(64, 8, 8), (64, 16, 8), (64, 32, 4), (128, 32, 8),
+                                       (128, 8, 1)])
+def test_flash_attention_lse_and_packing(gen, s, hd, nq, nkv):
+    """The forward's lse against the plain log-sum-exp (R = 1, 2, 8, 4, 8),
+    from q / k / v as strided views of one projection output; and every
+    packing of a group's heads into a block (1 .. R heads) gives fwd_plan's
+    bits: a row's arithmetic does not depend on the block that computes it."""
+    from accessory_tpu_torch.ops.flash_attention import _forward, attention_lse, fwd_plan
+
+    b = 2
+    q, k, v = _attn_inputs(gen, b, s, nq, nkv, hd, fused_qkv=True)
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    assert_close(out, grouped_attention(q, k, v, causal=True))
+    want = attention_lse(q, k)
+    torch.cuda.synchronize()
+    assert float((lse - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-5
+    r = nq // nkv
+    for ph in sorted({1, r, fwd_plan(b, s, s, 0, nq, nkv).heads_per_block} | {2, 4} & {
+            d for d in range(1, r + 1) if r % d == 0}):
+        o2, l2 = _forward(q, k, v, None, with_lse=True, heads_per_block=ph)
+        torch.cuda.synchronize()
+        assert torch.equal(o2, out) and torch.equal(l2, lse), ph
 
 
 @pytest.mark.parametrize("sq,pos", [(1, 0), (1, 9), (7, 5), (128, 0)])
@@ -1298,7 +1351,9 @@ def test_flash_attention_cp_every_shard(gen, s, cp, hd, nq, nkv):
 
 
 @pytest.mark.parametrize("s,hd,nq,nkv", [(1, 64, 4, 2), (77, 64, 32, 4), (130, 128, 8, 8),
-                                         (512, 128, 32, 32)])
+                                         (512, 128, 32, 32), (63, 64, 8, 1), (64, 64, 8, 4),
+                                         (65, 128, 16, 2), (127, 64, 32, 4), (128, 64, 8, 4),
+                                         (129, 128, 8, 1), (2048, 128, 8, 8), (4096, 64, 8, 2)])
 def test_flash_attention_cp_at_offset_zero_is_the_flash_kernel(gen, s, hd, nq, nkv):
     """q0 = 0 and SK = SQ: the cp entries give the flash entries' bits (one
     body), forward with the lse and both backward launches."""
