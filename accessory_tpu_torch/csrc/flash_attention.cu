@@ -106,14 +106,6 @@ struct FwdArgs {
   float scale_log2; // scale * log2(e)
 };
 
-__device__ __forceinline__ void load4(void* dst, const CUtensorMap* map, int tok_inner, int c0,
-                                      int head, int tok, int b, uint64_t* bar) {
-  if (tok_inner)
-    hopper::tma_load_4d(dst, map, c0, head, tok, b, bar);
-  else
-    hopper::tma_load_4d(dst, map, c0, head, b, tok, bar);
-}
-
 // One work item: a query tile of one head group of one batch row, and the
 // key tiles it walks (up to its last row's diagonal). Items run longest first.
 struct Item {
@@ -170,8 +162,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(const __gri
         hopper::mbar_expect_tx(&qfull[qb], F::Q_BYTES);
 #pragma unroll
         for (int h = 0; h < F::HALVES; ++h)
-          load4(smem + qb * F::Q_BYTES + h * F::Q_HALF, &a.qmap, a.q_tok_inner, 64 * h, im.hq0,
-                im.p0, im.b, &qfull[qb]);
+          hopper::load4(smem + qb * F::Q_BYTES + h * F::Q_HALF, &a.qmap, a.q_tok_inner, 64 * h,
+                        im.hq0, im.p0, im.b, &qfull[qb]);
         for (int j = 0; j < im.n_tiles; ++j, ++it) {
           const int slot = it % STAGES;
           if (it >= STAGES) hopper::mbar_wait(&empty[slot], (it / STAGES - 1) & 1);
@@ -179,13 +171,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(const __gri
           hopper::mbar_expect_tx(&kfull[slot], F::KV_BYTES);
 #pragma unroll
           for (int h = 0; h < F::HALVES; ++h)
-            load4(ks + h * F::KV_HALF, &a.kmap, a.k_tok_inner, 64 * h, im.hk, j * BKV, im.b,
-                  &kfull[slot]);
+            hopper::load4(ks + h * F::KV_HALF, &a.kmap, a.k_tok_inner, 64 * h, im.hk, j * BKV,
+                          im.b, &kfull[slot]);
           hopper::mbar_expect_tx(&vfull[slot], F::KV_BYTES);
 #pragma unroll
           for (int h = 0; h < F::HALVES; ++h)
-            load4(ks + F::KV_BYTES + h * F::KV_HALF, &a.vmap, a.v_tok_inner, 64 * h, im.hk,
-                  j * BKV, im.b, &vfull[slot]);
+            hopper::load4(ks + F::KV_BYTES + h * F::KV_HALF, &a.vmap, a.v_tok_inner, 64 * h,
+                          im.hk, j * BKV, im.b, &vfull[slot]);
         }
       }
     }
@@ -367,27 +359,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(const __gri
   }
 }
 
-// The 4-d map of one of q / k / v (B, T, heads, HD) with batch and token
-// strides (elements): dims (HD, heads, token, batch), or (HD, heads, batch,
-// token) where the batch stride is the smaller (a token-major gather
-// buffer); box (64, box_heads, box_tokens) along (HD, heads, token).
-cudaError_t qkv_map(CUtensorMap* map, int* tok_inner, const void* base, long long bs,
-                    long long ts, int B, int T, int heads, int HD, int box_heads, int box_tokens) {
-  if (bs % 8 != 0 || ts % 8 != 0) return cudaErrorInvalidValue;
-  *tok_inner = B == 1 || ts <= bs;
-  const cuuint64_t tb = (cuuint64_t)ts * 2;
-  const cuuint64_t bb = B == 1 ? tb * (cuuint64_t)T : (cuuint64_t)bs * 2;
-  const cuuint64_t dims_t[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t dims_b[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)B, (cuuint64_t)T};
-  const cuuint64_t str_t[3] = {(cuuint64_t)HD * 2, tb, bb};
-  const cuuint64_t str_b[3] = {(cuuint64_t)HD * 2, bb, tb};
-  const cuuint32_t box_t[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_tokens, 1};
-  const cuuint32_t box_b[4] = {64, (cuuint32_t)box_heads, 1, (cuuint32_t)box_tokens};
-  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4,
-                          *tok_inner ? dims_t : dims_b, *tok_inner ? str_t : str_b,
-                          *tok_inner ? box_t : box_b, true);
-}
-
 template <int HD>
 cudaError_t launch_hd(const FwdArgs& a, int ctas, cudaStream_t st) {
   using F = Fwd<HD>;
@@ -422,7 +393,9 @@ int launch_fwd(const void* q, long long q_bs, long long q_ts, const void* k, lon
   a.scale_log2 = scale * 1.4426950408889634f;
   cudaError_t e;
   int out_tok_inner;
-  if ((e = qkv_map(&a.qmap, &a.q_tok_inner, q, q_bs, q_ts, B, SQ, NQ, HD, ph, a.rpb)) != cudaSuccess ||
+  using hopper::qkv_map;
+  if ((e = hopper::bind_device_of(q)) != cudaSuccess ||
+      (e = qkv_map(&a.qmap, &a.q_tok_inner, q, q_bs, q_ts, B, SQ, NQ, HD, ph, a.rpb)) != cudaSuccess ||
       (e = qkv_map(&a.omap, &out_tok_inner, out, (long long)SQ * NQ * HD, (long long)NQ * HD, B, SQ,
                    NQ, HD, ph, 64 / ph)) != cudaSuccess ||
       (e = qkv_map(&a.kmap, &a.k_tok_inner, k, k_bs, k_ts, B, SK, NKV, HD, 1, BKV)) != cudaSuccess ||

@@ -1,11 +1,12 @@
 // Hopper building blocks of the port's wgmma kernels: the many-row W4 matmul
-// (w4_matmul_bigm.cu), the flash-attention forward (flash_attention.cu) and
-// the tiles of w4_tile.cuh and w8_matmul.cu. Device side: mbarriers, TMA tile
+// (w4_matmul_bigm.cu), the flash-attention forward and backward
+// (flash_attention.cu, flash_attention_bwd.cu) and the tiles of w4_tile.cuh
+// and w8_matmul.cu. Device side: mbarriers, TMA tile
 // loads and stores and bulk copies, the shared-memory matrix descriptor of the
 // 128-byte swizzle, wgmma with A from shared memory or registers, and
 // setmaxnreg. Host side: a TMA tensor map (cuTensorMapEncodeTiled, looked up
 // in the CUDA library the process has loaded, so the libraries link only the
-// runtime).
+// runtime), and the attention operands' 4-d maps.
 //
 // The one shared-memory layout: TMA's 128-byte swizzle (CU_TENSOR_MAP_
 // SWIZZLE_128B) writes a box whose inner dimension is 64 bf16 (128 bytes) as
@@ -94,6 +95,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// A box of one of the attention kernels' 4-d (head dim, heads, tokens,
+// batch) maps (qkv_map): tok_inner says whether the token dimension comes
+// before the batch's
+__device__ __forceinline__ void load4(void* dst, const CUtensorMap* map, int tok_inner, int c0,
+                                      int head, int tok, int b, uint64_t* bar) {
+  if (tok_inner)
+    tma_load_4d(dst, map, c0, head, tok, b, bar);
+  else
+    tma_load_4d(dst, map, c0, head, b, tok, bar);
 }
 
 // A TMA box from shared memory to a 4-d tensor map (rows past the map's
@@ -297,6 +309,24 @@ __device__ __forceinline__ void wgmma_rs_64x256x16(float (&d)[128], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TNSP_B));
 }
 
+__device__ __forceinline__ void wgmma_ss_64x64x16(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_ss_64x128x16(float (&d)[64], uint64_t a, uint64_t b,
                                                    int accumulate) {
   asm volatile(
@@ -354,6 +384,37 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, const vo
                          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// p's device made current on this thread: encoding a tensor map needs a
+// current context, and a thread that has made no CUDA call yet has none
+// (autograd runs the backward, and a checkpointed forward, on its own thread)
+inline cudaError_t bind_device_of(const void* p) {
+  cudaPointerAttributes where;
+  const cudaError_t e = cudaPointerGetAttributes(&where, p);
+  return e != cudaSuccess ? e : cudaSetDevice(where.device);
+}
+
+// The 4-d map of an attention operand (B, T, heads, HD) with batch and token
+// strides (elements): dims (HD, heads, token, batch), or (HD, heads, batch,
+// token) where the batch stride is the smaller (a token-major gather
+// buffer); box (64, box_heads, box_tokens) along (HD, heads, token), in the
+// 128-byte swizzle. Used by the flash-attention forward and backward.
+inline cudaError_t qkv_map(CUtensorMap* map, int* tok_inner, const void* base, long long bs,
+                           long long ts, int B, int T, int heads, int HD, int box_heads,
+                           int box_tokens) {
+  if (bs % 8 != 0 || ts % 8 != 0) return cudaErrorInvalidValue;
+  *tok_inner = B == 1 || ts <= bs;
+  const cuuint64_t tb = (cuuint64_t)ts * 2;
+  const cuuint64_t bb = B == 1 ? tb * (cuuint64_t)T : (cuuint64_t)bs * 2;
+  const cuuint64_t dims_t[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t dims_b[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)B, (cuuint64_t)T};
+  const cuuint64_t str_t[3] = {(cuuint64_t)HD * 2, tb, bb};
+  const cuuint64_t str_b[3] = {(cuuint64_t)HD * 2, bb, tb};
+  const cuuint32_t box_t[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_tokens, 1};
+  const cuuint32_t box_b[4] = {64, (cuuint32_t)box_heads, 1, (cuuint32_t)box_tokens};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, *tok_inner ? dims_t : dims_b,
+                  *tok_inner ? str_t : str_b, *tok_inner ? box_t : box_b, true);
 }
 
 }  // namespace hopper

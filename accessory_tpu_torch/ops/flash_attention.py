@@ -6,7 +6,8 @@ calls JAX's bundled TPU splash kernel, custom VJP and all). The CUDA kernels
 are ``csrc/flash_attention.cu`` (forward, a warp-specialized ``wgmma`` kernel
 fed by TMA, its launch plan ``fwd_plan``; for training it also stores each
 row's f32 log-sum-exp) and ``csrc/flash_attention_bwd.cu`` (dq, then dk / dv
-summed over each KV head's group). On a CPU tensor the plain versions run:
+summed over each KV head's group: the same TMA + ``wgmma`` design, its plan
+``bwd_plan``). On a CPU tensor the plain versions run:
 ``ops.attention.grouped_attention`` forward and ``flash_attention_bwd_plain``,
 the explicit backward formula over P recomputed from the lse. The kernels
 mask a ragged end themselves, so every length is served (the TPU path padded
@@ -107,6 +108,83 @@ def fwd_plan(b: int, sq: int, sk: int, q_offset: int, nq: int, nkv: int,
     items = q_tiles * (nq // ph) * b
     ctas = min(SMS, items) if key_tiles <= PERSISTENT_TILES else items
     return FwdPlan(ph, positions, q_tiles, items, key_tiles, ctas)
+
+
+BWD_ROWS = 128          # csrc/flash_attention_bwd.cu ROWS: an item's query / key rows
+BWD_MAX_SPLIT = 4       # its MAX_SPLIT: blocks of a dk / dv cluster
+BWD_QUERIES = 64        # its BQT: query rows a stage of dk / dv
+BWD_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")   # in a trace
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    b: int
+    sq: int
+    sk: int
+    q_offset: int
+    nq: int
+    nkv: int
+    dq_keys: int           # keys a stage of dq
+    kv_queries: int        # query rows a stage of dk / dv
+    dq_tiles: int          # dq items along the sequence (BWD_ROWS query rows each)
+    dq_blocks: int         # dq items, a block each: dq_tiles x nq x b
+    kv_tiles: int          # dk / dv items along the keys (BWD_ROWS keys each)
+    kv_items: int          # kv_tiles x nkv x b
+    split: int             # blocks of a dk / dv cluster, nq / nkv / split query heads each
+    kv_blocks: int         # kv_items x split
+    kernels: Tuple[str, str] = BWD_KERNELS
+
+    def dq_item(self, w: int) -> Tuple[int, int, int, int]:
+        """Block w of dq (the kernel's ``DqItem``): (batch row, query head,
+        first row, key tiles it walks)."""
+        per = self.nq * self.b
+        p0 = (self.dq_tiles - 1 - w // per) * BWD_ROWS
+        n_tiles = (min(self.q_offset + min(self.sq, p0 + BWD_ROWS) - 1, self.sk - 1)
+                   // self.dq_keys + 1)
+        return (w % per) // self.nq, (w % per) % self.nq, p0, n_tiles
+
+    def kv_block(self, x: int) -> Tuple[int, int, int, int, Tuple[int, ...], int, int]:
+        """Block x of dk / dv (the kernel's ``DkdvItem``): (batch row, kv
+        head, first key, cluster rank, its query heads, its first query
+        tile, query tiles a head)."""
+        w, rank = divmod(x, self.split)
+        per = self.nkv * self.b
+        k0 = (w // per) * BWD_ROWS
+        hk = (w % per) % self.nkv
+        r = self.nq // self.nkv
+        heads = r // self.split
+        i_first = max(0, k0 - self.q_offset) // self.kv_queries
+        n_qt = max(0, math.ceil(self.sq / self.kv_queries) - i_first)
+        first = hk * r + rank * heads
+        return ((w % per) // self.nkv, hk, k0, rank, tuple(range(first, first + heads)),
+                i_first, n_qt)
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_plan(b: int, sq: int, sk: int, q_offset: int, nq: int, nkv: int, hd: int) -> BwdPlan:
+    """The backward kernels' launches (a pure function of the shape), as
+    csrc/flash_attention_bwd.cu computes them (its C entries take no plan
+    arguments): dq a block per item of 128 query rows of one head, the last
+    query tiles first (they see the most keys); dk / dv an item per 128 keys
+    of one kv head, the first key tiles first (they see the most queries).
+    Where the dk / dv items with work (key tiles up to a shard's last row)
+    are fewer than the card's SMS, each item's GQA group is split over a
+    cluster of ``split`` blocks (the largest divisor of nq / nkv, at most
+    BWD_MAX_SPLIT, whose blocks still run in one wave on the SMS), each
+    summing nq / nkv / split heads, their f32 sums added in rank order: no
+    atomics, so the bits depend on the shape alone."""
+    r = nq // nkv
+    dq_tiles = math.ceil(sq / BWD_ROWS)
+    kv_tiles = math.ceil(sk / BWD_ROWS)
+    kv_items = kv_tiles * nkv * b
+    work = min(kv_tiles, (q_offset + sq - 1) // BWD_ROWS + 1) * nkv * b   # items with work
+    split = max(d for d in range(1, min(r, BWD_MAX_SPLIT) + 1)
+                if r % d == 0 and (d == 1 or work * d <= SMS))
+    # dq's keys a stage (Dq<HD>::BKV): its dQ, S and dP accumulators share a
+    # thread's registers
+    dq_keys = 64 if hd == 128 else 128
+    return BwdPlan(b, sq, sk, q_offset, nq, nkv, dq_keys, BWD_QUERIES, dq_tiles,
+                   dq_tiles * nq * b, kv_tiles, kv_items, split, kv_items * split)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -287,6 +365,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     dq = torch.empty((b, s, nq, hd), dtype=torch.bfloat16, device=q.device)
     dk = torch.empty((b, k.shape[1], nkv, hd), dtype=torch.bfloat16, device=q.device)
     dv = torch.empty_like(dk)
+    _bwd_calls(q, k, v, out, dout, lse, d, dq, dk, dv, scale, q_offset)
+    return dq, dk, dv
+
+
+def _bwd_calls(q, k, v, out, dout, lse, d, dq, dk, dv, scale: float,
+               q_offset: Optional[int]) -> None:
+    """The backward's two C calls on checked operands, in order: dq (which
+    writes D), then dk / dv (which reads it); the flash entries (``q_offset``
+    None) or the cp entries. Their launch plan is ``bwd_plan``'s, computed
+    by the kernels from the shape."""
+    name = "flash_attention_bwd" if q_offset is None else "flash_attention_cp_bwd"
     shape = (*_dims(q, k, q_offset), scale, kernels.stream_ptr(q))
     dq_args, dkdv_args = ((_BWD_DQ_ARGS, _BWD_DKDV_ARGS) if q_offset is None
                           else (_CP_BWD_DQ_ARGS, _CP_BWD_DKDV_ARGS))
@@ -298,7 +387,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     rc = fn(*_strided(q), *_strided(k), *_strided(v), *_strided(dout), lse.data_ptr(),
             d.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape)
     kernels.check(f"{name}_dkdv", rc)
-    return dq, dk, dv
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: Optional[float] = None,

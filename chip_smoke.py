@@ -1042,7 +1042,7 @@ def _kernels_flash_bwd(kr, cases):
             check_close(f"flash_attention_bwd {name} {tag} s={s}", g, w, rtol=2e-2,
                         atol=2e-2 * top, rel_l2=2e-2)
             errs.append(max_err(g, w))
-        names = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+        names = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
         k_ms = time_ms(flash_attention_bwd, sets, by=names)
         k_wall = wall_ms(flash_attention_bwd, sets)
         p_ms = time_ms(flash_attention_bwd_plain, sets[:1], min_iters=3)
@@ -1096,7 +1096,7 @@ def _kernels_cp(kr, cases):
                                                          flash_attention_bwd,
                                                          flash_attention_bwd_plain)
 
-    names = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    names = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
     for tag, b, s, nq, nkv, hd, cp, ranks in cases:
         s_l = s // cp
         k, v = kr.randn(b, s, nkv, hd), kr.randn(b, s, nkv, hd)
@@ -2938,7 +2938,8 @@ TRAIN_SPLIT = (("forward W4 (many-row)", ("w4_bigm_wgmma_kernel",)),
                ("forward W4 (tile / GEMV)", ("FoldedB", "W4Folded")),
                ("W4 dequant", ("w4_dequant_kernel",)),
                ("attention forward", ("flash_fwd_wgmma_kernel",)),
-               ("attention backward", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+               ("attention backward", ("flash_bwd_dq_wgmma_kernel",
+                                       "flash_bwd_dkdv_wgmma_kernel")),
                ("dense products (dx, LoRA, head, full-finetune dW)",
                 ("gemm", "nvjet", "xmma", "cutlass", "sm90", "Kernel2")))
 
@@ -3176,11 +3177,13 @@ def phase_compare(seed: int):
     projections' 1024 and 4096 rows and wo at 1000 (``torch.matmul`` on the
     dense weight beside it), the flash forward at the prefills, the training
     shapes and two cp shards (SDPA, with a boolean mask for a shard, beside
-    it). Device time from the profiler, inputs rotated past L2."""
+    it), and the flash backward (``flash_attention_bwd``, its dq and dk / dv
+    kernels apart) at the training shapes and the cp shards beside SDPA's
+    backward. Device time from the profiler, inputs rotated past L2."""
     import torch
     import torch.nn.functional as F
 
-    from accessory_tpu_torch.ops.flash_attention import _forward
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
     from accessory_tpu_torch.ops.quant_matmul_bigm import planes_qmm_bigm
     from accessory_tpu_torch.quant.qtensor import (dequantize_weight, quantize_weight,
                                                    to_folded_layout)
@@ -3230,6 +3233,42 @@ def phase_compare(seed: int):
               "shape": f"{tag} B={b} S={s} q0={q0} SK={sk} NQ={nq} NKV={nkv} HD={hd}",
               "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
         del sets
+    # the backward (rows 3b and 26): flash_attention_bwd(q, k, v, out, dout,
+    # lse[, None, q0]), split into its dq and dk / dv kernels by name (both
+    # the earlier design's names and this one's hold the substrings), beside
+    # the backward of SDPA (a boolean mask for a shard) and the bound of its
+    # seven causal products
+    parts = ("flash_bwd_dq", "flash_bwd_dkdv")
+    for tag, b, s, nq, nkv, hd, q0, sk in (
+            ("tiny", 4, 256, 32, 4, 64, 0, 256), ("7b qpeft", 8, 512, 32, 32, 128, 0, 512),
+            ("700m", 2, 2048, 16, 8, 128, 0, 2048), ("train_cp", 1, 4096, 32, 32, 128, 0, 4096),
+            ("7b cp4 rank3", 1, 2048, 32, 32, 128, 6144, 8192),
+            ("tiny cp4 rank3", 1, 2048, 32, 4, 64, 6144, 8192)):
+        off = None if q0 == 0 and sk == s else q0
+        # q, out, dout read, dq written; k / v read, dk / dv written; lse and D
+        nbytes = 4 * b * s * nq * hd * 2 + 4 * b * sk * nkv * hd * 2 + 3 * b * nq * s * 4
+        sets = []
+        for _ in range(n_copies(nbytes, most=4)):
+            q, k, v = randn(b, s, nq, hd), randn(b, sk, nkv, hd), randn(b, sk, nkv, hd)
+            out, lse = _forward(q, k, v, None, with_lse=True, q_offset=off)
+            sets.append((q, k, v, out, randn(b, s, nq, hd), lse, None, off))
+        ms = time_ms(flash_attention_bwd, sets, by=parts)
+        q, k, v, _, dout, *_ = sets[0]
+        qt, kt, vt = (t.detach().requires_grad_(True) for t in (q, k, v))
+        if off is None:
+            o = F.scaled_dot_product_attention(qt.transpose(1, 2), kt.transpose(1, 2),
+                                               vt.transpose(1, 2), is_causal=True,
+                                               enable_gqa=True)
+        else:
+            o = _masked_sdpa(qt, kt, vt, q0)
+        lib = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2),
+                                                  retain_graph=True), [()], min_iters=10)
+        b_ms, b_by = bound_ms(nbytes, 14 * _cp_work(b, s, q0, nq, hd))
+        emit({"phase": "compare", "kernel": "flash_attention_bwd",
+              "shape": f"{tag} B={b} S={s} q0={q0} SK={sk} NQ={nq} NKV={nkv} HD={hd}",
+              "ms": ms[parts[0]] + ms[parts[1]], "dq_ms": ms[parts[0]],
+              "dkdv_ms": ms[parts[1]], "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        del sets, o, qt, kt, vt
 
 
 def phase_cp_shards(seed: int, s: int = 8192):
@@ -3239,11 +3278,11 @@ def phase_cp_shards(seed: int, s: int = 8192):
     reduce-scatter a sum over the shards' dk / dv), LLaMA2-7B width (32 / 32
     heads, head_dim 128), b 1, S 8192. Held against the unsharded
     flash_attention and its backward: the concatenated outputs, lse and dq
-    bit for bit (a row's arithmetic in the forward does not depend on the
-    block that computes it; the backward's row tiles are the unsharded
-    kernel's, 64-row aligned), the summed dk / dv within a rounding step. Times between CUDA
-    events around back-to-back calls (each call is 0.2-13 ms of kernel work,
-    far above its host cost): the shards' forward and backward summed, beside
+    bit for bit (a row's arithmetic, forward and dq, does not depend on the
+    block that computes it, and the key tiles are aligned at key 0), the
+    summed dk / dv within a rounding step. Times between CUDA events around
+    back-to-back calls (each call is 0.2-13 ms of kernel work, far above its
+    host cost): the shards' forward and backward summed, beside
     the unsharded kernels' and each shard's own; the profiler's device time of
     the unsharded calls is printed beside them as a cross-check. Launch
     counts are set to 0 just before each shard's cp_shard_attention forward
@@ -3262,7 +3301,7 @@ def phase_cp_shards(seed: int, s: int = 8192):
     out, lse = _forward(q, k, v, None, with_lse=True)
     dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse)
     fwd_names, bwd_names = (("flash_fwd_wgmma_kernel",),
-                            ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
+                            ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"))
     full_fwd = wall_ms(lambda: _forward(q, k, v, None, with_lse=True), [()], min_iters=10)
     full_bwd = wall_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse), [()], min_iters=10)
     prof_fwd = time_ms(lambda: _forward(q, k, v, None, with_lse=True), [()], min_iters=10,

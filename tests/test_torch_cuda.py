@@ -907,6 +907,87 @@ def test_flash_attention_bwd(gen, s, hd, nq, nkv):
             assert_grad_close(name, g, w)
 
 
+# R = 1, 2, 8 at head_dim 64 and 128, and R = 6 (a dk / dv cluster of 3 blocks
+# at the shorter lengths, whose shares of the 128 key rows are uneven)
+BWD_GROUPS = [(64, 8, 8), (64, 8, 4), (64, 32, 4), (128, 8, 8), (128, 16, 8), (128, 16, 2),
+              (64, 12, 2)]
+
+
+@pytest.mark.parametrize("s", [127, 128, 129, 255, 256, 4096])
+@pytest.mark.parametrize("hd,nq,nkv", BWD_GROUPS)
+def test_flash_attention_bwd_tile_edges(gen, s, hd, nq, nkv):
+    """Both backward launches at the edges of their 128-row items and of the
+    64 / 128-row stages (one short, exact, one past, two items) and at 4096
+    rows, R = 1, 2, 8, against the plain formula over the same forward output
+    and lse."""
+    from accessory_tpu_torch.ops.flash_attention import (_forward, flash_attention_bwd,
+                                                         flash_attention_bwd_plain)
+
+    b = 1 if s == 4096 else 2
+    q, k, v = _attn_inputs(gen, b, s, nq, nkv, hd, fused_qkv=False)
+    out, lse = _forward(q, k, v, None, with_lse=True)
+    dout = randn(gen, b, s, nq, hd)
+    got = flash_attention_bwd(q, k, v, out, dout, lse)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert_grad_close(name, g, w)
+
+
+@pytest.mark.parametrize("s,hd,nq,nkv,q0,sk", [(256, 64, 32, 4, None, 256),
+                                               (77, 64, 32, 4, None, 77),
+                                               (512, 128, 16, 8, None, 512),
+                                               (300, 128, 8, 8, None, 300),
+                                               (256, 64, 32, 4, 256, 1024),
+                                               (256, 128, 16, 8, 768, 1024),
+                                               (256, 64, 12, 2, None, 256)])
+def test_flash_attention_bwd_two_calls_same_bits(gen, s, hd, nq, nkv, q0, sk):
+    """No atomics: two calls of each entry (flash, and cp at a shard) give
+    the same bits, the GQA groups split over a cluster (TinyLlama's 32 / 4
+    heads) and summed in one block alike."""
+    from accessory_tpu_torch.ops.flash_attention import _forward, flash_attention_bwd
+
+    q, dout = randn(gen, 2, s, nq, hd), randn(gen, 2, s, nq, hd)
+    k, v = randn(gen, 2, sk, nkv, hd), randn(gen, 2, sk, nkv, hd)
+    out, lse = _forward(q, k, v, None, with_lse=True, q_offset=q0)
+    first = flash_attention_bwd(q, k, v, out, dout, lse, None, q0)
+    second = flash_attention_bwd(q, k, v, out, dout, lse, None, q0)
+    torch.cuda.synchronize()
+    for g, w in zip(first, second):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s,cp", [(1024, 2), (1024, 4), (512, 4)])
+@pytest.mark.parametrize("hd,nq,nkv", [(64, 32, 4), (128, 16, 8), (128, 8, 8)])
+def test_flash_attention_cp_bwd_every_shard_past_the_tiles(gen, s, cp, hd, nq, nkv):
+    """Every shard of cp 2 / 4 with shards of several 128-row items: dq, dk,
+    dv against the plain formula at the shard's offset, the keys past the
+    shard's last row exactly zero, and at offset 0 over as many keys as rows
+    the flash entries' bits."""
+    from accessory_tpu_torch.ops.flash_attention import (_forward, flash_attention_bwd,
+                                                         flash_attention_bwd_plain)
+
+    b, s_l = 1, s // cp
+    q, k, v, dout = _cp_case(gen, b, s, nq, nkv, hd)
+    for r in range(cp):
+        rows = slice(r * s_l, (r + 1) * s_l)
+        qs, ds = q[:, rows], dout[:, rows].contiguous()
+        out, lse = _forward(qs, k, v, None, with_lse=True, q_offset=r * s_l)
+        got = flash_attention_bwd(qs, k, v, out, ds, lse, None, r * s_l)
+        want = flash_attention_bwd_plain(qs, k, v, out, ds, lse, None, r * s_l)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert_grad_close(f"{name} shard {r}", g, w)
+        for g in got[1:]:
+            assert not g[:, (r + 1) * s_l:].any()
+    qs, ks, vs, ds = q[:, :s_l], k[:, :s_l], v[:, :s_l], dout[:, :s_l].contiguous()
+    out, lse = _forward(qs, ks, vs, None, with_lse=True)
+    cp_bits = flash_attention_bwd(qs, ks, vs, out, ds, lse, None, 0)
+    flash_bits = flash_attention_bwd(qs, ks, vs, out, ds, lse)
+    torch.cuda.synchronize()
+    for g, w in zip(cp_bits, flash_bits):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("s,hd,nq,nkv", [(77, 64, 32, 4), (130, 128, 8, 2)])
 def test_flash_attention_bwd_strided_views(gen, s, hd, nq, nkv):
     """q / k / v as strided views of one fused-qkv buffer: the same
