@@ -33,10 +33,16 @@ CUDA kernels: ``csrc/decode_attention.cu`` (GQA), ``csrc/decode_attention_mha.cu
 (one query head per KV head) and ``csrc/kv_write.cu`` (all writes). Their
 plain versions (``*_plain``) follow the TPU kernels' op order and run for
 tensors on the CPU. The kernels serve any cache length, chunk length and
-position.
+position. The GQA kernel splits the cached tokens over a cluster of blocks
+(``decode_plan``; the body ``csrc/decode_split.cuh`` is the paged kernel's
+too).
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -50,8 +56,8 @@ P, I, L, F = kernels.P, kernels.I, kernels.L, kernels.F
 _QKV_ARGS = [P, L, P, L, P, L]
 _TAIL_ARGS = [F, P, P]                       # softmax scale, out, stream
 # (q, k_new, v_new with batch strides) + pools + dims + tail
-_GQA_ARGS = _QKV_ARGS + [P, P] + [I] * 6 + _TAIL_ARGS        # B NKV S R HD pos
-_GQA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 6 + _TAIL_ARGS
+_GQA_ARGS = _QKV_ARGS + [P, P] + [I] * 7 + _TAIL_ARGS        # B NKV S R HD pos split
+_GQA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 7 + _TAIL_ARGS
 _MHA_ARGS = _QKV_ARGS + [P, P] + [I] * 5 + _TAIL_ARGS        # B NKV S HD pos
 _MHA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 5 + _TAIL_ARGS
 _SLAB_SRC = [P, L, L, P, L, L]               # k, v with batch and token strides
@@ -76,6 +82,51 @@ _DECODE_KERNELS = {
     (True, False, False): ("decode_attention_mha", "decode_attention_mha_ro", _MHA_ARGS),
     (True, True, False): ("decode_attention_mha", "decode_attention_mha8_ro", _MHA8_ARGS),
 }
+
+
+SPLIT_CHUNK = 64        # csrc/decode_split.cuh T: cached tokens a chunk
+SPLIT_MAX = 8           # its MAX_SPLIT: blocks of a cluster (the portable most)
+SPLIT_CHUNKS = 8        # the most chunks a rank gets where the split allows
+# the blocks the static kernel's plan aims at: one on each of the H100's 132
+# SMs (an H100 sweep of the split put its best at 3-4 ranks, 96-128 blocks,
+# at B 8, NKV 4, S 1024)
+STATIC_BLOCKS = 132
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """A split decode launch: ``split`` blocks (one cluster) for each (kv
+    head, batch row[, tile of query rows]), ``blocks`` in all."""
+    split: int
+    blocks: int
+
+    def rank_range(self, n: int, rank: int) -> Tuple[int, int]:
+        """The cached tokens [start, end) that rank ``rank`` folds when ``n``
+        are cached: the kernel's partition of the ceil(n / 64) chunks, rank r
+        taking chunks [nc * r // split, nc * (r + 1) // split). It reads n on
+        the card (pos, or the paged slot's length), the launch does not."""
+        nc = -(-n // SPLIT_CHUNK)
+        c0, c1 = nc * rank // self.split, nc * (rank + 1) // self.split
+        return min(n, c0 * SPLIT_CHUNK), min(n, c1 * SPLIT_CHUNK)
+
+
+def split_plan(pairs: int, max_tokens: int, target_blocks: int) -> SplitPlan:
+    """The split of a launch of ``pairs`` clusters over at most ``max_tokens``
+    cached tokens each: enough ranks to bring the blocks to ``target_blocks``
+    or a rank's chunks down to SPLIT_CHUNKS, whichever is more, but at most
+    SPLIT_MAX and no more ranks than chunks."""
+    chunks = max(1, -(-max_tokens // SPLIT_CHUNK))
+    split = max(target_blocks // max(pairs, 1), -(-chunks // SPLIT_CHUNKS))
+    split = max(1, min(SPLIT_MAX, chunks, split))
+    return SplitPlan(split, split * pairs)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(b: int, nkv: int, s_len: int) -> SplitPlan:
+    """The GQA decode kernel's launch over a (b, nkv, S, hd) cache, from S
+    alone (the geometry does not move with pos): a cluster a (batch row, kv
+    head), ``split`` ranks each folding its share of the tokens < pos."""
+    return split_plan(b * nkv, s_len, STATIC_BLOCKS)
 
 
 def _int_pos(fn: str, pos) -> int:
@@ -127,7 +178,8 @@ def _decode_kernel(fn: str, q, k_new, v_new, pools, pos: int, write: bool):
             f"{tuple(pools[0].shape)} {pools[0].dtype} pos {pos}")
     source, symbol, argtypes = _DECODE_KERNELS[(r == 1, int8, write)]
     out = torch.empty((b, 1, nq, hd), dtype=torch.bfloat16, device=q.device)
-    dims = (b, nkv, s_len, hd, pos) if r == 1 else (b, nkv, s_len, r, hd, pos)
+    dims = (b, nkv, s_len, hd, pos) if r == 1 else \
+        (b, nkv, s_len, r, hd, pos, decode_plan(b, nkv, s_len).split)
     rc = kernels.function(source, symbol, argtypes)(
         q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0), v_new.data_ptr(),
         v_new.stride(0), *(t.data_ptr() for t in pools), *dims, hd ** -0.5, out.data_ptr(),

@@ -18,7 +18,9 @@ for one layer, or the stacked (L, NKV, P, ps, HD) with ``layer`` the index
 (…, NKV, P, ps) f32.
 
 CUDA kernel: ``csrc/paged_decode.cu`` (entries ``paged_decode`` and
-``paged_decode8``). ``paged_decode_attention_plain`` follows the TPU kernel's
+``paged_decode8``), which splits each slot's cached tokens over a cluster of
+blocks (``paged_plan``; the body ``csrc/decode_split.cuh`` is the static GQA
+kernel's too). ``paged_decode_attention_plain`` follows the TPU kernel's
 op order (a page at a time, online softmax, masked scores at the finite
 -1e30, then the new tokens' part) and runs for tensors on the CPU.
 
@@ -33,24 +35,43 @@ by hd ** -0.5).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from accessory_tpu_torch import kernels
-from accessory_tpu_torch.ops.decode_attention import _device_route
+from accessory_tpu_torch.ops.decode_attention import SplitPlan, _device_route, split_plan
 
 NEG_INF = -1e30
 
 P, I, L, F = kernels.P, kernels.I, kernels.L, kernels.F
 # q, k_new, v_new (pointer, batch stride, token stride) + pools + lengths, page table
-# + PPS J B NKV P PS SQ R HD + softmax scale, out, stream
+# + PPS J B NKV P PS SQ R HD split + softmax scale, out, stream
 _HEAD = [P, L, L] * 3
-_TAIL = [I] * 9 + [F, P, P]
+_TAIL = [I] * 10 + [F, P, P]
 _ARGS = _HEAD + [P, P] + [P, P] + _TAIL
 _ARGS8 = _HEAD + [P, P, P, P] + [P, P] + _TAIL
-# q, batch stride, pools, lengths, page table + PPS J B NKV P PS R HD + scale, out, stream
-_ARGS_RO = [P, L, P, P, P, P] + [I] * 8 + [F, P, P]
+# q, batch stride, pools, lengths, page table + PPS J B NKV P PS R HD split + scale, out,
+# stream
+_ARGS_RO = [P, L, P, P, P, P] + [I] * 9 + [F, P, P]
+# csrc/paged_decode.cu: the query rows a block takes, by head_dim
+TILE_ROWS = {64: 64, 128: 32}
+# the blocks the plan aims at, by head_dim: two on each of the H100's 132 SMs
+# at 64, one at 128, where a block's ring takes 96 KB of shared memory (an
+# H100 sweep of the split: 8 ranks best at TinyLlama's 8 slots x 4 kv heads)
+PAGED_BLOCKS = {64: 264, 128: 132}
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(b: int, nkv: int, rows: int, hd: int, j: int, ps: int) -> SplitPlan:
+    """The paged kernel's launch for ``rows`` = sq * r query rows a slot over
+    ``j`` pages of ``ps`` tokens: a cluster per (slot, kv head, tile of up to
+    TILE_ROWS[hd] rows), its ``split`` ranks sharing the tokens. The lengths
+    are device tensors a decode loop never waits for, so the plan sees only
+    j * ps; each rank reads its slot's length on the card
+    (``SplitPlan.rank_range``)."""
+    return split_plan(b * nkv * -(-rows // TILE_ROWS[hd]), j * ps, PAGED_BLOCKS[hd])
 
 
 def _layer_view(pools, layer):
@@ -102,14 +123,23 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, lengths_old, page_
     out = torch.empty((b, sq, nq, hd), dtype=torch.bfloat16, device=dev)
     pools = (k_pages, v_pages) + ((ks_pages, vs_pages) if int8 else ())
     name = "paged_decode8" if int8 else "paged_decode"
-    rc = kernels.function("paged_decode", name, _ARGS8 if int8 else _ARGS)(
+    kernels.check(name, _paged_call(name, q, k_new, v_new, pools, lengths_old, page_indices, j,
+                                    out))
+    return out
+
+
+def _paged_call(name, q, k_new, v_new, pools, lengths, page_indices, j: int, out) -> int:
+    """The C call of entry ``name`` (paged_decode / paged_decode8) on checked
+    operands, with paged_plan's split; returns its CUDA error code."""
+    b, sq, nq, hd = q.shape
+    nkv, n_pages, ps = pools[0].shape[:3]
+    split = paged_plan(b, nkv, sq * (nq // nkv), hd, j, ps).split
+    return kernels.function("paged_decode", name, _ARGS8 if len(pools) == 4 else _ARGS)(
         q.data_ptr(), q.stride(0), q.stride(1), k_new.data_ptr(), k_new.stride(0),
         k_new.stride(1), v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
-        *(t.data_ptr() for t in pools), lengths_old.data_ptr(), page_indices.data_ptr(),
-        page_indices.stride(0), j, b, nkv, n_pages, ps, sq, nq // nkv, hd, hd ** -0.5,
+        *(t.data_ptr() for t in pools), lengths.data_ptr(), page_indices.data_ptr(),
+        page_indices.stride(0), j, b, nkv, n_pages, ps, sq, nq // nkv, hd, split, hd ** -0.5,
         out.data_ptr(), kernels.stream_ptr(q))
-    kernels.check(name, rc)
-    return out
 
 
 def paged_decode_attention_plain(q, k_new, v_new, k_pages, v_pages, lengths_old, page_indices,
@@ -202,12 +232,22 @@ def paged_decode_ro(q, k_pages, v_pages, lengths, page_indices):
             f"lengths {lengths.dtype}, page table {tuple(page_indices.shape)} "
             f"{page_indices.dtype}")
     out = torch.empty((b, nq, hd), dtype=torch.bfloat16, device=dev)
-    rc = kernels.function("paged_decode", "paged_decode_ro", _ARGS_RO)(
-        q.data_ptr(), q.stride(0), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-        page_indices.data_ptr(), page_indices.stride(0), page_indices.shape[1], b, nkv,
-        n_pages, ps, nq // nkv, hd, hd ** -0.5, out.data_ptr(), kernels.stream_ptr(q))
-    kernels.check("paged_decode_ro", rc)
+    kernels.check("paged_decode_ro", _paged_ro_call(q, k_pages, v_pages, lengths, page_indices,
+                                                    out))
     return out
+
+
+def _paged_ro_call(q, k_pages, v_pages, lengths, page_indices, out) -> int:
+    """The C call of entry paged_decode_ro on checked operands (every page of
+    the table may be read), with paged_plan's split."""
+    b, nq, hd = q.shape
+    nkv, n_pages, ps = k_pages.shape[:3]
+    j = page_indices.shape[1]
+    split = paged_plan(b, nkv, nq // nkv, hd, j, ps).split
+    return kernels.function("paged_decode", "paged_decode_ro", _ARGS_RO)(
+        q.data_ptr(), q.stride(0), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+        page_indices.data_ptr(), page_indices.stride(0), j, b, nkv, n_pages, ps, nq // nkv, hd,
+        split, hd ** -0.5, out.data_ptr(), kernels.stream_ptr(q))
 
 
 def paged_decode_ro_plain(q, k_pages, v_pages, lengths, page_indices):

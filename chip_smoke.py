@@ -2419,8 +2419,11 @@ def _profile_dispatch(cb, prompts):
                                        for e in host[:8]}}
     if busy == 0:
         return {**out, "device_busy_ms_per_step": "not measured (no device events)"}
+    attn = sum(getattr(e, "self_device_time_total", 0) for e in dev
+               if "paged_decode" in e.key) / 1e3
     return {**out, "device_busy_ms_per_step": busy / n,
-            "device_idle_share": max(0.0, 1 - busy / wall)}
+            "device_idle_share": max(0.0, 1 - busy / wall),
+            "paged_decode_ms_per_step": attn / n, "paged_decode_share_of_busy": attn / busy}
 
 
 def phase_batcher(phase: str, model, kv_dtype):
@@ -2884,6 +2887,10 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
     top = row["profile"].get("top_kernels_ms_per_step", {})
     row["ffn_kernels_ms_per_step"] = {    # the FFN's kernels' device time: fused, or GEMVs
         sym: sum(v for k, v in top.items() if sym in k) for sym in ("ffn_fused", "W4Folded")}
+    # decode attention's device time and share (the GQA and MHA kernels' names)
+    busy = row["profile"].get("device_busy_ms_per_step")
+    row["attention_ms_per_step"] = sum(v for k, v in top.items() if "decode_attn" in k)
+    row["attention_share_of_busy"] = row["attention_ms_per_step"] / busy if busy else None
     if matmul != "w4_matmul":   # the new weight formats' kernel share of the device time
         prof = row["profile"]
         busy = prof.get("device_busy_ms_per_step")
@@ -3170,16 +3177,109 @@ def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpef
     return counts
 
 
-def phase_compare(seed: int):
-    """Rows 5, 3 and 26's forward through calls an earlier version of the
-    package also takes (no plan arguments), so the same script times a
-    parent checkout and this one in turns: the many-row W4 matmul at the 7B
-    projections' 1024 and 4096 rows and wo at 1000 (``torch.matmul`` on the
-    dense weight beside it), the flash forward at the prefills, the training
-    shapes and two cp shards (SDPA, with a boolean mask for a shard, beside
-    it), and the flash backward (``flash_attention_bwd``, its dq and dk / dv
-    kernels apart) at the training shapes and the cp shards beside SDPA's
-    backward. Device time from the profiler, inputs rotated past L2."""
+def _compare_decode(kr, tag, nq, nkv, hd, b, s_len, pos, int8, write):
+    """One static decode entry through the call every version of the package
+    takes (decode_attention_update[8] fused, cached_attention_t[8] read-only),
+    SDPA beside it (int8 over a cache dequantized to bf16 beforehand)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.ops import decode_attention as da
+
+    r = nq // nkv
+    kernel = "decode_attention" + ("8" if int8 else "") + ("" if write else "_ro")
+    if write:
+        fn = da.decode_attention_update8 if int8 else da.decode_attention_update
+    else:
+        fn = da.cached_attention_t8 if int8 else da.cached_attention_t
+    tok_bytes = hd + 4 if int8 else 2 * hd
+    nbytes = 2 * b * nkv * pos * tok_bytes + b * (nq + 2 * nkv) * hd * 2 + b * nq * hd * 2 \
+        + (2 * b * nkv * tok_bytes if write else 0)
+    sets = [_qkv_views(kr, b, nq, nkv, hd)
+            + (_int8_pools(kr, b, nkv, s_len, hd) if int8
+               else (kr.randn(b, nkv, s_len, hd), kr.randn(b, nkv, s_len, hd)))
+            for _ in range(n_copies(nbytes, 32 if hd == 64 else 8))]
+    ms = time_ms(lambda *a: fn(*a, pos), sets)
+    mask = (torch.arange(s_len, device="cuda") <= min(pos, s_len - 1))[None]
+    if int8:
+        lib_sets = [(s_[0].transpose(1, 2), (s_[3].float() * s_[5][..., None]).to(torch.bfloat16),
+                     (s_[4].float() * s_[6][..., None]).to(torch.bfloat16)) for s_ in sets[:2]]
+    else:
+        lib_sets = [(s_[0].transpose(1, 2), s_[3], s_[4]) for s_ in sets]
+    lib = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=True), lib_sets)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * b * nq * (pos + 1) * hd)
+    emit({"phase": "compare", "kernel": kernel,
+          "shape": f"{tag} B={b} NKV={nkv} R={r} HD={hd} S={s_len} pos={pos}",
+          "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def _compare_paged(kr, tag, nkv, r, hd, sq, lengths, int8, ro=False, ps=64, most=32):
+    """paged_decode_attention (paged_decode[8]) over 8 pages a slot, or
+    paged_decode_ro over as many pages as the longest slot needs, through a
+    shuffled table with a shared page and TRASH entries; SDPA beside it over
+    each slot's pages gathered into a dense cache beforehand (int8
+    dequantized beforehand), the length as a mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from accessory_tpu_torch.engine.kvcache import gather_pages
+    from accessory_tpu_torch.ops.paged_decode import paged_decode_attention, paged_decode_ro
+
+    kernel = "paged_decode_ro" if ro else "paged_decode8" if int8 else "paged_decode"
+    b, nq = len(lengths), nkv * r
+    pps = -(-max(lengths) // ps) if ro else 8
+    n_pages = b * pps + 1
+    table = _paged_table(b, pps, n_pages, lengths, ps, seed=b * pps + (r if ro else sq))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    tok_bytes = 2 * (hd + 4) if int8 else 2 * 2 * hd
+    cached = sum(min(n, pps * ps) for n in lengths)
+    nbytes = cached * nkv * tok_bytes + (1 if ro else 2) * b * sq * nq * hd * 2 \
+        + (0 if ro else 2 * b * sq * nkv * hd * 2) + b * pps * 4 + b * 4
+    flops = 4.0 * nq * hd * cached if ro else \
+        sum(4.0 * nq * hd * sq * (n + (sq + 1) / 2) for n in lengths)
+    pool_bytes = 2 * nkv * n_pages * ps * (hd + 4 if int8 else 2 * hd)
+    sets = [(kr.randn(b, sq, nq, hd), kr.randn(b, sq, nkv, hd), kr.randn(b, sq, nkv, hd))
+            + _paged_pools(kr, 1, nkv, n_pages, ps, hd, int8)
+            for _ in range(n_copies(pool_bytes, most))]
+
+    def call(q, kn, vn, *pools):
+        if ro:
+            return paged_decode_ro(q[:, 0], pools[0][0], pools[1][0], lens, table)
+        return paged_decode_attention(q, kn, vn, pools[0], pools[1], lens, table, pps,
+                                      *(pools[2:] if int8 else (None, None)), layer=0)
+
+    ms = time_ms(call, sets)
+    mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    lib_sets = []
+    for s_ in sets[:4]:
+        kd, vd = gather_pages(s_[3][0], s_[4][0], table, None,
+                              *((s_[5][0], s_[6][0]) if int8 else (None, None)))
+        lib_sets.append((s_[0].transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)))
+    lib = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    emit({"phase": "compare", "kernel": kernel,
+          "shape": f"{tag} B={b} NKV={nkv} R={r} HD={hd} SQ={sq} PS={ps} J={pps} "
+                   f"lengths={','.join(map(str, lengths))}",
+          "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+
+
+def phase_compare(seed: int, names=None):
+    """Rows 5, 3 and 26's forward and backward and the decode attention rows
+    through calls an earlier version of the package also takes (no plan
+    arguments), so the same script times a parent checkout and this one in
+    turns: the many-row W4 matmul at the 7B projections' 1024 and 4096 rows
+    and wo at 1000 (``torch.matmul`` on the dense weight beside it), the
+    flash forward at the prefills, the training shapes and two cp shards
+    (SDPA, with a boolean mask for a shard, beside it), the flash backward
+    (``flash_attention_bwd``, its dq and dk / dv kernels apart) at the
+    training shapes and the cp shards beside SDPA's backward, and rows 2, 8,
+    13, 15 (static GQA decode) and 18, 19 and the bundled row (paged decode)
+    at the kernels phase's shapes beside SDPA. Device time from the
+    profiler, inputs rotated past L2. ``names``: only the groups of these
+    kernels (w4_matmul_bigm, flash_attention, flash_attention_bwd_dq,
+    decode_attention, paged_decode; all when None)."""
     import torch
     import torch.nn.functional as F
 
@@ -3190,13 +3290,36 @@ def phase_compare(seed: int):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
+    def want(kernel):
+        return names is None or kernel in names
+
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
+    if want("decode_attention"):
+        kr = KernelRows(seed)
+        for int8 in (False, True):
+            for write in (True, False):
+                for pos in (1, 511, 1023):
+                    _compare_decode(kr, "tiny", 32, 4, 64, 8, 1024, pos, int8, write)
+                _compare_decode(kr, "hd128", 32, 8, 128, 8, 1024, 511, int8, write)
+                for b in (4, 1):
+                    _compare_decode(kr, "tiny", 32, 4, 64, b, 192, 150, int8, write)
+    if want("paged_decode"):
+        kr = KernelRows(seed)
+        ragged = [0, 1, 63, 64, 65, 130, 300, 511]
+        for int8 in (False, True):
+            for sq in (1, 5):
+                _compare_paged(kr, "tiny", 4, 8, 64, sq, ragged, int8)
+            _compare_paged(kr, "7b", 32, 1, 128, 1, ragged, int8, most=4)
+        tokens = [1, 63, 64, 65, 300, 511, 777, 1024]
+        _compare_paged(kr, "tiny", 4, 8, 64, 1, tokens, False, ro=True)
+        _compare_paged(kr, "7b", 32, 1, 128, 1, tokens, False, ro=True, most=4)
     specs = [(m, name, k, kx, n) for m in (1024, 4096)
              for name, k, kx, n in (("wqkv", 4096, 4096, 12288), ("wo", 4096, 4096, 4096),
                                     ("w13", 4096, 4096, 22016), ("w2", 11264, 11008, 4096))]
-    for m, name, k, kx, n in specs + [(1000, "wo", 4096, 4096, 4096)]:
+    for m, name, k, kx, n in (specs + [(1000, "wo", 4096, 4096, 4096)]
+                              if want("w4_matmul_bigm") else []):
         sets = []
         for _ in range(n_copies(kx * n // 2 + m * kx * 2, most=4)):
             w = torch.randn(kx, n, generator=gen, device="cuda") * kx ** -0.5
@@ -3210,12 +3333,13 @@ def phase_compare(seed: int):
         emit({"phase": "compare", "kernel": "w4_matmul_bigm", "shape": f"7b {name} M={m}",
               "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
         del sets
-    for tag, b, s, nq, nkv, hd, q0, sk in (
+    for tag, b, s, nq, nkv, hd, q0, sk in ((
             ("tiny", 4, 128, 32, 4, 64, 0, 128), ("7b", 8, 128, 32, 32, 128, 0, 128),
             ("700m", 2, 2048, 16, 8, 128, 0, 2048), ("7b qpeft", 8, 512, 32, 32, 128, 0, 512),
             ("train_cp", 1, 4096, 32, 32, 128, 0, 4096),
             ("7b cp4 rank3", 1, 2048, 32, 32, 128, 6144, 8192),
-            ("tiny cp4 rank3", 1, 2048, 32, 4, 64, 6144, 8192)):
+            ("tiny cp4 rank3", 1, 2048, 32, 4, 64, 6144, 8192))
+            if want("flash_attention") else ()):
         nbytes = b * s * 2 * nq * hd * 2 + b * sk * 2 * nkv * hd * 2
         sets = [(randn(b, s, nq, hd), randn(b, sk, nkv, hd), randn(b, sk, nkv, hd))
                 for _ in range(n_copies(nbytes, most=8))]
@@ -3239,11 +3363,12 @@ def phase_compare(seed: int):
     # the backward of SDPA (a boolean mask for a shard) and the bound of its
     # seven causal products
     parts = ("flash_bwd_dq", "flash_bwd_dkdv")
-    for tag, b, s, nq, nkv, hd, q0, sk in (
+    for tag, b, s, nq, nkv, hd, q0, sk in ((
             ("tiny", 4, 256, 32, 4, 64, 0, 256), ("7b qpeft", 8, 512, 32, 32, 128, 0, 512),
             ("700m", 2, 2048, 16, 8, 128, 0, 2048), ("train_cp", 1, 4096, 32, 32, 128, 0, 4096),
             ("7b cp4 rank3", 1, 2048, 32, 32, 128, 6144, 8192),
-            ("tiny cp4 rank3", 1, 2048, 32, 4, 64, 6144, 8192)):
+            ("tiny cp4 rank3", 1, 2048, 32, 4, 64, 6144, 8192))
+            if want("flash_attention_bwd_dq") else ()):
         off = None if q0 == 0 and sk == s else q0
         # q, out, dout read, dq written; k / v read, dk / dv written; lse and D
         nbytes = 4 * b * s * nq * hd * 2 + 4 * b * sk * nkv * hd * 2 + 3 * b * nq * s * 4
@@ -3685,7 +3810,8 @@ def main() -> int:
     ap.add_argument("--phases", default=ALL_PHASES)
     ap.add_argument("--out", default=None, help="also append every JSON line to this file")
     ap.add_argument("--kernel_names", default=None,
-                    help="kernels phase: only the rows of these kernels (comma-separated)")
+                    help="kernels and compare phases: only the rows of these kernels "
+                         "(comma-separated)")
     opts = ap.parse_args()
     phases = opts.phases.split(",")
 
@@ -3864,7 +3990,7 @@ def main() -> int:
         if "finetune" in phases:
             counts_by_path["finetune"] = phase_finetune(opts.seed)
         if "compare" in phases:
-            phase_compare(opts.seed)
+            phase_compare(opts.seed, opts.kernel_names and opts.kernel_names.split(","))
         if "cp_shards" in phases:
             counts_by_path["cp shards"] = phase_cp_shards(opts.seed)
         if "train_cp" in phases:

@@ -6,8 +6,12 @@ padded in_dim, the LLaMA2-7B projection shapes, the many-row W4 kernel at
 ragged row counts (around its 256-row tile, up to 4096), a narrow x and the
 7B projections (bit-equal across launches and grids), decode attention at
 R = 1..8 (R = 1 is the MHA kernel) and head_dim 128 over the bf16 and the
-int8 cache, flash attention at lengths 1..4096 (its lse, and every packing
-of a group's heads into a block bit for bit), bf16 and int8 slab writes; the GQA int8 fused
+int8 cache, the split decode kernels (csrc/decode_split.cuh) at every rank
+edge (empty ranks, each rank's first token, full caches, length-0 slots,
+pages of 16 and 128 tokens, two calls bit-equal, the paged kernel over an
+identity table against the static one at both plans), flash attention at
+lengths 1..4096 (its lse, and every packing of a group's heads into a block
+bit for bit), bf16 and int8 slab writes; the GQA int8 fused
 kernel, the read-only decode kernels (fused result == read-only + one-token
 write), the one-token and the stacked writes, the stacked-cache and unfused
 model paths against the CPU, and the many-row W4 tiles (row 1 at 17-1023
@@ -1385,6 +1389,199 @@ def test_paged_decode_ro_refuses(gen):
         kvcache.paged_attention_decode(q, pools[0][0], pools[1][0], lens.long(), table)
     with pytest.raises(ValueError):
         kvcache.paged_attention_decode(q, pools[0][0].float(), pools[1][0].float(), lens, table)
+
+
+# ---------------------------------------------------------------- split decode (decode_split.cuh)
+
+
+def _split_lengths(plan, n_max, k=8):
+    """0, 1, then k - 2 lengths spread over each rank's first token (and the
+    one after it) when n_max tokens are cached, and n_max itself."""
+    firsts = [plan.rank_range(n_max, rk)[0] for rk in range(1, plan.split)]
+    rest = sorted({n_max} | set(firsts) | {f + 1 for f in firsts})
+    return [0, 1] + [rest[round(i * (len(rest) - 1) / (k - 3))] for i in range(k - 2)]
+
+
+STATIC_SPLIT_CASES = [(hd, r, nkv, write, pos)
+                      for hd, r, nkv in ((64, 8, 4), (128, 4, 8), (64, 32, 2))
+                      for write in (True, False)
+                      for pos in (0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 767, 768, 1023, 1024)
+                      if not (write and pos == 1024)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hd,r,nkv,write,pos", STATIC_SPLIT_CASES)
+def test_decode_split_rank_edges(gen, int8, hd, r, nkv, write, pos):
+    """The split GQA kernel at B 8, S 1024 (decode_plan's split > 1): a pos
+    that leaves ranks empty (0, 1), a chunk edge, each rank's first token at
+    a full cache, a full cache (read-only); against the plain version, the
+    fused write bit-equal to the plain write (int8: the scales to f32
+    rounding), and the same output bits on two calls."""
+    from accessory_tpu_torch.ops.decode_attention import decode_plan
+
+    b, s_len = 8, 1024
+    assert decode_plan(b, nkv, s_len).split > 1
+    q, kn, vn = _qkv(gen, b, nkv * r, nkv, hd)
+    pools = _int8_pools(gen, b, nkv, s_len, hd) if int8 else (randn(gen, b, nkv, s_len, hd),
+                                                              randn(gen, b, nkv, s_len, hd))
+    keep = tuple(p.clone() for p in pools)
+    name = "decode_attention" + ("8" if int8 else "") + ("" if write else "_ro")
+    if write:
+        fn = decode_attention_update8 if int8 else decode_attention_update
+        plain = decode_attention_update8_plain if int8 else decode_attention_update_plain
+        got = _one_more(name, lambda: fn(q, kn, vn, *pools, pos))
+        want = plain(q, kn, vn, *(p.clone() for p in keep), pos)
+        assert_close(got[0], want[0])
+        if int8:
+            assert_pools8(got[1:], want[1:])
+        else:
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        again = fn(q, kn, vn, *(p.clone() for p in keep), pos)[0]
+        out = got[0]
+    else:
+        fn = cached_attention_t8 if int8 else cached_attention_t
+        plain = cached_attention_decode8_plain if int8 else cached_attention_decode_plain
+        out = _one_more(name, lambda: fn(q, kn, vn, *pools, pos))
+        assert_close(out, plain(q, kn, vn, *keep, pos))
+        assert all(torch.equal(a, b_) for a, b_ in zip(pools, keep))
+        again = fn(q, kn, vn, *pools, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("ps", [16, 64, 128])
+@pytest.mark.parametrize("sq,r,hd", [(1, 8, 64), (5, 8, 64), (1, 1, 128), (5, 4, 128)])
+def test_paged_split_rank_edges(gen, int8, ps, sq, r, hd):
+    """The split paged kernel over 512 tokens of pages (paged_plan's split):
+    lengths 0, 1, each rank's first token and J * PS, a TRASH page read by
+    the full slot, pages of 16 (four to a chunk) and 128 (two chunks to a
+    page), sq 5 new tokens causal among themselves; against the plain version,
+    the pools untouched, the same bits on two calls."""
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                      paged_decode_attention_plain, paged_plan)
+
+    b, nkv, pps = 8, 4, 512 // ps
+    plan = paged_plan(b, nkv, sq * r, hd, pps, ps)
+    assert plan.split > 1
+    lengths = _split_lengths(plan, pps * ps, b)
+    pools, table, lens = _paged_case(gen, b, nkv, hd, ps, pps, b * pps + 3, int8, lengths)
+    keep = [p.clone() for p in pools if p is not None]
+    q = randn(gen, b, sq, nkv * r, hd)
+    kn, vn = randn(gen, b, sq, nkv, hd), randn(gen, b, sq, nkv, hd)
+    name = "paged_decode8" if int8 else "paged_decode"
+    got = _one_more(name, lambda: paged_decode_attention(q, kn, vn, pools[0], pools[1], lens,
+                                                         table, None, pools[2], pools[3],
+                                                         layer=0))
+    want = paged_decode_attention_plain(q, kn, vn, pools[0], pools[1], lens, table, None,
+                                        pools[2], pools[3], layer=0)
+    assert_close(got, want)
+    assert all(torch.equal(a, b_) for a, b_ in zip([p for p in pools if p is not None], keep))
+    again = paged_decode_attention(q, kn, vn, pools[0], pools[1], lens, table, None, pools[2],
+                                   pools[3], layer=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("ps", [16, 64, 128])
+@pytest.mark.parametrize("hd,r", [(64, 8), (128, 1)])
+def test_paged_ro_split_rank_edges(gen, ps, hd, r):
+    """The read-only paged kernel over 1024 tokens of pages: a length-0 slot
+    (zeros), 1, each rank's first token, J * PS; against the oracle, the same
+    bits on two calls."""
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_ro, paged_decode_ro_plain,
+                                                      paged_plan)
+
+    b, nkv, pps = 8, 4, 1024 // ps
+    plan = paged_plan(b, nkv, r, hd, pps, ps)
+    assert plan.split > 1
+    lengths = _split_lengths(plan, pps * ps, b)
+    assert lengths[0] == 0
+    pools, table, lens = _paged_case(gen, b, nkv, hd, ps, pps, b * pps + 3, False, lengths)
+    kp, vp = pools[0][0], pools[1][0]
+    q = randn(gen, b, nkv * r, hd)
+    got = _one_more("paged_decode_ro", lambda: paged_decode_ro(q, kp, vp, lens, table))
+    assert_close(got[1:], paged_decode_ro_plain(q, kp, vp, lens, table)[1:])
+    torch.cuda.synchronize()
+    assert float(got[0].abs().max()) == 0.0
+    assert torch.equal(got, paged_decode_ro(q, kp, vp, lens, table))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("pos", [1, 64, 300, 511, 1000, 1024])
+def test_paged_identity_table_at_the_split_plans(gen, int8, pos):
+    """Over an identity page table of 1024 tokens a slot the split paged
+    kernel (8 ranks) computes what the split static read-only kernel (4
+    ranks) computes on the same contents."""
+    from accessory_tpu_torch.ops.decode_attention import decode_plan
+    from accessory_tpu_torch.ops.paged_decode import paged_decode_attention, paged_plan
+
+    b, nkv, r, hd, ps, pps = 8, 4, 8, 64, 64, 16
+    s_len = ps * pps
+    assert paged_plan(b, nkv, r, hd, pps, ps).split != decode_plan(b, nkv, s_len).split
+    pools = _int8_pools_static(gen, b, nkv, s_len, hd) if int8 else \
+        (randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd))
+    q, kn, vn = randn(gen, b, 1, nkv * r, hd), randn(gen, b, 1, nkv, hd), randn(gen, b, 1, nkv, hd)
+    want = (cached_attention_t8 if int8 else cached_attention_t)(q, kn, vn, *pools, pos)
+    paged = [p.reshape(b, nkv, pps, ps, *p.shape[3:]).transpose(0, 1)
+             .reshape(nkv, b * pps, ps, *p.shape[3:]).contiguous() for p in pools]
+    table = torch.arange(b * pps, dtype=torch.int32, device="cuda").reshape(b, pps)
+    lens = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    got = paged_decode_attention(q, kn, vn, paged[0], paged[1], lens, table, None,
+                                 *(paged[2:] if int8 else (None, None)))
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("write", [False, True])
+def test_decode_split_unaligned_rows(gen, int8, write):
+    """q, k_new and v_new whose rows do not start on 16-byte boundaries (views
+    one element into a buffer): the kernel reads them element by element."""
+    b, nq, nkv, hd, s_len, pos = 4, 32, 4, 64, 512, 300
+    buf = randn(gen, b, 1, (nq + 2 * nkv) * hd + 1)
+    q = buf[..., 1:nq * hd + 1].view(b, 1, nq, hd)
+    kn = buf[..., nq * hd + 1:(nq + nkv) * hd + 1].view(b, 1, nkv, hd)
+    vn = buf[..., (nq + nkv) * hd + 1:].view(b, 1, nkv, hd)
+    assert q.data_ptr() % 16 != 0
+    pools = _int8_pools(gen, b, nkv, s_len, hd) if int8 else (randn(gen, b, nkv, s_len, hd),
+                                                              randn(gen, b, nkv, s_len, hd))
+    keep = tuple(p.clone() for p in pools)
+    if write:
+        got = (decode_attention_update8 if int8 else decode_attention_update)(q, kn, vn, *pools,
+                                                                             pos)
+        want = (decode_attention_update8_plain if int8 else decode_attention_update_plain)(
+            q, kn, vn, *keep, pos)
+        assert_close(got[0], want[0])
+        if int8:
+            assert_pools8(got[1:], want[1:])
+        else:
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    else:
+        got = (cached_attention_t8 if int8 else cached_attention_t)(q, kn, vn, *pools, pos)
+        assert_close(got, (cached_attention_decode8_plain if int8 else
+                           cached_attention_decode_plain)(q, kn, vn, *keep, pos))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_split_past_the_shared_memory_caches(gen, int8):
+    """Twenty new tokens a slot (the first 16 k / v in shared memory, the
+    rest read from global memory), 300 one-token pages a slot (past the 256
+    page ids held in shared memory: each read from the table), three tiles of
+    query rows; unaligned q rows."""
+    from accessory_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                      paged_decode_attention_plain)
+
+    b, nkv, r, hd, ps, pps, sq = 2, 2, 8, 64, 1, 300, 20
+    lengths = [0, 290]
+    pools, table, lens = _paged_case(gen, b, nkv, hd, ps, pps, b * pps + 3, int8, lengths)
+    buf = randn(gen, b, sq, nkv * r * hd + 1)
+    q = buf[..., 1:].view(b, sq, nkv * r, hd)
+    kn, vn = randn(gen, b, sq, nkv, hd), randn(gen, b, sq, nkv, hd)
+    got = paged_decode_attention(q, kn, vn, pools[0], pools[1], lens, table, None, pools[2],
+                                 pools[3], layer=0)
+    want = paged_decode_attention_plain(q, kn, vn, pools[0], pools[1], lens, table, None,
+                                        pools[2], pools[3], layer=0)
+    assert_close(got, want)
 
 
 # ---------------------------------------------------------------- context parallel (row 26)
