@@ -2,10 +2,13 @@
 residual.
 
 Port of ``accessory_tpu/ops/ffn_fused.py`` (``ffn_qmm``, ``ffn_fusible``).
-The CUDA kernel is ``csrc/ffn_fused.cu`` (a persistent cooperative launch:
-phase A x @ [W1|W3] into a bf16 scratch, a grid barrier, phase B SwiGLU @ W2
-plus the residual); ``ffn_qmm_plain`` is its plain PyTorch version in the
-reference's op order and the path for tensors on the CPU. Both weights are
+The CUDA kernel is ``csrc/ffn_fused.cu``: a persistent cooperative launch
+on row 1's tensor-core GEMV body (``csrc/qgemv.cuh``), phase A x @ [W1|W3]
+with the SwiGLU in its epilogue into a bf16 scratch hh, a grid barrier,
+phase B hh @ W2 plus the residual, each phase's column tiles split over K
+ranks by ``ffn_plan`` (the ranks' f32 partials summed in rank order by the
+tile's last arriving rank); ``ffn_qmm_plain`` is its plain PyTorch version
+in the reference's op order and the path for tensors on the CPU. Both weights are
 folded W4 (``quant.qtensor``), the layout ``planes_qmm`` serves, and each
 product has its numerics (q exact, the scale per group in f32, the zero
 point as sum(x_g) * zs_g), so the fused route differs from the unfused one
@@ -20,7 +23,11 @@ reference's ``ACCESSORY_FFN_FUSE=1``) and ``ffn_fusible`` holds.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,11 +38,123 @@ from accessory_tpu_torch.quant.quantize import pad_to
 
 # the most rows a call takes (the reference's decode-only tile bound)
 MAX_ROWS = 128
-# the kernel's output tile: 64 columns of both products
+# the column multiple w2's out_dim must be (phase B's tiles are 128 columns,
+# the last one ragged)
 _TILE_N = 64
+UNIT = 64                # K rows of a weight stage; the plan splits K in whole units
+TILE_A = 64              # FFN columns of a phase-A tile: W1's 64 and W3's 64
+TILE_B = 128             # W2 columns of a phase-B tile
+# a work item's fixed cost (its x staging, partial write and arrival), in
+# units of K: the plan weighs it against the waves of items
+ITEM_OVERHEAD_UNITS = 2
 
 _P, _I, _F = kernels.P, kernels.I, kernels.F
-_ARGS = [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _F, _P, _P, _P, _P]
+_ARGS = [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _F, _P, _P, _P, _P, _P,
+         _I, _I, _I, _P]
+_RESIDENT_ARGS = [_I, ctypes.POINTER(ctypes.c_int)]
+
+
+@dataclass(frozen=True)
+class FfnPlan:
+    """The fused kernel's launch: phase A's ``tiles_a`` tiles (FFN / 64) over
+    ``units_a`` = K / 64 units and phase B's ``tiles_b`` (ceil(N2 / 128))
+    over ``units_b`` = FFN / 64, each tile's K split over ``split`` ranks;
+    work item i of a phase is tile i // split, rank i % split. ``grid``
+    persistent blocks walk them (block b: items b, b + grid, ..)."""
+    m: int
+    units_a: int
+    tiles_a: int
+    split_a: int
+    units_b: int
+    tiles_b: int
+    split_b: int
+    grid: int
+
+    @property
+    def items_a(self) -> int:
+        return self.tiles_a * self.split_a
+
+    @property
+    def items_b(self) -> int:
+        return self.tiles_b * self.split_b
+
+    def ranges(self, phase: str):
+        """[first, last) 64-row unit of each rank of a phase ("a" or "b"), as
+        the kernel computes them."""
+        units, split = (self.units_a, self.split_a) if phase == "a" else (self.units_b,
+                                                                         self.split_b)
+        return [(r * units // split, (r + 1) * units // split) for r in range(split)]
+
+    @property
+    def part_elems(self) -> int:
+        """f32 elements of the partial-tile scratch (both phases share it)."""
+        return max(self.items_a, self.items_b) * self.m * TILE_B
+
+
+def _split(tiles: int, units: int, resident: int) -> int:
+    """The K split of a phase: the fewest waves of items times an item's
+    units plus its fixed cost, the smaller split on a tie."""
+    def cost(s: int) -> int:
+        return math.ceil(tiles * s / resident) * (math.ceil(units / s) + ITEM_OVERHEAD_UNITS)
+
+    return min(range(1, units + 1), key=lambda s: (cost(s), s))
+
+
+@functools.lru_cache(maxsize=4096)
+def ffn_plan(m: int, k: int, ffn: int, n2: int, group_size: int, resident: int,
+             split_a: Optional[int] = None, split_b: Optional[int] = None) -> FfnPlan:
+    """The plan of one fused call of ``m`` rows: x (m, k) @ W13 (k, 2 ffn),
+    then (m, ffn) @ W2 (ffn, n2), on a card that holds ``resident`` blocks of
+    the kernel at once (``csrc/ffn_fused.cu`` ffn_fused_resident). A split
+    None is ``_split``'s; the grid is the most items of a phase, at most
+    ``resident``."""
+    if not (1 <= m <= MAX_ROWS and group_size % UNIT == 0 and k % group_size == 0
+            and ffn % group_size == 0 and n2 % _TILE_N == 0 and k > 0 and ffn > 0):
+        raise ValueError(f"ffn_plan: no plan for m {m}, k {k}, ffn {ffn}, n2 {n2}, "
+                         f"group size {group_size}")
+    if resident < 1:
+        raise ValueError(f"ffn_plan: {resident} resident blocks (the kernel cannot be resident)")
+    units_a, units_b = k // UNIT, ffn // UNIT
+    tiles_a, tiles_b = ffn // TILE_A, math.ceil(n2 / TILE_B)
+    split_a = _split(tiles_a, units_a, resident) if split_a is None else split_a
+    split_b = _split(tiles_b, units_b, resident) if split_b is None else split_b
+    if not (1 <= split_a <= units_a and 1 <= split_b <= units_b):
+        raise ValueError(f"ffn_plan: splits ({split_a}, {split_b}) must lie in [1, {units_a}] "
+                         f"and [1, {units_b}] units")
+    grid = min(resident, max(tiles_a * split_a, tiles_b * split_b))
+    return FfnPlan(m, units_a, tiles_a, split_a, units_b, tiles_b, split_b, grid)
+
+
+_resident: Dict[Tuple[int, int], int] = {}
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def resident_blocks(device: torch.device, m: int) -> int:
+    """Blocks of the kernel for ``m`` rows that ``device`` holds at once
+    (raises where it has no cooperative launch or cannot hold one)."""
+    key = (device.index, max(8, 1 << (m - 1).bit_length()))   # the kernel's row template
+    if key not in _resident:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = kernels.function("ffn_fused", "ffn_fused_resident", _RESIDENT_ARGS)(
+                m, ctypes.byref(blocks))
+        if rc != 0:
+            msg = kernels.load("ffn_fused").kernel_error_string(rc).decode()
+            raise RuntimeError(f"ffn_qmm: the fused kernel cannot run on {device}: "
+                               f"CUDA error {rc} ({msg})")
+        _resident[key] = blocks.value
+    return _resident[key]
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's per-tile arrival counters: zeroed once and left zeroed by
+    every launch, one buffer a (device, stream) so concurrent launches never
+    share one."""
+    key = (device.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _arrivals[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def _refusal(w13, w2, m_rows: int) -> Optional[str]:
@@ -112,16 +231,34 @@ def ffn_qmm(x2d: torch.Tensor, w13: QuantizedWeight, w2: QuantizedWeight,
         if t is not None:
             _check(t.dtype == dt and t.is_contiguous() and tuple(t.shape) == shape,
                    f"fusion operand must be contiguous {dt} {shape}")
-    h = torch.empty((m, n13), dtype=torch.bfloat16, device=x2d.device)
+    _check(all(t.data_ptr() % 16 == 0 for qw in (w13, w2)
+               for t in (qw.packed, qw.scales, qw.zeros)), "weights must be 16-byte aligned")
     out = torch.empty((m, n2), dtype=torch.bfloat16, device=x2d.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = kernels.function("ffn_fused", "ffn_fused", _ARGS)(
-        x2d.data_ptr(), m, kx, x2d.stride(0), w13.packed.data_ptr(), w13.scales.data_ptr(),
-        w13.zeros.data_ptr(), n13, w2.packed.data_ptr(), w2.scales.data_ptr(),
-        w2.zeros.data_ptr(), n2, gs, ptr(norm_weight), norm_eps, ptr(residual), h.data_ptr(),
-        out.data_ptr(), kernels.stream_ptr(x2d))
+    rc = _kernel_call(x2d, w13, w2, residual, norm_weight, norm_eps, out,
+                      resident_blocks(x2d.device, m))
     kernels.check("ffn_fused", rc)
     return out
+
+
+def _kernel_call(x2d, w13: QuantizedWeight, w2: QuantizedWeight, residual, norm_weight,
+                 norm_eps: float, out: torch.Tensor, resident: int) -> int:
+    """The C call of a checked launch: the plan for ``resident`` blocks, its
+    scratch (hh, the partial tiles) and the stream's arrival counters."""
+    m, kx = x2d.shape
+    n13, n2, gs = w13.out_dim, w2.out_dim, w13.group_size
+    ffn = n13 // 2
+    pl = ffn_plan(m, kx, ffn, n2, gs, resident)
+    stream = kernels.stream_ptr(x2d)
+    hh = torch.empty((m, ffn), dtype=torch.bfloat16, device=x2d.device)
+    part = torch.empty(pl.part_elems, dtype=torch.float32, device=x2d.device)
+    arrivals = _arrival_counters(x2d.device, stream, pl.tiles_a + pl.tiles_b)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return kernels.function("ffn_fused", "ffn_fused", _ARGS)(
+        x2d.data_ptr(), m, kx, x2d.stride(0), w13.packed.data_ptr(), w13.scales.data_ptr(),
+        w13.zeros.data_ptr(), n13, w2.packed.data_ptr(), w2.scales.data_ptr(),
+        w2.zeros.data_ptr(), n2, gs, ptr(norm_weight), norm_eps, ptr(residual), hh.data_ptr(),
+        part.data_ptr(), arrivals.data_ptr(), out.data_ptr(), pl.split_a, pl.split_b, pl.grid,
+        stream)
 
 
 def ffn_qmm_plain(x2d, w13: QuantizedWeight, w2: QuantizedWeight, residual=None,

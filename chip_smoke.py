@@ -1325,6 +1325,7 @@ def _kernels_ffn(kr, tag, k, ffn, n2, ms):
     import torch
     import torch.nn.functional as F
 
+    from accessory_tpu_torch.ops import ffn_fused as ffn_mod
     from accessory_tpu_torch.ops.ffn_fused import ffn_qmm, ffn_qmm_plain
     from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm
     from accessory_tpu_torch.quant.qtensor import quantize_weight, to_folded_layout
@@ -1349,6 +1350,12 @@ def _kernels_ffn(kr, tag, k, ffn, n2, ms):
         return planes_qmm(hh, b.packed, b.scales, b.zeros, residual=r, in_dim=b.in_dim,
                           group_size=128)
 
+    def ffn_plan_of(m):   # the launch plan (a tree before the split design has none)
+        if not hasattr(ffn_mod, "ffn_plan"):
+            return None
+        return ffn_mod.ffn_plan(m, k, ffn, n2, 128,
+                                ffn_mod.resident_blocks(torch.device("cuda", 0), m))
+
     for m in ms:
         calls = [(kr.randn(m, k), a, b, kr.randn(m, n2),
                   1 + 0.1 * kr.randn(k, dtype=torch.float32)) for a, b in weights]
@@ -1367,10 +1374,13 @@ def _kernels_ffn(kr, tag, k, ffn, n2, ms):
         chain_ms = time_ms(chain, calls)
         nbytes = w_bytes + m * k * 2 + 2 * m * n2 * 2 + k * 4
         worst = max(errs.values())
+        plan = ffn_plan_of(m)
         kr.record("ffn_fused", f"{tag} M={m} K={k} FFN={ffn} N2={n2} norm+res", worst, k_ms,
                   k_wall, p_ms, None, nbytes, 2.0 * m * (k * 2 * ffn + ffn * n2),
                   unfused_chain_ms=chain_ms, max_abs_err_no_fusion=errs["none"][0],
-                  max_abs_diff_vs_unfused_chain=vs_chain, weight_bytes=w_bytes)
+                  max_abs_diff_vs_unfused_chain=vs_chain, weight_bytes=w_bytes,
+                  **({"split_a": plan.split_a, "split_b": plan.split_b, "grid": plan.grid}
+                     if plan else {}))
         del calls
     del weights
 
@@ -1612,10 +1622,11 @@ def phase_kernels(seed: int, names=None):
 
     if want("ffn_fused"):
         # -- the fused W4 decode FFN (ffn_fuse): TinyLlama and 7B widths at the
-        #    stream (1), serve (4), a ragged (5) and the decode (8) batches, and
-        #    its largest row count (128)
-        _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 128))
-        _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 128))
+        #    stream (1), serve (4), a ragged (5) and the decode (8) batches, the
+        #    one-pass row templates' largest (16) and the first of passes of 16
+        #    rows (17), and its largest row count (128)
+        _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 16, 17, 128))
+        _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 16, 17, 128))
     if want("paged_decode_ro"):
         # -- the read-only paged decode (kvcache.paged_attention_decode): 8 slots of
         #    lengths 1..1024 over 64-token pages, TinyLlama (GQA) and 7B (MHA)

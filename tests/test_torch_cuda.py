@@ -20,7 +20,9 @@ for bit across launches and within tolerance of the unsplit plan), the W8
 tile (9-1030 rows, every fusion, N % 16 == 8), the std / magic GEMV
 (every row count 1-8, each cluster split twice bit for bit) and rows 1 and
 22's fused GEMV (M 1-16 / 1-8, every fusion, each cluster split twice bit
-for bit and within tolerance of split 1). Each test
+for bit and within tolerance of split 1), and the fused W4 decode FFN
+(every row count to 17, 64, 100 and 128, every fusion, plans with uneven K
+splits, two calls bit for bit). Each test
 carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
@@ -1269,13 +1271,14 @@ def _ffn_weights(gen, k, ffn, n2, gs=128):
     return w13["weight"], _w4(gen, ffn, n2, pad_in_to=pad_to(ffn, gs))
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 16, 17, 100, 128])
+@pytest.mark.parametrize("m", list(range(1, 18)) + [64, 100, 128])
 @pytest.mark.parametrize("fusion", ["none", "norm", "res", "norm+res"])
 @pytest.mark.parametrize("k,ffn,n2", [(512, 1408, 512), (2048, 5632, 2048)])
 def test_ffn_fused(gen, m, fusion, k, ffn, n2):
     """ffn_qmm (one cooperative launch) against its plain version at every
-    row-count template and ragged row passes, a w2 padded by the quantizer
-    (1408 -> 2048, 5632 -> 6144), with and without the norm and residual."""
+    row count to 17 (each row template and ragged row passes) and 64, 100,
+    128, a w2 padded by the quantizer (1408 -> 2048, 5632 -> 6144), with and
+    without the norm and residual; a second call gives the same bits."""
     from accessory_tpu_torch.ops.ffn_fused import ffn_qmm, ffn_qmm_plain
 
     w13, w2 = _ffn_weights(gen, k, ffn, n2)
@@ -1285,7 +1288,30 @@ def test_ffn_fused(gen, m, fusion, k, ffn, n2):
     before = kernels.launch_counts()["ffn_fused"]
     got = ffn_qmm(x, w13, w2, **kw)
     assert kernels.launch_counts()["ffn_fused"] == before + 1
+    assert torch.equal(got, ffn_qmm(x, w13, w2, **kw))
     assert_close(got, ffn_qmm_plain(x, w13, w2, **kw))
+
+
+@pytest.mark.parametrize("splits", [(1, 1), (3, 5), (7, 13), (8, 22)])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 128])
+def test_ffn_fused_splits(gen, monkeypatch, m, splits):
+    """Plans the default does not pick: K splits that divide neither phase's
+    units evenly (8 units of w13, 22 of w2), no split and one unit a rank;
+    each against the plain version with the norm and residual, two calls
+    bit-equal."""
+    from accessory_tpu_torch.ops import ffn_fused
+
+    k, ffn, n2 = 512, 1408, 512
+    plan = ffn_fused.ffn_plan
+    monkeypatch.setattr(ffn_fused, "ffn_plan",
+                        lambda *a: plan(*a, split_a=splits[0], split_b=splits[1]))
+    w13, w2 = _ffn_weights(gen, k, ffn, n2)
+    x = randn(gen, m, k)
+    kw = dict(norm_weight=1 + 0.1 * randn(gen, k, dtype=torch.float32),
+              residual=randn(gen, m, n2))
+    got = ffn_fused.ffn_qmm(x, w13, w2, **kw)
+    assert torch.equal(got, ffn_fused.ffn_qmm(x, w13, w2, **kw))
+    assert_close(got, ffn_fused.ffn_qmm_plain(x, w13, w2, **kw))
 
 
 def test_ffn_fused_refuses(gen):
