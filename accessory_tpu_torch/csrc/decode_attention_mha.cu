@@ -32,12 +32,18 @@
 // per block whatever the batch, where one warp per head leaves a short cache
 // with too few loads in flight to cover the memory latency.
 //
-// int8 form: a 16-byte load carries 16 values. The token's k scale multiplies
-// the score (with the softmax scale), the v scale multiplies p before p is
-// rounded to bf16 for the value product, never each element. The new token's
-// vectors are amax-reduced by a warp each, quantized (scale =
-// max(amax, 1e-6) / 127, q = clip(rint(x / scale), +-127), IEEE division) and
+// int8 form: a 16-byte load carries 16 values, widened to f32 without an
+// int-to-float conversion (a byte permute and an add a value, exact; I2F runs
+// at an eighth of the FMA rate). The token's k scale multiplies the score
+// (with the softmax scale), the v scale multiplies p before p is rounded to
+// bf16 for the value product, never each element. The new token's vectors
+// are quantized by kv_quant.cuh's body (scale = max(amax, 1e-6) / 127, q =
+// clip(rint(x / scale), +-127), IEEE division), half a warp each, and
 // written with their two scales.
+//
+// The new token's score is a chain of dependent loads and shuffles; the last
+// warp, which has the fewest token steps, computes it, so at a short cache
+// the warps with the most steps do not start them behind it.
 //
 // Probabilities are rounded to bf16 before the P.V product as in the TPU
 // kernels (there relative to the row's max, here to the running max of the
@@ -51,12 +57,12 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "kv_quant.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr float KV_SCALE_EPS = 1e-6f;
 
 // A pool pointer: written by the fused kernels, const for the read-only ones.
 template <bool WRITE, typename X>
@@ -76,11 +82,19 @@ __device__ __forceinline__ void unpack16<bf16, 8>(const uint4& raw, float (&f)[8
   }
 }
 
+// int8 without a conversion instruction: the sign bits of a word flipped at
+// once (byte b -> b + 128), each byte put under the exponent of 2^23 by one
+// byte permute (the float 2^23 + b + 128, exact), minus 2^23 + 128: exactly
+// (float)b for every b in -128..127, for a permute and an add a value.
 template <>
 __device__ __forceinline__ void unpack16<int8_t, 16>(const uint4& raw, float (&f)[16]) {
-  const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                         raw.w ^ 0x80808080u};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) f[j] = (float)p[j];
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[4 * j + k] = __uint_as_float(__byte_perm(w[j], 0x4B000000u, 0x7540u + k)) - 8388736.f;
 }
 
 // merge two online-softmax states (m, l, acc) held by lane pairs `off` apart
@@ -135,7 +149,9 @@ decode_attn_mha_kernel(const bf16* __restrict__ q, long long q_bstride,
     unpack16<bf16, 8>(raw, *reinterpret_cast<float(*)[8]>(&qf[j]));
   }
 
-  if (warp == 0) {   // the new token's score, exact f32
+  // the new token's score, exact f32, by the last warp, which has no more
+  // token steps than any other (warp 0 may have one more)
+  if (warp == NWARPS - 1) {
     float dot = 0.f;
     for (int d = lane; d < HD; d += 32) dot += bf2f(qb[d]) * bf2f(knb[d]);
     dot = warp_sum(dot);
@@ -243,24 +259,18 @@ decode_attn_mha_kernel(const bf16* __restrict__ q, long long q_bstride,
           *reinterpret_cast<uint4*>(cache_v + woff + d8) =
               *reinterpret_cast<const uint4*>(vnb + d8);
       }
-    } else if (warp < 2) {
-      constexpr int DPL = HD / 32;
-      const bf16* src = warp == 0 ? knb : vnb;
-      int8_t* dst = (warp == 0 ? cache_k : cache_v) + woff;
-      float xv[DPL], amax = 0.f;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        xv[j] = bf2f(src[lane * DPL + j]);
-        amax = fmaxf(amax, fabsf(xv[j]));
+    } else if (warp == NWARPS - 1) {
+      // kv_quant.cuh's body: k on lanes [0, SEG), v on [SEG, 2 * SEG)
+      constexpr int SEG = HD / 8;
+      const int which = lane / SEG, d8 = (lane % SEG) * 8;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (which < 2) raw = *reinterpret_cast<const uint4*>((which == 0 ? knb : vnb) + d8);
+      uint2 qv;
+      const float sc = kvq::quantize_piece<SEG>(raw, qv);
+      if (which < 2) {
+        *reinterpret_cast<uint2*>((which == 0 ? cache_k : cache_v) + woff + d8) = qv;
+        if (d8 == 0) (which == 0 ? cache_ks : cache_vs)[sbase + pos] = sc;
       }
-      amax = warp_max(amax);
-      const float sc = __fdiv_rn(fmaxf(amax, KV_SCALE_EPS), 127.f);
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        const int qv = __float2int_rn(__fdiv_rn(xv[j], sc));
-        dst[lane * DPL + j] = (int8_t)max(-127, min(127, qv));
-      }
-      if (lane == 0) (warp == 0 ? cache_ks : cache_vs)[sbase + pos] = sc;
     }
   }
 }

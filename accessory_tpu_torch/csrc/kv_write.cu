@@ -16,11 +16,10 @@
 //
 // The one-token writes are a masked read-modify-write of a 128-lane tile on
 // the TPU because its cache is lane-major; here a token's row of a head is
-// contiguous, so they are the slab kernels at sq = 1 with a launch shape of
-// their own (a block of 128 threads, B * NKV * HD / 8 sixteen-byte pieces or
-// B * NKV warps in all). A stacked cache is the per-layer problem with L * B
-// batch rows: the new k/v come stacked (L, B, sq, NKV, HD), layer stride B
-// batch strides.
+// contiguous, so they are the slab kernels at sq = 1 (bf16: with a launch
+// shape of their own, blocks of 128 threads). A stacked cache is the
+// per-layer problem with L * B batch rows: the new k/v come stacked
+// (L, B, sq, NKV, HD), layer stride B batch strides.
 //
 // Copies new K/V (B, sq, NKV, HD), given with batch and token strides so a
 // strided view of the fused qkv projection needs no copy, into the caches
@@ -36,14 +35,15 @@
 // The int8 form. The TPU kernel is four DMAs of a chunk that XLA quantized in
 // a pass before it. On this card such a pass would write the quantized chunk
 // and read it back, so the kernel takes the bf16 chunk itself (the same
-// strided views) and quantizes on the way: one warp per (token, head) vector
-// reads it as one contiguous row, reduces its amax by shuffles, and writes
-// the int8 row (scale = max(amax, 1e-6) / 127, q = clip(rint(x / scale),
-// +-127), IEEE division) and the f32 scale into the pools; k and v pools and
-// their scale pools all go in one launch. Bound: bytes (2 * HD read, HD + 4
-// written per vector).
+// strided views) and quantizes on the way with the body of kv_quant.cuh
+// (whose header gives its design); this file gives it only the addressing:
+// vector i is token s = i % sq of (batch row, head) g = i / sq, read at
+// row * bs + s * ts + head * HD, stored at pool row g * S + pos + s. k and v
+// pools and their scale pools go in one launch. Bound: bytes (2 * HD read,
+// HD + 4 written per vector).
 
 #include "common.cuh"
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -68,57 +68,33 @@ __global__ void kv_write_kernel(const bf16* __restrict__ nk, long long nk_bs, lo
   }
 }
 
-// An integer type of BYTES bytes, for one aligned load or store.
-template <int BYTES> struct Vec;
-template <> struct Vec<2> { typedef uint16_t type; };
-template <> struct Vec<4> { typedef uint32_t type; };
-template <> struct Vec<8> { typedef uint2 type; };
-template <> struct Vec<16> { typedef uint4 type; };
-
-// One warp per (b, s, h) vector; each lane holds DPL = HD / 32 neighbouring
-// elements (one 4/8/16-byte load, one 2/4/8-byte store).
-template <int DPL>
-__global__ void kv_write_q8_kernel(const bf16* __restrict__ nk, long long nk_bs, long long nk_ts,
-                                   const bf16* __restrict__ nv, long long nv_bs, long long nv_ts,
-                                   int8_t* __restrict__ ck, int8_t* __restrict__ cv,
-                                   float* __restrict__ cks, float* __restrict__ cvs, int B,
-                                   int sq, int NKV, int S, int pos) {
-  constexpr int HD = DPL * 32;
-  const bf16* src = blockIdx.y == 0 ? nk : nv;
-  const long long bs = blockIdx.y == 0 ? nk_bs : nv_bs;
-  const long long ts = blockIdx.y == 0 ? nk_ts : nv_ts;
-  int8_t* dst = blockIdx.y == 0 ? ck : cv;
-  float* dsc = blockIdx.y == 0 ? cks : cvs;
-  const int lane = threadIdx.x & 31;
-  const int wpb = blockDim.x >> 5;
-  const long long total = (long long)B * sq * NKV;
-  for (long long i = blockIdx.x * (long long)wpb + (threadIdx.x >> 5); i < total;
-       i += (long long)gridDim.x * wpb) {
-    const int h = (int)(i % NKV);
-    const int s = (int)((i / NKV) % sq);
-    const int b = (int)(i / ((long long)NKV * sq));
-    const typename Vec<2 * DPL>::type raw = *reinterpret_cast<const typename Vec<2 * DPL>::type*>(
-        src + b * bs + s * ts + (long long)h * HD + lane * DPL);
-    const bf16* rv = reinterpret_cast<const bf16*>(&raw);
-    float x[DPL], amax = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      x[j] = bf2f(rv[j]);
-      amax = fmaxf(amax, fabsf(x[j]));
-    }
-    amax = warp_max(amax);
-    const float sc = __fdiv_rn(fmaxf(amax, 1e-6f), 127.f);
-    typename Vec<DPL>::type qraw;
-    int8_t* qv = reinterpret_cast<int8_t*>(&qraw);
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int qi = __float2int_rn(__fdiv_rn(x[j], sc));
-      qv[j] = (int8_t)max(-127, min(127, qi));
-    }
-    const size_t tok = ((size_t)b * NKV + h) * S + pos + s;
-    *reinterpret_cast<typename Vec<DPL>::type*>(dst + tok * HD + lane * DPL) = qraw;
-    if (lane == 0) dsc[tok] = sc;
+// The static cache's addressing of the quantizing body: vector i is token
+// s = i % sq of (batch row, head) g = i / sq.
+struct SlabMap {
+  const bf16* p;
+  long long bs, ts;
+  kvq::FastDiv sq, nkv;
+  int S, pos, HD;
+  __device__ __forceinline__ const bf16* src(int i) const {
+    const int g = sq.div(i), r = nkv.div(g);
+    return p + r * bs + (i - g * sq.d) * ts + (long long)(g - r * nkv.d) * HD;
   }
+  __device__ __forceinline__ size_t row(int i) const {
+    const int g = sq.div(i);
+    return (size_t)g * S + pos + (i - g * sq.d);
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kvq::THREADS)
+kv_write_q8_kernel(const bf16* __restrict__ nk, long long nk_bs, long long nk_ts,
+                   const bf16* __restrict__ nv, long long nv_bs, long long nv_ts,
+                   int8_t* __restrict__ ck, int8_t* __restrict__ cv, float* __restrict__ cks,
+                   float* __restrict__ cvs, int total, kvq::FastDiv sq, kvq::FastDiv nkv, int S,
+                   int pos, int un) {
+  const bool k = blockIdx.y == 0;
+  const SlabMap map{k ? nk : nv, k ? nk_bs : nv_bs, k ? nk_ts : nv_ts, sq, nkv, S, pos, HD};
+  kvq::quantize_vectors<HD>(map, total, un, k ? ck : cv, k ? cks : cvs);
 }
 
 // Launch helpers: `rows` batch rows (B, or L * B for a stacked cache).
@@ -138,37 +114,44 @@ cudaError_t launch_bf16(const void* nk, long long nk_bs, long long nk_ts, const 
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_q8_hd(const bf16* k, long long nk_bs, long long nk_ts, const bf16* v,
+                         long long nv_bs, long long nv_ts, int8_t* ck, int8_t* cv, float* ks,
+                         float* vs, int B, int sq, int NKV, int S, int pos, cudaStream_t st) {
+  static const int resident = kvq::resident_blocks(kv_write_q8_kernel<HD>);
+  const int total = B * sq * NKV;
+  const kvq::Plan pl = kvq::plan(total, HD, 2, resident);
+  kv_write_q8_kernel<HD><<<dim3(pl.blocks, 2), kvq::THREADS, 0, st>>>(
+      k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, total, kvq::fast_div(sq),
+      kvq::fast_div(NKV), S, pos, pl.un);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                       long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
                       void* cache_ks, void* cache_vs, long long rows, int sq, int NKV, int HD,
-                      int S, int pos, int threads, void* stream) {
+                      int S, int pos, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (rows < 1 || rows > 0x7fffffffLL || pos < 0 || sq < 1 || pos + sq > S)
+  if (rows < 1 || NKV < 1 || pos < 0 || sq < 1 || pos + sq > S ||
+      rows * sq * NKV > 0x3fffffffLL)
     return cudaErrorInvalidValue;
   const int B = (int)rows;
-  const long long total = rows * sq * NKV;
-  const int wpb = threads / 32;
-  const long long want = (total + wpb - 1) / wpb;
-  dim3 grid((unsigned)(want < 16384 ? want : 16384), 2);
   const bf16* k = static_cast<const bf16*>(nk);
   const bf16* v = static_cast<const bf16*>(nv);
   int8_t* ck = static_cast<int8_t*>(cache_k);
   int8_t* cv = static_cast<int8_t*>(cache_v);
   float* ks = static_cast<float*>(cache_ks);
   float* vs = static_cast<float*>(cache_vs);
-  if (HD == 64) {
-    kv_write_q8_kernel<2><<<grid, threads, 0, st>>>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks,
-                                                    vs, B, sq, NKV, S, pos);
-  } else if (HD == 128) {
-    kv_write_q8_kernel<4><<<grid, threads, 0, st>>>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks,
-                                                    vs, B, sq, NKV, S, pos);
-  } else if (HD == 256) {
-    kv_write_q8_kernel<8><<<grid, threads, 0, st>>>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks,
-                                                    vs, B, sq, NKV, S, pos);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (HD == 64)
+    return launch_q8_hd<64>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, B, sq, NKV, S, pos,
+                            st);
+  if (HD == 128)
+    return launch_q8_hd<128>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, B, sq, NKV, S,
+                             pos, st);
+  if (HD == 256)
+    return launch_q8_hd<256>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, B, sq, NKV, S,
+                             pos, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -186,14 +169,14 @@ extern "C" int kv_write_slab(const void* nk, long long nk_bs, long long nk_ts, c
 
 // The int8 form: nk/nv as above (bf16, strided); cache_k/cache_v int8
 // (B, NKV, S, HD) and cache_ks/cache_vs f32 (B, NKV, S), all contiguous.
-// Requires HD in {64, 128, 256}, sources aligned to HD / 16 bytes with
-// strides that are multiples of HD / 32 elements, and pos + sq <= S.
+// Requires HD in {64, 128, 256}, 16-byte aligned sources with strides that
+// are multiples of 8 elements, and pos + sq <= S.
 extern "C" int kv_write_slab_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                                 long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
                                 void* cache_ks, void* cache_vs, int B, int sq, int NKV, int HD,
                                 int S, int pos, void* stream) {
   return (int)launch_q8(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, cache_ks, cache_vs,
-                        B, sq, NKV, HD, S, pos, 256, stream);
+                        B, sq, NKV, HD, S, pos, stream);
 }
 
 // One token (B, 1, NKV, HD) into the bf16 caches at row pos.
@@ -209,7 +192,7 @@ extern "C" int kv_write_col_q8(const void* nk, long long nk_bs, const void* nv, 
                                void* cache_k, void* cache_v, void* cache_ks, void* cache_vs,
                                int B, int NKV, int HD, int S, int pos, void* stream) {
   return (int)launch_q8(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, cache_ks, cache_vs, B, 1,
-                        NKV, HD, S, pos, 128, stream);
+                        NKV, HD, S, pos, stream);
 }
 
 // All layers in one launch: new k/v (L, B, sq, NKV, HD) with layer stride
@@ -238,5 +221,5 @@ extern "C" int kv_write_stacked_q8(const void* nk, long long nk_bs, long long nk
                                    int L, int B, int sq, int NKV, int HD, int S, int pos,
                                    void* stream) {
   return (int)launch_q8(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, cache_ks, cache_vs,
-                        (long long)L * B, sq, NKV, HD, S, pos, sq == 1 ? 128 : 256, stream);
+                        (long long)L * B, sq, NKV, HD, S, pos, stream);
 }

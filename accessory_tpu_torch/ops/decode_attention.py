@@ -424,14 +424,15 @@ def cached_attention_t8(q, k_new, v_new, cache_k, cache_v, cache_ks, cache_vs, p
 # ---------------------------------------------------------------- cache writes
 
 
-def _chunk_ok(new_k, new_v, shape, align_elems: int) -> bool:
+def _chunk_ok(new_k, new_v, shape) -> bool:
     """bf16 chunks of ``shape`` (..., sq, NKV, HD) with contiguous heads, every
-    other stride a multiple of ``align_elems`` elements and aligned starts."""
+    other stride a multiple of 8 elements and 16-byte aligned starts: the
+    write kernels (bf16 and int8) read 16-byte pieces."""
     hd = shape[-1]
     return all(t.dtype == torch.bfloat16 and tuple(t.shape) == tuple(shape)
                and t.stride(-1) == 1 and t.stride(-2) == hd
-               and all(s % align_elems == 0 for s in t.stride()[:-2])
-               and t.data_ptr() % (2 * align_elems) == 0 for t in (new_k, new_v))
+               and all(s % 8 == 0 for s in t.stride()[:-2])
+               and t.data_ptr() % 16 == 0 for t in (new_k, new_v))
 
 
 def _write(fn: str, pools, new_k, new_v, pos: int):
@@ -442,21 +443,19 @@ def _write(fn: str, pools, new_k, new_v, pos: int):
     stacked = pools[0].ndim == 5
     *lead, sq, nkv, hd = new_k.shape
     s_len = pools[0].shape[-2]
-    # the bf16 kernel moves 16-byte pieces, the int8 one HD / 32 elements a lane
-    align = hd // 32 if int8 else 8
     ok = (len(lead) == (2 if stacked else 1)
           and (hd in (64, 128, 256) if int8 else hd % 8 == 0)
           and 0 <= pos and pos + sq <= s_len
           and all(t.device == new_k.device for t in (new_v,) + tuple(pools))
-          and _chunk_ok(new_k, new_v, (*lead, sq, nkv, hd), align)
+          and _chunk_ok(new_k, new_v, (*lead, sq, nkv, hd))
           and _pools_ok(pools, (*lead, nkv, s_len, hd)))
     if ok and stacked:  # layer l of the chunks starts lead[1] batch strides after layer l - 1
         ok = all(t.stride(0) == lead[1] * t.stride(1) for t in (new_k, new_v))
     if not ok:
         raise ValueError(
             f"{fn}: needs bf16 chunks ({'L,' if stacked else ''}B,sq,NKV,HD) with contiguous, "
-            f"aligned heads{' stacked evenly over L' if stacked else ''}, contiguous caches "
-            f"({'L,' if stacked else ''}B,NKV,S,HD) (bf16, or int8 with f32 scale pools, HD "
+            f"16-byte aligned heads{' stacked evenly over L' if stacked else ''}, contiguous "
+            f"caches ({'L,' if stacked else ''}B,NKV,S,HD) (bf16, or int8 with f32 scale pools, HD "
             f"64/128/256), all on one device, pos + sq <= S; got {tuple(new_k.shape)} into "
             f"{tuple(pools[0].shape)} {pools[0].dtype} at {pos}")
     bs, ts = new_k.stride(-4), new_k.stride(-3)

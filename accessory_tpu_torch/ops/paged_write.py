@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from accessory_tpu_torch import kernels
-from accessory_tpu_torch.ops.decode_attention import _device_route, quantize_kv_chunk
+from accessory_tpu_torch.ops.decode_attention import _chunk_ok, _device_route, quantize_kv_chunk
 
 P, I, L = kernels.P, kernels.I, kernels.L
 # k, v (pointer, layer / batch / token strides) + pools + start, page table
@@ -45,18 +45,13 @@ def paged_write_tokens(k_pages, v_pages, k_new, v_new, page_indices, start_pos, 
     pools = (k_pages, v_pages) + ((ks_pages, vs_pages) if int8 else ())
     n_pages, ps = k_pages.shape[2], k_pages.shape[3]
     shape = (n_layers, nkv, n_pages, ps, hd)
-    # bf16: 16-byte pieces; int8: hd / 32 elements a lane
-    align = hd // 32 if int8 else 8
     ok = ((hd in (64, 128, 256) if int8 else hd % 8 == 0)
           and all(t.dtype == (torch.int8 if int8 else torch.bfloat16) and t.is_contiguous()
                   and t.data_ptr() % 16 == 0 and tuple(t.shape) == shape
                   for t in (k_pages, v_pages))
           and all(t.dtype == torch.float32 and t.is_contiguous() and tuple(t.shape) == shape[:-1]
                   for t in pools[2:])
-          and all(t.dtype == torch.bfloat16 and tuple(t.shape) == tuple(k_new.shape)
-                  and t.stride(4) == 1 and t.stride(3) == hd
-                  and all(st % align == 0 for st in t.stride()[:3])
-                  and t.data_ptr() % (2 * align) == 0 for t in (k_new, v_new))
+          and _chunk_ok(k_new, v_new, k_new.shape)
           and start_pos.dtype == torch.int32 and tuple(start_pos.shape) == (b,)
           and start_pos.is_contiguous()
           and page_indices.dtype == torch.int32 and page_indices.ndim == 2
@@ -64,9 +59,9 @@ def paged_write_tokens(k_pages, v_pages, k_new, v_new, page_indices, start_pos, 
           and all(t.device == k_new.device for t in pools + (v_new, start_pos, page_indices)))
     if not ok:
         raise ValueError(
-            "paged_write_tokens: needs bf16 k/v (L,b,s,nkv,hd) with contiguous, aligned heads, "
-            "contiguous 16-byte aligned pools (L,nkv,P,ps,hd) (bf16 with hd % 8 == 0, or int8 "
-            "with f32 scale pools (L,nkv,P,ps) and hd 64/128/256), int32 start (b,) and page "
+            "paged_write_tokens: needs bf16 k/v (L,b,s,nkv,hd) with contiguous, 16-byte aligned "
+            "heads, contiguous 16-byte aligned pools (L,nkv,P,ps,hd) (bf16 with hd % 8 == 0, or "
+            "int8 with f32 scale pools (L,nkv,P,ps) and hd 64/128/256), int32 start (b,) and page "
             f"table (b,pps), all on one device; got {tuple(k_new.shape)} {k_new.dtype} into "
             f"{tuple(k_pages.shape)} {k_pages.dtype}, start {start_pos.dtype}, page table "
             f"{page_indices.dtype}")

@@ -28,7 +28,10 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             paged decode after the token's paged write; where a plan splits K
             (the many-row W4 and W8 tiles, the GEMVs' clusters), a
             second launch bit-equal to the first and the unsplit plan within
-            tolerance); --kernel_names keeps the rows of some kernels only;
+            tolerance; the decode attention and KV-write rows carry out_sha, a
+            digest of what they computed, so the same script run in a parent
+            checkout shows whether the bits moved); --kernel_names keeps the
+            rows of some kernels only;
   parity    TinyLlama width, 2 layers: CPU through the plain versions against
             the card through the kernels, prefill logits and 16 greedy decode
             steps (teacher-forced on the CPU tokens);
@@ -330,6 +333,20 @@ def check_close(name, got, want, rtol, atol, rel_l2=1e-2):
                              f"relative L2 {l2:.3g} against {rel_l2})")
 
 
+def out_sha(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes: the same
+    script run in two checkouts draws the same inputs from --seed, so two
+    rows agree on it where the two trees' kernels wrote the same bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def check_pools8(name, got, want):
     """int8 pools equal; f32 scale pools to f32 rounding (2e-7 relative)."""
     import torch
@@ -605,6 +622,7 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
         want = plain(*first[:3], *pools2, pos)
         torch.cuda.synchronize()
         out_g, out_w = (got[0], want[0]) if write else (got, want)
+        sha = out_sha(out_g, *(p[:, :, pos] for p in got[1:])) if write else out_sha(out_g)
         # softmax averages of pos + 1 values: held to 4 bf16 ulps of the
         # largest output and 1% (plus the relative L2 check)
         atol = 4 * bf16_ulp(float(out_w.float().abs().max()))
@@ -641,7 +659,8 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
             qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
         kr.record(kernel, f"{tag} B={b} NKV={nkv} R={r} HD={hd} S={s_len} pos={pos}"
                   + (" separate-qkv" if separate else ""),
-                  max_err(out_g, out_w), k_ms, k_wall, p_ms, lib_ms, nbytes, flops)
+                  max_err(out_g, out_w), k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
+                  out_sha=sha)
         del sets, lib_sets
 
 
@@ -703,6 +722,7 @@ def _kernels_slab(kr, tag, b, nkv, hd, s_len, sq, positions):
         torch.cuda.synchronize()
         if not (torch.equal(ck, ck2) and torch.equal(cv, cv2)):
             raise AssertionError(f"{kernel} pos={pos}: cache differs from the plain copy_")
+        sha = out_sha(ck[:, :, pos:pos + sq], cv[:, :, pos:pos + sq])
         k_ms = time_ms(lambda *a: write_kv_layer(*a, pos), sets)
         k_wall = wall_ms(lambda *a: write_kv_layer(*a, pos), sets)
         p_ms = time_ms(lambda *a: write_kv_layer_plain(*a, pos), sets)
@@ -710,7 +730,7 @@ def _kernels_slab(kr, tag, b, nkv, hd, s_len, sq, positions):
                                                  cv[:, :, pos:pos + sq].copy_(nv.transpose(1, 2))),
                          sets)
         kr.record(kernel, f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
-                  (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0)
+                  (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0, out_sha=sha)
 
 
 def _kernels_slab8(kr, tag, b, nkv, hd, s_len, sq, positions):
@@ -731,11 +751,12 @@ def _kernels_slab8(kr, tag, b, nkv, hd, s_len, sq, positions):
         want = write_kv_layer8_plain(*pools2, *sets[0][4:], pos)
         torch.cuda.synchronize()
         check_pools8(f"{kernel} pos={pos}", got, want)
+        sha = out_sha(*(p[:, :, pos:pos + sq] for p in got))
         k_ms = time_ms(lambda *a: write_kv_layer8(*a, pos), sets)
         k_wall = wall_ms(lambda *a: write_kv_layer8(*a, pos), sets)
         p_ms = time_ms(lambda *a: write_kv_layer8_plain(*a, pos), sets)
         kr.record(kernel, f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
-                  (0.0, 0.0), k_ms, k_wall, p_ms, None, nbytes, 0.0)
+                  (0.0, 0.0), k_ms, k_wall, p_ms, None, nbytes, 0.0, out_sha=sha)
 
 
 def _kernels_stacked(kr, tag, n_layers, b, nkv, hd, s_len, sq, pos, int8):
@@ -773,6 +794,7 @@ def _kernels_stacked(kr, tag, n_layers, b, nkv, hd, s_len, sq, pos, int8):
         check_pools8(f"{kernel} pos={pos}", got, want)
     elif not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"{kernel} pos={pos}: stacked cache differs from the plain copy_")
+    sha = out_sha(*(p[:, :, :, pos:pos + sq] for p in got))
     del pools2
     k_ms = time_ms(lambda *a: fn(*a, pos), sets)
     k_wall = wall_ms(lambda *a: fn(*a, pos), sets)
@@ -781,7 +803,8 @@ def _kernels_stacked(kr, tag, n_layers, b, nkv, hd, s_len, sq, pos, int8):
         lambda ck, cv, k, v: (ck[:, :, :, pos:pos + sq].copy_(k.transpose(2, 3)),
                               cv[:, :, :, pos:pos + sq].copy_(v.transpose(2, 3))), sets)
     kr.record(kernel, f"{tag} L={n_layers} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
-              (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0, stack_ms=stack_ms)
+              (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0, stack_ms=stack_ms,
+              out_sha=sha)
 
 
 def _paged_table(b, pps, n_pages, lengths, ps, seed, share=True):
@@ -948,6 +971,7 @@ def _kernels_paged_write(kr, tag, n_layers, b, s, nkv, hd, int8, ps=64, pps=8):
         check_pools8(name, *live)
     elif not all(torch.equal(g, w) for g, w in zip(*live)):
         raise AssertionError(f"{name}: pools differ from the plain indexed store")
+    sha = out_sha(*live[0])
     del pools2
     k_ms = time_ms(call, sets)
     k_wall = wall_ms(call, sets)
@@ -963,7 +987,7 @@ def _kernels_paged_write(kr, tag, n_layers, b, s, nkv, hd, int8, ps=64, pps=8):
                                              vp.view(-1, hd).index_put_((rows,), vals[1])), sets)
     kr.record(kernel, f"{tag} L={n_layers} B={b} s={s} NKV={nkv} HD={hd} PS={ps} "
               f"starts={','.join(map(str, starts))}", (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms,
-              nbytes, 0.0)
+              nbytes, 0.0, out_sha=sha)
     del sets
 
 
@@ -1567,14 +1591,18 @@ def phase_kernels(seed: int, names=None):
         # -- the paged KV cache (continuous batching): paged decode attention over
         #    8 slots of ragged lengths (0, 1, page edges, 511) at the decode step
         #    and the speculative verify width 5, TinyLlama (GQA) and the 7B shape
-        #    (one query head per KV head); the paged writes of all 22 layers at the
-        #    decode step, the verify width and the 128-token prefill bucket
+        #    (one query head per KV head)
         ragged = [0, 1, 63, 64, 65, 130, 300, 511]
         for int8 in (False, True):
             for sq in (1, 5):
                 _kernels_paged_decode(kr, "tiny", 4, 8, 64, sq, ragged, int8)
             _kernels_paged_decode(kr, "7b", 32, 1, 128, 1, ragged, int8, most_copies=4)
             _kernels_paged_identity(kr, int8)
+
+    if want("paged_write"):
+        # -- the paged writes of all 22 layers at the decode step, the verify
+        #    width and the 128-token prefill bucket
+        for int8 in (False, True):
             for s in (1, 5, 128):
                 _kernels_paged_write(kr, "tiny", 22, 8, s, 4, 64, int8)
 

@@ -22,7 +22,11 @@ tile (9-1030 rows, every fusion, N % 16 == 8), the std / magic GEMV
 22's fused GEMV (M 1-16 / 1-8, every fusion, each cluster split twice bit
 for bit and within tolerance of split 1), and the fused W4 decode FFN
 (every row count to 17, 64, 100 and 128, every fusion, plans with uneven K
-splits, two calls bit for bit). Each test
+splits, two calls bit for bit), the int8 quantizing write body
+(csrc/kv_quant.cuh) through every write entry at head_dim 64 / 128 / 256
+with ragged tilings, strided views, pos S - sq, the TRASH overflow, an
+all-zero vector and quotients at .5, and the one-query-head int8 decode
+kernels over caches holding every byte value. Each test
 carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
@@ -2173,3 +2177,118 @@ def test_fused_gemv_refuses(gen):
     q8 = _w8(gen, 256, 512)
     with pytest.raises(ValueError, match="split"):
         w8_qmm(x, q8.packed, q8.scales, q8.zeros, group_size=128, split=9)
+
+
+# ---------------------------------------------------------------- the int8 write body
+
+
+def _special_vectors(nk, nv, hd):
+    """Write an all-zero k vector (scale 1e-6 / 127, zeros) and a v vector of
+    quotients at .5 (amax 127: scale 1.0, x / scale = k + 0.5, rounded half
+    to even) into every layer of (..., B, sq, NKV, HD) chunks; returns the
+    halves."""
+    halves = torch.arange(hd, device="cuda", dtype=torch.float32) % 120 - 60 + 0.5
+    halves[0], halves[1] = 127, -127
+    nk[..., 0, 0, 0, :] = 0
+    nv[..., -1, -1, -1, :] = halves.to(nv.dtype)
+    return halves
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("sq", [1, 77])
+@pytest.mark.parametrize("at_end", [False, True])
+def test_int8_write_body_static(gen, hd, sq, at_end):
+    """The quantizing body of csrc/kv_quant.cuh through write_kv_layer8
+    (kv_write_slab_q8, kv_write_col_q8 at one token) and write_kv_t8
+    (kv_write_stacked_q8): B 3, NKV 5 and sq 77 leave a ragged tail in every
+    tiling, k / v are strided views of a qkv-like buffer, pos 0 and S - sq,
+    an all-zero vector and one of quotients at .5: int8 pools equal to the
+    plain version's, scales to f32 rounding."""
+    n_layers, b, nkv, s_len = 2, 3, 5, 160
+    pos = s_len - sq if at_end else 0
+    buf = randn(gen, n_layers, b, sq, 3 * nkv * hd, scale=2.0)
+    nk = buf[..., nkv * hd:2 * nkv * hd].view(n_layers, b, sq, nkv, hd)
+    nv = buf[..., 2 * nkv * hd:].view(n_layers, b, sq, nkv, hd)
+    halves = _special_vectors(nk, nv, hd)
+    pools = _int8_pools(gen, b, nkv, s_len, hd)
+    pools2 = tuple(p.clone() for p in pools)
+    got = _one_more("kv_write_col_q8" if sq == 1 else "kv_write_q8",
+                    lambda: write_kv_layer8(*pools, nk[0], nv[0], pos))
+    assert_pools8(got, write_kv_layer8_plain(*pools2, nk[0], nv[0], pos))
+    stacked = tuple(torch.stack(ps) for ps in zip(*(_int8_pools(gen, b, nkv, s_len, hd)
+                                                    for _ in range(n_layers))))
+    stacked2 = tuple(p.clone() for p in stacked)
+    got = _one_more("kv_write_stacked_q8", lambda: write_kv_t8(*stacked, nk, nv, pos))
+    assert_pools8(got, write_kv_t8_plain(*stacked2, nk, nv, pos))
+    last = pos + sq - 1
+    for layer in range(n_layers):
+        assert float(got[2][layer, 0, 0, pos]) == pytest.approx(1e-6 / 127, rel=1e-6)
+        assert not got[0][layer, 0, 0, pos].any()
+        assert float(got[3][layer, -1, -1, last]) == 1.0
+        assert torch.equal(got[1][layer, -1, -1, last], torch.round(halves).to(torch.int8))
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("s", [1, 77])
+def test_int8_write_body_paged(gen, hd, s):
+    """The same body through paged_write_q8: 3 slots, NKV 5, s 1 and 77
+    (ragged tilings), 16-token pages so a slot's tokens cross pages, the last
+    slot's positions running past its table into TRASH, strided views, the
+    special vectors: the pools outside the TRASH page equal (int8 values
+    equal, scales to f32 rounding)."""
+    from accessory_tpu_torch.ops.paged_write import paged_write_tokens, paged_write_tokens_plain
+
+    n_layers, b, nkv, ps, pps = 2, 3, 5, 16, 8
+    n_pages = b * pps + 1
+    pools, _, _ = _paged_case(gen, b, nkv, hd, ps, pps, n_pages, True, [0] * b, layers=n_layers)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(s)) + 1
+    table = perm[:b * pps].reshape(b, pps).to(torch.int32).cuda()
+    cap = pps * ps
+    start = torch.tensor([0, min(ps - 3, cap - s), cap - s // 2], dtype=torch.int32,
+                         device="cuda")
+    buf = randn(gen, n_layers, b, s, 3 * nkv * hd, scale=2.0)
+    kn = buf[..., :nkv * hd].view(n_layers, b, s, nkv, hd)
+    vn = buf[..., 2 * nkv * hd:].view(n_layers, b, s, nkv, hd)
+    _special_vectors(kn[:, :2], vn[:, :2], hd)   # slots 0 and 1 stay inside their tables
+    plain = [p.clone() for p in pools]
+    _one_more("paged_write_q8", lambda: paged_write_tokens(*pools[:2], kn, vn, table, start,
+                                                           *pools[2:]))
+    paged_write_tokens_plain(*plain[:2], kn, vn, table, start, *plain[2:])
+    assert_pools8([p[:, :, 1:] for p in pools], [p[:, :, 1:] for p in plain])
+
+
+def _every_byte_pools(gen, b, nkv, s_len, hd):
+    """int8 pools of random bytes over the whole range -128..127 (-128 too,
+    which the quantizer never writes), the first 2 * HD bytes of every head
+    (cached tokens 0 and 1) counting up from -128."""
+    ck, cv, ks, vs = _int8_pools(gen, b, nkv, s_len, hd)
+    for c in (ck, cv):
+        c.copy_(torch.randint(-128, 128, c.shape, generator=gen, device="cuda",
+                              dtype=torch.int8))
+        c[:, :, :2] = (torch.arange(2 * hd, device="cuda") - 128).to(torch.int8).view(2, hd)
+    return ck, cv, ks, vs
+
+
+@pytest.mark.parametrize("write", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s_len,pos", [(1024, 0), (1024, 1), (1024, 2), (1024, 511),
+                                       (1024, 1023), (192, 150)])
+def test_mha8_every_byte_value(gen, write, hd, s_len, pos):
+    """decode_attention_mha8 (row 14) and decode_attention_mha8_ro (row 15 at
+    R 1), whose widening of the cache takes no conversion instruction, over
+    caches holding every byte value: within the kernel tolerance of the
+    plain version's cast, the fused write's pools equal."""
+    b, nkv = 2, 4
+    q, kn, vn = _qkv(gen, b, nkv, nkv, hd)
+    pools = _every_byte_pools(gen, b, nkv, s_len, hd)
+    pools2 = tuple(p.clone() for p in pools)
+    if write:
+        got = _one_more("decode_attention_mha8",
+                        lambda: decode_attention_update8(q, kn, vn, *pools, pos))
+        want = decode_attention_update8_plain(q, kn, vn, *pools2, pos)
+        assert_close(got[0], want[0])
+        assert_pools8(got[1:], want[1:])
+    else:
+        got = _one_more("decode_attention_mha8_ro",
+                        lambda: cached_attention_t8(q, kn, vn, *pools, pos))
+        assert_close(got, cached_attention_decode8_plain(q, kn, vn, *pools2, pos))
