@@ -24,9 +24,12 @@ On the way in, a flat dict becomes the JAX package's nested tree (quantized
 leaves as dicts of their fields) and goes through ``convert.params_from_jax``:
 W3, W4 and W8 leaves in the ``std``, ``planes``, ``w8`` and ``magic``
 layouts, stacked layers and padded scale rows come out as the port's
-per-layer params in its layouts. On the way out ``convert.params_to_jax``
-stacks the layers and emits folded W4 leaves in the ``planes`` layout and
-the others in their own, which the JAX package loads as they stand.
+per-layer params in its layouts; a MoE layer's quantized experts, stored
+stacked (L, E, ...) under one path, come out as a tuple of per-expert
+weights a layer. On the way out ``convert.params_to_jax`` stacks the layers
+(and each layer's experts) and emits folded W4 leaves in the ``planes``
+layout and the others in their own, which the JAX package loads as they
+stand.
 
 Sequential multi-path loading (``load_checkpoint_list``) has the JAX
 package's override/add semantics. A directory of PyTorch ``consolidated.*``

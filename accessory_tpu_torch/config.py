@@ -1,8 +1,8 @@
-"""Model configuration: LLaMA args built from a union merge of JSON configs.
+"""Model configuration: model args built from a union merge of JSON configs.
 
 Own copy of ``accessory_tpu/config.py`` (union_merge_configs, make_args,
-LLaMAArgs); field names and defaults are identical so one config JSON drives
-both packages.
+LLaMAArgs, MixtralArgs); field names and defaults are identical so one config
+JSON drives both packages.
 """
 
 from __future__ import annotations
@@ -78,4 +78,45 @@ class LLaMAArgs:
         return self.multiple_of * ((hidden + self.multiple_of - 1) // self.multiple_of)
 
 
-ARGS_REGISTRY = {"llama": LLaMAArgs}
+@dataclass
+class MixtralArgs:
+    """Mixtral-8x7B MoE family (same fields as accessory_tpu): top-k routing
+    over ``num_experts`` SwiGLU experts of width ``hidden_dim``."""
+
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: Optional[int] = 8
+    vocab_size: int = -1
+    hidden_dim: int = 14336
+    norm_eps: float = 1e-5
+    rope_theta: float = 1000000.0
+    max_batch_size: int = 32
+    max_seq_len: int = 2048
+    rope_scaling: Optional[float] = None
+
+    num_experts: int = 8
+    num_experts_per_tok: int = 2
+    load_balancing_weight: float = 0.01
+
+    dtype: str = "bfloat16"
+    rope_style: str = "interleaved"
+    # "ep" | "sparse": the reference's sharding layouts of the experts; read
+    # by nothing on one card (the sharding rules are ROADMAP A10)
+    expert_layout: str = "ep"
+    # PEFT: LoRA / bias on the attention projections
+    lora_rank: int = -1
+    bias_tuning: bool = False
+    norm_tuning: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+
+ARGS_REGISTRY = {"llama": LLaMAArgs, "mixtral": MixtralArgs, "mixtral_peft": MixtralArgs,
+                 "mixtral_sparse": MixtralArgs}

@@ -8,8 +8,12 @@ dense leaf is an array (bf16 arrays may come as numpy's bfloat16 extension
 dtype or any dtype torch reads). It accepts stacked (L, ...) or per-layer
 ``layers``, fused (wqkv / w13) or separate projections, W3, W4 and W8
 leaves in the ``std``, ``planes``, ``w8`` and ``magic`` layouts, and scale
-rows padded past in_dim // group_size. A leaf comes out in the port's layout
-for it: W4 std and planes folded, W8 std and w8 as w8, W3 std as std, magic
+rows padded past in_dim // group_size. A MoE layer's experts come as one
+dense (L, E, in, out) leaf, which stays a dense (E, in, out) tensor a layer,
+or as one quantized leaf stacked over the experts (packed (L, E, K/8, N)),
+which becomes a tuple of E QuantizedWeights a layer (a list of per-expert
+leaves stays a list). A leaf comes out in the port's layout for it: W4 std
+and planes folded, W8 std and w8 as w8, W3 std as std, magic
 as magic; a record the port wrote names its own (``serve_layout``, which
 the JAX package does not read), so a std W4 weight (a GPTQ import) comes
 back std. The native checkpoint reader (``checkpoint/native.py``) hands its
@@ -18,7 +22,8 @@ tensors over through the same function: its bf16 leaves come as
 from the file only as it is converted, and ``cast`` gives dense floating
 leaves another dtype on the way. ``params_to_jax`` is the way back: the
 port's per-layer tree as the stacked numpy tree the JAX package stores,
-folded leaves in its ``planes`` layout, the others in their own.
+folded leaves in its ``planes`` layout, the others in their own, and a
+layer's per-expert weights as one leaf stacked over the experts.
 
 ``cache_from_jax`` does the same for a KV cache: the JAX package's lane-major
 pools become the port's token-major ones; ``paged_cache_from_jax`` for a paged
@@ -164,6 +169,11 @@ def _is_quantized(node) -> bool:
 
 
 def _convert(node, act_dtype, device, cast=None):
+    if _is_quantized(node) and np.ndim(node["packed"]) == 3:
+        # a MoE layer's experts stacked (E, K/8, N): a tuple of per-expert weights
+        n_experts = np.shape(node["packed"])[0]
+        return tuple(_quantized(_layer_slice(node, e), act_dtype, device)
+                     for e in range(n_experts))
     if _is_quantized(node):
         return _quantized(node, act_dtype, device)
     if isinstance(node, dict):
@@ -238,9 +248,16 @@ def _quantized_to_jax(qw: QuantizedWeight) -> Dict[str, Any]:
     return dict(leaf, layout="std", zeros=_np(zeros))
 
 
+def _experts(node) -> bool:
+    return (isinstance(node, (list, tuple)) and len(node) > 0
+            and all(isinstance(w, QuantizedWeight) for w in node))
+
+
 def _to_jax(node):
     if isinstance(node, QuantizedWeight):
         return _quantized_to_jax(node)
+    if _experts(node):      # per-expert weights go out stacked on a leading expert axis
+        return _stack([_quantized_to_jax(w) for w in node])
     if isinstance(node, dict):
         return {k: _to_jax(v) for k, v in node.items()}
     return _np(node)

@@ -19,11 +19,12 @@ the weights allow it (models/llama.py ``_block``), the reference's
 ``ACCESSORY_FFN_FUSE=1``; off by default, as there.
 
 ``unroll_decode=True`` (the default: the card is this package's accelerator)
-fuses wqkv / w13 and decodes over per-layer caches with the fused attention +
-write kernels. ``False`` keeps the separate projections and serves from a
-stacked cache: read-only attention in each layer and one bulk write of all
-layers' new k/v per forward, the JAX package's path wherever its unrolled
-loop is off.
+fuses wqkv / w13 where the model module sets ``SUPPORTS_FUSED_QKV`` (LLaMA;
+not Mixtral, whose blocks take separate projections) and decodes over
+per-layer caches with the fused attention + write kernels. ``False`` keeps
+the separate projections and serves from a stacked cache: read-only
+attention in each layer and one bulk write of all layers' new k/v per
+forward, the JAX package's path wherever its unrolled loop is off.
 """
 
 from __future__ import annotations
@@ -80,7 +81,10 @@ class Generator:
         self.device = torch.device(device)
         self.unroll_decode = bool(unroll_decode)
         self.ffn_fuse = bool(ffn_fuse)
-        self.params = fuse_for_decode(params) if self.unroll_decode else params
+        # fused wqkv / w13 only for a module whose blocks take them (the
+        # reference's SUPPORTS_FUSED_QKV check); Mixtral's keep wq, wk, wv
+        fuse = self.unroll_decode and getattr(module, "SUPPORTS_FUSED_QKV", False)
+        self.params = fuse_for_decode(params) if fuse else params
         self.last_decode_steps = 0
         self.last_tokens = None  # the last run's token buffer (batch, buf_len), numpy
 

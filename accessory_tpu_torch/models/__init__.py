@@ -1,10 +1,15 @@
-"""Model registry: llama_type -> model module (only LLaMA is ported)."""
+"""Model registry: llama_type -> model module (LLaMA and Mixtral are ported;
+the PEFT and sparse Mixtral variants are the same module, as in the JAX
+package)."""
 
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"llama": "accessory_tpu_torch.models.llama"}
+_MODULES = {"llama": "accessory_tpu_torch.models.llama",
+            "mixtral": "accessory_tpu_torch.models.mixtral",
+            "mixtral_peft": "accessory_tpu_torch.models.mixtral",
+            "mixtral_sparse": "accessory_tpu_torch.models.mixtral"}
 
 
 def get_model_module(llama_type: str):

@@ -1,0 +1,209 @@
+"""Top-k MoE routing and expert computation (Mixtral-style SwiGLU experts).
+
+Port of ``accessory_tpu/ops/moe.py``:
+
+* ``topk_gating``: f32 router logits, f32 softmax over the experts, top-k,
+  the k weights renormalized to sum to 1. The router's product is taken in
+  f64 and rounded to f32, so it is never a TF32 product, whatever the
+  process's matmul precision, on the CPU and the card alike. Ties resolve
+  as ``jax.lax.top_k`` resolves them, the lower expert index first (a stable
+  descending sort; ``torch.topk`` promises no order).
+* ``load_balancing_loss``: the auxiliary loss of the reference.
+* ``moe_ffn_ragged``: the exact dispatch of dense experts, rows sorted by
+  expert (a stable argsort, as ``jnp.argsort``) and one product per expert
+  over its group of rows (the reference's ``jax.lax.ragged_dot``, an XLA
+  grouped GEMM there, not a Pallas kernel), f32 outputs.
+* ``moe_ffn_dense``: every expert over every row, masked by the combine
+  weights (the reference's ep-shardable form).
+* ``moe_ffn_quant``: quantized experts, each one's w1, w3 and w2 through
+  ``quant_matmul`` (the W4 GEMV or tile below 1024 rows, the many-row W4
+  kernel from there on), each touched expert on all T rows, as the
+  reference computes it. The reference gates an expert's three calls
+  behind ``lax.cond(touched[e])``; here the (E,) touched mask is read on the
+  host once a call (one device-to-host copy a layer) and only touched
+  experts launch, so an expert no row chose reads no bytes.
+* ``moe_ffn``: the dispatch entry.
+
+``record_routing()`` collects, while it is open, each MoE call's routing on
+the host (its rows and touched mask; with ``detail`` the chosen experts and
+the router scores too), so a caller can hold launch counts and byte bounds
+to the routing a step took.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, List, Optional, Tuple
+
+import torch
+
+from accessory_tpu_torch.quant.qtensor import QuantizedWeight, quant_matmul
+
+_routing_log: Optional[List[dict]] = None
+_routing_detail = False
+
+
+@contextlib.contextmanager
+def record_routing(detail: bool = False) -> Iterator[List[dict]]:
+    """Within the block, every MoE FFN call appends to the yielded list a
+    dict: ``rows`` (T) and ``touched`` (E bools, the host copy the call
+    makes anyway); with ``detail`` also ``idx`` (T, k) int32 and ``scores``
+    (T, E) f32 on the host, a device-to-host copy each a call."""
+    global _routing_log, _routing_detail
+    prev = _routing_log, _routing_detail
+    _routing_log, _routing_detail = [], detail
+    try:
+        yield _routing_log
+    finally:
+        _routing_log, _routing_detail = prev
+
+
+def _record(idx: torch.Tensor, scores: torch.Tensor, touched: List[bool]) -> None:
+    if _routing_log is None:
+        return
+    entry = {"rows": idx.shape[0], "touched": list(touched)}
+    if _routing_detail:
+        entry.update(idx=idx.cpu(), scores=scores.detach().cpu())
+    _routing_log.append(entry)
+
+
+def topk_gating(x: torch.Tensor, gate_w: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router: (weights (T, k) f32 renormalized, indices (T, k) int32, the full
+    softmax scores (T, E) f32 that the load-balancing loss reads)."""
+    logits = torch.matmul(x.to(torch.float64), gate_w.to(torch.float64)).to(torch.float32)
+    scores = torch.softmax(logits, dim=-1)
+    weights, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    weights, idx = weights[:, :k], idx[:, :k]
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    return weights, idx.to(torch.int32), scores
+
+
+def load_balancing_loss(scores: torch.Tensor, idx: torch.Tensor, num_experts: int, k: int,
+                        weight: float) -> torch.Tensor:
+    """weight * E / (T k) * dot(tokens per expert, mean router score)."""
+    t = scores.shape[0]
+    counts = torch.bincount(idx.reshape(-1).to(torch.int64),
+                            minlength=num_experts).to(torch.float32)
+    return weight * num_experts / (t * k) * torch.dot(counts, scores.mean(dim=0))
+
+
+def _combine(weights: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
+    """(T, E) f32: token t's routing weight for expert e, 0 if not chosen."""
+    out = torch.zeros((weights.shape[0], e), dtype=torch.float32, device=weights.device)
+    return out.scatter(1, idx.to(torch.int64), weights)
+
+
+def _swiglu_expert_ragged(xs, w1, w3, w2, group_sizes: List[int]) -> torch.Tensor:
+    """Grouped SwiGLU over rows sorted by expert: xs (M, d); w1 / w3 (E, d, h),
+    w2 (E, h, d); f32 products of the activation-dtype inputs, f32 out."""
+    dt = xs.dtype
+    outs, lo = [], 0
+    for e, n in enumerate(group_sizes):
+        xe = xs[lo:lo + n].to(torch.float32)
+        lo += n
+        gate = torch.matmul(xe, w1[e].to(torch.float32))
+        up = torch.matmul(xe, w3[e].to(torch.float32))
+        hidden = (torch.nn.functional.silu(gate) * up).to(dt)
+        outs.append(torch.matmul(hidden.to(torch.float32), w2[e].to(torch.float32)))
+    return torch.cat(outs, dim=0)
+
+
+def moe_ffn_ragged(x, gate_w, w1, w3, w2, k: int = 2,
+                   balance_weight: Optional[float] = None):
+    """Exact top-k MoE by sorting rows by expert and one product per expert.
+    x (T, d); gate_w (d, E); w1 / w3 (E, d, h); w2 (E, h, d). Returns (out
+    (T, d) in x's dtype, aux loss or None)."""
+    t, d = x.shape
+    e = gate_w.shape[1]
+    weights, idx, scores = topk_gating(x, gate_w, k)
+    flat = idx.reshape(-1).to(torch.int64)
+    order = torch.argsort(flat, stable=True)
+    token_of = order // k
+    xs = x[token_of]
+    group_sizes = torch.bincount(flat, minlength=e).tolist()
+    _record(idx, scores, [n > 0 for n in group_sizes])
+    ys = _swiglu_expert_ragged(xs, w1, w3, w2, group_sizes)
+    ys = ys * weights.reshape(-1)[order][:, None]
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device).index_add(0, token_of, ys)
+    aux = None if balance_weight is None else load_balancing_loss(scores, idx, e, k,
+                                                                  balance_weight)
+    return out.to(x.dtype), aux
+
+
+def moe_ffn_dense(x, gate_w, w1, w3, w2, k: int = 2,
+                  balance_weight: Optional[float] = None):
+    """Exact top-k MoE by per-expert masked compute: every expert on every
+    row, the rows it was not chosen for zeroed by the combine weights."""
+    e = gate_w.shape[1]
+    weights, idx, scores = topk_gating(x, gate_w, k)
+    combine = _combine(weights, idx, e)
+    if _routing_log is not None:
+        _record(idx, scores, (combine.sum(dim=0) > 0).tolist())
+    dt, xf = x.dtype, x.to(torch.float32)
+    gate = torch.einsum("td,edh->eth", xf, w1.to(torch.float32))
+    up = torch.einsum("td,edh->eth", xf, w3.to(torch.float32))
+    hidden = (torch.nn.functional.silu(gate) * up).to(dt)
+    outs = torch.einsum("eth,ehd->etd", hidden.to(torch.float32), w2.to(torch.float32))
+    out = torch.einsum("etd,te->td", outs, combine)
+    aux = None if balance_weight is None else load_balancing_loss(scores, idx, e, k,
+                                                                  balance_weight)
+    return out.to(dt), aux
+
+
+def _qw_index(qw: QuantizedWeight, e: int) -> QuantizedWeight:
+    """Per-expert 2-D weight of an (E, ...)-stacked QuantizedWeight (views)."""
+    return QuantizedWeight(packed=qw.packed[e], scales=qw.scales[e], zeros=qw.zeros[e],
+                           bits=qw.bits, group_size=qw.group_size, in_dim=qw.in_dim,
+                           out_dim=qw.out_dim, act_dtype=qw.act_dtype, layout=qw.layout,
+                           tile_k=qw.tile_k)
+
+
+def _pick(qw, e: int) -> QuantizedWeight:
+    return qw[e] if isinstance(qw, (list, tuple)) else _qw_index(qw, e)
+
+
+def moe_ffn_quant(x, gate_w, qw1, qw3, qw2, k: int = 2,
+                  balance_weight: Optional[float] = None):
+    """Top-k MoE over quantized experts: a tuple of per-expert
+    QuantizedWeights each (``quant.quantize_params``' form), or one stacked on
+    a leading expert axis. Each touched expert runs its three quantized
+    products on all T rows; its output, weighted by the combine column, is
+    summed in f32. Untouched experts launch nothing (see the module
+    docstring)."""
+    t, d = x.shape
+    e = gate_w.shape[1]
+    weights, idx, scores = topk_gating(x, gate_w, k)
+    combine = _combine(weights, idx, e)
+    touched = (combine.sum(dim=0) > 0).tolist()      # the one host read of the call
+    _record(idx, scores, touched)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for ei, hit in enumerate(touched):
+        if not hit:
+            continue
+        q1, q3, q2 = _pick(qw1, ei), _pick(qw3, ei), _pick(qw2, ei)
+        gate = torch.nn.functional.silu(quant_matmul(x, q1).to(torch.float32))
+        up = quant_matmul(x, q3).to(torch.float32)
+        y = quant_matmul((gate * up).to(x.dtype), q2)
+        out = out + combine[:, ei:ei + 1] * y.to(torch.float32)
+    aux = None if balance_weight is None else load_balancing_loss(scores, idx, e, k,
+                                                                  balance_weight)
+    return out.to(x.dtype), aux
+
+
+def _quantized(w) -> bool:
+    return isinstance(w, QuantizedWeight) or (
+        isinstance(w, (list, tuple)) and len(w) > 0 and isinstance(w[0], QuantizedWeight))
+
+
+def moe_ffn(x, gate_w, w1, w3, w2, k: int = 2, balance_weight: Optional[float] = None,
+            impl: str = "ragged"):
+    """Dispatch entry. ``impl``: "ragged" (sorted groups) or "dense" (masked,
+    every expert on every row) for dense experts; quantized experts always
+    take ``moe_ffn_quant``."""
+    if _quantized(w1):
+        return moe_ffn_quant(x, gate_w, w1, w3, w2, k=k, balance_weight=balance_weight)
+    if impl not in ("ragged", "dense"):
+        raise ValueError(f"moe impl {impl!r}: 'ragged' or 'dense'")
+    fn = moe_ffn_ragged if impl == "ragged" else moe_ffn_dense
+    return fn(x, gate_w, w1, w3, w2, k=k, balance_weight=balance_weight)

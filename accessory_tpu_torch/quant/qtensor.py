@@ -91,6 +91,12 @@ def pack_int(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 def unpack_int(packed: torch.Tensor, bits: int, in_dim: int) -> torch.Tensor:
     """Inverse of pack_int -> (in_dim, out_dim) int32 in [0, 2^bits)."""
+    if bits == 4:
+        # nibbles straight from the words' little-endian bytes: byte b of a
+        # word holds rows 2b (low nibble) and 2b + 1 (high nibble)
+        by = packed.contiguous().view(torch.uint8).reshape(*packed.shape, 4)
+        q = torch.stack([by & 15, by >> 4], dim=-1)           # (K/8, N, 4, 2)
+        return q.permute(0, 2, 3, 1).reshape(-1, packed.shape[1])[:in_dim].to(torch.int32)
     pw = 32 // bits
     words = packed.to(torch.int64) & 0xFFFFFFFF
     shifts = (torch.arange(pw, dtype=torch.int64, device=packed.device) * bits)[None, :, None]

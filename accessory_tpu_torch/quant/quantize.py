@@ -1,6 +1,7 @@
 """Whole-model quantization: swap eligible dense weights in a params tree for
 QuantizedWeights. Port of ``accessory_tpu/quant/quantize.py`` (same
-blocklist, output-head exclusion and in_dim padding rule)."""
+blocklist, output-head exclusion, in_dim padding rule and per-expert
+quantization of MoE expert leaves)."""
 
 from __future__ import annotations
 
@@ -38,10 +39,12 @@ def quantize_params(params, bits: int = 4, group_size: int = 128,
                     quantize_output: bool = False,
                     predicate: Optional[Callable[[str, torch.Tensor], bool]] = None,
                     layout: str = "auto"):
-    """Return a params tree (dicts / lists of tensors) with every eligible 2-D
+    """Return a params tree (dicts / lists of tensors) with every eligible
     floating weight quantized: path not on the blocklist (nor "output" unless
     ``quantize_output``), in_dim a multiple of ``group_size``. The port's
-    trees hold per-layer weights, so only 2-D leaves are visited.
+    trees hold per-layer weights: a 2-D leaf becomes one QuantizedWeight, a
+    3-D leaf (a MoE layer's experts, (E, in, out)) a tuple of E of them,
+    quantized expert by expert as the JAX package quantizes its 4-D leaves.
 
     ``layout``: "auto" (the same on the CPU and the GPU: folded for W4, w8
     for W8, std for W3), or "std", "folded" (W4) or "w8" (W8) explicitly."""
@@ -52,6 +55,10 @@ def quantize_params(params, bits: int = 4, group_size: int = 128,
         raise ValueError(f"layout {layout!r}: one of 'auto', {sorted(_CONVERT)}")
     convert = _CONVERT[layout]
     block = tuple(blocklist) + (() if quantize_output else ("output",))
+
+    def quantize(w):
+        return convert(quantize_weight(w, bits=bits, group_size=group_size, act_dtype=w.dtype,
+                                       pad_in_to=pad_to(w.shape[0], group_size)))
 
     def visit(node, path):
         if isinstance(node, dict):
@@ -65,9 +72,10 @@ def quantize_params(params, bits: int = 4, group_size: int = 128,
         if predicate is not None and not predicate(path, node):
             return node
         if node.ndim == 2 and node.shape[0] % group_size == 0:
-            return convert(quantize_weight(
-                node, bits=bits, group_size=group_size, act_dtype=node.dtype,
-                pad_in_to=pad_to(node.shape[0], group_size)))
+            return quantize(node)
+        if node.ndim == 3 and node.shape[1] % group_size == 0:
+            # MoE experts (E, in, out): one weight an expert, each its own buffers
+            return tuple(quantize(node[e]) for e in range(node.shape[0]))
         return node
 
     return visit(params, "")

@@ -80,7 +80,8 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
     ``attn_fn``: None, or ``parallel.make_cp_attn_fn(mesh)``, which makes the
     step context-parallel over its mesh (see above); any other raises."""
     if moe_aux:
-        raise NotImplementedError("the MoE auxiliary loss: mixtral is not ported (ROADMAP A6)")
+        raise NotImplementedError("the MoE auxiliary loss in the training step: Mixtral "
+                                  "training is not ported yet (ROADMAP A7)")
     compute_dtype = torch_dtype(args.dtype)
     layout = None if attn_fn is None else _CPLayout.of(attn_fn)
 

@@ -10,7 +10,8 @@
                                                decode_gptq,serve_magic,decode_magic,serve_w3,
                                                train_parity,train_qpeft7b,train_full,
                                                finetune,parity_ffn,serve_ffn,decode_ffn,
-                                               decode7b_ffn,paged_ro,cp_shards,train_cp]
+                                               decode7b_ffn,paged_ro,cp_shards,train_cp,
+                                               parity_moe,serve_moe,decode_moe,batcher_moe]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
     python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
@@ -18,7 +19,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
   build     compiles every kernel in accessory_tpu_torch/csrc with nvcc;
   kernels   each kernel against its plain PyTorch version on CUDA tensors at
-            the main paths' shapes (TinyLlama-1.1B and LLaMA2-7B): max error,
+            the main paths' shapes (TinyLlama-1.1B, LLaMA2-7B and Mixtral-8x7B,
+            the last tagged "mixtral"): max error,
             kernel / plain / library-call device time (profiler CUDA trace,
             median of 3; inputs rotated through enough copies to spill the
             50 MB L2 where the model reads them cold), the kernel's wall time
@@ -145,6 +147,27 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             step without attn_fn (loss, gradients, updated leaves), then timed
             steps with the flash_attention_cp entries' launch counts exact (a
             cp group of more ranks needs a card a rank);
+  parity_moe  Mixtral-8x7B width (dim 4096, 8 experts of 14336, 32 / 8 heads), one
+            layer, W4 experts and attention (quantize_params of a seeded dense
+            layer, the router f32): the CPU against the card, a 2 x 32 prefill and
+            8 teacher-forced decode steps; routing agreement per (token, layer),
+            each flip with the CPU's gap between its k-th and (k+1)-th router score
+            (at most ROUTE_FLIP_GAP), logits at parity's tolerances where every
+            layer's routing agreed;
+  serve_moe  the full Mixtral-8x7B shape (32 layers, 8 experts, top 2), W4 g128
+            built on the card from --seed (~27 GB; the dense model never exists):
+            the 8 prompts (1024 prefill rows: every touched expert on the
+            many-row kernel) and 32 new tokens through MetaModel.generate, bf16
+            KV; launch counts exact, the W4 entries from the recorded routing
+            (4 + 3 x touched experts a layer); setup s, peak GB, tok/s;
+  decode_moe  that model at batch 8, 1024-token cache, bf16 then int8 KV: a
+            counted 8 x 512 prefill (4096 rows), then 50 steps from position
+            512: wall ms a step, the mean touched experts, the bytes bound from
+            the recorded routing, device time by kernel with the GEMV's share,
+            the idle share;
+  batcher_moe  that model through ContinuousBatcher (4 slots, 64-token pages,
+            bf16 pools): 8 requests of 128-token prompts, 32 new tokens; tok/s,
+            TTFT, idle share, launches exact (the calls' shapes and routing);
   compare   (not in the default run) rows 5, 3 and 26's forward through calls
             every version of the package has had (planes_qmm_bigm's and the
             flash forward's own arguments), device time and the library
@@ -158,6 +181,7 @@ summed over the counted main-path runs); the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -180,6 +204,13 @@ TINY_PROJ = [("wqkv", 2048, 2560, "norm+rope"), ("wo", 2048, 2048, "res"),
              ("w13", 2048, 11264, "norm"), ("w2", 5632, 2048, "res")]
 LLAMA2_7B = dict(dim=4096, n_layers=32, n_heads=32, vocab_size=32000, multiple_of=256,
                  dtype="bfloat16")
+MIXTRAL_8X7B = dict(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                    num_experts=8, num_experts_per_tok=2, vocab_size=32000, rope_theta=1e6,
+                    dtype="bfloat16")
+# Mixtral's quantized products (name, K, N): the attention projections and
+# one expert's
+MIXTRAL_PROJ = [("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024), ("w1/w3", 4096, 14336),
+                ("w2", 14336, 4096)]
 KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention8",
                 "decode_attention_ro", "decode_attention8_ro", "decode_attention_mha",
                 "decode_attention_mha8", "decode_attention_mha_ro", "decode_attention_mha8_ro",
@@ -500,7 +531,7 @@ def _kernels_w4(kr, tag, specs, ms, rope):
             del sets
 
 
-def _kernels_bigm(kr, specs):
+def _kernels_bigm(kr, specs, tag="7b"):
     """planes_qmm_bigm at the 7B prefill's 1024 rows, the QPEFT step's 8 x 512
     = 4096 and one ragged row count, beside row 1's many-row tile
     (w4_matmul.cu, M > 16) on the same inputs: its C entry is called directly
@@ -548,7 +579,7 @@ def _kernels_bigm(kr, specs):
         p_ms = time_ms(lambda a: planes_qmm_bigm_plain(**a), calls[:1], min_iters=3)
         lib_ms = time_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
         plan = w4_tile.bigm_plan(m, n)
-        kr.record("w4_matmul_bigm", f"7b {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
+        kr.record("w4_matmul_bigm", f"{tag} {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
                   k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n, tile_kernel_ms=t_ms,
                   bit_equal_across_launches_and_grids=True, tiles=plan.tiles, ctas=plan.ctas,
                   dequants_per_weight=plan.tiles_m,
@@ -1509,7 +1540,15 @@ def phase_kernels(seed: int, names=None):
                                ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")],
                     (1, 4, 8), rope)
 
+        # -- Mixtral-8x7B (MoE): its separate projections and one expert's w1 / w3
+        #    and w2 at the decode batch 8 and at one row, K 4096 and 14336
+        _kernels_w4(kr, "mixtral", [(nm, k, n, "") for nm, k, n in MIXTRAL_PROJ], (1, 8),
+                    (None, None, "", 0))
+
     if want("w4_matmul_bigm"):
+        # -- Mixtral's 8 x 128 = 1024-row prefill: wk / wv and an expert's products
+        #    (its wq / wo are the 7B wo rows below)
+        _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in MIXTRAL_PROJ[1:]], tag="mixtral")
         # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, the QPEFT
         #    training step's 8 x 512 = 4096, and one row count that is not a
         #    multiple of the 256-row tile
@@ -1535,6 +1574,11 @@ def phase_kernels(seed: int, names=None):
         for int8, write in ((True, True), (False, False), (True, False)):
             _kernels_decode(kr, "hd128", 32, 8, 128, ((8, 1024, 511),), int8=int8, write=write,
                             most_copies=8)
+        # -- Mixtral (NKV 8, R 4, HD 128): the fused bf16 and int8 decode at the
+        #    decode phase's shape and the serve phase's 192-token cache
+        for int8 in (False, True):
+            _kernels_decode(kr, "mixtral", 32, 8, 128, ((8, 1024, 511), (8, 192, 150)),
+                            int8=int8, most_copies=8)
         # -- the read-only forms as the stacked path calls them: q, k, v each a
         #    tensor of its own (separate projections), not views of one wqkv output
         for int8 in (False, True):
@@ -1563,6 +1607,7 @@ def phase_kernels(seed: int, names=None):
         _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 1, 128, 32, 4, 64),
                             ("tiny", 4, 200, 32, 4, 64),
                             ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128),
+                            ("mixtral", 8, 128, 32, 8, 128),
                             ("700m", 2, 2048, 16, 8, 128)))
 
     if want("kv_write"):
@@ -1574,6 +1619,8 @@ def phase_kernels(seed: int, names=None):
         _kernels_slab8(kr, "tiny", 4, 4, 64, 192, 128, (0,))
         _kernels_slab8(kr, "tiny", 1, 4, 64, 192, 128, (0,))
         _kernels_slab8(kr, "7b", 8, 32, 128, 192, 128, (0, 37))
+        _kernels_slab(kr, "mixtral", 8, 8, 128, 192, 128, (0,))
+        _kernels_slab8(kr, "mixtral", 8, 8, 128, 192, 128, (0,))
         # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
         #    shapes, and the stacked writes of all 22 layers in one launch
         #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
@@ -1598,6 +1645,10 @@ def phase_kernels(seed: int, names=None):
                 _kernels_paged_decode(kr, "tiny", 4, 8, 64, sq, ragged, int8)
             _kernels_paged_decode(kr, "7b", 32, 1, 128, 1, ragged, int8, most_copies=4)
             _kernels_paged_identity(kr, int8)
+        # -- Mixtral's batcher (NKV 8, R 4, HD 128, bf16 pools): 4 slots about the
+        #    128-token prompts' length at the decode step
+        _kernels_paged_decode(kr, "mixtral", 8, 4, 128, 1, [128, 129, 140, 159], False,
+                              most_copies=8)
 
     if want("paged_write"):
         # -- the paged writes of all 22 layers at the decode step, the verify
@@ -1605,6 +1656,9 @@ def phase_kernels(seed: int, names=None):
         for int8 in (False, True):
             for s in (1, 5, 128):
                 _kernels_paged_write(kr, "tiny", 22, 8, s, 4, 64, int8)
+        # -- Mixtral's batcher: 32 layers, 4 slots, a decode step and a prefill
+        for s in (1, 128):
+            _kernels_paged_write(kr, "mixtral", 32, 4, s, 8, 128, False)
 
     if want("w4_dequant") or want("flash_attention_bwd_dq"):
         # -- training: the one-pass W4 dequant of the QPEFT backward at the 7B
@@ -1680,8 +1734,8 @@ def _tree_to(node, device):
     """A params tree (dicts, lists, tensors, QuantizedWeights) on ``device``."""
     if isinstance(node, dict):
         return {k: _tree_to(v, device) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_tree_to(v, device) for v in node]
+    if isinstance(node, (list, tuple)):
+        return type(node)(_tree_to(v, device) for v in node)
     return node.to(device)
 
 
@@ -1909,14 +1963,13 @@ def _timed_prefill(model, batch: int, plen: int, buf_len: int, kv_dtype):
     """One prefill forward alone at the serve shape, the second of two runs."""
     import torch
 
-    from accessory_tpu_torch.models import llama
-
     toks = torch.randint(0, 256, (batch, plen), device="cuda")
     for _ in range(2):
-        cache = llama.init_kv_cache(model.args, batch, buf_len, kv_dtype=kv_dtype)
+        cache = model.module.init_kv_cache(model.args, batch, buf_len, kv_dtype=kv_dtype)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        logits, _ = llama.forward(model.generator.params, model.args, toks, cache=cache, cur_pos=0)
+        logits, _ = model.module.forward(model.generator.params, model.args, toks, cache=cache,
+                                         cur_pos=0)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
     if not (logits.shape == (batch, plen, model.args.vocab_size)
@@ -2376,10 +2429,10 @@ def _p5_prompts(n: int):
     return [(text[i * 41:] + " " + text)[:127] for i in range(n)]
 
 
-def _batcher(model, module, kv_dtype, **kw):
+def _batcher(model, module, kv_dtype, slots=8, **kw):
     from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
 
-    return ContinuousBatcher(module, model.args, model.params, model.tokenizer, slots=8,
+    return ContinuousBatcher(module, model.args, model.params, model.tokenizer, slots=slots,
                              page_size=64, decode_steps=8, kv_dtype=kv_dtype, seed=0, **kw)
 
 
@@ -2941,22 +2994,27 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
     return counts
 
 
-def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: int = 10, **kw):
+def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: int = 10,
+                   module=None, shares=(), **kw):
     """Device time by kernel over a few decode steps (torch.profiler). Only
     the trace's device events are summed: an aten op's row repeats the time
     of the kernels it launched. The idle share is taken against the
-    unprofiled ``ms_per_step``, since tracing slows the host loop."""
+    unprofiled ``ms_per_step``, since tracing slows the host loop.
+    ``module``: the model module (LLaMA by default); ``shares``: kernel-name
+    substrings whose device ms a step (over every kernel of the trace) and
+    share of busy are added."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from accessory_tpu_torch.models import llama
 
+    module = module or llama
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         for i in range(steps):
-            llama.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
+            module.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -2968,9 +3026,13 @@ def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: in
     if busy == 0:
         return {"device_time": "not measured (no device events in the trace)"}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_ms_per_step_profiled": wall / steps, "device_busy_ms_per_step": busy,
-            "device_idle_share": max(0.0, 1 - busy / ms_per_step),
-            "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
+    out = {"wall_ms_per_step_profiled": wall / steps, "device_busy_ms_per_step": busy,
+           "device_idle_share": max(0.0, 1 - busy / ms_per_step),
+           "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
+    for sub in shares:
+        ms = sum(v for k, v in by_kernel.items() if sub in k)
+        out[f"{sub}_ms_per_step"], out[f"{sub}_share_of_busy"] = ms, ms / busy
+    return out
 
 
 # ---------------------------------------------------------------- training
@@ -3722,6 +3784,369 @@ def phase_finetune(seed: int):
 
 # kernel -> (source, the TPU kernel it replaces, the main-path shape whose row
 # the summary line reports: the 7B serve phase's where the kernel runs there)
+# ---------------------------------------------------------------- Mixtral (MoE)
+
+
+# a routing flip between the CPU and the card passes only where the CPU's
+# router scores of the k-th and the (k+1)-th expert lie closer than this
+ROUTE_FLIP_GAP = 2e-2
+
+
+def _routing_compare(cpu_log, gpu_log, k: int):
+    """Per (token, layer): the chosen experts as sets on each side; a flip's
+    gap is the CPU's score k minus score k + 1. Returns (agree (T, layers)
+    bool, [flip gaps])."""
+    import torch
+
+    agree, gaps = [], []
+    for c, g in zip(cpu_log, gpu_log):
+        same = (c["idx"].sort(dim=-1).values == g["idx"].sort(dim=-1).values).all(dim=-1)
+        top = c["scores"].sort(dim=-1, descending=True).values
+        gaps += (top[:, k - 1] - top[:, k])[~same].tolist()
+        agree.append(same)
+    return torch.stack(agree, dim=-1), gaps
+
+
+def phase_parity_moe(seed: int, b: int = 2, plen: int = 32, steps: int = 8):
+    """Mixtral width (dim 4096, 8 experts of 14336, 32 / 8 heads), one layer:
+    the CPU (plain versions) against the card (kernels) on the same W4 weights
+    (``quantize_params`` of a seeded dense layer, the router f32), a prefill
+    of b x plen tokens and ``steps`` decode steps teacher-forced on the CPU's
+    greedy tokens. Routing agreement per (token, layer), each flip with the
+    CPU's gap between scores k and k + 1 (at most ROUTE_FLIP_GAP); logits
+    held to parity's tolerances where every layer's routing agreed, for each
+    batch row up to its first flip (a flip moves the next layers' k / v, and
+    through the cache every later token of the row)."""
+    import torch
+
+    from accessory_tpu_torch.config import MixtralArgs
+    from accessory_tpu_torch.models import mixtral
+    from accessory_tpu_torch.ops import moe
+    from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
+
+    args = MixtralArgs(**dict(MIXTRAL_8X7B, n_layers=1), max_seq_len=128)
+    block = tuple(DEFAULT_BLOCKLIST) + tuple(mixtral.get_quant_blocklist(args))
+    params_gpu = quantize_params(mixtral.init_params(args, seed=seed), blocklist=block)
+    torch.cuda.empty_cache()
+    params_cpu = _tree_to(params_gpu, "cpu")
+    prompt = torch.randint(0, args.vocab_size, (b, plen),
+                           generator=torch.Generator().manual_seed(seed))
+    cache_g = mixtral.init_kv_cache(args, b, 128)
+    cache_c = mixtral.init_kv_cache(args, b, 128, device="cpu")
+    cpu_s, logits, agree, gaps = 0.0, [], [], []
+    clean = torch.ones(b, dtype=torch.bool)
+    tok = prompt
+    for i in range(steps + 1):
+        pos = 0 if i == 0 else plen + i - 1
+        with moe.record_routing(detail=True) as glog:
+            lg, _ = mixtral.forward(params_gpu, args, tok.cuda(), cache=cache_g, cur_pos=pos)
+        t0 = time.perf_counter()
+        with moe.record_routing(detail=True) as clog:
+            lc, _ = mixtral.forward(params_cpu, args, tok, cache=cache_c, cur_pos=pos)
+        cpu_s += time.perf_counter() - t0
+        same, flip_gaps = _routing_compare(clog, glog, args.num_experts_per_tok)
+        tok_ok = same.all(dim=-1).reshape(tok.shape)
+        agree.append(clean[:, None] & (tok_ok.cumprod(dim=1) > 0))
+        clean &= tok_ok.all(dim=1)
+        gaps += flip_gaps
+        logits.append((lg.float().cpu(), lc))
+        tok = lc[:, -1:].argmax(-1)
+    tol_abs = LOGIT_TOL_FRAC * float(logits[0][1].abs().max())
+    gpu = torch.cat([g.reshape(-1, g.shape[-1]) for g, _ in logits])
+    cpu = torch.cat([c.reshape(-1, c.shape[-1]) for _, c in logits])
+    ok = torch.cat([a.reshape(-1) for a in agree])
+    d = (gpu - cpu)[ok]
+    top2 = cpu[ok].topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > tol_abs
+    row = {"phase": "parity_moe", "model": "Mixtral-8x7B width, 1 layer", "weights": "W4",
+           "batch": b, "prompt": plen, "decode_steps": steps, "cpu_seconds": round(cpu_s, 2),
+           "routing_tokens": int(ok.numel()), "routing_flips": len(gaps),
+           "tokens_compared": int(ok.sum()),
+           "routing_flip_gaps": gaps, "flip_gap_limit": ROUTE_FLIP_GAP,
+           "max_abs_logit_err": float(d.abs().max()) if d.numel() else None,
+           "max_rel_l2_err": float(d.norm() / cpu[ok].norm()) if d.numel() else None,
+           "tol_abs": tol_abs, "tol_rel_l2": LOGIT_REL_L2,
+           "tokens_checked": int(sure.sum()),
+           "tokens_agreed": int((gpu[ok].argmax(-1) == cpu[ok].argmax(-1))[sure].sum())}
+    emit(row)
+    if (not torch.isfinite(gpu).all() or not d.numel() or row["max_abs_logit_err"] > tol_abs
+            or row["max_rel_l2_err"] > LOGIT_REL_L2 or any(g > ROUTE_FLIP_GAP for g in gaps)
+            or row["tokens_agreed"] != row["tokens_checked"]):
+        raise AssertionError(f"parity_moe failed: {row}")
+
+
+def _random_w4(gen, k: int, n: int, gs: int = 128):
+    """A folded W4 g128 weight straight from random bits on the card: uniform
+    nibbles, scales about k^-0.5 / 4.6 (so x @ W keeps x's scale; uniform
+    nibbles have a standard deviation of 4.6) and zs = 7.5 s (zero mean)."""
+    import torch
+
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    words = torch.randint(-2 ** 31, 2 ** 31, (k // 8, n), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+    scales = (torch.rand((k // gs, n), generator=gen, device="cuda") * 0.5 + 0.75) \
+        * (k ** -0.5 / 4.6)
+    return QuantizedWeight(packed=words, scales=scales, zeros=7.5 * scales, bits=4,
+                           group_size=gs, in_dim=k, out_dim=n, layout="folded")
+
+
+def _qw_bytes(node) -> int:
+    """Bytes of the quantized weights in a subtree (packed words, scales, zeros)."""
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    if isinstance(node, QuantizedWeight):
+        return sum(t.numel() * t.element_size() for t in (node.packed, node.scales, node.zeros))
+    if isinstance(node, dict):
+        return sum(_qw_bytes(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return sum(_qw_bytes(v) for v in node)
+    return 0
+
+
+def _mixtral_model(seed: int, max_seq_len: int):
+    """The full Mixtral-8x7B shape (32 layers, 8 experts, dim 4096, hidden
+    14336, 32 / 8 heads), W4 g128 folded, built leaf by leaf on the card from
+    ``seed`` (the dense bf16 model, ~93 GB, is never made): every projection
+    and expert a ``_random_w4``, the router f32, embeddings and head bf16,
+    norms one; a MetaModel holding them. Returns (model, setup s, peak
+    bytes)."""
+    import torch
+
+    from accessory_tpu_torch.meta import MetaModel
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = MetaModel("mixtral", dict(MIXTRAL_8X7B), max_seq_len=max_seq_len, init_params=False)
+    a = model.args
+    d, hidden, nkv_d = a.dim, a.hidden_dim, a.kv_heads * a.head_dim
+
+    def dense(shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def ones():
+        return torch.ones(d, dtype=torch.bfloat16, device="cuda")
+
+    layers = []
+    for _ in range(a.n_layers):
+        layers.append({
+            "attention_norm": {"weight": ones()}, "ffn_norm": {"weight": ones()},
+            "attention": {name: {"weight": _random_w4(gen, k, n)} for name, k, n in
+                          (("wq", d, d), ("wk", d, nkv_d), ("wv", d, nkv_d), ("wo", d, d))},
+            "feed_forward": {
+                "gate": {"weight": dense((d, a.num_experts), d ** -0.5, torch.float32)},
+                "w1": {"weight": tuple(_random_w4(gen, d, hidden) for _ in range(a.num_experts))},
+                "w2": {"weight": tuple(_random_w4(gen, hidden, d) for _ in range(a.num_experts))},
+                "w3": {"weight": tuple(_random_w4(gen, d, hidden) for _ in range(a.num_experts))},
+            }})
+    model.params = {"tok_embeddings": {"weight": dense((a.vocab_size, d), 1.0)},
+                    "layers": layers, "norm": {"weight": ones()},
+                    "output": {"weight": dense((d, a.vocab_size), d ** -0.5)}}
+    model.tokenizer = ByteTokenizer()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _moe_matmul_counts(log, attention: bool = True) -> dict:
+    """The W4 launches of Mixtral forwards, from the routing they recorded
+    (one entry a layer a forward): wq, wk, wv, wo (unless ``attention`` is
+    False) and w1, w3, w2 of each touched expert, on the many-row kernel
+    from 1024 rows."""
+    want = {"w4_matmul": 0, "w4_matmul_bigm": 0}
+    for entry in log:
+        want["w4_matmul_bigm" if entry["rows"] >= 1024 else "w4_matmul"] += \
+            4 * attention + 3 * sum(entry["touched"])
+    return want
+
+
+def _touched_mean(log, rows=None) -> float:
+    picked = [sum(e["touched"]) for e in log if rows is None or e["rows"] == rows]
+    return sum(picked) / max(len(picked), 1)
+
+
+def phase_serve_moe(seed: int):
+    """The full Mixtral-8x7B shape, W4 from --seed, through
+    MetaModel.generate: the 8 PROMPTS in the 128-token bucket (1024 prefill
+    rows), 32 new tokens, greedy, bf16 KV. Launch counts exact per kernel
+    entry, row 1 and row 5 from the routing the run recorded. Returns the
+    model and the counts."""
+    import torch
+
+    from accessory_tpu_torch.ops import moe
+
+    prompts = PROMPTS
+    assert len(prompts) == 8 and all(100 <= len(p) <= 126 for p in prompts)
+    model, setup_s, setup_peak = _mixtral_model(seed, 512)
+    n_layers = model.args.n_layers
+    model.kv_dtype = None
+    model._reset_generator()
+    prefill_ms = _timed_prefill(model, 8, 128, 192, None)
+    with moe.record_routing() as log:
+        outs, counts, steps, total_s = _counted_generate(model, prompts, 32)
+    want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
+                        decode_attention=n_layers * steps, **_moe_matmul_counts(log))
+    row = {"phase": "serve_moe", "model": "Mixtral-8x7B shape", "kv_dtype": "bf16",
+           "layers": n_layers, "experts": model.args.num_experts, "top_k": 2,
+           "batch": len(prompts), "prompt_tokens": [len(p) + 1 for p in prompts],
+           "prefill_rows": 8 * 128, "decode_steps": steps, "launches": counts,
+           "launches_expected": want, "setup_s": setup_s, "setup_peak_gb": setup_peak / 1e9,
+           "weight_gb": _qw_bytes(model.params) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "touched_experts_prefill_mean": _touched_mean(log, 1024),
+           "touched_experts_decode_mean": _touched_mean(log, len(prompts)),
+           "prefill_ms": prefill_ms, "generate_s": total_s,
+           "decode_tok_s": len(prompts) * steps / max(total_s - prefill_ms / 1e3, 1e-9),
+           "outputs_chars": [len(o) for o in outs]}
+    emit(row)
+    if (counts != want or steps < 32 or len(outs) != len(prompts)
+            or len(log) != n_layers * (steps + 1)):
+        raise AssertionError(f"serve_moe: launch counts {counts} != expected {want}")
+    return model, counts
+
+
+def phase_decode_moe(model, kv_dtype, steps: int = 50):
+    """The Mixtral model at batch 8 and a 1024-token cache: a counted prefill
+    of 8 x 512 random tokens (4096 rows: the many-row kernel, flash and the
+    slab write of the cache type), then ``steps`` forward steps from
+    position 512 (8 different tokens): wall ms a step, launch counts
+    exact from the recorded routing, the mean touched experts a layer, the
+    bytes bound from that routing (each touched expert's W4 bytes, the
+    attention projections', the router, the head and the KV read, once a
+    step, at 3.35 TB/s), then device time by kernel over 4 profiled steps
+    (about 3800 kernels a step) with row 1's share and the idle share."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.ops import moe
+
+    args, params, module = model.args, model.generator.params, model.module
+    batch, cache_len, pos0 = 8, 1024, 512
+    cache = module.init_kv_cache(args, batch, cache_len, kv_dtype=kv_dtype)
+    tok = (torch.arange(batch, device="cuda")[:, None] * 37 + 11).to(torch.int64)
+    int8 = "ks" in cache
+    prompt = torch.randint(0, 256, (batch, pos0), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(pos0))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with moe.record_routing() as plog:
+        t0 = time.perf_counter()
+        module.forward(params, args, prompt, cache=cache, cur_pos=0)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = kernels.launch_counts()
+    prefill_want = _zero_counts(flash_attention=args.n_layers, **_moe_matmul_counts(plog),
+                                **{"kv_write_q8" if int8 else "kv_write": args.n_layers})
+    if prefill_counts != prefill_want:
+        raise AssertionError(f"decode_moe prefill: launch counts {prefill_counts} != "
+                             f"expected {prefill_want}")
+    for i in range(5):
+        module.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with moe.record_routing() as log:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, _ = module.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = kernels.launch_counts()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("decode_moe: non-finite logits")
+    want = _zero_counts(**_moe_matmul_counts(log),
+                        **{"decode_attention8" if int8 else "decode_attention":
+                           args.n_layers * steps})
+    layer0 = params["layers"][0]
+    att_bytes = _qw_bytes(layer0["attention"])
+    expert_bytes = sum(_qw_bytes(layer0["feed_forward"][n]["weight"][0])
+                       for n in ("w1", "w2", "w3"))
+    fixed = sum(t.numel() * t.element_size() for t in
+                (params["output"]["weight"], params["norm"]["weight"])) \
+        + args.n_layers * (att_bytes + layer0["feed_forward"]["gate"]["weight"].numel() * 4)
+    token_bytes = sum(c[0].numel() * c[0].element_size() for c in cache.values()) \
+        // (batch * args.kv_heads * cache_len)   # k + v (+ scales) of one cached token of a head
+    touched = sum(sum(e["touched"]) for e in log)
+    kv_read = sum(args.n_layers * batch * args.kv_heads * (pos0 + i) * token_bytes
+                  for i in range(steps))
+    bound_bytes = (steps * fixed + touched * expert_bytes + kv_read) / steps
+    b_ms, _ = bound_ms(bound_bytes, 0.0)
+    row = {"phase": "decode_moe", "model": "Mixtral-8x7B shape", "kv_dtype": kv_dtype or "bf16",
+           "layers": args.n_layers, "batch": batch, "cache_len": cache_len, "steps": steps,
+           "prefill_rows": batch * pos0, "prefill_ms": prefill_ms,
+           "touched_experts_prefill_mean": _touched_mean(plog),
+           "prefill_launches": {k: v for k, v in prefill_counts.items() if v},
+           "ms_per_step": ms, "tok_s": batch / ms * 1e3,
+           "touched_experts_mean": _touched_mean(log), "bound_ms_per_step": b_ms,
+           "bound_gb_per_step": bound_bytes / 1e9,
+           "bound_parts_gb_per_step": {"experts": touched * expert_bytes / steps / 1e9,
+                                       "attention_w4": args.n_layers * att_bytes / 1e9,
+                                       "head_norm_router": (fixed - args.n_layers * att_bytes)
+                                       / 1e9, "kv_read": kv_read / steps / 1e9},
+           "launches": counts, "launches_expected": want}
+    if counts != want or len(log) != args.n_layers * steps:
+        emit(row)
+        raise AssertionError(f"decode_moe: launch counts {counts} != expected {want}")
+    row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms, steps=4, module=module,
+                                    shares=("W4Folded", "decode_attn"))
+    emit(row)
+    return {name: counts[name] + prefill_counts[name] for name in counts}
+
+
+def phase_batcher_moe(model):
+    """The Mixtral model through ContinuousBatcher: 4 slots, 64-token pages,
+    decode_steps=8, bf16 pools, 8 requests of 128-token prompts and 32 new
+    tokens. Every request finishes, the allocator balances, each kernel's
+    launches equal what the forward_paged calls and the recorded routing
+    imply; tok/s, time to first token, device busy ms a step and the idle
+    share; greedy tokens against the static Generator's (printed)."""
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import mixtral
+    from accessory_tpu_torch.ops import moe
+
+    prompts = _p5_prompts(8)
+    module = _CountingModule(mixtral)
+    _drive(_batcher(model, module, None, slots=4), prompts[:2], 8)          # warm-up
+    module.calls.clear()
+    cb = _batcher(model, module, None, slots=4)
+    kernels.reset_launch_counts()
+    with moe.record_routing() as log:
+        reqs, secs, ttft, dispatch = _drive(cb, prompts, 32)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    # the calls' shapes give the attention's 4 W4 launches a layer, the routing the experts'
+    want = module.expected(model.args.n_layers, False)
+    for name, n in _moe_matmul_counts(log, attention=False).items():
+        want[name] += n
+    n_tok = sum(len(r.output_tokens) for r in reqs)
+    dec_s = sum(t for t, _ in dispatch)
+    dec_steps = sum(n for _, n in dispatch)
+    prof = _profile_dispatch(_batcher(model, mixtral, None, slots=4), prompts[:4])
+    model.kv_dtype = None
+    model._reset_generator()
+    model.generate(prompts, max_gen_len=32)
+    same = [np.asarray(r.output_tokens[:32]) == model.generator.last_tokens[i, 128:128 + 32]
+            [:len(r.output_tokens[:32])] for i, r in enumerate(reqs)]
+    row = {"phase": "batcher_moe", "model": "Mixtral-8x7B shape", "kv_dtype": "bf16",
+           "layers": model.args.n_layers, "slots": 4, "page_size": 64, "decode_steps": 8,
+           "requests": len(prompts), "prompt_tokens": 128, "max_gen_len": 32,
+           "generated_tokens": n_tok, "run_s": secs, "tok_s": n_tok / secs,
+           "decode_tok_s": 4 * dec_steps / dec_s if dec_s else None,
+           "decode_ms_per_step": dec_s * 1e3 / dec_steps,
+           "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
+           "touched_experts_decode_mean": _touched_mean(log, 4),
+           "forward_calls": len(module.calls), "launches": counts, "launches_expected": want,
+           "balanced": _balanced(cb), "preemptions": cb.preemptions, **prof,
+           "greedy_share_equal_to_static_generator": float(np.mean(np.concatenate(same)))}
+    emit(row)
+    if (counts != want or not row["balanced"] or len(reqs) != len(prompts)
+            or not all(r.done and len(r.output_tokens) for r in reqs)):
+        raise AssertionError(f"batcher_moe failed: {row}")
+    return counts
+
+
 KERNELS = {
     "w4_matmul": ("accessory_tpu_torch/csrc/w4_matmul.cu",
                   "accessory_tpu/ops/quant_matmul_planes.py:313", "7b w13 M=8"),
@@ -3830,7 +4255,7 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
               "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
-              "cp_shards,train_cp")
+              "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
                      "decode_ffn")
@@ -4034,6 +4459,24 @@ def main() -> int:
             counts_by_path["cp shards"] = phase_cp_shards(opts.seed)
         if "train_cp" in phases:
             counts_by_path["train cp"] = phase_train_cp(opts.seed)
+        if "parity_moe" in phases:
+            phase_parity_moe(opts.seed)
+        if any(ph in phases for ph in ("serve_moe", "decode_moe", "batcher_moe")):
+            # Mixtral-8x7B W4 (~27 GB) on the card: every earlier model is freed
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, counts_by_path["mixtral"] = phase_serve_moe(opts.seed)
+            if "decode_moe" in phases:
+                bench = {}
+                for kv_dtype in (None, "int8"):
+                    model.kv_dtype = kv_dtype
+                    model._reset_generator()
+                    _add_counts(bench, phase_decode_moe(model, kv_dtype))
+                counts_by_path["mixtral bench"] = bench
+            if "batcher_moe" in phases:
+                counts_by_path["mixtral batcher"] = phase_batcher_moe(model)
+            del model
+            torch.cuda.empty_cache()
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES
                     if not sum(c.get(n, 0) for c in counts_by_path.values())]

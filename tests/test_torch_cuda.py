@@ -26,8 +26,11 @@ splits, two calls bit for bit), the int8 quantizing write body
 (csrc/kv_quant.cuh) through every write entry at head_dim 64 / 128 / 256
 with ragged tilings, strided views, pos S - sq, the TRASH overflow, an
 all-zero vector and quotients at .5, and the one-query-head int8 decode
-kernels over caches holding every byte value. Each test
-carries the ``cuda`` marker, needs a CUDA device and skips without one
+kernels over caches holding every byte value; and the kernels at
+Mixtral-8x7B's shapes (its separate projections and experts at K 4096 and
+14336 on the GEMV and the many-row kernel, flash and the slab writes at 8
+KV heads of 128) with a small Mixtral's routed forward, card against CPU.
+Each test carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -625,8 +628,8 @@ def test_small_gqa_model_paths_cuda_match_cpu(gen, kv_dtype, path):
 def _to(node, device):
     if isinstance(node, dict):
         return {k: _to(v, device) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_to(v, device) for v in node]
+    if isinstance(node, (list, tuple)):
+        return type(node)(_to(v, device) for v in node)
     return node.to(device)
 
 
@@ -2292,3 +2295,119 @@ def test_mha8_every_byte_value(gen, write, hd, s_len, pos):
         got = _one_more("decode_attention_mha8_ro",
                         lambda: cached_attention_t8(q, kn, vn, *pools, pos))
         assert_close(got, cached_attention_decode8_plain(q, kn, vn, *pools2, pos))
+
+
+# ---------------------------------------------------------------- Mixtral-8x7B shapes
+
+
+MIXTRAL_PROJ = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", MIXTRAL_PROJ)
+def test_w4_matmul_mixtral_shapes(gen, m, k, n):
+    """Row 1's GEMV at Mixtral's decode products (wq / wo, wk / wv, an
+    expert's w1 / w3 and w2), no fusion: one launch, within a rounding step
+    of the plain version."""
+    qw = _w4(gen, k, n)
+    args = (randn(gen, m, k), qw.packed, qw.scales, qw.zeros)
+    got = _one_more("w4_matmul", lambda: planes_qmm(*args, in_dim=k, group_size=128))
+    assert_close(got, planes_qmm_plain(*args, in_dim=k, group_size=128))
+
+
+@pytest.mark.parametrize("k,n", MIXTRAL_PROJ[1:])
+def test_w4_matmul_bigm_mixtral(gen, k, n):
+    """Row 5 at Mixtral's 8 x 128 = 1024-row prefill (wk / wv and an expert's
+    products): within a rounding step of the plain version, a second launch
+    bit-equal."""
+    qw = _w4(gen, k, n)
+    x = randn(gen, 1024, k)
+    got = _one_more("w4_matmul_bigm", lambda: planes_qmm_bigm(
+        x, qw.packed, qw.scales, qw.zeros, in_dim=k, group_size=128))
+    assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=k,
+                                            group_size=128))
+    again = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=k, group_size=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_flash_attention_mixtral(gen):
+    """Row 3 at Mixtral's prefill: B 8, S 128, 32 query / 8 KV heads of 128."""
+    q, k, v = randn(gen, 8, 128, 32, 128), randn(gen, 8, 128, 8, 128), randn(gen, 8, 128, 8, 128)
+    got = _one_more("flash_attention", lambda: flash_attention(q, k, v))
+    assert_close(got, grouped_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_slab_write_mixtral(gen, int8):
+    """Rows 4 and 17 at Mixtral's prefill: B 8, sq 128, 8 KV heads of 128,
+    k / v strided views of one projection-like buffer; the bf16 cache equal
+    to the plain copy, the int8 pools as assert_pools8 holds them."""
+    b, sq, nkv, hd, s_len = 8, 128, 8, 128, 192
+    buf = randn(gen, b, sq, 3 * nkv * hd)
+    nk = buf[..., :nkv * hd].view(b, sq, nkv, hd)
+    nv = buf[..., 2 * nkv * hd:].view(b, sq, nkv, hd)
+    if int8:
+        pools = (torch.zeros((b, nkv, s_len, hd), dtype=torch.int8, device="cuda"),
+                 torch.zeros((b, nkv, s_len, hd), dtype=torch.int8, device="cuda"),
+                 torch.zeros((b, nkv, s_len), device="cuda"),
+                 torch.zeros((b, nkv, s_len), device="cuda"))
+        pools2 = tuple(p.clone() for p in pools)
+        got = _one_more("kv_write_q8", lambda: write_kv_layer8(*pools, nk, nv, 0))
+        assert_pools8(got, write_kv_layer8_plain(*pools2, nk, nv, 0))
+    else:
+        ck, cv = randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd)
+        ck2, cv2 = ck.clone(), cv.clone()
+        _one_more("kv_write", lambda: write_kv_layer(ck, cv, nk, nv, 0))
+        write_kv_layer_plain(ck2, cv2, nk, nv, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_small_mixtral_cuda_matches_cpu(gen, kv_dtype):
+    """A 2-layer W4 Mixtral (dim 256, 4 experts of 256, top 2): a prefill and
+    decode steps on the card and on the CPU. A token whose routing differs
+    in some layer moves the next layers' k / v, so every later token of its
+    row (the decode steps too, through the cache) is set aside; before a
+    row's first such token the logits agree to 4% relative L2 and 5% of the
+    largest |logit|: at this width bf16 rounding alone moves this model's
+    decode logits by 1.0-1.3% relative L2 (its CPU bf16 run against the
+    same weights in f32), and the two sides round at different points. At
+    least 90% of the (token, layer) routings agree and half the logits are
+    compared; each decode step launched row 1 exactly sum over layers of
+    (4 + 3 x touched experts) times."""
+    from accessory_tpu_torch.config import MixtralArgs
+    from accessory_tpu_torch.models import mixtral
+    from accessory_tpu_torch.ops import moe
+
+    args = MixtralArgs(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=256,
+                       num_experts=4, vocab_size=512, max_seq_len=128)
+    params = quantize_params(mixtral.init_params(args, seed=2))
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (3, 40), generator=torch.Generator().manual_seed(1))
+    cg = mixtral.init_kv_cache(args, 3, 64, kv_dtype=kv_dtype)
+    cc = mixtral.init_kv_cache(args, 3, 64, kv_dtype=kv_dtype, device="cpu")
+    agree_all, clean, compared = [], torch.ones(3, dtype=torch.bool), 0
+    for lo, hi in [(0, 32)] + [(p, p + 1) for p in range(32, 40)]:
+        kernels.reset_launch_counts()
+        with moe.record_routing(detail=True) as glog:
+            lg, _ = mixtral.forward(params, args, toks[:, lo:hi].cuda(), cache=cg, cur_pos=lo)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        with moe.record_routing(detail=True) as clog:
+            lc, _ = mixtral.forward(cpu, args, toks[:, lo:hi], cache=cc, cur_pos=lo)
+        if hi - lo == 1:
+            assert counts["w4_matmul"] == sum(4 + 3 * sum(e["touched"]) for e in glog)
+        same = torch.stack([(g["idx"].sort(-1).values == c["idx"].sort(-1).values).all(-1)
+                            for g, c in zip(glog, clog)], dim=-1)
+        agree_all.append(same.reshape(-1))
+        tok_ok = same.all(-1).reshape(3, hi - lo)
+        ok = clean[:, None] & (tok_ok.cumprod(dim=1) > 0)   # before the row's first flip
+        clean &= tok_ok.all(dim=1)
+        compared += int(ok.sum())
+        if ok.any():
+            g, c = lg.cpu()[ok], lc[ok]
+            assert float((g - c).norm() / c.norm()) < 4e-2, (lo, hi)
+            assert float((g - c).abs().max()) < 5e-2 * float(c.abs().max()), (lo, hi)
+    assert float(torch.cat(agree_all).float().mean()) >= 0.9 and compared >= 3 * 40 // 2

@@ -25,7 +25,7 @@ from accessory_tpu_torch.engine.generate import Generator
 from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
 from accessory_tpu_torch.main_finetune import main as finetune_main
 from accessory_tpu_torch.meta import MetaModel
-from accessory_tpu_torch.models import llama
+from accessory_tpu_torch.models import llama, mixtral
 from accessory_tpu_torch.parallel import (init_distributed_mode, local_mesh, make_global_mesh,
                                           make_mesh)
 from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
@@ -46,7 +46,7 @@ def test_every_module_imports_without_jax():
                  "data.alpaca", "data.system_prompt", "train.loss", "train.lr_sched",
                  "train.optim", "train.precision", "train.train_step", "train.ckpt",
                  "train.tree", "util.logging", "main_finetune", "parallel.mesh",
-                 "parallel.distributed", "parallel.context"):
+                 "parallel.distributed", "parallel.context", "ops.moe", "models.mixtral"):
         assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -130,7 +130,9 @@ def test_no_jax_or_reference_imports_in_source():
                                 kvcache.init_paged_cache, paged_cache_from_jax,
                                 ContinuousBatcher.__init__, serve, make_train_step,
                                 finetune_main, resume_stage1, init_distributed_mode,
-                                make_mesh, local_mesh, make_global_mesh])
+                                make_mesh, local_mesh, make_global_mesh,
+                                mixtral.init_params, mixtral.init_kv_cache,
+                                mixtral.init_paged_cache])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

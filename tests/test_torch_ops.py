@@ -276,7 +276,7 @@ def test_unported_paths_name_their_queue_item():
     assert sorted(cache) == ["k", "ks", "v", "vs"]
     assert cache["k"][0].dtype == torch.int8 and cache["vs"][0].shape == (1, 2, 16)
     with pytest.raises(KeyError, match="A6"):
-        get_model_module("mixtral")
+        get_model_module("falcon")
     # per-row positions are served by the paged cache, whose path the message names
     q = torch.zeros((1, 1, 2, 64))
     with pytest.raises(NotImplementedError, match="paged_cached_attention"):
