@@ -33,7 +33,10 @@ stand.
 
 Sequential multi-path loading (``load_checkpoint_list``) has the JAX
 package's override/add semantics. A directory of PyTorch ``consolidated.*``
-files (the format of the project this system was modelled on) is not read yet.
+files (the format of the project this system was modelled on) is imported
+by ``checkpoint.torch_import`` into the same flat dict; a ``*-diff``
+directory adds its deltas to the leaves loaded before it (in f32, the sum
+stored in the earlier leaf's dtype).
 """
 
 from __future__ import annotations
@@ -47,9 +50,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from accessory_tpu_torch.config import LLaMAArgs
-from accessory_tpu_torch.convert import (_QFIELDS, BF16Bits, _is_quantized, params_from_jax,
-                                         params_to_jax)
+from accessory_tpu_torch.convert import (_QFIELDS, BF16Bits, _f32, _is_quantized,
+                                         params_from_jax, params_to_jax)
 from accessory_tpu_torch.models.llama import torch_dtype
 
 WEIGHTS_FILE = "weights.safetensors"
@@ -206,7 +208,7 @@ def unflatten_params(flat: Dict[str, Any], quant_meta: Dict[str, Any]) -> Dict[s
     return tree
 
 
-def load_checkpoint(load_dir: str, args: LLaMAArgs, device="cuda") -> Dict[str, Any]:
+def load_checkpoint(load_dir: str, args, device="cuda") -> Dict[str, Any]:
     """A native checkpoint dir -> the port's params on ``device``."""
     return load_checkpoint_list([load_dir], args=args, device=device)
 
@@ -235,36 +237,57 @@ def _fill_missing(tree, template):
     return tree
 
 
+def _add_delta(dst, delta):
+    """dst + delta in f32, in dst's dtype (bf16 rounded to nearest even)."""
+    total = _f32(dst) + np.asarray(delta, dtype=np.float32)
+    if isinstance(dst, BF16Bits):
+        bits = torch.from_numpy(total).to(torch.bfloat16).view(torch.int16).numpy()
+        return BF16Bits(bits.view(np.uint16))
+    return total.astype(np.asarray(dst).dtype)
+
+
+def _merge_into(flat: Dict[str, Any], quant_meta: Dict[str, Any], src: Dict[str, Any],
+                meta: Dict[str, Any], diff: bool = False) -> None:
+    """Override / add ``src``'s leaves (a quantized leaf replaces a dense one,
+    and back); with ``diff`` a dense leaf already loaded takes src's value
+    as a delta."""
+    for base in meta:
+        flat.pop(base, None)
+    for key in src:
+        if "#" not in key and key in quant_meta:
+            del quant_meta[key]
+            for field in _QFIELDS:
+                flat.pop(f"{key}#{field}", None)
+    quant_meta.update(meta)
+    for key, val in src.items():
+        flat[key] = _add_delta(flat[key], val) if diff and key in flat else val
+
+
 def load_checkpoint_list(paths: Sequence[str], template_params=None,
-                         dtype: Optional[str] = None, *, args: LLaMAArgs,
+                         dtype: Optional[str] = None, *, args,
                          device="cuda") -> Dict[str, Any]:
-    """Load native checkpoint dirs in order, later paths overriding / adding
-    (base weights, then finetuned or extra leaves), and convert the result to
-    the port's per-layer params on ``device``, tensor by tensor.
+    """Load checkpoint dirs in order, later paths overriding / adding (base
+    weights, then finetuned or extra leaves), and convert the result to the
+    port's per-layer params on ``device``, tensor by tensor. A dir is a
+    native checkpoint (weights.safetensors) or a PyTorch one
+    (``consolidated.*``: imported, and a ``*-diff`` dir's tensors added as
+    deltas).
 
     ``template_params`` (the port's params, e.g. from init_params) supplies
     the leaves that no checkpoint holds. ``dtype`` casts dense floating
     leaves; quantized leaves are kept as stored."""
+    from accessory_tpu_torch.checkpoint.torch_import import (
+        import_reference_checkpoint, infer_checkpoint_format_and_mp_size)
+
     flat: Dict[str, Any] = {}
     quant_meta: Dict[str, Any] = {}
     for p in paths:
-        if not (Path(p) / WEIGHTS_FILE).exists():
-            if any(Path(p).glob("consolidated.*")):
-                raise NotImplementedError(
-                    f"{p} holds PyTorch consolidated.* files: importing that format "
-                    "(checkpoint/torch_import.py) is not ported yet (ROADMAP A5)")
-            raise FileNotFoundError(f"no {WEIGHTS_FILE} under {p}")
-        src = _read_flat(p)
-        meta = _read_quant_meta(p)
-        for base in meta:            # a quantized leaf replaces a dense one, and back
-            flat.pop(base, None)
-        for key in src:
-            if "#" not in key and key in quant_meta:
-                del quant_meta[key]
-                for field in _QFIELDS:
-                    flat.pop(f"{key}#{field}", None)
-        quant_meta.update(meta)
-        flat.update(src)
+        if (Path(p) / WEIGHTS_FILE).exists():
+            _merge_into(flat, quant_meta, _read_flat(p), _read_quant_meta(p))
+        else:
+            fmt, _ = infer_checkpoint_format_and_mp_size(p)
+            _merge_into(flat, quant_meta, import_reference_checkpoint(p), {},
+                        diff=fmt.endswith("_diff"))
     cast = None if dtype is None else torch_dtype(dtype)
     params = params_from_jax(unflatten_params(flat, quant_meta), args, device=device, cast=cast)
     if template_params is not None:

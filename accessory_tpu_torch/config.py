@@ -1,8 +1,10 @@
 """Model configuration: model args built from a union merge of JSON configs.
 
 Own copy of ``accessory_tpu/config.py`` (union_merge_configs, make_args,
-LLaMAArgs, MixtralArgs); field names and defaults are identical so one config
-JSON drives both packages.
+LLaMAArgs, InternLMArgs, FalconArgs, MixtralArgs); field names and defaults
+are identical so one config JSON drives both packages. ``n_layers_of`` reads
+the depth of any family (LLaMA's ``n_layers``, InternLM's and Falcon's
+``num_layers``).
 """
 
 from __future__ import annotations
@@ -79,6 +81,74 @@ class LLaMAArgs:
 
 
 @dataclass
+class InternLMArgs:
+    """InternLM family (HF-style names, same fields as accessory_tpu): fused
+    Wqkv with bias, "half"-pair RoPE, rmsnorm or layernorm, SwiGLU (w1 gate,
+    w2 up, w3 down) or GELU FFN of width round_up(hidden_size * mlp_ratio,
+    multiple_of). ``layer_norm_epsilon`` is the eps every norm uses
+    (``norm_eps`` is read by nothing, as in the reference)."""
+
+    num_layers: int = 32
+    hidden_size: int = 4096
+    num_attention_heads: int = 32
+    mlp_ratio: float = 8 / 3
+    layer_norm_epsilon: float = 1e-5
+    norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    norm_eps: float = 1e-5
+    use_swiglu: bool = True
+    vocab_size: int = -1
+    multiple_of: int = 256
+    rope_theta: float = 10000.0
+    max_batch_size: int = 32
+    max_seq_len: int = 2048
+    rope_scaling: Optional[float] = None
+    dtype: str = "bfloat16"
+    bias: bool = True  # the attention projections carry a bias
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_attention_heads
+
+
+@dataclass
+class FalconArgs:
+    """Falcon / Falcon-40B / Falcon-180B family (same fields as accessory_tpu).
+    ``new_decoder_architecture``: two parallel layernorms and
+    ``num_kv_heads`` KV heads; else ``parallel_attn`` (one layernorm feeding
+    both branches) or sequential, with one KV head when ``multi_query``."""
+
+    num_layers: int = 80
+    hidden_size: int = 14848
+    num_attention_heads: int = 232
+    bias: bool = False
+    multi_query: bool = True
+    new_decoder_architecture: bool = True
+    parallel_attn: bool = True
+    num_kv_heads: Optional[int] = None
+    layer_norm_epsilon: float = 1e-5
+    vocab_size: int = -1
+    rope_theta: float = 10000.0
+    max_batch_size: int = 32
+    max_seq_len: int = 2048
+    rope_scaling: Optional[float] = None
+    dtype: str = "bfloat16"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def kv_heads(self) -> int:
+        if self.new_decoder_architecture:
+            return self.num_kv_heads if self.num_kv_heads is not None else self.num_attention_heads
+        return 1 if self.multi_query else self.num_attention_heads
+
+
+@dataclass
 class MixtralArgs:
     """Mixtral-8x7B MoE family (same fields as accessory_tpu): top-k routing
     over ``num_experts`` SwiGLU experts of width ``hidden_dim``."""
@@ -118,5 +188,11 @@ class MixtralArgs:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
 
 
-ARGS_REGISTRY = {"llama": LLaMAArgs, "mixtral": MixtralArgs, "mixtral_peft": MixtralArgs,
+ARGS_REGISTRY = {"llama": LLaMAArgs, "internlm": InternLMArgs, "falcon": FalconArgs,
+                 "mixtral": MixtralArgs, "mixtral_peft": MixtralArgs,
                  "mixtral_sparse": MixtralArgs}
+
+
+def n_layers_of(args) -> int:
+    """The depth of any family's args (``n_layers`` or ``num_layers``)."""
+    return args.n_layers if hasattr(args, "n_layers") else args.num_layers

@@ -39,7 +39,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from accessory_tpu_torch.config import LLaMAArgs
+from accessory_tpu_torch.config import n_layers_of
 from accessory_tpu_torch.models.llama import torch_dtype
 from accessory_tpu_torch.quant.qtensor import (QuantizedWeight, pack_int, to_folded_layout,
                                                to_w8_layout, unpack_int)
@@ -194,17 +194,19 @@ def _layer_slice(node, i: int):
     return np.asarray(node)[i]
 
 
-def params_from_jax(tree: Dict[str, Any], args: LLaMAArgs, device="cuda",
+def params_from_jax(tree: Dict[str, Any], args, device="cuda",
                     cast: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """JAX LLaMA params (numpy leaves, see module docstring) -> the port's
-    per-layer params on ``device``, one leaf at a time. ``cast``: the dtype
-    dense floating leaves are given (quantized leaves keep theirs)."""
+    """JAX params of any ported family (numpy leaves, see module docstring)
+    -> the port's per-layer params on ``device``, one leaf at a time.
+    ``cast``: the dtype dense floating leaves are given (quantized leaves
+    keep theirs)."""
     act_dtype = torch_dtype(args.dtype)
     layers = tree["layers"]
+    n_layers = n_layers_of(args)
     if isinstance(layers, dict):
-        layers = [_layer_slice(layers, i) for i in range(args.n_layers)]
-    if len(layers) != args.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, args say {args.n_layers}")
+        layers = [_layer_slice(layers, i) for i in range(n_layers)]
+    if len(layers) != n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, args say {n_layers}")
     out = {k: _convert(v, act_dtype, device, cast) for k, v in tree.items() if k != "layers"}
     out["layers"] = [_convert(layer, act_dtype, device, cast) for layer in layers]
     return out

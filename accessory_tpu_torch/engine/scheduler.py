@@ -93,6 +93,10 @@ class ContinuousBatcher:
                  seed: int = 0, stop_symbols: Iterable[str] = (), decode_steps: int = 1,
                  kv_dtype: Optional[str] = None, prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False, spec_lookup: int = 0, device="cuda"):
+        if not hasattr(module, "forward_paged"):
+            raise TypeError(f"{module.__name__} has no forward_paged: the continuous batcher "
+                            "serves the paged KV cache of LLaMA and Mixtral; serve this model "
+                            "with engine.generate.Generator")
         self.device = torch.device(device)
         # decode_steps > 1: each dispatch decodes that many tokens per slot,
         # sampled on the device, before the one host fetch; up to

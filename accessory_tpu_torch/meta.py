@@ -1,7 +1,10 @@
 """MetaModel facade over the port. Port of ``accessory_tpu/meta.py``
 (``__init__``, ``get_quant_blocklist``, ``quantize``, ``generate``,
-``stream_generate``, ``save_pretrained``, ``from_pretrained``). A checkpoint directory written by
-either package's ``save_pretrained`` loads in the other."""
+``stream_generate``, ``save_pretrained``, ``from_pretrained``) for every
+ported family (LLaMA, InternLM, Falcon, Mixtral). A checkpoint directory
+written by either package's ``save_pretrained`` loads in the other, and a
+directory of the reference's PyTorch ``consolidated.*`` shards loads too
+(``checkpoint.torch_import``)."""
 
 from __future__ import annotations
 
@@ -132,7 +135,9 @@ class MetaModel:
         kernel where the weights allow it (off by default, as the reference's
         ``ACCESSORY_FFN_FUSE``); ``dtype`` casts dense floating weights;
         ``tokenizer``: a tokenizer object that takes the place of the probed
-        tokenizer file."""
+        tokenizer file. A path may be a native checkpoint dir or a dir of
+        the reference's ``consolidated.*`` shards (a ``*-diff`` dir adds its
+        deltas to the paths before it)."""
         paths = [pretrained_path] if isinstance(pretrained_path, str) else list(pretrained_path)
         root = paths[-1]
         if llama_type is None:
@@ -156,8 +161,7 @@ class MetaModel:
         model = cls(llama_type, list(llama_config), tokenizer_path, max_seq_len=max_seq_len,
                     init_params=False, device=device, tokenizer=tokenizer)
         model.params = load_checkpoint_list(paths, dtype=dtype, args=model.args, device=device)
-        missing = [k for k in ("tok_embeddings", "layers", "norm", "output")
-                   if k not in model.params]
+        missing = [k for k in model.module.TOP_LEVEL_KEYS if k not in model.params]
         if missing:
             raise KeyError(f"the checkpoints under {paths} hold no {missing}: a partial "
                            "checkpoint loads after the base weights it extends")

@@ -48,7 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from accessory_tpu_torch.config import LLaMAArgs
+from accessory_tpu_torch.config import LLaMAArgs, n_layers_of
 from accessory_tpu_torch.engine import kvcache
 from accessory_tpu_torch.ops.attention import attention
 from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached_attention_t8,
@@ -70,6 +70,10 @@ SUPPORTS_UNROLLED_PAGED = True     # forward_paged takes per-layer params
 SUPPORTS_CHUNKED_PREFILL = True    # forward_paged(continuation=True)
 SUPPORTS_KV_INT8 = True
 SUPPORTS_FUSED_QKV = True
+
+# the top-level keys of a whole model's params (MetaModel.from_pretrained's
+# check for a partial checkpoint)
+TOP_LEVEL_KEYS = ("tok_embeddings", "layers", "norm", "output")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -164,11 +168,12 @@ def init_kv_cache(args: LLaMAArgs, batch: int, max_len: Optional[int] = None,
     int8_kv = resolve_kv_dtype(kv_dtype) == "int8"
     dtype = torch.int8 if int8_kv else torch_dtype(dtype or args.dtype)
     shape = (batch, args.kv_heads, max_len, args.head_dim)
+    n_layers = n_layers_of(args)
 
     def pools(shape, dtype):
         if stacked:
-            return torch.zeros((args.n_layers,) + shape, dtype=dtype, device=device)
-        return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(args.n_layers)]
+            return torch.zeros((n_layers,) + shape, dtype=dtype, device=device)
+        return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n_layers)]
 
     cache = {"k": pools(shape, dtype), "v": pools(shape, dtype)}
     if int8_kv:

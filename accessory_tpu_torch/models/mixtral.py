@@ -57,6 +57,8 @@ SUPPORTS_UNROLLED_PAGED = True
 SUPPORTS_KV_INT8 = True
 SUPPORTS_CHUNKED_PREFILL = True
 
+TOP_LEVEL_KEYS = llama.TOP_LEVEL_KEYS
+
 _ATT = ("wq", "wk", "wv", "wo")
 
 

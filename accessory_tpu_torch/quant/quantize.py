@@ -1,7 +1,11 @@
 """Whole-model quantization: swap eligible dense weights in a params tree for
-QuantizedWeights. Port of ``accessory_tpu/quant/quantize.py`` (same
+QuantizedWeights. Port of ``accessory_tpu/quant/quantize.py`` (its
 blocklist, output-head exclusion, in_dim padding rule and per-expert
-quantization of MoE expert leaves)."""
+quantization of MoE expert leaves). The blocklist adds
+``word_embeddings``, InternLM's and Falcon's embedding table: the JAX
+package's blocks only LLaMA's ``tok_embeddings``, so it quantizes that
+table whenever the vocabulary is a multiple of the group size, and its
+forward's table lookup then fails (ROADMAP C8)."""
 
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from accessory_tpu_torch.quant.qtensor import (quantize_weight, to_folded_layout
 # path substrings never quantized
 DEFAULT_BLOCKLIST = (
     "tok_embeddings",
+    "word_embeddings",
     "norm",
     "lora",
     "bias",

@@ -11,7 +11,10 @@
                                                train_parity,train_qpeft7b,train_full,
                                                finetune,parity_ffn,serve_ffn,decode_ffn,
                                                decode7b_ffn,paged_ro,cp_shards,train_cp,
-                                               parity_moe,serve_moe,decode_moe,batcher_moe]
+                                               parity_moe,serve_moe,decode_moe,batcher_moe,
+                                               parity_zoo,serve_falcon40b,decode_falcon40b,
+                                               serve_internlm7b,decode_internlm7b,
+                                               torch_import]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
     python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
@@ -19,8 +22,9 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   device    the card (nvidia-smi name and power limit), torch and CUDA versions;
   build     compiles every kernel in accessory_tpu_torch/csrc with nvcc;
   kernels   each kernel against its plain PyTorch version on CUDA tensors at
-            the main paths' shapes (TinyLlama-1.1B, LLaMA2-7B and Mixtral-8x7B,
-            the last tagged "mixtral"): max error,
+            the main paths' shapes (TinyLlama-1.1B, LLaMA2-7B, Mixtral-8x7B,
+            Falcon-40B and InternLM-7B, the last three tagged "mixtral",
+            "falcon40b" and "internlm7b"): max error,
             kernel / plain / library-call device time (profiler CUDA trace,
             median of 3; inputs rotated through enough copies to spill the
             50 MB L2 where the model reads them cold), the kernel's wall time
@@ -168,6 +172,24 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   batcher_moe  that model through ContinuousBatcher (4 slots, 64-token pages,
             bf16 pools): 8 requests of 128-token prompts, 32 new tokens; tok/s,
             TTFT, idle share, launches exact (the calls' shapes and routing);
+  parity_zoo  Falcon-40B and InternLM-7B width (huggingface.co/tiiuae/falcon-40b
+            and internlm/internlm-7b config.json), one layer each, W4: the CPU
+            against the card through a 2 x 32 prefill and 4 teacher-forced
+            decode steps, bf16 and int8 KV, logits at parity's tolerances;
+  serve_falcon40b, serve_internlm7b  the full models (60 layers, 128 / 8 heads
+            of 64, FFN 32768, vocab 65024; 32 layers, MHA of 128, FFN 11008,
+            biased Wqkv, vocab 103168), W4 g128 built on the card from --seed:
+            the 8 prompts (1024 prefill rows) and 32 new tokens through
+            MetaModel.generate, bf16 KV, launch counts exact (6 / 5 W4 products
+            a layer); setup s, peak GB, prefill ms, tok/s;
+  decode_falcon40b, decode_internlm7b  those models at batch 8, cache 1024,
+            30 steps from position 512, bf16 then int8 KV: wall ms a step, the
+            bytes bound, device time by kernel (row 1, attention, the head,
+            the eager elementwise and reduction kernels) and the idle share;
+  torch_import  a consolidated.00-of-02 / 01-of-02 pair at InternLM-7B width
+            (2 layers) written with torch.save, loaded through
+            MetaModel.from_pretrained(..., quant=True): every leaf and the
+            greedy tokens equal to the same tensors built in memory;
   compare   (not in the default run) rows 5, 3 and 26's forward through calls
             every version of the package has had (planes_qmm_bigm's and the
             flash forward's own arguments), device time and the library
@@ -207,6 +229,20 @@ LLAMA2_7B = dict(dim=4096, n_layers=32, n_heads=32, vocab_size=32000, multiple_o
 MIXTRAL_8X7B = dict(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, hidden_dim=14336,
                     num_experts=8, num_experts_per_tok=2, vocab_size=32000, rope_theta=1e6,
                     dtype="bfloat16")
+# Falcon-40B (huggingface.co/tiiuae/falcon-40b config.json) and InternLM-7B
+# (huggingface.co/internlm/internlm-7b config.json) at full width
+FALCON_40B = dict(num_layers=60, hidden_size=8192, num_attention_heads=128, num_kv_heads=8,
+                  new_decoder_architecture=True, parallel_attn=True, bias=False,
+                  vocab_size=65024, layer_norm_epsilon=1e-5, dtype="bfloat16")
+INTERNLM_7B = dict(num_layers=32, hidden_size=4096, num_attention_heads=32, mlp_ratio=8 / 3,
+                   multiple_of=256, norm_type="rmsnorm", layer_norm_epsilon=1e-6, bias=True,
+                   vocab_size=103168, dtype="bfloat16")
+# their W4 products (name, K, N) where the LLaMA2-7B rows do not already
+# hold the shape (InternLM's out_proj is 7B's wo; its w3's K 11008 is padded
+# to 11264 in the weight)
+FALCON_PROJ = [("wq/dense", 8192, 8192), ("wk/wv", 8192, 512), ("h_to_4h", 8192, 32768),
+               ("4h_to_h", 32768, 8192)]
+INTERNLM_PROJ = [("Wqkv", 4096, 12288), ("w1/w2", 4096, 11008), ("w3", 11008, 4096)]
 # Mixtral's quantized products (name, K, N): the attention projections and
 # one expert's
 MIXTRAL_PROJ = [("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024), ("w1/w3", 4096, 14336),
@@ -1544,11 +1580,20 @@ def phase_kernels(seed: int, names=None):
         #    and w2 at the decode batch 8 and at one row, K 4096 and 14336
         _kernels_w4(kr, "mixtral", [(nm, k, n, "") for nm, k, n in MIXTRAL_PROJ], (1, 8),
                     (None, None, "", 0))
+        # -- Falcon-40B's and InternLM-7B's projections (no fusion: their own
+        #    norms and biases) at the decode batch 8, Falcon's also at one row
+        _kernels_w4(kr, "falcon40b", [(nm, k, n, "") for nm, k, n in FALCON_PROJ], (1, 8),
+                    (None, None, "", 0))
+        _kernels_w4(kr, "internlm7b", [(nm, k, n, "") for nm, k, n in INTERNLM_PROJ], (8,),
+                    (None, None, "", 0))
 
     if want("w4_matmul_bigm"):
         # -- Mixtral's 8 x 128 = 1024-row prefill: wk / wv and an expert's products
         #    (its wq / wo are the 7B wo rows below)
         _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in MIXTRAL_PROJ[1:]], tag="mixtral")
+        # -- Falcon-40B's and InternLM-7B's 1024-row prefill
+        _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in FALCON_PROJ], tag="falcon40b")
+        _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in INTERNLM_PROJ], tag="internlm7b")
         # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, the QPEFT
         #    training step's 8 x 512 = 4096, and one row count that is not a
         #    multiple of the 256-row tile
@@ -1579,6 +1624,12 @@ def phase_kernels(seed: int, names=None):
         for int8 in (False, True):
             _kernels_decode(kr, "mixtral", 32, 8, 128, ((8, 1024, 511), (8, 192, 150)),
                             int8=int8, most_copies=8)
+        # -- Falcon-40B (NKV 8, R 16, HD 64): the fused bf16 and int8 decode at
+        #    the decode and serve shapes, and the read-only forms (unfused route)
+        for int8, write in ((False, True), (True, True), (False, False), (True, False)):
+            _kernels_decode(kr, "falcon40b", 128, 8, 64,
+                            ((8, 1024, 511), (8, 192, 150)) if write else ((8, 1024, 511),),
+                            int8=int8, write=write, most_copies=8)
         # -- the read-only forms as the stacked path calls them: q, k, v each a
         #    tensor of its own (separate projections), not views of one wqkv output
         for int8 in (False, True):
@@ -1607,7 +1658,7 @@ def phase_kernels(seed: int, names=None):
         _kernels_flash(kr, (("tiny", 4, 128, 32, 4, 64), ("tiny", 1, 128, 32, 4, 64),
                             ("tiny", 4, 200, 32, 4, 64),
                             ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128),
-                            ("mixtral", 8, 128, 32, 8, 128),
+                            ("mixtral", 8, 128, 32, 8, 128), ("falcon40b", 8, 128, 128, 8, 64),
                             ("700m", 2, 2048, 16, 8, 128)))
 
     if want("kv_write"):
@@ -1621,6 +1672,8 @@ def phase_kernels(seed: int, names=None):
         _kernels_slab8(kr, "7b", 8, 32, 128, 192, 128, (0, 37))
         _kernels_slab(kr, "mixtral", 8, 8, 128, 192, 128, (0,))
         _kernels_slab8(kr, "mixtral", 8, 8, 128, 192, 128, (0,))
+        _kernels_slab(kr, "falcon40b", 8, 8, 64, 192, 128, (0,))
+        _kernels_slab8(kr, "falcon40b", 8, 8, 64, 192, 128, (0,))
         # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
         #    shapes, and the stacked writes of all 22 layers in one launch
         #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
@@ -1755,44 +1808,49 @@ LOGIT_REL_L2 = 2e-2   # ||gpu - cpu|| / ||cpu||
 
 def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: int, steps: int,
                  s_len: int, kv_dtypes=(None,), stacked: bool = False, make_params=None,
-                 label: str = "W4", ffn_fuse: bool = False):
+                 label: str = "W4", ffn_fuse: bool = False, family: str = "llama"):
     """Same weights, CPU through the plain versions vs the card through the
     kernels: prefill logits, then ``steps`` decode steps fed the CPU's greedy
     tokens, once per KV-cache dtype. ``stacked``: the stacked-cache path
     (separate projections, read-only attention, one bulk write per forward).
     ``make_params(args)``: the quantized (unfused) params on the card, W4 RTN
     by default. ``ffn_fuse``: both sides' decode steps take the fused FFN.
-    Returns the card's prefill logits of the last run."""
+    ``family``: the model module (``cfg`` its args' fields; LLaMA's wqkv /
+    w13 fused for the unrolled path, the other families' projections as
+    they are). Returns the card's prefill logits of the last run."""
     import torch
 
-    from accessory_tpu_torch.config import LLaMAArgs
-    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.config import ARGS_REGISTRY
+    from accessory_tpu_torch.models import get_model_module
     from accessory_tpu_torch.quant.fuse import fuse_for_decode
     from accessory_tpu_torch.quant.quantize import quantize_params
 
-    args = LLaMAArgs(**dict(cfg, n_layers=n_layers), max_seq_len=s_len)
+    module = get_model_module(family)
+    depth = "n_layers" if family == "llama" else "num_layers"
+    args = ARGS_REGISTRY[family](**dict(cfg, **{depth: n_layers}), max_seq_len=s_len)
     params_gpu = (make_params(args) if make_params is not None
-                  else quantize_params(llama.init_params(args, seed=seed)))
-    if not stacked:
+                  else quantize_params(module.init_params(args, seed=seed)))
+    if not stacked and getattr(module, "SUPPORTS_FUSED_QKV", False):
         params_gpu = fuse_for_decode(params_gpu)
+    torch.cuda.empty_cache()
     params_cpu = _tree_to(params_gpu, "cpu")
     g = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, args.vocab_size, (b, plen), generator=g)
     for kv_dtype in kv_dtypes:
-        cache_g = llama.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, stacked=stacked)
-        cache_c = llama.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, device="cpu",
-                                      stacked=stacked)
+        cache_g = module.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, stacked=stacked)
+        cache_c = module.init_kv_cache(args, b, s_len, kv_dtype=kv_dtype, device="cpu",
+                                       stacked=stacked)
         cpu_s = 0.0
 
         def cpu_forward(tokens, pos):
             nonlocal cpu_s
             t0 = time.perf_counter()
-            out, _ = llama.forward(params_cpu, args, tokens, cache=cache_c, cur_pos=pos,
-                                   ffn_fuse=ffn_fuse)
+            out, _ = module.forward(params_cpu, args, tokens, cache=cache_c, cur_pos=pos,
+                                    ffn_fuse=ffn_fuse)
             cpu_s += time.perf_counter() - t0
             return out
 
-        lg, _ = llama.forward(params_gpu, args, prompt.cuda(), cache=cache_g, cur_pos=0)
+        lg, _ = module.forward(params_gpu, args, prompt.cuda(), cache=cache_g, cur_pos=0)
         first = lg
         lc = cpu_forward(prompt, 0)
         worst_abs, worst_rel, checked, agreed = 0.0, 0.0, 0, 0
@@ -1813,14 +1871,15 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
         compare(lg, lc)
         tok = lc[:, -1].argmax(-1)
         for i in range(steps):
-            lg, _ = llama.forward(params_gpu, args, tok[:, None].cuda(), cache=cache_g,
-                                  cur_pos=plen + i, ffn_fuse=ffn_fuse)
+            lg, _ = module.forward(params_gpu, args, tok[:, None].cuda(), cache=cache_g,
+                                   cur_pos=plen + i, ffn_fuse=ffn_fuse)
             lc = cpu_forward(tok[:, None], plen + i)
             compare(lg, lc)
             tok = lc[:, -1].argmax(-1)
         row = {"phase": phase, "path": "stacked" if stacked else "unrolled", "weights": label,
-               "ffn_fuse": ffn_fuse,
-               "layers": args.n_layers, "dim": args.dim, "batch": b, "prompt": plen,
+               "ffn_fuse": ffn_fuse, "family": family,
+               "layers": n_layers, "dim": getattr(args, "dim", None) or args.hidden_size,
+               "batch": b, "prompt": plen,
                "prefill_rows": b * plen, "decode_steps": steps,
                "kv_dtype": kv_dtype or "bf16", "cpu_seconds": round(cpu_s, 2),
                "max_abs_logit_err": worst_abs, "max_rel_l2_err": worst_rel,
@@ -4147,6 +4206,301 @@ def phase_batcher_moe(model):
     return counts
 
 
+# ---------------------------------------------------------------- InternLM and Falcon
+
+
+def _zoo_family(name: str):
+    """(llama_type, config, module, W4 products a layer) of a zoo model."""
+    from accessory_tpu_torch.models import falcon, internlm
+
+    return {"Falcon-40B": ("falcon", FALCON_40B, falcon, 6),
+            "InternLM-7B": ("internlm", INTERNLM_7B, internlm, 5)}[name]
+
+
+def phase_parity_zoo(seed: int):
+    """Falcon-40B and InternLM-7B at full width, one layer each (W4 from
+    ``quantize_params`` of a seeded dense layer, the embeddings and head
+    dense): the CPU (plain versions) against the card (kernels) through a
+    2 x 32 prefill and 4 teacher-forced decode steps, bf16 then int8 KV,
+    logits within LOGIT_TOL_FRAC / LOGIT_REL_L2 (phase_parity)."""
+    import torch
+
+    for name in ("Falcon-40B", "InternLM-7B"):
+        family, cfg, _, _ = _zoo_family(name)
+        phase_parity(seed, "parity_zoo", cfg, 1, b=2, plen=32, steps=4, s_len=128,
+                     kv_dtypes=(None, "int8"), family=family)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _zoo_model(name: str, seed: int, max_seq_len: int):
+    """The full-width model ``name`` (FALCON_40B: 60 layers, 128 / 8 heads of
+    64, FFN 32768; INTERNLM_7B: 32 layers, MHA of 128, FFN 11008, biased
+    Wqkv / out_proj), W4 g128 folded, built leaf by leaf on the card from
+    ``seed`` (the dense bf16 model never exists): every projection a
+    ``_random_w4`` (K padded to the multiple of 1024 ``quantize_params``
+    gives it), biases 0.02-scaled, norms one, embeddings and head bf16.
+    Returns (model, setup s, peak bytes)."""
+    import torch
+
+    from accessory_tpu_torch.meta import MetaModel
+    from accessory_tpu_torch.quant.quantize import pad_to
+
+    family, cfg, module, _ = _zoo_family(name)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = MetaModel(family, dict(cfg), max_seq_len=max_seq_len, init_params=False)
+    a = model.args
+    d = a.hidden_size
+
+    def dense(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def w4(k, n, bias=False):
+        mod = {"weight": _random_w4(gen, k + (-k) % pad_to(k, 128), n)}
+        if bias:
+            mod["bias"] = dense((n,), 0.02)
+        return mod
+
+    def norm(bias):
+        mod = {"weight": torch.ones(d, dtype=torch.bfloat16, device="cuda")}
+        if bias:
+            mod["bias"] = torch.zeros(d, dtype=torch.bfloat16, device="cuda")
+        return mod
+
+    layers = []
+    for _ in range(a.num_layers):
+        if family == "falcon":
+            kvd = a.kv_heads * a.head_dim
+            layers.append({"ln_attn": norm(True), "ln_mlp": norm(True),
+                           "self_attention": {"wq": w4(d, d), "wk": w4(d, kvd),
+                                              "wv": w4(d, kvd), "dense": w4(d, d)},
+                           "mlp": {"dense_h_to_4h": w4(d, 4 * d),
+                                   "dense_4h_to_h": w4(4 * d, d)}})
+        else:
+            hidden = module._hidden_dim(a)
+            layers.append({"norm1": norm(False), "norm2": norm(False),
+                           "mixer": {"Wqkv": w4(d, 3 * d, True), "out_proj": w4(d, d, True)},
+                           "mlp": {"w1": w4(d, hidden), "w2": w4(d, hidden),
+                                   "w3": w4(hidden, d)}})
+    final = {"ln_f": norm(True)} if family == "falcon" else {"norm": norm(False)}
+    model.params = {"word_embeddings": {"weight": dense((a.vocab_size, d), 1.0)},
+                    "layers": layers, **final,
+                    "output": {"weight": dense((d, a.vocab_size), d ** -0.5)}}
+    model.tokenizer = ByteTokenizer()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def phase_serve_zoo(name: str, seed: int):
+    """The full-width model ``name`` through MetaModel.generate: the 8 PROMPTS
+    in the 128-token bucket (a 1024-row prefill: every projection on row
+    5), 32 new tokens, greedy, bf16 KV, launch counts exact (W4 products a
+    layer x layers on row 5 once and on row 1 a decode step; flash and the
+    slab write once a layer; the decode attention, GQA or one-query-head, a
+    layer a step). Returns (model, counts)."""
+    import torch
+
+    family, _, _, n_proj = _zoo_family(name)
+    phase = "serve_" + name.lower().replace("-", "")
+    model, setup_s, setup_peak = _zoo_model(name, seed, 512)
+    n_layers, mha = model.args.num_layers, model.args.kv_heads == model.args.num_attention_heads
+    model.kv_dtype = None
+    model._reset_generator()
+    prefill_ms = _timed_prefill(model, 8, 128, 192, None)
+    outs, counts, steps, total_s = _counted_generate(model, PROMPTS, 32)
+    want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
+                        w4_matmul=n_proj * n_layers * steps, w4_matmul_bigm=n_proj * n_layers,
+                        **{"decode_attention_mha" if mha else "decode_attention":
+                           n_layers * steps})
+    row = {"phase": phase, "model": f"{name} shape", "family": family, "kv_dtype": "bf16",
+           "layers": n_layers, "batch": len(PROMPTS),
+           "prompt_tokens": [len(p) + 1 for p in PROMPTS], "prefill_rows": 8 * 128,
+           "decode_steps": steps, "launches": counts, "launches_expected": want,
+           "setup_s": setup_s, "setup_peak_gb": setup_peak / 1e9,
+           "weight_gb": _qw_bytes(model.params) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "prefill_ms": prefill_ms,
+           "generate_s": total_s,
+           "decode_tok_s": len(PROMPTS) * steps / max(total_s - prefill_ms / 1e3, 1e-9),
+           "outputs_chars": [len(o) for o in outs]}
+    emit(row)
+    if counts != want or steps < 32 or len(outs) != len(PROMPTS):
+        raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+    return model, counts
+
+
+def phase_decode_zoo(name: str, model, kv_dtype, steps: int = 30):
+    """The model at batch 8, a 1024-token cache, ``steps`` forward steps from
+    position 512 (8 different tokens): wall ms a step, launch counts exact,
+    the bytes bound (every weight byte but the embedding table's, and the
+    KV read of each step at 3.35 TB/s), then device time by kernel over 4
+    profiled steps with the shares of row 1, the attention, the head
+    (cuBLAS, "nvjet") and the eager elementwise and reduction kernels, and
+    the idle share. Returns the counts."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+
+    _, _, module, n_proj = _zoo_family(name)
+    phase = "decode_" + name.lower().replace("-", "")
+    args, params = model.args, model.generator.params
+    batch, cache_len, pos0 = 8, 1024, 512
+    cache = module.init_kv_cache(args, batch, cache_len, kv_dtype=kv_dtype)
+    tok = (torch.arange(batch, device="cuda")[:, None] * 37 + 11).to(torch.int64)
+    int8, mha = "ks" in cache, args.kv_heads == args.num_attention_heads
+    n_layers = args.num_layers
+    for i in range(3):
+        module.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, _ = module.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = kernels.launch_counts()
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase}: non-finite logits")
+    attn = ("decode_attention_mha" if mha else "decode_attention") + ("8" if int8 else "")
+    want = _zero_counts(w4_matmul=n_proj * n_layers * steps, **{attn: n_layers * steps})
+
+    def nbytes(node):
+        if isinstance(node, dict):
+            return sum(nbytes(v) for k, v in node.items() if k != "word_embeddings")
+        if isinstance(node, list):
+            return sum(nbytes(v) for v in node)
+        if hasattr(node, "packed"):
+            return _qw_bytes(node)
+        return node.numel() * node.element_size()
+
+    w_bytes = nbytes(params)
+    token_bytes = sum(c[0].numel() * c[0].element_size() for c in cache.values()) \
+        // (batch * args.kv_heads * cache_len)   # k + v (+ scales) of one cached token of a head
+    kv_read = sum(n_layers * batch * args.kv_heads * (pos0 + i) * token_bytes
+                  for i in range(steps)) / steps
+    b_ms, _ = bound_ms(w_bytes + kv_read, 0.0)
+    row = {"phase": phase, "model": f"{name} shape", "kv_dtype": kv_dtype or "bf16",
+           "layers": n_layers, "batch": batch, "cache_len": cache_len, "steps": steps,
+           "ms_per_step": ms, "tok_s": batch / ms * 1e3, "bound_ms_per_step": b_ms,
+           "bound_gb_per_step": (w_bytes + kv_read) / 1e9,
+           "bound_parts_gb_per_step": {"weights": w_bytes / 1e9, "kv_read": kv_read / 1e9},
+           "launches": counts, "launches_expected": want}
+    if counts != want:
+        emit(row)
+        raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+    row["profile"] = _profile_steps(params, args, tok, cache, pos0, ms, steps=4, module=module,
+                                    shares=("W4Folded", "decode_attn", "nvjet", "elementwise",
+                                            "reduce_kernel"))
+    emit(row)
+    return counts
+
+
+def _reference_state_dict(cfg: dict, seed: int):
+    """An InternLM state dict in the reference's names and (out, in)
+    orientation, bf16, drawn on the host from ``seed``."""
+    import torch
+
+    from accessory_tpu_torch.config import InternLMArgs
+    from accessory_tpu_torch.models import internlm
+
+    a = InternLMArgs(**cfg)
+    d, hidden, v = a.hidden_size, internlm._hidden_dim(a), a.vocab_size
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, scale=None):
+        scale = scale or shape[-1] ** -0.5
+        return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16)
+
+    sd = {"word_embeddings.weight": w(v, d, scale=1.0), "norm.weight": w(d, scale=0.1) + 1,
+          "output.weight": w(v, d)}
+    for i in range(a.num_layers):
+        p = f"layers.{i}."
+        sd.update({p + "norm1.weight": w(d, scale=0.1) + 1,
+                   p + "norm2.weight": w(d, scale=0.1) + 1,
+                   p + "mixer.Wqkv.weight": w(3 * d, d),
+                   p + "mixer.Wqkv.bias": w(3 * d, scale=0.02),
+                   p + "mixer.out_proj.weight": w(d, d),
+                   p + "mixer.out_proj.bias": w(d, scale=0.02),
+                   p + "mlp.w1.weight": w(hidden, d), p + "mlp.w2.weight": w(hidden, d),
+                   p + "mlp.w3.weight": w(d, hidden)})
+    return sd
+
+
+def phase_torch_import(seed: int, n_layers: int = 2):
+    """The reference's checkpoint format on the card: an InternLM-7B-width
+    state dict (``n_layers`` layers, bf16, from ``seed``) split by the
+    tensor-parallel dim table into a ``consolidated.00-of-02.model.pth`` /
+    ``01-of-02`` pair written with torch.save, loaded with
+    ``MetaModel.from_pretrained(..., quant=True)``, against a MetaModel built
+    from the same tensors in memory and quantized: every leaf bit for bit,
+    and identical greedy tokens (4 prompts, 16 new tokens)."""
+    import os
+
+    import torch
+
+    from accessory_tpu_torch.checkpoint.torch_import import _merge_rule
+    from accessory_tpu_torch.meta import MetaModel
+
+    cfg = dict(INTERNLM_7B, num_layers=n_layers)
+    t0 = time.perf_counter()
+    sd = _reference_state_dict(cfg, seed)
+    draw_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="accessory_consolidated_")
+    try:
+        t0 = time.perf_counter()
+        shards = [{}, {}]
+        for name, t in sd.items():
+            rule, dim = _merge_rule(name, "internlm")
+            parts = [t, t] if rule == "rep" else t.chunk(2, dim)
+            for shard, part in zip(shards, parts):
+                # a copy of its own: torch.save writes a view's whole storage
+                shard["llma." + name] = part.clone()
+        for r, shard in enumerate(shards):
+            torch.save({"model": shard}, os.path.join(tmp, f"consolidated.{r:02d}-of-02.model.pth"))
+        del shards
+        files = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = MetaModel.from_pretrained(tmp, llama_type="internlm", llama_config=[cfg],
+                                           max_seq_len=256, quant=True, tokenizer=ByteTokenizer())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def lin(name):
+        mod = {"weight": sd[name + ".weight"].t().contiguous().cuda()}
+        if name + ".bias" in sd:
+            mod["bias"] = sd[name + ".bias"].cuda()
+        return mod
+
+    mem = MetaModel("internlm", cfg, max_seq_len=256, init_params=False)
+    mem.params = {"word_embeddings": {"weight": sd["word_embeddings.weight"].cuda()},
+                  "norm": {"weight": sd["norm.weight"].cuda()}, "output": lin("output"),
+                  "layers": [{"norm1": {"weight": sd[f"layers.{i}.norm1.weight"].cuda()},
+                              "norm2": {"weight": sd[f"layers.{i}.norm2.weight"].cuda()},
+                              "mixer": {m: lin(f"layers.{i}.mixer.{m}")
+                                        for m in ("Wqkv", "out_proj")},
+                              "mlp": {m: lin(f"layers.{i}.mlp.{m}") for m in ("w1", "w2", "w3")}}
+                             for i in range(n_layers)]}
+    mem.tokenizer = ByteTokenizer()
+    mem.quantize()
+    del sd
+    n_same = _same_params(mem.params, loaded.params)
+    prompts = PROMPTS[:4]
+    texts = [m.generate(prompts, max_gen_len=16) for m in (loaded, mem)]
+    same = bool((loaded.generator.last_tokens == mem.generator.last_tokens).all())
+    row = {"phase": "torch_import", "model": f"InternLM-7B width, {n_layers} layers",
+           "format": "consolidated mp 2", "files": files, "bytes": sum(files.values()),
+           "draw_s": draw_s, "save_s": save_s, "from_pretrained_s": load_s,
+           "tensors_compared_bit_for_bit": n_same, "greedy_tokens_identical": same,
+           "texts_equal": texts[0] == texts[1]}
+    emit(row)
+    if not same or texts[0] != texts[1]:
+        raise AssertionError(f"torch_import: greedy tokens differ: {row}")
+
+
 KERNELS = {
     "w4_matmul": ("accessory_tpu_torch/csrc/w4_matmul.cu",
                   "accessory_tpu/ops/quant_matmul_planes.py:313", "7b w13 M=8"),
@@ -4255,7 +4609,8 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
               "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
-              "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe")
+              "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,parity_zoo,"
+              "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,torch_import")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
                      "decode_ffn")
@@ -4476,6 +4831,29 @@ def main() -> int:
             if "batcher_moe" in phases:
                 counts_by_path["mixtral batcher"] = phase_batcher_moe(model)
             del model
+            torch.cuda.empty_cache()
+        if "parity_zoo" in phases:
+            phase_parity_zoo(opts.seed)
+        for name in ("Falcon-40B", "InternLM-7B"):
+            tag = name.lower().replace("-", "")
+            if f"serve_{tag}" not in phases and f"decode_{tag}" not in phases:
+                continue
+            # the full-width W4 model on the card: every earlier model is freed
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, counts_by_path[tag] = phase_serve_zoo(name, opts.seed)
+            if f"decode_{tag}" in phases:
+                bench = {}
+                for kv_dtype in (None, "int8"):
+                    model.kv_dtype = kv_dtype
+                    model._reset_generator()
+                    _add_counts(bench, phase_decode_zoo(name, model, kv_dtype))
+                counts_by_path[tag + " bench"] = bench
+            del model
+            torch.cuda.empty_cache()
+        if "torch_import" in phases:
+            phase_torch_import(opts.seed)
+            gc.collect()
             torch.cuda.empty_cache()
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES

@@ -391,15 +391,16 @@ def test_save_filter_flatten_and_stream(tmp_path, tok_path):  # noqa: F811
 
 
 def test_unported_checkpoints_raise(tmp_path, tok_path):  # noqa: F811
-    """A directory of PyTorch consolidated.* files names ROADMAP A5; a W8 leaf
-    of the JAX package loads, in the port's w8 layout; a directory without
-    weights is a FileNotFoundError; from_pretrained without a tokenizer says
-    so."""
+    """A directory of PyTorch consolidated.* files is imported
+    (test_torch_torch_import holds that), and one that lacks a shard of its
+    save is refused before any is read; a W8 leaf of the JAX package loads,
+    in the port's w8 layout; a directory without weights is a
+    FileNotFoundError; from_pretrained without a tokenizer says so."""
     args = LLaMAArgs(**CFG, vocab_size=32, dtype="float32")
     ref = tmp_path / "ref"
     ref.mkdir()
-    (ref / "consolidated.00-of-01.model.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A5"):
+    (ref / "consolidated.00-of-02.model.pth").write_bytes(b"")
+    with pytest.raises(ValueError, match="expect 2 shards"):
         load_checkpoint_list([str(ref)], args=args, device="cpu")
     with pytest.raises(FileNotFoundError):
         load_checkpoint_list([str(tmp_path / "nothing")], args=args, device="cpu")

@@ -29,7 +29,12 @@ all-zero vector and quotients at .5, and the one-query-head int8 decode
 kernels over caches holding every byte value; and the kernels at
 Mixtral-8x7B's shapes (its separate projections and experts at K 4096 and
 14336 on the GEMV and the many-row kernel, flash and the slab writes at 8
-KV heads of 128) with a small Mixtral's routed forward, card against CPU.
+KV heads of 128) with a small Mixtral's routed forward, card against CPU;
+and at Falcon-40B's and InternLM-7B's (the W4 products at K 32768 and N
+32768 / 512 and InternLM's FFN on the GEMV and the many-row kernel, the GQA
+decode at R 16, head_dim 64, the one-query-head decode and the slab writes
+at 32 heads of 128 with v a view of the fused Wqkv output, flash at 128 /
+8 heads) with small models of both families, card against CPU.
 Each test carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
@@ -2411,3 +2416,182 @@ def test_small_mixtral_cuda_matches_cpu(gen, kv_dtype):
             assert float((g - c).norm() / c.norm()) < 4e-2, (lo, hi)
             assert float((g - c).abs().max()) < 5e-2 * float(c.abs().max()), (lo, hi)
     assert float(torch.cat(agree_all).float().mean()) >= 0.9 and compared >= 3 * 40 // 2
+
+
+# ---------------------------------------------------------------- Falcon-40B and InternLM-7B
+
+
+# their W4 products beyond the LLaMA2-7B and Mixtral shapes: Falcon-40B's wk /
+# wv, dense_h_to_4h and dense_4h_to_h (K 32768), InternLM-7B's w1 / w2 and its
+# w3 (K 11008, padded to 11264 in the weight)
+ZOO_PROJ = [(8192, 512, None), (8192, 32768, None), (32768, 8192, None), (4096, 11008, None),
+            (11008, 4096, 1024)]
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n,pad", ZOO_PROJ)
+def test_w4_matmul_zoo_shapes(gen, m, k, n, pad):
+    """Row 1's GEMV at Falcon-40B's and InternLM-7B's decode products, no
+    fusion (their biases are added after it): one launch, within a rounding
+    step of the plain version."""
+    qw = _w4(gen, k, n, pad_in_to=pad)
+    args = (randn(gen, m, k), qw.packed, qw.scales, qw.zeros)
+    got = _one_more("w4_matmul", lambda: planes_qmm(*args, in_dim=qw.in_dim, group_size=128))
+    assert_close(got, planes_qmm_plain(*args, in_dim=qw.in_dim, group_size=128))
+
+
+@pytest.mark.parametrize("k,n,pad", ZOO_PROJ)
+def test_w4_matmul_bigm_zoo(gen, k, n, pad):
+    """Row 5 at their 8 x 128 = 1024-row prefill: within a rounding step of
+    the plain version, a second launch bit-equal."""
+    qw = _w4(gen, k, n, pad_in_to=pad)
+    x = randn(gen, 1024, k)
+    kw = dict(in_dim=qw.in_dim, group_size=128)
+    got = _one_more("w4_matmul_bigm",
+                    lambda: planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, **kw))
+    assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, **kw))
+    again = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s_len,pos", [(1024, 0), (1024, 511), (1024, 1023), (192, 150)])
+def test_decode_attention_falcon40b(gen, int8, s_len, pos):
+    """Rows 2 and 13 at Falcon-40B's decode (batch 8, 128 query heads over 8
+    KV heads: R 16, head_dim 64; q, k and v separate tensors, as its separate
+    projections give them): the fused kernel against its plain version; the
+    read-only form (rows 9 / 15) against its plain version."""
+    b, nq, nkv, hd = 8, 128, 8, 64
+    q, kn, vn = randn(gen, b, 1, nq, hd), randn(gen, b, 1, nkv, hd), randn(gen, b, 1, nkv, hd)
+    pools = _int8_pools(gen, b, nkv, s_len, hd) if int8 else (randn(gen, b, nkv, s_len, hd),
+                                                              randn(gen, b, nkv, s_len, hd))
+    keep = tuple(p.clone() for p in pools)
+    attn, plain = (cached_attention_t8, cached_attention_decode8_plain) if int8 \
+        else (cached_attention_t, cached_attention_decode_plain)
+    name = "decode_attention8" if int8 else "decode_attention"
+    got = _one_more(name + "_ro", lambda: attn(q, kn, vn, *pools, pos))
+    assert_close(got, plain(q, kn, vn, *keep, pos))
+    update, update_plain = (decode_attention_update8, decode_attention_update8_plain) if int8 \
+        else (decode_attention_update, decode_attention_update_plain)
+    got = _one_more(name, lambda: update(q, kn, vn, *pools, pos))
+    want = update_plain(q, kn, vn, *keep, pos)
+    assert_close(got[0], want[0])
+    if int8:
+        assert_pools8(got[1:], want[1:])
+    else:
+        assert all(torch.equal(a, b_) for a, b_ in zip(got[1:], want[1:]))
+
+
+def _internlm_qkv(gen, b, sq, nh, hd):
+    """q, k (RoPE outputs: tensors of their own) and v (a view of the fused
+    Wqkv output, split (b, sq, 3, heads, hd)) as InternLM's block gives them."""
+    qkv = randn(gen, b, sq, 3 * nh * hd).view(b, sq, 3, nh, hd)
+    return qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s_len,pos", [(1024, 511), (192, 150)])
+def test_decode_attention_internlm7b(gen, int8, s_len, pos):
+    """Rows 7 and 14 at InternLM-7B's decode (batch 8, 32 heads of 128, v a
+    view of the Wqkv output): the fused one-query-head kernel against its
+    plain version, pools equal."""
+    b, nh, hd = 8, 32, 128
+    q, kn, vn = _internlm_qkv(gen, b, 1, nh, hd)
+    pools = _int8_pools(gen, b, nh, s_len, hd) if int8 else (randn(gen, b, nh, s_len, hd),
+                                                             randn(gen, b, nh, s_len, hd))
+    keep = tuple(p.clone() for p in pools)
+    update, update_plain = (decode_attention_update8, decode_attention_update8_plain) if int8 \
+        else (decode_attention_update, decode_attention_update_plain)
+    got = _one_more("decode_attention_mha8" if int8 else "decode_attention_mha",
+                    lambda: update(q, kn, vn, *pools, pos))
+    want = update_plain(q, kn, vn, *keep, pos)
+    assert_close(got[0], want[0])
+    if int8:
+        assert_pools8(got[1:], want[1:])
+    else:
+        assert all(torch.equal(a, b_) for a, b_ in zip(got[1:], want[1:]))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("family", ["falcon40b", "internlm7b"])
+def test_slab_write_zoo(gen, family, int8):
+    """Rows 4 and 17 at the prefill (B 8, sq 128): Falcon-40B's 8 KV heads of
+    64 (separate tensors), InternLM-7B's 32 of 128 (v a view of the Wqkv
+    output); the bf16 cache equal to the plain copy, the int8 pools as
+    assert_pools8 holds them."""
+    b, sq, s_len = 8, 128, 192
+    if family == "falcon40b":
+        nkv, hd = 8, 64
+        nk, nv = randn(gen, b, sq, nkv, hd), randn(gen, b, sq, nkv, hd)
+    else:
+        nkv, hd = 32, 128
+        _, nk, nv = _internlm_qkv(gen, b, sq, nkv, hd)
+    if int8:
+        pools = (torch.zeros((b, nkv, s_len, hd), dtype=torch.int8, device="cuda"),
+                 torch.zeros((b, nkv, s_len, hd), dtype=torch.int8, device="cuda"),
+                 torch.zeros((b, nkv, s_len), device="cuda"),
+                 torch.zeros((b, nkv, s_len), device="cuda"))
+        pools2 = tuple(p.clone() for p in pools)
+        got = _one_more("kv_write_q8", lambda: write_kv_layer8(*pools, nk, nv, 0))
+        assert_pools8(got, write_kv_layer8_plain(*pools2, nk, nv, 0))
+    else:
+        ck, cv = randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd)
+        ck2, cv2 = ck.clone(), cv.clone()
+        _one_more("kv_write", lambda: write_kv_layer(ck, cv, nk, nv, 0))
+        write_kv_layer_plain(ck2, cv2, nk, nv, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+def test_flash_attention_falcon40b(gen):
+    """Row 3 at Falcon-40B's prefill: B 8, S 128, 128 query / 8 KV heads of 64."""
+    q, k, v = randn(gen, 8, 128, 128, 64), randn(gen, 8, 128, 8, 64), randn(gen, 8, 128, 8, 64)
+    got = _one_more("flash_attention", lambda: flash_attention(q, k, v))
+    assert_close(got, grouped_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("family", ["internlm", "falcon"])
+def test_small_zoo_model_cuda_matches_cpu(gen, family, kv_dtype):
+    """A 2-layer W4 InternLM (MHA, biased Wqkv / out_proj) and Falcon (new
+    decoder architecture, 8 query / 2 KV heads) at hidden 512, head_dim 64:
+    a 32-token prefill and 8 decode steps, card against CPU within 2%
+    relative L2 and 2% of the largest |logit| (test_small_model_cuda_
+    matches_cpu's limits); each decode step launches row 1 once a
+    projection (5 / 6 a layer) and the decode attention once a layer."""
+    from accessory_tpu_torch.config import FalconArgs, InternLMArgs
+    from accessory_tpu_torch.models import falcon, internlm
+
+    if family == "internlm":
+        module, n_proj = internlm, 5
+        args = InternLMArgs(num_layers=2, hidden_size=512, num_attention_heads=8,
+                            vocab_size=512, multiple_of=256, max_seq_len=128)
+    else:
+        module, n_proj = falcon, 6
+        args = FalconArgs(num_layers=2, hidden_size=512, num_attention_heads=8, num_kv_heads=2,
+                          vocab_size=512, max_seq_len=128)
+    params = quantize_params(module.init_params(args, seed=3))
+    if family == "internlm":   # non-zero biases, so the bias add is held too
+        for layer in params["layers"]:
+            for mod in layer["mixer"].values():
+                mod["bias"] = randn(gen, mod["bias"].shape[0], scale=0.1)
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (3, 40), generator=torch.Generator().manual_seed(0))
+    cg = module.init_kv_cache(args, 3, 64, kv_dtype=kv_dtype)
+    cc = module.init_kv_cache(args, 3, 64, kv_dtype=kv_dtype, device="cpu")
+    attn = ("decode_attention_mha" if family == "internlm" else "decode_attention") \
+        + ("8" if kv_dtype else "")
+    for lo, hi in [(0, 32)] + [(p, p + 1) for p in range(32, 40)]:
+        kernels.reset_launch_counts()
+        lg, _ = module.forward(params, args, toks[:, lo:hi].cuda(), cache=cg, cur_pos=lo)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        lc, _ = module.forward(cpu, args, toks[:, lo:hi], cache=cc, cur_pos=lo)
+        if hi - lo == 1:
+            assert counts["w4_matmul"] == n_proj * 2 and counts[attn] == 2
+            assert sum(counts.values()) == n_proj * 2 + 2
+        g = lg.cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - lc).norm() / lc.norm()) < 2e-2, (lo, hi)
+        assert float((g - lc).abs().max()) < 2e-2 * float(lc.abs().max()) + 2e-2, (lo, hi)
