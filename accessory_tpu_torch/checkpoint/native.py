@@ -121,7 +121,9 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
 def flatten_params(params) -> Dict[str, Any]:
     """The port's params -> {path: array} as the checkpoint stores them:
     layers stacked, a quantized leaf as #packed / #scales / #zeros children
-    plus a #meta entry (its quant.json record); bf16 leaves as BF16Bits."""
+    plus a #meta entry (its quant.json record); bf16 leaves as BF16Bits; a
+    list outside ``layers`` (ConvNeXt's stages) under index keys
+    (``visual/convnext/stages/0/...``)."""
     flat: Dict[str, Any] = {}
 
     def visit(node, prefix):
@@ -133,6 +135,9 @@ def flatten_params(params) -> Dict[str, Any]:
         elif isinstance(node, dict):
             for k, v in node.items():
                 visit(v, prefix + k + "/")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                visit(v, f"{prefix}{i}/")
         else:
             flat[prefix[:-1]] = node
 

@@ -1,10 +1,12 @@
 """Model configuration: model args built from a union merge of JSON configs.
 
 Own copy of ``accessory_tpu/config.py`` (union_merge_configs, make_args,
-LLaMAArgs, InternLMArgs, FalconArgs, MixtralArgs); field names and defaults
-are identical so one config JSON drives both packages. ``n_layers_of`` reads
-the depth of any family (LLaMA's ``n_layers``, InternLM's and Falcon's
-``num_layers``).
+LLaMAArgs, InternLMArgs, FalconArgs, MixtralArgs, SphinxArgs and the SPHINX
+families' per-type visual defaults); field names and defaults are identical
+so one config JSON drives both packages. ``n_layers_of`` reads the depth of
+any family (LLaMA's ``n_layers``, InternLM's and Falcon's ``num_layers``).
+SPHINX-MoE (``SphinxMoEArgs``, ``mixtral_sparse_ens*``) is not ported
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -188,9 +190,64 @@ class MixtralArgs:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
 
 
+@dataclass
+class _VisualTowerFields:
+    """SPHINX's visual ensemble. The tower sizes default to the production
+    towers: CLIP ViT-L/14, DINOv2 ViT-g/14, OpenCLIP ConvNeXt-XXL and the
+    BLIP-2 Q-Former."""
+
+    visual: str = "ens"
+    image_size: int = 224  # 448 for the ens5 variants, 672 for ens10
+    load_pretrained_visual_encoder: bool = False
+
+    vit_patch: int = 14
+    clip_width: int = 1024
+    clip_layers: int = 24
+    clip_heads: int = 16
+    dino_width: int = 1536
+    dino_layers: int = 40
+    dino_heads: int = 24
+    convnext_depths: tuple = (3, 4, 30, 3)
+    convnext_dims: tuple = (384, 768, 1536, 3072)
+    qformer_width: int = 768
+    qformer_layers: int = 12
+    qformer_heads: int = 12
+
+
+@dataclass
+class SphinxArgs(_VisualTowerFields, LLaMAArgs):
+    """SPHINX multimodal LLaMA (the llama_ens and llama_qformerv2 families).
+    ``visual``: "ens" | "ens5" | "ens5p2" | "ens_light" | "ens5_light"."""
+
+
 ARGS_REGISTRY = {"llama": LLaMAArgs, "internlm": InternLMArgs, "falcon": FalconArgs,
                  "mixtral": MixtralArgs, "mixtral_peft": MixtralArgs,
-                 "mixtral_sparse": MixtralArgs}
+                 "mixtral_sparse": MixtralArgs,
+                 "llama_qformerv2": SphinxArgs, "llama_qformerv2_peft": SphinxArgs,
+                 "llama_ens": SphinxArgs, "llama_ens5": SphinxArgs, "llama_ens5p2": SphinxArgs,
+                 "llama_ens10": SphinxArgs, "llama_ens_peft": SphinxArgs,
+                 "llama_ens_light": SphinxArgs, "llama_ens5_light": SphinxArgs}
+
+
+def _sphinx_visual_for(llama_type: str) -> str:
+    """The ``visual`` a SPHINX family defaults to (llama_qformerv2's module
+    ignores the ensemble fields it does not use)."""
+    return {
+        "llama_ens": "ens", "llama_ens5": "ens5", "llama_ens5p2": "ens5p2",
+        "llama_ens10": "ens5", "llama_ens_peft": "ens",
+        "llama_ens_light": "ens_light", "llama_ens5_light": "ens5_light",
+        "llama_qformerv2": "ens", "llama_qformerv2_peft": "ens",
+    }[llama_type]
+
+
+def _sphinx_image_size_for(llama_type: str) -> int:
+    """The input size of each SPHINX family; the crop count follows from
+    size // 224 (2 x 2 + 1 at 448, 3 x 3 + 1 at 672)."""
+    return {
+        "llama_ens": 224, "llama_ens_peft": 224, "llama_ens_light": 224,
+        "llama_ens5": 448, "llama_ens5p2": 448, "llama_ens5_light": 448,
+        "llama_ens10": 672,
+    }.get(llama_type, 224)
 
 
 def n_layers_of(args) -> int:

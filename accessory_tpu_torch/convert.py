@@ -23,7 +23,10 @@ from the file only as it is converted, and ``cast`` gives dense floating
 leaves another dtype on the way. ``params_to_jax`` is the way back: the
 port's per-layer tree as the stacked numpy tree the JAX package stores,
 folded leaves in its ``planes`` layout, the others in their own, and a
-layer's per-expert weights as one leaf stacked over the experts.
+layer's per-expert weights as one leaf stacked over the experts. A list
+outside ``layers`` (SPHINX's ConvNeXt stages) stays a list; a dict whose
+keys are all indices (the native checkpoint's form of such a list) becomes
+one again.
 
 ``cache_from_jax`` does the same for a KV cache: the JAX package's lane-major
 pools become the port's token-major ones; ``paged_cache_from_jax`` for a paged
@@ -176,6 +179,9 @@ def _convert(node, act_dtype, device, cast=None):
                      for e in range(n_experts))
     if _is_quantized(node):
         return _quantized(node, act_dtype, device)
+    if isinstance(node, dict) and node and all(k.isdigit() for k in node):
+        # a list the checkpoint stored under index keys (ConvNeXt's stages)
+        node = [node[k] for k in sorted(node, key=int)]
     if isinstance(node, dict):
         return {k: _convert(v, act_dtype, device, cast) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -199,7 +205,9 @@ def params_from_jax(tree: Dict[str, Any], args, device="cuda",
     """JAX params of any ported family (numpy leaves, see module docstring)
     -> the port's per-layer params on ``device``, one leaf at a time.
     ``cast``: the dtype dense floating leaves are given (quantized leaves
-    keep theirs)."""
+    keep theirs, and so does the ``visual`` subtree of the multimodal
+    families: its towers run in f32 and cross over bit for bit, stacked
+    blocks and ConvNeXt's list of stages as they are)."""
     act_dtype = torch_dtype(args.dtype)
     layers = tree["layers"]
     n_layers = n_layers_of(args)
@@ -207,7 +215,8 @@ def params_from_jax(tree: Dict[str, Any], args, device="cuda",
         layers = [_layer_slice(layers, i) for i in range(n_layers)]
     if len(layers) != n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, args say {n_layers}")
-    out = {k: _convert(v, act_dtype, device, cast) for k, v in tree.items() if k != "layers"}
+    out = {k: _convert(v, act_dtype, device, None if k == "visual" else cast)
+           for k, v in tree.items() if k != "layers"}
     out["layers"] = [_convert(layer, act_dtype, device, cast) for layer in layers]
     return out
 
@@ -262,6 +271,8 @@ def _to_jax(node):
         return _stack([_quantized_to_jax(w) for w in node])
     if isinstance(node, dict):
         return {k: _to_jax(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_to_jax(v) for v in node]
     return _np(node)
 
 

@@ -197,8 +197,8 @@ class FinetuneDataset:
     def __getitem__(self, index: int):
         item = self.ann[index]
         if item.get("image") is not None:
-            raise NotImplementedError("items with an image: the multimodal families are not "
-                                      "ported (ROADMAP A8)")
+            raise NotImplementedError("items with an image: the multimodal finetuning data is "
+                                      "not ported (ROADMAP A8)")
         answer = item["output"]
         prompt = format_prompt(item, item["sys_prompt"])
         t_prompt = self.tokenizer.encode(prompt, bos=True, eos=False)

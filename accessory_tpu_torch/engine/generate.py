@@ -18,6 +18,21 @@ package: streaming needs each token on the host.
 the weights allow it (models/llama.py ``_block``), the reference's
 ``ACCESSORY_FFN_FUSE=1``; off by default, as there.
 
+``images`` (families with a visual branch: the SPHINX families, through
+the ``encode_image`` hook ``MetaModel`` hands over): the image words are
+spliced after each prompt's leading BOS in the prefill's embeddings (the
+module's ``splice``), the cache holds ``n_image_words`` more positions,
+every text position is shifted by ``n_image_words`` and the text's length
+budget shrinks by as much. A model without a visual branch refuses
+``images`` at the call.
+
+Scoring (the reference's OpenCompass interface): ``compute_logits`` is the
+cache-free forward's f32 logits (text positions only with ``images``);
+``evaluate_examples`` scores each continuation given its context
+({loglikelihood, ppl, max_equal}): text examples batched by power-of-two
+length buckets (64, 128, ...) at a fixed batch shape, zero rows padding a
+short chunk; examples with an image one at a time (``_evaluate_one_mm``).
+
 ``unroll_decode=True`` (the default: the card is this package's accelerator)
 fuses wqkv / w13 where the model module sets ``SUPPORTS_FUSED_QKV`` (LLaMA;
 not Mixtral, whose blocks take separate projections) and decodes over
@@ -60,23 +75,29 @@ def stop_token_seqs(tokenizer, stop_symbols: Iterable[str]) -> Tuple[Tuple[int, 
     return tuple(out)
 
 
-def _no_images(images) -> None:
-    """The reference's ``images`` parameter (its second, in ``generate`` and
-    ``stream_generate``): the port serves text only so far."""
-    if images is not None:
-        raise NotImplementedError("images: the multimodal path (encode_image) is not ported "
-                                  "yet (ROADMAP A8)")
+def image_tensor(images, device) -> torch.Tensor:
+    """Images (b, 3, S, S), numpy or torch, as f32 on ``device``."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.asarray(images, dtype=np.float32))
+    return images.to(device, torch.float32)
+
+
+def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    return torch.log_softmax(logits.to(torch.float32), dim=-1)
 
 
 class Generator:
     """Wraps a model module (``forward`` / ``init_kv_cache``), its args,
-    per-layer params on ``device`` and a tokenizer."""
+    per-layer params on ``device`` and a tokenizer. ``encode_image(params,
+    images) -> image embeds (b, n_image_words, dim)``: the multimodal hook
+    (None: the model has no visual branch)."""
 
     def __init__(self, module, args, params, tokenizer, kv_dtype=None, device="cuda",
-                 unroll_decode: bool = True, ffn_fuse: bool = False):
+                 unroll_decode: bool = True, ffn_fuse: bool = False, encode_image=None):
         self.module = module
         self.args = args
         self.tokenizer = tokenizer
+        self.encode_image = encode_image
         self.kv_dtype = kv_dtype
         self.device = torch.device(device)
         self.unroll_decode = bool(unroll_decode)
@@ -88,16 +109,35 @@ class Generator:
         self.last_decode_steps = 0
         self.last_tokens = None  # the last run's token buffer (batch, buf_len), numpy
 
+    def _images(self, images):
+        """(image embeds, n_image_words), or (None, 0) without images."""
+        if images is None:
+            return None, 0
+        if self.encode_image is None:
+            raise NotImplementedError(
+                f"images: {self.module.__name__} has no visual branch (the multimodal families "
+                "are llama_ens* and llama_qformerv2; llama_adapter and SPHINX-MoE are ROADMAP "
+                "A8)")
+        embeds = self.encode_image(self.params, images)
+        return embeds, embeds.shape[1]
+
+    def _prefill(self, tokens, cache, embeds):
+        """The position-0 forward of ``tokens``, with the image words spliced
+        after the BOS (the module's ``splice``) when ``embeds`` is given."""
+        kw = {} if embeds is None else {"embeds": self.module.splice(self.params, tokens, embeds)}
+        return self.module.forward(self.params, self.args, tokens, cache=cache, cur_pos=0,
+                                   ffn_fuse=self.ffn_fuse, **kw)
+
     @torch.no_grad()
     def generate(self, prompts: List[str], images=None, max_gen_len: int = 512,
                  temperature: float = 0.0, top_p: float = 0.95,
                  additional_stop_symbols: Iterable[str] = (), seed: int = 0) -> List[str]:
-        _no_images(images)
         if isinstance(prompts, str):
             raise ValueError("generate expects a batched LIST of prompts")
+        embeds, n_image_words = self._images(images)
         bsz = len(prompts)
         prompt_tokens = [self.tokenizer.encode(x, bos=True, eos=False) for x in prompts]
-        max_seq_len = self.args.max_seq_len
+        max_seq_len = self.args.max_seq_len - n_image_words
         keep = max(1, max_seq_len - max_gen_len)
         prompt_tokens = [t[-keep:] for t in prompt_tokens]
         min_prompt = min(len(t) for t in prompt_tokens)
@@ -113,7 +153,8 @@ class Generator:
         prefill_len = min(_round_up(min_prompt), buf_len)
         stop_seqs = stop_token_seqs(self.tokenizer, additional_stop_symbols)
         out_tokens, stop_pos = self._run(tokens, mask, prefill_len, min_prompt, total_len,
-                                         temperature, top_p, stop_seqs, seed)
+                                         temperature, top_p, stop_seqs, seed, embeds,
+                                         n_image_words)
         decoded = []
         for i in range(bsz):
             plen = len(prompt_tokens[i])
@@ -122,18 +163,19 @@ class Generator:
         return decoded
 
     def _run(self, tokens_np, mask_np, prefill_len: int, start_pos: int, end: int,
-             temperature: float, top_p: float, stop_seqs: Sequence[Tuple[int, ...]], seed: int):
+             temperature: float, top_p: float, stop_seqs: Sequence[Tuple[int, ...]], seed: int,
+             embeds=None, n_image_words: int = 0):
         dev, args = self.device, self.args
         bsz, buf_len = tokens_np.shape
         tokens = torch.from_numpy(tokens_np).to(dev)
         mask = torch.from_numpy(mask_np).to(dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        cache = self.module.init_kv_cache(args, bsz, max_len=buf_len, kv_dtype=self.kv_dtype,
-                                          device=dev, stacked=not self.unroll_decode)
-        logits, cache = self.module.forward(self.params, args, tokens[:, :prefill_len],
-                                            cache=cache, cur_pos=0,
-                                            ffn_fuse=self.ffn_fuse)
-        last = logits[:, start_pos - 1]
+        cache = self.module.init_kv_cache(args, bsz, max_len=buf_len + n_image_words,
+                                          kv_dtype=self.kv_dtype, device=dev,
+                                          stacked=not self.unroll_decode)
+        logits, cache = self._prefill(tokens[:, :prefill_len], cache, embeds)
+        # the logits that pick position start_pos sit after the image words
+        last = logits[:, start_pos - 1 + n_image_words]
         stopped = torch.zeros(bsz, dtype=torch.bool, device=dev)
         stop_pos = torch.full((bsz,), start_pos + 1, dtype=torch.int64, device=dev)
         seq_ts = [torch.tensor(s, dtype=torch.int64, device=dev) for s in stop_seqs]
@@ -155,7 +197,7 @@ class Generator:
                 stop_pos = torch.where(hit, torch.full_like(stop_pos, first), stop_pos)
                 stopped = stopped | hit
             logits, cache = self.module.forward(self.params, args, tokens[:, cur:cur + 1],
-                                                cache=cache, cur_pos=cur,
+                                                cache=cache, cur_pos=cur + n_image_words,
                                                 ffn_fuse=self.ffn_fuse)
             last = logits[:, 0]
             cur += 1
@@ -171,17 +213,19 @@ class Generator:
         """One prompt, yielding {"text", "end_of_content"} after every token:
         the text decoded so far, cut at the first stop string once one shows
         up in it; eos ends the stream. ``images`` raises at the call, before
-        the first token."""
-        _no_images(images)
-        return self._stream(prompt, max_gen_len, temperature, top_p,
+        the first token on a model without a visual branch."""
+        if images is not None and self.encode_image is None:
+            self._images(images)   # raises now, not at the first next()
+        return self._stream(prompt, images, max_gen_len, temperature, top_p,
                             additional_stop_symbols, seed)
 
     @torch.no_grad()
-    def _stream(self, prompt, max_gen_len, temperature, top_p, additional_stop_symbols,
+    def _stream(self, prompt, images, max_gen_len, temperature, top_p, additional_stop_symbols,
                 seed):
         dev, args = self.device, self.args
         tokens_l = self.tokenizer.encode(prompt, bos=True, eos=False)
-        max_seq_len = args.max_seq_len
+        embeds, n_image_words = self._images(images)
+        max_seq_len = args.max_seq_len - n_image_words
         tokens_l = tokens_l[-max(1, max_seq_len - max_gen_len):]
         start = len(tokens_l)
         total = min(max_seq_len, start + max_gen_len)
@@ -192,12 +236,11 @@ class Generator:
         tokens = torch.zeros((1, buf_len), dtype=torch.int64, device=dev)
         tokens[0, :start] = torch.tensor(tokens_l, dtype=torch.int64)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        cache = self.module.init_kv_cache(args, 1, max_len=buf_len, kv_dtype=self.kv_dtype,
-                                          device=dev, stacked=not self.unroll_decode)
-        logits, cache = self.module.forward(self.params, args, tokens[:, :prefill_len],
-                                            cache=cache, cur_pos=0,
-                                            ffn_fuse=self.ffn_fuse)
-        last = logits[0, start - 1]
+        cache = self.module.init_kv_cache(args, 1, max_len=buf_len + n_image_words,
+                                          kv_dtype=self.kv_dtype, device=dev,
+                                          stacked=not self.unroll_decode)
+        logits, cache = self._prefill(tokens[:, :prefill_len], cache, embeds)
+        last = logits[0, start - 1 + n_image_words]
         generated: List[int] = []
         steps = 0
         for cur in range(start, total):
@@ -214,9 +257,115 @@ class Generator:
             yield {"text": text, "end_of_content": False}
             tokens[0, cur] = nxt
             logits, cache = self.module.forward(self.params, args, tokens[:, cur:cur + 1],
-                                                cache=cache, cur_pos=cur,
+                                                cache=cache, cur_pos=cur + n_image_words,
                                                 ffn_fuse=self.ffn_fuse)
             last = logits[0, 0]
             steps += 1
         self.last_decode_steps = steps
         yield {"text": self.tokenizer.decode(generated), "end_of_content": True}
+
+    # ------------------------------------------------------------ scoring
+
+    def _tokens(self, examples) -> torch.Tensor:
+        if isinstance(examples, torch.Tensor):
+            return examples.to(device=self.device, dtype=torch.int64)
+        return torch.as_tensor(np.asarray(examples), dtype=torch.int64, device=self.device)
+
+    @torch.no_grad()
+    def compute_logits(self, examples, images=None) -> torch.Tensor:
+        """The cache-free forward's f32 logits (b, s, vocab) of token ids
+        ``examples`` (b, s); with ``images`` the text positions' only."""
+        tokens = self._tokens(examples)
+        if images is None:
+            return self.module.forward(self.params, self.args, tokens)[0]
+        if self.encode_image is None:
+            self._images(images)   # raises: no visual branch
+        return self.module.forward(self.params, self.args, tokens,
+                                   images=image_tensor(images, self.device))[0]
+
+    def evaluate_examples(self, contexts: List[str], continuations: List[str], images=None,
+                          batch_size: int = 8) -> List[Dict[str, object]]:
+        """Per example {loglikelihood, ppl, max_equal} of the continuation
+        given the context: the continuation's tokens of
+        encode(context + continuation) are scored, ``max_equal`` is whether
+        each is the argmax. Text examples: padded to a power-of-two bucket
+        (at least 64, at most max_seq_len), ``batch_size`` rows a forward
+        (a short chunk padded with scored-and-dropped rows); a sequence over
+        max_seq_len loses context tokens after its BOS. With ``images`` (one
+        a row) each example is scored alone."""
+        if images is not None:
+            return [self._evaluate_one_mm(c, x, images[i:i + 1])
+                    for i, (c, x) in enumerate(zip(contexts, continuations))]
+        max_len = self.args.max_seq_len
+        items = []
+        for i, (ctx, cont) in enumerate(zip(contexts, continuations)):
+            ctx_t = self.tokenizer.encode(ctx, bos=True, eos=False)
+            full_t = self.tokenizer.encode(ctx + cont, bos=True, eos=False)
+            if len(full_t) > max_len:
+                drop = len(full_t) - max_len
+                full_t = full_t[:1] + full_t[1 + drop:]
+                ctx_len = max(len(ctx_t) - drop, 1)
+            else:
+                ctx_len = len(ctx_t)
+            items.append((i, full_t, ctx_len))
+
+        def bucket(n):
+            b = 64
+            while b < n:
+                b *= 2
+            return min(b, max_len)
+
+        results: List[Dict[str, object]] = [None] * len(items)
+        by_bucket: Dict[int, list] = {}
+        for it in items:
+            by_bucket.setdefault(bucket(len(it[1])), []).append(it)
+        for blen, group in sorted(by_bucket.items()):
+            for off in range(0, len(group), batch_size):
+                chunk = group[off:off + batch_size]
+                toks = np.zeros((batch_size, blen), np.int64)
+                ctx_l = np.ones((batch_size,), np.int64)
+                full_l = np.full((batch_size,), 2, np.int64)
+                for r, (_, full_t, cl) in enumerate(chunk):
+                    toks[r, :len(full_t)] = full_t
+                    ctx_l[r], full_l[r] = cl, len(full_t)
+                ll, n, greedy_ok = (t.cpu().numpy() for t in self._score_examples(
+                    toks, ctx_l, full_l))
+                for r, (i, _, _) in enumerate(chunk):
+                    results[i] = {"loglikelihood": float(ll[r]),
+                                  "ppl": float(np.exp(-ll[r] / max(int(n[r]), 1))),
+                                  "max_equal": bool(greedy_ok[r])}
+        return results
+
+    @torch.no_grad()
+    def _score_examples(self, tokens, ctx_lens, full_lens):
+        """(B, L) token ids -> (loglikelihood, continuation tokens,
+        every-token-argmax) per row, over positions ctx_len - 1 ..
+        full_len - 2 of the shifted targets."""
+        tokens = self._tokens(tokens)
+        ctx_lens = torch.as_tensor(ctx_lens, device=self.device)
+        full_lens = torch.as_tensor(full_lens, device=self.device)
+        logits = self.module.forward(self.params, self.args, tokens)[0]
+        logp = _log_softmax(logits[:, :-1])
+        tgt = tokens[:, 1:]
+        tok_lp = torch.gather(logp, -1, tgt[..., None])[..., 0]
+        pos = torch.arange(tokens.shape[1] - 1, device=self.device)[None, :]
+        mask = (pos >= ctx_lens[:, None] - 1) & (pos < full_lens[:, None] - 1)
+        ll = (tok_lp * mask).sum(dim=1)
+        greedy_ok = ((logp.argmax(dim=-1) == tgt) | ~mask).all(dim=1)
+        return ll, mask.sum(dim=1), greedy_ok
+
+    def _evaluate_one_mm(self, ctx: str, cont: str, img) -> Dict[str, object]:
+        """One example with its image (1, 3, S, S): the continuation scored
+        from ``compute_logits``' text-position logits."""
+        ctx_t = self.tokenizer.encode(ctx, bos=True, eos=False)
+        full_t = self.tokenizer.encode(ctx + cont, bos=True, eos=False)
+        logits = self.compute_logits([full_t], images=img)
+        logp = _log_softmax(logits[0, :-1])
+        tgt = torch.as_tensor(full_t[1:], device=logp.device)
+        tok_lp = torch.gather(logp, 1, tgt[:, None])[:, 0]
+        cont_lp = tok_lp[len(ctx_t) - 1:]
+        max_equal = bool((logp[len(ctx_t) - 1:].argmax(dim=-1) == tgt[len(ctx_t) - 1:]).all())
+        ll = float(cont_lp.sum())
+        n = int(cont_lp.shape[0])
+        return {"loglikelihood": ll, "ppl": float(np.exp(-ll / max(n, 1))),
+                "max_equal": max_equal}

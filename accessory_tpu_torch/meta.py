@@ -1,7 +1,11 @@
 """MetaModel facade over the port. Port of ``accessory_tpu/meta.py``
 (``__init__``, ``get_quant_blocklist``, ``quantize``, ``generate``,
-``stream_generate``, ``save_pretrained``, ``from_pretrained``) for every
-ported family (LLaMA, InternLM, Falcon, Mixtral). A checkpoint directory
+``stream_generate``, ``compute_logits``, ``evaluate_examples``,
+``save_pretrained``, ``from_pretrained``) for every ported family (LLaMA,
+InternLM, Falcon, Mixtral, the SPHINX families). A SPHINX family's args
+take its ``visual`` and ``image_size`` defaults unless the config names
+them, and its model has ``with_visual`` set: the Generator then gets the
+module's ``encode_image`` as its image hook. A checkpoint directory
 written by either package's ``save_pretrained`` loads in the other, and a
 directory of the reference's PyTorch ``consolidated.*`` shards loads too
 (``checkpoint.torch_import``)."""
@@ -14,8 +18,9 @@ import os
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
-from accessory_tpu_torch.config import ARGS_REGISTRY, make_args
-from accessory_tpu_torch.engine.generate import Generator
+from accessory_tpu_torch.config import (ARGS_REGISTRY, SphinxArgs, _sphinx_image_size_for,
+                                        _sphinx_visual_for, make_args, union_merge_configs)
+from accessory_tpu_torch.engine.generate import Generator, image_tensor
 from accessory_tpu_torch.models import get_model_module
 from accessory_tpu_torch.tokenizer import Tokenizer, probe_tokenizer_path_from_pretrained
 
@@ -24,9 +29,11 @@ class MetaModel:
     def __init__(self, llama_type: str,
                  llama_config: Union[str, Sequence[Union[str, Dict[str, Any]]]] = (),
                  tokenizer_path: Optional[str] = None, max_seq_len: int = 4096,
-                 seed: int = 0, init_params: bool = True, device="cuda", tokenizer=None):
+                 seed: int = 0, init_params: bool = True, device="cuda", tokenizer=None,
+                 with_visual: bool = False):
         """``tokenizer``: a tokenizer object to use as it is, in place of one
-        loaded from ``tokenizer_path`` (the config then keeps its vocab_size)."""
+        loaded from ``tokenizer_path`` (the config then keeps its vocab_size).
+        ``with_visual``: serve images (always on for the SPHINX families)."""
         if isinstance(llama_config, (str, dict)):
             llama_config = [llama_config]
         self.llama_type = llama_type
@@ -36,7 +43,16 @@ class MetaModel:
         overrides: Dict[str, Any] = {"max_seq_len": max_seq_len}
         if tokenizer_path:
             overrides["vocab_size"] = self.tokenizer.n_words
-        self.args = make_args(ARGS_REGISTRY[llama_type], llama_config, **overrides)
+        args_cls = ARGS_REGISTRY[llama_type]
+        if args_cls is SphinxArgs:
+            merged = union_merge_configs(llama_config)
+            if "visual" not in merged:
+                overrides["visual"] = _sphinx_visual_for(llama_type)
+            if "image_size" not in merged:
+                overrides["image_size"] = _sphinx_image_size_for(llama_type)
+            with_visual = True
+        self.args = make_args(args_cls, llama_config, **overrides)
+        self.with_visual = with_visual
         self.params = (self.module.init_params(self.args, seed=seed, device=device)
                        if init_params else None)
         # KV-cache dtype the Generator allocates (None: the activation dtype,
@@ -55,8 +71,22 @@ class MetaModel:
                 raise RuntimeError("MetaModel.generate needs params and a tokenizer")
             self._generator = Generator(self.module, self.args, self.params, self.tokenizer,
                                         kv_dtype=self.kv_dtype, device=self.device,
-                                        ffn_fuse=self.ffn_fuse)
+                                        ffn_fuse=self.ffn_fuse,
+                                        encode_image=self._encode_image_hook())
         return self._generator
+
+    def _encode_image_hook(self):
+        """(params, images) -> image words (b, n, dim) for the Generator,
+        where the family has a visual branch; images (b, 3, S, S) CLIP-
+        normalized, numpy or torch."""
+        enc = getattr(self.module, "encode_image", None)
+        if not self.with_visual or enc is None:
+            return None
+
+        def f(params, images):
+            return enc(params, self.args, image_tensor(images, self.device))
+
+        return f
 
     def _reset_generator(self):
         self._generator = None
@@ -76,6 +106,13 @@ class MetaModel:
                                               temperature=temperature, top_p=top_p,
                                               additional_stop_symbols=additional_stop_symbols,
                                               seed=seed)
+
+    def compute_logits(self, examples, images=None):
+        return self.generator.compute_logits(examples, images)
+
+    def evaluate_examples(self, contexts, continuations, images=None, batch_size: int = 8):
+        return self.generator.evaluate_examples(contexts, continuations, images=images,
+                                                batch_size=batch_size)
 
     def get_quant_blocklist(self) -> List[str]:
         """Model-specific path substrings never quantized (the module's
@@ -125,7 +162,8 @@ class MetaModel:
                         tokenizer_path: Optional[str] = None, max_seq_len: int = 4096,
                         quant: bool = False, quant_bits: int = 4,
                         kv_dtype: Optional[str] = None, dtype: str = "bfloat16",
-                        device="cuda", tokenizer=None, ffn_fuse: bool = False) -> "MetaModel":
+                        device="cuda", tokenizer=None, ffn_fuse: bool = False,
+                        with_visual: bool = False) -> "MetaModel":
         """Probe a checkpoint dir for meta.json / config.json / tokenizer and
         load its weights onto ``device`` tensor by tensor. ``pretrained_path``
         may be a list: later entries override / add. ``quant`` quantizes the
@@ -137,7 +175,8 @@ class MetaModel:
         ``tokenizer``: a tokenizer object that takes the place of the probed
         tokenizer file. A path may be a native checkpoint dir or a dir of
         the reference's ``consolidated.*`` shards (a ``*-diff`` dir adds its
-        deltas to the paths before it)."""
+        deltas to the paths before it). A SPHINX family's ``visual`` subtree
+        keeps its stored f32 whatever ``dtype`` says."""
         paths = [pretrained_path] if isinstance(pretrained_path, str) else list(pretrained_path)
         root = paths[-1]
         if llama_type is None:
@@ -159,7 +198,8 @@ class MetaModel:
         from accessory_tpu_torch.checkpoint import load_checkpoint_list
 
         model = cls(llama_type, list(llama_config), tokenizer_path, max_seq_len=max_seq_len,
-                    init_params=False, device=device, tokenizer=tokenizer)
+                    init_params=False, device=device, tokenizer=tokenizer,
+                    with_visual=with_visual)
         model.params = load_checkpoint_list(paths, dtype=dtype, args=model.args, device=device)
         missing = [k for k in model.module.TOP_LEVEL_KEYS if k not in model.params]
         if missing:

@@ -284,7 +284,8 @@ def _check_layers(params: Params) -> None:
 def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
             cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
             fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False,
-            attn_fn=None) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+            attn_fn=None, embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """A chunk of tokens at position ``cur_pos`` (a prefill at 0, a chunk
     after cached tokens, or one decode token) over per-layer params, fused
     by ``quant.fuse.fuse_for_decode`` or not. Returns (logits f32
@@ -304,9 +305,13 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     A stacked cache (one tensor per pool): every layer reads its slice of the
     cache and all layers' new k/v are written by one call after the last.
     ``ffn_fuse``: a decode step's FFN takes the fused kernel where it can
-    (``_block``); a prefill and the training forward never fuse."""
+    (``_block``); a prefill and the training forward never fuse.
+
+    ``embeds`` (b, s, dim) replaces the table lookup (the multimodal splice:
+    s may exceed the token count); every row count, and so every route
+    choice below, is read from it."""
     _check_layers(params)
-    h = params["tok_embeddings"]["weight"][tokens]
+    h = embeds if embeds is not None else params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
     if cache is None:
         cos, sin, _, _ = _rope_tables(args.head_dim, cur_pos + sq, args.rope_theta,

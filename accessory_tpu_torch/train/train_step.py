@@ -108,7 +108,7 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         if batch.get("images") is not None:
-            raise NotImplementedError("multimodal batches: the image families are not "
+            raise NotImplementedError("multimodal batches: training with images is not "
                                       "ported (ROADMAP A8)")
         examples, labels = (_ids(batch[k], device) for k in ("examples", "labels"))
         diff = partition_params(state.params)

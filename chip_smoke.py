@@ -14,7 +14,8 @@
                                                parity_moe,serve_moe,decode_moe,batcher_moe,
                                                parity_zoo,serve_falcon40b,decode_falcon40b,
                                                serve_internlm7b,decode_internlm7b,
-                                               torch_import]
+                                               torch_import,parity_sphinx,serve_sphinx,
+                                               score]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
     python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
@@ -23,8 +24,8 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   build     compiles every kernel in accessory_tpu_torch/csrc with nvcc;
   kernels   each kernel against its plain PyTorch version on CUDA tensors at
             the main paths' shapes (TinyLlama-1.1B, LLaMA2-7B, Mixtral-8x7B,
-            Falcon-40B and InternLM-7B, the last three tagged "mixtral",
-            "falcon40b" and "internlm7b"): max error,
+            Falcon-40B, InternLM-7B and SPHINX-7B, the last four tagged
+            "mixtral", "falcon40b", "internlm7b" and "sphinx"): max error,
             kernel / plain / library-call device time (profiler CUDA trace,
             median of 3; inputs rotated through enough copies to spill the
             50 MB L2 where the model reads them cold), the kernel's wall time
@@ -190,6 +191,26 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             (2 layers) written with torch.save, loaded through
             MetaModel.from_pretrained(..., quant=True): every leaf and the
             greedy tokens equal to the same tensors built in memory;
+  parity_sphinx  SPHINX at production widths (the four towers at full width, 2
+            blocks each, ConvNeXt-XXL depths 1, 1, 1, 1; 2 decoder layers of
+            LLaMA2-7B width, W4), one 448-px image: the card against the CPU,
+            each tower's f32 features and the Q-Former's (1e-4 relative L2, 1e-3
+            of the largest |value|; TF32 off, the depthwise convolution outside
+            cuDNN), encode_image's bf16 tokens, the 1487-row prefill and 4
+            decode steps at positions shifted by the 1455 image words (parity's
+            logit gate);
+  serve_sphinx  SPHINX-7B (llama_ens5, 448 px, 5 crops, 1455 image words;
+            LLaMA2-7B W4 g128 drawn on the card from --seed, the production
+            towers in f32): sphinx_api.batch_caption of 8 images (normal noise
+            as CLIP-normalized pixels: no PIL on the machine) with 32 new
+            tokens, then SPHINXModel.generate_response on one, launch counts
+            exact; encode_image ms by tower, the prefill (8 x 1711 rows), a
+            decode step's ms, device time by kernel and idle share, setup s,
+            peak GB; each counted run's decode ms on CUDA events and its tok/s;
+  score     (A4) evaluate_examples on SPHINX-7B: six text examples batched
+            against each scored alone from compute_logits (5e-3 of |ll|; a
+            planted mask fault must read above it; max_equal equal), two
+            examples with an image; launches counted;
   compare   (not in the default run) rows 5, 3 and 26's forward through calls
             every version of the package has had (planes_qmm_bigm's and the
             flash forward's own arguments), device time and the library
@@ -1601,6 +1622,13 @@ def phase_kernels(seed: int, names=None):
                            for nm, k, n in (("wqkv", 4096, 12288), ("wo", 4096, 4096),
                                             ("w13", 4096, 22016), ("w2", 11008, 4096))]
                       + [("wo", 4096, 4096, 1000)])
+        # -- SPHINX-7B's caption prefill: 8 x (the prompt's 256-token bucket +
+        #    1455 image words) rows
+        sph = _sphinx_shapes()
+        _kernels_bigm(kr, [(nm, k, n, SPHINX_BATCH * sph["prefill_positions"])
+                           for nm, k, n in (("wqkv", 4096, 12288), ("wo", 4096, 4096),
+                                            ("w13", 4096, 22016), ("w2", 11008, 4096))],
+                      tag="sphinx")
 
     if want("decode_attention"):
         # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
@@ -1651,6 +1679,13 @@ def phase_kernels(seed: int, names=None):
         ro_cases = ((8, 1024, 511), (8, 1024, 1023))
         _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, write=False, most_copies=4)
         _kernels_decode(kr, "7b", 32, 32, 128, ro_cases, int8=True, write=False, most_copies=4)
+        # -- SPHINX-7B's decode: the first and last positions of its 32 steps,
+        #    past the image words, in its cache
+        sph = _sphinx_shapes()
+        sph_cases = tuple((SPHINX_BATCH, sph["cache_len"], sph[p])
+                          for p in ("first_decode_pos", "last_decode_pos"))
+        _kernels_decode(kr, "sphinx", 32, 32, 128, sph_cases, most_copies=4)
+        _kernels_decode(kr, "sphinx", 32, 32, 128, sph_cases, int8=True, most_copies=4)
 
     if want("flash_attention"):
         # -- causal prefill flash attention (splash), and the 700M full
@@ -1659,7 +1694,9 @@ def phase_kernels(seed: int, names=None):
                             ("tiny", 4, 200, 32, 4, 64),
                             ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128),
                             ("mixtral", 8, 128, 32, 8, 128), ("falcon40b", 8, 128, 128, 8, 64),
-                            ("700m", 2, 2048, 16, 8, 128)))
+                            ("700m", 2, 2048, 16, 8, 128),
+                            ("sphinx", SPHINX_BATCH, _sphinx_shapes()["prefill_positions"],
+                             32, 32, 128)))
 
     if want("kv_write"):
         # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
@@ -1674,6 +1711,10 @@ def phase_kernels(seed: int, names=None):
         _kernels_slab8(kr, "mixtral", 8, 8, 128, 192, 128, (0,))
         _kernels_slab(kr, "falcon40b", 8, 8, 64, 192, 128, (0,))
         _kernels_slab8(kr, "falcon40b", 8, 8, 64, 192, 128, (0,))
+        # -- SPHINX-7B's prefill slab: 1711 positions into its 1711-token cache
+        sph = _sphinx_shapes()
+        _kernels_slab(kr, "sphinx", SPHINX_BATCH, 32, 128, sph["cache_len"],
+                      sph["prefill_positions"], (0,))
         # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
         #    shapes, and the stacked writes of all 22 layers in one launch
         #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
@@ -4604,13 +4645,466 @@ def summary(rows, counts_by_path):
     return {"kernels": out}
 
 
+# SPHINX-7B (BASELINE.json config 5, the reference's batch_inference.py
+# workload): llama_ens5 at 448 px (a global view and a 2 x 2 grid: 5 crops,
+# 1455 image words), the LLaMA2-7B decoder in W4 g128 and the production
+# towers of config._VisualTowerFields (CLIP ViT-L/14, DINOv2 ViT-g/14,
+# ConvNeXt-XXL, the Q-Former) in f32, 8 images a batch, 32 new tokens
+SPHINX_TYPE = "llama_ens5"
+SPHINX_MAX_SEQ = 2048
+SPHINX_BATCH = 8
+SPHINX_NEW_TOKENS = 32
+CAPTION = "Describe the image."
+# the towers compute in f32 on both sides of parity_sphinx (cuBLAS without
+# TF32: main() sets torch.backends.cuda.matmul.allow_tf32 = False; the
+# ConvNeXt depthwise convolution is elementwise, never cuDNN): features are
+# held to 1e-4 in relative L2 and 1e-3 of their largest |value|
+TOWER_REL_L2 = 1e-4
+TOWER_TOL_FRAC = 1e-3
+
+
+def _sphinx_shapes():
+    """The SPHINX-7B caption run's shapes as the Generator forms them: image
+    words, prompt tokens (the conversation template around CAPTION, BOS
+    included, byte tokens), prefill positions a sequence (the prompt's
+    64-token bucket plus the image words), the cache length, and the first and
+    last decode positions."""
+    from accessory_tpu_torch.config import SphinxArgs
+    from accessory_tpu_torch.data.conversation import default_conversation
+    from accessory_tpu_torch.engine.generate import _round_up
+    from accessory_tpu_torch.models import sphinx
+
+    n_img = sphinx.image_words(SphinxArgs(visual="ens5", image_size=448))
+    conv = default_conversation()
+    conv.load_qas([[CAPTION, None]])
+    plen = len(ByteTokenizer().encode(conv.get_prompt(), True, False))
+    max_text = SPHINX_MAX_SEQ - n_img
+    total = min(max_text, plen + SPHINX_NEW_TOKENS)
+    buf = max(min(_round_up(total), max_text), total)
+    prefill = min(_round_up(plen), buf)
+    return {"image_words": n_img, "prompt_tokens": plen, "prefill_positions": prefill + n_img,
+            "cache_len": buf + n_img, "first_decode_pos": plen + n_img,
+            "last_decode_pos": total - 1 + n_img}
+
+
+def _close_f32(name, got, want):
+    """f32 towers, card against CPU: relative L2 and max |error| against the
+    largest |value| (TOWER_REL_L2, TOWER_TOL_FRAC). Returns the row."""
+    import torch
+
+    got, want = got.float().cpu(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"parity_sphinx {name}: non-finite values on the card")
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    absmax = float(want.abs().max())
+    row = {"output": name, "shape": list(want.shape), "max_abs_err": err, "rel_l2_err": rel,
+           "absmax": absmax}
+    if rel > TOWER_REL_L2 or err > TOWER_TOL_FRAC * absmax:
+        raise AssertionError(f"parity_sphinx {name}: card vs CPU {row}")
+    return row
+
+
+def phase_parity_sphinx(seed: int, steps: int = 4):
+    """SPHINX at production widths, cut in depth: the towers at full width
+    with 2 blocks each (ConvNeXt-XXL depths 1, 1, 1, 1) and 2 decoder layers
+    of LLaMA2-7B width, W4; one 448-px image (5 crops). The card against the
+    port's CPU plain path on the same weights: each tower's features and the
+    Q-Former's in f32 (TOWER_REL_L2 / TOWER_TOL_FRAC), encode_image's bf16
+    tokens to 2 bf16 ulps of their largest |value| and 4e-3 in relative L2,
+    then the prefill over [BOS, 1455 image words, 31 text tokens] (1487 rows:
+    the many-row W4 kernel, flash over a ragged tail tile, the slab write) and
+    ``steps`` decode steps at positions shifted by the image words, logits
+    within LOGIT_TOL_FRAC / LOGIT_REL_L2 and greedy tokens equal where the
+    CPU is sure (phase_parity's gate)."""
+    import torch
+
+    from accessory_tpu_torch.config import SphinxArgs
+    from accessory_tpu_torch.models import sphinx
+    from accessory_tpu_torch.models.visual import qformer_forward
+    from accessory_tpu_torch.quant.fuse import fuse_for_decode
+    from accessory_tpu_torch.quant.quantize import quantize_params
+
+    args = SphinxArgs(**dict(LLAMA2_7B, n_layers=2), visual="ens5", image_size=448,
+                      clip_layers=2, dino_layers=2, qformer_layers=2,
+                      convnext_depths=(1, 1, 1, 1), max_seq_len=SPHINX_MAX_SEQ)
+    params_g = fuse_for_decode(quantize_params(sphinx.init_params(args, seed=seed)))
+    torch.cuda.empty_cache()
+    params_c = _tree_to(params_g, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randn((1, 3, 448, 448), generator=g)
+    plen = 32
+    prompt = torch.randint(0, args.vocab_size, (1, plen), generator=g)
+    rows = []
+    t0 = time.perf_counter()
+    crops_c = sphinx._split_crops(args, img)
+    feats_c = sphinx.tower_features(params_c, args, crops_c)
+    q_c = qformer_forward(params_c["visual"]["qformer"], sphinx._tower_cfgs(args)[3],
+                          feats_c["clip"])
+    tok_c = sphinx.encode_image(params_c, args, img)
+    cpu_tower_s = time.perf_counter() - t0
+    with torch.no_grad():
+        crops_g = sphinx._split_crops(args, img.cuda())
+        rows.append(_close_f32("crops", crops_g, crops_c))
+        feats_g = sphinx.tower_features(params_g, args, crops_g)
+        for name in ("clip", "convnext", "dinov2"):
+            rows.append(_close_f32(name, feats_g[name], feats_c[name]))
+        q_g = qformer_forward(params_g["visual"]["qformer"], sphinx._tower_cfgs(args)[3],
+                              feats_g["clip"])
+        rows.append(_close_f32("qformer", q_g, q_c))
+        tok_g = sphinx.encode_image(params_g, args, img.cuda())
+    n_img = sphinx.image_words(args)
+    assert tok_g.shape == tok_c.shape == (1, n_img, args.dim) and n_img == 1455
+    tok_absmax = float(tok_c.float().abs().max())
+    tok_err = max_err(tok_g.float().cpu(), tok_c.float())
+    tok_rel = float((tok_g.float().cpu() - tok_c.float()).norm() / tok_c.float().norm())
+    rows.append({"output": "encode_image (bf16)", "shape": list(tok_c.shape),
+                 "max_abs_err": tok_err[0], "rel_l2_err": tok_rel, "absmax": tok_absmax})
+    if tok_err[0] > 2 * bf16_ulp(tok_absmax) or tok_rel > 4e-3:
+        raise AssertionError(f"parity_sphinx encode_image: card vs CPU {rows[-1]}")
+
+    s_len = plen + n_img + steps
+    cache_g = sphinx.init_kv_cache(args, 1, s_len)
+    cache_c = sphinx.init_kv_cache(args, 1, s_len, device="cpu")
+    cpu_s = 0.0
+    with torch.no_grad():
+        lg, _ = sphinx.forward(params_g, args, prompt.cuda(), cache=cache_g, cur_pos=0,
+                               embeds=sphinx.splice(params_g, prompt.cuda(), tok_g))
+        t0 = time.perf_counter()
+        lc, _ = sphinx.forward(params_c, args, prompt, cache=cache_c, cur_pos=0,
+                               embeds=sphinx.splice(params_c, prompt, tok_c))
+        cpu_s += time.perf_counter() - t0
+    worst_abs, worst_rel, checked, agreed = 0.0, 0.0, 0, 0
+    tol_abs = LOGIT_TOL_FRAC * float(lc.abs().max())
+
+    def compare(gpu, cpu):
+        nonlocal worst_abs, worst_rel, checked, agreed
+        gpu = gpu.float().cpu()
+        if not torch.isfinite(gpu).all():
+            raise AssertionError("parity_sphinx: non-finite GPU logits")
+        worst_abs = max(worst_abs, float((gpu - cpu).abs().max()))
+        worst_rel = max(worst_rel, float((gpu - cpu).norm() / cpu.norm()))
+        top2 = cpu.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > tol_abs
+        checked += int(sure.sum())
+        agreed += int((gpu.argmax(-1) == cpu.argmax(-1))[sure].sum())
+
+    compare(lg, lc)
+    tok = lc[:, -1].argmax(-1)
+    with torch.no_grad():
+        for i in range(steps):
+            pos = n_img + plen + i
+            lg, _ = sphinx.forward(params_g, args, tok[:, None].cuda(), cache=cache_g, cur_pos=pos)
+            t0 = time.perf_counter()
+            lc, _ = sphinx.forward(params_c, args, tok[:, None], cache=cache_c, cur_pos=pos)
+            cpu_s += time.perf_counter() - t0
+            compare(lg, lc)
+            tok = lc[:, -1].argmax(-1)
+    row = {"phase": "parity_sphinx", "model": "SPHINX-7B widths (llama_ens5, 448 px)",
+           "depth": {"decoder": 2, "clip": 2, "dinov2": 2, "qformer": 2,
+                     "convnext": [1, 1, 1, 1]},
+           "towers_precision": "f32 (matmul TF32 off, depthwise conv outside cuDNN)",
+           "image_words": n_img, "prefill_rows": plen + n_img, "decode_steps": steps,
+           "tower_rows": rows, "cpu_tower_seconds": round(cpu_tower_s, 2),
+           "cpu_decoder_seconds": round(cpu_s, 2), "max_abs_logit_err": worst_abs,
+           "max_rel_l2_err": worst_rel, "tol_abs": tol_abs, "tol_rel_l2": LOGIT_REL_L2,
+           "tokens_checked": checked, "tokens_agreed": agreed}
+    emit(row)
+    if worst_abs > tol_abs or worst_rel > LOGIT_REL_L2 or agreed != checked:
+        raise AssertionError(f"parity_sphinx failed: {row}")
+
+
+def _event_ms(fn, reps: int = 2):
+    """Ms of one call between CUDA events, the last of ``reps`` calls (the
+    first warms the allocator)."""
+    import torch
+
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _sphinx_images(seed: int, n: int):
+    """n CLIP-normalized stand-ins (3, 448, 448) f32 on the card from ``seed``
+    (normal noise: the card's machine has no PIL and no image files)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return list(torch.randn((n, 3, 448, 448), generator=g, device="cuda"))
+
+
+def _sphinx_model(seed: int):
+    """SPHINXModel(llama_ens5) with LLaMA2-7B's decoder drawn on the card from
+    ``seed`` and quantized to W4 layer by layer, the towers f32. Returns
+    (model, setup s, setup peak bytes)."""
+    import torch
+
+    from accessory_tpu_torch.sphinx_api import SPHINXModel
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = SPHINXModel(SPHINX_TYPE, dict(LLAMA2_7B), max_seq_len=SPHINX_MAX_SEQ, seed=seed)
+    model.tokenizer = ByteTokenizer()
+    model.quantize()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+class _DecodeTimer:
+    """A model module with CUDA events around its decode forwards (one new
+    row a sequence, over a cache, past position 0), the rest passed through:
+    set as a Generator's module, it times that run's decode on the device's
+    clock, from the first step's start to the last step's end."""
+
+    def __init__(self, module):
+        self._module, self._events = module, []
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def forward(self, params, args, tokens, *, cache=None, cur_pos=0, **kw):
+        import torch
+
+        decode = cache is not None and cur_pos > 0 and tokens.shape[1] == 1
+        if decode:
+            self._events.append(torch.cuda.Event(enable_timing=True))
+            self._events[-1].record()
+        out = self._module.forward(params, args, tokens, cache=cache, cur_pos=cur_pos, **kw)
+        if decode:
+            self._events.append(torch.cuda.Event(enable_timing=True))
+            self._events[-1].record()
+        return out
+
+    def decode(self):
+        """(decode forwards, ms from the first one's start to the last one's
+        end); call after a synchronize."""
+        if not self._events:
+            return 0, 0.0
+        return len(self._events) // 2, self._events[0].elapsed_time(self._events[-1])
+
+
+def phase_serve_sphinx(seed: int):
+    """SPHINX-7B at full width and depth: sphinx_api.batch_caption of 8
+    images (32 new tokens, greedy), then SPHINXModel.generate_response on one,
+    each launch-counted exactly (W4 products: 4 a layer on row 5 at the
+    prefill, 4 a layer a decode step on row 1; flash and the slab write once a
+    layer; the one-query-head decode attention a layer a step). Also:
+    encode_image ms split by tower (CUDA events), the prefill alone, a decode
+    step's wall ms and its device time by kernel with the idle share, setup s
+    and peak GB; in each counted run its decode ms (CUDA events from the
+    first decode step's start to the last one's end, _DecodeTimer) and the
+    tok/s that gives. Returns (model, counts by run)."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import sphinx
+    from accessory_tpu_torch.models.visual import (_depthwise7, convnext_forward,
+                                                   qformer_forward, resize_linear, vit_forward)
+    from accessory_tpu_torch.sphinx_api import batch_caption
+
+    sh = _sphinx_shapes()
+    model, setup_s, setup_peak = _sphinx_model(seed)
+    args, n_layers = model.args, model.args.n_layers
+    if sphinx.image_words(args) != sh["image_words"]:
+        raise AssertionError(f"serve_sphinx: {sphinx.image_words(args)} image words")
+    imgs = _sphinx_images(seed, SPHINX_BATCH)
+    batch = torch.stack(imgs)
+    params, vis = model.generator.params, model.params["visual"]
+    vit, dino, conv, qf = sphinx._tower_cfgs(args)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        split_ms, crops = _event_ms(lambda: sphinx._split_crops(args, batch))
+        tower_ms = {
+            "clip": _event_ms(lambda: vit_forward(vis["clip"], vit, crops))[0],
+            "convnext": _event_ms(lambda: convnext_forward(
+                vis["convnext"], conv, resize_linear(crops, (256, 256))))[0],
+            "dinov2": _event_ms(lambda: vit_forward(vis["dinov2"], dino, crops))[0]}
+        # the ConvNeXt tower's 40 depthwise sums alone, at each block's shape
+        tower_ms["convnext_depthwise"] = 0.0
+        for si, stage in enumerate(vis["convnext"]["stages"]):
+            side = 64 >> si
+            x = torch.randn((crops.shape[0], side, side, conv.dims[si]), device="cuda")
+            for i in range(stage["blocks"]["dw"].shape[0]):
+                tower_ms["convnext_depthwise"] += _event_ms(
+                    lambda: _depthwise7(x, stage["blocks"]["dw"][i]), reps=1)[0]
+        del x
+        clip_feats = vit_forward(vis["clip"], vit, crops)
+        tower_ms["qformer"] = _event_ms(lambda: qformer_forward(vis["qformer"], qf,
+                                                                clip_feats))[0]
+        del clip_feats
+        enc_ms, img_tok = _event_ms(lambda: sphinx.encode_image(params, args, batch))
+        encode_peak = torch.cuda.max_memory_allocated()
+        toks = torch.full((SPHINX_BATCH, sh["prefill_positions"] - sh["image_words"]), 65,
+                          dtype=torch.int64, device="cuda")
+        cache = sphinx.init_kv_cache(args, SPHINX_BATCH, sh["cache_len"])
+        prefill_ms, (logits, _) = _event_ms(lambda: sphinx.forward(
+            params, args, toks, cache=cache, cur_pos=0,
+            embeds=sphinx.splice(params, toks, img_tok)))
+        if logits.shape[1] != sh["prefill_positions"] or not torch.isfinite(logits).all():
+            raise AssertionError("serve_sphinx: prefill logits not finite / wrong shape")
+        del logits
+        tok = torch.full((SPHINX_BATCH, 1), 66, dtype=torch.int64, device="cuda")
+        pos0 = sh["first_decode_pos"]
+        for i in range(3):
+            sphinx.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_steps = 16
+        for i in range(n_steps):
+            sphinx.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        profile = _profile_steps(params, args, tok, cache, pos0, step_ms, steps=4, module=sphinx,
+                                 shares=("W4Folded", "decode_attn", "nvjet", "elementwise"))
+        del cache
+    torch.cuda.empty_cache()
+
+    counts_by_run = {}
+    gen = model.generator
+    for run in ("batch_caption", "generate_response"):
+        gen.module = timer = _DecodeTimer(sphinx)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if run == "batch_caption":
+            outs = batch_caption(model, imgs, prompt=CAPTION, batch_size=SPHINX_BATCH,
+                                 max_gen_len=SPHINX_NEW_TOKENS)
+        else:
+            outs = [model.generate_response([[CAPTION, None]], image=imgs[0],
+                                            max_gen_len=SPHINX_NEW_TOKENS)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gen.module = sphinx
+        counts, steps = kernels.launch_counts(), gen.last_decode_steps
+        decode_calls, decode_ms = timer.decode()
+        want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
+                            w4_matmul=4 * n_layers * steps, w4_matmul_bigm=4 * n_layers,
+                            decode_attention_mha=n_layers * steps)
+        b = SPHINX_BATCH if run == "batch_caption" else 1
+        row = {"phase": "serve_sphinx", "run": run, "model": "SPHINX-7B (llama_ens5)",
+               "batch": b, **sh, "prefill_rows": b * sh["prefill_positions"],
+               "decode_steps": steps, "launches": counts, "launches_expected": want,
+               "seconds": secs, "outputs_chars": [len(o) for o in outs],
+               "decode_ms": decode_ms, "decode_ms_per_step_in_run": decode_ms / max(steps, 1),
+               "decode_tok_s": b * steps / max(decode_ms / 1e3, 1e-9)}
+        if run == "batch_caption":
+            row.update({
+                "setup_s": setup_s, "setup_peak_gb": setup_peak / 1e9,
+                "weight_gb_w4": _qw_bytes(model.params) / 1e9,
+                "tower_gb_f32": sum(t.numel() * 4 for t in _leaves_of(vis)) / 1e9,
+                "split_ms": split_ms, "tower_ms": tower_ms, "encode_image_ms": enc_ms,
+                "encode_peak_gb": encode_peak / 1e9, "prefill_ms": prefill_ms,
+                "decode_ms_per_step": step_ms, "decode_profile": profile,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        emit(row)
+        if (counts != want or steps < SPHINX_NEW_TOKENS or len(outs) != b
+                or decode_calls != steps):
+            raise AssertionError(f"serve_sphinx {run}: launch counts {counts} != {want}, "
+                                 f"{decode_calls} timed decode forwards, {steps} steps")
+        counts_by_run[run] = counts
+    return model, counts_by_run
+
+
+def _leaves_of(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves_of(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _leaves_of(v)
+    else:
+        yield node
+
+
+SCORE_CONTEXTS = ["The capital of France is", "Two plus two equals", "The sky is",
+                  "A cat sat on the", "Water boils at one hundred degrees",
+                  "The quick brown fox jumps over the lazy dog and then the"]
+SCORE_CONTINUATIONS = [" Paris.", " four.", " blue.", " mat.", " Celsius.", " farmer ran away."]
+# batched vs per-example log-likelihood, relative: sound runs on the H100 read
+# 9.8e-4 (PERF.md); a mask that drops one scored token reads far above
+SCORE_TOL_REL = 5e-3
+
+
+def _forward_counts(n_layers: int, rows):
+    """The launches of cache-free forwards of the given row counts: flash once
+    a layer, four W4 products a layer on row 5 at 1024 rows or more, on row
+    1's many-row tile below."""
+    want = _zero_counts()
+    for m in rows:
+        want["flash_attention"] += n_layers
+        want["w4_matmul_bigm" if m >= 1024 else "w4_matmul"] += 4 * n_layers
+    return want
+
+
+def phase_score(model, seed: int):
+    """A4 on SPHINX-7B: evaluate_examples of six text examples (batches of 8
+    in the 64- and the 128-token bucket: 512 rows on row 1's tile, 1024 on
+    row 5) against each example scored alone from compute_logits (the
+    reference's per-example path): log-likelihoods within SCORE_TOL_REL of
+    |ll| (bf16 logits: the batched and the single forward take other W4
+    tiles), max_equal equal; a planted mask fault (the per-example sum
+    started one continuation token late) must read above the gate for every
+    example. Then two examples with an image each (1455 image words plus
+    the text: row 5), finite. Launches counted over both calls, exact
+    against the forwards' row counts. Returns the counts."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import sphinx
+
+    tok = model.tokenizer
+    lens = [len(tok.encode(c + x, bos=True, eos=False))
+            for c, x in zip(SCORE_CONTEXTS, SCORE_CONTINUATIONS)]
+    buckets = sorted({64 if n <= 64 else 128 for n in lens})
+    rows = [8 * b for b in buckets] + [sphinx.image_words(model.args) + n for n in lens[:2]]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = model.evaluate_examples(SCORE_CONTEXTS, SCORE_CONTINUATIONS, batch_size=8)
+    imgs = _sphinx_images(seed + 1, 2)
+    got_img = model.evaluate_examples(SCORE_CONTEXTS[:2], SCORE_CONTINUATIONS[:2],
+                                      images=torch.stack(imgs))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    worst, planted = 0.0, math.inf
+    for ctx, cont, r in zip(SCORE_CONTEXTS, SCORE_CONTINUATIONS, got):
+        ctx_t = tok.encode(ctx, bos=True, eos=False)
+        full = tok.encode(ctx + cont, bos=True, eos=False)
+        logp = torch.log_softmax(model.compute_logits([full])[0, :-1].float(), dim=-1)
+        tgt = torch.tensor(full[1:], device=logp.device)
+        lp = logp.gather(1, tgt[:, None])[:, 0][len(ctx_t) - 1:]
+        ll = float(lp.sum())
+        same = bool((logp[len(ctx_t) - 1:].argmax(-1) == tgt[len(ctx_t) - 1:]).all())
+        worst = max(worst, abs(r["loglikelihood"] - ll) / max(abs(ll), 1e-6))
+        planted = min(planted, abs(r["loglikelihood"] - float(lp[1:].sum())) / max(abs(ll), 1e-6))
+        if same != r["max_equal"]:
+            raise AssertionError(f"score: max_equal {r['max_equal']} != per-example {same}")
+    row = {"phase": "score", "model": "SPHINX-7B (llama_ens5)", "text_examples": len(got),
+           "image_examples": len(got_img), "seconds": secs,
+           "max_rel_ll_err_vs_per_example": worst, "tol_rel": SCORE_TOL_REL,
+           "min_rel_ll_err_planted_mask_fault": planted,
+           "loglikelihood": [r["loglikelihood"] for r in got + got_img],
+           "max_equal": [r["max_equal"] for r in got + got_img], "forward_rows": rows,
+           "launches": counts}
+    want = _forward_counts(model.args.n_layers, rows)
+    emit(row)
+    bad = [r for r in got + got_img if not (math.isfinite(r["loglikelihood"]) and r["ppl"] >= 1)]
+    if worst > SCORE_TOL_REL or planted <= SCORE_TOL_REL or bad or counts != want:
+        raise AssertionError(f"score failed (launches expected {want}): {row}")
+    return counts
+
+
 ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
               "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
               "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,parity_zoo,"
-              "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,torch_import")
+              "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,torch_import,"
+              "parity_sphinx,serve_sphinx,score")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
                      "decode_ffn")
@@ -4854,6 +5348,24 @@ def main() -> int:
         if "torch_import" in phases:
             phase_torch_import(opts.seed)
             gc.collect()
+            torch.cuda.empty_cache()
+        if "parity_sphinx" in phases:
+            phase_parity_sphinx(opts.seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "serve_sphinx" in phases or "score" in phases:
+            # SPHINX-7B on the card: every earlier model is freed
+            gc.collect()
+            torch.cuda.empty_cache()
+            if "serve_sphinx" in phases:
+                model, runs = phase_serve_sphinx(opts.seed)
+                counts_by_path["sphinx caption"] = runs["batch_caption"]
+                counts_by_path["sphinx response"] = runs["generate_response"]
+            else:
+                model = _sphinx_model(opts.seed)[0]
+            if "score" in phases:
+                counts_by_path["sphinx score"] = phase_score(model, opts.seed)
+            del model
             torch.cuda.empty_cache()
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES

@@ -48,8 +48,9 @@ def model():
 def test_images_binds_second_and_raises(model, owner, method):
     """C6: the reference's calls bind against both packages' signatures with
     ``images`` second, positionally too; the port refuses a non-None
-    ``images`` at the call (the multimodal path is ROADMAP A8) and runs the
-    text path with None."""
+    ``images`` at the call on a model without a visual branch (llama here;
+    the message names the SPHINX families and ROADMAP A8 for the rest) and
+    runs the text path with None."""
     args, kw = CALLS[method]
     ref_cls = jmeta.MetaModel if owner == "MetaModel" else jgenerate.Generator
     port_cls = meta.MetaModel if owner == "MetaModel" else generate.Generator

@@ -35,7 +35,7 @@ from accessory_tpu_torch.models import llama
 from accessory_tpu_torch.quant import qtensor as tq
 from accessory_tpu_torch.quant.quantize import quantize_params
 
-from test_torch_generate import tok_path  # noqa: F401  (fixture)
+from test_torch_generate import one_torch_thread, tok_path  # noqa: F401  (fixtures)
 
 CFG = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, multiple_of=128)
 

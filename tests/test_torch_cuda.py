@@ -34,7 +34,11 @@ and at Falcon-40B's and InternLM-7B's (the W4 products at K 32768 and N
 32768 / 512 and InternLM's FFN on the GEMV and the many-row kernel, the GQA
 decode at R 16, head_dim 64, the one-query-head decode and the slab writes
 at 32 heads of 128 with v a view of the fused Wqkv output, flash at 128 /
-8 heads) with small models of both families, card against CPU.
+8 heads) with small models of both families, card against CPU; and
+SPHINX's f32 towers, flash at a SPHINX-7B prefill length (a ragged tail
+tile) and small SPHINX models (ens, ens5p2: encode_image, the multimodal
+prefill and decode steps at positions shifted by the image words), card
+against CPU.
 Each test carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
@@ -2595,3 +2599,107 @@ def test_small_zoo_model_cuda_matches_cpu(gen, family, kv_dtype):
         assert torch.isfinite(g).all()
         assert float((g - lc).norm() / lc.norm()) < 2e-2, (lo, hi)
         assert float((g - lc).abs().max()) < 2e-2 * float(lc.abs().max()) + 2e-2, (lo, hi)
+
+
+# ---------------------------------------------------------------- SPHINX
+
+SPHINX_TINY = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=4, vocab_size=512, multiple_of=128,
+                   vit_patch=56, clip_width=64, clip_layers=2, clip_heads=4, dino_width=96,
+                   dino_layers=2, dino_heads=4, convnext_depths=(1, 1, 1, 1),
+                   convnext_dims=(16, 32, 64, 128), qformer_width=64, qformer_layers=2,
+                   qformer_heads=4, max_seq_len=1024)
+
+
+def _rel_l2(got, want):
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all()
+    return float((g - w).norm() / w.norm())
+
+
+@pytest.mark.parametrize("tower", ["clip", "dinov2", "convnext", "qformer"])
+def test_visual_tower_cuda_matches_cpu(gen, tower):
+    """Each f32 tower (models/visual.py) on the card against the CPU, with
+    TF32 off for matmuls as chip_smoke runs them: 1e-4 relative L2 (the
+    same f32 sums in another order; the ConvNeXt depthwise convolution is
+    elementwise on both)."""
+    from accessory_tpu_torch.models import visual
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = torch.randn((3, 3, 224, 224), generator=torch.Generator().manual_seed(1))
+        if tower in ("clip", "dinov2"):
+            dino = tower == "dinov2"
+            cfg = visual.ViTConfig(patch_size=14, width=96, layers=2, heads=4,
+                                   **(dict(act="gelu", ln_pre=False, layerscale=True, ffn="swiglu",
+                                           norm_eps=1e-6, patch_bias=True) if dino else {}))
+            params, fn = visual.init_vit(cfg, seed=2, device="cpu"), visual.vit_forward
+        elif tower == "convnext":
+            cfg = visual.ConvNeXtConfig(depths=(1, 2, 1, 1), dims=(16, 32, 64, 128))
+            params, fn = visual.init_convnext(cfg, seed=2, device="cpu"), visual.convnext_forward
+            for stage in params["stages"]:
+                stage["blocks"]["gamma"].fill_(0.5)
+        else:
+            cfg = visual.QFormerConfig(width=64, layers=2, heads=4, kv_dim=96)
+            params, fn = visual.init_qformer(cfg, seed=2, device="cpu"), visual.qformer_forward
+            x = torch.randn((3, 257, 96), generator=torch.Generator().manual_seed(1))
+        want = fn(params, cfg, x)
+        got = fn(_to(params, "cuda"), cfg, x.cuda())
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel_l2(got, want) < 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_flash_attention_sphinx_tail(gen):
+    """Row 3 at a SPHINX-7B prefill length (1711 positions: 26 full 64-row
+    tiles and a ragged tail of 47), B 2, 32 heads of 128."""
+    q, k, v = (randn(gen, 2, 1711, 32, 128) for _ in range(3))
+    got = _one_more("flash_attention", lambda: flash_attention(q, k, v))
+    assert_close(got, grouped_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("visual_kind", ["ens", "ens5p2"])
+def test_small_sphinx_cuda_matches_cpu(gen, visual_kind):
+    """A SPHINX with tiny towers over a 2-layer W4 decoder (dim 256, MHA of
+    64): encode_image on the card against the CPU (bf16 tokens within 1%
+    relative L2), the multimodal prefill over [BOS, image words, 15 text
+    tokens] and 6 decode steps at positions shifted by the image words, logits
+    within 2% relative L2 and 2% of the largest |logit|; each decode step
+    launches row 1 four times a layer and the one-query-head decode
+    attention once a layer."""
+    from accessory_tpu_torch.config import SphinxArgs
+    from accessory_tpu_torch.models import sphinx
+
+    size = 224 if visual_kind == "ens" else 448
+    args = SphinxArgs(**SPHINX_TINY, visual=visual_kind, image_size=size)
+    params = fuse_for_decode(quantize_params(sphinx.init_params(args, seed=3)))
+    cpu = _to(params, "cpu")
+    g = torch.Generator().manual_seed(4)
+    img = torch.randn((2, 3, size, size), generator=g)
+    toks = torch.randint(0, 512, (2, 22), generator=g)
+    n_img = sphinx.image_words(args)
+    tg, tc = sphinx.encode_image(params, args, img.cuda()), sphinx.encode_image(cpu, args, img)
+    assert tg.shape == tc.shape == (2, n_img, 256) and _rel_l2(tg, tc) < 1e-2
+    s_len = n_img + 24
+    cg = sphinx.init_kv_cache(args, 2, s_len)
+    cc = sphinx.init_kv_cache(args, 2, s_len, device="cpu")
+    lg, _ = sphinx.forward(params, args, toks[:, :16].cuda(), cache=cg, cur_pos=0,
+                           embeds=sphinx.splice(params, toks[:, :16].cuda(), tg))
+    lc, _ = sphinx.forward(cpu, args, toks[:, :16], cache=cc, cur_pos=0,
+                           embeds=sphinx.splice(cpu, toks[:, :16], tc))
+    assert lg.shape == (2, 16 + n_img, 512)
+    pairs = [(lg, lc)]
+    for p in range(16, 22):
+        kernels.reset_launch_counts()
+        lg, _ = sphinx.forward(params, args, toks[:, p:p + 1].cuda(), cache=cg, cur_pos=p + n_img)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["w4_matmul"] == 8 and counts["decode_attention_mha"] == 2
+        assert sum(counts.values()) == 10
+        lc, _ = sphinx.forward(cpu, args, toks[:, p:p + 1], cache=cc, cur_pos=p + n_img)
+        pairs.append((lg, lc))
+    for lg, lc in pairs:
+        g_ = lg.cpu()
+        assert _rel_l2(g_, lc) < 2e-2
+        assert float((g_ - lc).abs().max()) < 2e-2 * float(lc.abs().max()) + 2e-2

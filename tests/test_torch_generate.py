@@ -53,6 +53,20 @@ def to_numpy_tree(node):
     return np.asarray(node)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread while a module's tests run (autouse here and
+    in each test module that imports it). The suite runs as several xdist
+    workers on one host, and each worker's torch would start one OpenMP
+    thread a core: the workers' threads then spin against each other, and
+    these modules' tests took ~20x their serial time. The count is restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tok_path(tmp_path_factory):
     from tokenizers import Tokenizer as HFTok

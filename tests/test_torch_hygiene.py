@@ -25,7 +25,9 @@ from accessory_tpu_torch.engine.generate import Generator
 from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
 from accessory_tpu_torch.main_finetune import main as finetune_main
 from accessory_tpu_torch.meta import MetaModel
-from accessory_tpu_torch.models import falcon, internlm, llama, mixtral
+from accessory_tpu_torch.checkpoint import visual_import
+from accessory_tpu_torch.models import (falcon, internlm, llama, llama_qformerv2, mixtral, sphinx,
+                                        visual)
 from accessory_tpu_torch.parallel import (init_distributed_mode, local_mesh, make_global_mesh,
                                           make_mesh)
 from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
@@ -48,7 +50,9 @@ def test_every_module_imports_without_jax():
                  "train.tree", "util.logging", "main_finetune", "parallel.mesh",
                  "parallel.distributed", "parallel.context", "ops.moe", "models.mixtral",
                  "models.internlm", "models.falcon", "models.static",
-                 "checkpoint.torch_import"):
+                 "checkpoint.torch_import", "models.visual", "models.sphinx",
+                 "models.llama_qformerv2", "checkpoint.visual_import", "data.transform",
+                 "data.data_reader", "sphinx_api", "demos.cli"):
         assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -125,6 +129,49 @@ def test_no_jax_or_reference_imports_in_source():
     assert not offenders, offenders
 
 
+def test_multimodal_serving_needs_no_pil_or_transformers():
+    """The card's machine has neither PIL nor transformers: with both (and
+    jax) blocked, every module imports, and a tiny SPHINX model captions
+    CLIP-normalized arrays through sphinx_api (generate_response,
+    batch_caption) and scores an example with its image; reading an image
+    file or a transformers model is what needs them."""
+    code = """
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('PIL', 'transformers', 'jax'):
+            raise ImportError(name + ' is blocked in this test')
+sys.meta_path.insert(0, Block())
+for m in %r:
+    importlib.import_module(m)
+import torch
+from accessory_tpu_torch.sphinx_api import SPHINXModel, batch_caption
+class Tok:
+    bos_id, eos_id, n_words = 62, 63, 64
+    def encode(self, s, bos, eos): return [self.bos_id] * bos + [ord(c) %% 62 for c in s]
+    def decode(self, t): return ''.join(chr(48 + x) for x in t)
+    def encode_segment(self, s): return self.encode(s, False, False)
+    encode_wo_prefix_space = encode_segment
+cfg = dict(dim=128, n_layers=1, n_heads=2, vocab_size=64, multiple_of=128, vit_patch=56,
+           clip_width=32, clip_layers=1, clip_heads=2, dino_width=32, dino_layers=1,
+           dino_heads=2, convnext_depths=(1, 1, 1, 1), convnext_dims=(8, 16, 32, 64),
+           qformer_width=32, qformer_layers=1, qformer_heads=2)
+m = SPHINXModel('llama_ens_light', cfg, max_seq_len=256, device='cpu', tokenizer=Tok()).quantize()
+imgs = list(torch.randn(3, 3, 224, 224))
+assert isinstance(m.generate_response([['what is this?', None]], image=imgs[0], max_gen_len=3), str)
+assert len(batch_caption(m, imgs, batch_size=2, max_gen_len=3)) == 3
+r = m.evaluate_examples(['a b'], [' c'], images=torch.stack(imgs[:1]))[0]
+assert r['ppl'] >= 1
+assert not [k for k in sys.modules if k.split('.')[0] in ('PIL', 'transformers', 'jax')]
+print('ok')
+""" % (_modules(),)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("fn", [llama.init_kv_cache, llama.init_params, params_from_jax,
                                 Generator.__init__, MetaModel.__init__,
                                 MetaModel.from_pretrained.__func__, load_checkpoint,
@@ -136,7 +183,12 @@ def test_no_jax_or_reference_imports_in_source():
                                 mixtral.init_params, mixtral.init_kv_cache,
                                 mixtral.init_paged_cache, internlm.init_params,
                                 internlm.init_kv_cache, falcon.init_params,
-                                falcon.init_kv_cache])
+                                falcon.init_kv_cache, sphinx.init_params,
+                                llama_qformerv2.init_params, visual.init_vit,
+                                visual.init_convnext, visual.init_qformer,
+                                visual_import.convert_hf_clip_vision,
+                                visual_import.convert_hf_dinov2, visual_import.convert_convnext,
+                                visual_import.convert_hf_blip2_qformer])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

@@ -40,7 +40,8 @@ from accessory_tpu_torch.quant import qtensor as tq
 from accessory_tpu_torch.tokenizer import Tokenizer
 from accessory_tpu_torch.util import resolve_kv_dtype
 
-from test_torch_generate import CORPUS, to_numpy_tree, tok_path  # noqa: F401  (fixture)
+from test_torch_generate import (CORPUS, one_torch_thread, to_numpy_tree,  # noqa: F401
+                                 tok_path)
 from test_torch_ops import DTYPES, both, f32
 
 

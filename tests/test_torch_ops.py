@@ -275,9 +275,11 @@ def test_unported_paths_name_their_queue_item():
     cache = llama.init_kv_cache(args, 1, kv_dtype="int8", device="cpu")
     assert sorted(cache) == ["k", "ks", "v", "vs"]
     assert cache["k"][0].dtype == torch.int8 and cache["vs"][0].shape == (1, 2, 16)
-    # the text zoo is served; the multimodal families wait for A8
-    with pytest.raises(KeyError, match="A8"):
-        get_model_module("llama_ens")
+    # the text zoo and SPHINX are served; llama_adapter and SPHINX-MoE wait for A8
+    assert get_model_module("llama_ens").__name__.endswith("models.sphinx")
+    for llama_type in ("llama_adapter", "mixtral_sparse_ens"):
+        with pytest.raises(KeyError, match="A8"):
+            get_model_module(llama_type)
     # per-row positions are served by the paged cache, whose path the message names
     q = torch.zeros((1, 1, 2, 64))
     with pytest.raises(NotImplementedError, match="paged_cached_attention"):

@@ -31,7 +31,7 @@ from accessory_tpu_torch.models import falcon, internlm
 from accessory_tpu_torch.quant.qtensor import QuantizedWeight
 from accessory_tpu_torch.tokenizer import Tokenizer
 
-from test_torch_generate import to_numpy_tree, tok_path  # noqa: F401  (fixture)
+from test_torch_generate import one_torch_thread, to_numpy_tree, tok_path  # noqa: F401
 
 CFGS = {"internlm": dict(num_layers=2, hidden_size=256, num_attention_heads=4, multiple_of=256,
                          dtype="float32"),
@@ -68,6 +68,11 @@ def zoo(tok_path):  # noqa: F811
         tm = MetaModel(family, cfg, tokenizer_path=tok_path, max_seq_len=128,
                        init_params=False, device="cpu")
         tm.params = params_from_jax(to_numpy_tree(jm.params), tm.args, device="cpu")
+        # the Generator jm.generate builds on the CPU (the stacked route, the
+        # float cache), made once: its compiled loop serves the stacked case
+        # of the greedy-text test and the checkpoint test alike
+        jm._generator = JGenerator(jm.module, jm.args, jm.params, JTokenizer(tok_path),
+                                   kv_dtype="fp", unroll_decode=False)
         out[family] = (jm, tm)
     return out
 
@@ -82,7 +87,7 @@ def test_generator_greedy_text_identical(zoo, tok_path, family, unroll):  # noqa
     jm, tm = zoo[family]
     module = MODULES[family]
     jgen = JGenerator(jm.module, jm.args, jm.params, JTokenizer(tok_path), kv_dtype="fp",
-                      unroll_decode=unroll)
+                      unroll_decode=True) if unroll else jm.generator
     tgen = Generator(module, tm.args, tm.params, Tokenizer(tok_path), kv_dtype="fp",
                      device="cpu", unroll_decode=unroll)
     assert tgen.params is tm.params
