@@ -1,12 +1,11 @@
 """Model configuration: model args built from a union merge of JSON configs.
 
 Own copy of ``accessory_tpu/config.py`` (union_merge_configs, make_args,
-LLaMAArgs, InternLMArgs, FalconArgs, MixtralArgs, SphinxArgs and the SPHINX
-families' per-type visual defaults); field names and defaults are identical
-so one config JSON drives both packages. ``n_layers_of`` reads the depth of
-any family (LLaMA's ``n_layers``, InternLM's and Falcon's ``num_layers``).
-SPHINX-MoE (``SphinxMoEArgs``, ``mixtral_sparse_ens*``) is not ported
-(ROADMAP A8).
+LLaMAArgs, AdapterArgs, InternLMArgs, FalconArgs, MixtralArgs, SphinxArgs,
+SphinxMoEArgs, the registry of every llama_type and the SPHINX families'
+per-type visual defaults); field names and defaults are identical so one
+config JSON drives both packages. ``n_layers_of`` reads the depth of any
+family (LLaMA's ``n_layers``, InternLM's and Falcon's ``num_layers``).
 """
 
 from __future__ import annotations
@@ -80,6 +79,22 @@ class LLaMAArgs:
         if self.ffn_dim_multiplier is not None:
             hidden = int(self.ffn_dim_multiplier * hidden)
         return self.multiple_of * ((hidden + self.multiple_of - 1) // self.multiple_of)
+
+
+@dataclass
+class AdapterArgs(LLaMAArgs):
+    """LLaMA-Adapter: zero-init gated prefix tuning of the last
+    ``prefix_layers`` layers (None: all), ``prefix_len`` prefix tokens a
+    layer, and the visual prefix branch's projector (``v_*``).
+    ``trainable_mode`` is read by nothing, as in the JAX package."""
+
+    prefix_layers: Optional[int] = None
+    prefix_len: int = 10
+    v_embed_dim: int = 768
+    v_depth: int = 8
+    v_num_heads: int = 16
+    v_mlp_ratio: float = 4.0
+    trainable_mode: str = "sg"  # sg | mm_stage1 | mm_stage2
 
 
 @dataclass
@@ -220,13 +235,21 @@ class SphinxArgs(_VisualTowerFields, LLaMAArgs):
     ``visual``: "ens" | "ens5" | "ens5p2" | "ens_light" | "ens5_light"."""
 
 
-ARGS_REGISTRY = {"llama": LLaMAArgs, "internlm": InternLMArgs, "falcon": FalconArgs,
+@dataclass
+class SphinxMoEArgs(_VisualTowerFields, MixtralArgs):
+    """SPHINX-MoE (the mixtral_sparse_ens families): SPHINX's visual
+    ensemble on a Mixtral decoder."""
+
+
+ARGS_REGISTRY = {"llama": LLaMAArgs, "llama_peft": LLaMAArgs, "llama_adapter": AdapterArgs,
+                 "internlm": InternLMArgs, "falcon": FalconArgs,
                  "mixtral": MixtralArgs, "mixtral_peft": MixtralArgs,
                  "mixtral_sparse": MixtralArgs,
                  "llama_qformerv2": SphinxArgs, "llama_qformerv2_peft": SphinxArgs,
                  "llama_ens": SphinxArgs, "llama_ens5": SphinxArgs, "llama_ens5p2": SphinxArgs,
                  "llama_ens10": SphinxArgs, "llama_ens_peft": SphinxArgs,
-                 "llama_ens_light": SphinxArgs, "llama_ens5_light": SphinxArgs}
+                 "llama_ens_light": SphinxArgs, "llama_ens5_light": SphinxArgs,
+                 "mixtral_sparse_ens": SphinxMoEArgs, "mixtral_sparse_ens5": SphinxMoEArgs}
 
 
 def _sphinx_visual_for(llama_type: str) -> str:
@@ -236,6 +259,7 @@ def _sphinx_visual_for(llama_type: str) -> str:
         "llama_ens": "ens", "llama_ens5": "ens5", "llama_ens5p2": "ens5p2",
         "llama_ens10": "ens5", "llama_ens_peft": "ens",
         "llama_ens_light": "ens_light", "llama_ens5_light": "ens5_light",
+        "mixtral_sparse_ens": "ens", "mixtral_sparse_ens5": "ens5",
         "llama_qformerv2": "ens", "llama_qformerv2_peft": "ens",
     }[llama_type]
 
@@ -247,6 +271,7 @@ def _sphinx_image_size_for(llama_type: str) -> int:
         "llama_ens": 224, "llama_ens_peft": 224, "llama_ens_light": 224,
         "llama_ens5": 448, "llama_ens5p2": 448, "llama_ens5_light": 448,
         "llama_ens10": 672,
+        "mixtral_sparse_ens": 224, "mixtral_sparse_ens5": 448,
     }.get(llama_type, 224)
 
 

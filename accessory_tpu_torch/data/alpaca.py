@@ -9,23 +9,37 @@ resumable at (epoch, start_iter). Outputs are numpy.
 The card's machine has no PyYAML, so the config is read by
 ``read_meta_config``: the reference's shape (a ``META:`` list of flat
 mappings of scalars, comments, quoted or plain values) or a ``.json`` file of
-the same structure. Not ported yet (ROADMAP A8): ``.csv`` annotation files
-(pandas), the h5 on-disk annotation cache (``cache_on_disk``) and items with
-an image.
+the same structure. ``.csv`` annotation files (tab-separated, read with
+pandas), the h5 on-disk annotation cache (``cache_on_disk``, h5py) and items
+with an image (PIL through ``data_reader``, then ``transform``; the text
+budget is ``max_words - image_words``) import their package at the call:
+where it is missing, the call raises an ImportError that names it.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import random
 import re
 import warnings
+from pathlib import Path
+from time import sleep
 from typing import Any, Dict, Iterator, List
 
 import numpy as np
 
+from accessory_tpu_torch.data.data_reader import read_img_general
 from accessory_tpu_torch.data.system_prompt import format_prompt
+
+
+def _require(package: str, what: str):
+    """``package`` imported, or an ImportError that names it and what needs it."""
+    try:
+        return importlib.import_module(package)
+    except ImportError as e:
+        raise ImportError(f"{what} need the {package!r} package, which is not installed") from e
 
 _INT = re.compile(r"[-+]?[0-9]+")
 _FLOAT = re.compile(r"[-+]?(\.[0-9]+|[0-9]+(\.[0-9]*)?)([eE][-+]?[0-9]+)?")
@@ -148,44 +162,76 @@ def _read_meta_file(meta_path: str) -> List[Dict]:
         with open(meta_path) as f:
             return [json.loads(line) for line in f]
     if ext == ".csv":
-        raise NotImplementedError(f"{meta_path}: .csv annotation files (read with pandas in "
-                                  "the reference) are not ported yet (ROADMAP A8)")
+        pd = _require("pandas", ".csv annotation files")
+        return pd.read_csv(meta_path, sep="\t", engine="pyarrow").to_dict(orient="records")
     raise NotImplementedError(f"unknown meta extension {ext}")
 
 
+def _collect(config) -> tuple:
+    """(the annotations grouped by type, length-sorted within a type, one
+    list; {type: [start, end)})."""
+    group_ann: Dict[str, List[Dict]] = {}
+    for meta in config["META"]:
+        meta_l = _read_meta_file(meta["path"])
+        if meta.get("preprocess"):
+            meta_l = MetaPreprocessor().preprocess(meta_l, meta["preprocess"])
+        prompt_type = meta.get("prompt_type", "alpaca")
+        for item in meta_l:
+            item["sys_prompt"] = prompt_type
+        group_ann.setdefault(meta["type"], []).extend(meta_l)
+
+    # length sort within a type: batches of similar length; dialog items
+    # (no instruction / output keys) sort by their total text
+    def sort_key(d):
+        try:
+            return len(format_prompt(d, d["sys_prompt"]) + d["output"])
+        except KeyError:
+            return sum(len(s.get("value", "")) for s in d.get("conversations", []))
+
+    for meta_l in group_ann.values():
+        meta_l.sort(key=sort_key)
+    ranges, start = {}, 0
+    for t, meta_l in group_ann.items():
+        ranges[t] = [start, start + len(meta_l)]
+        start += len(meta_l)
+    return sum(group_ann.values(), start=[]), ranges
+
+
 class FinetuneDataset:
+    """``cache_on_disk``: rank 0 writes the collected annotations once to
+    ``./accessory_data_cache/<config path>/data.h5`` (one JSON string an
+    item and the type ranges) and marks it ready; every rank then reads
+    its items from that file (the other ranks wait for the mark)."""
+
     def __init__(self, config_path: str, transform=None, max_words: int = 30,
                  image_words: int = 257, tokenizer=None, cache_on_disk: bool = False,
                  rank: int = 0):
-        if cache_on_disk:
-            raise NotImplementedError("cache_on_disk (the h5 annotation cache) is not ported "
-                                      "yet (ROADMAP A8)")
         self.config = read_meta_config(config_path)
-        group_ann: Dict[str, List[Dict]] = {}
-        for meta in self.config["META"]:
-            meta_l = _read_meta_file(meta["path"])
-            if meta.get("preprocess"):
-                meta_l = MetaPreprocessor().preprocess(meta_l, meta["preprocess"])
-            prompt_type = meta.get("prompt_type", "alpaca")
-            for item in meta_l:
-                item["sys_prompt"] = prompt_type
-            group_ann.setdefault(meta["type"], []).extend(meta_l)
-
-        # length sort within a type: batches of similar length; dialog items
-        # (no instruction / output keys) sort by their total text
-        def sort_key(d):
-            try:
-                return len(format_prompt(d, d["sys_prompt"]) + d["output"])
-            except KeyError:
-                return sum(len(s.get("value", "")) for s in d.get("conversations", []))
-
-        for meta_l in group_ann.values():
-            meta_l.sort(key=sort_key)
-        self.ann = sum(group_ann.values(), start=[])
-        self.group_indices, start = {}, 0
-        for t, meta_l in group_ann.items():
-            self.group_indices[t] = list(range(start, start + len(meta_l)))
-            start += len(meta_l)
+        self.cache_on_disk = cache_on_disk
+        if cache_on_disk:
+            h5py = _require("h5py", "the on-disk annotation cache (cache_on_disk)")
+            ident = config_path
+            for ch in ["/", "\\", ".", "?", "!"]:
+                ident = ident.replace(ch, "-")
+            cache_dir = Path(f"./accessory_data_cache/{ident}")
+            if rank == 0:
+                cache_dir.mkdir(parents=True, exist_ok=True)
+            if rank == 0 and not ((cache_dir / "data.h5").exists()
+                                  and (cache_dir / "ready").exists()):
+                ann, ranges = _collect(self.config)
+                with h5py.File(cache_dir / "data.h5", "w") as f:
+                    ds = f.create_dataset("ann", (len(ann),), dtype=h5py.vlen_dtype(str))
+                    ds[:] = [json.dumps(a) for a in ann]
+                    f.create_dataset("group_indice_range", data=json.dumps(ranges))
+                (cache_dir / "ready").write_text("ready")
+            while not (cache_dir / "ready").exists():
+                sleep(1)
+            cache_file = h5py.File(cache_dir / "data.h5", "r")
+            self.ann = cache_file["ann"]
+            ranges = json.loads(cache_file["group_indice_range"].asstr()[()])
+        else:
+            self.ann, ranges = _collect(self.config)
+        self.group_indices = {t: list(range(lo, hi)) for t, (lo, hi) in ranges.items()}
         self.transform = transform
         self.max_words = max_words
         self.image_words = image_words
@@ -195,20 +241,29 @@ class FinetuneDataset:
         return len(self.ann)
 
     def __getitem__(self, index: int):
+        """(tokens, labels, tokens mask) as numpy, and the image (the
+        transform's output, or the RGB pixels as an array without one) for
+        an item with an image, whose text then has ``max_words -
+        image_words`` positions."""
         item = self.ann[index]
-        if item.get("image") is not None:
-            raise NotImplementedError("items with an image: the multimodal finetuning data is "
-                                      "not ported (ROADMAP A8)")
+        if self.cache_on_disk:
+            item = json.loads(item)
+        image = item.get("image")
+        if image is not None:
+            _require("PIL", "items with an image")
+            image = read_img_general(image)
+            image = self.transform(image) if self.transform else np.asarray(image)
         answer = item["output"]
         prompt = format_prompt(item, item["sys_prompt"])
         t_prompt = self.tokenizer.encode(prompt, bos=True, eos=False)
         t_full = self.tokenizer.encode(prompt + answer, bos=True, eos=True)
 
+        max_words = self.max_words - (self.image_words if image is not None else 0)
         tokens = np.array(t_full, np.int32)
-        if len(tokens) > self.max_words:
-            warnings.warn(f"truncating overlong input ({len(tokens)} > {self.max_words})")
-            tokens = tokens[:self.max_words]
-        pad = self.max_words - len(tokens)
+        if len(tokens) > max_words:
+            warnings.warn(f"truncating overlong input ({len(tokens)} > {max_words})")
+            tokens = tokens[:max_words]
+        pad = max_words - len(tokens)
         tokens = np.concatenate([tokens, np.full(pad, -1, np.int32)])
 
         labels = tokens.copy()
@@ -217,7 +272,9 @@ class FinetuneDataset:
         labels_mask = labels >= 0
         tokens = np.where(tokens_mask, tokens, 0)
         labels = np.where(labels_mask, labels, 0)
-        return tokens, labels, tokens_mask.astype(np.float32)
+        if image is None:
+            return tokens, labels, tokens_mask.astype(np.float32)
+        return tokens, labels, tokens_mask.astype(np.float32), image
 
     def groups(self) -> List[List[int]]:
         return list(self.group_indices.values())

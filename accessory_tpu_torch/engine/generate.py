@@ -18,13 +18,15 @@ package: streaming needs each token on the host.
 the weights allow it (models/llama.py ``_block``), the reference's
 ``ACCESSORY_FFN_FUSE=1``; off by default, as there.
 
-``images`` (families with a visual branch: the SPHINX families, through
-the ``encode_image`` hook ``MetaModel`` hands over): the image words are
-spliced after each prompt's leading BOS in the prefill's embeddings (the
-module's ``splice``), the cache holds ``n_image_words`` more positions,
-every text position is shifted by ``n_image_words`` and the text's length
-budget shrinks by as much. A model without a visual branch refuses
-``images`` at the call.
+``images`` (families with a visual branch: the SPHINX and SPHINX-MoE
+families, through the ``encode_image`` hook ``MetaModel`` hands over): the
+image words are spliced after each prompt's leading BOS in the prefill's
+embeddings (the module's ``splice``), the cache holds ``n_image_words`` more
+positions, every text position is shifted by ``n_image_words`` and the
+text's length budget shrinks by as much. A model without the hook refuses
+``images`` at the call; ``compute_logits`` hands them to the module's
+forward wherever the params carry a ``visual`` branch (LLaMA-Adapter's
+visual prefix, which has no ``encode_image``, as in the JAX package).
 
 Scoring (the reference's OpenCompass interface): ``compute_logits`` is the
 cache-free forward's f32 logits (text positions only with ``images``);
@@ -34,12 +36,14 @@ length buckets (64, 128, ...) at a fixed batch shape, zero rows padding a
 short chunk; examples with an image one at a time (``_evaluate_one_mm``).
 
 ``unroll_decode=True`` (the default: the card is this package's accelerator)
-fuses wqkv / w13 where the model module sets ``SUPPORTS_FUSED_QKV`` (LLaMA;
-not Mixtral, whose blocks take separate projections) and decodes over
-per-layer caches with the fused attention + write kernels. ``False`` keeps
-the separate projections and serves from a stacked cache: read-only
-attention in each layer and one bulk write of all layers' new k/v per
-forward, the JAX package's path wherever its unrolled loop is off.
+takes effect for a module that sets ``SUPPORTS_UNROLLED_DECODE`` (every
+family but LLaMA-Adapter, as in the JAX package): it fuses wqkv / w13 where
+the module sets ``SUPPORTS_FUSED_QKV`` (LLaMA; not Mixtral, whose blocks
+take separate projections) and decodes over per-layer caches with the fused
+attention + write kernels. Otherwise the separate projections stay and the
+model serves from a stacked cache: read-only attention in each layer and
+one bulk write of all layers' new k/v per forward, the JAX package's path
+wherever its unrolled loop is off.
 """
 
 from __future__ import annotations
@@ -100,7 +104,8 @@ class Generator:
         self.encode_image = encode_image
         self.kv_dtype = kv_dtype
         self.device = torch.device(device)
-        self.unroll_decode = bool(unroll_decode)
+        self.unroll_decode = bool(unroll_decode) and getattr(module, "SUPPORTS_UNROLLED_DECODE",
+                                                             False)
         self.ffn_fuse = bool(ffn_fuse)
         # fused wqkv / w13 only for a module whose blocks take them (the
         # reference's SUPPORTS_FUSED_QKV check); Mixtral's keep wq, wk, wv
@@ -115,9 +120,9 @@ class Generator:
             return None, 0
         if self.encode_image is None:
             raise NotImplementedError(
-                f"images: {self.module.__name__} has no visual branch (the multimodal families "
-                "are llama_ens* and llama_qformerv2; llama_adapter and SPHINX-MoE are ROADMAP "
-                "A8)")
+                f"images: {self.module.__name__} has no visual branch to generate from (the "
+                "multimodal families are llama_ens*, llama_qformerv2 and mixtral_sparse_ens*; "
+                "llama_adapter takes images in compute_logits and scoring only)")
         embeds = self.encode_image(self.params, images)
         return embeds, embeds.shape[1]
 
@@ -274,11 +279,12 @@ class Generator:
     @torch.no_grad()
     def compute_logits(self, examples, images=None) -> torch.Tensor:
         """The cache-free forward's f32 logits (b, s, vocab) of token ids
-        ``examples`` (b, s); with ``images`` the text positions' only."""
+        ``examples`` (b, s); with ``images`` (a model with a visual branch)
+        the text positions' only."""
         tokens = self._tokens(examples)
         if images is None:
             return self.module.forward(self.params, self.args, tokens)[0]
-        if self.encode_image is None:
+        if self.encode_image is None and "visual" not in self.params:
             self._images(images)   # raises: no visual branch
         return self.module.forward(self.params, self.args, tokens,
                                    images=image_tensor(images, self.device))[0]

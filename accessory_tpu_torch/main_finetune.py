@@ -13,7 +13,10 @@ checkpoint is saved every ``--save_interval`` epochs and every
 ``output_dir/log.txt`` (no TensorBoard).
 
 On one card every ``--data_parallel`` mode is the same single-device step;
-``--model_parallel_size`` other than 1 waits for ROADMAP A10.
+``--model_parallel_size`` other than 1 waits for ROADMAP A10. Items with an
+image come out of the dataset as the JAX package's do (no transform: the
+file's RGB pixels, ROADMAP C13) and ``collate`` stacks them into the
+batch's "images".
 
     python -m accessory_tpu_torch.main_finetune --llama_config cfg.json \\
         --tokenizer_path tokenizer.model --data_config data.yaml \\
@@ -62,6 +65,18 @@ def get_args_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=10)
     return p
+
+
+def collate(items) -> dict:
+    """A step's dataset items -> {"examples", "labels"[, "images"]}, each
+    stacked; "images" holds the images of the items that carry one (the
+    dataset gives an image item as (tokens, labels, mask, image))."""
+    out = {"examples": np.stack([it[0] for it in items]),
+           "labels": np.stack([it[1] for it in items])}
+    images = [it[3] for it in items if len(it) > 3]
+    if images:
+        out["images"] = np.stack(images)
+    return out
 
 
 def main(args, tokenizer=None, device="cuda"):
@@ -147,15 +162,13 @@ def main(args, tokenizer=None, device="cuda"):
 
     def batches(epoch):
         sampler.set_epoch(epoch, start_iter if epoch == start_epoch else 0)
-        buf_x, buf_y = [], []
+        buf = []
         per_step = args.batch_size * args.accum_iter
         for idx in iter(sampler):
-            item = dataset[idx]
-            buf_x.append(item[0])
-            buf_y.append(item[1])
-            if len(buf_x) == per_step:
-                yield {"examples": np.stack(buf_x), "labels": np.stack(buf_y)}
-                buf_x, buf_y = [], []
+            buf.append(dataset[idx])
+            if len(buf) == per_step:
+                yield collate(buf)
+                buf = []
 
     save_kw = dict(model_args=model.args, llama_type=args.llama_type,
                    tokenizer=model.tokenizer, trainable_filter=trainable,

@@ -1,11 +1,14 @@
 """MetaModel facade over the port. Port of ``accessory_tpu/meta.py``
 (``__init__``, ``get_quant_blocklist``, ``quantize``, ``generate``,
 ``stream_generate``, ``compute_logits``, ``evaluate_examples``,
-``save_pretrained``, ``from_pretrained``) for every ported family (LLaMA,
-InternLM, Falcon, Mixtral, the SPHINX families). A SPHINX family's args
-take its ``visual`` and ``image_size`` defaults unless the config names
-them, and its model has ``with_visual`` set: the Generator then gets the
-module's ``encode_image`` as its image hook. A checkpoint directory
+``save_pretrained``, ``from_pretrained``) for every family of the JAX
+package's registry (LLaMA, LLaMA-Adapter, InternLM, Falcon, Mixtral, the
+SPHINX and SPHINX-MoE families). A SPHINX or SPHINX-MoE family's args take
+its ``visual`` and ``image_size`` defaults unless the config names them,
+and its model has ``with_visual`` set: the Generator then gets the
+module's ``encode_image`` as its image hook. LLaMA-Adapter has no
+``encode_image``, so it generates text only, as in the JAX package (its
+params carry no visual branch here either). A checkpoint directory
 written by either package's ``save_pretrained`` loads in the other, and a
 directory of the reference's PyTorch ``consolidated.*`` shards loads too
 (``checkpoint.torch_import``)."""
@@ -18,8 +21,9 @@ import os
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
-from accessory_tpu_torch.config import (ARGS_REGISTRY, SphinxArgs, _sphinx_image_size_for,
-                                        _sphinx_visual_for, make_args, union_merge_configs)
+from accessory_tpu_torch.config import (ARGS_REGISTRY, SphinxArgs, SphinxMoEArgs,
+                                        _sphinx_image_size_for, _sphinx_visual_for, make_args,
+                                        union_merge_configs)
 from accessory_tpu_torch.engine.generate import Generator, image_tensor
 from accessory_tpu_torch.models import get_model_module
 from accessory_tpu_torch.tokenizer import Tokenizer, probe_tokenizer_path_from_pretrained
@@ -33,7 +37,8 @@ class MetaModel:
                  with_visual: bool = False):
         """``tokenizer``: a tokenizer object to use as it is, in place of one
         loaded from ``tokenizer_path`` (the config then keeps its vocab_size).
-        ``with_visual``: serve images (always on for the SPHINX families)."""
+        ``with_visual``: serve images (always on for the SPHINX and SPHINX-MoE
+        families)."""
         if isinstance(llama_config, (str, dict)):
             llama_config = [llama_config]
         self.llama_type = llama_type
@@ -44,7 +49,7 @@ class MetaModel:
         if tokenizer_path:
             overrides["vocab_size"] = self.tokenizer.n_words
         args_cls = ARGS_REGISTRY[llama_type]
-        if args_cls is SphinxArgs:
+        if args_cls in (SphinxArgs, SphinxMoEArgs):
             merged = union_merge_configs(llama_config)
             if "visual" not in merged:
                 overrides["visual"] = _sphinx_visual_for(llama_type)

@@ -207,7 +207,8 @@ def _rope(args: MixtralArgs, length: int, device):
 def forward(params: Params, args: MixtralArgs, tokens: torch.Tensor, *,
             cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
             fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False, attn_fn=None,
-            moe_impl: str = "ragged", with_aux_loss: bool = False):
+            embeds: Optional[torch.Tensor] = None, moe_impl: str = "ragged",
+            with_aux_loss: bool = False):
     """A chunk of tokens at position ``cur_pos`` over per-layer params, the
     contract of ``models.llama.forward``: (logits f32 (b, sq, vocab), cache),
     the cache updated in place. ``cache=None`` is the training forward
@@ -218,11 +219,13 @@ def forward(params: Params, args: MixtralArgs, tokens: torch.Tensor, *,
     experts ("ragged" or "dense"). ``with_aux_loss``: a third output, the
     load-balancing loss summed over the layers (training), None over a
     cache. ``ffn_fuse`` is the engines' switch for LLaMA's fused FFN
-    kernel; the MoE FFN has none, so it must stay off."""
+    kernel; the MoE FFN has none, so it must stay off. ``embeds`` (b, s,
+    dim) replaces the table lookup (the multimodal splice: s may exceed the
+    token count); the RoPE rows and the cache positions follow s."""
     if ffn_fuse:
         raise ValueError("ffn_fuse: Mixtral's routed experts have no fused FFN kernel")
     _check_layers(params)
-    h = params["tok_embeddings"]["weight"][tokens]
+    h = embeds if embeds is not None else params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
     if cache is None:
         cos, sin = _rope(args, cur_pos + sq, h.device)

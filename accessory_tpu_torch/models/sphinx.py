@@ -98,9 +98,16 @@ def image_words(args: SphinxArgs) -> int:
 
 
 def init_params(args: SphinxArgs, seed: int = 0, device="cuda") -> Params:
-    """llama's params plus the f32 ``visual`` subtree, each tower drawn from
-    its own generator seeded from ``seed``."""
+    """llama's params plus the f32 ``visual`` subtree (``init_visual``)."""
     params = llama.init_params(args, seed=seed, device=device)
+    params["visual"] = init_visual(args, seed, device)
+    return params
+
+
+def init_visual(args, seed: int = 0, device="cuda") -> Params:
+    """The f32 ``visual`` subtree of a SPHINX host of width ``args.dim``
+    (LLaMA's or Mixtral's), each tower drawn from its own generator seeded
+    from ``seed``."""
     vit, dino, conv, qf = _tower_cfgs(args)
     d = args.dim
     gen = torch.Generator(device=device).manual_seed(seed * 1009 + 17)
@@ -124,8 +131,7 @@ def init_params(args: SphinxArgs, seed: int = 0, device="cuda") -> Params:
         visual["clip"] = init_vit(vit, seed * 1009 + 0, device)
         visual["qformer"] = init_qformer(qf, seed * 1009 + 1, device)
         visual["qformer_proj"] = proj(qf.width)
-    params["visual"] = visual
-    return params
+    return visual
 
 
 def get_quant_blocklist(args: SphinxArgs):
@@ -238,21 +244,21 @@ def splice(params: Params, tokens: torch.Tensor, img_tokens: torch.Tensor) -> to
     return torch.cat([emb[:, :1], img_tokens.to(emb.dtype), emb[:, 1:]], dim=1)
 
 
-def forward_with(encode):
-    """llama's forward with an optional image prefix encoded by
-    ``encode(params, args, images)``: with ``images`` the prefill embeds are
-    [BOS, image words, rest of the text]; without a cache (training,
-    scoring) the image positions' logits are dropped, as many as the splice
-    added."""
+def forward_with(encode, decoder=llama.forward):
+    """``decoder``'s forward (llama's, or Mixtral's for SPHINX-MoE) with an
+    optional image prefix encoded by ``encode(params, args, images)``: with
+    ``images`` the prefill embeds are [BOS, image words, rest of the text];
+    without a cache (training, scoring) the image positions' logits are
+    dropped, as many as the splice added. The decoder's outputs after the
+    logits (the cache, Mixtral's aux loss) pass through."""
 
     def forward(params, args, tokens, *, cache=None, cur_pos=0, embeds=None, images=None, **kw):
         if images is not None:
             embeds = splice(params, tokens, encode(params, args, images))
-        logits, cache = llama.forward(params, args, tokens, cache=cache, cur_pos=cur_pos,
-                                      embeds=embeds, **kw)
+        out = decoder(params, args, tokens, cache=cache, cur_pos=cur_pos, embeds=embeds, **kw)
         if images is not None and cache is None:
-            logits = logits[:, embeds.shape[1] - tokens.shape[1]:]
-        return logits, cache
+            out = (out[0][:, embeds.shape[1] - tokens.shape[1]:],) + tuple(out[1:])
+        return out
 
     return forward
 

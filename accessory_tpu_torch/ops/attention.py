@@ -36,7 +36,9 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_offset=0,
                       kv_len: Optional[torch.Tensor] = None,
                       scale: Optional[float] = None) -> torch.Tensor:
-    """Plain grouped-GQA attention with positional masking (no dispatch)."""
+    """Plain grouped-GQA attention with positional masking (no dispatch);
+    non-causal without ``kv_len`` (LLaMA-Adapter's prefix attention) it
+    masks nothing."""
     b, sq, nq, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     if nq % nkv:
@@ -47,16 +49,22 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     qg = q.reshape(b, sq, nkv, n_rep, hd).to(torch.float32)
     scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k.to(torch.float32)) * scale
-    q_pos = torch.as_tensor(q_offset, device=dev).reshape(-1)
-    q_ids = q_pos[:, None] + torch.arange(sq, device=dev)[None, :]
-    kv_ids = torch.arange(skv, device=dev)[None, :]
-    mask = torch.ones((q_ids.shape[0], sq, skv), dtype=torch.bool, device=dev)
-    if causal:
-        mask = mask & (kv_ids[:, None, :] <= q_ids[:, :, None])
-    if kv_len is not None:
-        kl = torch.as_tensor(kv_len, device=dev).reshape(-1)
-        mask = mask & (kv_ids[:, None, :] < kl[:, None, None])
-    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    if causal or kv_len is not None:
+        # an int offset is added on the device: a host int copied to a CUDA
+        # tensor would wait for the stream
+        if isinstance(q_offset, int):
+            q_ids = (torch.arange(sq, device=dev) + q_offset)[None, :]
+        else:
+            q_pos = torch.as_tensor(q_offset, device=dev).reshape(-1)
+            q_ids = q_pos[:, None] + torch.arange(sq, device=dev)[None, :]
+        kv_ids = torch.arange(skv, device=dev)[None, :]
+        mask = torch.ones((q_ids.shape[0], sq, skv), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_ids[:, None, :] <= q_ids[:, :, None])
+        if kv_len is not None:
+            kl = torch.as_tensor(kv_len, device=dev).reshape(-1)
+            mask = mask & (kv_ids[:, None, :] < kl[:, None, None])
+        scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkrqs,bskh->bqkrh", probs.to(v.dtype).to(torch.float32),
                        v.to(torch.float32))

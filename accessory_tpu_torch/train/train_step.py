@@ -11,7 +11,18 @@ Differentiated leaves are, as in the reference's ``partition_params``, every
 floating tensor that is not a quantized weight: frozen dense leaves (the
 embedding, the output head, norms without norm tuning) get gradients too,
 which count in ``grad_norm`` and in the clip, and are not updated (their
-optimizer label is "frozen"). QPEFT's W4 base gets none.
+optimizer label is "frozen"). QPEFT's W4 base gets none, and neither does a
+frozen leaf of the ``visual`` subtree (the towers of the multimodal
+families): no autograd graph is built through them. The ``visual`` subtree
+keeps its f32 in the forward, where the trainable projections of
+llama_qformerv2 train too (the JAX package differentiates the frozen
+towers, counts them in ``grad_norm`` and casts every f32 leaf to the
+compute dtype; ROADMAP, "Deliberate differences").
+
+A batch with ``images`` (b, 3, S, S) hands each microbatch its rows of
+them, and the loss passes them to the model's forward (the SPHINX families,
+llama_qformerv2, LLaMA-Adapter with its visual branch), whose cache-free
+logits are the text positions'.
 
 With ``attn_fn`` from ``parallel.make_cp_attn_fn(mesh)`` (the only attn_fn it
 takes: the mesh it carries decides each rank's slice) the step is
@@ -52,19 +63,31 @@ class TrainState:
 
     @classmethod
     def create(cls, params, tx) -> "TrainState":
-        partition_params(params)
+        partition_params(params, frozen_paths(tx))
         return cls(step=0, params=params, opt_state=tx.init(params))
 
 
-def partition_params(params) -> Dict[str, torch.Tensor]:
+def _visual(path: str) -> bool:
+    return path.startswith("visual/")
+
+
+def frozen_paths(tx):
+    """The paths ``tx`` (``make_optimizer``'s AdamW) labels "frozen"."""
+    return {p for p, lab in getattr(tx, "labels", {}).items() if lab == "frozen"}
+
+
+def partition_params(params, frozen=()) -> Dict[str, torch.Tensor]:
     """{path: leaf} of the differentiated leaves (floating tensors, not
-    quantized weights), each marked ``requires_grad``; the rest of the tree
-    (W4 weights, integer arrays) is static."""
+    quantized weights, not a ``visual`` leaf in ``frozen``), each marked
+    ``requires_grad``; the rest of the tree (W4 weights, integer arrays,
+    the frozen towers, unmarked) is static."""
     diff = {}
     for path, leaf in named_leaves(params):
         if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
-            leaf.requires_grad_(True)
-            diff[path] = leaf
+            differentiated = not (_visual(path) and path in frozen)
+            leaf.requires_grad_(differentiated)
+            if differentiated:
+                diff[path] = leaf
     return diff
 
 
@@ -73,7 +96,10 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {"examples": (b, s) int, "labels": (b, s) int} (numpy or torch;
-    moved to ``device``). With ``accum_steps > 1`` the batch splits into that
+    moved to ``device``), and for a multimodal family optionally "images"
+    (b, 3, S, S) CLIP-normalized (not with a cp ``attn_fn``, ROADMAP A10, nor
+    on SPHINX-MoE, whose training waits for the MoE loss, A7). With
+    ``accum_steps > 1`` the batch splits into that
     many microbatches along its first axis; their gradients are summed and
     divided by ``accum_steps`` and their metrics averaged. Metrics: loss,
     c_loss, aux_loss, n_tokens and grad_norm, as 0-d tensors on the device.
@@ -84,19 +110,22 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
                                   "training is not ported yet (ROADMAP A7)")
     compute_dtype = torch_dtype(args.dtype)
     layout = None if attn_fn is None else _CPLayout.of(attn_fn)
+    frozen = frozen_paths(tx)
 
     def _autocast(params):
         """f32 masters cast to the compute dtype inside the differentiated
         function, so the forward computes in the model's dtype and their
-        gradients land in f32 (the reference's _autocast)."""
+        gradients land in f32 (the reference's _autocast); the ``visual``
+        subtree stays f32."""
         if compute_dtype == torch.float32:
             return params
-        return map_leaves(lambda _, x: x.to(compute_dtype) if isinstance(x, torch.Tensor)
-                          and x.dtype == torch.float32 else x, params)
+        return map_leaves(lambda path, x: x.to(compute_dtype) if isinstance(x, torch.Tensor)
+                          and x.dtype == torch.float32 and not _visual(path) else x, params)
 
-    def loss_fn(params, examples, labels):
+    def loss_fn(params, examples, labels, images=None):
         if layout is None:
-            logits, _ = module.forward(_autocast(params), args, examples, remat=remat)
+            kw = {} if images is None else {"images": images}
+            logits, _ = module.forward(_autocast(params), args, examples, remat=remat, **kw)
             return cross_entropy_loss(logits, labels, ignore_index)
         ex, lab, start = layout.shard(examples, labels, ignore_index)
         logits, _ = module.forward(_autocast(params), args, ex, remat=remat, attn_fn=attn_fn,
@@ -107,19 +136,27 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
         return loss * (n_tok.clamp_min(1) / n_all.clamp_min(1)), n_all
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        if batch.get("images") is not None:
-            raise NotImplementedError("multimodal batches: training with images is not "
-                                      "ported (ROADMAP A8)")
+        images = batch.get("images")
+        if images is not None and layout is not None:
+            raise NotImplementedError("images under a context-parallel mesh: the image "
+                                      "words' split over the sequence shards waits for the "
+                                      "parallel package (ROADMAP A10)")
+        if images is not None and hasattr(args, "num_experts"):
+            raise NotImplementedError("SPHINX-MoE training needs the MoE auxiliary loss in the "
+                                      "training step (ROADMAP A7)")
         examples, labels = (_ids(batch[k], device) for k in ("examples", "labels"))
-        diff = partition_params(state.params)
+        diff = partition_params(state.params, frozen)
         for p in diff.values():
             p.grad = None
         if examples.shape[0] % accum_steps:
             raise ValueError(f"batch {examples.shape[0]} does not split into {accum_steps} "
                              "microbatches")
+        image_chunks = ((None,) * accum_steps if images is None
+                        else _images(images, device).chunk(accum_steps))
         losses, counts = [], []
-        for ex, lab in zip(examples.chunk(accum_steps), labels.chunk(accum_steps)):
-            c_loss, n_tok = loss_fn(state.params, ex, lab)
+        for ex, lab, img in zip(examples.chunk(accum_steps), labels.chunk(accum_steps),
+                                image_chunks):
+            c_loss, n_tok = loss_fn(state.params, ex, lab, img)
             c_loss.backward()
             losses.append(c_loss.detach())
             counts.append(n_tok)
@@ -199,6 +236,11 @@ class _CPLayout:
             flat = self.sum(torch.cat([t.reshape(-1) for t in ts]))
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view_as(t))
+
+
+def _images(x, device) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    return t.to(device=device, dtype=torch.float32)
 
 
 def _ids(x, device) -> torch.Tensor:

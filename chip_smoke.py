@@ -15,7 +15,8 @@
                                                parity_zoo,serve_falcon40b,decode_falcon40b,
                                                serve_internlm7b,decode_internlm7b,
                                                torch_import,parity_sphinx,serve_sphinx,
-                                               score]
+                                               score,parity_adapter,serve_adapter,
+                                               parity_sphinx_moe,serve_sphinx_moe,train_mm]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
     python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
@@ -24,8 +25,10 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   build     compiles every kernel in accessory_tpu_torch/csrc with nvcc;
   kernels   each kernel against its plain PyTorch version on CUDA tensors at
             the main paths' shapes (TinyLlama-1.1B, LLaMA2-7B, Mixtral-8x7B,
-            Falcon-40B, InternLM-7B and SPHINX-7B, the last four tagged
-            "mixtral", "falcon40b", "internlm7b" and "sphinx"): max error,
+            Falcon-40B, InternLM-7B, SPHINX-7B, LLaMA-Adapter, SPHINX-MoE and
+            the image training step, the last seven tagged "mixtral",
+            "falcon40b", "internlm7b", "sphinx", "adapter", "sphinx_moe" and
+            "train_mm"): max error,
             kernel / plain / library-call device time (profiler CUDA trace,
             median of 3; inputs rotated through enough copies to spill the
             50 MB L2 where the model reads them cold), the kernel's wall time
@@ -211,6 +214,29 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             against each scored alone from compute_logits (5e-3 of |ll|; a
             planted mask fault must read above it; max_equal equal), two
             examples with an image; launches counted;
+  parity_adapter  LLaMA-Adapter at TinyLlama width, 2 layers, the prefix (10
+            tokens) on the last, gates drawn nonzero, W4: parity's gate over the
+            stacked cache (prefill and 16 decode steps), then the cache-free
+            forward(images=) through a narrow visual branch;
+  serve_adapter  LLaMA-Adapter at LLaMA2-7B widths (prefix 10 on the last 30
+            layers, the published adapter's), W4 drawn from --seed: the 8
+            prompts and 32 new tokens through MetaModel.generate (the stacked
+            route), then batch 8 over a 1024-token stacked cache from position
+            512: prefill ms, ms a step, tok/s, busy and idle; launches exact;
+  parity_sphinx_moe  a narrow SPHINX-MoE (2 layers, 4 experts, narrow
+            towers, ens5: 1455 image words): image tokens, then the prefill
+            and 8 decode steps CPU vs card, routing compared (a flip's gap
+            within twice the router scores' noise where no flip reaches);
+  serve_sphinx_moe  SPHINX-MoE (mixtral_sparse_ens5: Mixtral-8x7B W4 drawn
+            on the card and the production towers in f32): batch_caption of 8
+            images, 32 new tokens; the time to first token split into the
+            towers and the 13688-row prefill (row 5's share of its device
+            time), decode ms a step, busy and idle, peak GB; the W4 launches
+            from the recorded routing;
+  train_mm  one image training step at small width (llama_ens, TinyLlama
+            width, narrow towers) CPU vs card, loss and gradients; then the
+            SPHINX-7B QPEFT image step at full width, 4 x (1455 + 512) rows:
+            ms a step, peak GB, the step split by kernel, launches exact;
   compare   (not in the default run) rows 5, 3 and 26's forward through calls
             every version of the package has had (planes_qmm_bigm's and the
             flash forward's own arguments), device time and the library
@@ -268,6 +294,15 @@ INTERNLM_PROJ = [("Wqkv", 4096, 12288), ("w1/w2", 4096, 11008), ("w3", 11008, 40
 # one expert's
 MIXTRAL_PROJ = [("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024), ("w1/w3", 4096, 14336),
                 ("w2", 14336, 4096)]
+# LLaMA-Adapter at LLaMA2-7B's widths with the published adapter's
+# adapter_len 10 and adapter_layer 30 (prefix_len, prefix_layers), served at
+# batch 8
+ADAPTER_7B = dict(LLAMA2_7B, prefix_len=10, prefix_layers=30)
+ADAPTER_BATCH = 8
+# the image training step (train_mm): SPHINX-7B (llama_ens5) QPEFT, 4
+# examples of 1455 image words and 512 text tokens
+TRAIN_MM_BATCH, TRAIN_MM_TEXT = 4, 512
+TRAIN_MM_ROWS = TRAIN_MM_BATCH * (1455 + TRAIN_MM_TEXT)
 KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention8",
                 "decode_attention_ro", "decode_attention8_ro", "decode_attention_mha",
                 "decode_attention_mha8", "decode_attention_mha_ro", "decode_attention_mha8_ro",
@@ -283,7 +318,14 @@ _empty_traces = 0   # profiler traces that came back without device events
 _short_traces = 0   # profiler traces that lost some kernel events
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print a JSON line (a phase's line carries "t", the script's seconds so
+    far) and append it to --out."""
+    if "phase" in obj:
+        obj = dict(obj, t=round(time.perf_counter() - _T0, 1))
     line = json.dumps(obj)
     print(line, flush=True)
     if _out_file is not None:
@@ -1607,6 +1649,15 @@ def phase_kernels(seed: int, names=None):
                     (None, None, "", 0))
         _kernels_w4(kr, "internlm7b", [(nm, k, n, "") for nm, k, n in INTERNLM_PROJ], (8,),
                     (None, None, "", 0))
+        # -- LLaMA-Adapter at 7B widths: its separate projections (no fusion:
+        #    the adapter's blocks take none) at the decode batch 8, and a prefix
+        #    layer's wk / wv over the batch's 8 x 10 prefix rows (the many-row
+        #    tile, every forward). SPHINX-MoE's decode products are Mixtral's
+        #    M = 8 rows above.
+        _kernels_w4(kr, "adapter", [("wq/wk/wv/wo", 4096, 4096, ""), ("w1/w3", 4096, 11008, ""),
+                                    ("w2", 11008, 4096, "")], (8,), (None, None, "", 0))
+        _kernels_w4(kr, "adapter", [("prefix wk/wv", 4096, 4096, "")],
+                    (ADAPTER_BATCH * ADAPTER_7B["prefix_len"],), (None, None, "", 0))
 
     if want("w4_matmul_bigm"):
         # -- Mixtral's 8 x 128 = 1024-row prefill: wk / wv and an expert's products
@@ -1629,6 +1680,16 @@ def phase_kernels(seed: int, names=None):
                            for nm, k, n in (("wqkv", 4096, 12288), ("wo", 4096, 4096),
                                             ("w13", 4096, 22016), ("w2", 11008, 4096))],
                       tag="sphinx")
+        # -- SPHINX-MoE's caption prefill (the same 13688 rows): Mixtral's
+        #    attention products and an expert's, which every touched expert
+        #    runs on all rows
+        _kernels_bigm(kr, [(nm, k, n, SPHINX_BATCH * sph["prefill_positions"])
+                           for nm, k, n in MIXTRAL_PROJ], tag="sphinx_moe")
+        # -- the image training step (train_mm): 4 x (1455 + 512) rows through
+        #    the 7B separate projections (training composes them unfused)
+        _kernels_bigm(kr, [(nm, k, n, TRAIN_MM_ROWS)
+                           for nm, k, n in (("wq/wk/wv/wo", 4096, 4096), ("w1/w3", 4096, 11008),
+                                            ("w2", 11008, 4096))], tag="train_mm")
 
     if want("decode_attention"):
         # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
@@ -1652,6 +1713,12 @@ def phase_kernels(seed: int, names=None):
         for int8 in (False, True):
             _kernels_decode(kr, "mixtral", 32, 8, 128, ((8, 1024, 511), (8, 192, 150)),
                             int8=int8, most_copies=8)
+        # -- SPHINX-MoE's caption decode (NKV 8, R 4): the first and last of its
+        #    32 positions past the image words, in its cache
+        sph = _sphinx_shapes()
+        _kernels_decode(kr, "sphinx_moe", 32, 8, 128,
+                        tuple((SPHINX_BATCH, sph["cache_len"], sph[p])
+                              for p in ("first_decode_pos", "last_decode_pos")), most_copies=8)
         # -- Falcon-40B (NKV 8, R 16, HD 64): the fused bf16 and int8 decode at
         #    the decode and serve shapes, and the read-only forms (unfused route)
         for int8, write in ((False, True), (True, True), (False, False), (True, False)):
@@ -1686,6 +1753,10 @@ def phase_kernels(seed: int, names=None):
                           for p in ("first_decode_pos", "last_decode_pos"))
         _kernels_decode(kr, "sphinx", 32, 32, 128, sph_cases, most_copies=4)
         _kernels_decode(kr, "sphinx", 32, 32, 128, sph_cases, int8=True, most_copies=4)
+        # -- LLaMA-Adapter's decode: the read-only one-query-head kernel over its
+        #    stacked cache at the bench shape, q / k / v separate projections
+        _kernels_decode(kr, "adapter", 32, 32, 128, ((ADAPTER_BATCH, 1024, 511),), write=False,
+                        most_copies=4, separate=True)
 
     if want("flash_attention"):
         # -- causal prefill flash attention (splash), and the 700M full
@@ -1696,6 +1767,10 @@ def phase_kernels(seed: int, names=None):
                             ("mixtral", 8, 128, 32, 8, 128), ("falcon40b", 8, 128, 128, 8, 64),
                             ("700m", 2, 2048, 16, 8, 128),
                             ("sphinx", SPHINX_BATCH, _sphinx_shapes()["prefill_positions"],
+                             32, 32, 128),
+                            ("sphinx_moe", SPHINX_BATCH, _sphinx_shapes()["prefill_positions"],
+                             32, 8, 128),
+                            ("train_mm", TRAIN_MM_BATCH, TRAIN_MM_ROWS // TRAIN_MM_BATCH,
                              32, 32, 128)))
 
     if want("kv_write"):
@@ -1715,6 +1790,12 @@ def phase_kernels(seed: int, names=None):
         sph = _sphinx_shapes()
         _kernels_slab(kr, "sphinx", SPHINX_BATCH, 32, 128, sph["cache_len"],
                       sph["prefill_positions"], (0,))
+        _kernels_slab(kr, "sphinx_moe", SPHINX_BATCH, 8, 128, sph["cache_len"],
+                      sph["prefill_positions"], (0,))
+        # -- LLaMA-Adapter's stacked writes, 32 layers: its serve prefill (the
+        #    128-token bucket into a 192-token cache) and a bench decode step
+        _kernels_stacked(kr, "adapter", 32, ADAPTER_BATCH, 32, 128, 192, 128, 0, False)
+        _kernels_stacked(kr, "adapter", 32, ADAPTER_BATCH, 32, 128, 1024, 1, 511, False)
         # -- one-token writes (_write_col_layer, _write_col_layer_q8) at the decode
         #    shapes, and the stacked writes of all 22 layers in one launch
         #    (_write_col_inplace at one token, _write_inplace for the prefill slab,
@@ -1764,7 +1845,9 @@ def phase_kernels(seed: int, names=None):
         _kernels_dequant(kr, [("7b wq/wk/wv/wo", 4096, 4096), ("7b w1/w3", 4096, 11008),
                               ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)])
         _kernels_flash_bwd(kr, [("7b", 8, 512, 32, 32, 128), ("700m", 2, 2048, 16, 8, 128),
-                                ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64)])
+                                ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64),
+                                ("train_mm", TRAIN_MM_BATCH, TRAIN_MM_ROWS // TRAIN_MM_BATCH,
+                                 32, 32, 128)])
 
     if want("w8_matmul"):
         # -- W8A16 (serve7b_w8 / decode7b_w8 / parity_w8): the 7B projections at
@@ -1867,7 +1950,7 @@ def phase_parity(seed: int, phase: str, cfg: dict, n_layers: int, b: int, plen: 
     from accessory_tpu_torch.quant.quantize import quantize_params
 
     module = get_model_module(family)
-    depth = "n_layers" if family == "llama" else "num_layers"
+    depth = "num_layers" if family in ("internlm", "falcon") else "n_layers"
     args = ARGS_REGISTRY[family](**dict(cfg, **{depth: n_layers}), max_seq_len=s_len)
     params_gpu = (make_params(args) if make_params is not None
                   else quantize_params(module.init_params(args, seed=seed)))
@@ -3893,62 +3976,87 @@ ROUTE_FLIP_GAP = 2e-2
 
 
 def _routing_compare(cpu_log, gpu_log, k: int):
-    """Per (token, layer): the chosen experts as sets on each side; a flip's
-    gap is the CPU's score k minus score k + 1. Returns (agree (T, layers)
-    bool, [flip gaps])."""
+    """Per (token, layer): whether the chosen experts agree as sets, the
+    CPU's gap between its scores k and k + 1 (a flip's gap), and the largest
+    |card - CPU| router score; each (T, layers). Also whether the card chose
+    the top k of its own scores everywhere."""
     import torch
 
-    agree, gaps = [], []
+    agree, gaps, diffs, own = [], [], [], True
     for c, g in zip(cpu_log, gpu_log):
-        same = (c["idx"].sort(dim=-1).values == g["idx"].sort(dim=-1).values).all(dim=-1)
+        agree.append((c["idx"].sort(dim=-1).values == g["idx"].sort(dim=-1).values).all(dim=-1))
         top = c["scores"].sort(dim=-1, descending=True).values
-        gaps += (top[:, k - 1] - top[:, k])[~same].tolist()
-        agree.append(same)
-    return torch.stack(agree, dim=-1), gaps
+        gaps.append(top[:, k - 1] - top[:, k])
+        diffs.append((c["scores"] - g["scores"]).abs().amax(dim=-1))
+        g_top = torch.sort(g["scores"], dim=-1, descending=True, stable=True).indices[:, :k]
+        own &= bool((g_top.sort(dim=-1).values == g["idx"].sort(dim=-1).values.long()).all())
+    return (torch.stack(agree, dim=-1), torch.stack(gaps, dim=-1), torch.stack(diffs, dim=-1),
+            own)
 
 
-def phase_parity_moe(seed: int, b: int = 2, plen: int = 32, steps: int = 8):
-    """Mixtral width (dim 4096, 8 experts of 14336, 32 / 8 heads), one layer:
-    the CPU (plain versions) against the card (kernels) on the same W4 weights
-    (``quantize_params`` of a seeded dense layer, the router f32), a prefill
-    of b x plen tokens and ``steps`` decode steps teacher-forced on the CPU's
-    greedy tokens. Routing agreement per (token, layer), each flip with the
-    CPU's gap between scores k and k + 1 (at most ROUTE_FLIP_GAP); logits
-    held to parity's tolerances where every layer's routing agreed, for each
-    batch row up to its first flip (a flip moves the next layers' k / v, and
-    through the cache every later token of the row)."""
+def _moe_parity(phase: str, desc: str, module, args, params_gpu, params_cpu, prompt, steps: int,
+                image_tokens=None, flip_gap=ROUTE_FLIP_GAP):
+    """The CPU (plain versions) against the card (kernels) on the same
+    weights: a prefill of ``prompt`` (after the image words, when
+    ``image_tokens`` (card, CPU) are given: the splice's embeddings) and
+    ``steps`` decode steps teacher-forced on the CPU's greedy tokens.
+    Routing agreement per (token, layer); the card's choice must be the top
+    k of its own router scores. A flip at layer l' and position p reaches
+    every layer above l' at p and after it (through the cache in later
+    steps too); a flip that no earlier flip reaches must have a CPU gap
+    between scores k and k + 1 of at most ``flip_gap`` (None: twice the
+    scores' own noise, the largest |card - CPU| router score of a (token,
+    layer) that no flip reaches), while a reached flip follows from its
+    inputs' difference and is only reported; logits
+    held to parity's tolerances where every layer's routing agreed, for
+    each batch row up to its first flip (a flip moves the next layers' k /
+    v, and through the cache every later token of the row). Returns the
+    row."""
     import torch
 
-    from accessory_tpu_torch.config import MixtralArgs
-    from accessory_tpu_torch.models import mixtral
     from accessory_tpu_torch.ops import moe
-    from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
 
-    args = MixtralArgs(**dict(MIXTRAL_8X7B, n_layers=1), max_seq_len=128)
-    block = tuple(DEFAULT_BLOCKLIST) + tuple(mixtral.get_quant_blocklist(args))
-    params_gpu = quantize_params(mixtral.init_params(args, seed=seed), blocklist=block)
-    torch.cuda.empty_cache()
-    params_cpu = _tree_to(params_gpu, "cpu")
-    prompt = torch.randint(0, args.vocab_size, (b, plen),
-                           generator=torch.Generator().manual_seed(seed))
-    cache_g = mixtral.init_kv_cache(args, b, 128)
-    cache_c = mixtral.init_kv_cache(args, b, 128, device="cpu")
-    cpu_s, logits, agree, gaps = 0.0, [], [], []
+    b, plen = prompt.shape
+    n_img = 0 if image_tokens is None else image_tokens[1].shape[1]
+    s_len = max(128, n_img + plen + steps)
+    cache_g = module.init_kv_cache(args, b, s_len)
+    cache_c = module.init_kv_cache(args, b, s_len, device="cpu")
+    cpu_s, logits, agree, gaps, gated, noise, own = 0.0, [], [], [], [], 0.0, True
     clean = torch.ones(b, dtype=torch.bool)
+    n_moe = args.n_layers
+    layer_ids = torch.arange(n_moe)
+    reached_from = torch.full((b,), n_moe)     # a row's lowest flipped layer so far
     tok = prompt
     for i in range(steps + 1):
-        pos = 0 if i == 0 else plen + i - 1
-        with moe.record_routing(detail=True) as glog:
-            lg, _ = mixtral.forward(params_gpu, args, tok.cuda(), cache=cache_g, cur_pos=pos)
+        pos = 0 if i == 0 else n_img + plen + i - 1
+        kw_g, kw_c = {}, {}
+        if i == 0 and image_tokens is not None:
+            kw_g = {"embeds": module.splice(params_gpu, tok.cuda(), image_tokens[0])}
+            kw_c = {"embeds": module.splice(params_cpu, tok, image_tokens[1])}
+        with torch.no_grad(), moe.record_routing(detail=True) as glog:
+            lg, _ = module.forward(params_gpu, args, tok.cuda(), cache=cache_g, cur_pos=pos,
+                                   **kw_g)
         t0 = time.perf_counter()
-        with moe.record_routing(detail=True) as clog:
-            lc, _ = mixtral.forward(params_cpu, args, tok, cache=cache_c, cur_pos=pos)
+        with torch.no_grad(), moe.record_routing(detail=True) as clog:
+            lc, _ = module.forward(params_cpu, args, tok, cache=cache_c, cur_pos=pos, **kw_c)
         cpu_s += time.perf_counter() - t0
-        same, flip_gaps = _routing_compare(clog, glog, args.num_experts_per_tok)
-        tok_ok = same.all(dim=-1).reshape(tok.shape)
+        same, gap, diff, step_own = _routing_compare(clog, glog, args.num_experts_per_tok)
+        own = own and step_own
+        flip = ~same.reshape(b, lc.shape[1], n_moe)
+        gap, diff = gap.reshape(flip.shape), diff.reshape(flip.shape)
+        below = (flip.int().cumsum(dim=2) - flip.int()) > 0      # a flip under layer l at t
+        reached = (below.int().cummax(dim=1).values > 0) \
+            | (layer_ids[None, None, :] > reached_from[:, None, None])
+        quiet = ~flip & ~reached
+        if quiet.any():
+            noise = max(noise, float(diff[quiet].max()))
+        gaps += gap[flip].tolist()
+        gated += gap[flip & ~reached].tolist()
+        reached_from = torch.minimum(
+            reached_from, torch.where(flip, layer_ids, n_moe).amin(dim=(1, 2)))
+        tok_ok = same.all(dim=-1).reshape(b, lc.shape[1])
         agree.append(clean[:, None] & (tok_ok.cumprod(dim=1) > 0))
         clean &= tok_ok.all(dim=1)
-        gaps += flip_gaps
         logits.append((lg.float().cpu(), lc))
         tok = lc[:, -1:].argmax(-1)
     tol_abs = LOGIT_TOL_FRAC * float(logits[0][1].abs().max())
@@ -3958,21 +4066,48 @@ def phase_parity_moe(seed: int, b: int = 2, plen: int = 32, steps: int = 8):
     d = (gpu - cpu)[ok]
     top2 = cpu[ok].topk(2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1]) > tol_abs
-    row = {"phase": "parity_moe", "model": "Mixtral-8x7B width, 1 layer", "weights": "W4",
-           "batch": b, "prompt": plen, "decode_steps": steps, "cpu_seconds": round(cpu_s, 2),
+    limit = 2 * noise if flip_gap is None else flip_gap
+    row = {"phase": phase, "model": desc, "weights": "W4",
+           "batch": b, "prompt": plen, "image_words": n_img, "decode_steps": steps,
+           "cpu_seconds": round(cpu_s, 2),
            "routing_tokens": int(ok.numel()), "routing_flips": len(gaps),
            "tokens_compared": int(ok.sum()),
-           "routing_flip_gaps": gaps, "flip_gap_limit": ROUTE_FLIP_GAP,
+           "routing_flip_gaps": gaps, "unreached_flip_gaps": gated,
+           "flip_gap_limit": limit,
+           "router_score_noise": noise, "card_routes_its_own_top_k": own,
            "max_abs_logit_err": float(d.abs().max()) if d.numel() else None,
            "max_rel_l2_err": float(d.norm() / cpu[ok].norm()) if d.numel() else None,
            "tol_abs": tol_abs, "tol_rel_l2": LOGIT_REL_L2,
            "tokens_checked": int(sure.sum()),
            "tokens_agreed": int((gpu[ok].argmax(-1) == cpu[ok].argmax(-1))[sure].sum())}
-    emit(row)
     if (not torch.isfinite(gpu).all() or not d.numel() or row["max_abs_logit_err"] > tol_abs
-            or row["max_rel_l2_err"] > LOGIT_REL_L2 or any(g > ROUTE_FLIP_GAP for g in gaps)
-            or row["tokens_agreed"] != row["tokens_checked"]):
-        raise AssertionError(f"parity_moe failed: {row}")
+            or row["max_rel_l2_err"] > LOGIT_REL_L2 or any(g > limit for g in gated)
+            or not own or row["tokens_agreed"] != row["tokens_checked"]):
+        emit(row)
+        raise AssertionError(f"{phase} failed: {row}")
+    return row
+
+
+def phase_parity_moe(seed: int, b: int = 2, plen: int = 32, steps: int = 8):
+    """Mixtral width (dim 4096, 8 experts of 14336, 32 / 8 heads), one layer:
+    ``_moe_parity`` on W4 weights (``quantize_params`` of a seeded dense
+    layer, the router f32), a prefill of b x plen tokens and ``steps``
+    decode steps."""
+    import torch
+
+    from accessory_tpu_torch.config import MixtralArgs
+    from accessory_tpu_torch.models import mixtral
+    from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
+
+    args = MixtralArgs(**dict(MIXTRAL_8X7B, n_layers=1), max_seq_len=128)
+    block = tuple(DEFAULT_BLOCKLIST) + tuple(mixtral.get_quant_blocklist(args))
+    params_gpu = quantize_params(mixtral.init_params(args, seed=seed), blocklist=block)
+    torch.cuda.empty_cache()
+    params_cpu = _tree_to(params_gpu, "cpu")
+    prompt = torch.randint(0, args.vocab_size, (b, plen),
+                           generator=torch.Generator().manual_seed(seed))
+    emit(_moe_parity("parity_moe", "Mixtral-8x7B width, 1 layer", mixtral, args, params_gpu,
+                     params_cpu, prompt, steps))
 
 
 def _random_w4(gen, k: int, n: int, gs: int = 128):
@@ -4004,21 +4139,23 @@ def _qw_bytes(node) -> int:
     return 0
 
 
-def _mixtral_model(seed: int, max_seq_len: int):
+def _mixtral_model(seed: int, max_seq_len: int, llama_type: str = "mixtral"):
     """The full Mixtral-8x7B shape (32 layers, 8 experts, dim 4096, hidden
     14336, 32 / 8 heads), W4 g128 folded, built leaf by leaf on the card from
     ``seed`` (the dense bf16 model, ~93 GB, is never made): every projection
     and expert a ``_random_w4``, the router f32, embeddings and head bf16,
-    norms one; a MetaModel holding them. Returns (model, setup s, peak
-    bytes)."""
+    norms one; a MetaModel of ``llama_type`` holding them, with the f32
+    towers of ``sphinx.init_visual`` for a SPHINX-MoE type. Returns (model,
+    setup s, peak bytes)."""
     import torch
 
     from accessory_tpu_torch.meta import MetaModel
+    from accessory_tpu_torch.models import sphinx
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = MetaModel("mixtral", dict(MIXTRAL_8X7B), max_seq_len=max_seq_len, init_params=False)
+    model = MetaModel(llama_type, dict(MIXTRAL_8X7B), max_seq_len=max_seq_len, init_params=False)
     a = model.args
     d, hidden, nkv_d = a.dim, a.hidden_dim, a.kv_heads * a.head_dim
 
@@ -4043,6 +4180,8 @@ def _mixtral_model(seed: int, max_seq_len: int):
     model.params = {"tok_embeddings": {"weight": dense((a.vocab_size, d), 1.0)},
                     "layers": layers, "norm": {"weight": ones()},
                     "output": {"weight": dense((d, a.vocab_size), d ** -0.5)}}
+    if model.with_visual:
+        model.params["visual"] = sphinx.init_visual(a, seed)
     model.tokenizer = ByteTokenizer()
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
@@ -5097,6 +5236,534 @@ def phase_score(model, seed: int):
     return counts
 
 
+# ---------------------------------------------------------------- LLaMA-Adapter, SPHINX-MoE and
+# finetuning with images
+
+
+def _open_gates(params, seed: int):
+    """The adapter's gates drawn normal from ``seed``, in place (zero gates,
+    the init, make the model its LLaMA base). Returns params."""
+    import torch
+
+    gate = params["adapter"]["gate"]
+    g = torch.Generator(device=gate.device).manual_seed(seed + 7)
+    params["adapter"]["gate"] = torch.randn(gate.shape, generator=g,
+                                            device=gate.device).to(gate.dtype)
+    return params
+
+
+def _logit_gate(phase: str, gpu, cpu, extra: dict):
+    """phase_parity's gate on one pair of logits: max |error| within
+    LOGIT_TOL_FRAC of the CPU's largest |logit|, LOGIT_REL_L2 in relative L2,
+    greedy tokens equal where the CPU is sure. Emits and returns the row."""
+    import torch
+
+    gpu = gpu.float().cpu()
+    tol_abs = LOGIT_TOL_FRAC * float(cpu.abs().max())
+    top2 = cpu.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol_abs
+    row = {"phase": phase, **extra, "max_abs_logit_err": float((gpu - cpu).abs().max()),
+           "max_rel_l2_err": float((gpu - cpu).norm() / cpu.norm()), "tol_abs": tol_abs,
+           "tol_rel_l2": LOGIT_REL_L2, "tokens_checked": int(sure.sum()),
+           "tokens_agreed": int((gpu.argmax(-1) == cpu.argmax(-1))[sure].sum())}
+    emit(row)
+    if (not torch.isfinite(gpu).all() or row["max_abs_logit_err"] > tol_abs
+            or row["max_rel_l2_err"] > LOGIT_REL_L2
+            or row["tokens_agreed"] != row["tokens_checked"]):
+        raise AssertionError(f"{phase} failed: {row}")
+    return row
+
+
+def phase_parity_adapter(seed: int):
+    """LLaMA-Adapter at TinyLlama width, 2 layers, the prefix (10 tokens) on
+    the last, gates drawn nonzero, W4: phase_parity's CPU-vs-card gate over
+    the stacked cache (prefill logits and 16 greedy decode steps teacher-
+    forced on the CPU's tokens: flash, the read-only decode kernel, the
+    stacked writes, row 1 on the projections and the prefix rows), then the
+    cache-free forward(images=) of 2 images through a narrow visual branch
+    (v_embed_dim 256: a 2-layer ViT at patch 14), logits at the same gate."""
+    import torch
+
+    from accessory_tpu_torch.config import AdapterArgs
+    from accessory_tpu_torch.models import llama_adapter
+    from accessory_tpu_torch.quant.quantize import quantize_params
+
+    cfg = dict(TINYLLAMA, prefix_len=10, prefix_layers=1, v_embed_dim=256, v_depth=2,
+               v_num_heads=4)
+
+    def make(args):
+        return quantize_params(_open_gates(llama_adapter.init_params(
+            args, seed=seed, with_visual=True), seed))
+
+    phase_parity(seed, "parity_adapter", cfg, 2, b=2, plen=64, steps=16, s_len=128,
+                 stacked=True, make_params=make, family="llama_adapter")
+    args = AdapterArgs(**dict(cfg, n_layers=2), max_seq_len=128)
+    params_g = make(args)
+    params_c = _tree_to(params_g, "cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    imgs = torch.randn((2, 3, 224, 224), generator=g)
+    toks = torch.randint(0, args.vocab_size, (2, 64), generator=g)
+    with torch.no_grad():
+        lg, _ = llama_adapter.forward(params_g, args, toks.cuda(), images=imgs.cuda())
+        t0 = time.perf_counter()
+        lc, _ = llama_adapter.forward(params_c, args, toks, images=imgs)
+        cpu_s = time.perf_counter() - t0
+        text_c, _ = llama_adapter.forward(params_c, args, toks)
+    _logit_gate("parity_adapter", lg, lc, {
+        "path": "cache-free forward(images=)", "layers": 2, "batch": 2, "tokens": 64,
+        "visual": "ViT 256 wide, 2 layers, patch 14; projector 2 blocks",
+        "cpu_seconds": round(cpu_s, 2),
+        "image_moves_logits_max": float((lc - text_c).abs().max())})
+
+
+def _adapter_model(seed: int):
+    """LLaMA-Adapter at 7B widths (ADAPTER_7B): drawn on the card from
+    ``seed``, gates opened, quantized to W4 layer by layer. Returns (model,
+    setup s, setup peak bytes)."""
+    import torch
+
+    from accessory_tpu_torch.meta import MetaModel
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = MetaModel("llama_adapter", dict(ADAPTER_7B), max_seq_len=1024, seed=seed)
+    _open_gates(model.params, seed)
+    model.tokenizer = ByteTokenizer()
+    model.quantize()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _adapter_counts(n_layers: int, prefix_layers: int, prefill_rows: int, steps: int,
+                    prefill: bool = True):
+    """The launches of an adapter prefill (if ``prefill``) and ``steps`` decode
+    steps: 7 W4 products a layer (row 5 from 1024 rows) and 2 on each prefix
+    layer's prefix rows (row 1's tile) a forward; flash a layer and one
+    stacked slab write at the prefill; the read-only one-query-head decode a
+    layer and one stacked column write a step."""
+    forwards = steps + int(prefill)
+    w4 = 2 * prefix_layers * forwards + 7 * n_layers * steps
+    want = _zero_counts(w4_matmul=w4, decode_attention_mha_ro=n_layers * steps,
+                        kv_write_stacked_col=steps)
+    if prefill:
+        want.update(flash_attention=n_layers, kv_write_stacked=1)
+        want["w4_matmul_bigm" if prefill_rows >= 1024 else "w4_matmul"] += 7 * n_layers
+    return want
+
+
+def phase_serve_adapter(seed: int, steps: int = 30):
+    """LLaMA-Adapter at LLaMA2-7B widths (32 layers, MHA, prefix_len 10 on
+    the last 30 layers, gates nonzero), W4 g128 drawn on the card: the 8
+    PROMPTS (1024 prefill rows) and 32 new tokens through MetaModel.generate
+    (the Generator's stacked route), then the bench shape (batch 8, a
+    1024-token stacked cache, a counted 8 x 512 prefill and ``steps`` decode
+    steps from position 512): prefill ms, wall ms a step, tok/s, device busy
+    and idle share from a profiled window, launch counts exact. Returns
+    (serve counts, bench counts)."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import llama_adapter
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    model, setup_s, setup_peak = _adapter_model(seed)
+    args, n_layers = model.args, model.args.n_layers
+    pl = args.prefix_layers
+    if model.generator.unroll_decode:
+        raise AssertionError("serve_adapter: the Generator must take the stacked route")
+    prompts = PROMPTS
+    prefill_ms = _timed_prefill(model, 8, 128, 192, None)
+    outs, counts, steps_g, total_s = _counted_generate(model, prompts, 32)
+    want = _adapter_counts(n_layers, pl, 8 * 128, steps_g)
+    row = {"phase": "serve_adapter", "model": "LLaMA-Adapter, LLaMA2-7B widths",
+           "prefix_len": args.prefix_len, "prefix_layers": pl, "layers": n_layers,
+           "batch": len(prompts), "prefill_rows": 8 * 128, "decode_steps": steps_g,
+           "launches": counts, "launches_expected": want, "setup_s": setup_s,
+           "setup_peak_gb": setup_peak / 1e9, "weight_gb_w4": _qw_bytes(model.params) / 1e9,
+           "prefill_ms": prefill_ms, "generate_s": total_s,
+           "decode_tok_s": len(prompts) * steps_g / max(total_s - prefill_ms / 1e3, 1e-9),
+           "outputs_chars": [len(o) for o in outs]}
+    emit(row)
+    if counts != want or steps_g < 32 or len(outs) != len(prompts):
+        raise AssertionError(f"serve_adapter: launch counts {counts} != expected {want}")
+
+    params, batch, cache_len, pos0 = model.params, ADAPTER_BATCH, 1024, 512
+    cache = llama_adapter.init_kv_cache(args, batch, cache_len)
+    prompt = torch.randint(0, 256, (batch, pos0), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+    tok = torch.ones((batch, 1), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        bench_prefill_ms, (logits, _) = _event_ms(lambda: llama_adapter.forward(
+            params, args, prompt, cache=cache, cur_pos=0), reps=1)
+        for i in range(3):
+            llama_adapter.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, _ = llama_adapter.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        bench = kernels.launch_counts()
+        profile = _profile_steps(params, args, tok, cache, pos0, ms, steps=5,
+                                 module=llama_adapter,
+                                 shares=("W4Folded", "FoldedB", "decode_attn", "elementwise"))
+    want = _adapter_counts(n_layers, pl, batch * pos0, steps + 3)
+    w_bytes = sum(_qw_bytes(v) for k, v in params.items() if k != "tok_embeddings") \
+        + sum(t.numel() * t.element_size() for k, t in
+              (("output", params["output"]["weight"]), ("prefix", params["adapter"]["prefix"])))
+    mid = pos0 + steps // 2
+    kv_bytes = 2 * n_layers * batch * args.kv_heads * mid * args.head_dim * 2
+    b_ms, _ = bound_ms(w_bytes + kv_bytes, 0.0)
+    row = {"phase": "serve_adapter", "bench": "batch 8, stacked cache 1024, decode from 512",
+           "prefill_rows": batch * pos0, "prefill_ms": bench_prefill_ms, "steps": steps,
+           "ms_per_step": ms, "tok_s": batch / ms * 1e3, "bound_ms_per_step": b_ms,
+           "weight_bytes": w_bytes, "kv_bytes_mid": kv_bytes, "profile": profile,
+           "launches": bench, "launches_expected": want,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    if bench != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"serve_adapter bench: launch counts {bench} != {want} "
+                             "or non-finite logits")
+    del model, cache, params
+    torch.cuda.empty_cache()
+    return counts, bench
+
+
+# SPHINX-MoE (mixtral_sparse_ens5): the Mixtral-8x7B decoder of
+# BASELINE.json config 3 and SPHINX's production towers at 448 px (5 crops,
+# 1455 image words), the caption workload of serve_sphinx
+SPHINX_MOE_TYPE = "mixtral_sparse_ens5"
+# narrow SPHINX-MoE for parity_sphinx_moe: 4 experts, 2 layers, head_dim 128,
+# towers 256 wide (2 blocks each, patch 14: every tower's 257 tokens)
+SPHINX_MOE_NARROW = dict(dim=1024, n_heads=8, n_kv_heads=2, hidden_dim=2048, num_experts=4,
+                         num_experts_per_tok=2, vocab_size=32000, rope_theta=1e6,
+                         dtype="bfloat16", clip_width=256, clip_layers=2, clip_heads=4,
+                         dino_width=256, dino_layers=2, dino_heads=4,
+                         convnext_depths=(1, 1, 1, 1), convnext_dims=(64, 128, 256, 512),
+                         qformer_width=256, qformer_layers=2, qformer_heads=4)
+
+
+def phase_parity_sphinx_moe(seed: int, plen: int = 32, steps: int = 8):
+    """A narrow SPHINX-MoE (SPHINX_MOE_NARROW: 2 layers, 4 experts top 2,
+    narrow towers, ens5 at 448 px: 1455 image words), W4, one image a row, 2
+    rows: the card against the CPU on the same weights: encode_image's bf16
+    tokens (2 bf16 ulps of their largest |value|, 4e-3 relative L2), then
+    ``_moe_parity`` over the prefill of [BOS, image words, text] and
+    ``steps`` decode steps at positions shifted by the image words (logits
+    where the routing agreed; a flip's gap within twice the router scores'
+    measured noise, the card's choice the top 2 of its own scores)."""
+    import torch
+
+    from accessory_tpu_torch.config import SphinxMoEArgs
+    from accessory_tpu_torch.models import sphinx_moe
+    from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
+
+    args = SphinxMoEArgs(**dict(SPHINX_MOE_NARROW, n_layers=2), visual="ens5", image_size=448,
+                         max_seq_len=SPHINX_MAX_SEQ)
+    block = tuple(DEFAULT_BLOCKLIST) + tuple(sphinx_moe.get_quant_blocklist(args))
+    params_g = quantize_params(sphinx_moe.init_params(args, seed=seed), blocklist=block)
+    torch.cuda.empty_cache()
+    params_c = _tree_to(params_g, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    imgs = torch.randn((2, 3, 448, 448), generator=g)
+    prompt = torch.randint(0, args.vocab_size, (2, plen), generator=g)
+    with torch.no_grad():
+        tok_g = sphinx_moe.encode_image(params_g, args, imgs.cuda())
+        t0 = time.perf_counter()
+        tok_c = sphinx_moe.encode_image(params_c, args, imgs)
+        tower_s = time.perf_counter() - t0
+    n_img = sphinx_moe.image_words(args)
+    tok_absmax = float(tok_c.float().abs().max())
+    tok_err = max_err(tok_g.float().cpu(), tok_c.float())
+    tok_rel = float((tok_g.float().cpu() - tok_c.float()).norm() / tok_c.float().norm())
+    if tok_g.shape != (2, n_img, args.dim) or n_img != 1455 or \
+            tok_err[0] > 2 * bf16_ulp(tok_absmax) or tok_rel > 4e-3:
+        raise AssertionError(f"parity_sphinx_moe encode_image: {tok_err}, {tok_rel}, "
+                             f"{tuple(tok_g.shape)}")
+    # 4 experts: router scores twice Mixtral's 8-expert scale, so a flip's
+    # gap is held to the scores' measured noise, not parity_moe's fixed one
+    row = _moe_parity("parity_sphinx_moe", "SPHINX-MoE narrow (ens5, 2 layers, 4 experts)",
+                      sphinx_moe, args, params_g, params_c, prompt, steps,
+                      image_tokens=(tok_g, tok_c), flip_gap=None)
+    emit(dict(row, image_tokens_max_abs_err=tok_err[0], image_tokens_rel_l2=tok_rel,
+              image_tokens_absmax=tok_absmax, cpu_tower_seconds=round(tower_s, 2)))
+
+
+def _device_split(fn, groups):
+    """Device ms of one call of ``fn`` by kernel-name substring groups
+    ({label: (substrings)}), from torch.profiler's CUDA trace; (busy ms,
+    {label: ms}, the call's result)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        out = fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in p.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+    split = {label: sum(v for k, v in by_kernel.items() if any(sub in k for sub in subs))
+             for label, subs in groups.items()}
+    return sum(by_kernel.values()), split, out
+
+
+def phase_serve_sphinx_moe(seed: int):
+    """SPHINX-MoE at full width and depth (mixtral_sparse_ens5: Mixtral-8x7B
+    W4 g128 drawn on the card, the production towers in f32, 448 px, 1455
+    image words): the time to first token split into encode_image (CUDA
+    events) and the 13688-row prefill (CUDA events; a profiled second
+    prefill gives row 5's share of its device time), a separate decode loop
+    (wall ms a step, device busy and idle share), then sphinx_api.
+    batch_caption of 8 images with 32 new tokens, counted: flash and the
+    slab write a layer, the fused GQA decode a layer a step, the W4 entries
+    from the routing the run recorded (4 + 3 x touched experts a layer a
+    forward), its decode timed on CUDA events. Setup s and peak GB. Returns
+    the caption run's counts."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import sphinx_moe
+    from accessory_tpu_torch.ops import moe
+    from accessory_tpu_torch.sphinx_api import batch_caption
+
+    sh = _sphinx_shapes()
+    model, setup_s, setup_peak = _mixtral_model(seed, SPHINX_MAX_SEQ, SPHINX_MOE_TYPE)
+    args, n_layers = model.args, model.args.n_layers
+    if sphinx_moe.image_words(args) != sh["image_words"] or not model.with_visual:
+        raise AssertionError(f"serve_sphinx_moe: {sphinx_moe.image_words(args)} image words")
+    imgs = _sphinx_images(seed, SPHINX_BATCH)
+    batch = torch.stack(imgs)
+    params = model.generator.params
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        enc_ms, img_tok = _event_ms(lambda: sphinx_moe.encode_image(params, args, batch))
+        toks = torch.full((SPHINX_BATCH, sh["prefill_positions"] - sh["image_words"]), 65,
+                          dtype=torch.int64, device="cuda")
+        cache = sphinx_moe.init_kv_cache(args, SPHINX_BATCH, sh["cache_len"])
+        emb = sphinx_moe.splice(params, toks, img_tok)
+
+        def prefill():
+            return sphinx_moe.forward(params, args, toks, cache=cache, cur_pos=0, embeds=emb)
+
+        prefill_ms, (logits, _) = _event_ms(prefill, reps=1)
+        if logits.shape[1] != sh["prefill_positions"] or not torch.isfinite(logits).all():
+            raise AssertionError("serve_sphinx_moe: prefill logits not finite / wrong shape")
+        del logits
+        busy, split, _ = _device_split(prefill, {
+            "row 5 (w4_bigm_wgmma_kernel)": ("w4_bigm_wgmma_kernel",),
+            "row 3 (flash_fwd_wgmma_kernel)": ("flash_fwd_wgmma_kernel",),
+            "row 4 (kv_write_kernel)": ("kv_write_kernel",)})
+        tok = torch.full((SPHINX_BATCH, 1), 66, dtype=torch.int64, device="cuda")
+        pos0 = sh["first_decode_pos"]
+        for i in range(2):
+            sphinx_moe.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_steps = 8
+        for i in range(n_steps):
+            sphinx_moe.forward(params, args, tok, cache=cache, cur_pos=pos0 + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        profile = _profile_steps(params, args, tok, cache, pos0, step_ms, steps=3,
+                                 module=sphinx_moe,
+                                 shares=("W4Folded", "decode_attn", "elementwise"))
+        del cache, emb, img_tok
+    torch.cuda.empty_cache()
+
+    gen = model.generator
+    gen.module = timer = _DecodeTimer(sphinx_moe)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with moe.record_routing() as log:
+        outs = batch_caption(model, imgs, prompt=CAPTION, batch_size=SPHINX_BATCH,
+                             max_gen_len=SPHINX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gen.module = sphinx_moe
+    counts, steps = kernels.launch_counts(), gen.last_decode_steps
+    decode_calls, decode_ms = timer.decode()
+    want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
+                        decode_attention=n_layers * steps, **_moe_matmul_counts(log))
+    row = {"phase": "serve_sphinx_moe", "run": "batch_caption",
+           "model": "SPHINX-MoE (mixtral_sparse_ens5)", "batch": SPHINX_BATCH, **sh,
+           "prefill_rows": SPHINX_BATCH * sh["prefill_positions"], "decode_steps": steps,
+           "launches": counts, "launches_expected": want, "seconds": secs,
+           "outputs_chars": [len(o) for o in outs],
+           "setup_s": setup_s, "setup_peak_gb": setup_peak / 1e9,
+           "weight_gb_w4": _qw_bytes(model.params) / 1e9,
+           "tower_gb_f32": sum(t.numel() * 4 for t in _leaves_of(model.params["visual"])) / 1e9,
+           "encode_image_ms": enc_ms, "prefill_ms": prefill_ms,
+           "time_to_first_token_ms": enc_ms + prefill_ms,
+           "prefill_device_busy_ms": busy, "prefill_device_ms": split,
+           "prefill_row5_share_of_busy": split["row 5 (w4_bigm_wgmma_kernel)"] / busy
+           if busy else None,
+           "touched_experts_prefill_mean": _touched_mean(log, SPHINX_BATCH
+                                                         * sh["prefill_positions"]),
+           "touched_experts_decode_mean": _touched_mean(log, SPHINX_BATCH),
+           "decode_ms_per_step": step_ms, "decode_profile": profile,
+           "decode_ms": decode_ms, "decode_ms_per_step_in_run": decode_ms / max(steps, 1),
+           "decode_tok_s": SPHINX_BATCH * steps / max(decode_ms / 1e3, 1e-9),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    if (counts != want or steps < SPHINX_NEW_TOKENS or len(outs) != SPHINX_BATCH
+            or decode_calls != steps or len(log) != n_layers * (steps + 1)):
+        raise AssertionError(f"serve_sphinx_moe: launch counts {counts} != {want}, "
+                             f"{decode_calls} timed decode forwards, {steps} steps")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the image step's small-width parity: SPHINX (llama_ens, one 224-px crop:
+# 291 image words) at TinyLlama width, 2 layers, QPEFT, narrow towers
+TRAIN_MM_NARROW = dict(TINYLLAMA, n_layers=2, **QPEFT, clip_width=256, clip_layers=2,
+                       clip_heads=4, dino_width=256, dino_layers=2, dino_heads=4,
+                       convnext_depths=(1, 1, 1, 1), convnext_dims=(64, 128, 256, 512),
+                       qformer_width=256, qformer_layers=2, qformer_heads=4)
+
+
+def _mm_model(llama_type: str, cfg: dict, seed: int, device="cuda", seq_len: int = 2048):
+    """A SPHINX family's QPEFT training model: random weights from ``seed``,
+    the decoder's base quantized to W4, trainable leaves as f32 masters, the
+    towers f32. Returns (module, args, params, trainable)."""
+    from accessory_tpu_torch.meta import MetaModel
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+
+    model = MetaModel(llama_type, dict(cfg), max_seq_len=seq_len, seed=seed, device=device)
+    model.quantize()
+    trainable = model.module.get_trainable_params_filter(model.args)
+    return (model.module, model.args,
+            promote_trainable_params_to_fp32(model.params, trainable), trainable)
+
+
+def _mm_batch(seed: int, b: int, s: int, size: int, vocab: int, device="cpu"):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return {"examples": torch.randint(3, vocab, (b, s), generator=g),
+            "labels": torch.randint(3, vocab, (b, s), generator=g),
+            "images": torch.randn((b, 3, size, size), generator=g).to(device)}
+
+
+def phase_train_mm_parity(seed: int):
+    """One image training step (make_train_step with images) at small width
+    (TRAIN_MM_NARROW: llama_ens, 4 examples of 291 image words and 64 text
+    tokens, 1420 rows on row 5, bf16, every layer checkpointed) on the CPU
+    through the plain versions and on the card through the kernels, same
+    weights and batch: the loss to 1e-2 relative and every trainable leaf's
+    gradient to 6e-2 relative L2 (train_parity's tolerances), no gradient on
+    a frozen tower leaf, launch counts exact."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.train_step import grads_of
+
+    module, args, params, trainable = _mm_model("llama_ens", TRAIN_MM_NARROW, seed, "cpu",
+                                                seq_len=512)
+    gen = torch.Generator().manual_seed(seed)
+    for layer in params["layers"]:          # non-zero lora_b / bias: every gradient moves
+        for part in ("attention", "feed_forward"):
+            for mod in layer[part].values():
+                for name in ("lora_b", "bias"):
+                    mod[name] = torch.randn(mod[name].shape, generator=gen) * 0.02
+    card = _tree_to(params, "cuda")
+    batch = _mm_batch(seed, 4, 64, 224, args.vocab_size)
+    res = {}
+    for device, p in (("cpu", params), ("cuda", card)):
+        tx = make_optimizer(p, 1e-3, weight_decay=0.02, clip_norm=2.0, trainable=trainable)
+        state = TrainState.create(p, tx)
+        step = make_train_step(module, args, tx, remat="full", device=device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        res[device] = dict(loss=float(m["c_loss"]), secs=time.perf_counter() - t0,
+                           counts=kernels.launch_counts(),
+                           grads={k: g.float().cpu() for k, g in grads_of(state).items()})
+    c, g = res["cpu"], res["cuda"]
+    train = sorted(k for k in c["grads"] if trainable(k))
+    worst = max(float((g["grads"][k] - c["grads"][k]).norm()
+                      / c["grads"][k].norm().clamp_min(1e-30)) for k in train)
+    _, want = _train_counts(args.n_layers, True, True)
+    row = {"phase": "train_mm", "part": "parity", "model": "llama_ens, TinyLlama width, "
+           "2 layers, QPEFT (W4 g128, LoRA 16, bias, norm), narrow towers",
+           "batch": [4, 64], "image_words": 291, "rows": 4 * (291 + 64), "remat": "full",
+           "loss_cpu": c["loss"], "loss_cuda": g["loss"], "cpu_s": c["secs"],
+           "cuda_s": g["secs"], "trainable_leaves": len(train),
+           "tolerances": {"loss_rel": 1e-2, "grad_rel_l2": 6e-2}, "worst_grad_rel_l2": worst,
+           "visual_leaves_with_grad": [k for k in g["grads"] if k.startswith("visual/")],
+           "launches": g["counts"], "launches_expected": want}
+    emit(row)
+    if not (abs(g["loss"] - c["loss"]) <= 1e-2 * abs(c["loss"]) and worst <= 6e-2
+            and not row["visual_leaves_with_grad"] and g["counts"] == want):
+        raise AssertionError(f"train_mm parity failed: {row}")
+    return g["counts"]
+
+
+def phase_train_mm(seed: int, steps: int = 2):
+    """The full-width image step: SPHINX-7B (llama_ens5: LLaMA2-7B W4 g128
+    QPEFT, LoRA 16, bias and norm tuning; the production towers frozen in
+    f32) on TRAIN_MM_BATCH examples of 448-px images (1455 image words) and
+    TRAIN_MM_TEXT text tokens, every layer checkpointed: a warm-up and
+    ``steps`` timed steps on the same batch (losses finite and falling), ms a
+    step, rows and text tokens a second, peak memory, launch counts exact,
+    and one profiled step split by kernel with its idle share."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    module, args, params, trainable = _mm_model(SPHINX_TYPE, dict(LLAMA2_7B, **QPEFT), seed)
+    tx = make_optimizer(params, 1e-3, weight_decay=0.02, clip_norm=2.0, trainable=trainable)
+    state = TrainState.create(params, tx)
+    step = make_train_step(module, args, tx, remat="full")
+    data = _mm_batch(seed, TRAIN_MM_BATCH, TRAIN_MM_TEXT, 448, args.vocab_size, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    losses = []
+    state, m = step(state, data)                      # warm-up
+    losses.append(float(m["c_loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, m = step(state, data)
+        losses.append(float(m["c_loss"]))
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    by_pass, want = _train_counts(args.n_layers, True, True, steps)
+    ms = statistics.median(times)
+    state, prof = _split_profile(step, state, data, ms)
+    row = {"phase": "train_mm", "part": "full width",
+           "model": "SPHINX-7B (llama_ens5) QPEFT (W4 g128, LoRA 16, bias, norm), towers f32",
+           "batch": TRAIN_MM_BATCH, "text_tokens": TRAIN_MM_TEXT, "image_words": 1455,
+           "rows": TRAIN_MM_ROWS, "remat": "full", "setup_s": setup_s,
+           "setup_peak_gb": setup_peak / 1e9, "ms_per_step": ms, "ms_per_step_all": times,
+           "rows_per_s": TRAIN_MM_ROWS / ms * 1e3,
+           "text_tok_s": TRAIN_MM_BATCH * TRAIN_MM_TEXT / ms * 1e3, "peak_gb": peak / 1e9,
+           "losses": losses, "launches_per_step_by_pass": by_pass, "launches": counts,
+           "launches_expected": want, "profile": prof}
+    emit(row)
+    if counts != want:
+        raise AssertionError(f"train_mm: launch counts {counts} != expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_mm: losses not finite and falling: {losses}")
+    del state, params, step, tx, data
+    torch.cuda.empty_cache()
+    return counts
+
+
 ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
@@ -5104,7 +5771,8 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
               "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,parity_zoo,"
               "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,torch_import,"
-              "parity_sphinx,serve_sphinx,score")
+              "parity_sphinx,serve_sphinx,score,parity_adapter,serve_adapter,parity_sphinx_moe,"
+              "serve_sphinx_moe,train_mm")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
                      "decode_ffn")
@@ -5367,6 +6035,29 @@ def main() -> int:
                 counts_by_path["sphinx score"] = phase_score(model, opts.seed)
             del model
             torch.cuda.empty_cache()
+        if "parity_adapter" in phases:
+            phase_parity_adapter(opts.seed)
+        if "serve_adapter" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts_by_path["adapter"], counts_by_path["adapter bench"] = \
+                phase_serve_adapter(opts.seed)
+        if "parity_sphinx_moe" in phases:
+            phase_parity_sphinx_moe(opts.seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "serve_sphinx_moe" in phases:
+            # SPHINX-MoE on the card (~36 GB): every earlier model is freed
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts_by_path["sphinx-moe caption"] = phase_serve_sphinx_moe(opts.seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "train_mm" in phases:
+            counts_by_path["train mm parity"] = phase_train_mm_parity(opts.seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts_by_path["train mm"] = phase_train_mm(opts.seed)
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES
                     if not sum(c.get(n, 0) for c in counts_by_path.values())]

@@ -49,8 +49,8 @@ def test_images_binds_second_and_raises(model, owner, method):
     """C6: the reference's calls bind against both packages' signatures with
     ``images`` second, positionally too; the port refuses a non-None
     ``images`` at the call on a model without a visual branch (llama here;
-    the message names the SPHINX families and ROADMAP A8 for the rest) and
-    runs the text path with None."""
+    the message names the families that take them) and runs the text path
+    with None."""
     args, kw = CALLS[method]
     ref_cls = jmeta.MetaModel if owner == "MetaModel" else jgenerate.Generator
     port_cls = meta.MetaModel if owner == "MetaModel" else generate.Generator
@@ -64,9 +64,9 @@ def test_images_binds_second_and_raises(model, owner, method):
         assert bound.arguments["images"] is None and bound.arguments["max_gen_len"] == 16
     obj = model if owner == "MetaModel" else model.generator
     fn = getattr(obj, method)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="no visual branch"):
         fn(*args, images=[torch.zeros(3, 8, 8)], max_gen_len=2)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="no visual branch"):
         fn(*args, [torch.zeros(3, 8, 8)], 2)
     out = fn(*args, None, 2)
     text = out[0] if method == "generate" else list(out)[-1]["text"]

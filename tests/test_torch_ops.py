@@ -275,11 +275,17 @@ def test_unported_paths_name_their_queue_item():
     cache = llama.init_kv_cache(args, 1, kv_dtype="int8", device="cpu")
     assert sorted(cache) == ["k", "ks", "v", "vs"]
     assert cache["k"][0].dtype == torch.int8 and cache["vs"][0].shape == (1, 2, 16)
-    # the text zoo and SPHINX are served; llama_adapter and SPHINX-MoE wait for A8
+    # every family of the JAX registry is served; the MoE loss in the
+    # training step waits for A7
     assert get_model_module("llama_ens").__name__.endswith("models.sphinx")
-    for llama_type in ("llama_adapter", "mixtral_sparse_ens"):
-        with pytest.raises(KeyError, match="A8"):
-            get_model_module(llama_type)
+    assert get_model_module("llama_adapter").__name__.endswith("models.llama_adapter")
+    assert get_model_module("mixtral_sparse_ens").__name__.endswith("models.sphinx_moe")
+    with pytest.raises(KeyError, match="unknown llama_type"):
+        get_model_module("llama_nonesuch")
+    from accessory_tpu_torch.train import make_train_step
+
+    with pytest.raises(NotImplementedError, match="A7"):
+        make_train_step(llama, args, None, moe_aux=True, device="cpu")
     # per-row positions are served by the paged cache, whose path the message names
     q = torch.zeros((1, 1, 2, 64))
     with pytest.raises(NotImplementedError, match="paged_cached_attention"):
