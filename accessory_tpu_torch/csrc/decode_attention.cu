@@ -10,7 +10,16 @@
 //   _kernel_bloop8    (via _decode_attn_bloop8 / cached_attention_t8)
 // One kernel, csrc/decode_split.cuh's flash-decoding body, three compile-time
 // switches: the cache's element type, WRITE (with it off the pools are only
-// read) and the query rows' m16 tiles (R <= 16 one, R <= 32 two).
+// read) and the m16 tiles of a block's query rows (1, 2 or 4). A group's R
+// query rows are cut into tiles of up to 64 (head_dim 64) or 32 (128) rows,
+// as the paged entry cuts its rows, each tile a cluster of its own over the
+// same cached tokens (ops/decode_attention.py::TILE_ROWS, decode_plan): the
+// TPU kernel's (b_blk, 1, r, hd) block takes any R, and Falcon-7B's 71 query
+// heads over one kv head are a tile of 64 rows and one of 7. The second
+// tile reads every K / V chunk the first reads, mostly from L2 (its blocks
+// are launched beside the first's); the tiles' shared memory and registers
+// stay those of one 64-row tile. Only the first tile's rank 0 writes the new
+// token.
 //
 // The cache is (B, NKV, S, HD), every cached token of a head one contiguous
 // row. The R = NQ / NKV query rows of a group share every K / V read; the
@@ -20,9 +29,10 @@
 // token's k / v (not yet in the cache) enter exactly, as the second part of
 // the softmax, as in the TPU kernel. P is rounded to bf16 against the rank's
 // running max before the P.V product (the TPU kernel's p_old.astype(bf16));
-// the new token's term stays f32. With WRITE rank 0 then stores k / v at index
-// pos: no rank reads index >= pos and only this cluster owns its (b, head)
-// slice, so there is no race. Any cache length S is served.
+// the new token's term stays f32. With WRITE rank 0 of the first tile then
+// stores k / v at index pos: no rank of any tile reads index >= pos and only
+// the (b, head)'s clusters touch its slice, so there is no race. Any cache
+// length S is served.
 //
 // int8 form: a token's cached row is HD bytes; it lands as it is and is
 // widened to bf16 (exact) in shared memory. The token's k scale multiplies the
@@ -33,9 +43,10 @@
 // +-127), IEEE division) and stored with their two f32 scales at index pos.
 //
 // Bound on the H100: bytes (2 * pos * HD * 2 bytes of cache per (b, kv head),
-// read once). The split puts B * NKV * split blocks on the card (128 at the
-// decode shape, B 8, NKV 4, split 4, where one block per (b, head) left 100 of
-// the 132 SMs idle) and the ring keeps two chunks' loads in flight in each.
+// read once). The split puts B * NKV * ntiles * split blocks on the card (128
+// at the decode shape, B 8, NKV 4, split 4, where one block per (b, head) left
+// 100 of the 132 SMs idle; 128 at Falcon-7B's B 8, NKV 1, two tiles, split 8)
+// and the ring keeps two chunks' loads in flight in each.
 
 #include "decode_split.cuh"
 
@@ -48,14 +59,15 @@ decode_attn_kernel(const dsplit::Params p, int split) {
   dsplit::body<HD, MT, CT, false, WRITE, true>(p, split, smem);
 }
 
+// grid (split, NKV, B * ntiles): blockIdx.z = b * ntiles + tile
 template <int HD, int MT, typename CT, bool WRITE>
-cudaError_t run(const dsplit::Params& p, int B, int split, cudaStream_t st) {
+cudaError_t run(const dsplit::Params& p, int nz, int split, cudaStream_t st) {
   constexpr int smem = dsplit::smem_bytes<HD, MT, CT, false>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_attn_kernel<HD, MT, CT, WRITE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  return dsplit::launch(decode_attn_kernel<HD, MT, CT, WRITE>, smem, p, dim3(split, p.NKV, B),
-                        split, st);
+  return dsplit::launch(decode_attn_kernel<HD, MT, CT, WRITE>, smem, p,
+                        dim3(split, p.NKV, nz), split, st);
 }
 
 template <typename CT, bool WRITE>
@@ -65,9 +77,11 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
                    int NKV, int S, int R, int HD, int pos, int split, float scale, void* out,
                    void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if ((HD != 64 && HD != 128) || R < 1) return cudaErrorInvalidValue;
+  const dsplit::RowTiles rt = dsplit::row_tiles(R, HD);
   // the fused kernels write index pos; a read-only call may find the cache full
-  if (B < 1 || B > 65535 || NKV < 1 || NKV > 65535 || R < 1 || R > (HD == 64 ? 32 : 16) ||
-      pos < 0 || pos > (WRITE ? S - 1 : S) || split < 1 || split > dsplit::MAX_SPLIT)
+  if (B < 1 || NKV < 1 || NKV > 65535 || (long long)B * rt.ntiles > 65535 || pos < 0 ||
+      pos > (WRITE ? S - 1 : S) || split < 1 || split > dsplit::MAX_SPLIT)
     return cudaErrorInvalidValue;
   dsplit::Params p = {};
   p.q = static_cast<const bf16*>(q);
@@ -91,14 +105,17 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
   p.NKV = NKV;
   p.R = R;
   p.SQ = 1;
-  p.ntiles = 1;
+  p.ntiles = rt.ntiles;
   p.scale = scale;
   p.out = static_cast<bf16*>(out);
-  if (HD == 64)
-    return R <= 16 ? run<64, 1, CT, WRITE>(p, B, split, st)
-                   : run<64, 2, CT, WRITE>(p, B, split, st);
-  if (HD == 128) return run<128, 1, CT, WRITE>(p, B, split, st);
-  return cudaErrorInvalidValue;
+  const int nz = B * rt.ntiles;
+  if (HD == 64) {
+    if (rt.mt == 1) return run<64, 1, CT, WRITE>(p, nz, split, st);
+    return rt.mt == 2 ? run<64, 2, CT, WRITE>(p, nz, split, st)
+                      : run<64, 4, CT, WRITE>(p, nz, split, st);
+  }
+  return rt.mt == 1 ? run<128, 1, CT, WRITE>(p, nz, split, st)
+                    : run<128, 2, CT, WRITE>(p, nz, split, st);
 }
 
 }  // namespace
@@ -106,8 +123,9 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
 // q: (B, NKV*R*HD) rows with batch stride q_bstride (elements); kn/vn: (B,
 // NKV*HD) rows with their batch strides; caches (B, NKV, S, HD) contiguous,
 // 16-byte aligned; out (B, NKV, R, HD) contiguous. Requires HD in {64, 128},
-// R <= 32 (HD 64) or 16 (HD 128), 0 <= pos < S, 1 <= split <= 8 (the blocks of
-// a cluster, decode_plan's). Attends, then writes k/v at pos.
+// B * ceil(R / (64 at HD 64, 32 at HD 128)) <= 65535 (the grid's z: a cluster
+// a tile of query rows), 0 <= pos < S, 1 <= split <= 8 (the blocks of a
+// cluster, decode_plan's). Attends, then writes k/v at pos.
 extern "C" int decode_attention(const void* q, long long q_bstride, const void* kn,
                                 long long kn_bstride, const void* vn, long long vn_bstride,
                                 void* cache_k, void* cache_v, int B, int NKV, int S, int R,

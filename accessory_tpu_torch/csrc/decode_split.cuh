@@ -2,15 +2,18 @@
 // over the static cache (csrc/decode_attention.cu) and of the paged decode
 // attention (csrc/paged_decode.cu).
 //
-// A block owns one (kv head, batch row[, tile of query rows]) and one rank of
-// a cluster of `split` blocks (at most 8, the portable most). The cached
-// tokens [0, n) are cut into chunks of 64, and rank r folds the chunks
-// [nc * r / split, nc * (r + 1) / split) of the nc = ceil(n / 64) chunks: n is
-// the static cache's pos, or the paged slot's length read on the card, so a
-// rank finds its own range from the real length while the launch's shape
-// (split, from S or J * PS: ops/decode_attention.py::decode_plan,
-// ops/paged_decode.py::paged_plan) does not depend on it. A rank whose range
-// is empty contributes m = -1e30, l = 0.
+// A block owns one (kv head, batch row, tile of query rows) and one rank of a
+// cluster of `split` blocks (at most 8, the portable most). A (batch row, kv
+// head) has ntiles tiles of up to 16 * MT query rows (the host's plan: 64 at
+// head_dim 64, 32 at 128), each its own cluster over the same tokens, so any
+// number of query rows is served: Falcon-7B's 71 query heads over one kv head
+// take a tile of 64 rows and one of 7. The cached tokens [0, n) are cut into
+// chunks of 64, and rank r folds the chunks [nc * r / split, nc * (r + 1) /
+// split) of the nc = ceil(n / 64) chunks: n is the static cache's pos, or the
+// paged slot's length read on the card, so a rank finds its own range from
+// the real length while the launch's shape (split, from S or J * PS:
+// ops/decode_attention.py::decode_plan, ops/paged_decode.py::paged_plan) does
+// not depend on it. A rank whose range is empty contributes m = -1e30, l = 0.
 //
 // Inside a rank: 128 threads, 4 warps. K and V chunks stream through a
 // 3-stage ring of 16-byte cp.async copies, so two chunks' loads are in flight
@@ -73,8 +76,9 @@ constexpr float KV_SCALE_EPS = 1e-6f;
 // and the scales (B, NKV, S), n = pos, SQ = 1; with the fused write kw / vw /
 // ksw / vsw are the same pools. Paged: pools (NKV, P, PS, HD), scales (NKV,
 // P, PS), n = min(lengths[b], J * PS), token tok of slot b in page
-// pt[b * PPS + tok / PS]; ntiles tiles of query rows a slot. Query row m is
-// new token m / R, group member m % R.
+// pt[b * PPS + tok / PS]. Both: ntiles tiles of query rows a (row or slot, kv
+// head), blockIdx.z = b * ntiles + tile. Query row m is new token m / R,
+// group member m % R.
 struct Params {
   const bf16* q;
   long long q_bs, q_ts;
@@ -163,6 +167,20 @@ constexpr int smem_bytes() {
   return Smem<HD, MT, CT, PAGED>::bytes;
 }
 
+// The tiles of `rows` query rows a (row or slot, kv head), both entries'
+// (ops/decode_attention.py::TILE_ROWS, row_tiles): up to 64 rows a tile at
+// head_dim 64, 32 at 128, and the m16 tiles (1, 2 or 4) of the kernel that
+// takes them.
+struct RowTiles {
+  int ntiles, mt;
+};
+
+inline RowTiles row_tiles(int rows, int HD) {
+  const int maxm = HD == 64 ? 64 : 32;
+  const int tile = min(rows, maxm);
+  return {(rows + maxm - 1) / maxm, tile <= 16 ? 1 : tile <= 32 ? 2 : 4};
+}
+
 template <int HD, int MT, typename CT, bool PAGED, bool WRITE, bool NEW>
 __device__ __forceinline__ void body(const Params& p, int split, unsigned char* smem) {
   using L = Smem<HD, MT, CT, PAGED>;
@@ -184,8 +202,8 @@ __device__ __forceinline__ void body(const Params& p, int split, unsigned char* 
   const int g = lane >> 2, t4 = lane & 3;
   const int mt = warp / TG, tg = warp % TG;        // the warp's m16 tile and token slice
   const int h = blockIdx.y;
-  const int b = PAGED ? blockIdx.z / p.ntiles : blockIdx.z;
-  const int row0 = PAGED ? (blockIdx.z % p.ntiles) * ROWS : 0;
+  const int b = blockIdx.z / p.ntiles, tile = blockIdx.z % p.ntiles;
+  const int row0 = tile * ROWS;
   const int nrows = min(ROWS, p.SQ * p.R - row0);
 
   unsigned char* qbytes = smem;
@@ -472,9 +490,11 @@ __device__ __forceinline__ void body(const Params& p, int split, unsigned char* 
     *reinterpret_cast<float2*>(pw + (g + 8) * HD + col) = make_float2(acc[j][2], acc[j][3]);
   }
 
-  // the fused write of the new token at index pos (no rank reads that index)
+  // the fused write of the new token at index pos, by rank 0 of the first
+  // tile alone (no rank of any tile reads that index: the other tiles take
+  // the new k / v from knew / vnew, so the tiles need no order)
   if constexpr (WRITE) {
-    if (rank == 0) {
+    if (rank == 0 && tile == 0) {
       const long long woff = (base_row + p.pos) * HD;
       CT* kw = static_cast<CT*>(p.kw);
       CT* vw = static_cast<CT*>(p.vw);

@@ -77,12 +77,8 @@ cudaError_t launch(const void* q, long long q_bs, long long q_ts, const void* kn
   if (B < 1 || NKV < 1 || NKV > 65535 || P < 1 || PS < 1 || SQ < 1 || R < 1 || J < 1 ||
       J > PPS || split < 1 || split > dsplit::MAX_SPLIT || (HD != 64 && HD != 128))
     return cudaErrorInvalidValue;
-  const int maxm = HD == 64 ? 64 : 32;
-  const int rows = SQ * R;
-  const int ntiles = (rows + maxm - 1) / maxm;
-  const int tile = min(rows, maxm);   // m16 tiles of a block: 1, 2 or 4
-  const int mt = tile <= 16 ? 1 : tile <= 32 ? 2 : 4;
-  if ((long long)B * ntiles > 65535) return cudaErrorInvalidValue;
+  const dsplit::RowTiles rt = dsplit::row_tiles(SQ * R, HD);
+  if ((long long)B * rt.ntiles > 65535) return cudaErrorInvalidValue;
   dsplit::Params p = {};
   p.q = static_cast<const bf16*>(q);
   p.q_bs = q_bs;
@@ -106,17 +102,17 @@ cudaError_t launch(const void* q, long long q_bs, long long q_ts, const void* kn
   p.NKV = NKV;
   p.R = R;
   p.SQ = SQ;
-  p.ntiles = ntiles;
+  p.ntiles = rt.ntiles;
   p.scale = scale;
   p.out = static_cast<bf16*>(out);
-  const dim3 grid(split, NKV, B * ntiles);
+  const dim3 grid(split, NKV, B * rt.ntiles);
   if (HD == 64) {
-    if (mt == 1) return run<64, 1, CT, RO>(p, grid, split, st);
-    return mt == 2 ? run<64, 2, CT, RO>(p, grid, split, st)
-                   : run<64, 4, CT, RO>(p, grid, split, st);
+    if (rt.mt == 1) return run<64, 1, CT, RO>(p, grid, split, st);
+    return rt.mt == 2 ? run<64, 2, CT, RO>(p, grid, split, st)
+                      : run<64, 4, CT, RO>(p, grid, split, st);
   }
-  return mt == 1 ? run<128, 1, CT, RO>(p, grid, split, st)
-                 : run<128, 2, CT, RO>(p, grid, split, st);
+  return rt.mt == 1 ? run<128, 1, CT, RO>(p, grid, split, st)
+                    : run<128, 2, CT, RO>(p, grid, split, st);
 }
 
 }  // namespace

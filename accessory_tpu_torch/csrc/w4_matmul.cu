@@ -98,7 +98,8 @@ struct FoldedB {
 
 // rope_style: 0 none, 1 interleaved, 2 half. norm/residual/cos/sin may be null.
 // Requires Kx % gs == 0, gs % 64 == 0, 16-byte aligned x rows; N % 64 == 0
-// (M <= 16) or N % 128 == 0 (M > 16); half-style heads that divide 128.
+// (a last 128-column tile of 64 columns is bounded: Falcon-7B's dense_4h_to_h,
+// N 4544); half-style heads that divide 128.
 // split: for M <= 16 the GEMV's cluster (1 .. 8 blocks over 64-row units,
 // ops/w4_tile.py folded_gemv_split; no scratch); for M > 16 the tile's K
 // splits, whole groups each, with the scratch the wrapper allocates by the
@@ -130,7 +131,7 @@ extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void*
     if (N % 64 != 0) return (int)cudaErrorInvalidValue;
     return (int)qgemv::launch<qgemv::W4Folded>(g, split, aligned ? 16 : 4, st);
   }
-  if (N % w4tile::RED_BN != 0 || (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) || split < 1 ||
+  if (N % 64 != 0 || (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) || split < 1 ||
       xsum == nullptr || xt == nullptr || (split > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   w4tile::TileArgs a{};

@@ -121,17 +121,21 @@ __global__ void __launch_bounds__(THREADS, 1) w4_bigm_wgmma_kernel(const __grid_
       int it = 0;
       for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
         const int m0 = (tile % a.tiles_m) * BM, n0 = (tile / a.tiles_m) * BN;
+        // a last column panel of 64 (N a multiple of 64, not of 128): the word
+        // box's columns past N land as zeros and count in full, the scale and
+        // zs rows are copied as far as N
+        const uint32_t cbytes = 4u * (uint32_t)min(BN, a.N - n0);
         for (int s = 0; s < a.steps; ++s, ++it) {
           const int slot = it % STAGES;
           if (it >= STAGES) hopper::mbar_wait(&empty[slot], (it / STAGES - 1) & 1);
           unsigned char* st = smem + slot * STAGE_BYTES;
           uint64_t* bar = &full[slot];
-          hopper::mbar_expect_tx(bar, STAGE_BYTES);
+          hopper::mbar_expect_tx(bar, X_BYTES + W_BYTES + 2 * cbytes);
           hopper::tma_load_2d(st, &a.xmap, s * BK, m0, bar);
           hopper::tma_load_2d(st + X_BYTES, &a.wmap, n0, s * 8, bar);
           const size_t g = (size_t)(s * BK / a.gs) * a.N + n0;
-          hopper::bulk_copy(st + X_BYTES + W_BYTES, a.scales + g, BN * 4, bar);
-          hopper::bulk_copy(st + X_BYTES + W_BYTES + BN * 4, a.zs + g, BN * 4, bar);
+          hopper::bulk_copy(st + X_BYTES + W_BYTES, a.scales + g, cbytes, bar);
+          hopper::bulk_copy(st + X_BYTES + W_BYTES + BN * 4, a.zs + g, cbytes, bar);
         }
       }
     }
@@ -187,7 +191,10 @@ __global__ void __launch_bounds__(THREADS, 1) w4_bigm_wgmma_kernel(const __grid_
     hopper::reg_fence(acc);
     // the tile's outputs straight from the accumulators: x rows 8j + 2t
     // (acc[4j], acc[4j + 2]) and 8j + 2t + 1 (acc[4j + 1], acc[4j + 3]) of
-    // columns cb, cb + 1
+    // columns cb, cb + 1; none past N (their weights were zeros, their
+    // coefficients stale shared memory; a warpgroup's 64 columns lie all
+    // before N or all past it, so the skip is uniform)
+    if (n0 + cb >= a.N) continue;
     bf16* o = a.out + (size_t)m0 * a.N + n0 + cb;
 #pragma unroll
     for (int j = 0; j < BM / 8; ++j) {
@@ -207,12 +214,13 @@ __global__ void __launch_bounds__(THREADS, 1) w4_bigm_wgmma_kernel(const __grid_
 // 16-byte aligned); packed (>= Kx/8, N) words; scales/zs (>= Kx/gs, N) f32;
 // out (M, N) bf16 contiguous; ctas: the persistent grid (the wrapper's plan,
 // ops/w4_tile.py bigm_plan). Requires Kx % 64 == 0, gs % 64 == 0,
-// N % 128 == 0, M >= 1 (a ragged last row tile is masked).
+// N % 64 == 0 (a last column panel of 64 is bounded), M >= 1 (a ragged last
+// row tile is masked).
 extern "C" int w4_matmul_bigm(const void* x, int M, int Kx, long long x_stride,
                               const void* packed, const void* scales, const void* zs, int N,
                               int gs, void* out, int ctas, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (M <= 0 || Kx <= 0 || Kx % BK != 0 || gs % BK != 0 || N <= 0 || N % BN != 0 || ctas < 1 ||
+  if (M <= 0 || Kx <= 0 || Kx % BK != 0 || gs % BK != 0 || N <= 0 || N % 64 != 0 || ctas < 1 ||
       x_stride % 8 != 0 || x_stride < Kx)
     return (int)cudaErrorInvalidValue;
   BigmArgs a{};
@@ -236,7 +244,7 @@ extern "C" int w4_matmul_bigm(const void* x, int M, int Kx, long long x_stride,
   a.gs = gs;
   a.steps = Kx / BK;
   a.tiles_m = (M + BM - 1) / BM;
-  a.tiles = a.tiles_m * (N / BN);
+  a.tiles = a.tiles_m * ((N + BN - 1) / BN);
   static const cudaError_t attr = cudaFuncSetAttribute(
       w4_bigm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;

@@ -308,7 +308,11 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(const TileArgs a) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const uint32_t wbytes = 4u * (uint32_t)min(BN, a.N - n0);   // a row of words / coefficients
+  // a row of words / coefficients: a last tile of fewer columns (N a multiple of
+  // 64, not of 128: Falcon-7B's 4544) copies only its own; its columns past N
+  // compute on stale shared memory, each weight column its own wgmma row, and
+  // are never stored
+  const uint32_t wbytes = 4u * (uint32_t)min(BN, a.N - n0);
   const uint32_t tx =
       S::X_BYTES + (8 + 2 * P::COEF_ROWS) * wbytes + (P::FOLDED ? BM * 4 : 0);
   const bf16* xtile = a.xt + (size_t)blockIdx.x * a.granules * a.granule_steps * (BM * BK);

@@ -91,6 +91,12 @@ SPLIT_CHUNKS = 8        # the most chunks a rank gets where the split allows
 # SMs (an H100 sweep of the split put its best at 3-4 ranks, 96-128 blocks,
 # at B 8, NKV 4, S 1024)
 STATIC_BLOCKS = 132
+# query rows a block of the split body takes, by head_dim (csrc/decode_split.cuh
+# at 4 / 2 m16 tiles); more rows a kv head (Falcon-7B's 71) are cut into
+# ceil(rows / TILE_ROWS) tiles, a cluster each, in the static and the paged
+# entries alike
+TILE_ROWS = {64: 64, 128: 32}
+MAX_GRID_Z = 65535      # the launch's z: batch rows (or slots) x tiles
 
 
 @dataclass(frozen=True)
@@ -121,12 +127,21 @@ def split_plan(pairs: int, max_tokens: int, target_blocks: int) -> SplitPlan:
     return SplitPlan(split, split * pairs)
 
 
+def row_tiles(rows: int, hd: int) -> int:
+    """Tiles of query rows a (batch row, kv head) takes in the split body."""
+    return -(-rows // TILE_ROWS[hd])
+
+
 @functools.lru_cache(maxsize=4096)
-def decode_plan(b: int, nkv: int, s_len: int) -> SplitPlan:
-    """The GQA decode kernel's launch over a (b, nkv, S, hd) cache, from S
-    alone (the geometry does not move with pos): a cluster a (batch row, kv
-    head), ``split`` ranks each folding its share of the tokens < pos."""
-    return split_plan(b * nkv, s_len, STATIC_BLOCKS)
+def decode_plan(b: int, nkv: int, s_len: int, r: int, hd: int) -> SplitPlan:
+    """The GQA decode kernel's launch over a (b, nkv, S, hd) cache with ``r``
+    query rows a kv head, from S alone (the geometry does not move with pos):
+    a cluster a (batch row, kv head, tile of up to TILE_ROWS[hd] rows),
+    ``split`` ranks each folding its share of the tokens < pos. At B 8 with
+    one kv head (Falcon-7B) the two tiles give 16 clusters, and the split
+    over the tokens (up to 8 ranks, one a 64-token chunk at most) is all
+    that fills the card."""
+    return split_plan(b * nkv * row_tiles(r, hd), s_len, STATIC_BLOCKS)
 
 
 def _int_pos(fn: str, pos) -> int:
@@ -161,7 +176,8 @@ def _decode_kernel(fn: str, q, k_new, v_new, pools, pos: int, write: bool):
     r = nq // max(nkv, 1)
     int8 = len(pools) == 4
     ok = (sq == 1 and nkv > 0 and nq % nkv == 0 and hd in (64, 128)
-          and r <= (32 if hd == 64 else 16) and 0 <= pos <= (s_len - 1 if write else s_len)
+          and b * row_tiles(r, hd) <= MAX_GRID_Z
+          and 0 <= pos <= (s_len - 1 if write else s_len)
           and all(t.device == q.device for t in (k_new, v_new) + tuple(pools))
           and _pools_ok(pools, (b, nkv, s_len, hd)))
     for t, heads in ((q, nq), (k_new, nkv), (v_new, nkv)):
@@ -174,12 +190,13 @@ def _decode_kernel(fn: str, q, k_new, v_new, pools, pos: int, write: bool):
             f"{fn}: needs bf16 q (b,1,nq,hd), k/v (b,1,nkv,hd) with contiguous heads (16-byte "
             "aligned rows when nq == nkv), contiguous 16-byte aligned caches (b,nkv,S,hd) "
             "(bf16, or int8 with f32 scale pools (b,nkv,S)), all on q's device, hd 64/128, "
+            f"b * ceil(nq / nkv / {TILE_ROWS.get(hd, '64 or 32')}) <= {MAX_GRID_Z}, "
             f"0 <= pos {'<' if write else '<='} S; got q {tuple(q.shape)} cache "
             f"{tuple(pools[0].shape)} {pools[0].dtype} pos {pos}")
     source, symbol, argtypes = _DECODE_KERNELS[(r == 1, int8, write)]
     out = torch.empty((b, 1, nq, hd), dtype=torch.bfloat16, device=q.device)
     dims = (b, nkv, s_len, hd, pos) if r == 1 else \
-        (b, nkv, s_len, r, hd, pos, decode_plan(b, nkv, s_len).split)
+        (b, nkv, s_len, r, hd, pos, decode_plan(b, nkv, s_len, r, hd).split)
     rc = kernels.function(source, symbol, argtypes)(
         q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0), v_new.data_ptr(),
         v_new.stride(0), *(t.data_ptr() for t in pools), *dims, hd ** -0.5, out.data_ptr(),

@@ -41,7 +41,8 @@ from typing import Optional
 import torch
 
 from accessory_tpu_torch import kernels
-from accessory_tpu_torch.ops.decode_attention import SplitPlan, _device_route, split_plan
+from accessory_tpu_torch.ops.decode_attention import (SplitPlan, _device_route, row_tiles,
+                                                       split_plan)
 
 NEG_INF = -1e30
 
@@ -55,8 +56,6 @@ _ARGS8 = _HEAD + [P, P, P, P] + [P, P] + _TAIL
 # q, batch stride, pools, lengths, page table + PPS J B NKV P PS R HD split + scale, out,
 # stream
 _ARGS_RO = [P, L, P, P, P, P] + [I] * 9 + [F, P, P]
-# csrc/paged_decode.cu: the query rows a block takes, by head_dim
-TILE_ROWS = {64: 64, 128: 32}
 # the blocks the plan aims at, by head_dim: two on each of the H100's 132 SMs
 # at 64, one at 128, where a block's ring takes 96 KB of shared memory (an
 # H100 sweep of the split: 8 ranks best at TinyLlama's 8 slots x 4 kv heads)
@@ -67,11 +66,11 @@ PAGED_BLOCKS = {64: 264, 128: 132}
 def paged_plan(b: int, nkv: int, rows: int, hd: int, j: int, ps: int) -> SplitPlan:
     """The paged kernel's launch for ``rows`` = sq * r query rows a slot over
     ``j`` pages of ``ps`` tokens: a cluster per (slot, kv head, tile of up to
-    TILE_ROWS[hd] rows), its ``split`` ranks sharing the tokens. The lengths
-    are device tensors a decode loop never waits for, so the plan sees only
-    j * ps; each rank reads its slot's length on the card
+    ``decode_attention.TILE_ROWS[hd]`` rows), its ``split`` ranks sharing the
+    tokens. The lengths are device tensors a decode loop never waits for, so
+    the plan sees only j * ps; each rank reads its slot's length on the card
     (``SplitPlan.rank_range``)."""
-    return split_plan(b * nkv * -(-rows // TILE_ROWS[hd]), j * ps, PAGED_BLOCKS[hd])
+    return split_plan(b * nkv * row_tiles(rows, hd), j * ps, PAGED_BLOCKS[hd])
 
 
 def _layer_view(pools, layer):

@@ -68,7 +68,7 @@ def planes_qmm_bigm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= in_dim // group_size and t.data_ptr() % 16 == 0,
                "scales/zs must be contiguous f32 (G, N), 16-byte aligned")
-    _check(n % 128 == 0, f"N {n} must be a multiple of the kernel's 128-column tile")
+    _check(n % 64 == 0, f"N {n} must be a multiple of 64 (half the kernel's 128-column tile)")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
     kernels.check("w4_matmul_bigm", _kernel_call(x2d, packed, scales, zs, out,
                                                  group_size=group_size, ctas=ctas))

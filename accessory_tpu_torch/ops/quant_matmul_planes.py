@@ -84,10 +84,10 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     for t in (scales, zs):
         _check(t.dtype == torch.float32 and t.is_contiguous() and t.shape[1] == n
                and t.shape[0] >= in_dim // group_size, "scales/zs must be contiguous f32 (G, N)")
-    tile_n = 64 if m <= 16 else 128   # the GEMV takes a half-empty last 128-column tile
-    _check(n % tile_n == 0 and (rope_style != "half" or (128 % rope_hd == 0
-                                                         and n % rope_hd == 0)),
-           f"N {n} must be a multiple of {tile_n}, with whole heads in the kernel's "
+    # both kernels take a half-empty last 128-column tile (Falcon-7B's N 4544)
+    _check(n % 64 == 0 and (rope_style != "half" or (128 % rope_hd == 0
+                                                     and n % rope_hd == 0)),
+           f"N {n} must be a multiple of 64, with whole heads in the kernel's "
            "128-column tile")
     for t, shape, dt in ((norm_weight, (kx,), torch.float32), (residual, (m, n), torch.bfloat16),
                          (rope_cos, (n,), torch.float32), (rope_sin, (n,), torch.float32)):

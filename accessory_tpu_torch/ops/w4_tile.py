@@ -206,6 +206,7 @@ def w8_gemv_split(n: int, kx: int, split: Optional[int] = None) -> int:
 
 
 BIGM_TILE_M, BIGM_TILE_N = 256, 128   # csrc/w4_matmul_bigm.cu BM x BN
+BIGM_MIN_N = 64         # N's step: a last column panel may be half a tile (4544 = 35.5 x 128)
 BIGM_SLOTS = 1          # its 190 KB ring: one block an SM
 BIGM_KERNEL = "w4_bigm_wgmma_kernel"   # the kernel's name in a profiler trace
 
@@ -215,7 +216,7 @@ class BigmPlan:
     m: int
     n: int
     tiles_m: int         # 256-row tiles (the last one ragged where m % 256 != 0)
-    tiles: int           # output tiles: tiles_m x n / 128
+    tiles: int           # output tiles: tiles_m x ceil(n / 128) (a last panel of 64)
     ctas: int            # the persistent grid: block c computes tiles c, c + ctas, ..., tile
     #                      i being row tile i % tiles_m of column panel i // tiles_m
     kernel: str = BIGM_KERNEL
@@ -228,15 +229,27 @@ def bigm_plan(m: int, n: int, ctas: Optional[int] = None) -> BigmPlan:
     by default one a streaming multiprocessor (never more than the tiles).
     No K split: every output is one f32 sum over all of K, whatever the
     grid, so any ``ctas`` gives the same bits."""
-    if m < 1 or n < 1 or n % BIGM_TILE_N:
-        raise ValueError(f"bigm_plan: m {m} >= 1 and n {n} a multiple of {BIGM_TILE_N}")
+    if m < 1 or n < 1 or n % BIGM_MIN_N:
+        raise ValueError(f"bigm_plan: m {m} >= 1 and n {n} a multiple of {BIGM_MIN_N}")
     tiles_m = math.ceil(m / BIGM_TILE_M)
-    tiles = tiles_m * (n // BIGM_TILE_N)
+    tiles = tiles_m * math.ceil(n / BIGM_TILE_N)
     if ctas is None:
         ctas = SMS * BIGM_SLOTS
     if ctas < 1:
         raise ValueError(f"bigm_plan: ctas {ctas} must be >= 1")
     return BigmPlan(m, n, tiles_m, tiles, min(ctas, tiles))
+
+
+def scratch_layout(p: TilePlan, xsum: bool):
+    """The byte offsets of the tiled x, the x sums and the split partials in
+    the C call's scratch (each 256-byte aligned), and its bytes in all."""
+    sizes = [math.prod(p.xt_shape) * 2, math.prod(p.xsum_shape) * 4 if xsum else 0,
+             math.prod(p.ws_shape) * 4 if p.ws_shape else 0]
+    offs, total = [], 0
+    for size in sizes:
+        offs.append(total)
+        total += -(-size // 256) * 256
+    return offs, total
 
 
 def scratch(p: TilePlan, device, xsum: bool):
@@ -245,12 +258,7 @@ def scratch(p: TilePlan, device, xsum: bool):
     and W8 only, else None) and the split partials (f32 ``ws_shape``, None unless K
     is split), each 256-byte aligned. The tensor must outlive the launch (the
     caching allocator reuses it only for later work on the stream)."""
-    sizes = [math.prod(p.xt_shape) * 2, math.prod(p.xsum_shape) * 4 if xsum else 0,
-             math.prod(p.ws_shape) * 4 if p.ws_shape else 0]
-    offs, total = [], 0
-    for size in sizes:
-        offs.append(total)
-        total += -(-size // 256) * 256
+    offs, total = scratch_layout(p, xsum)
     buf = torch.empty(total, dtype=torch.uint8, device=device)
     base = buf.data_ptr()
     return buf, base + offs[0], (base + offs[1] if xsum else None), \

@@ -281,6 +281,12 @@ MIXTRAL_8X7B = dict(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, hidden_dim=
 FALCON_40B = dict(num_layers=60, hidden_size=8192, num_attention_heads=128, num_kv_heads=8,
                   new_decoder_architecture=True, parallel_attn=True, bias=False,
                   vocab_size=65024, layer_norm_epsilon=1e-5, dtype="bfloat16")
+# Falcon-7B (huggingface.co/tiiuae/falcon-7b config.json): 71 query heads of
+# 64 over one KV head (multi_query), one input_layernorm feeding both
+# branches (parallel_attn), no new_decoder_architecture
+FALCON_7B = dict(num_layers=32, hidden_size=4544, num_attention_heads=71, multi_query=True,
+                 new_decoder_architecture=False, parallel_attn=True, bias=False,
+                 vocab_size=65024, layer_norm_epsilon=1e-5, dtype="bfloat16")
 INTERNLM_7B = dict(num_layers=32, hidden_size=4096, num_attention_heads=32, mlp_ratio=8 / 3,
                    multiple_of=256, norm_type="rmsnorm", layer_norm_epsilon=1e-6, bias=True,
                    vocab_size=103168, dtype="bfloat16")
@@ -289,6 +295,10 @@ INTERNLM_7B = dict(num_layers=32, hidden_size=4096, num_attention_heads=32, mlp_
 # to 11264 in the weight)
 FALCON_PROJ = [("wq/dense", 8192, 8192), ("wk/wv", 8192, 512), ("h_to_4h", 8192, 32768),
                ("4h_to_h", 32768, 8192)]
+# Falcon-7B's one W4 product: quantize_params takes a leaf whose in_dim is a
+# multiple of the group, and 4544 is not, so only dense_4h_to_h (in 18176,
+# padded to 18432 in the weight; N 4544, half a 128-column tile past 35)
+FALCON7B_PROJ = [("4h_to_h", 18176, 4544)]
 INTERNLM_PROJ = [("Wqkv", 4096, 12288), ("w1/w2", 4096, 11008), ("w3", 11008, 4096)]
 # Mixtral's quantized products (name, K, N): the attention projections and
 # one expert's
@@ -410,6 +420,13 @@ def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3, by=None):
     if by is None:
         return statistics.median(per_call)
     return {sub: statistics.median(c[sub] for c in per_call) for sub in by}
+
+
+def yardstick_ms(fn, arg_sets, min_iters: int = 30) -> float:
+    """``time_ms`` from one trace (no median of three): the plain version's
+    and the library call's times beside a kernel's, which are yardsticks and
+    not the measurement a row stands for."""
+    return time_ms(fn, arg_sets, min_iters, repeats=1)
 
 
 def wall_ms(fn, arg_sets, min_iters: int = 30) -> float:
@@ -539,10 +556,13 @@ class KernelRows:
 
     def record(self, kernel, shape, err, k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
                rate=BF16_FLOPS_PER_S, **extra):
+        """One row; a row checked but not timed (``k_ms`` None: a duplicate
+        shape of a design whose times PERF.md holds) says so with "timed"."""
         b_ms, b_by = bound_ms(nbytes, flops, rate)
         row = {"kernel": kernel, "shape": shape, "max_abs_err": err[0], "max_rel_err": err[1],
                "ms": k_ms, "wall_ms": k_wall, "plain_ms": p_ms, "library_ms": lib_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops, **extra}
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+               **({"timed": False} if k_ms is None else {}), **extra}
         self.rows[kernel].append(row)
         emit({"phase": "kernels", **row})
 
@@ -597,10 +617,10 @@ def _split_check(label, split, got, want, launch):
     return extra
 
 
-def _kernels_w4(kr, tag, specs, ms, rope):
+def _kernels_w4(kr, tag, specs, ms, rope, untimed=()):
     """planes_qmm (GEMV for M <= 16, the many-row tile above) with its
     fusions; the GEMV's cluster split and the tile's K split checked
-    (``_split_check``)."""
+    (``_split_check``). Row counts in ``untimed`` are checked, not timed."""
     import torch
 
     from accessory_tpu_torch.ops import w4_tile
@@ -608,7 +628,8 @@ def _kernels_w4(kr, tag, specs, ms, rope):
 
     for m in ms:
         for name, k, n, fusion in specs:
-            sets, nbytes = _w4_weight_sets(kr, m, k, n, fusion, rope)
+            sets, nbytes = _w4_weight_sets(kr, m, k, n, fusion, rope,
+                                           copies=1 if m in untimed else None)
             a0 = sets[0][0]
             got = planes_qmm(**a0)
             want = planes_qmm_plain(**a0)
@@ -618,25 +639,28 @@ def _kernels_w4(kr, tag, specs, ms, rope):
                      w4_tile.folded_plan(m, n, k, 128).split)
             extra = _split_check(f"w4_matmul {tag} {name} M={m}", split, got, want,
                                  lambda sp: planes_qmm(**a0, split=sp))
-            k_ms = time_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
-            k_wall = wall_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
-            p_ms = time_ms(lambda a: planes_qmm_plain(**a), [(s[0],) for s in sets[:1]],
-                           min_iters=3)
-            lib_ms = time_ms(lambda x, d: torch.matmul(x, d),
-                             [(s[0]["x2d"], s[1]) for s in sets])
+            k_ms = k_wall = p_ms = lib_ms = None
+            if m not in untimed:
+                k_ms = time_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
+                k_wall = wall_ms(lambda a: planes_qmm(**a), [(s[0],) for s in sets])
+                p_ms = yardstick_ms(lambda a: planes_qmm_plain(**a), [(s[0],) for s in sets[:1]],
+                                    min_iters=3)
+                lib_ms = yardstick_ms(lambda x, d: torch.matmul(x, d),
+                                      [(s[0]["x2d"], s[1]) for s in sets])
             kr.record("w4_matmul", f"{tag} {name} M={m} K={k} N={n} {fusion}",
                       max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n,
                       **extra)
             del sets
 
 
-def _kernels_bigm(kr, specs, tag="7b"):
+def _kernels_bigm(kr, specs, tag="7b", untimed=()):
     """planes_qmm_bigm at the 7B prefill's 1024 rows, the QPEFT step's 8 x 512
     = 4096 and one ragged row count, beside row 1's many-row tile
     (w4_matmul.cu, M > 16) on the same inputs: its C entry is called directly
     (``_kernel_call``, not counted), since planes_qmm refuses M >= 1024. Two
     launches, and a launch on another persistent grid (61 blocks), give the
-    same bits (no K split: one f32 sum an output, whatever the grid)."""
+    same bits (no K split: one f32 sum an output, whatever the grid). Row
+    counts in ``untimed`` are checked, not timed."""
     import torch
 
     from accessory_tpu_torch.ops import w4_tile
@@ -655,7 +679,8 @@ def _kernels_bigm(kr, specs, tag="7b"):
 
     none_rope = (None, None, "", 0)
     for name, k, n, m in specs:
-        sets, nbytes = _w4_weight_sets(kr, m, k, n, "", none_rope)
+        sets, nbytes = _w4_weight_sets(kr, m, k, n, "", none_rope,
+                                       copies=1 if m in untimed else None)
         calls = [(dict(x2d=s[0]["x2d"], packed=s[0]["packed"], scales=s[0]["scales"],
                        zs=s[0]["zs"], in_dim=s[0]["in_dim"], group_size=128),) for s in sets]
         a0 = calls[0][0]
@@ -672,11 +697,14 @@ def _kernels_bigm(kr, specs, tag="7b"):
         del again, regrid
         # the tile kernel keeps q exact (another dequant form): held as in the w4_matmul rows
         check_close(f"w4_matmul tile {name} M={m}", tile, want, rtol=2e-2, atol=2e-2)
-        k_ms = time_ms(lambda a: planes_qmm_bigm(**a), calls)
-        k_wall = wall_ms(lambda a: planes_qmm_bigm(**a), calls)
-        t_ms = time_ms(lambda a: tile_kernel(**a), calls)
-        p_ms = time_ms(lambda a: planes_qmm_bigm_plain(**a), calls[:1], min_iters=3)
-        lib_ms = time_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
+        k_ms = k_wall = t_ms = p_ms = lib_ms = None
+        if m not in untimed:
+            k_ms = time_ms(lambda a: planes_qmm_bigm(**a), calls)
+            k_wall = wall_ms(lambda a: planes_qmm_bigm(**a), calls)
+            t_ms = time_ms(lambda a: tile_kernel(**a), calls)
+            p_ms = yardstick_ms(lambda a: planes_qmm_bigm_plain(**a), calls[:1], min_iters=3)
+            lib_ms = yardstick_ms(lambda x, d: torch.matmul(x, d),
+                                  [(s[0]["x2d"], s[1]) for s in sets])
         plan = w4_tile.bigm_plan(m, n)
         kr.record("w4_matmul_bigm", f"{tag} {name} M={m} K={k} N={n}", max_err(got, want), k_ms,
                   k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n, tile_kernel_ms=t_ms,
@@ -708,7 +736,7 @@ def _int8_pools(kr, b, nkv, s_len, hd):
 
 
 def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_copies=32,
-                    separate=False):
+                    separate=False, untimed=()):
     """One decode-attention entry over the bf16 or the int8 cache, fused with
     the write (decode_attention_update[8]) or read-only (cached_attention_t[8]
     at one token): the GQA kernel (nq > nkv) or the one-query-head kernel, by
@@ -717,7 +745,8 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
     read-only row with pos < S also holds the unfused route (read-only
     attention + one-token write) against the fused kernel: pools equal,
     outputs inside the kernel tolerance. ``separate``: q, k_new and v_new are
-    contiguous tensors of their own instead of views of one wqkv output."""
+    contiguous tensors of their own instead of views of one wqkv output.
+    Cases in ``untimed`` are checked, not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -744,7 +773,7 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
                  if separate else _qkv_views(kr, b, nq, nkv, hd))
                 + (_int8_pools(kr, b, nkv, s_len, hd) if int8
                    else (kr.randn(b, nkv, s_len, hd), kr.randn(b, nkv, s_len, hd)))
-                for _ in range(n_copies(nbytes, most_copies))]
+                for _ in range(1 if (b, s_len, pos) in untimed else n_copies(nbytes, most_copies))]
         first = sets[0]
         before = tuple(p.clone() for p in first[3:])   # the pools as they were
         pools2 = tuple(p.clone() for p in before)
@@ -775,22 +804,29 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
                 raise AssertionError(f"{name}: the unfused route's pools differ from the fused "
                                      "kernel's")
         del before, pools2
-        k_ms = time_ms(lambda *a: fn(*a, pos), sets)
-        k_wall = wall_ms(lambda *a: fn(*a, pos), sets)
-        p_ms = time_ms(lambda *a: plain(*a, pos), sets[:1], min_iters=5)
-        mask = (torch.arange(s_len, device="cuda") <= min(pos, s_len - 1))[None]
-        if int8:
-            lib_sets = [(s_[0].transpose(1, 2),
-                         (s_[3].float() * s_[5][..., None]).to(torch.bfloat16),
-                         (s_[4].float() * s_[6][..., None]).to(torch.bfloat16)) for s_ in sets[:2]]
-        else:
-            lib_sets = [(s_[0].transpose(1, 2), s_[3], s_[4]) for s_ in sets]
-        lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
+        k_ms = k_wall = p_ms = lib_ms = None
+        lib_sets = []
+        if (b, s_len, pos) not in untimed:
+            k_ms = time_ms(lambda *a: fn(*a, pos), sets)
+            k_wall = wall_ms(lambda *a: fn(*a, pos), sets)
+            p_ms = yardstick_ms(lambda *a: plain(*a, pos), sets[:1], min_iters=5)
+            mask = (torch.arange(s_len, device="cuda") <= min(pos, s_len - 1))[None]
+            if int8:
+                lib_sets = [(s_[0].transpose(1, 2),
+                             (s_[3].float() * s_[5][..., None]).to(torch.bfloat16),
+                             (s_[4].float() * s_[6][..., None]).to(torch.bfloat16))
+                            for s_ in sets[:2]]
+            else:
+                lib_sets = [(s_[0].transpose(1, 2), s_[3], s_[4]) for s_ in sets]
+            lib_ms = yardstick_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
+        dp = da.decode_plan(b, nkv, s_len, r, hd)
+        plan = {} if r == 1 else {"row_tiles": da.row_tiles(r, hd), "split": dp.split,
+                                  "blocks": dp.blocks}
         kr.record(kernel, f"{tag} B={b} NKV={nkv} R={r} HD={hd} S={s_len} pos={pos}"
                   + (" separate-qkv" if separate else ""),
                   max_err(out_g, out_w), k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
-                  out_sha=sha)
+                  out_sha=sha, **plan)
         del sets, lib_sets
 
 
@@ -818,8 +854,8 @@ def _kernels_flash(kr, cases):
         check_close(f"flash_attention s={s} hd={hd}", got, want, rtol=2e-2, atol=2e-2)
         k_ms = time_ms(flash_attention, sets)
         k_wall = wall_ms(flash_attention, sets)
-        p_ms = time_ms(lambda *a: grouped_attention(*a, causal=True), sets[:1], min_iters=5)
-        lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+        p_ms = yardstick_ms(lambda *a: grouped_attention(*a, causal=True), sets[:1], min_iters=5)
+        lib_ms = yardstick_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
             qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True,
             enable_gqa=True), sets)
         kr.record("flash_attention", f"{tag} B={b} S={s} NQ={nq} NKV={nkv} HD={hd}",
@@ -855,10 +891,10 @@ def _kernels_slab(kr, tag, b, nkv, hd, s_len, sq, positions):
         sha = out_sha(ck[:, :, pos:pos + sq], cv[:, :, pos:pos + sq])
         k_ms = time_ms(lambda *a: write_kv_layer(*a, pos), sets)
         k_wall = wall_ms(lambda *a: write_kv_layer(*a, pos), sets)
-        p_ms = time_ms(lambda *a: write_kv_layer_plain(*a, pos), sets)
-        lib_ms = time_ms(lambda ck, cv, nk, nv: (ck[:, :, pos:pos + sq].copy_(nk.transpose(1, 2)),
-                                                 cv[:, :, pos:pos + sq].copy_(nv.transpose(1, 2))),
-                         sets)
+        p_ms = yardstick_ms(lambda *a: write_kv_layer_plain(*a, pos), sets)
+        lib_ms = yardstick_ms(
+            lambda ck, cv, nk, nv: (ck[:, :, pos:pos + sq].copy_(nk.transpose(1, 2)),
+                                    cv[:, :, pos:pos + sq].copy_(nv.transpose(1, 2))), sets)
         kr.record(kernel, f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
                   (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms, nbytes, 0.0, out_sha=sha)
 
@@ -884,7 +920,7 @@ def _kernels_slab8(kr, tag, b, nkv, hd, s_len, sq, positions):
         sha = out_sha(*(p[:, :, pos:pos + sq] for p in got))
         k_ms = time_ms(lambda *a: write_kv_layer8(*a, pos), sets)
         k_wall = wall_ms(lambda *a: write_kv_layer8(*a, pos), sets)
-        p_ms = time_ms(lambda *a: write_kv_layer8_plain(*a, pos), sets)
+        p_ms = yardstick_ms(lambda *a: write_kv_layer8_plain(*a, pos), sets)
         kr.record(kernel, f"{tag} B={b} sq={sq} NKV={nkv} HD={hd} S={s_len} pos={pos}",
                   (0.0, 0.0), k_ms, k_wall, p_ms, None, nbytes, 0.0, out_sha=sha)
 
@@ -928,7 +964,7 @@ def _kernels_stacked(kr, tag, n_layers, b, nkv, hd, s_len, sq, pos, int8):
     del pools2
     k_ms = time_ms(lambda *a: fn(*a, pos), sets)
     k_wall = wall_ms(lambda *a: fn(*a, pos), sets)
-    p_ms = time_ms(lambda *a: plain(*a, pos), sets)
+    p_ms = yardstick_ms(lambda *a: plain(*a, pos), sets)
     lib_ms = None if int8 else time_ms(
         lambda ck, cv, k, v: (ck[:, :, :, pos:pos + sq].copy_(k.transpose(2, 3)),
                               cv[:, :, :, pos:pos + sq].copy_(v.transpose(2, 3))), sets)
@@ -1014,14 +1050,14 @@ def _kernels_paged_decode(kr, tag, nkv, r, hd, sq, lengths, int8, ps=64, pps=8, 
     del before
     k_ms = time_ms(call, sets)
     k_wall = wall_ms(call, sets)
-    p_ms = time_ms(plain, sets[:1], min_iters=3)
+    p_ms = yardstick_ms(plain, sets[:1], min_iters=3)
     mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     lib_sets = []
     for s_ in sets[:4]:
         kd, vd = gather_pages(s_[3][0], s_[4][0], table, None,
                               *((s_[5][0], s_[6][0]) if int8 else (None, None)))
         lib_sets.append((s_[0].transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)))
-    lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+    lib_ms = yardstick_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
     kr.record(kernel, f"{tag} B={b} NKV={nkv} R={r} HD={hd} SQ={sq} PS={ps} J={pps} "
               f"lengths={','.join(map(str, lengths))}", max_err(got, want), k_ms, k_wall, p_ms,
@@ -1105,7 +1141,7 @@ def _kernels_paged_write(kr, tag, n_layers, b, s, nkv, hd, int8, ps=64, pps=8):
     del pools2
     k_ms = time_ms(call, sets)
     k_wall = wall_ms(call, sets)
-    p_ms = time_ms(plain, sets)
+    p_ms = yardstick_ms(plain, sets)
     lib_ms = None
     if not int8:
         page, off = token_slots(table, start, s, ps)                 # (b * s,)
@@ -1113,8 +1149,9 @@ def _kernels_paged_write(kr, tag, n_layers, b, s, nkv, hd, int8, ps=64, pps=8):
         rows = ((lh * n_pages + page[None, :]) * ps + off[None, :])  # (L * nkv, b * s)
         rows = rows.reshape(n_layers, nkv, b * s).transpose(1, 2).reshape(-1)
         vals = [t.reshape(n_layers, b * s, nkv, hd).reshape(-1, hd) for t in (kn, vn)]
-        lib_ms = time_ms(lambda kp, vp, *_: (kp.view(-1, hd).index_put_((rows,), vals[0]),
-                                             vp.view(-1, hd).index_put_((rows,), vals[1])), sets)
+        lib_ms = yardstick_ms(
+            lambda kp, vp, *_: (kp.view(-1, hd).index_put_((rows,), vals[0]),
+                                vp.view(-1, hd).index_put_((rows,), vals[1])), sets)
     kr.record(kernel, f"{tag} L={n_layers} B={b} s={s} NKV={nkv} HD={hd} PS={ps} "
               f"starts={','.join(map(str, starts))}", (0.0, 0.0), k_ms, k_wall, p_ms, lib_ms,
               nbytes, 0.0, out_sha=sha)
@@ -1148,8 +1185,8 @@ def _kernels_dequant(kr, specs):
         fn = lambda p, sc, z: planes_dequant(p, sc, z, **qw_args)  # noqa: E731
         k_ms = time_ms(fn, sets)
         k_wall = wall_ms(fn, sets)
-        p_ms = time_ms(lambda p, sc, z: dequantize_weight(_folded_from((p, sc, z), k, n)),
-                       sets[:1], min_iters=5)
+        p_ms = yardstick_ms(lambda p, sc, z: dequantize_weight(_folded_from((p, sc, z), k, n)),
+                            sets[:1], min_iters=5)
         kr.record("w4_dequant", f"{tag} K={k} N={n} g=128", (0.0, 0.0), k_ms, k_wall, p_ms,
                   None, nbytes, 2.0 * k * n, rate=F32_FLOPS_PER_S)
         del sets
@@ -1199,13 +1236,13 @@ def _kernels_flash_bwd(kr, cases):
         names = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
         k_ms = time_ms(flash_attention_bwd, sets, by=names)
         k_wall = wall_ms(flash_attention_bwd, sets)
-        p_ms = time_ms(flash_attention_bwd_plain, sets[:1], min_iters=3)
+        p_ms = yardstick_ms(flash_attention_bwd_plain, sets[:1], min_iters=3)
         q, k, v, _, dout, _ = sets[0]
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         dot = dout.transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
-                         [()], min_iters=10)
+        lib_ms = yardstick_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                              [()], min_iters=10)
         shape = f"{tag} B={b} S={s} NQ={nq} NKV={nkv} HD={hd}"
         err = (max(e[0] for e in errs), max(e[1] for e in errs))
         # the plain and library times are those of the whole backward (both
@@ -1272,9 +1309,9 @@ def _kernels_cp(kr, cases):
             keys = (q0 + s_l) * tok * nkv                  # the gathered keys the shard reads
             sets = [(q, k, v)]
             k_ms = time_ms(fwd, sets)
-            p_ms = time_ms(lambda *a: grouped_attention(*a, causal=True, q_offset=q0), sets,
-                           min_iters=3)
-            lib_ms = time_ms(lambda *a: _masked_sdpa(*a, q0), sets, min_iters=10)
+            p_ms = yardstick_ms(lambda *a: grouped_attention(*a, causal=True, q_offset=q0), sets,
+                                min_iters=3)
+            lib_ms = yardstick_ms(lambda *a: _masked_sdpa(*a, q0), sets, min_iters=10)
             kr.record("flash_attention_cp", shape, max_err(out, want), k_ms, wall_ms(fwd, sets),
                       p_ms, lib_ms, 2 * s_l * tok * nq + 2 * keys + 4 * b * nq * s_l, 4 * work)
             del want, want_lse
@@ -1295,13 +1332,14 @@ def _kernels_cp(kr, cases):
             bsets = [(q, k, v, out, dout, lse)]
             kb_ms = time_ms(bwd, bsets, by=names)
             kb_wall = wall_ms(bwd, bsets)
-            pb_ms = time_ms(flash_attention_bwd_plain, [(q, k, v, out, dout, lse, None, q0)],
-                            min_iters=3)
+            pb_ms = yardstick_ms(flash_attention_bwd_plain, [(q, k, v, out, dout, lse, None, q0)],
+                                 min_iters=3)
             qt, kt, vt = (t.detach().requires_grad_(True) for t in (q, k, v))
             o = _masked_sdpa(qt, kt, vt, q0)
             dot = dout.transpose(1, 2)
-            lb_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
-                            [()], min_iters=10)
+            lb_ms = yardstick_ms(
+                lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), [()],
+                min_iters=10)
             err = (max(e[0] for e in errs), max(e[1] for e in errs))
             both = kb_ms[names[0]] + kb_ms[names[1]]
             # dq: q, o, dO, k / v (the needed keys), lse read, D and dq written;
@@ -1392,8 +1430,8 @@ def _kernels_w8(kr, tag, specs, rope):
         calls = [(s[0],) for s in sets]
         k_ms = time_ms(lambda a: w8_qmm(**a), calls)
         k_wall = wall_ms(lambda a: w8_qmm(**a), calls)
-        p_ms = time_ms(lambda a: w8_qmm_plain(**a), calls[:1], min_iters=3)
-        lib_ms = time_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
+        p_ms = yardstick_ms(lambda a: w8_qmm_plain(**a), calls[:1], min_iters=3)
+        lib_ms = yardstick_ms(lambda x, d: torch.matmul(x, d), [(s[0]["x2d"], s[1]) for s in sets])
         kr.record("w8_matmul", f"{tag} {name} M={m} K={k} N={n} {fusion or 'none'}",
                   max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * k * n,
                   **extra)
@@ -1415,11 +1453,12 @@ def _gptq_like_weight(gen, k, n, gs=128):
                            in_dim=k, out_dim=n)
 
 
-def _kernels_w4elem(kr, tag, specs):
+def _kernels_w4elem(kr, tag, specs, untimed=()):
     """quant_matmul_pallas (std W4, GPTQ zeros) and magic_qmm (the magic words
     of the same weight) at the GPTQ serve paths' shapes; the GEMV's cluster
     split and the many-row tile's K split checked (``_split_check``). A spec
-    (name, K, N, M[, Kx]): Kx < K is x narrower than a padded in_dim."""
+    (name, K, N, M[, Kx]): Kx < K is x narrower than a padded in_dim. Row
+    counts in ``untimed`` are checked, not timed."""
     import torch
 
     from accessory_tpu_torch.ops import w4_tile
@@ -1432,7 +1471,8 @@ def _kernels_w4elem(kr, tag, specs):
         kx = rest[0] if rest else k
         io_bytes = m * kx * 2 + m * n * 2
         std = [_gptq_like_weight(kr.gen, k, n)
-               for _ in range(n_copies(k * n / 2 + 2 * (k // 128) * n * 4 + io_bytes))]
+               for _ in range(1 if m in untimed else
+                              n_copies(k * n / 2 + 2 * (k // 128) * n * 4 + io_bytes))]
         # the bound counts the weight rows and groups the function reads: Kx's
         nbytes = kx * n / 2 + 2 * -(-kx // 128) * n * 4 + io_bytes
         xs = [kr.randn(m, kx) for _ in std]
@@ -1454,11 +1494,14 @@ def _kernels_w4elem(kr, tag, specs):
                      w4_tile.gemv_split(n, w4_tile.elem_units(kx, tk)))
             extra = _split_check(
                 label, split, got, want, lambda sp: fn(*calls[0], split=sp))
-            dense = [(x, dense_weight(q, torch.bfloat16)[:kx]) for x, q in calls]
-            k_ms = time_ms(fn, calls)
-            k_wall = wall_ms(fn, calls)
-            p_ms = time_ms(plain, calls[:1], min_iters=3)
-            lib_ms = time_ms(lambda x, d: torch.matmul(x, d), dense)
+            k_ms = k_wall = p_ms = lib_ms = None
+            dense = []
+            if m not in untimed:
+                dense = [(x, dense_weight(q, torch.bfloat16)[:kx]) for x, q in calls]
+                k_ms = time_ms(fn, calls)
+                k_wall = wall_ms(fn, calls)
+                p_ms = yardstick_ms(plain, calls[:1], min_iters=3)
+                lib_ms = yardstick_ms(lambda x, d: torch.matmul(x, d), dense)
             kr.record(kernel, f"{tag} {name} M={m} K={k} N={n}" + (f" Kx={kx}" if kx < k else ""),
                       max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, 2.0 * m * kx * n,
                       **extra)
@@ -1466,7 +1509,7 @@ def _kernels_w4elem(kr, tag, specs):
         del std, xs
 
 
-def _kernels_ffn(kr, tag, k, ffn, n2, ms):
+def _kernels_ffn(kr, tag, k, ffn, n2, ms, untimed=()):
     """ffn_qmm (one cooperative launch: w13 with the norm prologue, SwiGLU,
     w2 plus the residual) against ffn_qmm_plain at a decode FFN's widths,
     W4 g128, w2's in_dim padded as quantize_params pads it; each row count
@@ -1475,7 +1518,8 @@ def _kernels_ffn(kr, tag, k, ffn, n2, ms):
     w4_matmul with the norm, silu, the product, w2 w4_matmul with the
     residual: all of its kernels' device time). No single PyTorch call
     computes the function: no library time. The bound counts the weights'
-    bytes the function reads (w2's padded rows are not read)."""
+    bytes the function reads (w2's padded rows are not read). Row counts in
+    ``untimed`` are checked, not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -1522,10 +1566,12 @@ def _kernels_ffn(kr, tag, k, ffn, n2, ms):
             errs[fusion] = max_err(got, want)
         # the unfused chain rounds silu and the product apart: printed, held by parity_ffn
         vs_chain = max_err(fused(*calls[0]), chain(*calls[0]))[0]
-        k_ms = time_ms(fused, calls)
-        k_wall = wall_ms(fused, calls)
-        p_ms = time_ms(plain, calls[:1], min_iters=3)
-        chain_ms = time_ms(chain, calls)
+        k_ms = k_wall = p_ms = chain_ms = None
+        if m not in untimed:
+            k_ms = time_ms(fused, calls)
+            k_wall = wall_ms(fused, calls)
+            p_ms = yardstick_ms(plain, calls[:1], min_iters=3)
+            chain_ms = time_ms(chain, calls)
         nbytes = w_bytes + m * k * 2 + 2 * m * n2 * 2 + k * 4
         worst = max(errs.values())
         plan = ffn_plan_of(m)
@@ -1592,13 +1638,13 @@ def _kernels_paged_ro(kr, tag, nkv, r, hd, lengths, ps=64, most_copies=32):
     del before, kp2, vp2
     k_ms = time_ms(call, sets)
     k_wall = wall_ms(call, sets)
-    p_ms = time_ms(plain, sets[:1], min_iters=3)
+    p_ms = yardstick_ms(plain, sets[:1], min_iters=3)
     mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     lib_sets = []
     for q_, kp_, vp_ in sets[:4]:
         kd, vd = gather_pages(kp_[0], vp_[0], table)
         lib_sets.append((q_[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)))
-    lib_ms = time_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+    lib_ms = yardstick_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, enable_gqa=r > 1), lib_sets)
     cached = sum(lengths)
     nbytes = cached * nkv * 2 * hd * 2 + 2 * b * nq * hd * 2 + b * pps * 4 + b * 4
@@ -1623,32 +1669,39 @@ def phase_kernels(seed: int, names=None):
         # -- TinyLlama-1.1B (GQA) path: the four decode-layer projections at M 1 (the
         #    stream phase's decode: the one-row GEMV), 4 (the serve phases' decode
         #    batch), 8 (the decode phases'), 16 (the GEMV's most rows), 128 (the
-        #    stream phase's prefill) and 512 (the serve phases' prefill)
+        #    stream phase's prefill) and 512 (the serve phases' prefill); M 1 and 4
+        #    (and M 4 of the stacked path, M 1 of 7B, Mixtral, Falcon-40B) checked,
+        #    not timed: PERF.md's kernel table holds this GEMV design's times there
         cos, sin = precompute_rope(64, 1024, device="cuda")
         rope = rope_rows(cos, sin, 36, 4, 64, "interleaved") + ("interleaved", 64)
-        _kernels_w4(kr, "tiny", TINY_PROJ, (1, 4, 8, 16, 128, 512), rope)
+        _kernels_w4(kr, "tiny", TINY_PROJ, (1, 4, 8, 16, 128, 512), rope, untimed=(1, 4))
         # -- the stacked path's separate projections, with no prologue or epilogue
         #    (wk and wv, w1 and w3 share a shape; its wo and w2 are the rows above)
         _kernels_w4(kr, "tiny", [("wq", 2048, 2048, ""), ("wk/wv", 2048, 256, ""),
-                                 ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope)
+                                 ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope, untimed=(4,))
         # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 and at M 1 and
         #    4 (K 11008 is padded to 11264 in the weight; RoPE at head_dim 128)
         cos, sin = precompute_rope(128, 1024, device="cuda")
         rope = rope_rows(cos, sin, 64, 32, 128, "interleaved") + ("interleaved", 128)
         _kernels_w4(kr, "7b", [("wqkv", 4096, 12288, "norm+rope"), ("wo", 4096, 4096, "res"),
                                ("w13", 4096, 22016, "norm"), ("w2", 11008, 4096, "res")],
-                    (1, 4, 8), rope)
+                    (1, 4, 8), rope, untimed=(1, 4))
 
         # -- Mixtral-8x7B (MoE): its separate projections and one expert's w1 / w3
         #    and w2 at the decode batch 8 and at one row, K 4096 and 14336
         _kernels_w4(kr, "mixtral", [(nm, k, n, "") for nm, k, n in MIXTRAL_PROJ], (1, 8),
-                    (None, None, "", 0))
+                    (None, None, "", 0), untimed=(1,))
         # -- Falcon-40B's and InternLM-7B's projections (no fusion: their own
         #    norms and biases) at the decode batch 8, Falcon's also at one row
         _kernels_w4(kr, "falcon40b", [(nm, k, n, "") for nm, k, n in FALCON_PROJ], (1, 8),
-                    (None, None, "", 0))
+                    (None, None, "", 0), untimed=(1,))
         _kernels_w4(kr, "internlm7b", [(nm, k, n, "") for nm, k, n in INTERNLM_PROJ], (8,),
                     (None, None, "", 0))
+        # -- Falcon-7B's one W4 product (dense_4h_to_h, N 4544: a last 128-column
+        #    tile of 64) at the decode batch 8 (the GEMV) and at the many-row
+        #    tile's 128 and 512 rows (serve_falcon7b's 4 x 128-row prefill)
+        _kernels_w4(kr, "falcon7b", [(nm, k, n, "") for nm, k, n in FALCON7B_PROJ],
+                    (8, 128, 512), (None, None, "", 0))
         # -- LLaMA-Adapter at 7B widths: its separate projections (no fusion:
         #    the adapter's blocks take none) at the decode batch 8, and a prefix
         #    layer's wk / wv over the batch's 8 x 10 prefix rows (the many-row
@@ -1666,13 +1719,16 @@ def phase_kernels(seed: int, names=None):
         # -- Falcon-40B's and InternLM-7B's 1024-row prefill
         _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in FALCON_PROJ], tag="falcon40b")
         _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in INTERNLM_PROJ], tag="internlm7b")
+        # -- Falcon-7B's (N 4544: a last column panel of 64)
+        _kernels_bigm(kr, [(nm, k, n, 1024) for nm, k, n in FALCON7B_PROJ], tag="falcon7b")
         # -- its prefill: the many-row kernel at 8 x 128 = 1024 rows, the QPEFT
         #    training step's 8 x 512 = 4096, and one row count that is not a
         #    multiple of the 256-row tile
+        #    (4096 and 1000 rows checked, not timed: PERF.md holds this design's times)
         _kernels_bigm(kr, [(nm, k, n, m) for m in (1024, 4096)
                            for nm, k, n in (("wqkv", 4096, 12288), ("wo", 4096, 4096),
                                             ("w13", 4096, 22016), ("w2", 11008, 4096))]
-                      + [("wo", 4096, 4096, 1000)])
+                      + [("wo", 4096, 4096, 1000)], untimed=(4096, 1000))
         # -- SPHINX-7B's caption prefill: 8 x (the prompt's 256-token bucket +
         #    1455 image words) rows
         sph = _sphinx_shapes()
@@ -1695,16 +1751,18 @@ def phase_kernels(seed: int, names=None):
         # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
         #    phases' batch 8 and 1024-token cache, a cache length not a multiple
         #    of 128, and the serve phases' batch 4 and the stream phase's batch 1
-        #    over their 192-token caches
+        #    over their 192-token caches; the cache's edges checked, not timed
+        #    (PERF.md holds the split design's times there)
         tiny_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (4, 192, 150),
                       (1, 192, 150))
-        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases + ((8, 1000, 999),))
+        edges = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 1023), (8, 1000, 999))
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases + ((8, 1000, 999),), untimed=edges)
         # -- its int8 form (_kernel_bloop_w8) and the read-only forms (_kernel_bloop
         #    / _kernel, _kernel_bloop8), each also held as "read-only + one-token
         #    write == fused"; an HD 128 GQA shape (NKV 8, R 4)
-        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True)
-        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, write=False)
-        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True, write=False)
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True, untimed=edges)
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, write=False, untimed=edges)
+        _kernels_decode(kr, "tiny", 32, 4, 64, tiny_cases, int8=True, write=False, untimed=edges)
         for int8, write in ((True, True), (False, False), (True, False)):
             _kernels_decode(kr, "hd128", 32, 8, 128, ((8, 1024, 511),), int8=int8, write=write,
                             most_copies=8)
@@ -1725,6 +1783,12 @@ def phase_kernels(seed: int, names=None):
             _kernels_decode(kr, "falcon40b", 128, 8, 64,
                             ((8, 1024, 511), (8, 192, 150)) if write else ((8, 1024, 511),),
                             int8=int8, write=write, most_copies=8)
+        # -- Falcon-7B (NKV 1, R 71, HD 64: a tile of 64 query rows and one of 7,
+        #    each a cluster over the same tokens): the fused bf16 and int8 decode
+        #    and the read-only forms at the decode and serve shapes
+        for int8, write in ((False, True), (True, True), (False, False), (True, False)):
+            _kernels_decode(kr, "falcon7b", 71, 1, 64, ((8, 1024, 511), (8, 192, 150)),
+                            int8=int8, write=write, most_copies=8)
         # -- the read-only forms as the stacked path calls them: q, k, v each a
         #    tensor of its own (separate projections), not views of one wqkv output
         for int8 in (False, True):
@@ -1736,10 +1800,13 @@ def phase_kernels(seed: int, names=None):
         #    at the 7B shape, the 7B serve phase's 192-token cache, and one
         #    head_dim-64 shape. The caches are 134 MB a copy, so at most 4 copies
         #    rotate (a short read then stays in L2, as it would in the model).
+        #    (pos 0 and 1 checked, not timed: PERF.md holds this design's times)
         mha_cases = ((8, 1024, 0), (8, 1024, 1), (8, 1024, 511), (8, 1024, 1023), (8, 192, 150))
-        _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, most_copies=4)
+        mha_edges = ((8, 1024, 0), (8, 1024, 1))
+        _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, most_copies=4, untimed=mha_edges)
         _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), most_copies=4)
-        _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, int8=True, most_copies=4)
+        _kernels_decode(kr, "7b", 32, 32, 128, mha_cases, int8=True, most_copies=4,
+                        untimed=mha_edges)
         _kernels_decode(kr, "hd64", 16, 16, 64, ((8, 1000, 999),), int8=True, most_copies=4)
         # -- the read-only forms at one query head per KV head (the MHA kernel
         #    without its write), 7B shape
@@ -1765,6 +1832,7 @@ def phase_kernels(seed: int, names=None):
                             ("tiny", 4, 200, 32, 4, 64),
                             ("hd128", 4, 128, 16, 4, 128), ("7b", 8, 128, 32, 32, 128),
                             ("mixtral", 8, 128, 32, 8, 128), ("falcon40b", 8, 128, 128, 8, 64),
+                            ("falcon7b", 8, 128, 71, 1, 64),
                             ("700m", 2, 2048, 16, 8, 128),
                             ("sphinx", SPHINX_BATCH, _sphinx_shapes()["prefill_positions"],
                              32, 32, 128),
@@ -1786,6 +1854,8 @@ def phase_kernels(seed: int, names=None):
         _kernels_slab8(kr, "mixtral", 8, 8, 128, 192, 128, (0,))
         _kernels_slab(kr, "falcon40b", 8, 8, 64, 192, 128, (0,))
         _kernels_slab8(kr, "falcon40b", 8, 8, 64, 192, 128, (0,))
+        _kernels_slab(kr, "falcon7b", 8, 1, 64, 192, 128, (0,))
+        _kernels_slab8(kr, "falcon7b", 8, 1, 64, 192, 128, (0,))
         # -- SPHINX-7B's prefill slab: 1711 positions into its 1711-token cache
         sph = _sphinx_shapes()
         _kernels_slab(kr, "sphinx", SPHINX_BATCH, 32, 128, sph["cache_len"],
@@ -1872,8 +1942,9 @@ def phase_kernels(seed: int, names=None):
         #    128-row (stream and batcher prefill) and 512-row (serve prefill)
         #    tiles, and the 7B w13 and w2 (in_dim 11008 in a weight padded to
         #    11264, the magic tile's) at batch 8
+        #    (M 1 and 4 checked, not timed: PERF.md holds this GEMV's times)
         _kernels_w4elem(kr, "tiny", [(nm, k, n, m) for m in (1, 4, 8)
-                                     for nm, k, n, _ in TINY_PROJ])
+                                     for nm, k, n, _ in TINY_PROJ], untimed=(1, 4))
         _kernels_w4elem(kr, "tiny", [("w13", 2048, 11264, 256)])
         _kernels_w4elem(kr, "tiny", [(nm, k, n, m) for m in (128, 512)
                                      for nm, k, n, _ in TINY_PROJ])
@@ -1884,8 +1955,9 @@ def phase_kernels(seed: int, names=None):
         #    stream (1), serve (4), a ragged (5) and the decode (8) batches, the
         #    one-pass row templates' largest (16) and the first of passes of 16
         #    rows (17), and its largest row count (128)
-        _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 16, 17, 128))
-        _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 16, 17, 128))
+        #    (M 4, 5 and 16 checked, not timed: PERF.md holds this design's times)
+        _kernels_ffn(kr, "tiny", 2048, 5632, 2048, (1, 4, 5, 8, 16, 17, 128), untimed=(4, 5, 16))
+        _kernels_ffn(kr, "7b", 4096, 11008, 4096, (1, 4, 5, 8, 16, 17, 128), untimed=(4, 5, 16))
     if want("paged_decode_ro"):
         # -- the read-only paged decode (kvcache.paged_attention_decode): 8 slots of
         #    lengths 1..1024 over 64-token pages, TinyLlama (GQA) and 7B (MHA)
@@ -4389,23 +4461,28 @@ def phase_batcher_moe(model):
 # ---------------------------------------------------------------- InternLM and Falcon
 
 
+ZOO_MODELS = ("Falcon-40B", "InternLM-7B", "Falcon-7B")
+
+
 def _zoo_family(name: str):
     """(llama_type, config, module, W4 products a layer) of a zoo model."""
     from accessory_tpu_torch.models import falcon, internlm
 
     return {"Falcon-40B": ("falcon", FALCON_40B, falcon, 6),
-            "InternLM-7B": ("internlm", INTERNLM_7B, internlm, 5)}[name]
+            "InternLM-7B": ("internlm", INTERNLM_7B, internlm, 5),
+            "Falcon-7B": ("falcon", FALCON_7B, falcon, 1)}[name]
 
 
 def phase_parity_zoo(seed: int):
-    """Falcon-40B and InternLM-7B at full width, one layer each (W4 from
-    ``quantize_params`` of a seeded dense layer, the embeddings and head
-    dense): the CPU (plain versions) against the card (kernels) through a
-    2 x 32 prefill and 4 teacher-forced decode steps, bf16 then int8 KV,
-    logits within LOGIT_TOL_FRAC / LOGIT_REL_L2 (phase_parity)."""
+    """Falcon-40B, InternLM-7B and Falcon-7B at full width, one layer each (W4
+    from ``quantize_params`` of a seeded dense layer, which leaves Falcon-7B
+    one W4 product, the embeddings and head dense): the CPU (plain versions)
+    against the card (kernels) through a 2 x 32 prefill and 4 teacher-forced
+    decode steps, bf16 then int8 KV, logits within LOGIT_TOL_FRAC /
+    LOGIT_REL_L2 (phase_parity)."""
     import torch
 
-    for name in ("Falcon-40B", "InternLM-7B"):
+    for name in ZOO_MODELS:
         family, cfg, _, _ = _zoo_family(name)
         phase_parity(seed, "parity_zoo", cfg, 1, b=2, plen=32, steps=4, s_len=128,
                      kv_dtypes=(None, "int8"), family=family)
@@ -4416,11 +4493,14 @@ def phase_parity_zoo(seed: int):
 def _zoo_model(name: str, seed: int, max_seq_len: int):
     """The full-width model ``name`` (FALCON_40B: 60 layers, 128 / 8 heads of
     64, FFN 32768; INTERNLM_7B: 32 layers, MHA of 128, FFN 11008, biased
-    Wqkv / out_proj), W4 g128 folded, built leaf by leaf on the card from
-    ``seed`` (the dense bf16 model never exists): every projection a
+    Wqkv / out_proj; FALCON_7B: 32 layers, 71 heads of 64 over one, FFN
+    18176), built leaf by leaf on the card from ``seed`` (the dense bf16
+    model never exists): each projection W4 g128 folded where
+    ``quantize_params`` would quantize it (in_dim a multiple of 128: every
+    projection of the first two, Falcon-7B's dense_4h_to_h alone), a
     ``_random_w4`` (K padded to the multiple of 1024 ``quantize_params``
-    gives it), biases 0.02-scaled, norms one, embeddings and head bf16.
-    Returns (model, setup s, peak bytes)."""
+    gives it), else a fan-in-scaled bf16 weight; biases 0.02-scaled, norms
+    one, embeddings and head bf16. Returns (model, setup s, peak bytes)."""
     import torch
 
     from accessory_tpu_torch.meta import MetaModel
@@ -4437,8 +4517,9 @@ def _zoo_model(name: str, seed: int, max_seq_len: int):
     def dense(shape, scale):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    def w4(k, n, bias=False):
-        mod = {"weight": _random_w4(gen, k + (-k) % pad_to(k, 128), n)}
+    def proj(k, n, bias=False):
+        mod = {"weight": _random_w4(gen, k + (-k) % pad_to(k, 128), n) if k % 128 == 0
+               else dense((k, n), k ** -0.5)}
         if bias:
             mod["bias"] = dense((n,), 0.02)
         return mod
@@ -4453,17 +4534,19 @@ def _zoo_model(name: str, seed: int, max_seq_len: int):
     for _ in range(a.num_layers):
         if family == "falcon":
             kvd = a.kv_heads * a.head_dim
-            layers.append({"ln_attn": norm(True), "ln_mlp": norm(True),
-                           "self_attention": {"wq": w4(d, d), "wk": w4(d, kvd),
-                                              "wv": w4(d, kvd), "dense": w4(d, d)},
-                           "mlp": {"dense_h_to_4h": w4(d, 4 * d),
-                                   "dense_4h_to_h": w4(4 * d, d)}})
+            lns = ({"ln_attn": norm(True), "ln_mlp": norm(True)}
+                   if a.new_decoder_architecture else {"input_layernorm": norm(True)})
+            layers.append({**lns,
+                           "self_attention": {"wq": proj(d, d), "wk": proj(d, kvd),
+                                              "wv": proj(d, kvd), "dense": proj(d, d)},
+                           "mlp": {"dense_h_to_4h": proj(d, 4 * d),
+                                   "dense_4h_to_h": proj(4 * d, d)}})
         else:
             hidden = module._hidden_dim(a)
             layers.append({"norm1": norm(False), "norm2": norm(False),
-                           "mixer": {"Wqkv": w4(d, 3 * d, True), "out_proj": w4(d, d, True)},
-                           "mlp": {"w1": w4(d, hidden), "w2": w4(d, hidden),
-                                   "w3": w4(hidden, d)}})
+                           "mixer": {"Wqkv": proj(d, 3 * d, True), "out_proj": proj(d, d, True)},
+                           "mlp": {"w1": proj(d, hidden), "w2": proj(d, hidden),
+                                   "w3": proj(hidden, d)}})
     final = {"ln_f": norm(True)} if family == "falcon" else {"norm": norm(False)}
     model.params = {"word_embeddings": {"weight": dense((a.vocab_size, d), 1.0)},
                     "layers": layers, **final,
@@ -4473,14 +4556,30 @@ def _zoo_model(name: str, seed: int, max_seq_len: int):
     return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
-def phase_serve_zoo(name: str, seed: int):
+def _weight_bytes(node, skip=()) -> int:
+    """Bytes of every weight in a subtree (quantized: packed words, scales,
+    zeros; dense tensors as they are), leaving out the keys in ``skip``."""
+    if isinstance(node, dict):
+        return sum(_weight_bytes(v, skip) for k, v in node.items() if k not in skip)
+    if isinstance(node, (list, tuple)):
+        return sum(_weight_bytes(v, skip) for v in node)
+    if hasattr(node, "packed"):
+        return _qw_bytes(node)
+    return node.numel() * node.element_size() if hasattr(node, "numel") else 0
+
+
+def phase_serve_zoo(name: str, seed: int, tile_rows: int = 0):
     """The full-width model ``name`` through MetaModel.generate: the 8 PROMPTS
-    in the 128-token bucket (a 1024-row prefill: every projection on row
+    in the 128-token bucket (a 1024-row prefill: every W4 projection on row
     5), 32 new tokens, greedy, bf16 KV, launch counts exact (W4 products a
     layer x layers on row 5 once and on row 1 a decode step; flash and the
     slab write once a layer; the decode attention, GQA or one-query-head, a
-    layer a step). Returns (model, counts)."""
+    layer a step). ``tile_rows``: then one more counted prefill of that many
+    rows (4 x 128 = 512: row 1's many-row tile, each W4 product once a
+    layer, flash and the slab write once a layer). Returns (model, counts)."""
     import torch
+
+    from accessory_tpu_torch import kernels
 
     family, _, _, n_proj = _zoo_family(name)
     phase = "serve_" + name.lower().replace("-", "")
@@ -4497,16 +4596,39 @@ def phase_serve_zoo(name: str, seed: int):
     row = {"phase": phase, "model": f"{name} shape", "family": family, "kv_dtype": "bf16",
            "layers": n_layers, "batch": len(PROMPTS),
            "prompt_tokens": [len(p) + 1 for p in PROMPTS], "prefill_rows": 8 * 128,
-           "decode_steps": steps, "launches": counts, "launches_expected": want,
+           "decode_steps": steps, "launches": dict(counts), "launches_expected": want,
            "setup_s": setup_s, "setup_peak_gb": setup_peak / 1e9,
-           "weight_gb": _qw_bytes(model.params) / 1e9,
+           "weight_gb": _weight_bytes(model.params) / 1e9,
+           "w4_gb": _qw_bytes(model.params) / 1e9,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "prefill_ms": prefill_ms,
            "generate_s": total_s,
            "decode_tok_s": len(PROMPTS) * steps / max(total_s - prefill_ms / 1e3, 1e-9),
            "outputs_chars": [len(o) for o in outs]}
+    ok = counts == want and steps >= 32 and len(outs) == len(PROMPTS)
+    if tile_rows and ok:
+        b = tile_rows // 128
+        cache = model.module.init_kv_cache(model.args, b, 192)
+        toks = (torch.arange(b * 128, device="cuda").reshape(b, 128) * 7 + 3) % 256
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.module.forward(model.generator.params, model.args, toks, cache=cache,
+                                         cur_pos=0)
+        torch.cuda.synchronize()
+        tile_counts = kernels.launch_counts()
+        tile_want = _zero_counts(w4_matmul=n_proj * n_layers, flash_attention=n_layers,
+                                 kv_write=n_layers)
+        row.update(tile_prefill_rows=tile_rows, tile_prefill_ms=(time.perf_counter() - t0) * 1e3,
+                   tile_prefill_launches=tile_counts, tile_prefill_launches_expected=tile_want)
+        ok = tile_counts == tile_want and bool(torch.isfinite(logits).all())
+        _add_counts(counts, tile_counts)
+        del cache, logits
     emit(row)
-    if counts != want or steps < 32 or len(outs) != len(PROMPTS):
-        raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+    if not ok:
+        raise AssertionError(f"{phase}: launch counts {row['launches']} != expected "
+                             f"{row['launches_expected']}, or the {tile_rows}-row prefill's "
+                             f"{row.get('tile_prefill_launches')} != "
+                             f"{row.get('tile_prefill_launches_expected')}")
     return model, counts
 
 
@@ -4515,9 +4637,9 @@ def phase_decode_zoo(name: str, model, kv_dtype, steps: int = 30):
     position 512 (8 different tokens): wall ms a step, launch counts exact,
     the bytes bound (every weight byte but the embedding table's, and the
     KV read of each step at 3.35 TB/s), then device time by kernel over 4
-    profiled steps with the shares of row 1, the attention, the head
-    (cuBLAS, "nvjet") and the eager elementwise and reduction kernels, and
-    the idle share. Returns the counts."""
+    profiled steps with the shares of row 1, the attention, the head and
+    Falcon-7B's bf16 products (cuBLAS, "nvjet"), the eager elementwise and
+    reduction kernels, and the idle share. Returns the counts."""
     import torch
 
     from accessory_tpu_torch import kernels
@@ -4544,17 +4666,7 @@ def phase_decode_zoo(name: str, model, kv_dtype, steps: int = 30):
         raise AssertionError(f"{phase}: non-finite logits")
     attn = ("decode_attention_mha" if mha else "decode_attention") + ("8" if int8 else "")
     want = _zero_counts(w4_matmul=n_proj * n_layers * steps, **{attn: n_layers * steps})
-
-    def nbytes(node):
-        if isinstance(node, dict):
-            return sum(nbytes(v) for k, v in node.items() if k != "word_embeddings")
-        if isinstance(node, list):
-            return sum(nbytes(v) for v in node)
-        if hasattr(node, "packed"):
-            return _qw_bytes(node)
-        return node.numel() * node.element_size()
-
-    w_bytes = nbytes(params)
+    w_bytes = _weight_bytes(params, skip=("word_embeddings",))
     token_bytes = sum(c[0].numel() * c[0].element_size() for c in cache.values()) \
         // (batch * args.kv_heads * cache_len)   # k + v (+ scales) of one cached token of a head
     kv_read = sum(n_layers * batch * args.kv_heads * (pos0 + i) * token_bytes
@@ -5770,7 +5882,8 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
               "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
               "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,parity_zoo,"
-              "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,torch_import,"
+              "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,"
+              "serve_falcon7b,decode_falcon7b,torch_import,"
               "parity_sphinx,serve_sphinx,score,parity_adapter,serve_adapter,parity_sphinx_moe,"
               "serve_sphinx_moe,train_mm")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
@@ -5996,14 +6109,16 @@ def main() -> int:
             torch.cuda.empty_cache()
         if "parity_zoo" in phases:
             phase_parity_zoo(opts.seed)
-        for name in ("Falcon-40B", "InternLM-7B"):
+        for name in ZOO_MODELS:
             tag = name.lower().replace("-", "")
             if f"serve_{tag}" not in phases and f"decode_{tag}" not in phases:
                 continue
             # the full-width W4 model on the card: every earlier model is freed
             gc.collect()
             torch.cuda.empty_cache()
-            model, counts_by_path[tag] = phase_serve_zoo(name, opts.seed)
+            # Falcon-7B's one W4 product (N 4544) also on row 1's many-row tile
+            model, counts_by_path[tag] = phase_serve_zoo(
+                name, opts.seed, tile_rows=512 if name == "Falcon-7B" else 0)
             if f"decode_{tag}" in phases:
                 bench = {}
                 for kv_dtype in (None, "int8"):

@@ -34,8 +34,11 @@ and at Falcon-40B's and InternLM-7B's (the W4 products at K 32768 and N
 32768 / 512 and InternLM's FFN on the GEMV and the many-row kernel, the GQA
 decode at R 16, head_dim 64, the one-query-head decode and the slab writes
 at 32 heads of 128 with v a view of the fused Wqkv output, flash at 128 /
-8 heads) with small models of both families, card against CPU; and
-SPHINX's f32 towers, flash at a SPHINX-7B prefill length (a ragged tail
+8 heads) with small models of both families, card against CPU; and at
+Falcon-7B's (the static decode entries at R 71 over one KV head, two tiles
+of query rows, row 1's tile and row 5 at N 4544 with no weight copied,
+flash at 71 / 1 heads, the slab writes of one KV head, one full-width
+layer card against CPU); and SPHINX's f32 towers, flash at a SPHINX-7B prefill length (a ragged tail
 tile) and small SPHINX models (ens, ens5p2: encode_image, the multimodal
 prefill and decode steps at positions shifted by the image words), card
 against CPU.
@@ -192,14 +195,20 @@ def test_w4_matmul_bigm(gen, m, k, kx, n, gs):
 
 @pytest.mark.parametrize("m", [1030, 1024, 4100])
 def test_w4_matmul_bigm_strided_x(gen, m):
-    """x as a column slice of a wider buffer (row stride > Kx)."""
+    """x as a column slice of a wider buffer (row stride > Kx); N 192 (a last
+    column panel of 64) against the plain version, N 200 refused."""
     qw = _w4(gen, 256, 128)
     x = randn(gen, m, 512)[:, 128:384]
     got = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128)
     assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=256,
                                             group_size=128))
-    with pytest.raises(ValueError, match="128-column"):
-        qn = _w4(gen, 256, 192)
+    # N a multiple of 64 (a last column panel of 64) is taken; one of 8 is not
+    qn = _w4(gen, 256, 192)
+    assert_close(planes_qmm_bigm(x, qn.packed, qn.scales, qn.zeros, in_dim=256, group_size=128),
+                 planes_qmm_bigm_plain(x, qn.packed, qn.scales, qn.zeros, in_dim=256,
+                                       group_size=128))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        qn = _w4(gen, 256, 200)
         planes_qmm_bigm(x, qn.packed, qn.scales, qn.zeros, in_dim=256, group_size=128)
 
 
@@ -1444,8 +1453,11 @@ def _split_lengths(plan, n_max, k=8):
     return [0, 1] + [rest[round(i * (len(rest) - 1) / (k - 3))] for i in range(k - 2)]
 
 
+# (64, 71, 1): Falcon-7B's group, a tile of 64 query rows and one of 7; (64,
+# 128, 1) two whole tiles; (128, 40, 2) tiles of 32 and 8 at head_dim 128
 STATIC_SPLIT_CASES = [(hd, r, nkv, write, pos)
-                      for hd, r, nkv in ((64, 8, 4), (128, 4, 8), (64, 32, 2))
+                      for hd, r, nkv in ((64, 8, 4), (128, 4, 8), (64, 32, 2), (64, 71, 1),
+                                         (64, 128, 1), (128, 40, 2))
                       for write in (True, False)
                       for pos in (0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 767, 768, 1023, 1024)
                       if not (write and pos == 1024)]
@@ -1456,13 +1468,14 @@ STATIC_SPLIT_CASES = [(hd, r, nkv, write, pos)
 def test_decode_split_rank_edges(gen, int8, hd, r, nkv, write, pos):
     """The split GQA kernel at B 8, S 1024 (decode_plan's split > 1): a pos
     that leaves ranks empty (0, 1), a chunk edge, each rank's first token at
-    a full cache, a full cache (read-only); against the plain version, the
-    fused write bit-equal to the plain write (int8: the scales to f32
-    rounding), and the same output bits on two calls."""
+    a full cache, a full cache (read-only); R past one tile of query rows
+    (71, 128; 40 at head_dim 128); against the plain version, the fused
+    write bit-equal to the plain write (int8: the scales to f32 rounding),
+    and the same output bits on two calls."""
     from accessory_tpu_torch.ops.decode_attention import decode_plan
 
     b, s_len = 8, 1024
-    assert decode_plan(b, nkv, s_len).split > 1
+    assert decode_plan(b, nkv, s_len, r, hd).split > 1
     q, kn, vn = _qkv(gen, b, nkv * r, nkv, hd)
     pools = _int8_pools(gen, b, nkv, s_len, hd) if int8 else (randn(gen, b, nkv, s_len, hd),
                                                               randn(gen, b, nkv, s_len, hd))
@@ -1560,7 +1573,7 @@ def test_paged_identity_table_at_the_split_plans(gen, int8, pos):
 
     b, nkv, r, hd, ps, pps = 8, 4, 8, 64, 64, 16
     s_len = ps * pps
-    assert paged_plan(b, nkv, r, hd, pps, ps).split != decode_plan(b, nkv, s_len).split
+    assert paged_plan(b, nkv, r, hd, pps, ps).split != decode_plan(b, nkv, s_len, r, hd).split
     pools = _int8_pools_static(gen, b, nkv, s_len, hd) if int8 else \
         (randn(gen, b, nkv, s_len, hd), randn(gen, b, nkv, s_len, hd))
     q, kn, vn = randn(gen, b, 1, nkv * r, hd), randn(gen, b, 1, nkv, hd), randn(gen, b, 1, nkv, hd)
@@ -1851,12 +1864,15 @@ def test_w4_tile_split_k(gen, m, k, n, fusion):
 
 
 def test_w4_tile_refuses(gen):
-    """The many-row path raises on what its tile does not take: N not a
-    multiple of 128, half RoPE heads wider than the tile, a split past the
-    groups; one counted launch a call."""
+    """The many-row path takes N 192 (a last 128-column tile of 64) and raises
+    on what its tile does not take: N not a multiple of 64, half RoPE heads
+    wider than the tile, a split past the groups; one counted launch a call."""
     qw = _w4(gen, 256, 192)
     x = randn(gen, 40, 256)
-    with pytest.raises(ValueError, match="128-column"):
+    assert_close(planes_qmm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128),
+                 planes_qmm_plain(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128))
+    qw = _w4(gen, 256, 200)
+    with pytest.raises(ValueError, match="multiple of 64"):
         planes_qmm(x, qw.packed, qw.scales, qw.zeros, in_dim=256, group_size=128)
     qw = _w4(gen, 256, 512)
     cos, sin = precompute_rope(256, 64, device="cuda")
@@ -2599,6 +2615,157 @@ def test_small_zoo_model_cuda_matches_cpu(gen, family, kv_dtype):
         assert torch.isfinite(g).all()
         assert float((g - lc).norm() / lc.norm()) < 2e-2, (lo, hi)
         assert float((g - lc).abs().max()) < 2e-2 * float(lc.abs().max()) + 2e-2, (lo, hi)
+
+
+# ---------------------------------------------------------------- Falcon-7B
+
+
+# its one W4 product: dense_4h_to_h, x 18176 wide, the weight padded to 18432,
+# N 4544 (35 whole 128-column tiles and one of 64)
+F7_K, F7_IN, F7_N = 18176, 18432, 4544
+
+
+@pytest.mark.parametrize("m", [17, 128, 512, 1000])
+def test_w4_tile_falcon7b(gen, m):
+    """Row 1's many-row tile at Falcon-7B's dense_4h_to_h (N 4544: the last
+    128-column tile half empty): one launch within a rounding step of the
+    plain version, a second launch bit-equal, the unsplit plan within
+    tolerance; the call allocates its output and the plan's scratch and
+    nothing more (no padded copy of the 42 MB of words)."""
+    from accessory_tpu_torch.ops import w4_tile
+
+    qw = _w4(gen, F7_K, F7_N, pad_in_to=1024)
+    assert qw.in_dim == F7_IN
+    args = (randn(gen, m, F7_K), qw.packed, qw.scales, qw.zeros)
+    kw = dict(in_dim=F7_IN, group_size=128)
+    planes_qmm(*args, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = _one_more("w4_matmul", lambda: planes_qmm(*args, **kw))
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    scratch = w4_tile.scratch_layout(w4_tile.folded_plan(m, F7_N, F7_K, 128), xsum=True)[1]
+    assert grown <= m * F7_N * 2 + scratch + 2 ** 20, grown
+    assert_close(got, planes_qmm_plain(*args, **kw))
+    assert torch.equal(got, planes_qmm(*args, **kw))
+    assert_close(planes_qmm(*args, split=1, **kw), got)
+
+
+@pytest.mark.parametrize("m", [1024, 1030, 4096])
+def test_w4_matmul_bigm_falcon7b(gen, m):
+    """Row 5 at Falcon-7B's dense_4h_to_h (N 4544: a last column panel of 64)
+    from its 1024-row prefill on: within a rounding step of the plain
+    version, the same bits from a second launch and from another persistent
+    grid; the call allocates its output alone (no weight copied)."""
+    qw = _w4(gen, F7_K, F7_N, pad_in_to=1024)
+    x = randn(gen, m, F7_K)
+    kw = dict(in_dim=F7_IN, group_size=128)
+    planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = _one_more("w4_matmul_bigm",
+                    lambda: planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, **kw))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= m * F7_N * 2 + 2 ** 20
+    assert_close(got, planes_qmm_bigm_plain(x, qw.packed, qw.scales, qw.zeros, **kw))
+    again = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, **kw)
+    regrid = planes_qmm_bigm(x, qw.packed, qw.scales, qw.zeros, ctas=61, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, regrid)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s_len,pos", [(1024, 0), (1024, 511), (1024, 1023), (192, 150)])
+def test_decode_attention_falcon7b(gen, int8, s_len, pos):
+    """Rows 2 / 13 and the read-only rows 8 / 15 at Falcon-7B's decode (batch
+    8, 71 query heads over one KV head of 64: a tile of 64 query rows and
+    one of 7; q, k and v separate tensors): each against its plain version,
+    the fused write's pools equal to the plain write's (int8 bit for bit,
+    scales to f32 rounding), the read-only form leaving them untouched."""
+    b, nq, nkv, hd = 8, 71, 1, 64
+    q, kn, vn = randn(gen, b, 1, nq, hd), randn(gen, b, 1, nkv, hd), randn(gen, b, 1, nkv, hd)
+    pools = _int8_pools(gen, b, nkv, s_len, hd) if int8 else (randn(gen, b, nkv, s_len, hd),
+                                                              randn(gen, b, nkv, s_len, hd))
+    keep = tuple(p.clone() for p in pools)
+    attn, plain = (cached_attention_t8, cached_attention_decode8_plain) if int8 \
+        else (cached_attention_t, cached_attention_decode_plain)
+    name = "decode_attention8" if int8 else "decode_attention"
+    got = _one_more(name + "_ro", lambda: attn(q, kn, vn, *pools, pos))
+    assert_close(got, plain(q, kn, vn, *keep, pos))
+    assert all(torch.equal(a, b_) for a, b_ in zip(pools, keep))
+    update, update_plain = (decode_attention_update8, decode_attention_update8_plain) if int8 \
+        else (decode_attention_update, decode_attention_update_plain)
+    got = _one_more(name, lambda: update(q, kn, vn, *pools, pos))
+    want = update_plain(q, kn, vn, *keep, pos)
+    assert_close(got[0], want[0])
+    if int8:
+        assert_pools8(got[1:], want[1:])
+    else:
+        assert all(torch.equal(a, b_) for a, b_ in zip(got[1:], want[1:]))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_kernels_falcon7b(gen, int8):
+    """Row 3 at Falcon-7B's prefill (B 8, S 128, 71 query heads over one of
+    64: one head a block, 71 being odd) against grouped attention, and the
+    slab write (rows 4 / 17) of its one KV head against the plain write."""
+    b, sq, s_len, hd = 8, 128, 192, 64
+    q, k, v = randn(gen, b, sq, 71, hd), randn(gen, b, sq, 1, hd), randn(gen, b, sq, 1, hd)
+    got = _one_more("flash_attention", lambda: flash_attention(q, k, v))
+    assert_close(got, grouped_attention(q, k, v, causal=True))
+    if int8:
+        pools = (torch.zeros((b, 1, s_len, hd), dtype=torch.int8, device="cuda"),
+                 torch.zeros((b, 1, s_len, hd), dtype=torch.int8, device="cuda"),
+                 torch.zeros((b, 1, s_len), device="cuda"),
+                 torch.zeros((b, 1, s_len), device="cuda"))
+        pools2 = tuple(p.clone() for p in pools)
+        got = _one_more("kv_write_q8", lambda: write_kv_layer8(*pools, k, v, 0))
+        assert_pools8(got, write_kv_layer8_plain(*pools2, k, v, 0))
+    else:
+        ck, cv = randn(gen, b, 1, s_len, hd), randn(gen, b, 1, s_len, hd)
+        ck2, cv2 = ck.clone(), cv.clone()
+        _one_more("kv_write", lambda: write_kv_layer(ck, cv, k, v, 0))
+        write_kv_layer_plain(ck2, cv2, k, v, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_falcon7b_layer_cuda_matches_cpu(gen, kv_dtype):
+    """One Falcon-7B layer at full width (vocab cut to 512), W4 by
+    quantize_params (dense_4h_to_h alone): a 2 x 16 prefill and 4 decode
+    steps, card against CPU within 2% relative L2 and 2% of the largest
+    |logit| (test_small_zoo_model_cuda_matches_cpu's limits); each decode
+    step launches row 1 and the decode attention once."""
+    from accessory_tpu_torch.config import FalconArgs
+    from accessory_tpu_torch.models import falcon
+
+    args = FalconArgs(num_layers=1, hidden_size=4544, num_attention_heads=71, multi_query=True,
+                      new_decoder_architecture=False, parallel_attn=True, bias=False,
+                      vocab_size=512, max_seq_len=64)
+    params = quantize_params(falcon.init_params(args, seed=3))
+    assert sum(hasattr(w["weight"], "packed") for mod in params["layers"][0].values()
+               for w in mod.values() if isinstance(w, dict) and "weight" in w) == 1
+    cpu = _to(params, "cpu")
+    toks = torch.randint(0, 512, (2, 20), generator=torch.Generator().manual_seed(0))
+    cg = falcon.init_kv_cache(args, 2, 64, kv_dtype=kv_dtype)
+    cc = falcon.init_kv_cache(args, 2, 64, kv_dtype=kv_dtype, device="cpu")
+    attn = "decode_attention" + ("8" if kv_dtype else "")
+    for lo, hi in [(0, 16)] + [(p, p + 1) for p in range(16, 20)]:
+        kernels.reset_launch_counts()
+        lg, _ = falcon.forward(params, args, toks[:, lo:hi].cuda(), cache=cg, cur_pos=lo)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        lc, _ = falcon.forward(cpu, args, toks[:, lo:hi], cache=cc, cur_pos=lo)
+        if hi - lo == 1:
+            assert counts["w4_matmul"] == 1 and counts[attn] == 1
+            assert sum(counts.values()) == 2
+        g = lg.cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - lc).norm() / lc.norm()) < 2e-2, (lo, hi)
+        assert float((g - lc).abs().max()) < 2e-2 * float(lc.abs().max()), (lo, hi)
 
 
 # ---------------------------------------------------------------- SPHINX

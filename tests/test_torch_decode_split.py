@@ -11,12 +11,15 @@ split) of the nc = ceil(n / 64) chunks into its own online softmax (f32
 scores, int8: times the token's k scale and the softmax scale; P rounded to
 bf16 against the rank's running max, int8: p times the v scale first), the
 ranks merge in rank order, each rescaled by exp(m_rank - m) in f32, then the
-new tokens' exact f32 term joins (row t sees new tokens t' <= t). It is held
+new tokens' exact f32 term joins (row t sees new tokens t' <= t); a (batch
+row, kv head) whose query rows pass a tile (64 at head_dim 64, 32 at 128)
+is cut into tiles, each folded over every token on its own (Falcon-7B's 71
+query heads over one kv head: 64 + 7). It is held
 against the JAX kernels as the JAX package's own tests run them on the CPU:
 ``_decode_attn_bloop_w`` / ``_decode_attn_bloop_w8`` and ``_paged_decode`` /
 ``_paged_decode8`` in interpret mode, and the bundled paged kernel's XLA
 oracle ``paged_attention_xla``; numpy inputs from a seed, bf16 and int8 caches,
-R 8, 4 and 1, SQ 1 and 5, at the plan's split and at 8 ranks (ranks with no
+R 71, 8, 4 and 1, SQ 1 and 5, at the plan's split and at 8 ranks (ranks with no
 chunk at all).
 
 Tolerance: the one the card holds the kernels to (chip_smoke.py's decode
@@ -90,14 +93,29 @@ def _edges(split, total):
     return sorted(x for x in out if 0 <= x <= total)
 
 
-@pytest.mark.parametrize("b,nkv,s_len", [(8, 4, 1024), (4, 4, 192), (1, 4, 192), (8, 8, 1024),
-                                         (8, 4, 1000), (2, 2, 64), (1, 1, 4096), (64, 8, 2048)])
-def test_decode_plan_covers_every_token_once(b, nkv, s_len):
-    """At every pos 0..S the tested edges give each cached token one rank; the
-    split is 1-8 and never more than the cache's chunks."""
-    plan = tda.decode_plan(b, nkv, s_len)
+def assert_tiles_cover(r, hd):
+    """The kernel's row tiles (csrc/decode_attention.cu: tiles of
+    min(r, TILE_ROWS[hd]) rows, rows row0 .. row0 + nrows of tile t) give
+    every query row of a group exactly one tile."""
+    ntiles, rows = tda.row_tiles(r, hd), min(r, tda.TILE_ROWS[hd])
+    seen = [m for t in range(ntiles) for m in range(t * rows, min(r, (t + 1) * rows))]
+    assert seen == list(range(r))
+    assert ntiles == -(-r // tda.TILE_ROWS[hd])
+
+
+@pytest.mark.parametrize("b,nkv,s_len,r,hd", [
+    (8, 4, 1024, 8, 64), (4, 4, 192, 8, 64), (1, 4, 192, 8, 64), (8, 8, 1024, 4, 128),
+    (8, 4, 1000, 8, 64), (2, 2, 64, 8, 64), (1, 1, 4096, 8, 64), (64, 8, 2048, 16, 64),
+    (8, 1, 1024, 71, 64), (8, 1, 192, 71, 64), (8, 1, 1024, 128, 64), (8, 2, 1024, 40, 128)])
+def test_decode_plan_covers_every_token_once(b, nkv, s_len, r, hd):
+    """At every pos 0..S the tested edges give each cached token one rank, and
+    the row tiles each query row one tile: every (row, token) once; the split
+    is 1-8 and never more than the cache's chunks; a cluster a (batch row,
+    kv head, tile)."""
+    plan = tda.decode_plan(b, nkv, s_len, r, hd)
     assert 1 <= plan.split <= 8 and plan.split <= -(-s_len // CHUNK)
-    assert plan.blocks == plan.split * b * nkv
+    assert plan.blocks == plan.split * b * nkv * tda.row_tiles(r, hd)
+    assert_tiles_cover(r, hd)
     for pos in _edges(plan.split, s_len):
         assert_covers(plan, pos)
 
@@ -110,7 +128,7 @@ def test_paged_plan_covers_every_token_once(rows, hd, j, ps):
     past it reads J * PS tokens) each token of the active pages has one rank."""
     plan = tpd.paged_plan(8, 4, rows, hd, j, ps)
     assert 1 <= plan.split <= 8 and plan.split <= -(-j * ps // CHUNK)
-    assert plan.blocks == plan.split * 8 * 4 * -(-rows // tpd.TILE_ROWS[hd])
+    assert plan.blocks == plan.split * 8 * 4 * -(-rows // tda.TILE_ROWS[hd])
     for n in _edges(plan.split, j * ps) + [j * ps + 100]:
         assert_covers(plan, min(n, j * ps))
 
@@ -128,11 +146,16 @@ def test_paged_plan_reads_j_times_ps_alone():
 def test_plans_at_the_paths_shapes():
     """The launches of the decode paths' shapes: 128-264 blocks for
     TinyLlama's 8 x 4 (kv head, row) pairs, static and paged, and at least
-    132 for 7B's one query head a kv head (256 pairs, split 1)."""
-    for plan in (tda.decode_plan(8, 4, 1024), tpd.paged_plan(8, 4, 8, 64, 8, 64),
+    132 for 7B's one query head a kv head (256 pairs, split 1). Falcon-7B's
+    B 8 x one kv head x two row tiles: 16 clusters, so the split over the
+    tokens fills the card at S 1024 (8 ranks, 128 blocks); at S 192 the
+    cache has 3 chunks, one a rank (48 blocks)."""
+    for plan in (tda.decode_plan(8, 4, 1024, 8, 64), tpd.paged_plan(8, 4, 8, 64, 8, 64),
                  tpd.paged_plan(8, 4, 40, 64, 8, 64), tpd.paged_plan(8, 4, 8, 64, 16, 64),
-                 tda.decode_plan(8, 8, 1024)):
+                 tda.decode_plan(8, 8, 1024, 4, 128), tda.decode_plan(8, 1, 1024, 71, 64)):
         assert 128 <= plan.blocks <= 264 and plan.split > 1
+    assert tda.decode_plan(8, 1, 1024, 71, 64) == tda.SplitPlan(8, 128)
+    assert tda.decode_plan(8, 1, 192, 71, 64) == tda.SplitPlan(3, 48)
     seven = tpd.paged_plan(8, 32, 1, 128, 8, 64)
     assert seven.split == 1 and seven.blocks >= 132
     assert tpd.paged_plan(8, 32, 1, 128, 16, 64).blocks >= 132
@@ -155,13 +178,15 @@ def _capture(monkeypatch):
     return seen
 
 
+@pytest.mark.parametrize("nq,nkv,split", [(32, 4, 4), (71, 1, 8)])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("write", [False, True])
-def test_decode_kernel_call_abi(monkeypatch, int8, write):
+def test_decode_kernel_call_abi(monkeypatch, int8, write, nq, nkv, split):
     """The GQA entries' C calls: the parameter list csrc/decode_attention.cu
-    declares, the dims, and decode_plan's split."""
+    declares, the dims (R, from which the entry cuts its row tiles as
+    decode_plan counts them), and decode_plan's split."""
     seen = _capture(monkeypatch)
-    b, nq, nkv, hd, s_len, pos = 8, 32, 4, 64, 1024, 511
+    b, hd, s_len, pos = 8, 64, 1024, 511
     q = torch.zeros(b, 1, nq, hd, dtype=torch.bfloat16)
     kn = torch.zeros(b, 1, nkv, hd, dtype=torch.bfloat16)
     if int8:
@@ -175,8 +200,28 @@ def test_decode_kernel_call_abi(monkeypatch, int8, write):
     assert seen["argtypes"] == c_signature("decode_attention", sym)
     assert len(seen["args"]) == len(seen["argtypes"])
     dims = seen["args"][-10:-3]
-    assert dims == (b, nkv, s_len, nq // nkv, hd, pos, tda.decode_plan(b, nkv, s_len).split)
-    assert dims[-1] == 4
+    assert dims == (b, nkv, s_len, nq // nkv, hd, pos,
+                    tda.decode_plan(b, nkv, s_len, nq // nkv, hd).split)
+    assert dims[-1] == split
+
+
+def test_decode_kernel_refuses_past_the_grid(monkeypatch):
+    """Any R the launch's z (batch rows x row tiles) holds is taken; past it
+    the wrapper raises, as the C entry would, and never falls back."""
+    seen = _capture(monkeypatch)
+    b, nq, hd, s_len = 8, 71, 64, 256
+    q = torch.zeros(b, 1, nq, hd, dtype=torch.bfloat16)
+    kn = torch.zeros(b, 1, 1, hd, dtype=torch.bfloat16)
+    pools = (torch.zeros(b, 1, s_len, hd, dtype=torch.bfloat16),) * 2
+    assert tda.MAX_GRID_Z == 65535
+    monkeypatch.setattr(tda, "MAX_GRID_Z", b * 2)
+    tda._decode_kernel("t", q, kn, kn, pools, 5, write=True)
+    assert seen["args"][-10:-3] == (b, 1, s_len, nq, hd, 5, 4)
+    monkeypatch.setattr(tda, "MAX_GRID_Z", b * 2 - 1)
+    seen.clear()
+    with pytest.raises(ValueError, match="ceil"):
+        tda._decode_kernel("t", q, kn, kn, pools, 5, write=True)
+    assert not seen
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -270,12 +315,23 @@ def _bf(a):
     return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float()
 
 
+def tiled_model(q, K, V, n, split, scale, ks, vs, kn, vn, row_t, hd):
+    """``split_model`` over a group's query rows as the static entries cut
+    them: tiles of min(rows, TILE_ROWS[hd]) rows, each folded over every
+    token on its own (the same ranks and merge), concatenated in row order."""
+    rows = min(q.shape[0], tda.TILE_ROWS[hd])
+    tiles = [slice(t * rows, (t + 1) * rows) for t in range(tda.row_tiles(q.shape[0], hd))]
+    return torch.cat([split_model(q[t], K, V, n, split, scale, ks, vs, kn, vn, row_t[t])
+                      for t in tiles])
+
+
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("r,hd,pos", [(8, 64, 200), (4, 128, 255), (8, 64, 65)])
+@pytest.mark.parametrize("r,hd,pos", [(8, 64, 200), (4, 128, 255), (8, 64, 65), (71, 64, 200)])
 def test_static_split_model_vs_jax_kernel(int8, r, hd, pos):
     """The model at decode_plan's split and at 8 ranks against the JAX fused
     kernel (_kernel_bloop_w / _kernel_bloop_w8, interpret mode) on the same
-    cache: pos over several chunks and ranks, some ranks with no chunk."""
+    cache: pos over several chunks and ranks, some ranks with no chunk; R 71
+    (Falcon-7B's group: a tile of 64 rows and one of 7)."""
     b, nkv, s_len = 2, 2, 256
     rng = np.random.RandomState(pos + r + int8)
     q = _bf(rng.standard_normal((b, nkv, r, hd)))
@@ -302,13 +358,13 @@ def test_static_split_model_vs_jax_kernel(int8, r, hd, pos):
         K, V = ck.transpose(2, 3), cv.transpose(2, 3)
         KS = VS = None
     want = np.asarray(want.astype(jnp.float32))        # (b, nkv, r, hd)
-    plan = tda.decode_plan(b, nkv, s_len)
+    plan = tda.decode_plan(b, nkv, s_len, r, hd)
     assert plan.split == 4
     for split in (plan.split, 8):
         got = torch.stack([torch.stack([
-            split_model(q[i, h], K[i, h], V[i, h], pos, split, hd ** -0.5,
+            tiled_model(q[i, h], K[i, h], V[i, h], pos, split, hd ** -0.5,
                         *((KS[i, h], VS[i, h]) if int8 else (None, None)),
-                        kn[i, h], vn[i, h], torch.zeros(r, dtype=torch.int64))
+                        kn[i, h], vn[i, h], torch.zeros(r, dtype=torch.int64), hd)
             for h in range(nkv)]) for i in range(b)])
         assert_card_close(got.to(torch.bfloat16).float(), want)
 
