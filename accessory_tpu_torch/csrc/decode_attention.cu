@@ -74,14 +74,16 @@ template <typename CT, bool WRITE>
 cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long kn_bstride,
                    const void* vn, long long vn_bstride, const void* cache_k,
                    const void* cache_v, const void* cache_ks, const void* cache_vs, int B,
-                   int NKV, int S, int R, int HD, int pos, int split, float scale, void* out,
-                   void* stream) {
+                   int NKV, int S, int R, int HD, int pos, const void* pos_dev, int split,
+                   float scale, void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if ((HD != 64 && HD != 128) || R < 1) return cudaErrorInvalidValue;
   const dsplit::RowTiles rt = dsplit::row_tiles(R, HD);
   // the fused kernels write index pos; a read-only call may find the cache full
-  if (B < 1 || NKV < 1 || NKV > 65535 || (long long)B * rt.ntiles > 65535 || pos < 0 ||
-      pos > (WRITE ? S - 1 : S) || split < 1 || split > dsplit::MAX_SPLIT)
+  // (a position on the card is the caller's to keep in range)
+  if (B < 1 || NKV < 1 || NKV > 65535 || (long long)B * rt.ntiles > 65535 ||
+      (pos_dev == nullptr && (pos < 0 || pos > (WRITE ? S - 1 : S))) || split < 1 ||
+      split > dsplit::MAX_SPLIT)
     return cudaErrorInvalidValue;
   dsplit::Params p = {};
   p.q = static_cast<const bf16*>(q);
@@ -102,6 +104,7 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
   }
   p.S = S;
   p.pos = pos;
+  p.pos_dev = static_cast<const int*>(pos_dev);
   p.NKV = NKV;
   p.R = R;
   p.SQ = 1;
@@ -125,26 +128,28 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
 // 16-byte aligned; out (B, NKV, R, HD) contiguous. Requires HD in {64, 128},
 // B * ceil(R / (64 at HD 64, 32 at HD 128)) <= 65535 (the grid's z: a cluster
 // a tile of query rows), 0 <= pos < S, 1 <= split <= 8 (the blocks of a
-// cluster, decode_plan's). Attends, then writes k/v at pos.
+// cluster, decode_plan's). Attends, then writes k/v at pos. pos_dev: null, or
+// an int32 on the card (or the low word of an int64) that the kernel reads
+// in place of pos, so that a captured launch takes each replay's position.
 extern "C" int decode_attention(const void* q, long long q_bstride, const void* kn,
                                 long long kn_bstride, const void* vn, long long vn_bstride,
                                 void* cache_k, void* cache_v, int B, int NKV, int S, int R,
-                                int HD, int pos, int split, float scale, void* out,
-                                void* stream) {
+                                int HD, int pos, const void* pos_dev, int split, float scale,
+                                void* out, void* stream) {
   return (int)launch<bf16, true>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
-                                 nullptr, nullptr, B, NKV, S, R, HD, pos, split, scale, out,
-                                 stream);
+                                 nullptr, nullptr, B, NKV, S, R, HD, pos, pos_dev, split, scale,
+                                 out, stream);
 }
 
 // The same attention with the caches only read (0 <= pos <= S).
 extern "C" int decode_attention_ro(const void* q, long long q_bstride, const void* kn,
                                    long long kn_bstride, const void* vn, long long vn_bstride,
                                    const void* cache_k, const void* cache_v, int B, int NKV,
-                                   int S, int R, int HD, int pos, int split, float scale,
-                                   void* out, void* stream) {
+                                   int S, int R, int HD, int pos, const void* pos_dev, int split,
+                                   float scale, void* out, void* stream) {
   return (int)launch<bf16, false>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
-                                  nullptr, nullptr, B, NKV, S, R, HD, pos, split, scale, out,
-                                  stream);
+                                  nullptr, nullptr, B, NKV, S, R, HD, pos, pos_dev, split, scale,
+                                  out, stream);
 }
 
 // Over int8 caches (B, NKV, S, HD) with f32 scale pools cache_ks / cache_vs
@@ -153,11 +158,12 @@ extern "C" int decode_attention_ro(const void* q, long long q_bstride, const voi
 extern "C" int decode_attention8(const void* q, long long q_bstride, const void* kn,
                                  long long kn_bstride, const void* vn, long long vn_bstride,
                                  void* cache_k, void* cache_v, void* cache_ks, void* cache_vs,
-                                 int B, int NKV, int S, int R, int HD, int pos, int split,
-                                 float scale, void* out, void* stream) {
+                                 int B, int NKV, int S, int R, int HD, int pos,
+                                 const void* pos_dev, int split, float scale, void* out,
+                                 void* stream) {
   return (int)launch<int8_t, true>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k,
-                                   cache_v, cache_ks, cache_vs, B, NKV, S, R, HD, pos, split,
-                                   scale, out, stream);
+                                   cache_v, cache_ks, cache_vs, B, NKV, S, R, HD, pos, pos_dev,
+                                   split, scale, out, stream);
 }
 
 // The int8 attention with the four pools only read (0 <= pos <= S).
@@ -165,9 +171,9 @@ extern "C" int decode_attention8_ro(const void* q, long long q_bstride, const vo
                                     long long kn_bstride, const void* vn, long long vn_bstride,
                                     const void* cache_k, const void* cache_v,
                                     const void* cache_ks, const void* cache_vs, int B, int NKV,
-                                    int S, int R, int HD, int pos, int split, float scale,
-                                    void* out, void* stream) {
+                                    int S, int R, int HD, int pos, const void* pos_dev,
+                                    int split, float scale, void* out, void* stream) {
   return (int)launch<int8_t, false>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k,
-                                    cache_v, cache_ks, cache_vs, B, NKV, S, R, HD, pos, split,
-                                    scale, out, stream);
+                                    cache_v, cache_ks, cache_vs, B, NKV, S, R, HD, pos, pos_dev,
+                                    split, scale, out, stream);
 }

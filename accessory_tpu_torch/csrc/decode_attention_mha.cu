@@ -122,7 +122,10 @@ decode_attn_mha_kernel(const bf16* __restrict__ q, long long q_bstride,
                        Pool<WRITE, CT> __restrict__ cache_v,
                        Pool<WRITE, float> __restrict__ cache_ks,
                        Pool<WRITE, float> __restrict__ cache_vs,
-                       int NKV, int S, int pos, float scale, bf16* __restrict__ out) {
+                       int NKV, int S, int pos_host, const int* __restrict__ pos_dev,
+                       float scale, bf16* __restrict__ out) {
+  // a position on the card (a captured launch) is read at block start
+  const int pos = pos_dev != nullptr ? __ldg(pos_dev) : pos_host;
   constexpr bool INT8 = sizeof(CT) == 1;
   constexpr int EPL = 16 / sizeof(CT);   // elements of one 16-byte load
   constexpr int LPT = HD / EPL;          // lanes per token
@@ -279,10 +282,14 @@ template <typename CT, bool WRITE>
 cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long kn_bstride,
                    const void* vn, long long vn_bstride, const void* cache_k,
                    const void* cache_v, const void* cache_ks, const void* cache_vs, int B,
-                   int NKV, int S, int HD, int pos, float scale, void* out, void* stream) {
+                   int NKV, int S, int HD, int pos, const void* pos_dev, float scale, void* out,
+                   void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   // the fused kernels write index pos; a read-only call may find the cache full
-  if (B < 1 || NKV < 1 || pos < 0 || pos > (WRITE ? S - 1 : S)) return cudaErrorInvalidValue;
+  // (a position on the card is the caller's to keep in range)
+  if (B < 1 || NKV < 1 || (pos_dev == nullptr && (pos < 0 || pos > (WRITE ? S - 1 : S))))
+    return cudaErrorInvalidValue;
+  const int* pd = static_cast<const int*>(pos_dev);
   dim3 grid(NKV, B);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(kn);
@@ -294,10 +301,10 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
   bf16* o = static_cast<bf16*>(out);
   if (HD == 64) {
     decode_attn_mha_kernel<64, CT, WRITE><<<grid, THREADS, 0, st>>>(
-        qp, q_bstride, kp, kn_bstride, vp, vn_bstride, ck, cv, ks, vs, NKV, S, pos, scale, o);
+        qp, q_bstride, kp, kn_bstride, vp, vn_bstride, ck, cv, ks, vs, NKV, S, pos, pd, scale, o);
   } else if (HD == 128) {
     decode_attn_mha_kernel<128, CT, WRITE><<<grid, THREADS, 0, st>>>(
-        qp, q_bstride, kp, kn_bstride, vp, vn_bstride, ck, cv, ks, vs, NKV, S, pos, scale, o);
+        qp, q_bstride, kp, kn_bstride, vp, vn_bstride, ck, cv, ks, vs, NKV, S, pos, pd, scale, o);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -309,12 +316,16 @@ cudaError_t launch(const void* q, long long q_bstride, const void* kn, long long
 // q, kn, vn: (B, NKV*HD) bf16 rows with batch strides in elements (multiples
 // of 8, 16-byte aligned); caches (B, NKV, S, HD) contiguous, 16-byte aligned;
 // out (B, NKV, HD) bf16 contiguous. Requires HD in {64, 128}, 0 <= pos < S.
+// pos_dev: null, or an int32 on the card (or the low word of an int64) read
+// in place of pos, so that a captured launch takes each replay's position.
 extern "C" int decode_attention_mha(const void* q, long long q_bstride, const void* kn,
                                     long long kn_bstride, const void* vn, long long vn_bstride,
                                     void* cache_k, void* cache_v, int B, int NKV, int S, int HD,
-                                    int pos, float scale, void* out, void* stream) {
+                                    int pos, const void* pos_dev, float scale, void* out,
+                                    void* stream) {
   return (int)launch<bf16, true>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
-                                 nullptr, nullptr, B, NKV, S, HD, pos, scale, out, stream);
+                                 nullptr, nullptr, B, NKV, S, HD, pos, pos_dev, scale, out,
+                                 stream);
 }
 
 // The same over int8 caches with f32 scale pools cache_ks / cache_vs
@@ -323,10 +334,10 @@ extern "C" int decode_attention_mha8(const void* q, long long q_bstride, const v
                                      long long kn_bstride, const void* vn, long long vn_bstride,
                                      void* cache_k, void* cache_v, void* cache_ks,
                                      void* cache_vs, int B, int NKV, int S, int HD, int pos,
-                                     float scale, void* out, void* stream) {
+                                     const void* pos_dev, float scale, void* out, void* stream) {
   return (int)launch<int8_t, true>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k,
-                                   cache_v, cache_ks, cache_vs, B, NKV, S, HD, pos, scale, out,
-                                   stream);
+                                   cache_v, cache_ks, cache_vs, B, NKV, S, HD, pos, pos_dev,
+                                   scale, out, stream);
 }
 
 // The two attentions with the pools only read (0 <= pos <= S).
@@ -334,9 +345,11 @@ extern "C" int decode_attention_mha_ro(const void* q, long long q_bstride, const
                                        long long kn_bstride, const void* vn,
                                        long long vn_bstride, const void* cache_k,
                                        const void* cache_v, int B, int NKV, int S, int HD,
-                                       int pos, float scale, void* out, void* stream) {
+                                       int pos, const void* pos_dev, float scale, void* out,
+                                       void* stream) {
   return (int)launch<bf16, false>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k, cache_v,
-                                  nullptr, nullptr, B, NKV, S, HD, pos, scale, out, stream);
+                                  nullptr, nullptr, B, NKV, S, HD, pos, pos_dev, scale, out,
+                                  stream);
 }
 
 extern "C" int decode_attention_mha8_ro(const void* q, long long q_bstride, const void* kn,
@@ -344,8 +357,9 @@ extern "C" int decode_attention_mha8_ro(const void* q, long long q_bstride, cons
                                         long long vn_bstride, const void* cache_k,
                                         const void* cache_v, const void* cache_ks,
                                         const void* cache_vs, int B, int NKV, int S, int HD,
-                                        int pos, float scale, void* out, void* stream) {
+                                        int pos, const void* pos_dev, float scale, void* out,
+                                        void* stream) {
   return (int)launch<int8_t, false>(q, q_bstride, kn, kn_bstride, vn, vn_bstride, cache_k,
-                                    cache_v, cache_ks, cache_vs, B, NKV, S, HD, pos, scale, out,
-                                    stream);
+                                    cache_v, cache_ks, cache_vs, B, NKV, S, HD, pos, pos_dev,
+                                    scale, out, stream);
 }

@@ -73,8 +73,9 @@ constexpr int PT_CACHE = 256;   // a slot's page ids held in shared memory (J <=
 constexpr float KV_SCALE_EPS = 1e-6f;
 
 // Everything a launch reads, for both caches. Static: kc / vc (B, NKV, S, HD)
-// and the scales (B, NKV, S), n = pos, SQ = 1; with the fused write kw / vw /
-// ksw / vsw are the same pools. Paged: pools (NKV, P, PS, HD), scales (NKV,
+// and the scales (B, NKV, S), n = pos, or *pos_dev where that is set (a
+// position on the card, which a captured decode step reads at each replay),
+// SQ = 1; with the fused write kw / vw / ksw / vsw are the same pools. Paged: pools (NKV, P, PS, HD), scales (NKV,
 // P, PS), n = min(lengths[b], J * PS), token tok of slot b in page
 // pt[b * PPS + tok / PS]. Both: ntiles tiles of query rows a (row or slot, kv
 // head), blockIdx.z = b * ntiles + tile. Query row m is new token m / R,
@@ -95,6 +96,7 @@ struct Params {
   float* ksw;
   float* vsw;
   int S, pos;
+  const int* pos_dev;   // static: pos on the card (read at block start), or null for pos
   const int* lengths;
   const int* pt;
   int PPS, J, P, PS;
@@ -274,7 +276,7 @@ __device__ __forceinline__ void body(const Params& p, int split, unsigned char* 
     n = max(0, min(len, p.J * p.PS));
     __syncthreads();
   } else {
-    n = p.pos;
+    n = p.pos_dev != nullptr ? __ldg(p.pos_dev) : p.pos;
   }
   const int nc = (n + T - 1) / T;
   const int c0 = (int)((long long)nc * rank / split);
@@ -495,7 +497,7 @@ __device__ __forceinline__ void body(const Params& p, int split, unsigned char* 
   // the new k / v from knew / vnew, so the tiles need no order)
   if constexpr (WRITE) {
     if (rank == 0 && tile == 0) {
-      const long long woff = (base_row + p.pos) * HD;
+      const long long woff = (base_row + n) * HD;   // n: the static cache's pos
       CT* kw = static_cast<CT*>(p.kw);
       CT* vw = static_cast<CT*>(p.vw);
       if constexpr (!INT8) {
@@ -519,7 +521,7 @@ __device__ __forceinline__ void body(const Params& p, int split, unsigned char* 
           const int qv = __float2int_rn(__fdiv_rn(xv[j], sc));
           dst[lane * DPL + j] = (int8_t)max(-127, min(127, qv));
         }
-        if (lane == 0) (warp == 0 ? p.ksw : p.vsw)[base_row + p.pos] = sc;
+        if (lane == 0) (warp == 0 ? p.ksw : p.vsw)[base_row + n] = sc;
       }
     }
   }

@@ -50,7 +50,9 @@ namespace {
 __global__ void kv_write_kernel(const bf16* __restrict__ nk, long long nk_bs, long long nk_ts,
                                 const bf16* __restrict__ nv, long long nv_bs, long long nv_ts,
                                 bf16* __restrict__ ck, bf16* __restrict__ cv, int B, int sq,
-                                int NKV, int HD, int S, int pos) {
+                                int NKV, int HD, int S, int pos_host,
+                                const int* __restrict__ pos_dev) {
+  const int pos = pos_dev != nullptr ? __ldg(pos_dev) : pos_host;
   const bf16* src = blockIdx.y == 0 ? nk : nv;
   const long long bs = blockIdx.y == 0 ? nk_bs : nv_bs;
   const long long ts = blockIdx.y == 0 ? nk_ts : nv_ts;
@@ -91,8 +93,9 @@ kv_write_q8_kernel(const bf16* __restrict__ nk, long long nk_bs, long long nk_ts
                    const bf16* __restrict__ nv, long long nv_bs, long long nv_ts,
                    int8_t* __restrict__ ck, int8_t* __restrict__ cv, float* __restrict__ cks,
                    float* __restrict__ cvs, int total, kvq::FastDiv sq, kvq::FastDiv nkv, int S,
-                   int pos, int un) {
+                   int pos, const int* __restrict__ pos_dev, int un) {
   const bool k = blockIdx.y == 0;
+  if (pos_dev != nullptr) pos = __ldg(pos_dev);
   const SlabMap map{k ? nk : nv, k ? nk_bs : nv_bs, k ? nk_ts : nv_ts, sq, nkv, S, pos, HD};
   kvq::quantize_vectors<HD>(map, total, un, k ? ck : cv, k ? cks : cvs);
 }
@@ -100,41 +103,45 @@ kv_write_q8_kernel(const bf16* __restrict__ nk, long long nk_bs, long long nk_ts
 // Launch helpers: `rows` batch rows (B, or L * B for a stacked cache).
 cudaError_t launch_bf16(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                         long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
-                        long long rows, int sq, int NKV, int HD, int S, int pos, int threads,
-                        void* stream) {
+                        long long rows, int sq, int NKV, int HD, int S, int pos,
+                        const void* pos_dev, int threads, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (HD % 8 != 0 || rows < 1 || rows > 0x7fffffffLL || pos < 0 || sq < 1 || pos + sq > S)
+  if (HD % 8 != 0 || rows < 1 || rows > 0x7fffffffLL || sq < 1 || sq > S ||
+      (pos_dev == nullptr && (pos < 0 || pos + sq > S)))
     return cudaErrorInvalidValue;
   const long long total = rows * sq * NKV * (HD / 8);
   const long long want = (total + threads - 1) / threads;
   dim3 grid((unsigned)(want < 4096 ? want : 4096), 2);
   kv_write_kernel<<<grid, threads, 0, st>>>(
       static_cast<const bf16*>(nk), nk_bs, nk_ts, static_cast<const bf16*>(nv), nv_bs, nv_ts,
-      static_cast<bf16*>(cache_k), static_cast<bf16*>(cache_v), (int)rows, sq, NKV, HD, S, pos);
+      static_cast<bf16*>(cache_k), static_cast<bf16*>(cache_v), (int)rows, sq, NKV, HD, S, pos,
+      static_cast<const int*>(pos_dev));
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_q8_hd(const bf16* k, long long nk_bs, long long nk_ts, const bf16* v,
                          long long nv_bs, long long nv_ts, int8_t* ck, int8_t* cv, float* ks,
-                         float* vs, int B, int sq, int NKV, int S, int pos, cudaStream_t st) {
+                         float* vs, int B, int sq, int NKV, int S, int pos, const int* pos_dev,
+                         cudaStream_t st) {
   static const int resident = kvq::resident_blocks(kv_write_q8_kernel<HD>);
   const int total = B * sq * NKV;
   const kvq::Plan pl = kvq::plan(total, HD, 2, resident);
   kv_write_q8_kernel<HD><<<dim3(pl.blocks, 2), kvq::THREADS, 0, st>>>(
       k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, total, kvq::fast_div(sq),
-      kvq::fast_div(NKV), S, pos, pl.un);
+      kvq::fast_div(NKV), S, pos, pos_dev, pl.un);
   return cudaGetLastError();
 }
 
 cudaError_t launch_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                       long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
                       void* cache_ks, void* cache_vs, long long rows, int sq, int NKV, int HD,
-                      int S, int pos, void* stream) {
+                      int S, int pos, const void* pos_dev, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (rows < 1 || NKV < 1 || pos < 0 || sq < 1 || pos + sq > S ||
-      rows * sq * NKV > 0x3fffffffLL)
+  if (rows < 1 || NKV < 1 || sq < 1 || sq > S ||
+      (pos_dev == nullptr && (pos < 0 || pos + sq > S)) || rows * sq * NKV > 0x3fffffffLL)
     return cudaErrorInvalidValue;
+  const int* pd = static_cast<const int*>(pos_dev);
   const int B = (int)rows;
   const bf16* k = static_cast<const bf16*>(nk);
   const bf16* v = static_cast<const bf16*>(nv);
@@ -144,17 +151,22 @@ cudaError_t launch_q8(const void* nk, long long nk_bs, long long nk_ts, const vo
   float* vs = static_cast<float*>(cache_vs);
   if (HD == 64)
     return launch_q8_hd<64>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, B, sq, NKV, S, pos,
-                            st);
+                            pd, st);
   if (HD == 128)
     return launch_q8_hd<128>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, B, sq, NKV, S,
-                             pos, st);
+                             pos, pd, st);
   if (HD == 256)
     return launch_q8_hd<256>(k, nk_bs, nk_ts, v, nv_bs, nv_ts, ck, cv, ks, vs, B, sq, NKV, S,
-                             pos, st);
+                             pos, pd, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+// Every entry takes pos_dev after pos: null, or an int32 on the card (or the
+// low word of an int64) that the kernel reads in place of pos, so that a
+// captured launch writes at each replay's position (kept in range by the
+// caller).
 
 // A chunk (B, sq, NKV, HD), batch and token strides in elements, into the
 // bf16 caches (B, NKV, S, HD) at token rows [pos, pos + sq). Requires
@@ -162,9 +174,10 @@ cudaError_t launch_q8(const void* nk, long long nk_bs, long long nk_ts, const vo
 // elements, and pos + sq <= S.
 extern "C" int kv_write_slab(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                              long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
-                             int B, int sq, int NKV, int HD, int S, int pos, void* stream) {
+                             int B, int sq, int NKV, int HD, int S, int pos, const void* pos_dev,
+                             void* stream) {
   return (int)launch_bf16(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, B, sq, NKV, HD, S,
-                          pos, 256, stream);
+                          pos, pos_dev, 256, stream);
 }
 
 // The int8 form: nk/nv as above (bf16, strided); cache_k/cache_v int8
@@ -174,25 +187,26 @@ extern "C" int kv_write_slab(const void* nk, long long nk_bs, long long nk_ts, c
 extern "C" int kv_write_slab_q8(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                                 long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
                                 void* cache_ks, void* cache_vs, int B, int sq, int NKV, int HD,
-                                int S, int pos, void* stream) {
+                                int S, int pos, const void* pos_dev, void* stream) {
   return (int)launch_q8(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, cache_ks, cache_vs,
-                        B, sq, NKV, HD, S, pos, stream);
+                        B, sq, NKV, HD, S, pos, pos_dev, stream);
 }
 
 // One token (B, 1, NKV, HD) into the bf16 caches at row pos.
 extern "C" int kv_write_col(const void* nk, long long nk_bs, const void* nv, long long nv_bs,
                             void* cache_k, void* cache_v, int B, int NKV, int HD, int S, int pos,
-                            void* stream) {
+                            const void* pos_dev, void* stream) {
   return (int)launch_bf16(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, B, 1, NKV, HD, S, pos,
-                          128, stream);
+                          pos_dev, 128, stream);
 }
 
 // One token quantized into the int8 caches and the scale pools at row pos.
 extern "C" int kv_write_col_q8(const void* nk, long long nk_bs, const void* nv, long long nv_bs,
                                void* cache_k, void* cache_v, void* cache_ks, void* cache_vs,
-                               int B, int NKV, int HD, int S, int pos, void* stream) {
+                               int B, int NKV, int HD, int S, int pos, const void* pos_dev,
+                               void* stream) {
   return (int)launch_q8(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, cache_ks, cache_vs, B, 1,
-                        NKV, HD, S, pos, stream);
+                        NKV, HD, S, pos, pos_dev, stream);
 }
 
 // All layers in one launch: new k/v (L, B, sq, NKV, HD) with layer stride
@@ -200,17 +214,18 @@ extern "C" int kv_write_col_q8(const void* nk, long long nk_bs, const void* nv, 
 extern "C" int kv_write_stacked(const void* nk, long long nk_bs, long long nk_ts, const void* nv,
                                 long long nv_bs, long long nv_ts, void* cache_k, void* cache_v,
                                 int L, int B, int sq, int NKV, int HD, int S, int pos,
-                                void* stream) {
+                                const void* pos_dev, void* stream) {
   return (int)launch_bf16(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, (long long)L * B,
-                          sq, NKV, HD, S, pos, 256, stream);
+                          sq, NKV, HD, S, pos, pos_dev, 256, stream);
 }
 
 // The same for one token per layer (L, B, 1, NKV, HD).
 extern "C" int kv_write_stacked_col(const void* nk, long long nk_bs, const void* nv,
                                     long long nv_bs, void* cache_k, void* cache_v, int L, int B,
-                                    int NKV, int HD, int S, int pos, void* stream) {
+                                    int NKV, int HD, int S, int pos, const void* pos_dev,
+                                    void* stream) {
   return (int)launch_bf16(nk, nk_bs, 0, nv, nv_bs, 0, cache_k, cache_v, (long long)L * B, 1, NKV,
-                          HD, S, pos, 128, stream);
+                          HD, S, pos, pos_dev, 128, stream);
 }
 
 // All layers quantized into stacked int8 caches (L, B, NKV, S, HD) and scale
@@ -219,7 +234,7 @@ extern "C" int kv_write_stacked_q8(const void* nk, long long nk_bs, long long nk
                                    const void* nv, long long nv_bs, long long nv_ts,
                                    void* cache_k, void* cache_v, void* cache_ks, void* cache_vs,
                                    int L, int B, int sq, int NKV, int HD, int S, int pos,
-                                   void* stream) {
+                                   const void* pos_dev, void* stream) {
   return (int)launch_q8(nk, nk_bs, nk_ts, nv, nv_bs, nv_ts, cache_k, cache_v, cache_ks, cache_vs,
-                        (long long)L * B, sq, NKV, HD, S, pos, stream);
+                        (long long)L * B, sq, NKV, HD, S, pos, pos_dev, stream);
 }

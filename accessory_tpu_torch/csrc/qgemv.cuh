@@ -90,6 +90,7 @@ struct Args {
   int rope_style, rope_hd;       // 0 none, 1 interleaved, 2 half
   bf16* out;                     // (M, N)
   int units;                     // Kx / 64
+  const int* gate;               // null, or an int on the card: 0 -> zeros out, no weight read
 };
 
 // Row 1: the folded W4 weight. A unit is 8 word rows (a word row: 8 K rows
@@ -554,6 +555,16 @@ __global__ void __launch_bounds__(THREADS) kernel(const Args a) {
   const int u0 = (int)((long long)rank * a.units / split);
   const int nunits = (int)((long long)(rank + 1) * a.units / split) - u0;
   const int xu = pass_units(H, (a.units + split - 1) / split);
+  // a gated-off launch (a MoE expert no row chose, decided on the card): the
+  // output is zeros, whatever the residual, and no weight byte is read; every
+  // rank reads the same flag before its first cluster barrier
+  if (a.gate != nullptr && __ldg(a.gate) == 0) {
+    for (int q = rank * THREADS + tid; q < a.M * (BN / 4); q += split * THREADS) {
+      const int m = q / (BN / 4), n = n0 + 4 * (q % (BN / 4));
+      if (n < a.N) *reinterpret_cast<uint2*>(a.out + (size_t)m * a.N + n) = make_uint2(0u, 0u);
+    }
+    return;
+  }
   unsigned char* ring = smem;
   // x's B fragments [unit][slab][half][lane], the norm weights [unit][64],
   // the sums [unit][row]

@@ -100,6 +100,10 @@ struct FoldedB {
 // Requires Kx % gs == 0, gs % 64 == 0, 16-byte aligned x rows; N % 64 == 0
 // (a last 128-column tile of 64 columns is bounded: Falcon-7B's dense_4h_to_h,
 // N 4544); half-style heads that divide 128.
+// gate (M <= 16 only): null, or an int on the card; where it holds 0 the
+// launch writes zeros to out and reads no weight byte (the MoE FFN's skip of
+// an expert no row chose, decided on the card, so a captured decode step
+// needs no host read of the routing).
 // split: for M <= 16 the GEMV's cluster (1 .. 8 blocks over 64-row units,
 // ops/w4_tile.py folded_gemv_split; no scratch); for M > 16 the tile's K
 // splits, whole groups each, with the scratch the wrapper allocates by the
@@ -110,8 +114,8 @@ extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void*
                          const void* scales, const void* zs, int N, int gs,
                          const void* norm, float eps, const void* residual,
                          const void* cos_row, const void* sin_row, int rope_style,
-                         int rope_hd, void* out, void* xsum, void* xt, void* ws, int split,
-                         void* stream) {
+                         int rope_hd, void* out, const void* gate, void* xsum, void* xt,
+                         void* ws, int split, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const uint32_t* pk = static_cast<const uint32_t*>(packed);
@@ -125,12 +129,13 @@ extern "C" int w4_matmul(const void* x, int M, int Kx, int x_stride, const void*
   if (M <= 0 || Kx % gs != 0 || gs % 64 != 0) return (int)cudaErrorInvalidValue;
   if (M <= 16) {
     qgemv::Args g{xb, x_stride, M, Kx, pk, sc, z, N, gs, nw, eps, res, cr, sr, rope_style,
-                  rope_hd, o, Kx / qgemv::UNIT};
+                  rope_hd, o, Kx / qgemv::UNIT, static_cast<const int*>(gate)};
     const bool aligned = ((reinterpret_cast<uintptr_t>(pk) | reinterpret_cast<uintptr_t>(sc) |
                            reinterpret_cast<uintptr_t>(z)) & 15) == 0;
     if (N % 64 != 0) return (int)cudaErrorInvalidValue;
     return (int)qgemv::launch<qgemv::W4Folded>(g, split, aligned ? 16 : 4, st);
   }
+  if (gate != nullptr) return (int)cudaErrorInvalidValue;   // the GEMV's alone
   if (N % 64 != 0 || (rope_style == 2 && w4tile::RED_BN % rope_hd != 0) || split < 1 ||
       xsum == nullptr || xt == nullptr || (split > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;

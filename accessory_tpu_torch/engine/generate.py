@@ -7,12 +7,27 @@ buckets for the prompt prefix and the buffer, left-aligned prompt packing
 with the prompt-mask overwrite, greedy or top-p sampling, stop sequences
 matched wholly inside the generated tokens, per-row ``max_gen_len``
 slicing, and an early exit once every row has stopped. The JAX package
-compiles the loop into one device program; here it is a Python loop over
-device tensors (the stop state stays on the device and is read back every
+compiles prefill and the decode loop into one device program a key
+(``_compiled_loop``). Here prefill runs eagerly and each decode step
+(sample, the prompt-mask overwrite, stop matching, then the one-token
+forward) is one function of device buffers (``_DecodeState``): the position
+is a device counter the step advances, ``tokens`` / ``mask`` and the stop
+windows are indexed on the device, and a window that would start before 0
+is masked on the device. On the card the step is captured once a key as a
+CUDA graph and replayed (engine/graphs.py; the key is the reference's,
+``(bsz, buffer length, temperature, top_p, stop sequences, image words)``,
+without the prefill length, since prefill is not in the graph; the graph
+holds the key's buffers and KV cache, ``GRAPH_KEYS`` keys a Generator).
+The host only counts steps and reads the stop state every
 ``STOP_CHECK_EVERY`` steps; steps run after every row stopped cannot change
-the output, which is sliced at each row's stop position).
-``stream_generate`` is a host loop over single-token forwards, as in the JAX
-package: streaming needs each token on the host.
+the output, which is sliced at each row's stop position. One graph holds
+one step, so the stop check lands where it lands eagerly and
+``last_decode_steps`` counts the same steps on both routes.
+``stream_generate`` is a host loop that needs each token on the host, as in
+the JAX package; its step (the one-token forward, then the next draw) is
+captured the same way (the reference's ``_stream_step``).
+``compiled=False`` runs every step eagerly on the card (the counterpart of
+``jax.disable_jit()``); on the CPU the steps always run eagerly.
 
 ``ffn_fuse=True`` runs each decode step's FFN as one fused kernel call where
 the weights allow it (models/llama.py ``_block``), the reference's
@@ -48,16 +63,20 @@ wherever its unrolled loop is off.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
+import dataclasses
+from collections import OrderedDict
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from accessory_tpu_torch.engine.graphs import GraphPool, StepGraph, use_graphs
 from accessory_tpu_torch.ops.sampling import sample_token
 from accessory_tpu_torch.quant.fuse import fuse_for_decode
 
 _BUCKET = 64
 STOP_CHECK_EVERY = 8
+GRAPH_KEYS = 4   # captured decode steps a Generator keeps, with their buffers (LRU)
 
 
 def _round_up(x: int, m: int = _BUCKET) -> int:
@@ -90,14 +109,57 @@ def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(logits.to(torch.float32), dim=-1)
 
 
+@dataclasses.dataclass
+class _DecodeState:
+    """The buffers a decode step reads and writes, which a captured step
+    keeps: ``tokens`` / ``mask`` (bsz, buffer) and the KV ``cache`` (or, for
+    streaming, ``tokens`` (1, 1), the token the next forward takes), ``last``
+    the logits that pick the next token, ``cur`` the position the next step
+    fills (0-d int64 on the device), the stop state, the generator. A kept
+    state is reused with its cache zeroed (``reset``)."""
+    tokens: torch.Tensor
+    mask: Optional[torch.Tensor]
+    cache: dict
+    last: Optional[torch.Tensor]
+    cur: torch.Tensor
+    stopped: Optional[torch.Tensor]
+    stop_pos: Optional[torch.Tensor]
+    gen: torch.Generator
+    seqs: Sequence[torch.Tensor] = ()   # the stop sequences on the device
+    warm: bool = False
+    graph: Optional[StepGraph] = None
+    graphed: bool = False   # kept by the graph route, whose steps it captures
+
+    def reset(self, seed: int) -> None:
+        """A kept state's cache zeroed (a fresh one is zero) and its
+        generator seeded."""
+        if self.warm:
+            for pools in self.cache.values():
+                for t in (pools if isinstance(pools, list) else [pools]):
+                    t.zero_()
+        self.gen.manual_seed(seed)
+
+
+def graph_rule(module, params, rows: int) -> bool:
+    """A module's rule for capturing a decode step of ``rows`` token rows:
+    its ``SUPPORTS_DECODE_GRAPH``, a bool or a predicate of (params, rows);
+    on where the module sets none. A module that says no decodes eagerly on
+    the card."""
+    rule = getattr(module, "SUPPORTS_DECODE_GRAPH", True)
+    return bool(rule(params, rows) if callable(rule) else rule)
+
+
 class Generator:
     """Wraps a model module (``forward`` / ``init_kv_cache``), its args,
     per-layer params on ``device`` and a tokenizer. ``encode_image(params,
     images) -> image embeds (b, n_image_words, dim)``: the multimodal hook
-    (None: the model has no visual branch)."""
+    (None: the model has no visual branch). ``compiled``: on the card, replay
+    each decode step as a captured CUDA graph (see the module docstring;
+    False: run it eagerly)."""
 
     def __init__(self, module, args, params, tokenizer, kv_dtype=None, device="cuda",
-                 unroll_decode: bool = True, ffn_fuse: bool = False, encode_image=None):
+                 unroll_decode: bool = True, ffn_fuse: bool = False, encode_image=None,
+                 compiled: bool = True):
         self.module = module
         self.args = args
         self.tokenizer = tokenizer
@@ -113,6 +175,40 @@ class Generator:
         self.params = fuse_for_decode(params) if fuse else params
         self.last_decode_steps = 0
         self.last_tokens = None  # the last run's token buffer (batch, buf_len), numpy
+        self.compiled = bool(compiled)
+        self.graphs = use_graphs(self.device, compiled)
+        self._states: "OrderedDict[tuple, _DecodeState]" = OrderedDict()
+        self._pool = GraphPool()
+
+    def _state(self, key: tuple, make) -> _DecodeState:
+        """The decode state of ``key`` (its first item the batch): kept (with
+        its captured step) on the graph route, the newest GRAPH_KEYS keys;
+        made anew on the eager route."""
+        if not self.graphs or not graph_rule(self.module, self.params, key[0]):
+            return make()
+        st = self._states.pop(key, None)
+        if st is None:
+            st = make()
+            st.graphed = True
+            while len(self._states) >= GRAPH_KEYS:
+                self._states.popitem(last=False)
+        self._states[key] = st
+        return st
+
+    def _advance(self, st: _DecodeState, step) -> None:
+        """One decode step: eagerly (the CPU, ``compiled=False``, a module's
+        rule, a key's first step), else the key's captured step, captured at
+        its second."""
+        if not st.graphed:
+            step()
+            return
+        if st.graph is None:
+            if not st.warm:
+                st.warm = True
+                step()
+                return
+            st.graph = StepGraph(step, self._pool, (st.gen,))
+        st.graph.replay()
 
     def _images(self, images):
         """(image embeds, n_image_words), or (None, 0) without images."""
@@ -172,44 +268,77 @@ class Generator:
              embeds=None, n_image_words: int = 0):
         dev, args = self.device, self.args
         bsz, buf_len = tokens_np.shape
-        tokens = torch.from_numpy(tokens_np).to(dev)
-        mask = torch.from_numpy(mask_np).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        cache = self.module.init_kv_cache(args, bsz, max_len=buf_len + n_image_words,
-                                          kv_dtype=self.kv_dtype, device=dev,
-                                          stacked=not self.unroll_decode)
-        logits, cache = self._prefill(tokens[:, :prefill_len], cache, embeds)
+        temperature, top_p = float(temperature), float(top_p)
+
+        def make():
+            cache = self.module.init_kv_cache(args, bsz, max_len=buf_len + n_image_words,
+                                              kv_dtype=self.kv_dtype, device=dev,
+                                              stacked=not self.unroll_decode)
+            return _DecodeState(
+                tokens=torch.zeros((bsz, buf_len), dtype=torch.int64, device=dev),
+                mask=torch.zeros((bsz, buf_len), dtype=torch.bool, device=dev), cache=cache,
+                last=torch.zeros((bsz, args.vocab_size), dtype=torch.float32, device=dev),
+                cur=torch.zeros((), dtype=torch.int64, device=dev),
+                stopped=torch.zeros(bsz, dtype=torch.bool, device=dev),
+                stop_pos=torch.zeros(bsz, dtype=torch.int64, device=dev),
+                gen=torch.Generator(device=dev),
+                seqs=[torch.tensor(s, dtype=torch.int64, device=dev) for s in stop_seqs])
+
+        key = (bsz, buf_len, temperature, top_p, tuple(stop_seqs), n_image_words)
+        st = self._state(key, make)
+        st.tokens.copy_(torch.from_numpy(tokens_np))
+        st.mask.copy_(torch.from_numpy(mask_np))
+        st.reset(seed)
+        logits, _ = self._prefill(st.tokens[:, :prefill_len], st.cache, embeds)
         # the logits that pick position start_pos sit after the image words
-        last = logits[:, start_pos - 1 + n_image_words]
-        stopped = torch.zeros(bsz, dtype=torch.bool, device=dev)
-        stop_pos = torch.full((bsz,), start_pos + 1, dtype=torch.int64, device=dev)
-        seq_ts = [torch.tensor(s, dtype=torch.int64, device=dev) for s in stop_seqs]
+        st.last.copy_(logits[:, start_pos - 1 + n_image_words])
+        st.stopped.zero_()
+        st.stop_pos.fill_(start_pos + 1)
+        st.cur.fill_(start_pos)
+
+        def step():
+            self._decode_step(st, temperature, top_p, n_image_words)
+
         cur, steps = start_pos, 0
         while cur < end:
-            if steps and steps % STOP_CHECK_EVERY == 0 and bool(stopped.all()):
+            if steps and steps % STOP_CHECK_EVERY == 0 and bool(st.stopped.all()):
                 break
-            nxt = sample_token(last, gen, temperature, top_p)
-            cur_mask = mask[:, cur]
-            nxt = torch.where(cur_mask, tokens[:, cur], nxt)
-            tokens[:, cur] = nxt
-            stop_pos = torch.where(stopped, stop_pos, torch.full_like(stop_pos, cur + 1))
-            for seq, seq_t in zip(stop_seqs, seq_ts):
-                first = cur + 1 - len(seq)
-                if first < 0:
-                    continue
-                hit = (tokens[:, first:cur + 1] == seq_t).all(dim=-1)
-                hit = hit & ~cur_mask & ~stopped & ~mask[:, first]
-                stop_pos = torch.where(hit, torch.full_like(stop_pos, first), stop_pos)
-                stopped = stopped | hit
-            logits, cache = self.module.forward(self.params, args, tokens[:, cur:cur + 1],
-                                                cache=cache, cur_pos=cur + n_image_words,
-                                                ffn_fuse=self.ffn_fuse)
-            last = logits[:, 0]
+            self._advance(st, step)
             cur += 1
             steps += 1
         self.last_decode_steps = steps
-        self.last_tokens = tokens.cpu().numpy()
-        return self.last_tokens, stop_pos.cpu().numpy()
+        self.last_tokens = st.tokens.cpu().numpy()
+        return self.last_tokens, st.stop_pos.cpu().numpy()
+
+    def _decode_step(self, st: _DecodeState, temperature: float, top_p: float,
+                     n_image_words: int) -> None:
+        """One step of the decode loop on the device (the body of the
+        reference's ``_compiled_loop``): sample from ``last``, keep the
+        prompt's token where ``mask`` says so, match the stop sequences in the
+        windows ending at ``cur`` (a window must lie wholly in generated tokens:
+        one that starts before 0 or in the prompt is no match), then the
+        one-token forward at ``cur`` and ``cur += 1``. Reads no value on the
+        host."""
+        bsz = st.tokens.shape[0]
+        col = st.cur.reshape(1, 1).expand(bsz, 1)
+        nxt = sample_token(st.last, st.gen, temperature, top_p)
+        cur_mask = st.mask.gather(1, col)[:, 0]
+        nxt = torch.where(cur_mask, st.tokens.gather(1, col)[:, 0], nxt)
+        st.tokens.scatter_(1, col, nxt[:, None])
+        st.stop_pos.copy_(torch.where(st.stopped, st.stop_pos, st.cur + 1))
+        for seq_t in st.seqs:
+            first = st.cur + 1 - seq_t.shape[0]
+            idx = (first + torch.arange(seq_t.shape[0], device=first.device)).clamp_min(0)
+            hit = (st.tokens.index_select(1, idx) == seq_t).all(dim=-1)
+            in_prompt = st.mask.index_select(1, first.clamp_min(0).reshape(1))[:, 0]
+            hit = hit & ~cur_mask & ~st.stopped & ~in_prompt & (first >= 0)
+            st.stop_pos.copy_(torch.where(hit, first, st.stop_pos))
+            st.stopped.logical_or_(hit)
+        pos = st.cur + n_image_words if n_image_words else st.cur
+        logits, _ = self.module.forward(self.params, self.args, st.tokens.gather(1, col),
+                                        cache=st.cache, cur_pos=pos, ffn_fuse=self.ffn_fuse)
+        st.last.copy_(logits[:, 0])
+        st.cur.add_(1)
 
     def stream_generate(self, prompt: str, images=None, max_gen_len: int = 512,
                         temperature: float = 0.0, top_p: float = 0.95,
@@ -237,19 +366,37 @@ class Generator:
         stop_strs = list(additional_stop_symbols)
         prefill_len = _round_up(start)
         buf_len = max(min(_round_up(total), max_seq_len), total)
+        temperature, top_p = float(temperature), float(top_p)
 
-        tokens = torch.zeros((1, buf_len), dtype=torch.int64, device=dev)
-        tokens[0, :start] = torch.tensor(tokens_l, dtype=torch.int64)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        cache = self.module.init_kv_cache(args, 1, max_len=buf_len + n_image_words,
-                                          kv_dtype=self.kv_dtype, device=dev,
-                                          stacked=not self.unroll_decode)
-        logits, cache = self._prefill(tokens[:, :prefill_len], cache, embeds)
-        last = logits[0, start - 1 + n_image_words]
+        def make():
+            cache = self.module.init_kv_cache(args, 1, max_len=buf_len + n_image_words,
+                                              kv_dtype=self.kv_dtype, device=dev,
+                                              stacked=not self.unroll_decode)
+            return _DecodeState(tokens=torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                                mask=None, cache=cache, last=None,
+                                cur=torch.zeros((), dtype=torch.int64, device=dev),
+                                stopped=None, stop_pos=None, gen=torch.Generator(device=dev))
+
+        st = self._state((1, "stream", buf_len, temperature, top_p, n_image_words), make)
+        st.reset(seed)
+        prompt_t = torch.zeros((1, prefill_len), dtype=torch.int64, device=dev)
+        prompt_t[0, :start] = torch.tensor(tokens_l, dtype=torch.int64)
+        logits, _ = self._prefill(prompt_t, st.cache, embeds)
+        st.tokens.copy_(sample_token(logits[0, start - 1 + n_image_words][None], st.gen,
+                                     temperature, top_p)[:, None])
+        st.cur.fill_(start + n_image_words)
+
+        def step():
+            # the forward of the token just drawn, at cur, then the next draw
+            logits, _ = self.module.forward(self.params, args, st.tokens, cache=st.cache,
+                                            cur_pos=st.cur, ffn_fuse=self.ffn_fuse)
+            st.tokens.copy_(sample_token(logits[:, 0], st.gen, temperature, top_p)[:, None])
+            st.cur.add_(1)
+
         generated: List[int] = []
         steps = 0
-        for cur in range(start, total):
-            nxt = int(sample_token(last[None], gen, float(temperature), float(top_p))[0])
+        for _ in range(start, total):
+            nxt = int(st.tokens[0, 0])   # streaming: each token to the host
             if nxt == self.tokenizer.eos_id:
                 break
             generated.append(nxt)
@@ -260,11 +407,7 @@ class Generator:
                 yield {"text": text[:min(text.index(s) for s in hit)], "end_of_content": True}
                 return
             yield {"text": text, "end_of_content": False}
-            tokens[0, cur] = nxt
-            logits, cache = self.module.forward(self.params, args, tokens[:, cur:cur + 1],
-                                                cache=cache, cur_pos=cur + n_image_words,
-                                                ffn_fuse=self.ffn_fuse)
-            last = logits[0, 0]
+            self._advance(st, step)
             steps += 1
         self.last_decode_steps = steps
         yield {"text": self.tokenizer.decode(generated), "end_of_content": True}

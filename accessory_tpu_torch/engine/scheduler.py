@@ -27,8 +27,17 @@ pages at once, and every dispatch advances all active slots together.
   verified in one dispatch of K + 1 tokens per slot).
 
 The reference compiles each step shape once (``_prefill_fn``, ``_decode_fn``,
-``_verify_fn``, ``_chunk_prefill_fn``); here the same steps are plain
-methods around ``forward_paged``. On the card the weights are fused once
+``_verify_fn``, ``_chunk_prefill_fn``). Here the decode dispatch is captured
+once a ``(active_pages, n_steps)`` key, the reference's ``_decode_fn`` key, as
+a CUDA graph on the card and replayed (engine/graphs.py; every key in one
+memory pool, ``compiled=False`` or the CPU: run eagerly). Its inputs stay in
+buffers that the host refills before a replay: the tokens, the per-row
+temperature and top-p, and the pool's page table and lengths (both read on
+the card by the paged kernels, whose launch shape depends on
+``active_pages`` alone); the pools are written in place and the lengths
+advance on the device. Prefill, chunked prefill and speculative verify are
+plain methods around ``forward_paged``, run eagerly. On the card the weights
+are fused once
 (wqkv / w13, ``quant.fuse.fuse_for_decode``), as the reference does on its
 accelerator. Random draws come from a ``torch.Generator`` on the device seeded
 from ``seed``: sampled tokens differ from the reference's, greedy ones do not.
@@ -43,7 +52,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from accessory_tpu_torch.engine.generate import stop_token_seqs
+from accessory_tpu_torch.engine.generate import graph_rule, stop_token_seqs
+from accessory_tpu_torch.engine.graphs import GraphPool, StepGraph, use_graphs
 from accessory_tpu_torch.engine.kvcache import PagePool
 from accessory_tpu_torch.ops.sampling import sample_token_batched
 from accessory_tpu_torch.quant.fuse import fuse_for_decode
@@ -92,7 +102,8 @@ class ContinuousBatcher:
                  pages_per_seq: Optional[int] = None, total_pages: Optional[int] = None,
                  seed: int = 0, stop_symbols: Iterable[str] = (), decode_steps: int = 1,
                  kv_dtype: Optional[str] = None, prefill_chunk: Optional[int] = None,
-                 prefix_cache: bool = False, spec_lookup: int = 0, device="cuda"):
+                 prefix_cache: bool = False, spec_lookup: int = 0, device="cuda",
+                 compiled: bool = True):
         if not hasattr(module, "forward_paged"):
             raise TypeError(f"{module.__name__} has no forward_paged: the continuous batcher "
                             "serves the paged KV cache of LLaMA and Mixtral; serve this model "
@@ -133,7 +144,13 @@ class ContinuousBatcher:
         self.page_table = np.full((slots, self.pages_per_seq), PagePool.TRASH, np.int32)
         self.h_len = np.zeros((slots,), np.int32)
         self.slot_pages: Dict[int, List[int]] = {s: [] for s in range(slots)}
-        self.pcache = dataclasses.replace(self.pcache, page_indices=self._dev(self.page_table))
+        # the device page table and lengths every decode dispatch reads: fixed
+        # buffers (copies of the host mirrors, on the CPU too), refilled before
+        # each dispatch (a captured dispatch reads them where they are)
+        self._table_dev = torch.tensor(self.page_table, device=self.device)
+        self._len_dev = torch.tensor(self.h_len, device=self.device)
+        self.pcache = dataclasses.replace(self.pcache, page_indices=self._table_dev,
+                                          lengths=self._len_dev)
         self.active: Dict[int, Optional[Request]] = {i: None for i in range(slots)}
         self.pending: List[Request] = []
         self.finished: List[Request] = []
@@ -141,6 +158,14 @@ class ContinuousBatcher:
         self._admit_seq = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.stop_seqs: Tuple[Tuple[int, ...], ...] = stop_token_seqs(tokenizer, stop_symbols)
+        # the decode dispatch's inputs, and its captured graphs by key
+        self._toks_dev = torch.zeros((slots, 1), dtype=torch.int64, device=self.device)
+        self._temps_dev = torch.zeros((slots,), dtype=torch.float32, device=self.device)
+        self._topps_dev = torch.zeros((slots,), dtype=torch.float32, device=self.device)
+        self.compiled = bool(compiled)
+        self.graphs = use_graphs(self.device, compiled) and graph_rule(module, params, slots)
+        self._pool = GraphPool()
+        self._decode_graphs: Dict[Tuple[int, int], Optional[StepGraph]] = {}
 
     def _dev(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
         return torch.as_tensor(arr, dtype=dtype, device=self.device)
@@ -176,24 +201,47 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _decode(self, toks, active_pages: int, n_steps: int, temps, topps):
         """n_steps one-token forwards of every slot in one dispatch; the
-        lengths advance on the device. Returns (slots, n_steps) token ids on
-        the device."""
+        lengths advance on the device. toks (slots, 1), temps / topps
+        (slots,) on the host. Returns (slots, n_steps) token ids on the
+        device. On the graph route a key's first dispatch runs eagerly, its
+        second is captured, and every later one replays."""
+        self._toks_dev.copy_(torch.as_tensor(toks))
+        self._temps_dev.copy_(torch.as_tensor(temps))
+        self._topps_dev.copy_(torch.as_tensor(topps))
+
+        def dispatch():
+            return self._decode_dispatch(active_pages, n_steps)
+
+        key = (active_pages, n_steps)
+        if not self.graphs:
+            return dispatch()
+        if key not in self._decode_graphs:
+            self._decode_graphs[key] = None
+            return dispatch()
+        if self._decode_graphs[key] is None:
+            self._decode_graphs[key] = StepGraph(dispatch, self._pool, (self._gen,))
+        return self._decode_graphs[key].replay()
+
+    def _decode_dispatch(self, active_pages: int, n_steps: int) -> torch.Tensor:
+        """The decode dispatch over the fixed input buffers (the function a
+        graph captures): the lengths buffer ends advanced by n_steps."""
         out = []
-        pcache = self.pcache
+        toks, pcache = self._toks_dev, self.pcache
         for _ in range(n_steps):
             logits, pcache = self._forward(toks, pcache, active_pages=active_pages)
-            nxt = sample_token_batched(logits[:, -1], self._gen, temps, topps)
+            nxt = sample_token_batched(logits[:, -1], self._gen, self._temps_dev,
+                                       self._topps_dev)
             out.append(nxt)
             toks = nxt[:, None]
-        self.pcache = pcache
+        self._len_dev.copy_(pcache.lengths)
         return torch.stack(out, dim=1)
 
     @torch.no_grad()
     def _verify(self, toks, active_pages: int):
         """Speculative verify: K + 1 tokens per slot at its own offset; the
         greedy target at every position."""
-        logits, self.pcache = self._forward(toks, self.pcache, active_pages=active_pages,
-                                            continuation=True)
+        logits, _ = self._forward(toks, self.pcache, active_pages=active_pages,
+                                  continuation=True)
         return torch.argmax(logits, dim=-1)
 
     @staticmethod
@@ -300,9 +348,10 @@ class ContinuousBatcher:
         return True
 
     def _push_mirrors(self) -> None:
-        """The host page table and lengths to the device (idle slots at 0)."""
-        self.pcache = dataclasses.replace(self.pcache, page_indices=self._dev(self.page_table),
-                                          lengths=self._dev(self.h_len))
+        """The host page table and lengths into the device buffers (idle
+        slots at 0)."""
+        self._table_dev.copy_(torch.from_numpy(self.page_table))
+        self._len_dev.copy_(torch.from_numpy(self.h_len))
 
     # ------------------------------------------------------------------ admission
 
@@ -496,8 +545,8 @@ class ContinuousBatcher:
         max_pages = max(1, -(-(int(self.h_len[act].max()) + n - 1) // self.page_size))
         active_pages = min(_next_pow2(max_pages), self.pages_per_seq)
         self._push_mirrors()
-        nxt = self._decode(self._dev(toks), active_pages, n, self._dev(temps),
-                           self._dev(topps)).cpu().numpy()   # the dispatch's one fetch
+        # the dispatch's one fetch
+        nxt = self._decode(toks, active_pages, n, temps, topps).cpu().numpy()
 
         # the device advanced every slot by n whatever the stops; the host
         # drops what lies past a stop

@@ -19,10 +19,19 @@ paged write entries (the read-only paged decode too), the two passes of the
 flash-attention backward, the context-parallel (sequence-sharded) forward and
 its two backward passes, the W8, std-W4 and magic-W4 matmuls and the fused W4
 FFN show their own count.
+
+A CUDA graph runs its kernels without calling a wrapper, so its launches are
+counted by replay: ``counting_capture`` takes the launches a capture's
+wrappers counted back out of the counts (a capture runs nothing) and hands
+them to the captured step, and ``count_replay`` adds them at each replay.
+``launch_counts`` then reads the same for a run of replays as for the same
+steps run eagerly. Every library must be built and loaded before the first
+capture (one eager step does it): nvcc cannot run inside a capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +39,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import torch
 
@@ -92,6 +101,29 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def counting_capture() -> Iterator[Dict[str, int]]:
+    """Around a CUDA-graph capture: yields a dict that, at the block's end,
+    holds the launches the wrappers counted inside it (by entry point), which
+    are taken back out of the counts."""
+    before = dict(_launches)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, n in before.items():
+            if _launches[name] != n:
+                recorded[name] = _launches[name] - n
+                _launches[name] = n
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """Count one replay of a captured graph whose capture recorded
+    ``recorded`` (``counting_capture``'s dict)."""
+    for name, n in recorded.items():
+        _launches[name] += n
 
 
 def nvcc_path() -> str:

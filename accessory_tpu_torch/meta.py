@@ -34,11 +34,13 @@ class MetaModel:
                  llama_config: Union[str, Sequence[Union[str, Dict[str, Any]]]] = (),
                  tokenizer_path: Optional[str] = None, max_seq_len: int = 4096,
                  seed: int = 0, init_params: bool = True, device="cuda", tokenizer=None,
-                 with_visual: bool = False):
+                 with_visual: bool = False, compiled: bool = True):
         """``tokenizer``: a tokenizer object to use as it is, in place of one
         loaded from ``tokenizer_path`` (the config then keeps its vocab_size).
         ``with_visual``: serve images (always on for the SPHINX and SPHINX-MoE
-        families)."""
+        families). ``compiled``: the Generator replays its decode steps as
+        CUDA graphs on the card (False: runs them eagerly, the counterpart of
+        ``jax.disable_jit()``)."""
         if isinstance(llama_config, (str, dict)):
             llama_config = [llama_config]
         self.llama_type = llama_type
@@ -67,6 +69,7 @@ class MetaModel:
         # allow it (the reference's ACCESSORY_FFN_FUSE=1); set it, then call
         # _reset_generator
         self.ffn_fuse = False
+        self.compiled = bool(compiled)
         self._generator: Optional[Generator] = None
 
     @property
@@ -77,7 +80,8 @@ class MetaModel:
             self._generator = Generator(self.module, self.args, self.params, self.tokenizer,
                                         kv_dtype=self.kv_dtype, device=self.device,
                                         ffn_fuse=self.ffn_fuse,
-                                        encode_image=self._encode_image_hook())
+                                        encode_image=self._encode_image_hook(),
+                                        compiled=self.compiled)
         return self._generator
 
     def _encode_image_hook(self):
@@ -168,7 +172,7 @@ class MetaModel:
                         quant: bool = False, quant_bits: int = 4,
                         kv_dtype: Optional[str] = None, dtype: str = "bfloat16",
                         device="cuda", tokenizer=None, ffn_fuse: bool = False,
-                        with_visual: bool = False) -> "MetaModel":
+                        with_visual: bool = False, compiled: bool = True) -> "MetaModel":
         """Probe a checkpoint dir for meta.json / config.json / tokenizer and
         load its weights onto ``device`` tensor by tensor. ``pretrained_path``
         may be a list: later entries override / add. ``quant`` quantizes the
@@ -180,7 +184,7 @@ class MetaModel:
         ``tokenizer``: a tokenizer object that takes the place of the probed
         tokenizer file. A path may be a native checkpoint dir or a dir of
         the reference's ``consolidated.*`` shards (a ``*-diff`` dir adds its
-        deltas to the paths before it). A SPHINX family's ``visual`` subtree
+        deltas to the paths before it). ``compiled``: as in ``MetaModel``. A SPHINX family's ``visual`` subtree
         keeps its stored f32 whatever ``dtype`` says."""
         paths = [pretrained_path] if isinstance(pretrained_path, str) else list(pretrained_path)
         root = paths[-1]
@@ -204,7 +208,7 @@ class MetaModel:
 
         model = cls(llama_type, list(llama_config), tokenizer_path, max_seq_len=max_seq_len,
                     init_params=False, device=device, tokenizer=tokenizer,
-                    with_visual=with_visual)
+                    with_visual=with_visual, compiled=compiled)
         model.params = load_checkpoint_list(paths, dtype=dtype, args=model.args, device=device)
         missing = [k for k in model.module.TOP_LEVEL_KEYS if k not in model.params]
         if missing:

@@ -126,7 +126,7 @@ def _block(h, layer, args: FalconArgs, cos, sin, pos: int, cache_k, cache_v,
 
 
 def forward(params: Params, args: FalconArgs, tokens: torch.Tensor, *,
-            cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
+            cache: Optional[Dict[str, Any]] = None, cur_pos=0,
             fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False, attn_fn=None):
     """A chunk of tokens at position ``cur_pos`` over per-layer params, the
     contract of ``models.llama.forward``: (logits f32 (b, sq, vocab), cache),

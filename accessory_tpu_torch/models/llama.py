@@ -192,7 +192,20 @@ def _rope_tables(head_dim: int, max_len: int, theta: float, scaling, style: str,
     return cos, sin, rows[0], rows[1]
 
 
-def _block(h, layer, args: LLaMAArgs, cos, sin, pos: int, cache_k, cache_v,
+def rope_at(table: torch.Tensor, pos, sq: int) -> torch.Tensor:
+    """Rows [pos, pos + sq) of a RoPE table built to the cache's length: a
+    slice at an int position, a gather at a 0-d tensor one (a position on
+    the device, which a decode step captured in a CUDA graph advances and no
+    host reads). The rows are the same either way."""
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1)
+        if sq > 1:
+            idx = idx + torch.arange(sq, device=table.device)
+        return table.index_select(0, idx)
+    return table[pos:pos + sq]
+
+
+def _block(h, layer, args: LLaMAArgs, cos, sin, pos, cache_k, cache_v,
            update_cache: bool, rope_t=None, cache_ks=None, cache_vs=None,
            fused_attn_write: bool = True, ffn_fuse: bool = False, attn_fn=None):
     """One transformer block, over fused (wqkv / w13) or separate (wq, wk, wv /
@@ -282,7 +295,7 @@ def _check_layers(params: Params) -> None:
 
 
 def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
-            cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
+            cache: Optional[Dict[str, Any]] = None, cur_pos=0,
             fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False,
             attn_fn=None, embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
@@ -304,6 +317,9 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     ``fused_attn_write=False``); a longer chunk is written layer by layer.
     A stacked cache (one tensor per pool): every layer reads its slice of the
     cache and all layers' new k/v are written by one call after the last.
+    Over a cache ``cur_pos`` may be a 0-d int tensor on the device (a decode
+    step captured in a CUDA graph): the RoPE rows are gathered at it and the
+    kernels read it in place, with the same results as at the int.
     ``ffn_fuse``: a decode step's FFN takes the fused kernel where it can
     (``_block``); a prefill and the training forward never fuse.
 
@@ -332,12 +348,11 @@ def forward(params: Params, args: LLaMAArgs, tokens: torch.Tensor, *,
     cos_full, sin_full, cos_rows, sin_rows = _rope_tables(
         args.head_dim, s_len, args.rope_theta, args.rope_scaling, args.rope_style,
         args.n_heads + args.kv_heads, args.kv_heads, str(h.device))
-    cos = cos_full[cur_pos:cur_pos + sq]
-    sin = sin_full[cur_pos:cur_pos + sq]
+    cos, sin = rope_at(cos_full, cur_pos, sq), rope_at(sin_full, cur_pos, sq)
     decode = sq == 1
     # decode-RoPE folded into the fused wqkv epilogue: one shared position
-    rope_t = ((cos_rows[cur_pos], sin_rows[cur_pos], args.rope_style, args.head_dim)
-              if decode else None)
+    rope_t = ((rope_at(cos_rows, cur_pos, 1)[0], rope_at(sin_rows, cur_pos, 1)[0],
+               args.rope_style, args.head_dim) if decode else None)
     int8_kv = "ks" in cache
     new_k, new_v = [], []
     for i, layer in enumerate(params["layers"]):

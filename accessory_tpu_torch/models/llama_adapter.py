@@ -202,7 +202,7 @@ def _block(h, layer, args: AdapterArgs, cos, sin, prefix, gate, visual_delta, ca
 
 
 def forward(params: Params, args: AdapterArgs, tokens: torch.Tensor, *,
-            cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0, remat=False,
+            cache: Optional[Dict[str, Any]] = None, cur_pos=0, remat=False,
             embeds: Optional[torch.Tensor] = None, images: Optional[torch.Tensor] = None,
             ffn_fuse: bool = False):
     """(logits f32 (b, sq, vocab), cache). ``cache=None``: the training /
@@ -218,7 +218,7 @@ def forward(params: Params, args: AdapterArgs, tokens: torch.Tensor, *,
     h = embeds if embeds is not None else params["tok_embeddings"]["weight"][tokens]
     sq = h.shape[1]
     ad = params["adapter"]
-    has_prefix = _prefix_mask(args).tolist()
+    has_prefix = _prefix_mask(args).tolist()    # from args alone, on the host
     if cache is not None and not isinstance(cache["k"], torch.Tensor):
         raise ValueError("the adapter serves from a stacked cache (init_kv_cache(stacked=True))")
     if cache is not None and "ks" in cache:
@@ -228,8 +228,8 @@ def forward(params: Params, args: AdapterArgs, tokens: torch.Tensor, *,
                                         args.rope_scaling, args.rope_style,
                                         args.n_heads + args.kv_heads, args.kv_heads,
                                         str(h.device))
-    cos, sin = (cos[cur_pos:cur_pos + sq], sin[cur_pos:cur_pos + sq]) if cache is not None \
-        else (cos[:sq], sin[:sq])
+    cos, sin = ((llama.rope_at(cos, cur_pos, sq), llama.rope_at(sin, cur_pos, sq))
+                if cache is not None else (cos[:sq], sin[:sq]))
 
     def prefix_of(i):
         return (ad["prefix"][i], ad["gate"][i]) if has_prefix[i] else (None, None)

@@ -43,9 +43,10 @@ from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached
                                                       decode_attention_update8, write_kv_layer,
                                                       write_kv_layer8, write_kv_t, write_kv_t8)
 from accessory_tpu_torch.ops.linear import linear, module_linear
-from accessory_tpu_torch.ops.moe import moe_ffn
+from accessory_tpu_torch.ops.moe import GATED_ROWS, moe_ffn
 from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import apply_rope
+from accessory_tpu_torch.quant.qtensor import QuantizedWeight
 from accessory_tpu_torch.util import remat_policy
 
 Params = Dict[str, Any]
@@ -56,6 +57,22 @@ SUPPORTS_UNROLLED_DECODE = True
 SUPPORTS_UNROLLED_PAGED = True
 SUPPORTS_KV_INT8 = True
 SUPPORTS_CHUNKED_PREFILL = True
+
+
+def SUPPORTS_DECODE_GRAPH(params: Params, rows: int) -> bool:   # noqa: N802 (a flag's name)
+    """Whether a decode step of ``rows`` token rows may be captured as a CUDA
+    graph (engine/graphs.py): only where the MoE FFN decides its touched-
+    expert skip on the card, which row 1's gated GEMV does for folded W4
+    experts at most ``ops.moe.GATED_ROWS`` rows (``ops.moe.device_gated``).
+    Dense bf16 experts (their ragged dispatch sizes its groups on the host)
+    and the other weight formats read the routing on the host, so their
+    decode runs eagerly on the card."""
+    ff = params["layers"][0]["feed_forward"]
+    experts = [ff[n]["weight"] for n in ("w1", "w3", "w2")]
+    firsts = [w[0] if isinstance(w, (list, tuple)) else w for w in experts]
+    return rows <= GATED_ROWS and all(isinstance(w, QuantizedWeight) and w.layout == "folded"
+                                      for w in firsts)
+
 
 TOP_LEVEL_KEYS = llama.TOP_LEVEL_KEYS
 
@@ -164,7 +181,7 @@ def _ffn(h, out, layer, args: MixtralArgs, moe_impl: str, balance: bool):
     return h + y.reshape(b, sq, args.dim), aux
 
 
-def _block(h, layer, args: MixtralArgs, cos, sin, pos: int, cache_k, cache_v,
+def _block(h, layer, args: MixtralArgs, cos, sin, pos, cache_k, cache_v,
            update_cache: bool, cache_ks=None, cache_vs=None, fused_attn_write: bool = True,
            attn_fn=None, moe_impl: str = "ragged", balance: bool = False):
     """One block. ``update_cache`` (a decode step over per-layer pools): the
@@ -205,7 +222,7 @@ def _rope(args: MixtralArgs, length: int, device):
 
 
 def forward(params: Params, args: MixtralArgs, tokens: torch.Tensor, *,
-            cache: Optional[Dict[str, Any]] = None, cur_pos: int = 0,
+            cache: Optional[Dict[str, Any]] = None, cur_pos=0,
             fused_attn_write: bool = True, ffn_fuse: bool = False, remat=False, attn_fn=None,
             embeds: Optional[torch.Tensor] = None, moe_impl: str = "ragged",
             with_aux_loss: bool = False):
@@ -221,7 +238,9 @@ def forward(params: Params, args: MixtralArgs, tokens: torch.Tensor, *,
     cache. ``ffn_fuse`` is the engines' switch for LLaMA's fused FFN
     kernel; the MoE FFN has none, so it must stay off. ``embeds`` (b, s,
     dim) replaces the table lookup (the multimodal splice: s may exceed the
-    token count); the RoPE rows and the cache positions follow s."""
+    token count); the RoPE rows and the cache positions follow s. Over a
+    cache ``cur_pos`` may be a 0-d int tensor on the device, as in
+    ``models.llama.forward``."""
     if ffn_fuse:
         raise ValueError("ffn_fuse: Mixtral's routed experts have no fused FFN kernel")
     _check_layers(params)
@@ -250,7 +269,7 @@ def forward(params: Params, args: MixtralArgs, tokens: torch.Tensor, *,
     stacked = isinstance(cache["k"], torch.Tensor)
     s_len = cache["k"].shape[3] if stacked else cache["k"][0].shape[2]
     cos_full, sin_full = _rope(args, s_len, h.device)
-    cos, sin = cos_full[cur_pos:cur_pos + sq], sin_full[cur_pos:cur_pos + sq]
+    cos, sin = llama.rope_at(cos_full, cur_pos, sq), llama.rope_at(sin_full, cur_pos, sq)
     decode = sq == 1
     int8_kv = "ks" in cache
     new_k, new_v = [], []

@@ -35,6 +35,7 @@ SUPPORTS_UNROLLED_DECODE = mixtral.SUPPORTS_UNROLLED_DECODE
 SUPPORTS_UNROLLED_PAGED = mixtral.SUPPORTS_UNROLLED_PAGED
 SUPPORTS_KV_INT8 = mixtral.SUPPORTS_KV_INT8
 SUPPORTS_CHUNKED_PREFILL = mixtral.SUPPORTS_CHUNKED_PREFILL
+SUPPORTS_DECODE_GRAPH = mixtral.SUPPORTS_DECODE_GRAPH
 TOP_LEVEL_KEYS = mixtral.TOP_LEVEL_KEYS + ("visual",)
 
 

@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from accessory_tpu_torch.models.llama import _rope_tables
+from accessory_tpu_torch.models.llama import _rope_tables, rope_at
 from accessory_tpu_torch.ops.attention import attention
 from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached_attention_t8,
                                                       decode_attention_update,
@@ -29,7 +29,7 @@ from accessory_tpu_torch.ops.decode_attention import (cached_attention_t, cached
 from accessory_tpu_torch.util import remat_policy
 
 
-def attend(q, k, v, pos: int, cache_k, cache_v, cache_ks, cache_vs, update_cache: bool,
+def attend(q, k, v, pos, cache_k, cache_v, cache_ks, cache_vs, update_cache: bool,
            fused_attn_write: bool = True, attn_fn: Optional[Callable] = None):
     """A block's attention: (out (b, sq, nq, hd), k, v). With ``update_cache``
     the k / v returned are the cache's pools, already written."""
@@ -49,7 +49,7 @@ def attend(q, k, v, pos: int, cache_k, cache_v, cache_ks, cache_vs, update_cache
 
 
 def run_layers(block: Callable, args, layers: List[Dict[str, Any]], h: torch.Tensor,
-               cache: Optional[Dict[str, Any]], cur_pos: int, rope: tuple, *,
+               cache: Optional[Dict[str, Any]], cur_pos, rope: tuple, *,
                fused_attn_write: bool = True, remat=False,
                attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """Every layer of a forward; returns the last hidden state. ``block(h,
@@ -59,7 +59,9 @@ def run_layers(block: Callable, args, layers: List[Dict[str, Any]], h: torch.Ten
     tables (``models.llama``'s cached ones, without the rows of its fused
     epilogue). Without a cache the tokens sit at ``cur_pos`` onwards (a context-
     parallel rank's shard) and ``remat`` checkpoints each layer; the cache
-    (per-layer lists or stacked tensors) is written in place."""
+    (per-layer lists or stacked tensors) is written in place. Over a cache
+    ``cur_pos`` may be a 0-d int tensor on the device (``models.llama.
+    rope_at``)."""
     sq = h.shape[1]
     hd, theta, scaling = rope
     if cache is None:
@@ -78,7 +80,7 @@ def run_layers(block: Callable, args, layers: List[Dict[str, Any]], h: torch.Ten
     stacked = isinstance(cache["k"], torch.Tensor)
     s_len = cache["k"].shape[3] if stacked else cache["k"][0].shape[2]
     cos, sin, _, _ = _rope_tables(hd, s_len, theta, scaling, "half", 0, 0, str(h.device))
-    cos, sin = cos[cur_pos:cur_pos + sq], sin[cur_pos:cur_pos + sq]
+    cos, sin = rope_at(cos, cur_pos, sq), rope_at(sin, cur_pos, sq)
     decode = sq == 1
     int8_kv = "ks" in cache
     new_k, new_v = [], []

@@ -27,7 +27,11 @@ pools are (B, NKV, S) f32. (The JAX package's lane-major (B, NKV, HD, S)
 layout is a TPU choice.) Caches are updated in place. Every position is one
 int shared by the batch (the reference's cached_attention_t also takes a
 (b,) tensor, which no caller there passes; per-row positions are the paged
-cache's, engine/kvcache.py).
+cache's, engine/kvcache.py). A position is a Python int or a 0-d int32 /
+int64 tensor on the operands' device: on the card the kernels read such a
+tensor in place (their ``pos_dev`` argument), so a decode step captured in a
+CUDA graph takes each replay's position and the host never reads it; the
+plain versions read it as an int.
 
 CUDA kernels: ``csrc/decode_attention.cu`` (GQA), ``csrc/decode_attention_mha.cu``
 (one query head per KV head) and ``csrc/kv_write.cu`` (all writes). Their
@@ -41,6 +45,7 @@ too).
 from __future__ import annotations
 
 import functools
+import numbers
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -56,19 +61,20 @@ P, I, L, F = kernels.P, kernels.I, kernels.L, kernels.F
 _QKV_ARGS = [P, L, P, L, P, L]
 _TAIL_ARGS = [F, P, P]                       # softmax scale, out, stream
 # (q, k_new, v_new with batch strides) + pools + dims + tail
-_GQA_ARGS = _QKV_ARGS + [P, P] + [I] * 7 + _TAIL_ARGS        # B NKV S R HD pos split
-_GQA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 7 + _TAIL_ARGS
-_MHA_ARGS = _QKV_ARGS + [P, P] + [I] * 5 + _TAIL_ARGS        # B NKV S HD pos
-_MHA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 5 + _TAIL_ARGS
+# every entry takes pos_dev (the position on the card, or null) right after pos
+_GQA_ARGS = _QKV_ARGS + [P, P] + [I] * 6 + [P, I] + _TAIL_ARGS   # B NKV S R HD pos pos_dev split
+_GQA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 6 + [P, I] + _TAIL_ARGS
+_MHA_ARGS = _QKV_ARGS + [P, P] + [I] * 5 + [P] + _TAIL_ARGS      # B NKV S HD pos pos_dev
+_MHA8_ARGS = _QKV_ARGS + [P, P, P, P] + [I] * 5 + [P] + _TAIL_ARGS
 _SLAB_SRC = [P, L, L, P, L, L]               # k, v with batch and token strides
 _COL_SRC = [P, L, P, L]                      # k, v with batch strides
-_WRITE_ARGS = _SLAB_SRC + [P, P] + [I] * 6 + [P]             # B sq NKV HD S pos
-_WRITE8_ARGS = _SLAB_SRC + [P, P, P, P] + [I] * 6 + [P]
-_COL_ARGS = _COL_SRC + [P, P] + [I] * 5 + [P]                # B NKV HD S pos
-_COL8_ARGS = _COL_SRC + [P, P, P, P] + [I] * 5 + [P]
-_STACKED_ARGS = _SLAB_SRC + [P, P] + [I] * 7 + [P]           # L B sq NKV HD S pos
-_STACKED_COL_ARGS = _COL_SRC + [P, P] + [I] * 6 + [P]        # L B NKV HD S pos
-_STACKED8_ARGS = _SLAB_SRC + [P, P, P, P] + [I] * 7 + [P]
+_WRITE_ARGS = _SLAB_SRC + [P, P] + [I] * 6 + [P, P]          # B sq NKV HD S pos pos_dev
+_WRITE8_ARGS = _SLAB_SRC + [P, P, P, P] + [I] * 6 + [P, P]
+_COL_ARGS = _COL_SRC + [P, P] + [I] * 5 + [P, P]             # B NKV HD S pos pos_dev
+_COL8_ARGS = _COL_SRC + [P, P, P, P] + [I] * 5 + [P, P]
+_STACKED_ARGS = _SLAB_SRC + [P, P] + [I] * 7 + [P, P]        # L B sq NKV HD S pos pos_dev
+_STACKED_COL_ARGS = _COL_SRC + [P, P] + [I] * 6 + [P, P]     # L B NKV HD S pos pos_dev
+_STACKED8_ARGS = _SLAB_SRC + [P, P, P, P] + [I] * 7 + [P, P]
 
 # decode kernels by (one query head per KV head, int8 cache, fused write):
 # (source, C entry point, argument types); the launch-count name is the entry point's
@@ -144,13 +150,52 @@ def decode_plan(b: int, nkv: int, s_len: int, r: int, hd: int) -> SplitPlan:
     return split_plan(b * nkv * row_tiles(r, hd), s_len, STATIC_BLOCKS)
 
 
-def _int_pos(fn: str, pos) -> int:
-    if isinstance(pos, bool) or not isinstance(pos, int):
+def _int_pos(fn: str, pos, t: torch.Tensor):
+    """``pos`` once it is one position shared by the batch: an integer (as a
+    Python int), or a 0-d int32 / int64 tensor on ``t``'s device, as given
+    (read by the kernel on the card, never by the host here)."""
+    if isinstance(pos, torch.Tensor):
+        if (pos.dim() != 0 or pos.dtype not in (torch.int32, torch.int64)
+                or pos.device != t.device):
+            raise NotImplementedError(
+                f"{fn}: a tensor pos must be a 0-d int32 / int64 tensor on {t.device}, got "
+                f"{pos.dtype} {tuple(pos.shape)} on {pos.device}; per-row positions are served "
+                "by the paged cache (engine.kvcache.paged_cached_attention, "
+                "models.llama.forward_paged)")
+        return pos
+    if isinstance(pos, bool) or not isinstance(pos, numbers.Integral):
         raise NotImplementedError(
-            f"{fn}: pos must be one int shared by the batch, got {type(pos).__name__}; "
-            "per-row positions are served by the paged cache (engine.kvcache."
-            "paged_cached_attention, models.llama.forward_paged)")
+            f"{fn}: pos must be one int shared by the batch or a 0-d tensor, got "
+            f"{type(pos).__name__}; per-row positions are served by the paged cache "
+            "(engine.kvcache.paged_cached_attention, models.llama.forward_paged)")
+    return int(pos)
+
+
+def host_pos(pos) -> int:
+    """A position as a Python int: the plain versions' (a tensor is read,
+    which on the card waits for it) and a chunk's on the CPU."""
+    return int(pos) if isinstance(pos, torch.Tensor) else pos
+
+
+def _chunk_pos(fn: str, pos):
+    """The position of a chunk of more than one token, which the plain
+    PyTorch route slices at: an int (a tensor on the CPU is read; on the card
+    only one-token steps take a position on the device)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.device.type != "cpu":
+            raise NotImplementedError(f"{fn}: a chunk of more than one token takes an int pos "
+                                      "(a position on the card is for one-token steps)")
+        return int(pos)
     return pos
+
+
+def _pos_args(pos):
+    """(pos, pos_dev) of a C call: an int and null, or 0 and the tensor's
+    address (the kernel reads its low 32 bits: an int32, or an int64 below
+    2**31 on this little-endian card)."""
+    if isinstance(pos, torch.Tensor):
+        return 0, pos.data_ptr()
+    return pos, None
 
 
 def _pools_ok(pools, shape) -> bool:
@@ -168,16 +213,17 @@ def _aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 for t in tensors)
 
 
-def _decode_kernel(fn: str, q, k_new, v_new, pools, pos: int, write: bool):
+def _decode_kernel(fn: str, q, k_new, v_new, pools, pos, write: bool):
     """Launch the decode-attention kernel that serves these operands on the
-    card: GQA or one-query-head, bf16 or int8 pools, fused write or read-only."""
+    card: GQA or one-query-head, bf16 or int8 pools, fused write or read-only.
+    A tensor ``pos`` is read by the kernel (its range is the caller's)."""
     b, sq, nq, hd = q.shape
     _, nkv, s_len, _ = pools[0].shape
     r = nq // max(nkv, 1)
     int8 = len(pools) == 4
     ok = (sq == 1 and nkv > 0 and nq % nkv == 0 and hd in (64, 128)
           and b * row_tiles(r, hd) <= MAX_GRID_Z
-          and 0 <= pos <= (s_len - 1 if write else s_len)
+          and (isinstance(pos, torch.Tensor) or 0 <= pos <= (s_len - 1 if write else s_len))
           and all(t.device == q.device for t in (k_new, v_new) + tuple(pools))
           and _pools_ok(pools, (b, nkv, s_len, hd)))
     for t, heads in ((q, nq), (k_new, nkv), (v_new, nkv)):
@@ -195,8 +241,8 @@ def _decode_kernel(fn: str, q, k_new, v_new, pools, pos: int, write: bool):
             f"{tuple(pools[0].shape)} {pools[0].dtype} pos {pos}")
     source, symbol, argtypes = _DECODE_KERNELS[(r == 1, int8, write)]
     out = torch.empty((b, 1, nq, hd), dtype=torch.bfloat16, device=q.device)
-    dims = (b, nkv, s_len, hd, pos) if r == 1 else \
-        (b, nkv, s_len, r, hd, pos, decode_plan(b, nkv, s_len, r, hd).split)
+    dims = (b, nkv, s_len, hd, *_pos_args(pos)) if r == 1 else \
+        (b, nkv, s_len, r, hd, *_pos_args(pos), decode_plan(b, nkv, s_len, r, hd).split)
     rc = kernels.function(source, symbol, argtypes)(
         q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0), v_new.data_ptr(),
         v_new.stride(0), *(t.data_ptr() for t in pools), *dims, hd ** -0.5, out.data_ptr(),
@@ -228,7 +274,7 @@ def decode_attention_update(q, k_new, v_new, cache_k, cache_v, pos: int,
     With ``fused_attn_write`` both happen in one kernel (nq == nkv: the
     one-query-head kernel, nq > nkv: the GQA kernel); without it the
     read-only attention is followed by the one-token write."""
-    pos = _int_pos("decode_attention_update", pos)
+    pos = _int_pos("decode_attention_update", pos, q)
     if not fused_attn_write:
         out = cached_attention_t(q, k_new, v_new, cache_k, cache_v, pos)
         return (out,) + write_kv_layer(cache_k, cache_v, k_new, v_new, pos)
@@ -239,10 +285,11 @@ def decode_attention_update(q, k_new, v_new, cache_k, cache_v, pos: int,
     return out, cache_k, cache_v
 
 
-def cached_attention_decode_plain(q, k_new, v_new, cache_k, cache_v, pos: int):
+def cached_attention_decode_plain(q, k_new, v_new, cache_k, cache_v, pos):
     """Plain read-only decode attention, the TPU kernel's op order: two-part
     softmax in f32 over the cached tokens < pos and the new token, p cast to
     the cache dtype for the value product, new token's term in f32."""
+    pos = host_pos(pos)
     b, _, nq, hd = q.shape
     nkv = cache_k.shape[1]
     scale = hd ** -0.5
@@ -267,9 +314,10 @@ def cached_attention_decode_plain(q, k_new, v_new, cache_k, cache_v, pos: int):
     return (out / denom).to(q.dtype).reshape(b, 1, nq, hd)
 
 
-def decode_attention_update_plain(q, k_new, v_new, cache_k, cache_v, pos: int):
+def decode_attention_update_plain(q, k_new, v_new, cache_k, cache_v, pos):
     """Plain version of the fused step: the read-only attention, then the
     new token's k/v stored at index pos."""
+    pos = host_pos(pos)
     out = cached_attention_decode_plain(q, k_new, v_new, cache_k, cache_v, pos)
     cache_k[:, :, pos] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, :, pos] = v_new[:, 0].to(cache_v.dtype)
@@ -304,9 +352,11 @@ def cached_attention_t(q, k_new, v_new, cache_k, cache_v, pos: int):
     to the read-only decode kernel (the GQA kernel, or the one-query-head
     kernel when nq == nkv). A longer chunk after cached tokens takes the plain
     two-part softmax."""
-    pos = _int_pos("cached_attention_t", pos)
+    pos = _int_pos("cached_attention_t", pos, q)
     sq = q.shape[1]
-    if pos == 0 and sq > 1:
+    if sq > 1:
+        pos = _chunk_pos("cached_attention_t", pos)
+    if sq > 1 and pos == 0:
         return attention(q, k_new, v_new, causal=True, q_offset=0)
     if sq > 1:
         return cached_attention_chunk_plain(q, k_new, v_new, cache_k, cache_v, pos)
@@ -347,7 +397,7 @@ def decode_attention_update8(q, k_new, v_new, cache_k, cache_v, cache_ks, cache_
     new token's k/v enter the softmax unquantized and are quantized only as
     they land at index pos. Returns (out, cache_k, cache_v, cache_ks,
     cache_vs), the four pools written in place."""
-    pos = _int_pos("decode_attention_update8", pos)
+    pos = _int_pos("decode_attention_update8", pos, q)
     pools = (cache_k, cache_v, cache_ks, cache_vs)
     if not fused_attn_write:
         out = cached_attention_t8(q, k_new, v_new, *pools, pos)
@@ -358,9 +408,10 @@ def decode_attention_update8(q, k_new, v_new, cache_k, cache_v, cache_ks, cache_
     return (out,) + pools
 
 
-def _decode8_plain(q, q_cached, k_new, v_new, cache_k, cache_v, cache_ks, cache_vs, pos: int):
+def _decode8_plain(q, q_cached, k_new, v_new, cache_k, cache_v, cache_ks, cache_vs, pos):
     """The int8 two-part softmax with the q of the cached scores given apart
     (``q_cached``, f32 (b, nkv, r, hd)) from the q of the new token's score."""
+    pos = host_pos(pos)
     b, _, nq, hd = q.shape
     nkv = cache_k.shape[1]
     r = nq // nkv
@@ -410,6 +461,7 @@ def decode_attention_update8_plain(q, k_new, v_new, cache_k, cache_v, cache_ks, 
     qc = q.reshape(b, nkv, nq // nkv, hd).to(torch.float32)
     if nq == nkv:
         qc = qc.to(torch.bfloat16).to(torch.float32)
+    pos = host_pos(pos)
     out = _decode8_plain(q, qc, k_new, v_new, cache_k, cache_v, cache_ks, cache_vs, pos)
     kq, ksc = quantize_kv_chunk(k_new[:, 0])
     vq, vsc = quantize_kv_chunk(v_new[:, 0])
@@ -425,9 +477,10 @@ def cached_attention_t8(q, k_new, v_new, cache_k, cache_v, cache_ks, cache_vs, p
     read-only decode kernel; a longer chunk dequantizes the cached tokens to
     bf16 and takes cached_attention_t's path (a position-0 prefill reads
     nothing cached and goes straight to the flash kernel)."""
-    pos = _int_pos("cached_attention_t8", pos)
+    pos = _int_pos("cached_attention_t8", pos, q)
     pools = (cache_k, cache_v, cache_ks, cache_vs)
     if q.shape[1] > 1:
+        pos = _chunk_pos("cached_attention_t8", pos)
         if pos == 0:
             return attention(q, k_new, v_new, causal=True, q_offset=0)
         kf = dequantize_kv(cache_k[:, :, :pos], cache_ks[:, :, :pos]).to(torch.bfloat16)
@@ -452,7 +505,7 @@ def _chunk_ok(new_k, new_v, shape) -> bool:
                and t.data_ptr() % 16 == 0 for t in (new_k, new_v))
 
 
-def _write(fn: str, pools, new_k, new_v, pos: int):
+def _write(fn: str, pools, new_k, new_v, pos):
     """Launch the write kernel for these operands: per-layer pools
     (B, NKV, S, HD) with chunks (B, sq, NKV, HD), or stacked pools
     (L, B, NKV, S, HD) with chunks (L, B, sq, NKV, HD); bf16 or int8."""
@@ -462,7 +515,8 @@ def _write(fn: str, pools, new_k, new_v, pos: int):
     s_len = pools[0].shape[-2]
     ok = (len(lead) == (2 if stacked else 1)
           and (hd in (64, 128, 256) if int8 else hd % 8 == 0)
-          and 0 <= pos and pos + sq <= s_len
+          and sq <= s_len
+          and (isinstance(pos, torch.Tensor) or (0 <= pos and pos + sq <= s_len))
           and all(t.device == new_k.device for t in (new_v,) + tuple(pools))
           and _chunk_ok(new_k, new_v, (*lead, sq, nkv, hd))
           and _pools_ok(pools, (*lead, nkv, s_len, hd)))
@@ -482,26 +536,26 @@ def _write(fn: str, pools, new_k, new_v, pos: int):
     if stacked and int8:
         name, symbol, argtypes = "kv_write_stacked_q8", "kv_write_stacked_q8", _STACKED8_ARGS
         args = (new_k.data_ptr(), bs, ts, new_v.data_ptr(), vbs, vts, *ptrs, *lead, sq, nkv, hd,
-                s_len, pos, stream)
+                s_len, *_pos_args(pos), stream)
     elif stacked and sq == 1:
         name, symbol, argtypes = "kv_write_stacked_col", "kv_write_stacked_col", _STACKED_COL_ARGS
-        args = (new_k.data_ptr(), bs, new_v.data_ptr(), vbs, *ptrs, *lead, nkv, hd, s_len, pos,
-                stream)
+        args = (new_k.data_ptr(), bs, new_v.data_ptr(), vbs, *ptrs, *lead, nkv, hd, s_len,
+                *_pos_args(pos), stream)
     elif stacked:
         name, symbol, argtypes = "kv_write_stacked", "kv_write_stacked", _STACKED_ARGS
         args = (new_k.data_ptr(), bs, ts, new_v.data_ptr(), vbs, vts, *ptrs, *lead, sq, nkv, hd,
-                s_len, pos, stream)
+                s_len, *_pos_args(pos), stream)
     elif sq == 1:
         name = symbol = "kv_write_col_q8" if int8 else "kv_write_col"
         argtypes = _COL8_ARGS if int8 else _COL_ARGS
-        args = (new_k.data_ptr(), bs, new_v.data_ptr(), vbs, *ptrs, *lead, nkv, hd, s_len, pos,
-                stream)
+        args = (new_k.data_ptr(), bs, new_v.data_ptr(), vbs, *ptrs, *lead, nkv, hd, s_len,
+                *_pos_args(pos), stream)
     else:
         name, symbol = ("kv_write_q8", "kv_write_slab_q8") if int8 else ("kv_write",
                                                                          "kv_write_slab")
         argtypes = _WRITE8_ARGS if int8 else _WRITE_ARGS
         args = (new_k.data_ptr(), bs, ts, new_v.data_ptr(), vbs, vts, *ptrs, *lead, sq, nkv, hd,
-                s_len, pos, stream)
+                s_len, *_pos_args(pos), stream)
     kernels.check(name, kernels.function("kv_write", symbol, argtypes)(*args))
     return tuple(pools)
 
@@ -510,13 +564,15 @@ def write_kv_layer(cache_k, cache_v, new_k, new_v, pos: int):
     """Write a chunk new_* (B, sq, NKV, HD) into cache_* (B, NKV, S, HD) at
     token rows [pos, pos + sq), in place. Returns (cache_k, cache_v). One
     token (sq == 1) takes the column-write entry, a longer chunk the slab's."""
+    pos = _int_pos("write_kv_layer", pos, new_k)
     if not _device_route("write_kv_layer", new_k):
         return write_kv_layer_plain(cache_k, cache_v, new_k, new_v, pos)
     return _write("write_kv_layer", (cache_k, cache_v), new_k, new_v, pos)
 
 
-def write_kv_layer_plain(cache_k, cache_v, new_k, new_v, pos: int):
+def write_kv_layer_plain(cache_k, cache_v, new_k, new_v, pos):
     """Plain version: a strided copy_ per pool."""
+    pos = host_pos(pos)
     sq = new_k.shape[1]
     cache_k[:, :, pos:pos + sq].copy_(new_k.transpose(1, 2))
     cache_v[:, :, pos:pos + sq].copy_(new_v.transpose(1, 2))
@@ -529,13 +585,15 @@ def write_kv_layer8(cache_k, cache_v, cache_ks, cache_vs, new_k, new_v, pos: int
     (B, NKV, S) at token rows [pos, pos + sq), in place, in one kernel.
     Returns the four pools."""
     pools = (cache_k, cache_v, cache_ks, cache_vs)
+    pos = _int_pos("write_kv_layer8", pos, new_k)
     if not _device_route("write_kv_layer8", new_k):
         return write_kv_layer8_plain(*pools, new_k, new_v, pos)
     return _write("write_kv_layer8", pools, new_k, new_v, pos)
 
 
-def write_kv_layer8_plain(cache_k, cache_v, cache_ks, cache_vs, new_k, new_v, pos: int):
+def write_kv_layer8_plain(cache_k, cache_v, cache_ks, cache_vs, new_k, new_v, pos):
     """Plain version: quantize_kv_chunk, then a strided copy_ per pool."""
+    pos = host_pos(pos)
     sq = new_k.shape[1]
     kq, ksc = quantize_kv_chunk(new_k)
     vq, vsc = quantize_kv_chunk(new_v)
@@ -550,13 +608,15 @@ def write_kv_t(cache_k, cache_v, new_k, new_v, pos: int):
     """All layers' chunks new_* (L, B, sq, NKV, HD) into the stacked caches
     cache_* (L, B, NKV, S, HD) at token rows [pos, pos + sq), in place, in one
     kernel launch. Returns (cache_k, cache_v)."""
+    pos = _int_pos("write_kv_t", pos, new_k)
     if not _device_route("write_kv_t", new_k):
         return write_kv_t_plain(cache_k, cache_v, new_k, new_v, pos)
     return _write("write_kv_t", (cache_k, cache_v), new_k, new_v, pos)
 
 
-def write_kv_t_plain(cache_k, cache_v, new_k, new_v, pos: int):
+def write_kv_t_plain(cache_k, cache_v, new_k, new_v, pos):
     """Plain version: a strided copy_ per stacked pool."""
+    pos = host_pos(pos)
     sq = new_k.shape[2]
     cache_k[:, :, :, pos:pos + sq].copy_(new_k.transpose(2, 3))
     cache_v[:, :, :, pos:pos + sq].copy_(new_v.transpose(2, 3))
@@ -568,13 +628,15 @@ def write_kv_t8(cache_k, cache_v, cache_ks, cache_vs, new_k, new_v, pos: int):
     cache_ks/vs (L, B, NKV, S) f32, new_* (L, B, sq, NKV, HD); quantized and
     written in one kernel launch. Returns the four pools."""
     pools = (cache_k, cache_v, cache_ks, cache_vs)
+    pos = _int_pos("write_kv_t8", pos, new_k)
     if not _device_route("write_kv_t8", new_k):
         return write_kv_t8_plain(*pools, new_k, new_v, pos)
     return _write("write_kv_t8", pools, new_k, new_v, pos)
 
 
-def write_kv_t8_plain(cache_k, cache_v, cache_ks, cache_vs, new_k, new_v, pos: int):
+def write_kv_t8_plain(cache_k, cache_v, cache_ks, cache_vs, new_k, new_v, pos):
     """Plain version: quantize_kv_chunk, then a strided copy_ per stacked pool."""
+    pos = host_pos(pos)
     sq = new_k.shape[2]
     kq, ksc = quantize_kv_chunk(new_k)
     vq, vsc = quantize_kv_chunk(new_v)

@@ -19,15 +19,23 @@ Port of ``accessory_tpu/ops/moe.py``:
   ``quant_matmul`` (the W4 GEMV or tile below 1024 rows, the many-row W4
   kernel from there on), each touched expert on all T rows, as the
   reference computes it. The reference gates an expert's three calls
-  behind ``lax.cond(touched[e])``; here the (E,) touched mask is read on the
-  host once a call (one device-to-host copy a layer) and only touched
-  experts launch, so an expert no row chose reads no bytes.
+  behind ``lax.cond(touched[e])``, on the device. Here, where the call is a
+  decode step's (folded W4 experts, at most 16 rows, on the card), every
+  expert's three GEMV launches go out with the (E,) touched mask as their
+  gate (``planes_qmm(gate=)``): an expert no row chose writes zeros and
+  reads no weight byte, and the host reads nothing, so a decode step
+  captured in a CUDA graph replays the routing of each step (4 + 3 E W4
+  launches a Mixtral layer). Elsewhere (a prefill's rows, other weight
+  formats, the CPU) the mask is read on the host once a call and only
+  touched experts launch. Both give the same bits: an untouched expert adds
+  0 * 0 to a sum that is never -0.
 * ``moe_ffn``: the dispatch entry.
 
 ``record_routing()`` collects, while it is open, each MoE call's routing on
 the host (its rows and touched mask; with ``detail`` the chosen experts and
 the router scores too), so a caller can hold launch counts and byte bounds
-to the routing a step took.
+to the routing a step took. It copies to the host, so it records nothing
+while a CUDA graph is being captured.
 """
 
 from __future__ import annotations
@@ -58,9 +66,17 @@ def record_routing(detail: bool = False) -> Iterator[List[dict]]:
         _routing_log, _routing_detail = prev
 
 
-def _record(idx: torch.Tensor, scores: torch.Tensor, touched: List[bool]) -> None:
-    if _routing_log is None:
+def _capturing(t: torch.Tensor) -> bool:
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _record(idx: torch.Tensor, scores: torch.Tensor, touched) -> None:
+    """Append the call's routing (``touched``: E bools, or the (E,) mask on
+    the device, copied here) unless no record is open or a capture runs."""
+    if _routing_log is None or _capturing(idx):
         return
+    if isinstance(touched, torch.Tensor):
+        touched = touched.tolist()
     entry = {"rows": idx.shape[0], "touched": list(touched)}
     if _routing_detail:
         entry.update(idx=idx.cpu(), scores=scores.detach().cpu())
@@ -139,7 +155,7 @@ def moe_ffn_dense(x, gate_w, w1, w3, w2, k: int = 2,
     weights, idx, scores = topk_gating(x, gate_w, k)
     combine = _combine(weights, idx, e)
     if _routing_log is not None:
-        _record(idx, scores, (combine.sum(dim=0) > 0).tolist())
+        _record(idx, scores, combine.sum(dim=0) > 0)
     dt, xf = x.dtype, x.to(torch.float32)
     gate = torch.einsum("td,edh->eth", xf, w1.to(torch.float32))
     up = torch.einsum("td,edh->eth", xf, w3.to(torch.float32))
@@ -163,28 +179,58 @@ def _pick(qw, e: int) -> QuantizedWeight:
     return qw[e] if isinstance(qw, (list, tuple)) else _qw_index(qw, e)
 
 
+GATED_ROWS = 16   # row 1's GEMV, which takes a gate, serves up to 16 rows
+
+
+def device_gated(x: torch.Tensor, qw1, qw3, qw2) -> bool:
+    """Whether ``moe_ffn_quant`` decides the touched-expert skip on the card:
+    folded W4 experts at most GATED_ROWS rows of x on a CUDA device (row 1's
+    GEMV takes the gate). Elsewhere the mask is read on the host."""
+    if not (x.is_cuda and x.shape[0] <= GATED_ROWS):
+        return False
+    return all(_pick(qw, 0).layout == "folded" for qw in (qw1, qw3, qw2))
+
+
+def _gated_matmul(x, qw: QuantizedWeight, gate: torch.Tensor) -> torch.Tensor:
+    from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm
+
+    x2d = x.to(qw.act_dtype)
+    return planes_qmm(x2d, qw.packed, qw.scales, qw.zeros, in_dim=qw.in_dim,
+                      group_size=qw.group_size, gate=gate)
+
+
 def moe_ffn_quant(x, gate_w, qw1, qw3, qw2, k: int = 2,
                   balance_weight: Optional[float] = None):
     """Top-k MoE over quantized experts: a tuple of per-expert
     QuantizedWeights each (``quant.quantize_params``' form), or one stacked on
     a leading expert axis. Each touched expert runs its three quantized
     products on all T rows; its output, weighted by the combine column, is
-    summed in f32. Untouched experts launch nothing (see the module
-    docstring)."""
+    summed in f32. An untouched expert reads no weight byte: its launches go
+    out gated by the touched mask on the card (``device_gated``), or not at
+    all where the host reads the mask (see the module docstring)."""
     t, d = x.shape
     e = gate_w.shape[1]
     weights, idx, scores = topk_gating(x, gate_w, k)
     combine = _combine(weights, idx, e)
-    touched = (combine.sum(dim=0) > 0).tolist()      # the one host read of the call
+    touched = combine.sum(dim=0) > 0
     _record(idx, scores, touched)
+    if device_gated(x, qw1, qw3, qw2):
+        gates = touched.to(torch.int32)
+        experts = range(e)
+
+        def matmul(xx, qw, ei):
+            return _gated_matmul(xx, qw, gates[ei])
+    else:
+        experts = [ei for ei, hit in enumerate(touched.tolist()) if hit]   # the one host read
+
+        def matmul(xx, qw, ei):
+            return quant_matmul(xx, qw)
     out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    for ei, hit in enumerate(touched):
-        if not hit:
-            continue
+    for ei in experts:
         q1, q3, q2 = _pick(qw1, ei), _pick(qw3, ei), _pick(qw2, ei)
-        gate = torch.nn.functional.silu(quant_matmul(x, q1).to(torch.float32))
-        up = quant_matmul(x, q3).to(torch.float32)
-        y = quant_matmul((gate * up).to(x.dtype), q2)
+        gate = torch.nn.functional.silu(matmul(x, q1, ei).to(torch.float32))
+        up = matmul(x, q3, ei).to(torch.float32)
+        y = matmul((gate * up).to(x.dtype), q2, ei)
         out = out + combine[:, ei:ei + 1] * y.to(torch.float32)
     aux = None if balance_weight is None else load_balancing_loss(scores, idx, e, k,
                                                                   balance_weight)

@@ -32,8 +32,8 @@ from accessory_tpu_torch.quant.qtensor import BIGM_ROWS, unpack_int
 _STYLES = {"": 0, "interleaved": 1, "half": 2}
 _ARGS = [kernels.P, kernels.I, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
          kernels.I, kernels.I, kernels.P, kernels.F, kernels.P, kernels.P, kernels.P,
-         kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.I,
-         kernels.P]
+         kernels.I, kernels.I, kernels.P, kernels.P, kernels.P, kernels.P, kernels.P,
+         kernels.I, kernels.P]
 
 
 def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -42,7 +42,8 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                rope_cos: Optional[torch.Tensor] = None,
                rope_sin: Optional[torch.Tensor] = None, *, in_dim: int,
                group_size: int, norm_eps: float = 1e-5, rope_style: str = "",
-               rope_hd: int = 0, split: Optional[int] = None) -> torch.Tensor:
+               rope_hd: int = 0, split: Optional[int] = None,
+               gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x2d (M, Kx) @ folded W4 (in_dim, N) -> (M, N) in x2d's dtype.
 
     packed (in_dim/8, N) int32 words; scales/zs (>= in_dim/gs, N) f32;
@@ -50,13 +51,22 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     prologue over the Kx columns; residual (M, N): added after the cast;
     rope_cos/rope_sin (N,): decode-RoPE rows (ops.rope.rope_rows). ``split``:
     the K split on the card, the GEMV's cluster at M <= 16, the many-row
-    tile's above (None: ``w4_tile.folded_gemv_split``'s / ``folded_plan``'s)."""
+    tile's above (None: ``w4_tile.folded_gemv_split``'s / ``folded_plan``'s).
+    ``gate``: a 0-d int32 tensor on x2d's device, M <= 16; where it holds 0
+    the output is zeros (whatever the fusion operands) and the kernel reads
+    no weight byte: the MoE FFN's skip of an expert no row chose, decided on
+    the card (ops/moe.py)."""
     if (rope_cos is None) != (not rope_style):
         raise ValueError("rope rows and rope_style go together")
+    if gate is not None:
+        _check(gate.dim() == 0 and gate.dtype == torch.int32 and gate.device == x2d.device
+               and x2d.shape[0] <= 16,
+               "gate must be a 0-d int32 tensor on x2d's device, for M <= 16 rows")
     if x2d.device.type == "cpu":
-        return planes_qmm_plain(x2d, packed, scales, zs, norm_weight, residual, rope_cos,
-                                rope_sin, in_dim=in_dim, group_size=group_size,
-                                norm_eps=norm_eps, rope_style=rope_style, rope_hd=rope_hd)
+        out = planes_qmm_plain(x2d, packed, scales, zs, norm_weight, residual, rope_cos,
+                               rope_sin, in_dim=in_dim, group_size=group_size,
+                               norm_eps=norm_eps, rope_style=rope_style, rope_hd=rope_hd)
+        return out if gate is None or bool(gate) else torch.zeros_like(out)
     if x2d.device.type != "cuda":
         raise RuntimeError(f"planes_qmm: no kernel for device {x2d.device}")
     m, kx = x2d.shape
@@ -98,13 +108,14 @@ def planes_qmm(x2d: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     kernels.check("w4_matmul", _kernel_call(x2d, packed, scales, zs, norm_weight, residual,
                                             rope_cos, rope_sin, out, group_size=group_size,
                                             norm_eps=norm_eps, rope_style=rope_style,
-                                            rope_hd=rope_hd, split=split))
+                                            rope_hd=rope_hd, split=split, gate=gate))
     return out
 
 
 def _kernel_call(x2d, packed, scales, zs, norm_weight, residual, rope_cos, rope_sin, out, *,
                  group_size: int, norm_eps: float = 1e-5, rope_style: str = "",
-                 rope_hd: int = 0, split: Optional[int] = None) -> int:
+                 rope_hd: int = 0, split: Optional[int] = None,
+                 gate: Optional[torch.Tensor] = None) -> int:
     """One call of the C entry on operands ``planes_qmm`` has checked (or
     that a measurement script vouches for): the GEMV's cluster split from
     ``w4_tile.folded_gemv_split`` (M <= 16, no scratch), or the scratch and
@@ -124,7 +135,7 @@ def _kernel_call(x2d, packed, scales, zs, norm_weight, residual, rope_cos, rope_
     rc = fn(x2d.data_ptr(), m, kx, x2d.stride(0), packed.data_ptr(), scales.data_ptr(),
             zs.data_ptr(), n, group_size, ptr(norm_weight), norm_eps, ptr(residual),
             ptr(rope_cos), ptr(rope_sin), _STYLES[rope_style], rope_hd, out.data_ptr(),
-            xsum, xt, ws, nsplit, kernels.stream_ptr(x2d))
+            ptr(gate), xsum, xt, ws, nsplit, kernels.stream_ptr(x2d))
     del buf   # the launches are queued: the stream orders any reuse after them
     return rc
 

@@ -1,7 +1,9 @@
 """Token sampling: greedy and nucleus (top-p), one setting for the batch or
 per row. Port of ``accessory_tpu/ops/sampling.py`` with an explicit
 ``torch.Generator`` (the JAX package draws with a PRNG key; the streams
-differ, greedy tokens do not)."""
+differ, greedy tokens do not). Every op stays on the device, so a decode
+step that samples can be captured in a CUDA graph (the generator registered
+with the graph: engine/graphs.py)."""
 
 from __future__ import annotations
 
@@ -17,8 +19,17 @@ def sample_top_p(probs: torch.Tensor, p, generator: torch.Generator) -> torch.Te
     keep = (cum - sorted_probs) <= p
     filtered = torch.where(keep, sorted_probs, torch.zeros_like(sorted_probs))
     filtered = filtered / filtered.sum(dim=-1, keepdim=True)
-    draw = torch.multinomial(filtered, 1, generator=generator)
-    return torch.gather(sorted_idx, -1, draw)[:, 0]
+    return torch.gather(sorted_idx, -1, draw_one(filtered, generator))[:, 0]
+
+
+def draw_one(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One index a row of (batch, n) probabilities, (batch, 1) int64: the
+    exponential trick, argmax(p / q) with q ~ Exp(1) from ``generator``, the
+    way ``torch.multinomial(probs, 1)`` draws one sample (on the CPU the same
+    indices from the same generator state), without its host-side check of
+    the probabilities, a device-to-host read a CUDA graph cannot hold."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1, keepdim=True)
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator,

@@ -324,8 +324,6 @@ KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_atten
                 "flash_attention_cp", "flash_attention_cp_bwd_dq", "flash_attention_cp_bwd_dkdv")
 
 _out_file = None
-_empty_traces = 0   # profiler traces that came back without device events
-_short_traces = 0   # profiler traces that lost some kernel events
 
 
 _T0 = time.perf_counter()
@@ -369,57 +367,13 @@ def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
 
 def time_ms(fn, arg_sets, min_iters: int = 30, repeats: int = 3, by=None):
     """Device ms per call over round-robin argument sets: the summed duration
-    of every kernel the calls launched, from the profiler's CUDA trace, so
-    host overhead between launches is not counted; the median of ``repeats``
-    traces, so one stray in a trace does not make the reading. The CUDA
-    trace sometimes loses kernel events (all, or a few of a run's), and the
-    sum of a trace that lost some reads low. A trace without device time is
-    taken again, up to 5 times in all, and then it raises: no other clock
-    stands in for it. A trace that holds fewer kernel events than calls
-    (every call launches one at least), or than another trace of the same
-    calls, is taken again up to twice, then used. Both are counted
-    (``_empty_traces``, ``_short_traces``). ``by``: kernel-name substrings;
-    then {substring: ms per call} of the kernels whose name holds each."""
-    global _empty_traces, _short_traces
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    of every kernel the calls launched, the median of ``repeats`` traces,
+    with the retakes of traces that lose kernel events
+    (``util.profiling.kernel_ms``, which counts them in its ``retakes``).
+    ``by``: kernel-name substrings; then {substring: ms per call}."""
+    from accessory_tpu_torch.util import profiling
 
-    for a in arg_sets[:2]:
-        fn(*a)
-    torch.cuda.synchronize()
-    n = len(arg_sets) * max(1, math.ceil(min_iters / len(arg_sets)))
-    per_call, most = [], 0
-    for _ in range(repeats):
-        events, shorts = None, 0
-        for _attempt in range(5):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for i in range(n):
-                    fn(*arg_sets[i % len(arg_sets)])
-                torch.cuda.synchronize()
-            got = [(e.key, getattr(e, "self_device_time_total", 0), e.count)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            if sum(us for _, us, _ in got) <= 0:
-                _empty_traces += 1
-                continue
-            events, count = got, sum(c for _, _, c in got)
-            most = max(most, count)
-            if count >= max(n, most):
-                break
-            _short_traces += 1
-            shorts += 1
-            if shorts == 3:
-                break
-        if events is None:
-            raise RuntimeError("time_ms: 5 profiler traces in a row held no device time")
-        if by is None:
-            per_call.append(sum(us for _, us, _ in events) / 1e3 / n)
-        else:
-            per_call.append({sub: sum(us for key, us, _ in events if sub in key) / 1e3 / n
-                             for sub in by})
-    if by is None:
-        return statistics.median(per_call)
-    return {sub: statistics.median(c[sub] for c in per_call) for sub in by}
+    return profiling.kernel_ms(fn, arg_sets, min_iters, repeats, by)
 
 
 def yardstick_ms(fn, arg_sets, min_iters: int = 30) -> float:
@@ -828,6 +782,122 @@ def _kernels_decode(kr, tag, nq, nkv, hd, cases, int8=False, write=True, most_co
                   max_err(out_g, out_w), k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
                   out_sha=sha, **plan)
         del sets, lib_sets
+
+
+def _kernels_pos_dev(kr):
+    """Every static decode entry and one-token write with its position a 0-d
+    int32 tensor on the card, as a captured decode step passes it: the
+    outputs and the written pools bit-equal to the same launch at the int
+    position, bf16 and int8 caches. One shape a decode entry is timed (the
+    int position's times are the kernel table's) against its plain version;
+    the writes and Falcon-7B's R 71 are checked, not timed."""
+    import torch
+
+    from accessory_tpu_torch.ops import decode_attention as da
+
+    cases = [("tiny", 32, 4, 64, 8, 1024, 511, True), ("falcon7b", 71, 1, 64, 8, 1024, 511, False),
+             ("7b", 32, 32, 128, 8, 1024, 511, True)]
+    for tag, nq, nkv, hd, b, s_len, pos, timed in cases:
+        r = nq // nkv
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for int8 in (False, True):
+            for write in (True, False):
+                kernel = ("decode_attention_mha" if r == 1 else "decode_attention") \
+                    + ("8" if int8 else "") + ("" if write else "_ro")
+                if write:
+                    fn = da.decode_attention_update8 if int8 else da.decode_attention_update
+                    plain = (da.decode_attention_update8_plain if int8
+                             else da.decode_attention_update_plain)
+                else:
+                    fn = da.cached_attention_t8 if int8 else da.cached_attention_t
+                    plain = (da.cached_attention_decode8_plain if int8
+                             else da.cached_attention_decode_plain)
+                tok_bytes = hd + 4 if int8 else 2 * hd
+                nbytes = 2 * b * nkv * pos * tok_bytes + b * (nq + 2 * nkv) * hd * 2 \
+                    + b * nq * hd * 2 + (2 * b * nkv * tok_bytes if write else 0)
+                # the timed shape round-robins copies past L2, as the int rows do
+                sets = [_qkv_views(kr, b, nq, nkv, hd)
+                        + (_int8_pools(kr, b, nkv, s_len, hd) if int8
+                           else (kr.randn(b, nkv, s_len, hd), kr.randn(b, nkv, s_len, hd)))
+                        for _ in range(n_copies(nbytes, 4 if r == 1 else 32) if timed else 1)]
+                qkv, pools = sets[0][:3], sets[0][3:]
+                a = tuple(p.clone() for p in pools)
+                c = tuple(p.clone() for p in pools)
+                got_int = fn(*qkv, *a, pos)
+                got_dev = fn(*qkv, *c, pos_t)
+                want_ = plain(*qkv, *(p.clone() for p in pools), pos)
+                torch.cuda.synchronize()
+                out_i = got_int[0] if write else got_int
+                out_d = got_dev[0] if write else got_dev
+                out_w = want_[0] if write else want_
+                name = f"{kernel} {tag} B={b} S={s_len} pos={pos} pos-on-card"
+                if not (torch.equal(out_i, out_d) and all(torch.equal(x, y)
+                                                          for x, y in zip(a, c))):
+                    raise AssertionError(f"{name}: the position on the card gave other bits "
+                                         "than the int position")
+                k_ms = p_ms = None
+                if timed:
+                    k_ms = time_ms(lambda *x: fn(*x, pos_t), sets)
+                    p_ms = yardstick_ms(lambda *x: plain(*x, pos), sets[:1], min_iters=5)
+                kr.record(kernel, f"{tag} B={b} NKV={nkv} R={r} HD={hd} S={s_len} pos={pos} "
+                          "pos-on-card", max_err(out_d, out_w), k_ms, None, p_ms, None, nbytes,
+                          4.0 * b * nq * (pos + 1) * hd, bits_equal_int_pos=True)
+    # the one-token writes: per layer (rows 10, 16) and stacked (row 11, write_kv_t8)
+    for stacked in (False, True):
+        for int8 in (False, True):
+            lead = (22, 8) if stacked else (8,)
+            nk = kr.randn(*lead, 1, 4, 64)
+            nv = kr.randn(*lead, 1, 4, 64)
+            if int8:
+                pools = (torch.zeros(*lead, 4, 1024, 64, dtype=torch.int8, device="cuda"),) * 2 \
+                    + (torch.zeros(*lead, 4, 1024, device="cuda"),) * 2
+            else:
+                pools = (torch.zeros(*lead, 4, 1024, 64, dtype=torch.bfloat16, device="cuda"),) * 2
+            fn = {(False, False): da.write_kv_layer, (False, True): da.write_kv_layer8,
+                  (True, False): da.write_kv_t, (True, True): da.write_kv_t8}[(stacked, int8)]
+            a = tuple(p.clone() for p in pools)
+            c = tuple(p.clone() for p in pools)
+            fn(*a, nk, nv, 511)
+            fn(*c, nk, nv, torch.tensor(511, dtype=torch.int32, device="cuda"))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a, c)):
+                raise AssertionError(f"{fn.__name__}: the position on the card wrote other "
+                                     "bits than the int position")
+    emit({"phase": "kernels", "check": "one-token writes with the position on the card",
+          "bits_equal_int_pos": True})
+
+
+def _kernels_gate(kr):
+    """Row 1's GEMV at Mixtral's expert w1 / w3 (4096 -> 14336) and w2 (14336
+    -> 4096), M 8, with the gate set (bits equal to the ungated launch) and
+    cleared (zeros out, the weight read nowhere): device time of both."""
+    import torch
+
+    from accessory_tpu_torch.ops.quant_matmul_planes import planes_qmm, planes_qmm_plain
+
+    on = torch.tensor(1, dtype=torch.int32, device="cuda")
+    off = torch.tensor(0, dtype=torch.int32, device="cuda")
+    for name, k, n in (("w1/w3", 4096, 14336), ("w2", 14336, 4096)):
+        sets, _ = _w4_weight_sets(kr, 8, k, n, "", (None, None, "", 0))
+        a = dict(sets[0][0])
+        ungated = planes_qmm(**a)
+        gated = planes_qmm(**a, gate=on)
+        cleared = planes_qmm(**a, gate=off)
+        plain = planes_qmm_plain(**a)
+        torch.cuda.synchronize()
+        if not torch.equal(ungated, gated) or bool(cleared.ne(0).any()):
+            raise AssertionError(f"w4_matmul gate {name}: a set gate changed the bits, or a "
+                                 "cleared one left a nonzero")
+        wbytes = sum(t.numel() * t.element_size() for t in (a["packed"], a["scales"], a["zs"]))
+        for label, g in (("set", on), ("cleared", off)):
+            k_ms = time_ms(lambda aa, g=g: planes_qmm(**aa, gate=g), [(s[0],) for s in sets])
+            p_ms = yardstick_ms(lambda aa: planes_qmm_plain(**aa), [(sets[0][0],)], min_iters=3) \
+                if label == "set" else None
+            nbytes = (wbytes + 8 * k * 2 if label == "set" else 0) + 8 * n * 2
+            kr.record("w4_matmul", f"mixtral {name} K={k} N={n} M=8 gate {label}",
+                      max_err(gated if label == "set" else cleared,
+                              plain if label == "set" else torch.zeros_like(plain)),
+                      k_ms, None, p_ms, None, nbytes, 2.0 * 8 * k * n if label == "set" else 0)
 
 
 def _kernels_flash(kr, cases):
@@ -1976,6 +2046,14 @@ def phase_kernels(seed: int, names=None):
                          ("tiny", 1, 8192, 32, 4, 64, 4, (0, 3)),
                          ("ragged", 1, 8000, 32, 4, 64, 4, (2,))])
         _kernels_cp_identity(kr, [("7b", 1, 2048, 32, 32, 128), ("tiny", 2, 1000, 32, 4, 64)])
+    if want("decode_attention") or want("decode_attention_mha"):
+        # -- the position on the card (a captured decode step's): rows 2, 8, 13, 15
+        #    (TinyLlama, Falcon-7B's R 71) and 7, 14 with their read-only twins
+        #    (7B), bits against the int position's launch; the one-token writes
+        _kernels_pos_dev(kr)
+    if want("w4_matmul"):
+        # -- row 1's GEMV with the gate set and cleared (a MoE expert no row chose)
+        _kernels_gate(kr)
     return kr.rows
 
 
@@ -2500,6 +2578,199 @@ def phase_stacked(model):
     return total
 
 
+# ---------------------------------------------------------------- graphs
+
+
+def _decode_busy(gen, run):
+    """``run()`` (one generate on ``gen``) under a trace: the card's busy ms
+    over its decode steps (``util.profiling.device_busy_from_trace`` over
+    the window from the first step on, the card drained before it, so the
+    prefill's kernels lie before the window) and the steps."""
+    import torch
+
+    from accessory_tpu_torch.util import profiling
+
+    real, first = gen._advance, []
+
+    def advance(st, step):
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter())
+            with torch.profiler.record_function("first_decode_step"):
+                real(st, step)
+            return
+        real(st, step)
+
+    gen._advance = advance
+    try:
+        with profiling.trace() as prof:
+            run()
+    finally:
+        del gen._advance
+    events = profiling.trace_events(prof)
+    marks = [e["ts"] for e in events.get("traceEvents", [])
+             if e.get("name") == "first_decode_step" and e.get("ph") == "X"]
+    if not marks:
+        return None, gen.last_decode_steps
+    busy = profiling.device_busy_from_trace(events, window=(min(marks), math.inf))
+    return busy["busy_s"] * 1e3 / max(gen.last_decode_steps, 1), gen.last_decode_steps
+
+
+def _route_run(make_gen, compiled: bool, prompts, max_gen_len: int):
+    """One route of a Generator path: on the graph route a greedy run that
+    captures the step, then the timed greedy run (launches counted, each
+    step's device-clock time from ``_DecodeTimer``), a traced greedy run
+    (busy) and a sampled run (temperature 0.8, seed 7)."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+
+    gen = make_gen(compiled)
+    if compiled:
+        gen.generate(prompts, max_gen_len=max_gen_len)
+    timer = _DecodeTimer(gen)
+    kernels.reset_launch_counts()
+    gen.generate(prompts, max_gen_len=max_gen_len)
+    torch.cuda.synchronize()
+    timer.close()
+    counts = kernels.launch_counts()
+    greedy, steps = gen.last_tokens, gen.last_decode_steps
+    n, decode_ms = timer.decode()
+    busy, _ = _decode_busy(gen, lambda: gen.generate(prompts, max_gen_len=max_gen_len))
+    gen.generate(prompts, max_gen_len=max_gen_len, temperature=0.8, seed=7)
+    out = {"greedy": greedy, "sampled": gen.last_tokens, "counts": counts, "steps": steps,
+           "graphs": gen.graphs, "wall_ms_per_step": decode_ms / max(n, 1),
+           "busy_ms_per_step": busy}
+    del gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _generator_of(model, **kw):
+    """compiled -> a Generator over the MetaModel's module, params and
+    tokenizer (``kw``: its other settings)."""
+    from accessory_tpu_torch.engine.generate import Generator
+
+    def make(compiled: bool):
+        return Generator(model.module, model.args, model.params, model.tokenizer,
+                         compiled=compiled, **kw)
+
+    return make
+
+
+def phase_graphs(path: str, make_gen, prompts, max_gen_len: int, **extra):
+    """One Generator path on the graph route (the default: each decode step
+    a CUDA graph replayed) and the eager route (``compiled=False``), in
+    turns (eager, graph): greedy tokens and the tokens sampled with one seed
+    identical, the launch counts of the timed runs equal, and each route's
+    wall ms a step (device clock, ``_DecodeTimer``), busy ms a step and idle
+    share (``util.profiling``). ``make_gen(compiled)`` builds the Generator."""
+    import numpy as np
+
+    from accessory_tpu_torch.util import profiling
+
+    runs = {name: _route_run(make_gen, compiled, prompts, max_gen_len)
+            for name, compiled in (("eager", False), ("graph", True))}
+    e, g = runs["eager"], runs["graph"]
+    row = {"phase": "graphs", "path": path, "batch": len(prompts), "max_gen_len": max_gen_len,
+           **extra, "graph_route_captured": g["graphs"], "decode_steps": g["steps"],
+           "greedy_equal": bool(np.array_equal(e["greedy"], g["greedy"])),
+           "sampled_equal": bool(np.array_equal(e["sampled"], g["sampled"])),
+           "launches_equal": e["counts"] == g["counts"],
+           "launches": {k: v for k, v in g["counts"].items() if v}}
+    for name, r in runs.items():
+        row[f"{name}_wall_ms_per_step"] = r["wall_ms_per_step"]
+        row[f"{name}_busy_ms_per_step"] = r["busy_ms_per_step"]
+        row[f"{name}_idle_share"] = (None if r["busy_ms_per_step"] is None else
+                                     profiling.idle_share(r["busy_ms_per_step"],
+                                                          r["wall_ms_per_step"]))
+    emit(row)
+    if not (row["greedy_equal"] and row["sampled_equal"] and row["launches_equal"]
+            and g["graphs"] and e["steps"] == g["steps"]):
+        raise AssertionError(f"graphs {path}: the routes differ: {row}")
+    return g["counts"]
+
+
+def phase_graphs_batcher(model, module):
+    """The batcher on both routes (8 slots, decode_steps 8, 16 requests of
+    128-token prompts, 32 new tokens, every other request sampled at
+    temperature 0.8 from the batcher's seed): tokens identical, launch
+    counts equal, the decode wall ms a step (dispatches timed to a
+    synchronize), busy ms a step and idle share (``_profile_dispatch``)."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.util import profiling
+
+    prompts = _p5_prompts(16)
+    runs = {}
+    for name, compiled in (("eager", False), ("graph", True)):
+        outs = []
+        cb = _batcher(model, module, None, compiled=compiled)
+        for timed in (False, True):   # the second run replays every key the first captured
+            real, dispatch = cb._decode, []
+
+            def decode(*a, real=real, dispatch=dispatch):
+                t = time.perf_counter()
+                out = real(*a)
+                torch.cuda.synchronize()
+                dispatch.append((time.perf_counter() - t, a[2]))
+                return out
+
+            cb._decode = decode
+            kernels.reset_launch_counts()
+            uids = [cb.add_request(p, max_gen_len=32, temperature=0.8 * (i % 2))
+                    for i, p in enumerate(prompts)]
+            while cb.pending or any(r is not None for r in cb.active.values()):
+                cb.step()
+            torch.cuda.synchronize()
+            by_uid = {r.uid: r for r in cb.finished}
+            outs = [by_uid[u].output_tokens for u in uids]
+            counts = kernels.launch_counts()
+            del cb._decode
+        prof = _profile_dispatch(_batcher(model, module, None, compiled=compiled), prompts[:8])
+        wall = sum(t for t, _ in dispatch) * 1e3 / sum(n for _, n in dispatch)
+        busy = prof.get("device_busy_ms_per_step")
+        runs[name] = {"tokens": outs, "counts": counts, "graphs": cb.graphs,
+                      "wall_ms_per_step": wall, "busy_ms_per_step": busy,
+                      "idle_share": profiling.idle_share(busy, wall)
+                      if isinstance(busy, float) else None}
+    e, g = runs["eager"], runs["graph"]
+    row = {"phase": "graphs", "path": "batcher", "slots": 8, "decode_steps": 8,
+           "requests": len(prompts), "graph_route_captured": g["graphs"],
+           "tokens_equal": e["tokens"] == g["tokens"], "launches_equal": e["counts"] == g["counts"],
+           "launches": {k: v for k, v in g["counts"].items() if v}}
+    for name, r in runs.items():
+        for key in ("wall_ms_per_step", "busy_ms_per_step", "idle_share"):
+            row[f"{name}_{key}"] = r[key]
+    emit(row)
+    if not (row["tokens_equal"] and row["launches_equal"] and g["graphs"]):
+        raise AssertionError(f"graphs batcher: the routes differ: {row}")
+    return g["counts"]
+
+
+def phase_graphs_sync_check():
+    """A capture whose step reads a value on the host fails (the capture runs
+    under ``torch.cuda.set_sync_debug_mode("error")``), raises, and leaves the
+    card usable."""
+    import torch
+
+    from accessory_tpu_torch.engine.graphs import GraphPool, StepGraph
+
+    x = torch.ones(16, device="cuda")
+    raised = False
+    try:
+        StepGraph(lambda: float(x.sum()), GraphPool())
+    except RuntimeError:
+        raised = True
+    after = float((x * 2).sum())
+    row = {"phase": "graphs", "path": "planted host read", "capture_raised": raised,
+           "card_usable_after": after == 32.0}
+    emit(row)
+    if not (raised and after == 32.0):
+        raise AssertionError(f"graphs: a host read in a captured step went unnoticed: {row}")
+
+
 def phase_paged_parity(seed: int):
     """The paged path, CPU through the plain versions against the card
     through the kernels, TinyLlama width, 2 layers, bf16 and int8 pools: 4
@@ -2597,7 +2868,9 @@ def phase_paged_parity(seed: int):
 
 class _CountingModule:
     """The model module as the batcher sees it, recording the shape of every
-    forward_paged call, from which the launches of each kernel follow."""
+    forward_paged call that runs eagerly (not one a CUDA graph captures),
+    from which, with the decode forwards the dispatches ran (replays
+    included), the launches of each kernel follow."""
 
     def __init__(self, module):
         self._module = module
@@ -2607,17 +2880,23 @@ class _CountingModule:
         return getattr(self._module, name)
 
     def forward_paged(self, params, args, tokens, pcache, active_pages=None, continuation=False):
-        self.calls.append((tokens.shape[0], tokens.shape[1], continuation))
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing():
+            self.calls.append((tokens.shape[0], tokens.shape[1], continuation))
         return self._module.forward_paged(params, args, tokens, pcache,
                                           active_pages=active_pages, continuation=continuation)
 
-    def expected(self, n_layers, int8):
+    def expected(self, n_layers, int8, decode_forwards):
         """Per call: 4 W4 launches a layer (the many-row kernel from 1024
         rows), causal flash for a fresh prefill, the paged decode kernel for
         a decode step or a continuation of up to 16 tokens (a longer one
-        gathers), and one paged write."""
+        gathers), and one paged write. The decode steps (one token a slot)
+        are ``decode_forwards`` (the dispatches' steps: a replayed graph
+        calls no forward_paged), the recorded calls the rest."""
         want = _zero_counts()
-        for b, sq, continuation in self.calls:
+        rest = [c for c in self.calls if c[1] > 1 or c[2]]
+        for b, sq, continuation in rest + [(0, 1, False)] * decode_forwards:
             want["w4_matmul_bigm" if b * sq >= 1024 else "w4_matmul"] += 4 * n_layers
             if sq > 1 and not continuation:
                 want["flash_attention"] += n_layers
@@ -2730,47 +3009,37 @@ def _drive(cb, prompts, max_gen_len):
 
 
 def _profile_dispatch(cb, prompts):
-    """Device time of one decode dispatch with every slot busy (torch.profiler
-    CUDA trace) against the same dispatch's wall time unprofiled: device busy
-    ms per step and the idle share; and from the same trace the device
-    kernels a step and the host operations with the most self CPU time (the
-    profiler slows the host, so those are shares, not times to quote)."""
+    """Device time of one decode dispatch with every slot busy
+    (``util.profiling.busy_profile``: the union of its kernels' intervals)
+    against the same dispatch's wall time unprofiled: device busy ms per
+    step, the idle share and the device kernels a step. The batcher's
+    second dispatch of a key captures it, so the wall and the trace are
+    taken at the third and fourth."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from accessory_tpu_torch.util import profiling
 
     for p in prompts:
         cb.add_request(p, max_gen_len=64)
     cb.step()                                  # admission + the first dispatch
+    cb.step()                                  # the key's capture on the graph route
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cb.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cb.step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(getattr(e, "self_device_time_total", 0) for e in dev) / 1e3
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)
-    host_total = sum(e.self_cpu_time_total for e in host) or 1
+    prof = profiling.busy_profile(cb.step, 1, wall_ms=wall, shares=("paged_decode",))
     while cb.pending or any(r is not None for r in cb.active.values()):
         cb.step()
     n = cb.decode_steps
-    out = {"wall_ms_per_step": wall / n,
-           "device_kernels_per_step": sum(e.count for e in dev) / n,
-           "host_ops_per_step": sum(e.count for e in host) / n,
-           "host_self_cpu_share_top": {e.key[:60]: round(e.self_cpu_time_total / host_total, 4)
-                                       for e in host[:8]}}
-    if busy == 0:
+    out = {"wall_ms_per_step": wall / n, "route": "graph" if cb.graphs else "eager"}
+    if "device_busy_ms_per_call" not in prof:
         return {**out, "device_busy_ms_per_step": "not measured (no device events)"}
-    attn = sum(getattr(e, "self_device_time_total", 0) for e in dev
-               if "paged_decode" in e.key) / 1e3
-    return {**out, "device_busy_ms_per_step": busy / n,
-            "device_idle_share": max(0.0, 1 - busy / wall),
-            "paged_decode_ms_per_step": attn / n, "paged_decode_share_of_busy": attn / busy}
+    return {**out, "device_busy_ms_per_step": prof["device_busy_ms_per_call"] / n,
+            "device_idle_share": prof["device_idle_share"],
+            "device_kernels_per_step": prof["n_kernels_per_call"] / n,
+            "paged_decode_ms_per_step": prof["paged_decode_ms_per_call"] / n,
+            "paged_decode_share_of_busy": prof["paged_decode_share_of_busy"]}
 
 
 def phase_batcher(phase: str, model, kv_dtype):
@@ -2797,10 +3066,10 @@ def phase_batcher(phase: str, model, kv_dtype):
     reqs, secs, ttft, dispatch = _drive(cb, prompts, 64)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = module.expected(model.args.n_layers, int8)
-    n_tok = sum(len(r.output_tokens) for r in reqs)
     dec_s = sum(t for t, _ in dispatch)
     dec_steps = sum(n for _, n in dispatch)
+    want = module.expected(model.args.n_layers, int8, dec_steps)
+    n_tok = sum(len(r.output_tokens) for r in reqs)
     prof = _profile_dispatch(_batcher(model, llama, kv_dtype), prompts[:8])
     # the static Generator on the same prompts, 8 at a time
     model.kv_dtype = kv_dtype
@@ -2858,14 +3127,15 @@ def phase_preempt(model):
         module = _CountingModule(llama)
         cb = _batcher(model, module, None, **kw)
         kernels.reset_launch_counts()
-        reqs, secs = [], 0.0
+        reqs, secs, dec_steps = [], 0.0, 0
         for group in groups:
-            r, t, _, _ = _drive(cb, group, max_gen)
+            r, t, _, dispatch = _drive(cb, group, max_gen)
             reqs, secs = reqs + r, secs + t
+            dec_steps += sum(n for _, n in dispatch)
         torch.cuda.synchronize()
         ps = [p for group in groups for p in group]
         counts = kernels.launch_counts()
-        want = module.expected(model.args.n_layers, False)
+        want = module.expected(model.args.n_layers, False, dec_steps)
         sq5 = sum(model.args.n_layers for _, sq, c in module.calls if c and sq == 5)
         row = {"phase": "preempt", "pass": name, "options": kw, "requests": len(ps),
                "max_gen_len": max_gen, "seconds": secs, "preemptions": cb.preemptions,
@@ -2910,6 +3180,14 @@ def phase_server(model):
     t0 = time.perf_counter()
     server = serve(model, host="127.0.0.1", port=0, continuous=True, slots=8, decode_steps=8)
     port = server.server_address[1]
+    cb, dispatched = server.engine.b, []   # the decode steps the batcher dispatches
+    real_decode = cb._decode
+
+    def decode(*a):
+        dispatched.append(a[2])
+        return real_decode(*a)
+
+    cb._decode = decode
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
 
@@ -2943,7 +3221,8 @@ def phase_server(model):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = module.expected(model.args.n_layers, False)
+    want = module.expected(model.args.n_layers, False, sum(dispatched))
+    del cb._decode
     events = [json.loads(x[len("data: "):]) for x in stream[1].split("\n\n") if x]
     gens = [results.get(i) for i in range(8)]
     ok_gen = all(g is not None and g[0] == 200 and isinstance(json.loads(g[1])["outputs"][0], str)
@@ -3251,42 +3530,32 @@ def phase_decode(phase: str, model, kv_dtype, steps: int, fused_attn_write: bool
 
 def _profile_steps(params, args, tok, cache, pos0, ms_per_step: float, steps: int = 10,
                    module=None, shares=(), **kw):
-    """Device time by kernel over a few decode steps (torch.profiler). Only
-    the trace's device events are summed: an aten op's row repeats the time
-    of the kernels it launched. The idle share is taken against the
-    unprofiled ``ms_per_step``, since tracing slows the host loop.
-    ``module``: the model module (LLaMA by default); ``shares``: kernel-name
-    substrings whose device ms a step (over every kernel of the trace) and
-    share of busy are added."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel over a few decode steps
+    (``util.profiling.busy_profile``: busy is the union of the kernels'
+    intervals). The idle share is taken against the unprofiled
+    ``ms_per_step``, since tracing slows the host loop. ``module``: the
+    model module (LLaMA by default); ``shares``: kernel-name substrings whose
+    device ms a step and share of busy are added."""
     from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.util import profiling
 
     module = module or llama
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for i in range(steps):
-            module.forward(params, args, tok, cache=cache, cur_pos=pos0 + i, **kw)
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for e in p.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and dev_us:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dev_us / 1e3 / steps
-    busy = sum(by_kernel.values())
-    if busy == 0:
-        return {"device_time": "not measured (no device events in the trace)"}
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    out = {"wall_ms_per_step_profiled": wall / steps, "device_busy_ms_per_step": busy,
-           "device_idle_share": max(0.0, 1 - busy / ms_per_step),
-           "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
+    pos = [pos0]
+
+    def step():
+        module.forward(params, args, tok, cache=cache, cur_pos=pos[0], **kw)
+        pos[0] += 1
+
+    prof = profiling.busy_profile(step, steps, wall_ms=ms_per_step, shares=shares)
+    if "device_busy_ms_per_call" not in prof:
+        return prof
+    out = {"wall_ms_per_step_profiled": prof["wall_ms_per_call_profiled"],
+           "device_busy_ms_per_step": prof["device_busy_ms_per_call"],
+           "device_idle_share": prof["device_idle_share"],
+           "top_kernels_ms_per_step": prof["top_kernels_ms_per_call"]}
     for sub in shares:
-        ms = sum(v for k, v in by_kernel.items() if sub in k)
-        out[f"{sub}_ms_per_step"], out[f"{sub}_share_of_busy"] = ms, ms / busy
+        out[f"{sub}_ms_per_step"] = prof[f"{sub}_ms_per_call"]
+        out[f"{sub}_share_of_busy"] = prof[f"{sub}_share_of_busy"]
     return out
 
 
@@ -4259,15 +4528,26 @@ def _mixtral_model(seed: int, max_seq_len: int, llama_type: str = "mixtral"):
     return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
-def _moe_matmul_counts(log, attention: bool = True) -> dict:
-    """The W4 launches of Mixtral forwards, from the routing they recorded
-    (one entry a layer a forward): wq, wk, wv, wo (unless ``attention`` is
-    False) and w1, w3, w2 of each touched expert, on the many-row kernel
-    from 1024 rows."""
+def _moe_matmul_counts(log, experts: int, decode_forwards=None,
+                       attention: bool = True) -> dict:
+    """The W4 launches of Mixtral forwards (one routing entry a layer a
+    forward): wq, wk, wv, wo (unless ``attention`` is False), then a
+    forward of more than 16 rows (a prefill) w1, w3, w2 of each expert its
+    recorded routing touched, on the many-row kernel from 1024 rows, and a
+    decode forward (at most ``ops.moe.GATED_ROWS`` rows) w1, w3, w2 of every
+    expert, gated on the card: 4 + 3 E a layer whatever the routing.
+    ``decode_forwards``: the decode layer-forwards (a replayed graph records
+    no routing); None: the log's own entries of at most 16 rows."""
+    from accessory_tpu_torch.ops.moe import GATED_ROWS
+
     want = {"w4_matmul": 0, "w4_matmul_bigm": 0}
+    decode = [e for e in log if e["rows"] <= GATED_ROWS]
     for entry in log:
-        want["w4_matmul_bigm" if entry["rows"] >= 1024 else "w4_matmul"] += \
-            4 * attention + 3 * sum(entry["touched"])
+        if entry["rows"] > GATED_ROWS:
+            want["w4_matmul_bigm" if entry["rows"] >= 1024 else "w4_matmul"] += \
+                4 * attention + 3 * sum(entry["touched"])
+    n = len(decode) if decode_forwards is None else decode_forwards
+    want["w4_matmul"] += n * (4 * attention + 3 * experts)
     return want
 
 
@@ -4296,7 +4576,12 @@ def phase_serve_moe(seed: int):
     with moe.record_routing() as log:
         outs, counts, steps, total_s = _counted_generate(model, prompts, 32)
     want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
-                        decode_attention=n_layers * steps, **_moe_matmul_counts(log))
+                        decode_attention=n_layers * steps,
+                        **_moe_matmul_counts(log, model.args.num_experts,
+                                             decode_forwards=n_layers * steps))
+    # routing is recorded by eager forwards: the prefill and every decode
+    # step, or on the graph route the prefill and the first (eager) step
+    eager_steps = 1 if model.generator.graphs else steps
     row = {"phase": "serve_moe", "model": "Mixtral-8x7B shape", "kv_dtype": "bf16",
            "layers": n_layers, "experts": model.args.num_experts, "top_k": 2,
            "batch": len(prompts), "prompt_tokens": [len(p) + 1 for p in prompts],
@@ -4311,7 +4596,7 @@ def phase_serve_moe(seed: int):
            "outputs_chars": [len(o) for o in outs]}
     emit(row)
     if (counts != want or steps < 32 or len(outs) != len(prompts)
-            or len(log) != n_layers * (steps + 1)):
+            or len(log) != n_layers * (eager_steps + 1)):
         raise AssertionError(f"serve_moe: launch counts {counts} != expected {want}")
     return model, counts
 
@@ -4346,7 +4631,8 @@ def phase_decode_moe(model, kv_dtype, steps: int = 50):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_counts = kernels.launch_counts()
-    prefill_want = _zero_counts(flash_attention=args.n_layers, **_moe_matmul_counts(plog),
+    prefill_want = _zero_counts(flash_attention=args.n_layers,
+                                **_moe_matmul_counts(plog, args.num_experts),
                                 **{"kv_write_q8" if int8 else "kv_write": args.n_layers})
     if prefill_counts != prefill_want:
         raise AssertionError(f"decode_moe prefill: launch counts {prefill_counts} != "
@@ -4364,7 +4650,7 @@ def phase_decode_moe(model, kv_dtype, steps: int = 50):
     counts = kernels.launch_counts()
     if not torch.isfinite(logits).all():
         raise AssertionError("decode_moe: non-finite logits")
-    want = _zero_counts(**_moe_matmul_counts(log),
+    want = _zero_counts(**_moe_matmul_counts(log, args.num_experts),
                         **{"decode_attention8" if int8 else "decode_attention":
                            args.n_layers * steps})
     layer0 = params["layers"][0]
@@ -4427,13 +4713,16 @@ def phase_batcher_moe(model):
         reqs, secs, ttft, dispatch = _drive(cb, prompts, 32)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    # the calls' shapes give the attention's 4 W4 launches a layer, the routing the experts'
-    want = module.expected(model.args.n_layers, False)
-    for name, n in _moe_matmul_counts(log, attention=False).items():
-        want[name] += n
-    n_tok = sum(len(r.output_tokens) for r in reqs)
+    # the calls' shapes give the attention's 4 W4 launches a layer, the routing the prefills'
+    # experts, every decode step 3 gated launches an expert
     dec_s = sum(t for t, _ in dispatch)
     dec_steps = sum(n for _, n in dispatch)
+    want = module.expected(model.args.n_layers, False, dec_steps)
+    for name, n in _moe_matmul_counts(log, model.args.num_experts,
+                                      decode_forwards=model.args.n_layers * dec_steps,
+                                      attention=False).items():
+        want[name] += n
+    n_tok = sum(len(r.output_tokens) for r in reqs)
     prof = _profile_dispatch(_batcher(model, mixtral, None, slots=4), prompts[:4])
     model.kv_dtype = None
     model._reset_generator()
@@ -5106,32 +5395,32 @@ def _sphinx_model(seed: int):
 
 
 class _DecodeTimer:
-    """A model module with CUDA events around its decode forwards (one new
-    row a sequence, over a cache, past position 0), the rest passed through:
-    set as a Generator's module, it times that run's decode on the device's
-    clock, from the first step's start to the last step's end."""
+    """CUDA events around each decode step a Generator runs (its
+    ``_advance``: an eager step, or a captured step's replay, the step that
+    captures it included), the rest of the Generator untouched: it times the
+    run's decode on the device's clock, from the first step's start to the
+    last step's end. ``close()`` puts the Generator's own method back."""
 
-    def __init__(self, module):
-        self._module, self._events = module, []
-
-    def __getattr__(self, name):
-        return getattr(self._module, name)
-
-    def forward(self, params, args, tokens, *, cache=None, cur_pos=0, **kw):
+    def __init__(self, gen):
         import torch
 
-        decode = cache is not None and cur_pos > 0 and tokens.shape[1] == 1
-        if decode:
+        self._gen, self._events = gen, []
+        real = gen._advance
+
+        def advance(st, step):
             self._events.append(torch.cuda.Event(enable_timing=True))
             self._events[-1].record()
-        out = self._module.forward(params, args, tokens, cache=cache, cur_pos=cur_pos, **kw)
-        if decode:
+            real(st, step)
             self._events.append(torch.cuda.Event(enable_timing=True))
             self._events[-1].record()
-        return out
+
+        gen._advance = advance
+
+    def close(self):
+        del self._gen._advance
 
     def decode(self):
-        """(decode forwards, ms from the first one's start to the last one's
+        """(decode steps, ms from the first one's start to the last one's
         end); call after a synchronize."""
         if not self._events:
             return 0, 0.0
@@ -5217,7 +5506,7 @@ def phase_serve_sphinx(seed: int):
     counts_by_run = {}
     gen = model.generator
     for run in ("batch_caption", "generate_response"):
-        gen.module = timer = _DecodeTimer(sphinx)
+        timer = _DecodeTimer(gen)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         if run == "batch_caption":
@@ -5228,7 +5517,7 @@ def phase_serve_sphinx(seed: int):
                                             max_gen_len=SPHINX_NEW_TOKENS)]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        gen.module = sphinx
+        timer.close()
         counts, steps = kernels.launch_counts(), gen.last_decode_steps
         decode_calls, decode_ms = timer.decode()
         want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
@@ -5688,7 +5977,7 @@ def phase_serve_sphinx_moe(seed: int):
     torch.cuda.empty_cache()
 
     gen = model.generator
-    gen.module = timer = _DecodeTimer(sphinx_moe)
+    timer = _DecodeTimer(gen)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     with moe.record_routing() as log:
@@ -5696,11 +5985,13 @@ def phase_serve_sphinx_moe(seed: int):
                              max_gen_len=SPHINX_NEW_TOKENS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    gen.module = sphinx_moe
+    timer.close()
     counts, steps = kernels.launch_counts(), gen.last_decode_steps
     decode_calls, decode_ms = timer.decode()
     want = _zero_counts(flash_attention=n_layers, kv_write=n_layers,
-                        decode_attention=n_layers * steps, **_moe_matmul_counts(log))
+                        decode_attention=n_layers * steps,
+                        **_moe_matmul_counts(log, model.args.num_experts,
+                                             decode_forwards=n_layers * steps))
     row = {"phase": "serve_sphinx_moe", "run": "batch_caption",
            "model": "SPHINX-MoE (mixtral_sparse_ens5)", "batch": SPHINX_BATCH, **sh,
            "prefill_rows": SPHINX_BATCH * sh["prefill_positions"], "decode_steps": steps,
@@ -5723,7 +6014,8 @@ def phase_serve_sphinx_moe(seed: int):
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(row)
     if (counts != want or steps < SPHINX_NEW_TOKENS or len(outs) != SPHINX_BATCH
-            or decode_calls != steps or len(log) != n_layers * (steps + 1)):
+            or decode_calls != steps
+            or len(log) != n_layers * (1 + (1 if gen.graphs else steps))):
         raise AssertionError(f"serve_sphinx_moe: launch counts {counts} != {want}, "
                              f"{decode_calls} timed decode forwards, {steps} steps")
     del model
@@ -5880,7 +6172,7 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
-              "train_full,finetune,parity_ffn,serve_ffn,decode_ffn,decode7b_ffn,paged_ro,"
+              "train_full,finetune,parity_ffn,serve_ffn,graphs,decode_ffn,decode7b_ffn,paged_ro,"
               "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,parity_zoo,"
               "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,"
               "serve_falcon7b,decode_falcon7b,torch_import,"
@@ -5888,7 +6180,7 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "serve_sphinx_moe,train_mm")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
-                     "decode_ffn")
+                     "graphs", "decode_ffn")
 
 
 def _add_counts(total, counts):
@@ -5932,8 +6224,10 @@ def main() -> int:
         rows, counts_by_path = {}, {}
         if "kernels" in phases:
             rows = phase_kernels(opts.seed, opts.kernel_names and opts.kernel_names.split(","))
-            emit({"phase": "timing", "empty_traces_retried": _empty_traces,
-                  "short_traces": _short_traces,
+            from accessory_tpu_torch.util import profiling
+
+            emit({"phase": "timing", "empty_traces_retried": profiling.retakes["empty"],
+                  "short_traces": profiling.retakes["short"],
                   "seconds_so_far": round(time.perf_counter() - t_start, 1)})
         if "parity" in phases:
             phase_parity(opts.seed, "parity", TINYLLAMA, 2, b=2, plen=64, steps=16, s_len=128)
@@ -5989,6 +6283,18 @@ def main() -> int:
                 counts_by_path["tiny bench"] = bench
             if "serve_ffn" in phases:
                 counts_by_path["tiny ffn"] = phase_serve_ffn(model, setup_s)
+            if "graphs" in phases:
+                # the compiled decode loops against the eager route: both cache types,
+                # the fused FFN, the stacked route and the batcher
+                phase_graphs_sync_check()
+                for kv_dtype in (None, "int8"):
+                    counts_by_path[f"graphs tiny {kv_dtype or 'bf16'}"] = phase_graphs(
+                        "serve", _generator_of(model, kv_dtype=kv_dtype), PROMPTS[:4], 32,
+                        kv_dtype=kv_dtype or "bf16")
+                phase_graphs("serve_ffn", _generator_of(model, ffn_fuse=True), PROMPTS[:4], 32)
+                phase_graphs("stacked", _generator_of(model, unroll_decode=False), PROMPTS[:4],
+                             32)
+                counts_by_path["graphs batcher"] = phase_graphs_batcher(model, llama)
             if "decode_ffn" in phases:
                 # in turns with the unfused route (fused, unfused, unfused, fused)
                 bench = {}
@@ -6006,6 +6312,8 @@ def main() -> int:
                          kv_dtypes=(None, "int8"))
         if "serve7b" in phases:
             model, counts_by_path["7b"] = phase_serve7b(opts.seed)
+            if "graphs" in phases:
+                phase_graphs("serve7b", _generator_of(model), PROMPTS, 16)
             if "decode7b" in phases:
                 # in turns (bf16, int8, int8, bf16), so a drift of the host's
                 # speed during the phase does not favour one cache type
@@ -6096,6 +6404,8 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             model, counts_by_path["mixtral"] = phase_serve_moe(opts.seed)
+            if "graphs" in phases:
+                phase_graphs("decode_moe", _generator_of(model), PROMPTS, 8)
             if "decode_moe" in phases:
                 bench = {}
                 for kv_dtype in (None, "int8"):
@@ -6119,6 +6429,8 @@ def main() -> int:
             # Falcon-7B's one W4 product (N 4544) also on row 1's many-row tile
             model, counts_by_path[tag] = phase_serve_zoo(
                 name, opts.seed, tile_rows=512 if name == "Falcon-7B" else 0)
+            if name == "Falcon-7B" and "graphs" in phases:
+                phase_graphs("falcon7b", _generator_of(model), PROMPTS, 16)
             if f"decode_{tag}" in phases:
                 bench = {}
                 for kv_dtype in (None, "int8"):

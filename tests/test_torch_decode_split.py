@@ -184,7 +184,8 @@ def _capture(monkeypatch):
 def test_decode_kernel_call_abi(monkeypatch, int8, write, nq, nkv, split):
     """The GQA entries' C calls: the parameter list csrc/decode_attention.cu
     declares, the dims (R, from which the entry cuts its row tiles as
-    decode_plan counts them), and decode_plan's split."""
+    decode_plan counts them), the position (an int, with no position on the
+    card: pos_dev null) and decode_plan's split."""
     seen = _capture(monkeypatch)
     b, hd, s_len, pos = 8, 64, 1024, 511
     q = torch.zeros(b, 1, nq, hd, dtype=torch.bfloat16)
@@ -199,8 +200,8 @@ def test_decode_kernel_call_abi(monkeypatch, int8, write, nq, nkv, split):
     assert seen["lib"] == "decode_attention" and seen["sym"] == sym
     assert seen["argtypes"] == c_signature("decode_attention", sym)
     assert len(seen["args"]) == len(seen["argtypes"])
-    dims = seen["args"][-10:-3]
-    assert dims == (b, nkv, s_len, nq // nkv, hd, pos,
+    dims = seen["args"][-11:-3]
+    assert dims == (b, nkv, s_len, nq // nkv, hd, pos, None,
                     tda.decode_plan(b, nkv, s_len, nq // nkv, hd).split)
     assert dims[-1] == split
 
@@ -216,7 +217,7 @@ def test_decode_kernel_refuses_past_the_grid(monkeypatch):
     assert tda.MAX_GRID_Z == 65535
     monkeypatch.setattr(tda, "MAX_GRID_Z", b * 2)
     tda._decode_kernel("t", q, kn, kn, pools, 5, write=True)
-    assert seen["args"][-10:-3] == (b, 1, s_len, nq, hd, 5, 4)
+    assert seen["args"][-11:-3] == (b, 1, s_len, nq, hd, 5, None, 4)
     monkeypatch.setattr(tda, "MAX_GRID_Z", b * 2 - 1)
     seen.clear()
     with pytest.raises(ValueError, match="ceil"):

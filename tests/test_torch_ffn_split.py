@@ -48,6 +48,7 @@ from accessory_tpu_torch.quant.quantize import pad_to
 
 from test_torch_bigm_flash import c_signature
 from test_torch_ffn_fused import _port_pair
+from test_torch_generate import one_torch_thread  # noqa: F401  (fixture)
 
 GS = 128
 UNIT = 64

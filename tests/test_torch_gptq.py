@@ -35,7 +35,7 @@ from accessory_tpu_torch.quant import qtensor as tq
 from accessory_tpu_torch.tokenizer import Tokenizer
 
 from test_torch_checkpoint import _both_logits
-from test_torch_generate import tok_path, to_numpy_tree  # noqa: F401  (fixture)
+from test_torch_generate import one_torch_thread, tok_path, to_numpy_tree  # noqa: F401
 
 def _pack(q: np.ndarray, bits: int, axis: int) -> np.ndarray:
     """Pack small ints 32 // bits to a 32-bit word along ``axis`` (the

@@ -32,6 +32,7 @@ from accessory_tpu_torch.parallel import (init_distributed_mode, local_mesh, mak
                                           make_mesh)
 from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
 from accessory_tpu_torch.train.ckpt import resume_stage1
+from accessory_tpu_torch.util import profiling
 
 PKG_DIR = Path(accessory_tpu_torch.__file__).parent
 REPO = PKG_DIR.parent
@@ -188,7 +189,8 @@ print('ok')
                                 visual.init_convnext, visual.init_qformer,
                                 visual_import.convert_hf_clip_vision,
                                 visual_import.convert_hf_dinov2, visual_import.convert_convnext,
-                                visual_import.convert_hf_blip2_qformer])
+                                visual_import.convert_hf_blip2_qformer, profiling.time_fn,
+                                profiling.roofline_report])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

@@ -227,12 +227,12 @@ def test_int8_write_call_abi(monkeypatch, sq, stacked):
     if sq == 1 and not stacked:
         assert args[:4] == (nk.data_ptr(), sq * row, nv.data_ptr(), sq * row)
         assert args[4:8] == tuple(t.data_ptr() for t in pools)
-        assert args[8:] == (b, nkv, hd, s_len, pos, 0)
+        assert args[8:] == (b, nkv, hd, s_len, pos, None, 0)
         return
     assert args[:6] == (nk.data_ptr(), sq * row, nk.stride(-3), nv.data_ptr(), sq * row,
                         nv.stride(-3))
     assert args[6:10] == tuple(t.data_ptr() for t in pools)
-    assert args[10:] == (*lead, sq, nkv, hd, s_len, pos, 0)
+    assert args[10:] == (*lead, sq, nkv, hd, s_len, pos, None, 0)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -304,5 +304,5 @@ def test_mha_decode_call_abi(monkeypatch, int8, write):
     assert len(args) == len(seen["argtypes"])
     assert args[:6] == (q.data_ptr(), nkv * hd, kn.data_ptr(), nkv * hd, kn.data_ptr(), nkv * hd)
     assert args[6:6 + len(pools)] == tuple(t.data_ptr() for t in pools)
-    assert args[6 + len(pools):-3] == (b, nkv, s_len, hd, pos)
+    assert args[6 + len(pools):-3] == (b, nkv, s_len, hd, pos, None)
     assert args[-3] == hd ** -0.5 and args[-2] == out.data_ptr() and args[-1] == 0

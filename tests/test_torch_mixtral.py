@@ -32,7 +32,7 @@ from accessory_tpu_torch.ops import moe as tmoe
 from accessory_tpu_torch.quant import qtensor
 from accessory_tpu_torch.quant.quantize import DEFAULT_BLOCKLIST, quantize_params
 
-from test_torch_generate import to_numpy_tree
+from test_torch_generate import one_torch_thread, to_numpy_tree  # noqa: F401  (fixture)
 
 CFG = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=256, num_experts=4,
            vocab_size=97, max_seq_len=128, dtype="float32")

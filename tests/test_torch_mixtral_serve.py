@@ -39,7 +39,7 @@ from accessory_tpu_torch.models import llama, mixtral
 from accessory_tpu_torch.quant import qtensor
 from accessory_tpu_torch.tokenizer import Tokenizer
 
-from test_torch_generate import to_numpy_tree, tok_path  # noqa: F401  (fixture)
+from test_torch_generate import one_torch_thread, to_numpy_tree, tok_path  # noqa: F401
 from test_torch_paged_model import PAGE, SLOTS, TOTAL, _check_written8, _pools_to_jax, _steps
 
 PAGED = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=256, num_experts=4,

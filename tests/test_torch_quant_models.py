@@ -32,7 +32,7 @@ from accessory_tpu_torch.quant import qtensor as tq
 from accessory_tpu_torch.tokenizer import Tokenizer
 
 from test_torch_checkpoint import _both_logits, _leaves
-from test_torch_generate import tok_path, to_numpy_tree  # noqa: F401  (fixture)
+from test_torch_generate import one_torch_thread, tok_path, to_numpy_tree  # noqa: F401
 
 
 def _nibble_w3(params):

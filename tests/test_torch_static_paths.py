@@ -25,7 +25,7 @@ from accessory_tpu_torch.convert import params_from_jax
 from accessory_tpu_torch.models import llama
 from accessory_tpu_torch.quant.fuse import fuse_for_decode
 
-from test_torch_generate import to_numpy_tree, tok_path  # noqa: F401  (fixture)
+from test_torch_generate import one_torch_thread, to_numpy_tree, tok_path  # noqa: F401
 
 CFG = dict(dim=256, n_layers=3, n_heads=4, n_kv_heads=2, multiple_of=128, max_seq_len=256)
 

@@ -38,7 +38,7 @@ from accessory_tpu_torch.convert import cache_from_jax, params_from_jax, params_
 from accessory_tpu_torch.models import falcon, get_model_module, internlm
 from accessory_tpu_torch.ops.norms import layer_norm
 
-from test_torch_generate import to_numpy_tree
+from test_torch_generate import one_torch_thread, to_numpy_tree  # noqa: F401  (fixture)
 
 _BASE = dict(num_layers=2, hidden_size=256, num_attention_heads=4, vocab_size=256,
              max_seq_len=128)
