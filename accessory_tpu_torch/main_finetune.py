@@ -6,7 +6,7 @@ loop. The model is built with ``MetaModel``, resumed or loaded from
 LoRA / bias / norm weights train over it, ``--only_save_trainable``
 required); trainable leaves train as f32 masters; ``FinetuneDataset`` and
 ``FinetuneDistSampler`` give the batches and ``make_train_step`` runs each
-step (``--checkpointing``: every layer recomputed in the backward); a
+step (``--checkpointing``: every layer checkpointed, ``util.remat_policy(True)``); a
 checkpoint is saved every ``--save_interval`` epochs and every
 ``--save_iteration_interval`` steps, and the run resumes from the newest one
 (``--auto_resume``) or ``--resume``. Per-epoch averages go to

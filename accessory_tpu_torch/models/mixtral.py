@@ -229,7 +229,8 @@ def forward(params: Params, args: MixtralArgs, tokens: torch.Tensor, *,
     """A chunk of tokens at position ``cur_pos`` over per-layer params, the
     contract of ``models.llama.forward``: (logits f32 (b, sq, vocab), cache),
     the cache updated in place. ``cache=None`` is the training forward
-    (``remat`` checkpoints each layer, ``attn_fn`` replaces its attention);
+    (``remat`` checkpoints each layer, whose recompute replays the forward's
+    routing, ``util.remat_policy``; ``attn_fn`` replaces its attention);
     per-layer pools take the fused decode write at one token and a slab
     write a layer for a longer chunk; a stacked cache is read in each layer
     and written once after the last. ``moe_impl``: the dispatch of dense

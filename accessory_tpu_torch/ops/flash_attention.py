@@ -42,6 +42,7 @@ import torch
 from accessory_tpu_torch import kernels
 from accessory_tpu_torch.ops.attention import NEG_INF, grouped_attention
 from accessory_tpu_torch.ops.w4_tile import SMS
+from accessory_tpu_torch.util import replayed
 
 _P, _L, _I, _F = kernels.P, kernels.L, kernels.I, kernels.F
 _ARGS = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P]
@@ -215,11 +216,15 @@ def _attention(q, k, v, q_offset: Optional[int], scale):
 
 class _FlashAttention(torch.autograd.Function):
     """The forward saves q, k, v, the output and the per-row lse; the
-    backward is ``flash_attention_bwd`` (the splash custom VJP's role)."""
+    backward is ``flash_attention_bwd`` (the splash custom VJP's role). Under
+    ``remat=True`` a checkpointed layer's forward keeps its output and lse,
+    and its recompute takes them back without a launch (``util.replayed``,
+    kind "flash": the reference's named "splash_attn_out" residual)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, scale):
-        out, lse = _forward(q, k, v, scale, with_lse=True, q_offset=q_offset)
+        out, lse = replayed("flash", lambda: _forward(q, k, v, scale, with_lse=True,
+                                                      q_offset=q_offset))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.q_offset, ctx.scale = q_offset, scale
         return out

@@ -21,14 +21,46 @@ from accessory_tpu_torch.ops.norms import rms_norm
 from accessory_tpu_torch.ops.rope import apply_rope_flat
 from accessory_tpu_torch.quant.qtensor import (BIGM_ROWS, FUSED_LAYOUTS, QuantizedWeight,
                                                quant_matmul)
+from accessory_tpu_torch.util import keeps, replayed
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (..., in_dim) @ w (in_dim, out_dim) [+ b]."""
-    y = quant_matmul(x, w) if isinstance(w, QuantizedWeight) else torch.matmul(x, w)
+    """x (..., in_dim) @ w (in_dim, out_dim) [+ b]. A dense product inside a
+    layer checkpointed under ``remat=True`` is kept by the forward and taken
+    back by the recompute (``util.replayed``, kind "dots")."""
+    if isinstance(w, QuantizedWeight):
+        y = quant_matmul(x, w)
+    elif keeps("dots"):
+        y = replayed("dots", lambda: _KeptProduct.apply(x, w, None),
+                     lambda kept: _KeptProduct.apply(x, w, kept))
+    else:
+        y = torch.matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+class _KeptProduct(torch.autograd.Function):
+    """x @ w inside a layer that keeps its dense products: the forward
+    computes it, the recompute is handed the value the forward kept
+    (``kept``); both save the same tensors, so the checkpoint's check of the
+    recompute against the forward holds, and differentiate as
+    ``torch.matmul`` does (the product over x folded to 2-D)."""
+
+    @staticmethod
+    def forward(ctx, x, w, kept):
+        x2d = x.reshape(-1, x.shape[-1])
+        ctx.save_for_backward(x2d, w)
+        ctx.x_shape = x.shape
+        return torch.matmul(x, w) if kept is None else kept.view_as(kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = g2.mm(w.t()).reshape(ctx.x_shape) if ctx.needs_input_grad[0] else None
+        gw = x2d.t().mm(g2) if ctx.needs_input_grad[1] else None
+        return gx, gw, None
 
 
 def module_linear(x: torch.Tensor, mod: dict) -> torch.Tensor:

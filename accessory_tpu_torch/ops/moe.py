@@ -36,6 +36,16 @@ the host (its rows and touched mask; with ``detail`` the chosen experts and
 the router scores too), so a caller can hold launch counts and byte bounds
 to the routing a step took. It copies to the host, so it records nothing
 while a CUDA graph is being captured.
+
+A checkpointed layer's recompute routes as its forward did: the router's
+choice is ``util.replayed`` (kind "route"), which a layer's memo keeps
+under every remat policy (``util.remat_policy``). A recompute that
+re-routed (a tie, or a kernel whose sum order varies) would launch another
+set of experts, and the non-reentrant checkpoint refuses a recompute whose
+saved tensors differ in shape. ``routing_replay(memo)`` opens such a memo
+by hand (a list of (T, k) choices, recorded on a first run, replayed on a
+later one); a replaying call's record entry also holds the experts its own
+scores chose (``own_idx``).
 """
 
 from __future__ import annotations
@@ -46,9 +56,11 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 
 from accessory_tpu_torch.quant.qtensor import QuantizedWeight, quant_matmul
+from accessory_tpu_torch.util import LayerMemo, replayed, replaying
 
 _routing_log: Optional[List[dict]] = None
 _routing_detail = False
+_fresh: Optional[torch.Tensor] = None   # a replaying call's own choice, for _record
 
 
 @contextlib.contextmanager
@@ -66,6 +78,26 @@ def record_routing(detail: bool = False) -> Iterator[List[dict]]:
         _routing_log, _routing_detail = prev
 
 
+@contextlib.contextmanager
+def routing_replay(memo: List[torch.Tensor]) -> Iterator[None]:
+    """Within the block, MoE calls record their chosen experts (T, k) into an
+    empty ``memo`` in order, or, where ``memo`` already holds them, take them
+    from it in the same order."""
+    layer = LayerMemo(("route",))
+    layer.store["route"] = memo
+    with replaying(layer):
+        yield
+
+
+def _route(x: torch.Tensor, gate_w: torch.Tensor, k: int):
+    """``topk_gating``; a replaying call keeps its own choice, for ``_record``,
+    in ``_fresh``."""
+    global _fresh
+    weights, idx, scores, own = _gating(x, gate_w, k)
+    _fresh = own
+    return weights, idx, scores
+
+
 def _capturing(t: torch.Tensor) -> bool:
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
@@ -73,6 +105,8 @@ def _capturing(t: torch.Tensor) -> bool:
 def _record(idx: torch.Tensor, scores: torch.Tensor, touched) -> None:
     """Append the call's routing (``touched``: E bools, or the (E,) mask on
     the device, copied here) unless no record is open or a capture runs."""
+    global _fresh
+    fresh, _fresh = _fresh, None
     if _routing_log is None or _capturing(idx):
         return
     if isinstance(touched, torch.Tensor):
@@ -80,6 +114,10 @@ def _record(idx: torch.Tensor, scores: torch.Tensor, touched) -> None:
     entry = {"rows": idx.shape[0], "touched": list(touched)}
     if _routing_detail:
         entry.update(idx=idx.cpu(), scores=scores.detach().cpu())
+    if fresh is not None:
+        # a replayed routing: the experts the call's own scores chose, left
+        # on its device (a caller that compares them copies them)
+        entry["replayed"], entry["own_idx"] = True, fresh
     _routing_log.append(entry)
 
 
@@ -87,12 +125,21 @@ def topk_gating(x: torch.Tensor, gate_w: torch.Tensor,
                 k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router: (weights (T, k) f32 renormalized, indices (T, k) int32, the full
     softmax scores (T, E) f32 that the load-balancing loss reads)."""
+    return _gating(x, gate_w, k)[:3]
+
+
+def _gating(x, gate_w, k: int):
+    """``topk_gating`` and, where an open memo replays the experts
+    (``util.replayed``, kind "route"), the sort's own choice (T, k) int64,
+    else None. The weights are the scores gathered at the experts taken:
+    where the sort chose them, its values."""
     logits = torch.matmul(x.to(torch.float64), gate_w.to(torch.float64)).to(torch.float32)
     scores = torch.softmax(logits, dim=-1)
-    weights, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    weights, idx = weights[:, :k], idx[:, :k]
+    chosen = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
+    idx = replayed("route", lambda: chosen)
+    weights = scores.gather(1, idx)
     weights = weights / weights.sum(dim=-1, keepdim=True)
-    return weights, idx.to(torch.int32), scores
+    return weights, idx.to(torch.int32), scores, None if idx is chosen else chosen
 
 
 def load_balancing_loss(scores: torch.Tensor, idx: torch.Tensor, num_experts: int, k: int,
@@ -132,7 +179,7 @@ def moe_ffn_ragged(x, gate_w, w1, w3, w2, k: int = 2,
     (T, d) in x's dtype, aux loss or None)."""
     t, d = x.shape
     e = gate_w.shape[1]
-    weights, idx, scores = topk_gating(x, gate_w, k)
+    weights, idx, scores = _route(x, gate_w, k)
     flat = idx.reshape(-1).to(torch.int64)
     order = torch.argsort(flat, stable=True)
     token_of = order // k
@@ -152,7 +199,7 @@ def moe_ffn_dense(x, gate_w, w1, w3, w2, k: int = 2,
     """Exact top-k MoE by per-expert masked compute: every expert on every
     row, the rows it was not chosen for zeroed by the combine weights."""
     e = gate_w.shape[1]
-    weights, idx, scores = topk_gating(x, gate_w, k)
+    weights, idx, scores = _route(x, gate_w, k)
     combine = _combine(weights, idx, e)
     if _routing_log is not None:
         _record(idx, scores, combine.sum(dim=0) > 0)
@@ -210,7 +257,7 @@ def moe_ffn_quant(x, gate_w, qw1, qw3, qw2, k: int = 2,
     all where the host reads the mask (see the module docstring)."""
     t, d = x.shape
     e = gate_w.shape[1]
-    weights, idx, scores = topk_gating(x, gate_w, k)
+    weights, idx, scores = _route(x, gate_w, k)
     combine = _combine(weights, idx, e)
     touched = combine.sum(dim=0) > 0
     _record(idx, scores, touched)

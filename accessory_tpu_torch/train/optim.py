@@ -13,7 +13,10 @@ arithmetic is written out here, op for op:
          u = (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps),  n = count + 1;
   decay  u <- u + wd * p ("decay" leaves only);
   step   p <- p + (-lr(count)) * u, the schedule read at the count before
-         this update.
+         this update;
+  chain  each transform of ``chain(tx, ...)`` (``scale_lr_by_prefix``) maps
+         the update (-lr(count)) * u before it is added, as optax.chain
+         applies the transforms after adamw.
 
 This is optax's order, decay added to the Adam direction after the moments;
 ``torch.optim.AdamW`` shrinks p before the moments instead (equal in exact
@@ -67,6 +70,7 @@ class AdamW:
         self.b1, self.b2 = betas
         self.eps = eps
         self.clip_norm = clip_norm
+        self.transforms = []        # update maps added by ``chain``
 
     def lr(self, count: int) -> float:
         return float(self.lr_fn(count)) if callable(self.lr_fn) else float(self.lr_fn)
@@ -118,7 +122,10 @@ class AdamW:
                                        torch._foreach_div(nu, bc2)), self.eps))
             if wd:
                 u = torch._foreach_add(u, torch._foreach_mul(ps, wd))
-            torch._foreach_add_(ps, torch._foreach_mul(u, -lr))
+            step = torch._foreach_mul(u, -lr)
+            for transform in self.transforms:
+                step = transform(paths, step)
+            torch._foreach_add_(ps, step)
             mu_all.update(zip(paths, mu))
             nu_all.update(zip(paths, nu))
         return {"count": n, "mu": mu_all, "nu": nu_all}
@@ -132,3 +139,42 @@ def make_optimizer(params, lr_fn: Union[Callable[[int], float], float],
     frozen split of ``param_label_fn`` and an optional global-norm clip."""
     return AdamW(param_label_fn(params, trainable), lr_fn, weight_decay, betas, 1e-8,
                  clip_norm)
+
+
+def chain(tx: AdamW, *transforms) -> AdamW:
+    """``tx`` with ``transforms`` applied in order to each update after AdamW
+    (optax.chain(tx, *transforms)); each maps (paths, updates) -> updates."""
+    tx.transforms = list(tx.transforms) + list(transforms)
+    return tx
+
+
+class _PrefixScale:
+    """``scale_lr_by_prefix``'s transform: each update times its path's scale."""
+
+    def __init__(self, lr_scales: Dict[str, float]):
+        self.lr_scales = dict(lr_scales)
+        self.prefixes = sorted(lr_scales, key=len, reverse=True)
+
+    def scale_of(self, path: str) -> float:
+        for pre in self.prefixes:
+            if path.startswith(pre):
+                return float(self.lr_scales[pre])
+        return 1.0
+
+    def __call__(self, paths: Sequence[str], updates):
+        out = []
+        for path, u in zip(paths, updates):
+            scale = self.scale_of(path)
+            out.append(u if scale == 1.0 else u * scale)
+        return out
+
+
+def scale_lr_by_prefix(params, lr_scales: Dict[str, float]) -> _PrefixScale:
+    """Per-group LR scaling keyed on param-path prefixes (the reference's
+    layer-wise LR groups, accessory/util/param_group.py): ``lr_scales``
+    {path prefix: scale}, the longest matching prefix wins, default 1. Chain
+    it after the optimizer: ``chain(make_optimizer(...), scale_lr_by_prefix(
+    params, scales))``. Paths are the port's (``train.tree``: a layer's index
+    in its path, ``layers/3/...``). ``params`` is unused, as in the
+    reference."""
+    return _PrefixScale(lr_scales)

@@ -21,8 +21,12 @@ compute dtype; ROADMAP, "Deliberate differences").
 
 A batch with ``images`` (b, 3, S, S) hands each microbatch its rows of
 them, and the loss passes them to the model's forward (the SPHINX families,
-llama_qformerv2, LLaMA-Adapter with its visual branch), whose cache-free
-logits are the text positions'.
+SPHINX-MoE, llama_qformerv2, LLaMA-Adapter with its visual branch), whose
+cache-free logits are the text positions'.
+
+``moe_aux`` (Mixtral and SPHINX-MoE): the forward also returns the
+load-balancing loss summed over the layers, and the differentiated loss is
+c_loss + aux, as the reference's (its metrics report both).
 
 With ``attn_fn`` from ``parallel.make_cp_attn_fn(mesh)`` (the only attn_fn it
 takes: the mesh it carries decides each rank's slice) the step is
@@ -97,19 +101,22 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
 
     batch: {"examples": (b, s) int, "labels": (b, s) int} (numpy or torch;
     moved to ``device``), and for a multimodal family optionally "images"
-    (b, 3, S, S) CLIP-normalized (not with a cp ``attn_fn``, ROADMAP A10, nor
-    on SPHINX-MoE, whose training waits for the MoE loss, A7). With
-    ``accum_steps > 1`` the batch splits into that
-    many microbatches along its first axis; their gradients are summed and
-    divided by ``accum_steps`` and their metrics averaged. Metrics: loss,
-    c_loss, aux_loss, n_tokens and grad_norm, as 0-d tensors on the device.
-    ``attn_fn``: None, or ``parallel.make_cp_attn_fn(mesh)``, which makes the
-    step context-parallel over its mesh (see above); any other raises."""
-    if moe_aux:
-        raise NotImplementedError("the MoE auxiliary loss in the training step: Mixtral "
-                                  "training is not ported yet (ROADMAP A7)")
+    (b, 3, S, S) CLIP-normalized (not with a cp ``attn_fn``, ROADMAP A10).
+    With ``accum_steps > 1`` the batch splits into that many microbatches
+    along its first axis; their gradients are summed and divided by
+    ``accum_steps`` and their metrics averaged. Metrics: loss (c_loss +
+    aux_loss), c_loss, aux_loss (0 without ``moe_aux``), n_tokens and
+    grad_norm, as 0-d tensors on the device. ``attn_fn``: None, or
+    ``parallel.make_cp_attn_fn(mesh)``, which makes the step context-parallel
+    over its mesh (see above); any other raises. ``moe_aux`` under a mesh of
+    more than one dp x cp rank raises: the reference's balance loss is taken
+    over the global tokens, and a rank's shard gives another number."""
     compute_dtype = torch_dtype(args.dtype)
     layout = None if attn_fn is None else _CPLayout.of(attn_fn)
+    if moe_aux and layout is not None and layout.dp * layout.cp > 1:
+        raise NotImplementedError("moe_aux under a context-parallel mesh of more than one "
+                                  "rank: the load-balancing loss over the global tokens waits "
+                                  "for the parallel package (ROADMAP A10)")
     frozen = frozen_paths(tx)
 
     def _autocast(params):
@@ -122,18 +129,27 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
         return map_leaves(lambda path, x: x.to(compute_dtype) if isinstance(x, torch.Tensor)
                           and x.dtype == torch.float32 and not _visual(path) else x, params)
 
+    def forward(params, examples, **kw):
+        """(logits, the aux loss or None)."""
+        if moe_aux:
+            logits, _, aux = module.forward(_autocast(params), args, examples, remat=remat,
+                                            with_aux_loss=True, **kw)
+            return logits, aux
+        return module.forward(_autocast(params), args, examples, remat=remat, **kw)[0], None
+
     def loss_fn(params, examples, labels, images=None):
+        """(c_loss, aux or None, n_tokens)."""
         if layout is None:
-            kw = {} if images is None else {"images": images}
-            logits, _ = module.forward(_autocast(params), args, examples, remat=remat, **kw)
-            return cross_entropy_loss(logits, labels, ignore_index)
+            logits, aux = forward(params, examples,
+                                  **({} if images is None else {"images": images}))
+            c_loss, n_tok = cross_entropy_loss(logits, labels, ignore_index)
+            return c_loss, aux, n_tok
         ex, lab, start = layout.shard(examples, labels, ignore_index)
-        logits, _ = module.forward(_autocast(params), args, ex, remat=remat, attn_fn=attn_fn,
-                                   cur_pos=start)
+        logits, aux = forward(params, ex, attn_fn=attn_fn, cur_pos=start)
         loss, n_tok = cross_entropy_loss(logits, lab, ignore_index, shift=False)
         n_all = layout.sum(n_tok.clone())
         # this rank's share of the global mean (the factor is 1 on one rank)
-        return loss * (n_tok.clamp_min(1) / n_all.clamp_min(1)), n_all
+        return loss * (n_tok.clamp_min(1) / n_all.clamp_min(1)), aux, n_all
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         images = batch.get("images")
@@ -141,9 +157,6 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
             raise NotImplementedError("images under a context-parallel mesh: the image "
                                       "words' split over the sequence shards waits for the "
                                       "parallel package (ROADMAP A10)")
-        if images is not None and hasattr(args, "num_experts"):
-            raise NotImplementedError("SPHINX-MoE training needs the MoE auxiliary loss in the "
-                                      "training step (ROADMAP A7)")
         examples, labels = (_ids(batch[k], device) for k in ("examples", "labels"))
         diff = partition_params(state.params, frozen)
         for p in diff.values():
@@ -153,12 +166,13 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
                              "microbatches")
         image_chunks = ((None,) * accum_steps if images is None
                         else _images(images, device).chunk(accum_steps))
-        losses, counts = [], []
+        losses, auxes, counts = [], [], []
         for ex, lab, img in zip(examples.chunk(accum_steps), labels.chunk(accum_steps),
                                 image_chunks):
-            c_loss, n_tok = loss_fn(state.params, ex, lab, img)
-            c_loss.backward()
+            c_loss, aux, n_tok = loss_fn(state.params, ex, lab, img)
+            (c_loss if aux is None else c_loss + aux).backward()
             losses.append(c_loss.detach())
+            auxes.append(torch.zeros_like(losses[-1]) if aux is None else aux.detach())
             counts.append(n_tok)
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in diff.items()}
@@ -166,14 +180,17 @@ def make_train_step(module, args, tx, remat=True, accum_steps: int = 1, ignore_i
             layout.sum_all(list(grads.values()))
             losses = list(layout.sum(torch.stack(losses)))
         if accum_steps > 1:
+            # the reference's scan: each metric the f32 mean of the microbatches'
             grads = {k: g / accum_steps for k, g in grads.items()}
-            c_loss = torch.stack(losses).mean()
-            n_tokens = torch.stack(counts).to(torch.float32).mean()
+            totals = [c + a for c, a in zip(losses, auxes)]
+            loss, c_loss, aux_loss, n_tokens = (torch.stack(m).to(torch.float32).mean()
+                                                for m in (totals, losses, auxes, counts))
         else:
-            c_loss, n_tokens = losses[0], counts[0]
+            c_loss, aux_loss, n_tokens = losses[0], auxes[0], counts[0]
+            loss = c_loss + aux_loss
         gnorm = global_norm(list(grads.values()))
         opt_state = tx.update(grads, state.opt_state, diff, grad_norm=gnorm)
-        metrics = {"loss": c_loss, "c_loss": c_loss, "aux_loss": torch.zeros_like(c_loss),
+        metrics = {"loss": loss, "c_loss": c_loss, "aux_loss": aux_loss,
                    "n_tokens": n_tokens, "grad_norm": gnorm}
         return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
 

@@ -9,14 +9,17 @@
                                                parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,
                                                decode_gptq,serve_magic,decode_magic,serve_w3,
                                                train_parity,train_qpeft7b,train_full,
-                                               finetune,parity_ffn,serve_ffn,decode_ffn,
+                                               finetune,pretrain,parity_ffn,serve_ffn,
+                                               decode_ffn,
                                                decode7b_ffn,paged_ro,cp_shards,train_cp,
                                                parity_moe,serve_moe,decode_moe,batcher_moe,
+                                               train_moe,
                                                parity_zoo,serve_falcon40b,decode_falcon40b,
                                                serve_internlm7b,decode_internlm7b,
                                                torch_import,parity_sphinx,serve_sphinx,
                                                score,parity_adapter,serve_adapter,
-                                               parity_sphinx_moe,serve_sphinx_moe,train_mm]
+                                               parity_sphinx_moe,serve_sphinx_moe,
+                                               train_sphinx_moe,train_mm]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
     python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
@@ -123,13 +126,22 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             remat): 1 warm-up and 5 timed steps: ms per step, tokens/s, model
             flops per second, peak memory, the losses (finite, falling: the same
             batch each step), launches per step (forward, recompute, backward),
-            a profiled step split by kernel with the device's idle share;
+            a profiled step split by kernel with the device's idle share; then
+            one step under remat True beside one under "full" (the same loss
+            and grad_norm, 32 flash forwards a step against 64, ms and peak);
   train_full  the 700M-class full finetune (dim 2048, 12 layers, 16 / 8 heads,
-            batch 2 x 2048, f32 masters, AdamW on every leaf), the same figures;
+            batch 2 x 2048, f32 masters, AdamW on every leaf), the same figures
+            (remat True beside "full" too);
   finetune  main_finetune.main at tiny size: a generated alpaca JSON through a
             YAML META config and the byte tokenizer, one epoch with --quant
             --only_save_trainable, the optimizer state read back bit for bit,
             and a second call that resumes for the next epoch;
+  pretrain  main_pretrain.main over packed shards the port's tool writes
+            (native.pack_stream's C library asserted): TinyLlama at full width
+            and depth, bf16, 2 x 2048, --checkpointing: ms an iteration,
+            tokens/s, c_loss, peak, launches exact, a profiled iteration; then
+            a 2-layer leg with a save, validation and a resume (iteration,
+            step and the dataset's position carried over);
   parity_ffn  as parity with ffn_fuse (each decode step's FFN one fused kernel
             call: CPU plain version vs card kernel), then on the card the fused
             route against the unfused one (logits at parity's tolerances,
@@ -176,6 +188,12 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   batcher_moe  that model through ContinuousBatcher (4 slots, 64-token pages,
             bf16 pools): 8 requests of 128-token prompts, 32 new tokens; tok/s,
             TTFT, idle share, launches exact (the calls' shapes and routing);
+  train_moe  that model trained with the MoE loss: 2 layers CPU vs card on 64
+            tokens (the card on the CPU's routing), then 1 warm-up and 2 steps
+            at full depth on 1 x 2048, remat "full", every dense leaf trained:
+            ms, tokens/s, metrics, peak, a profiled step, launches exact to
+            the recorded routing, the recompute's routing against the
+            forward's;
   parity_zoo  Falcon-40B and InternLM-7B width (huggingface.co/tiiuae/falcon-40b
             and internlm/internlm-7b config.json), one layer each, W4: the CPU
             against the card through a 2 x 32 prefill and 4 teacher-forced
@@ -233,6 +251,9 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             towers and the 13688-row prefill (row 5's share of its device
             time), decode ms a step, busy and idle, peak GB; the W4 launches
             from the recorded routing;
+  train_sphinx_moe  that model's image step with the MoE loss, its decoder
+            cut to 8 layers, 1 x (1455 + 64) rows (as train_moe); then a
+            narrow SPHINX-MoE (2 layers) image step CPU vs card;
   train_mm  one image training step at small width (llama_ens, TinyLlama
             width, narrow towers) CPU vs card, loss and gradients; then the
             SPHINX-7B QPEFT image step at full width, 4 x (1455 + 512) rows:
@@ -313,6 +334,10 @@ ADAPTER_BATCH = 8
 # examples of 1455 image words and 512 text tokens
 TRAIN_MM_BATCH, TRAIN_MM_TEXT = 4, 512
 TRAIN_MM_ROWS = TRAIN_MM_BATCH * (1455 + TRAIN_MM_TEXT)
+# train_moe: Mixtral-8x7B at 1 x 2048 tokens a step; pretrain: TinyLlama at
+# 2 x 2048
+TRAIN_MOE_ROWS = 2048
+PRETRAIN_BATCH, PRETRAIN_WORDS = 2, 2048
 KERNEL_NAMES = ("w4_matmul", "w4_matmul_bigm", "decode_attention", "decode_attention8",
                 "decode_attention_ro", "decode_attention8_ro", "decode_attention_mha",
                 "decode_attention_mha8", "decode_attention_mha_ro", "decode_attention_mha8_ro",
@@ -1813,6 +1838,10 @@ def phase_kernels(seed: int, names=None):
                            for nm, k, n in MIXTRAL_PROJ], tag="sphinx_moe")
         # -- the image training step (train_mm): 4 x (1455 + 512) rows through
         #    the 7B separate projections (training composes them unfused)
+        # -- Mixtral's training step (train_moe): 1 x 2048 rows through each
+        #    projection and expert product, forward and recompute
+        _kernels_bigm(kr, [(nm, k, n, TRAIN_MOE_ROWS) for nm, k, n in MIXTRAL_PROJ],
+                      tag="train_moe")
         _kernels_bigm(kr, [(nm, k, n, TRAIN_MM_ROWS)
                            for nm, k, n in (("wq/wk/wv/wo", 4096, 4096), ("w1/w3", 4096, 11008),
                                             ("w2", 11008, 4096))], tag="train_mm")
@@ -1909,7 +1938,9 @@ def phase_kernels(seed: int, names=None):
                             ("sphinx_moe", SPHINX_BATCH, _sphinx_shapes()["prefill_positions"],
                              32, 8, 128),
                             ("train_mm", TRAIN_MM_BATCH, TRAIN_MM_ROWS // TRAIN_MM_BATCH,
-                             32, 32, 128)))
+                             32, 32, 128),
+                            ("train_moe", 1, TRAIN_MOE_ROWS, 32, 8, 128),
+                            ("pretrain", PRETRAIN_BATCH, PRETRAIN_WORDS, 32, 4, 64)))
 
     if want("kv_write"):
         # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
@@ -1983,11 +2014,14 @@ def phase_kernels(seed: int, names=None):
         #    train_parity's TinyLlama GQA (4 x 256, 32 / 4, head_dim 64) and a
         #    ragged length
         _kernels_dequant(kr, [("7b wq/wk/wv/wo", 4096, 4096), ("7b w1/w3", 4096, 11008),
-                              ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)])
+                              ("7b w2", 11264, 4096), ("tiny w1/w3", 2048, 5632)]
+                         + [("mixtral " + nm, k, n) for nm, k, n in MIXTRAL_PROJ])
         _kernels_flash_bwd(kr, [("7b", 8, 512, 32, 32, 128), ("700m", 2, 2048, 16, 8, 128),
                                 ("tiny", 4, 256, 32, 4, 64), ("ragged", 2, 77, 32, 4, 64),
                                 ("train_mm", TRAIN_MM_BATCH, TRAIN_MM_ROWS // TRAIN_MM_BATCH,
-                                 32, 32, 128)])
+                                 32, 32, 128),
+                                ("train_moe", 1, TRAIN_MOE_ROWS, 32, 8, 128),
+                                ("pretrain", PRETRAIN_BATCH, PRETRAIN_WORDS, 32, 4, 64)])
 
     if want("w8_matmul"):
         # -- W8A16 (serve7b_w8 / decode7b_w8 / parity_w8): the 7B projections at
@@ -3609,15 +3643,17 @@ def _token_batch(seed: int, b: int, s: int, vocab: int):
             "labels": rng.randint(3, vocab, (b, s)).astype(np.int32)}
 
 
-def _train_counts(n_layers: int, qpeft: bool, bigm: bool, steps: int = 1):
+def _train_counts(n_layers: int, qpeft: bool, bigm: bool, steps: int = 1, remat="full"):
     """Launches of ``steps`` training steps with every layer checkpointed:
-    the forward, its recompute in the backward, and the backward."""
+    the forward, its recompute in the backward (under ``remat`` True the
+    flash output is kept: no flash launch), and the backward."""
     w4 = "w4_matmul_bigm" if bigm else "w4_matmul"
     fwd = _zero_counts(flash_attention=n_layers, **({w4: 7 * n_layers} if qpeft else {}))
+    rec = dict(fwd, flash_attention=0) if remat is True else fwd
     bwd = _zero_counts(flash_attention_bwd_dq=n_layers, flash_attention_bwd_dkdv=n_layers,
                        **({"w4_dequant": 7 * n_layers} if qpeft else {}))
-    total = {k: steps * (2 * fwd[k] + bwd[k]) for k in fwd}
-    return {"forward": fwd, "recompute": fwd, "backward": bwd}, total
+    total = {k: steps * (fwd[k] + rec[k] + bwd[k]) for k in fwd}
+    return {"forward": fwd, "recompute": rec, "backward": bwd}, total
 
 
 def phase_train_parity(seed: int):
@@ -3739,14 +3775,15 @@ def _matmul_params(params) -> int:
 
 
 def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpeft: bool,
-                lr: float, steps: int = 5):
+                lr: float, steps: int = 5, compare_remat: bool = False):
     """One model's training step at full width and depth: 1 warm-up step and
     ``steps`` timed steps on the same random token batch (so the loss must
     fall), every layer checkpointed; ms per step, tokens/s, model flops per
     second against 989 TFLOP/s (bench_all.py's count: 4N + 3 attention for
     QPEFT, 6N + 3 attention for full finetuning), peak memory, each step's
     loss, launch counts per step (exact), and one profiled step split by
-    kernel."""
+    kernel. ``compare_remat``: then one step under remat "full" beside one
+    under True (``_remat_compare``)."""
     import torch
 
     from accessory_tpu_torch import kernels
@@ -3780,6 +3817,8 @@ def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpef
     model_tok = (4 if qpeft else 6) * n_mm + 3 * attn
     hw_tok = (6 if qpeft else 8) * n_mm + 4 * attn
     state, prof = _split_profile(step, state, data, ms)
+    remat_cmp = (_remat_compare(args, state.params, trainable, data, lr, qpeft,
+                                batch * seq_len >= 1024) if compare_remat else None)
     row = {"phase": phase, "layers": args.n_layers, "dim": args.dim,
            "heads": [args.n_heads, args.kv_heads], "batch": [batch, seq_len],
            "mode": "QPEFT (W4 g128 base, LoRA 16, bias, norm)" if qpeft
@@ -3791,12 +3830,15 @@ def phase_train(phase: str, cfg: dict, seed: int, batch: int, seq_len: int, qpef
            "hw_flops_per_token": hw_tok, "peak_bytes": peak, "losses": losses,
            "launches_per_step": {k: v // steps for k, v in counts.items()},
            "launches_per_step_by_pass": by_pass, "launches": counts,
-           "launches_expected": want, "profile": prof}
+           "launches_expected": want, "profile": prof,
+           **({"remat_compare": remat_cmp} if remat_cmp else {})}
     emit(row)
     if counts != want:
         raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: losses not finite and falling: {losses}")
+    if remat_cmp and not remat_cmp["agree"]:
+        raise AssertionError(f"{phase}: remat True against full: {remat_cmp}")
     del state, params, step, tx
     torch.cuda.empty_cache()
     return counts
@@ -4289,7 +4331,8 @@ def phase_finetune(seed: int):
         secs = time.perf_counter() - t0
         counts = kernels.launch_counts()
         steps = int(state.step)
-        _, want = _train_counts(2, True, False, steps)
+        # --checkpointing is remat True: each layer's flash output kept
+        _, want = _train_counts(2, True, False, steps, remat=True)
         back, _, _ = resume_stage2(f"{tmp}/out/epoch0", state)
         same = all(torch.equal(back.opt_state[part][k], v)
                    for part in ("mu", "nu") for k, v in state.opt_state[part].items())
@@ -5924,7 +5967,7 @@ def phase_serve_sphinx_moe(seed: int):
     slab write a layer, the fused GQA decode a layer a step, the W4 entries
     from the routing the run recorded (4 + 3 x touched experts a layer a
     forward), its decode timed on CUDA events. Setup s and peak GB. Returns
-    the caption run's counts."""
+    the caption run's counts and the model."""
     import torch
 
     from accessory_tpu_torch import kernels
@@ -6018,9 +6061,7 @@ def phase_serve_sphinx_moe(seed: int):
             or len(log) != n_layers * (1 + (1 if gen.graphs else steps))):
         raise AssertionError(f"serve_sphinx_moe: launch counts {counts} != {want}, "
                              f"{decode_calls} timed decode forwards, {steps} steps")
-    del model
-    torch.cuda.empty_cache()
-    return counts
+    return counts, model
 
 
 # the image step's small-width parity: SPHINX (llama_ens, one 224-px crop:
@@ -6168,16 +6209,448 @@ def phase_train_mm(seed: int, steps: int = 2):
     return counts
 
 
+# ---------------------------------------------------------------- the rest of training
+
+
+
+def _moe_train_counts(log, n_layers: int) -> dict:
+    """Launches of one Mixtral training step with every layer checkpointed
+    ("full") from the routing it recorded (``record_routing``: the forward's
+    entries, then the recompute's, which replay them): the forward and the
+    recompute each launch wq, wk, wv, wo and w1 / w3 / w2 of every touched
+    expert on all rows (row 5 from 1024 rows, row 1's tile below), the
+    backward one W4 dequant a product and the flash backward a layer."""
+    fwd = [e for e in log if not e.get("replayed")]
+    if len(fwd) != n_layers or len(log) != 2 * n_layers:
+        raise AssertionError(f"{len(fwd)} forward and {len(log) - len(fwd)} recompute "
+                             f"routings for {n_layers} layers")
+    w4 = sum(4 + 3 * sum(e["touched"]) for e in fwd)
+    name = "w4_matmul_bigm" if fwd[0]["rows"] >= 1024 else "w4_matmul"
+    return _zero_counts(**{name: 2 * w4}, w4_dequant=w4, flash_attention=2 * n_layers,
+                        flash_attention_bwd_dq=n_layers, flash_attention_bwd_dkdv=n_layers)
+
+
+def _recompute_routing(log, n_layers: int) -> dict:
+    """The recompute's routing against the forward's: the experts each
+    recomputed layer took (replayed: equal to the forward's, asserted) and
+    the rows where its own router scores would have chosen others."""
+    import torch
+
+    fwd, rec = log[:n_layers], log[n_layers:][::-1]       # the backward runs the layers last first
+    rerouted = 0
+    for f, r in zip(fwd, rec):
+        if not (r.get("replayed") and torch.equal(r["idx"], f["idx"])
+                and r["touched"] == f["touched"]):
+            raise AssertionError("train_moe: a recompute did not route as its forward")
+        own = r["own_idx"].sort(dim=-1).values.cpu().to(f["idx"].dtype)
+        rerouted += int((own != f["idx"].sort(dim=-1).values).any(dim=-1).sum())
+    return {"layers_replayed": len(rec), "rows_own_scores_would_reroute": rerouted}
+
+
+def _train_sub(model, n_layers: int):
+    """The first ``n_layers`` of a model's params (the same tensors) and args."""
+    import dataclasses
+
+    params = dict(model.params, layers=model.params["layers"][:n_layers])
+    return params, dataclasses.replace(model.args, n_layers=n_layers)
+
+
+def _moe_train_parity(phase: str, desc: str, module, args, params, batch, trainable,
+                      device="cuda"):
+    """One training step with the MoE loss on the CPU through the plain
+    versions and on ``device`` through the kernels, same weights (each side
+    its own f32 masters) and batch, every layer kept (remat False); the card
+    runs inside the CPU's recorded routing (``ops.moe.routing_replay``), so
+    a bf16 tie cannot flip an expert between the two. Held: loss, c_loss and
+    aux_loss to 1e-2 relative, every trainable leaf's gradient to 6e-2
+    relative L2 (tests/test_torch_train_step.py's bf16 TOL), launch counts
+    exact to the routing."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.ops import moe
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+    from accessory_tpu_torch.train.train_step import grads_of
+
+    cpu = _tree_to(params, "cpu")
+    memo, res = [], {}
+    for dev, p in (("cpu", cpu), (device, _tree_to(cpu, device))):
+        p = promote_trainable_params_to_fp32(p, trainable)
+        tx = make_optimizer(p, 1e-4, clip_norm=1.0, trainable=trainable)
+        step = make_train_step(module, args, tx, remat=False, moe_aux=True, device=dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with moe.record_routing() as log, moe.routing_replay(
+                [m.to(dev) for m in memo] if memo else memo):
+            state, m = step(TrainState.create(p, tx), batch)
+            met = {k: float(v) for k, v in m.items()}
+        res[dev] = dict(met=met, secs=time.perf_counter() - t0, counts=kernels.launch_counts(),
+                        log=log, grads={k: g.float().cpu() for k, g in grads_of(state).items()})
+        del state, tx, p
+    c, g = res["cpu"], res[device]
+    paths = sorted(k for k in c["grads"] if trainable(k))
+    worst = max(float((g["grads"][k] - c["grads"][k]).norm()
+                      / c["grads"][k].norm().clamp_min(1e-30)) for k in paths)
+    rows = g["log"][0]["rows"]
+    w4 = sum(4 + 3 * sum(e["touched"]) for e in g["log"])
+    want = _zero_counts(**{"w4_matmul_bigm" if rows >= 1024 else "w4_matmul": w4},
+                        w4_dequant=w4, flash_attention=args.n_layers,
+                        flash_attention_bwd_dq=args.n_layers,
+                        flash_attention_bwd_dkdv=args.n_layers)
+    rel = {k: abs(g["met"][k] - c["met"][k]) / abs(c["met"][k])
+           for k in ("loss", "c_loss", "aux_loss")}
+    row = {"phase": phase, "part": "parity", "model": desc, "rows": rows, "remat": False,
+           "cpu": c["met"], "cuda": g["met"], "rel_err": rel, "worst_grad_rel_l2": worst,
+           "trainable_leaves": len(paths), "cpu_s": c["secs"], "cuda_s": g["secs"],
+           "touched": [e["touched"] for e in g["log"]],
+           "tolerances": {"loss_rel": 1e-2, "grad_rel_l2": 6e-2},
+           "launches": g["counts"], "launches_expected": want}
+    emit(row)
+    if not (max(rel.values()) <= 1e-2 and worst <= 6e-2 and g["counts"] == want
+            and [e["touched"] for e in g["log"]] == [e["touched"] for e in c["log"]]
+            and c["met"]["aux_loss"] > 0):
+        raise AssertionError(f"{phase} parity failed: {row}")
+    return g["counts"]
+
+
+def _moe_steps(phase: str, module, args, params, batch, trainable, steps: int, lr: float,
+               images_rows: int = 0):
+    """A warm-up and ``steps`` timed training steps with the MoE loss, every
+    layer checkpointed ("full"), on the same batch: per step ms, tokens (rows)
+    a second, loss, c_loss, aux_loss, grad_norm and the launch counts, exact
+    to the routing the step recorded, and the recompute's routing against
+    the forward's; then one profiled step (busy ms and idle share,
+    ``util.profiling.busy_profile``). Returns (rows, counts of the timed
+    steps)."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.ops import moe
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+    from accessory_tpu_torch.util import profiling
+
+    params = promote_trainable_params_to_fp32(params, trainable)
+    tx = make_optimizer(params, lr, weight_decay=0.0, clip_norm=1.0, trainable=trainable)
+    holder = [TrainState.create(params, tx)]
+    step = make_train_step(module, args, tx, remat="full", moe_aux=True)
+    n_rows = batch["examples"].shape[0] * batch["examples"].shape[1] + images_rows
+
+    def one():
+        holder[0], m = step(holder[0], batch)
+        return {k: float(v) for k, v in m.items()}
+
+    warm = one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total, per_step = {}, []
+    for _ in range(steps):
+        kernels.reset_launch_counts()
+        with moe.record_routing(detail=True) as log:
+            t1 = time.perf_counter()
+            met = one()
+            ms = (time.perf_counter() - t1) * 1e3
+        counts = kernels.launch_counts()
+        want = _moe_train_counts(log, args.n_layers)
+        if counts != want:
+            raise AssertionError(f"{phase}: launch counts {counts} != expected {want}")
+        _add_counts(total, counts)
+        per_step.append({"ms": ms, "tok_s": n_rows / ms * 1e3, **met,
+                         "touched_mean": _touched_mean(log[:args.n_layers]),
+                         **_recompute_routing(log, args.n_layers)})
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(s["ms"] for s in per_step)
+    prof = profiling.busy_profile(one, 1, wall_ms=ms,
+                                  shares=("w4_bigm_wgmma_kernel", "w4_dequant",
+                                          "flash_fwd_wgmma_kernel", "flash_bwd"))
+    if not all(math.isfinite(s[k]) for s in per_step + [warm]
+               for k in ("loss", "c_loss", "aux_loss", "grad_norm")) \
+            or not all(s["aux_loss"] > 0 for s in per_step):
+        raise AssertionError(f"{phase}: metrics not finite, or aux_loss not > 0: {per_step}")
+    del holder, tx, params
+    return {"rows_per_step": n_rows, "warm_up": warm, "steps": per_step, "ms_per_step": ms,
+            "peak_bytes": peak, "profile": prof}, total
+
+
+def phase_train_moe(model, seed: int, steps: int = 2):
+    """Mixtral-8x7B trained with the MoE loss at full width and depth on the
+    serve phases' model (W4 g128 experts and attention, router f32, from
+    --seed): first a parity of its first 2 layers, CPU against the card, on
+    1 x 64 tokens (``_moe_train_parity``); then a warm-up and ``steps``
+    timed steps on 1 x TRAIN_MOE_ROWS tokens, ``moe_aux``, remat "full", the W4 base
+    frozen and every dense leaf trained (norms, router, embedding, head) as
+    f32 masters (``_moe_steps``: rows 5, 6, 3 and 3b, launches exact to the
+    recorded routing, the recompute routed as the forward). Returns the
+    counts of the timed steps."""
+    import torch
+
+    from accessory_tpu_torch.models import mixtral
+
+    trainable = mixtral.get_trainable_params_filter(model.args)
+    sub, args2 = _train_sub(model, 2)
+    _moe_train_parity("train_moe", "Mixtral-8x7B width, 2 layers, W4 g128", mixtral, args2,
+                      sub, _token_batch(seed, 1, 64, args2.vocab_size), trainable)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res, counts = _moe_steps("train_moe", mixtral, model.args, model.params,
+                             _token_batch(seed, 1, TRAIN_MOE_ROWS, model.args.vocab_size),
+                             trainable, steps, lr=1e-5)
+    emit({"phase": "train_moe", "part": "full width and depth",
+          "model": "Mixtral-8x7B shape, W4 g128 experts and attention, router f32",
+          "layers": model.args.n_layers, "batch": [1, TRAIN_MOE_ROWS], "remat": "full",
+          "moe_aux": True, "trained": "every dense leaf (norms, router, embedding, head), "
+          "f32 masters; W4 frozen", "seconds": time.perf_counter() - t0, **res,
+          "launches": counts})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# SPHINX-MoE's training step: one 448-px image (1455 image words) and 64 text
+# tokens; its decoder cut to TRAIN_SPHINX_MOE_LAYERS of 32 layers to fit the run
+TRAIN_SPHINX_MOE_TEXT, TRAIN_SPHINX_MOE_LAYERS = 64, 8
+
+
+def phase_train_sphinx_moe(model, seed: int, steps: int = 1):
+    """SPHINX-MoE (mixtral_sparse_ens5) trained with the MoE loss on the
+    model ``phase_serve_sphinx_moe`` built (full width: Mixtral-8x7B W4 g128,
+    the production towers f32 and frozen), its decoder cut to its first
+    TRAIN_SPHINX_MOE_LAYERS layers: a warm-up and ``steps`` timed image
+    steps of 1 x (1455 + TRAIN_SPHINX_MOE_TEXT) rows (``_moe_steps``). Returns
+    the timed steps' counts."""
+    import torch
+
+    sub, args = _train_sub(model, TRAIN_SPHINX_MOE_LAYERS)
+    trainable = model.module.get_trainable_params_filter(model.args)
+    batch = _mm_batch(seed, 1, TRAIN_SPHINX_MOE_TEXT, 448, args.vocab_size, "cuda")
+    t0 = time.perf_counter()
+    res, counts = _moe_steps("train_sphinx_moe", model.module, args, sub, batch, trainable,
+                             steps, lr=1e-5, images_rows=1455)
+    emit({"phase": "train_sphinx_moe", "part": "full width, depth cut",
+          "model": f"SPHINX-MoE (mixtral_sparse_ens5), Mixtral-8x7B width W4 g128, the first "
+          f"{TRAIN_SPHINX_MOE_LAYERS} of {model.args.n_layers} layers, towers f32 frozen",
+          "batch": [1, TRAIN_SPHINX_MOE_TEXT], "image_words": 1455, "remat": "full",
+          "moe_aux": True, "seconds": time.perf_counter() - t0, **res, "launches": counts})
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_sphinx_moe_parity(seed: int):
+    """A narrow SPHINX-MoE (SPHINX_MOE_NARROW: 2 layers, 4 experts top 2,
+    narrow towers at 448 px, 1455 image words) image step with the MoE loss,
+    CPU against the card (``_moe_train_parity``, W4 g128 decoder, every dense
+    decoder leaf trained, towers frozen), on one image and 32 text tokens."""
+    from accessory_tpu_torch.meta import MetaModel
+
+    model = MetaModel(SPHINX_MOE_TYPE, dict(SPHINX_MOE_NARROW, n_layers=2), max_seq_len=2048,
+                      seed=seed, device="cpu")
+    model.quantize()
+    trainable = model.module.get_trainable_params_filter(model.args)
+    batch = _mm_batch(seed, 1, 32, 448, model.args.vocab_size)
+    return _moe_train_parity("train_sphinx_moe", "SPHINX-MoE narrow (SPHINX_MOE_NARROW, 2 "
+                             "layers), W4 g128, 1 image of 1455 words + 32 tokens",
+                             model.module, model.args, model.params, batch, trainable)
+
+
+def _pretrain_args(tmp: str, cfg_path: str, out: str, iters: int, freq: int):
+    from accessory_tpu_torch import main_pretrain
+
+    return main_pretrain.get_args_parser().parse_args([
+        "--llama_config", cfg_path, "--tokenizer_path", "unused", "--data_meta_path",
+        f"{tmp}/packed", "--packed_data", "--output_dir", out, "--batch_size",
+        str(PRETRAIN_BATCH), "--max_words", str(PRETRAIN_WORDS), "--precision", "bf16",
+        "--checkpointing", "--max_iters", str(iters), "--save_freq", str(freq), "--val_freq",
+        str(freq), "--val_iters", "1", "--warmup_iters", "1", "--lr_decay_iters", "100",
+        "--lr", "3e-4", "--log_every", "1000"])
+
+
+def phase_pretrain(seed: int, iters: int = 5):
+    """Pretraining through ``main_pretrain.main``: packed train and
+    validation shards written from seeded tokens by the port's tool
+    (``tools.generate_packed_data.pack_tokens`` over ``native.pack_stream``,
+    the C library built on the card, asserted), then TinyLlama at full width
+    and depth (22 layers, bf16 weights and AdamW moments, no f32 masters, as
+    the reference's loop), ``--checkpointing`` (the selective remat),
+    PRETRAIN_BATCH x PRETRAIN_WORDS tokens an iteration, ``iters``
+    iterations: per iteration ms, tokens/s and c_loss (finite), peak memory,
+    launch counts exact (22 flash forwards an iteration: the selective remat
+    keeps each layer's flash output), the last iteration profiled (busy ms
+    and idle share against the others' median). Then the save, validation
+    and resume leg at 2 layers: 2 iterations with a save and a validation at iteration
+    2, and a second call resuming to 4: the iteration, the step and the
+    dataset position carried over, validation losses finite. Returns the
+    full-width run's counts."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch import kernels, main_pretrain, native, train
+    from accessory_tpu_torch.tools.generate_packed_data import pack_tokens
+    from accessory_tpu_torch.util import profiling
+
+    if not native.available():
+        raise AssertionError(f"pretrain: the native library did not build: {native.build_error}")
+    rec, prof = [], {}
+    inner = train.make_train_step
+
+    def recording(*a, **k):
+        step = inner(*a, **k)
+
+        def run(state, batch):
+            out = {}
+            t1 = time.perf_counter()
+            if profile_last and len(rec) == iters - 1:
+                wall = statistics.median(r["ms"] for r in rec[1:])
+                prof.update(profiling.busy_profile(lambda: out.update(r=step(state, batch)), 1,
+                                                   wall_ms=wall, shares=("flash_",)))
+            else:
+                out["r"] = step(state, batch)
+            state, m = out["r"]
+            c = float(m["c_loss"])
+            rec.append({"ms": (time.perf_counter() - t1) * 1e3, "c_loss": c,
+                        "grad_norm": float(m["grad_norm"])})
+            return state, m
+
+        return run
+
+    rng = np.random.RandomState(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/packed")
+        for name, rows in (("train", PRETRAIN_BATCH * (iters + 2)), ("val", 4)):
+            pack_tokens(rng.randint(3, TINYLLAMA["vocab_size"], rows * PRETRAIN_WORDS),
+                        f"{tmp}/packed/{'a' if name == 'train' else 'b'}_{name}.pkl",
+                        PRETRAIN_WORDS)
+        for n_layers in (TINYLLAMA["n_layers"], 2):
+            with open(f"{tmp}/cfg{n_layers}.json", "w") as f:
+                json.dump(dict(TINYLLAMA, n_layers=n_layers), f)
+        train.make_train_step = recording
+        profile_last = True
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            full_cfg = f"{tmp}/cfg{TINYLLAMA['n_layers']}.json"
+            state = main_pretrain.main(_pretrain_args(tmp, full_cfg, f"{tmp}/full", iters, 1000),
+                                       tokenizer=ByteTokenizer())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            full = list(rec)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec.clear()
+            profile_last = False
+            leg = []
+            for it in (2, 4):
+                st = main_pretrain.main(_pretrain_args(tmp, f"{tmp}/cfg2.json", f"{tmp}/leg", it,
+                                                       2), tokenizer=ByteTokenizer())
+                leg.append(int(st.step))
+            ds = [json.loads(open(f"{tmp}/leg/epoch0-iter{i}/dataset-shard-0.json").read())
+                  for i in (2, 4)]
+            logs = [json.loads(x) for x in open(f"{tmp}/leg/log.txt").read().splitlines()]
+        finally:
+            train.make_train_step = inner
+    layers = TINYLLAMA["n_layers"]
+    want = _zero_counts(flash_attention=layers * iters, flash_attention_bwd_dq=layers * iters,
+                        flash_attention_bwd_dkdv=layers * iters)
+    tok = PRETRAIN_BATCH * PRETRAIN_WORDS
+    timed = [r["ms"] for r in full[1:-1]]
+    row = {"phase": "pretrain", "model": "TinyLlama-1.1B shape, bf16, every leaf trained",
+           "batch": [PRETRAIN_BATCH, PRETRAIN_WORDS], "iterations": iters,
+           "remat": "True (--checkpointing: selective)", "native_c_library": True,
+           "seconds": secs, "per_iteration": full,
+           "ms_per_iteration": statistics.median(timed),
+           "tok_s": tok / statistics.median(timed) * 1e3, "peak_bytes": peak, "profile": prof,
+           "launches": counts, "launches_expected": want,
+           "leg_2_layers": {"steps_after_each_call": leg, "dataset_state": ds, "log": logs,
+                            "c_loss": [r["c_loss"] for r in rec]}}
+    emit(row)
+    if counts != want or len(full) != iters or not all(math.isfinite(r["c_loss"]) for r in full):
+        raise AssertionError(f"pretrain: {row}")
+    if (leg != [2, 4] or len(rec) != 4 or ds[0] == ds[1]
+            or ds[1] != {"_file_idx": 0, "_curr_idx": 4 * PRETRAIN_BATCH}
+            or [x["iter"] for x in logs] != [2, 4]
+            or not all(math.isfinite(x["val_loss"]) for x in logs)):
+        raise AssertionError(f"pretrain: the save / resume leg went wrong: {row['leg_2_layers']}")
+    return counts
+
+
+def _remat_compare(args, params, trainable, data, lr: float, qpeft: bool, bigm: bool):
+    """Steps under remat "full" and under True (the selective policy) in turns
+    (full, True, True, full), each turn from the same trainable leaves and a
+    fresh optimizer state: its first step's loss and grad_norm (held to 1e-3
+    relative: the two recompute the same products on the same inputs) and
+    launch counts (exact: True keeps the flash forward's output, one flash
+    forward a layer and not two, and recomputes the W4 products), then two
+    timed steps; ms a step (the median over a setting's turns) and the peak
+    memory of each."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.models import llama
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.tree import named_leaves
+
+    leaves = {k: v for k, v in named_leaves(params) if trainable(k)}
+    snapshot = {k: v.detach().clone() for k, v in leaves.items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, v in leaves.items():
+                v.copy_(snapshot[k])
+
+    out = {"full": {"ms_all": [], "peak_bytes": 0}, "True": {"ms_all": [], "peak_bytes": 0}}
+    for remat in ("full", True, True, "full"):
+        res = out[str(remat)]
+        restore()
+        tx = make_optimizer(params, lr, weight_decay=0.02, clip_norm=2.0, trainable=trainable)
+        step = make_train_step(llama, args, tx, remat=remat)
+        state = TrainState.create(params, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state, m = step(state, data)
+        if "loss" not in res:
+            res.update({k: float(m[k]) for k in ("loss", "grad_norm")},
+                       counts=kernels.launch_counts())
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, data)
+            float(m["c_loss"])
+            res["ms_all"].append((time.perf_counter() - t1) * 1e3)
+        res["peak_bytes"] = max(res["peak_bytes"], torch.cuda.max_memory_allocated())
+        del state, tx
+    restore()
+    for res in out.values():
+        res["ms"] = statistics.median(res["ms_all"])
+    _, want = _train_counts(args.n_layers, qpeft, bigm)
+    _, want_sel = _train_counts(args.n_layers, qpeft, bigm, remat=True)
+    full, sel = out["full"], out["True"]
+    ok = (full["counts"] == want and sel["counts"] == want_sel
+          and all(abs(sel[k] - full[k]) <= 1e-3 * abs(full[k]) for k in ("loss", "grad_norm")))
+    return {"remat_full": full, "remat_true": sel, "launches_expected_true": want_sel,
+            "tolerance_rel": 1e-3, "agree": ok}
+
+
 ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
               "decode_gptq,serve_magic,decode_magic,serve_w3,train_parity,train_qpeft7b,"
-              "train_full,finetune,parity_ffn,serve_ffn,graphs,decode_ffn,decode7b_ffn,paged_ro,"
-              "cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,parity_zoo,"
+              "train_full,finetune,pretrain,parity_ffn,serve_ffn,graphs,decode_ffn,decode7b_ffn,"
+              "paged_ro,cp_shards,train_cp,parity_moe,serve_moe,decode_moe,batcher_moe,train_moe,"
+              "parity_zoo,"
               "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,"
               "serve_falcon7b,decode_falcon7b,torch_import,"
               "parity_sphinx,serve_sphinx,score,parity_adapter,serve_adapter,parity_sphinx_moe,"
-              "serve_sphinx_moe,train_mm")
+              "serve_sphinx_moe,train_sphinx_moe,train_mm")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
                      "graphs", "decode_ffn")
@@ -6301,7 +6774,7 @@ def main() -> int:
                 model.kv_dtype = None
                 model._reset_generator()
                 for fuse in (True, False, False, True):
-                    counts = phase_decode("decode_ffn", model, None, steps=100, ffn_fuse=fuse)
+                    counts = phase_decode("decode_ffn", model, None, steps=50, ffn_fuse=fuse)
                     if fuse:
                         _add_counts(bench, counts)
                 counts_by_path["tiny ffn bench"] = bench
@@ -6333,7 +6806,7 @@ def main() -> int:
                 model.kv_dtype = None
                 model._reset_generator()
                 for fuse in (True, False, False, True):
-                    counts = phase_decode("decode7b_ffn", model, None, steps=50, ffn_fuse=fuse)
+                    counts = phase_decode("decode7b_ffn", model, None, steps=30, ffn_fuse=fuse)
                     if fuse:
                         _add_counts(bench, counts)
                 counts_by_path["7b ffn"] = bench
@@ -6385,12 +6858,17 @@ def main() -> int:
         if "train_qpeft7b" in phases:
             counts_by_path["train qpeft7b"] = phase_train(
                 "train_qpeft7b", dict(LLAMA2_7B, **QPEFT), opts.seed, 8, 512, qpeft=True,
-                lr=1e-3)
+                lr=1e-3, compare_remat=True)
         if "train_full" in phases:
             counts_by_path["train full"] = phase_train("train_full", LLAMA_700M, opts.seed, 2,
-                                                       2048, qpeft=False, lr=1e-4)
+                                                       2048, qpeft=False, lr=1e-4,
+                                                       compare_remat=True)
         if "finetune" in phases:
             counts_by_path["finetune"] = phase_finetune(opts.seed)
+        if "pretrain" in phases:
+            counts_by_path["pretrain"] = phase_pretrain(opts.seed)
+            gc.collect()
+            torch.cuda.empty_cache()
         if "compare" in phases:
             phase_compare(opts.seed, opts.kernel_names and opts.kernel_names.split(","))
         if "cp_shards" in phases:
@@ -6399,7 +6877,7 @@ def main() -> int:
             counts_by_path["train cp"] = phase_train_cp(opts.seed)
         if "parity_moe" in phases:
             phase_parity_moe(opts.seed)
-        if any(ph in phases for ph in ("serve_moe", "decode_moe", "batcher_moe")):
+        if any(ph in phases for ph in ("serve_moe", "decode_moe", "batcher_moe", "train_moe")):
             # Mixtral-8x7B W4 (~27 GB) on the card: every earlier model is freed
             gc.collect()
             torch.cuda.empty_cache()
@@ -6415,6 +6893,9 @@ def main() -> int:
                 counts_by_path["mixtral bench"] = bench
             if "batcher_moe" in phases:
                 counts_by_path["mixtral batcher"] = phase_batcher_moe(model)
+            if "train_moe" in phases:
+                # last on this model: the step trains its router in place
+                counts_by_path["train moe"] = phase_train_moe(model, opts.seed)
             del model
             torch.cuda.empty_cache()
         if "parity_zoo" in phases:
@@ -6473,13 +6954,18 @@ def main() -> int:
             phase_parity_sphinx_moe(opts.seed)
             gc.collect()
             torch.cuda.empty_cache()
-        if "serve_sphinx_moe" in phases:
+        if "serve_sphinx_moe" in phases or "train_sphinx_moe" in phases:
             # SPHINX-MoE on the card (~36 GB): every earlier model is freed
             gc.collect()
             torch.cuda.empty_cache()
-            counts_by_path["sphinx-moe caption"] = phase_serve_sphinx_moe(opts.seed)
+            counts_by_path["sphinx-moe caption"], model = phase_serve_sphinx_moe(opts.seed)
+            if "train_sphinx_moe" in phases:
+                counts_by_path["train sphinx-moe"] = phase_train_sphinx_moe(model, opts.seed)
+            del model
             gc.collect()
             torch.cuda.empty_cache()
+        if "train_sphinx_moe" in phases:
+            counts_by_path["train sphinx-moe parity"] = phase_train_sphinx_moe_parity(opts.seed)
         if "train_mm" in phases:
             counts_by_path["train mm parity"] = phase_train_mm_parity(opts.seed)
             gc.collect()

@@ -41,7 +41,9 @@ flash at 71 / 1 heads, the slab writes of one KV head, one full-width
 layer card against CPU); and SPHINX's f32 towers, flash at a SPHINX-7B prefill length (a ragged tail
 tile) and small SPHINX models (ens, ens5p2: encode_image, the multimodal
 prefill and decode steps at positions shifted by the image words), card
-against CPU.
+against CPU; and training: remat=True against "full" (the flash output
+kept, the W4 products recomputed) and a small Mixtral step with the MoE
+loss, card against CPU on the CPU's routing.
 Each test carries the ``cuda`` marker, needs a CUDA device and skips without one
 (decided inside the fixture). On the card:
 
@@ -2320,6 +2322,93 @@ def test_mha8_every_byte_value(gen, write, hd, s_len, pos):
         got = _one_more("decode_attention_mha8_ro",
                         lambda: cached_attention_t8(q, kn, vn, *pools, pos))
         assert_close(got, cached_attention_decode8_plain(q, kn, vn, *pools2, pos))
+
+
+def test_remat_selective_keeps_the_flash_output(gen):
+    """The QPEFT step of test_small_model_train_step_cuda_matches_cpu under
+    remat=True and "full" on the card: the selective policy keeps each
+    layer's flash output (2 forward launches a step, not 4) and recomputes
+    the W4 products (28 under both); the same loss and gradients."""
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+    from accessory_tpu_torch.train.train_step import grads_of
+
+    args = LLaMAArgs(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512,
+                     multiple_of=128, max_seq_len=128, dtype="bfloat16", lora_rank=8,
+                     bias_tuning=True, norm_tuning=True)
+    trainable = llama.get_trainable_params_filter(args)
+    toks = torch.randint(1, 512, (2, 2, 96), generator=torch.Generator().manual_seed(0))
+    batch = {"examples": toks[0], "labels": toks[1]}
+    res = {}
+    for remat in ("full", True):
+        params = promote_trainable_params_to_fp32(
+            quantize_params(llama.init_params(args, seed=5)), trainable)
+        tx = make_optimizer(params, 1e-3, clip_norm=1.0, trainable=trainable)
+        kernels.reset_launch_counts()
+        state, m = make_train_step(llama, args, tx, remat=remat)(TrainState.create(params, tx),
+                                                                 batch)
+        res[remat] = (float(m["c_loss"]), {k: g.float().cpu() for k, g in
+                                           grads_of(state).items()}, kernels.launch_counts())
+    (lf, gf, cf), (ls, gs, cs) = res["full"], res[True]
+    assert cf["flash_attention"] == 4 and cs["flash_attention"] == 2
+    assert cf["w4_matmul"] == cs["w4_matmul"] == 28
+    assert cf["w4_dequant"] == cs["w4_dequant"] == 14
+    assert abs(ls - lf) <= 1e-6 * abs(lf)
+    for path, g in gf.items():
+        err = float((gs[path] - g).norm() / g.norm().clamp_min(1e-30))
+        assert err <= 1e-3, (path, err)
+
+
+def test_small_mixtral_moe_aux_step_cuda_matches_cpu(gen):
+    """One Mixtral training step with the MoE loss (2 layers, dim 256, 4
+    experts of 256, W4 g128 experts and attention, every dense leaf
+    trained) on the card and on the CPU from the same weights and batch, the
+    card routing as the CPU did (its step runs inside the CPU's recorded
+    routing, ops.moe.routing_replay, so a bf16 tie cannot flip an expert):
+    loss, c_loss and aux_loss to 1e-2 relative, every trainable gradient to
+    5e-2 relative L2 (test_small_model_train_step_cuda_matches_cpu's), and
+    the card's W4 launches exact to the routing: per microbatch-layer 4 + 3 x
+    touched on row 1's tile (192 rows) and as many dequants in the
+    backward."""
+    from accessory_tpu_torch.config import MixtralArgs
+    from accessory_tpu_torch.models import mixtral
+    from accessory_tpu_torch.ops import moe
+    from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from accessory_tpu_torch.train.precision import promote_trainable_params_to_fp32
+    from accessory_tpu_torch.train.train_step import grads_of
+
+    args = MixtralArgs(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=256,
+                       num_experts=4, vocab_size=512, max_seq_len=128, dtype="bfloat16")
+    trainable = mixtral.get_trainable_params_filter(args)
+    params = promote_trainable_params_to_fp32(
+        quantize_params(mixtral.init_params(args, seed=2), blocklist=["gate", "norm",
+                                                                      "tok_embeddings",
+                                                                      "output"]), trainable)
+    toks = torch.randint(1, 512, (2, 2, 96), generator=torch.Generator().manual_seed(0))
+    batch = {"examples": toks[0], "labels": toks[1]}
+    memo, res = [], {}
+    for device in ("cpu", "cuda"):
+        p = _to(params, device)
+        tx = make_optimizer(p, 1e-3, clip_norm=1.0, trainable=trainable)
+        step = make_train_step(mixtral, args, tx, remat=False, moe_aux=True, device=device)
+        kernels.reset_launch_counts()
+        with moe.record_routing() as log, moe.routing_replay([m.to(device) for m in memo]
+                                                              if memo else memo):
+            state, m = step(TrainState.create(p, tx), batch)
+        res[device] = ({k: float(v) for k, v in m.items()},
+                       {k: g.float().cpu() for k, g in grads_of(state).items()},
+                       kernels.launch_counts(), log)
+    (mg, gg, counts, glog), (mc, gc, _, clog) = res["cuda"], res["cpu"]
+    assert [e["touched"] for e in glog] == [e["touched"] for e in clog]
+    for key in ("loss", "c_loss", "aux_loss"):
+        assert abs(mg[key] - mc[key]) <= 1e-2 * abs(mc[key]), key
+    for path in tx.labels:
+        if tx.labels[path] != "frozen":
+            err = float((gg[path] - gc[path]).norm() / gc[path].norm().clamp_min(1e-30))
+            assert err <= 5e-2, (path, err)
+    w4 = sum(4 + 3 * sum(e["touched"]) for e in glog)
+    assert counts["w4_matmul"] == counts["w4_dequant"] == w4
+    assert counts["flash_attention"] == counts["flash_attention_bwd_dq"] == 2
 
 
 # ---------------------------------------------------------------- Mixtral-8x7B shapes

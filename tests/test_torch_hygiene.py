@@ -1,8 +1,9 @@
 """Port hygiene: accessory_tpu_torch imports neither JAX nor accessory_tpu
 (checked in a fresh interpreter and by an AST scan), its serving and
-checkpoint paths need neither ``safetensors`` nor ``tokenizers``, and its
+checkpoint paths need neither ``safetensors`` nor ``tokenizers``, its
 entry points default to the CUDA device, so on a host without one they raise
-instead of quietly running on the CPU."""
+instead of quietly running on the CPU, and its native host library is built
+inside the package, never beside the JAX package's source."""
 
 import ast
 import inspect
@@ -23,7 +24,9 @@ from accessory_tpu_torch.demos.server import serve
 from accessory_tpu_torch.engine import kvcache
 from accessory_tpu_torch.engine.generate import Generator
 from accessory_tpu_torch.engine.scheduler import ContinuousBatcher
+from accessory_tpu_torch import native
 from accessory_tpu_torch.main_finetune import main as finetune_main
+from accessory_tpu_torch.main_pretrain import main as pretrain_main
 from accessory_tpu_torch.meta import MetaModel
 from accessory_tpu_torch.checkpoint import visual_import
 from accessory_tpu_torch.models import (falcon, internlm, llama, llama_qformerv2, mixtral, sphinx,
@@ -53,7 +56,8 @@ def test_every_module_imports_without_jax():
                  "models.internlm", "models.falcon", "models.static",
                  "checkpoint.torch_import", "models.visual", "models.sphinx",
                  "models.llama_qformerv2", "checkpoint.visual_import", "data.transform",
-                 "data.data_reader", "sphinx_api", "demos.cli"):
+                 "data.data_reader", "sphinx_api", "demos.cli", "native", "data.falcon",
+                 "data.falcon_packed", "tools.generate_packed_data", "main_pretrain"):
         assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -179,7 +183,8 @@ print('ok')
                                 load_checkpoint_list, llama.init_paged_cache,
                                 kvcache.init_paged_cache, paged_cache_from_jax,
                                 ContinuousBatcher.__init__, serve, make_train_step,
-                                finetune_main, resume_stage1, init_distributed_mode,
+                                finetune_main, pretrain_main, resume_stage1,
+                                init_distributed_mode,
                                 make_mesh, local_mesh, make_global_mesh,
                                 mixtral.init_params, mixtral.init_kv_cache,
                                 mixtral.init_paged_cache, internlm.init_params,
@@ -193,6 +198,22 @@ print('ok')
                                 profiling.roofline_report])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_native_builds_under_the_package(tmp_path, monkeypatch):
+    """The library is built by source hash into ``accessory_tpu_torch/build/``
+    (here redirected to a temporary directory) and nothing is written
+    beside the reference's ``native/packing.cc``."""
+    ref_dir = native.SRC.parents[2] / "native"
+    before = sorted((p.name, p.stat().st_mtime_ns) for p in ref_dir.iterdir())
+    assert native.BUILD_DIR == native.SRC.parents[1] / "build"
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    assert native.available(), native.build_error
+    assert native.lib_path().parent == tmp_path / "build" and native.lib_path().exists()
+    assert native.lib_path().name.startswith("packing-")
+    assert sorted((p.name, p.stat().st_mtime_ns) for p in ref_dir.iterdir()) == before
 
 
 def test_default_device_raises_without_cuda():

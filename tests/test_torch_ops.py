@@ -275,17 +275,30 @@ def test_unported_paths_name_their_queue_item():
     cache = llama.init_kv_cache(args, 1, kv_dtype="int8", device="cpu")
     assert sorted(cache) == ["k", "ks", "v", "vs"]
     assert cache["k"][0].dtype == torch.int8 and cache["vs"][0].shape == (1, 2, 16)
-    # every family of the JAX registry is served; the MoE loss in the
-    # training step waits for A7
+    # every family of the JAX registry is served; the MoE loss trains, under
+    # a context-parallel mesh of more than one rank it waits for A10
     assert get_model_module("llama_ens").__name__.endswith("models.sphinx")
     assert get_model_module("llama_adapter").__name__.endswith("models.llama_adapter")
     assert get_model_module("mixtral_sparse_ens").__name__.endswith("models.sphinx_moe")
     with pytest.raises(KeyError, match="unknown llama_type"):
         get_model_module("llama_nonesuch")
+    from accessory_tpu_torch.parallel.context import make_cp_attn_fn
     from accessory_tpu_torch.train import make_train_step
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_train_step(llama, args, None, moe_aux=True, device="cpu")
+    assert callable(make_train_step(llama, args, None, moe_aux=True, device="cpu"))
+
+    class TwoRankMesh:
+        mesh_dim_names, shape = ("dp", "cp"), (1, 2)
+
+        def get_local_rank(self, axis):
+            return 0
+
+        def get_group(self, axis):
+            return None
+
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_train_step(llama, args, None, moe_aux=True, attn_fn=make_cp_attn_fn(TwoRankMesh()),
+                        device="cpu")
     # per-row positions are served by the paged cache, whose path the message names
     q = torch.zeros((1, 1, 2, 64))
     with pytest.raises(NotImplementedError, match="paged_cached_attention"):

@@ -8,9 +8,9 @@
   projections), and ``grad_norm`` against the norm of the JAX gradients of
   every leaf but the frozen visual ones (the port builds no graph through
   the frozen towers; the JAX package differentiates them and counts them
-  in its norm, ROADMAP "Deliberate differences"); a SPHINX-MoE batch and
-  images under a context-parallel ``attn_fn`` raise with their ROADMAP
-  labels;
+  in its norm, ROADMAP "Deliberate differences"); a SPHINX-MoE batch
+  trains, and images under a context-parallel ``attn_fn`` raise with their
+  ROADMAP label;
 - ``FinetuneDataset``'s image items (PNG files read with PIL, the
   resized-center-crop transform, ``max_words - image_words`` text
   positions), a tab-separated ``.csv`` annotation file and the h5
@@ -156,16 +156,17 @@ def test_image_step_matches_jax(llama_type):
 
 
 def test_refused_image_batches():
-    """A SPHINX-MoE image batch raises naming ROADMAP A7 (its training needs
-    the MoE loss in the step), an image batch under a cp attn_fn A10."""
+    """A SPHINX-MoE image batch trains (ROADMAP A7 is done: the MoE loss is in
+    the step; tests/test_torch_train_moe.py holds it against JAX), an image
+    batch under a cp attn_fn raises naming A10."""
     from accessory_tpu_torch.parallel.context import make_cp_attn_fn
 
     cfg = dict(DECODER, hidden_dim=96, num_experts=4, **TOWERS)
     tm = MetaModel("mixtral_sparse_ens", cfg, max_seq_len=256, device="cpu")
     tx = make_optimizer(tm.params, 1e-3, trainable=tm.module.get_trainable_params_filter(tm.args))
-    step = make_train_step(tm.module, tm.args, tx, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        step(TrainState.create(tm.params, tx), _batch(64))
+    step = make_train_step(tm.module, tm.args, tx, moe_aux=True, device="cpu")
+    _, met = step(TrainState.create(tm.params, tx), _batch(64))
+    assert np.isfinite(float(met["loss"])) and float(met["aux_loss"]) > 0
     step = make_train_step(tm.module, tm.args, tx, attn_fn=make_cp_attn_fn(_OneRankMesh()),
                            device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
