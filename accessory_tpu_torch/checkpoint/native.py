@@ -149,10 +149,28 @@ def save_checkpoint(save_dir: str, params,
                     filter: Optional[Callable[[str], bool]] = None) -> None:
     """Write weights.safetensors (+ quant.json). ``filter(path)`` selects the
     subset to save (trainable-only saves)."""
+    _write_flat(save_dir, flatten_params(params), filter)
+
+
+def save_checkpoint_trees(save_dir: str, trees: Dict[str, Any]) -> None:
+    """Several params trees in one checkpoint dir, each tree's leaves under
+    its name (DiT's ``{"model": params, "ema": ema}``), as the JAX package's
+    save_checkpoint writes such a dict; ``read_checkpoint_tree`` reads it
+    back."""
+    _write_flat(save_dir, {f"{name}/{key}": val for name, tree in trees.items()
+                           for key, val in flatten_params(tree).items()})
+
+
+def _write_flat(save_dir: str, flat: Dict[str, Any],
+                filter: Optional[Callable[[str], bool]] = None,
+                quant_meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``flat`` ({path: array, BF16Bits or a ``#meta`` record}) as
+    weights.safetensors and the records (with ``quant_meta``'s) as
+    quant.json."""
     os.makedirs(save_dir, exist_ok=True)
-    quant_meta: Dict[str, Any] = {}
+    quant_meta = dict(quant_meta or {})
     tensors: Dict[str, np.ndarray] = {}
-    for key, val in flatten_params(params).items():
+    for key, val in flat.items():
         base = key.split("#")[0]
         if filter is not None and not filter(base):
             continue
@@ -211,6 +229,13 @@ def unflatten_params(flat: Dict[str, Any], quant_meta: Dict[str, Any]) -> Dict[s
             act_dtype=meta.get("act_dtype"), layout=meta.get("layout", "std"),
             tile_k=int(meta.get("tile_k", 0)), serve_layout=meta.get("serve_layout")))
     return tree
+
+
+def read_checkpoint_tree(load_dir: str) -> Dict[str, Any]:
+    """A checkpoint dir as the JAX package's nested tree on the host (numpy
+    leaves, bf16 as BF16Bits, layers stacked, quantized leaves as the dicts
+    ``convert.params_from_jax`` reads), whatever trees it holds."""
+    return unflatten_params(_read_flat(load_dir), _read_quant_meta(load_dir))
 
 
 def load_checkpoint(load_dir: str, args, device="cuda") -> Dict[str, Any]:

@@ -1,6 +1,7 @@
 """Carry weights written by the JAX package across to the port.
 
-``params_from_jax`` takes the JAX params tree as plain numpy: a quantized
+``params_from_jax`` takes the JAX params tree of any family, DiT's too
+(``dit/model.py``; ``args`` a ``DiTArgs``), as plain numpy: a quantized
 leaf is a dict with the fields the native checkpoint stores for it
 (``packed``, ``scales``, ``zeros``, ``bits``, ``group_size``, ``in_dim``,
 ``out_dim``, ``layout``, ``tile_k``; accessory_tpu/checkpoint/native.py), a

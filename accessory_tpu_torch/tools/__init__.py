@@ -1,3 +1,4 @@
-"""CLI tools of the port: packed pretraining data (``generate_packed_data``).
-Port of ``accessory_tpu/tools``; its other tools (weight deltas, the HF
-export and download) are not ported."""
+"""CLI tools of the port, host-side. Port of ``accessory_tpu/tools``: packed
+pretraining data (``generate_packed_data``), weight deltas
+(``weight_operate``), the HuggingFace export and import
+(``convert_weights_to_hf``) and the HF snapshot download (``download``)."""

@@ -19,7 +19,7 @@
                                                torch_import,parity_sphinx,serve_sphinx,
                                                score,parity_adapter,serve_adapter,
                                                parity_sphinx_moe,serve_sphinx_moe,
-                                               train_sphinx_moe,train_mm]
+                                               train_sphinx_moe,train_mm,eval,tools,dit]
                           [--out FILE] [--kernel_names w8_matmul,w4_matmul_std,...]
     python3 chip_smoke.py --phases device,build,compare   (parent / change timing)
 
@@ -51,7 +51,7 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
   serve     TinyLlama-1.1B shape (GQA), 22 layers, W4, random weights from
             --seed: 4 prompts through MetaModel.generate, with each kernel's
             launch count checked;
-  decode    that model at the bench shape (batch 8, 1024-token cache, 100
+  decode    that model at the bench shape (batch 8, 1024-token cache, 50
             forward steps from position 512): ms per step against the bytes
             bound, with each kernel's launch count checked over the timed steps;
   checkpoint  that quantized 22-layer model saved with MetaModel.save_pretrained
@@ -258,6 +258,23 @@ Phases, each printing JSON lines (any failure raises and exits non-zero):
             width, narrow towers) CPU vs card, loss and gradients; then the
             SPHINX-7B QPEFT image step at full width, 4 x (1455 + 512) rows:
             ms a step, peak GB, the step split by kernel, launches exact;
+  eval      the evaluation drivers on the TinyLlama W4 model (ByteTokenizer):
+            perplexity over two 2048-token windows, multiple_choice and
+            _first_token_choices, generation_eval, the BBH / MATH / HumanEval
+            / C-Eval / CMMLU drivers on inline items, code_exec; seconds a
+            driver, launches exact for the forward-only ones; then perplexity
+            at 2 layers, card against CPU within 2%;
+  tools     weight_operate's delta extract / apply and the HF export and
+            import on a bf16 checkpoint the port writes (TinyLlama width, 2
+            layers): every array bit-equal to what the arithmetic gives,
+            seconds each, through the port's numpy container (no
+            safetensors);
+  dit       DiT-XL/2 at full width (DiTArgs' defaults, f32): dit.train.main
+            at batch 32 (uniform, then loss-second-moment) writing a
+            checkpoint, dit.sample.main on it (8 labels, DDIM 50, CFG 4): ms a
+            train and a sampling step, peak GB, f32 TFLOP/s against the f32
+            peak; then 2 of the 28 layers, card against CPU (forward, loss and
+            gradient norm within 1e-4 relative);
   compare   (not in the default run) rows 5, 3 and 26's forward through calls
             every version of the package has had (planes_qmm_bigm's and the
             flash forward's own arguments), device time and the library
@@ -292,6 +309,9 @@ TINYLLAMA = dict(dim=2048, n_layers=22, n_heads=32, n_kv_heads=4, vocab_size=320
 # path gives them)
 TINY_PROJ = [("wqkv", 2048, 2560, "norm+rope"), ("wo", 2048, 2048, "res"),
              ("w13", 2048, 11264, "norm"), ("w2", 5632, 2048, "res")]
+# its separate projections (name, K, N), as the unfused params hold them
+TINY_SEPARATE = [("wq/wo", 2048, 2048), ("wk/wv", 2048, 256), ("w1/w3", 2048, 5632),
+                 ("w2", 5632, 2048)]
 LLAMA2_7B = dict(dim=4096, n_layers=32, n_heads=32, vocab_size=32000, multiple_of=256,
                  dtype="bfloat16")
 MIXTRAL_8X7B = dict(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, hidden_dim=14336,
@@ -925,9 +945,10 @@ def _kernels_gate(kr):
                       k_ms, None, p_ms, None, nbytes, 2.0 * 8 * k * n if label == "set" else 0)
 
 
-def _kernels_flash(kr, cases):
+def _kernels_flash(kr, cases, untimed=()):
     """flash_attention (serving: no lse) against grouped attention, SDPA the
-    yardstick; the row names the plan's heads a block (fwd_plan)."""
+    yardstick; the row names the plan's heads a block (fwd_plan). (b, s)
+    pairs in ``untimed`` are checked, not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -938,7 +959,7 @@ def _kernels_flash(kr, cases):
         nbytes = b * s * (2 * nq + 2 * nkv) * hd * 2
         flops = 4.0 * b * nq * hd * s * (s + 1) / 2
         sets = []
-        for _ in range(n_copies(nbytes)):
+        for _ in range(1 if (b, s) in untimed else n_copies(nbytes)):
             vbuf = kr.randn(b, s, (nkv + 1) * hd)   # v as a strided view, as in the model
             sets.append((kr.randn(b, s, nq, hd), kr.randn(b, s, nkv, hd),
                          vbuf[..., hd:].view(b, s, nkv, hd)))
@@ -947,12 +968,15 @@ def _kernels_flash(kr, cases):
         want = grouped_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         check_close(f"flash_attention s={s} hd={hd}", got, want, rtol=2e-2, atol=2e-2)
-        k_ms = time_ms(flash_attention, sets)
-        k_wall = wall_ms(flash_attention, sets)
-        p_ms = yardstick_ms(lambda *a: grouped_attention(*a, causal=True), sets[:1], min_iters=5)
-        lib_ms = yardstick_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
-            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True,
-            enable_gqa=True), sets)
+        k_ms = k_wall = p_ms = lib_ms = None
+        if (b, s) not in untimed:
+            k_ms = time_ms(flash_attention, sets)
+            k_wall = wall_ms(flash_attention, sets)
+            p_ms = yardstick_ms(lambda *a: grouped_attention(*a, causal=True), sets[:1],
+                                min_iters=5)
+            lib_ms = yardstick_ms(lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), is_causal=True,
+                enable_gqa=True), sets)
         kr.record("flash_attention", f"{tag} B={b} S={s} NQ={nq} NKV={nkv} HD={hd}",
                   max_err(got, want), k_ms, k_wall, p_ms, lib_ms, nbytes, flops,
                   heads_per_block=fwd_plan(b, s, s, 0, nq, nkv).heads_per_block)
@@ -1774,6 +1798,23 @@ def phase_kernels(seed: int, names=None):
         #    (wk and wv, w1 and w3 share a shape; its wo and w2 are the rows above)
         _kernels_w4(kr, "tiny", [("wq", 2048, 2048, ""), ("wk/wv", 2048, 256, ""),
                                  ("w1/w3", 2048, 5632, "")], (4, 8, 512), rope, untimed=(4,))
+        # -- the eval phase's products below 1024 rows (EVAL_*), checked, not
+        #    timed: the Generator's decode batches (the fusions above) and its
+        #    prefill rows (no RoPE in the epilogue: one position a row), and
+        #    the cache-free forwards, which fuse nothing: multiple_choice's
+        #    over the fused weights, the first-token drivers' over the separate
+        dec_ms = sorted({b for b, *_ in EVAL_GEN_RUNS} - {1, 4, 8, 16})
+        _kernels_w4(kr, "eval", TINY_PROJ, dec_ms, rope, untimed=dec_ms)
+        pre_ms = sorted({b * p for b, _, p, _, _ in EVAL_GEN_RUNS})
+        _kernels_w4(kr, "eval prefill", [(nm, k, n, f.replace("+rope", ""))
+                                         for nm, k, n, f in TINY_PROJ],
+                    pre_ms, rope, untimed=pre_ms)
+        mc_ms = [EVAL_MC_FORWARD[0] * EVAL_MC_FORWARD[1]]
+        _kernels_w4(kr, "eval", [(nm, k, n, "") for nm, k, n, _ in TINY_PROJ], mc_ms, rope,
+                    untimed=mc_ms)
+        ft_ms = sorted({b * s for b, s in EVAL_FIRST_TOKEN if b * s < 1024})
+        _kernels_w4(kr, "eval", [(nm, k, n, "") for nm, k, n in TINY_SEPARATE], ft_ms, rope,
+                    untimed=ft_ms)
         # -- LLaMA2-7B (MHA) path: the same four at the decode batch 8 and at M 1 and
         #    4 (K 11008 is padded to 11264 in the weight; RoPE at head_dim 128)
         cos, sin = precompute_rope(128, 1024, device="cuda")
@@ -1845,6 +1886,12 @@ def phase_kernels(seed: int, names=None):
         _kernels_bigm(kr, [(nm, k, n, TRAIN_MM_ROWS)
                            for nm, k, n in (("wq/wk/wv/wo", 4096, 4096), ("w1/w3", 4096, 11008),
                                             ("w2", 11008, 4096))], tag="train_mm")
+        # -- the eval phase's cache-free forwards at 1024 rows or more
+        #    (perplexity's window, C-Eval's and CMMLU's 8 x 256 first-token
+        #    batch) over TinyLlama's separate projections
+        big = sorted({EVAL_PPL_SEQ} | {b * s for b, s in EVAL_FIRST_TOKEN if b * s >= 1024})
+        _kernels_bigm(kr, [(nm, k, n, m) for m in big for nm, k, n in TINY_SEPARATE],
+                      tag="eval")
 
     if want("decode_attention"):
         # -- fused decode attention + KV write, GQA (_kernel_bloop_w): the decode
@@ -1893,6 +1940,11 @@ def phase_kernels(seed: int, names=None):
         for int8 in (False, True):
             _kernels_decode(kr, "tiny", 32, 4, 64, ((4, 192, 150), (8, 1024, 511)), int8=int8,
                             write=False, separate=True)
+        # -- the eval phase's Generator decodes (EVAL_GEN_RUNS): the first and
+        #    last position of each, checked, not timed
+        ev_dec = tuple(sorted({(b, buf, pos) for b, buf, _, first, end in EVAL_GEN_RUNS
+                               for pos in (first, end - 1)}))
+        _kernels_decode(kr, "eval", 32, 4, 64, ev_dec, untimed=ev_dec)
 
     if want("decode_attention_mha"):
         # -- the same for MHA (_kernel_hgrp_w) and its int8 form (_kernel_hgrp_w8)
@@ -1941,12 +1993,23 @@ def phase_kernels(seed: int, names=None):
                              32, 32, 128),
                             ("train_moe", 1, TRAIN_MOE_ROWS, 32, 8, 128),
                             ("pretrain", PRETRAIN_BATCH, PRETRAIN_WORDS, 32, 4, 64)))
+        # -- the eval phase's forwards (EVAL_*): perplexity's window (timed);
+        #    the first-token and multiple-choice batches and the Generator's
+        #    prefills (checked, not timed) but for the tiny rows above
+        ev = ({(1, EVAL_PPL_SEQ), EVAL_MC_FORWARD} | set(EVAL_FIRST_TOKEN)
+              | {(b, p) for b, _, p, _, _ in EVAL_GEN_RUNS}) - {(4, 128), (1, 128), (4, 200)}
+        _kernels_flash(kr, tuple(("eval", b, s, 32, 4, 64) for b, s in sorted(ev)),
+                       untimed=ev - {(1, EVAL_PPL_SEQ)})
 
     if want("kv_write"):
         # -- prefill KV slab writes (_write_slab_layer, _write_slab_layer_q8)
         #    at the serve phases' batch 4 / 8 and the stream phase's batch 1
         _kernels_slab(kr, "tiny", 4, 4, 64, 192, 128, (0, 37))
         _kernels_slab(kr, "tiny", 1, 4, 64, 192, 128, (0,))
+        # -- the eval phase's Generator prefills (EVAL_GEN_RUNS: batch, buffer,
+        #    prefill) but for the stream phase's above
+        for eb, ebuf, ep in sorted({r[:3] for r in EVAL_GEN_RUNS} - {(1, 192, 128)}):
+            _kernels_slab(kr, "eval", eb, 4, 64, ebuf, ep, (0,))
         _kernels_slab(kr, "7b", 8, 32, 128, 192, 128, (0,))
         _kernels_slab8(kr, "tiny", 4, 4, 64, 192, 128, (0,))
         _kernels_slab8(kr, "tiny", 1, 4, 64, 192, 128, (0,))
@@ -6640,6 +6703,561 @@ def _remat_compare(args, params, trainable, data, lr: float, qpeft: bool, bigm: 
             "tolerance_rel": 1e-3, "agree": ok}
 
 
+# ---------------------------------------------------------------- DiT, the eval drivers, the tools
+
+# DiT-XL/2 (facebookresearch/DiT models.py::DiT_XL_2, Large-DiT's SwiGLU FFN):
+# DiTArgs' defaults, f32; train.main's default batch 32; sampling 8 labels,
+# DDIM 50 steps, CFG 4.0
+DIT_BATCH, DIT_LABELS, DIT_STEPS, DIT_CFG = 32, 8, 50, 4.0
+DIT_TRAIN_ITERS = 5     # the first warms up, the last is profiled
+# the CPU-vs-card parity at 2 of the 28 layers at full width: f32 on both
+# sides, cuBLAS summing in another order than the CPU: 1e-4 relative
+DIT_PARITY_LAYERS, DIT_PARITY_BATCH, DIT_TOL_REL = 2, 8, 1e-4
+
+
+def _dit_forward_flops(a, rows: int) -> float:
+    """Operations of one dit_forward over ``rows`` examples: the products
+    (patch embedding, t / y MLP, each block's adaLN, qkv, wo, w1 / w3, w2;
+    the head) and attention's QK^T and PV, two operations a multiply-add."""
+    n, d, f = a.n_patches, a.dim, a.ffn_hidden
+    pd = a.patch_size ** 2 * a.in_channels
+    per_token = a.n_layers * (2 * (4 * d * d + 3 * d * f) + 4 * n * d) + 2 * pd * d \
+        + 2 * d * a.out_channels * a.patch_size ** 2
+    per_row = a.n_layers * 2 * d * 6 * d + 2 * (256 * d + d * d + 2 * d * d)
+    return float(rows * (n * per_token + per_row))
+
+
+def _dit_train_flops(a, rows: int) -> float:
+    """One train step under remat=True: the forward, the backward's two
+    products for each of the forward's, and the recompute's attention (the
+    block's products are kept)."""
+    return 3 * _dit_forward_flops(a, rows) + rows * a.n_layers * 4 * a.n_patches ** 2 * a.dim
+
+
+def _open_dit(params, seed: int):
+    """Every all-zero leaf (the adaLN projections and the head, zero at init)
+    drawn normal x 0.02 from ``seed``, in place, so the blocks and the
+    conditioning reach the output. Returns params."""
+    import torch
+
+    from accessory_tpu_torch.train.tree import named_leaves
+
+    gen = torch.Generator().manual_seed(seed)
+    for _, leaf in named_leaves(params):
+        if not bool(leaf.any()):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.02)
+    return params
+
+
+def _dit_parity(seed: int):
+    """dit_forward and one train step (uniform sampler, remat True) at
+    DIT_PARITY_LAYERS of 28 layers at full width, CPU against the card, from
+    the same params (opened) and the same draws: output, loss, gradient
+    norm and the f32 EMA after the step within DIT_TOL_REL."""
+    import torch
+
+    from accessory_tpu_torch.dit.diffusion import GaussianDiffusion
+    from accessory_tpu_torch.dit.model import DiTArgs, dit_forward, init_dit
+    from accessory_tpu_torch.dit.train import make_dit_train_step
+    from accessory_tpu_torch.train import TrainState, make_optimizer
+    from accessory_tpu_torch.train.tree import map_leaves, named_leaves
+
+    args = DiTArgs(n_layers=DIT_PARITY_LAYERS)
+    gpu = _open_dit(init_dit(seed, args, device="cuda"), seed)
+    cpu = _tree_to(gpu, "cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    b, s = DIT_PARITY_BATCH, args.input_size
+    x = torch.randn((b, args.in_channels, s, s), generator=g)
+    t = torch.randint(0, 1000, (b,), generator=g)
+    y = torch.randint(0, args.num_classes + 1, (b,), generator=g)
+    draws = {"t": t, "noise": torch.randn(x.shape, generator=g),
+             "drop": torch.rand((b,), generator=g) < args.class_dropout_prob}
+    out = {}
+    t0 = time.perf_counter()
+    for dev, params in (("cuda", gpu), ("cpu", cpu)):
+        with torch.no_grad():
+            fwd = dit_forward(params, args, x.to(dev), t.to(dev), y.to(dev)).float().cpu()
+        tx = make_optimizer(params, 1e-4, weight_decay=0.0, betas=(0.9, 0.999), clip_norm=1.0)
+        step = make_dit_train_step(args, GaussianDiffusion(), tx, device=dev)
+        ema = map_leaves(lambda _, v: v.detach().to(torch.float32, copy=True), params)
+        _, ema, m = step(TrainState.create(params, tx), ema, x, y,
+                         draws={k: v.to(dev) for k, v in draws.items()})
+        out[dev] = (fwd, float(m["loss"]), float(m["grad_norm"]),
+                    {k: v.cpu() for k, v in named_leaves(ema)})
+    (fg, lg, ng, eg), (fc, lc, nc, ec) = out["cuda"], out["cpu"]
+    err = float((fg - fc).abs().max()) / float(fc.abs().max())
+    ema_err = max(float((eg[k] - v).abs().max()) / float(v.abs().max()) for k, v in ec.items())
+    row = {"phase": "dit", "part": "parity", "layers": DIT_PARITY_LAYERS, "dim": args.dim,
+           "batch": b, "forward_max_abs_err_rel": err, "loss": [lg, lc],
+           "loss_err_rel": abs(lg - lc) / abs(lc), "grad_norm": [ng, nc],
+           "grad_norm_err_rel": abs(ng - nc) / abs(nc), "ema_max_abs_err_rel": ema_err,
+           "tol_rel": DIT_TOL_REL, "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not (err <= DIT_TOL_REL and row["loss_err_rel"] <= DIT_TOL_REL
+            and row["grad_norm_err_rel"] <= DIT_TOL_REL and ema_err <= DIT_TOL_REL):
+        raise AssertionError(f"dit: the card disagrees with the CPU: {row}")
+
+
+def phase_dit(seed: int, smi: str):
+    """DiT-XL/2 at full width and depth (DiTArgs' defaults: 28 layers of
+    1152, 16 heads, 256 tokens of 2 x 2 patches of 32 x 32 x 4 latents, 1000
+    classes, learned sigma, f32) trained and sampled through the entry
+    points: two .npz latent shards written from --seed, ``dit.train.main``
+    at its default batch 32 for DIT_TRAIN_ITERS iterations (uniform sampler),
+    saving its {model, ema} checkpoint at the end, and for 2
+    (loss-second-moment); then ``dit.sample.main`` on that checkpoint: DIT_LABELS
+    labels, DIT_STEPS DDIM steps, CFG DIT_CFG. Reports ms per train step
+    (median of the steps between the first, a warm-up, and the last, which
+    is profiled: device busy, idle share, the products' share) and per
+    sampling step, peak
+    memory, and the f32 TFLOP/s of both against the H100's published f32
+    peak outside the tensor cores (F32_FLOPS_PER_S; TF32 is off). Latents
+    and losses must be finite. Then the CPU-vs-card parity
+    (``_dit_parity``). No kernel of the port is on this path (products on
+    cuBLAS, attention the plain non-causal one, as in the reference)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from accessory_tpu_torch.dit import sample as dit_sample
+    from accessory_tpu_torch.dit import train as dit_train
+    from accessory_tpu_torch.dit.model import DiTArgs
+
+    from accessory_tpu_torch.util import profiling
+
+    a = DiTArgs()
+    steps_ms, losses, sample_ms, prof = [], [], [], {}
+    inner_make, inner_sample = dit_train.make_dit_train_step, dit_sample.sample
+
+    def timed_make(*args, **kw):
+        loss_aware = kw["schedule_sampler"] == "loss-second-moment"
+        made = inner_make(*args, **kw)
+        step, sampler_state = made if loss_aware else (made, None)
+
+        def timed(*sargs, **skw):
+            out = {}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if not loss_aware and len(steps_ms) == DIT_TRAIN_ITERS - 1:
+                # the uniform run's last step under the profiler
+                prof.update(profiling.busy_profile(
+                    lambda: out.update(r=step(*sargs, **skw)), 1,
+                    wall_ms=statistics.median(steps_ms[1:]), shares=("gemm",)))
+            else:
+                out["r"] = step(*sargs, **skw)
+            res = out["r"]
+            losses.append(float(res[2]["loss"]))
+            steps_ms.append((time.perf_counter() - t1) * 1e3)
+            return res
+
+        return (timed, sampler_state) if loss_aware else timed
+
+    def timed_sample(*args, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lat = inner_sample(*args, **kw)
+        torch.cuda.synchronize()
+        sample_ms.append((time.perf_counter() - t1) * 1e3)
+        return lat
+
+    rng = np.random.RandomState(seed)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/shards")
+        for i in range(2):
+            np.savez(f"{tmp}/shards/s{i}.npz",
+                     latents=rng.randn(2 * DIT_BATCH, a.in_channels, a.input_size,
+                                       a.input_size).astype(np.float32).clip(-1, 1),
+                     labels=rng.randint(0, a.num_classes, 2 * DIT_BATCH))
+        dit_train.make_dit_train_step, dit_sample.sample = timed_make, timed_sample
+        try:
+            # the uniform run saves its checkpoint at its last iteration (sampled
+            # below); the loss-aware run saves none
+            for sampler, iters, save in (("uniform", DIT_TRAIN_ITERS, DIT_TRAIN_ITERS),
+                                         ("loss-second-moment", 2, 1000)):
+                steps_ms.clear()
+                losses.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                cli = dit_train.get_args_parser().parse_args([
+                    "--data_dir", f"{tmp}/shards", "--output_dir", f"{tmp}/{sampler}",
+                    "--batch_size", str(DIT_BATCH),
+                    "--max_iters", str(iters), "--save_freq", str(save), "--log_every", "1000",
+                    "--seed", str(seed), "--schedule_sampler", sampler])
+                state, ema = dit_train.main(cli)
+                torch.cuda.synchronize()
+                ck = f"{tmp}/{sampler}/iter{iters}/weights.safetensors"
+                runs[sampler] = {"iterations": iters, "seconds": time.perf_counter() - t0,
+                                 "step_ms": list(steps_ms), "loss": list(losses),
+                                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                                 "checkpoint_bytes": os.path.getsize(ck) if save == iters
+                                 else None}
+                n_params = sum(p.numel() for p in _leaves_of(state.params))
+                del state, ema
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cli = dit_sample.get_args_parser().parse_args([
+                "--ckpt", f"{tmp}/uniform/iter{DIT_TRAIN_ITERS}", "--labels",
+                *[str(i * (a.num_classes // DIT_LABELS)) for i in range(DIT_LABELS)], "--cfg_scale", str(DIT_CFG),
+                "--steps", str(DIT_STEPS), "--out", f"{tmp}/samples.npz", "--seed", str(seed)])
+            dit_sample.main(cli)
+            lat = np.load(f"{tmp}/samples.npz")["latents"]
+            sample_run = {"seconds": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        finally:
+            dit_train.make_dit_train_step, dit_sample.sample = inner_make, inner_sample
+    step_ms = statistics.median(runs["uniform"]["step_ms"][1:-1])
+    per_sample_step = sample_ms[0] / DIT_STEPS
+    train_flops = _dit_train_flops(a, DIT_BATCH)
+    sample_flops = _dit_forward_flops(a, 2 * DIT_LABELS)
+    row = {"phase": "dit", "card": smi,
+           "model": "DiT-XL/2 (DiTArgs defaults: 28 x 1152, 16 heads, 256 tokens, 1000 "
+                    "classes, learned sigma, SwiGLU FFN 3072), f32, TF32 off",
+           "params": n_params,
+           "batch": DIT_BATCH, "remat": True, "train": runs, "ms_per_train_step": step_ms,
+           "train_step_profile": prof,
+           "train_tflop_per_step": train_flops / 1e12,
+           "train_tflop_s": train_flops / step_ms / 1e9,
+           "sample": dict(sample_run, labels=DIT_LABELS, cfg_rows=2 * DIT_LABELS,
+                          sampler="ddim", steps=DIT_STEPS, cfg_scale=DIT_CFG,
+                          latents_shape=list(lat.shape)),
+           "ms_per_sampling_step": per_sample_step,
+           "sample_tflop_per_step": sample_flops / 1e12,
+           "sample_tflop_s": sample_flops / per_sample_step / 1e9,
+           "f32_peak_tflop_s": F32_FLOPS_PER_S / 1e12,
+           "peak_gb": max(r["peak_bytes"] for r in runs.values()) / 1e9}
+    emit(row)
+    bad = [r for r in runs.values()
+           if len(r["step_ms"]) != r["iterations"] or not all(map(math.isfinite, r["loss"]))]
+    if bad or lat.shape != (DIT_LABELS, a.in_channels, a.input_size, a.input_size) \
+            or not np.isfinite(lat).all():
+        raise AssertionError(f"dit: a run went wrong: {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dit_parity(seed)
+
+
+EVAL_TEXT = " ".join(PROMPTS) * 6       # > 4096 byte tokens: two 2048-token windows
+EVAL_MC = [{"question": "The quick brown fox jumps over the lazy",
+            "choices": [" dog", " cat", " moon"], "answer": 0},
+           {"question": "Four score and seven years", "choices": [" ago", " later"],
+            "answer": "A"}]
+EVAL_GEN = [{"q": "Question: what is two plus two?\nAnswer:", "a": "4"},
+            {"q": "Question: what is three times three?\nAnswer:", "a": "9"}]
+EVAL_GEN_LEN = 16
+# the eval phase's forwards, as these items give them on the 512-token
+# TinyLlama with ByteTokenizer; phase_eval fails where its drivers ran
+# others, and the kernels phase holds each kernel at these shapes:
+# perplexity's window, the first-token forwards (batch, bucket) of
+# _first_token_choices, eval_ceval and eval_cmmlu, multiple_choice's
+# evaluate_examples forward, and the Generator runs (batch, buffer, prefill,
+# first decode position, end) of generation_eval, eval_bbh, eval_math and
+# eval_humaneval
+EVAL_PPL_SEQ = 2048
+EVAL_FIRST_TOKEN = ((8, 64), (8, 256), (8, 256))
+EVAL_MC_FORWARD = (8, 64)
+EVAL_GEN_RUNS = ((2, 64, 64, 40, 61), (1, 192, 128, 119, 135), (2, 192, 192, 151, 167),
+                 (1, 64, 64, 16, 32))
+# perplexity on the card against the CPU port's at 2 layers (the script's
+# CPU-vs-GPU gate)
+EVAL_PPL_TOL_REL = LOGIT_TOL_FRAC
+
+
+def _eval_files(d):
+    """One or two inline items of each light-eval driver's format under d."""
+    import os
+
+    os.makedirs(f"{d}/bbh/bbh")
+    os.makedirs(f"{d}/bbh/cot-prompts")
+    with open(f"{d}/bbh/bbh/snarks.json", "w") as f:
+        json.dump({"examples": [{"input": "Which is sarcastic? (A) yes (B) no",
+                                 "target": "(A)"}]}, f)
+    with open(f"{d}/bbh/cot-prompts/snarks.txt", "w") as f:
+        f.write("header\nheader\nQ: example?\nA: Let's think. So the answer is (A).\n")
+    with open(f"{d}/math.jsonl", "w") as f:
+        for i in range(2):
+            f.write(json.dumps({"problem": f"What is {i}+1?",
+                                "solution": f"We compute $\\boxed{{{i + 1}}}$."}) + "\n")
+    with open(f"{d}/HumanEval.jsonl", "w") as f:
+        f.write(json.dumps({"task_id": "HumanEval/0", "prompt": "def add(a, b):\n",
+                            "test": "def check(f):\n    assert f(1, 2) == 3\n",
+                            "entry_point": "add"}) + "\n")
+    for sub, part, name, hdr in (("ceval", "val", "logic_val", "id,question,A,B,C,D,answer"),
+                                 ("ceval", "dev", "logic_dev", "id,question,A,B,C,D,answer"),
+                                 ("cmmlu", "test", "physics", "id,Question,A,B,C,D,Answer"),
+                                 ("cmmlu", "dev", "physics", "id,Question,A,B,C,D,Answer")):
+        os.makedirs(f"{d}/{sub}/{part}", exist_ok=True)
+        with open(f"{d}/{sub}/{part}/{name}.csv", "w", encoding="utf-8") as f:
+            f.write(hdr + "\n0,光的速度是多少？,快,慢,不动,无,A\n1,水的沸点？,100度,0度,50度,10度,A\n")
+
+
+def _qcount(layer) -> int:
+    """Quantized weights in a layer's params (its W4 products a forward)."""
+    from accessory_tpu_torch.quant.qtensor import QuantizedWeight
+
+    return sum(isinstance(x, QuantizedWeight) for x in _leaves_of(layer))
+
+
+def _eval_ppl_parity(seed: int):
+    """``perplexity`` at TinyLlama's width, 2 layers, W4, one window of the
+    eval phase's EVAL_PPL_SEQ tokens (row 5 and flash on the card, the plain
+    versions on the CPU), card against CPU within EVAL_PPL_TOL_REL."""
+    from accessory_tpu_torch.eval import perplexity
+
+    model, _, _ = _quantized_model(dict(TINYLLAMA, n_layers=2), 512, seed)
+    cpu_model = type(model).__new__(type(model))
+    cpu_model.__dict__.update(model.__dict__, params=_tree_to(model.params, "cpu"),
+                              device="cpu", _generator=None)
+    t0 = time.perf_counter()
+    ppl_gpu = perplexity(model, EVAL_TEXT, seq_len=EVAL_PPL_SEQ, max_windows=1)
+    t1 = time.perf_counter()
+    ppl_cpu = perplexity(cpu_model, EVAL_TEXT, seq_len=EVAL_PPL_SEQ, max_windows=1)
+    row = {"phase": "eval", "part": "parity", "layers": 2, "window": EVAL_PPL_SEQ,
+           "ppl": [ppl_gpu, ppl_cpu], "err_rel": abs(ppl_gpu - ppl_cpu) / ppl_cpu,
+           "tol_rel": EVAL_PPL_TOL_REL, "gpu_seconds": t1 - t0,
+           "cpu_seconds": time.perf_counter() - t1}
+    emit(row)
+    if not row["err_rel"] <= EVAL_PPL_TOL_REL:
+        raise AssertionError(f"eval: perplexity on the card disagrees with the CPU: {row}")
+
+
+def phase_eval(model, seed: int, smi: str):
+    """The evaluation drivers on the tiny phases' TinyLlama W4 model (22
+    layers, ByteTokenizer): ``perplexity`` over two 2048-token windows (the
+    cache-free forward: row 5 and flash), ``multiple_choice`` (scored
+    through evaluate_examples: row 1's many-row tile) and
+    ``_first_token_choices``, ``generation_eval`` (the Generator's decode
+    graphs), each of eval_bbh / eval_math / eval_humaneval / eval_ceval /
+    eval_cmmlu on one or two inline items, and ``code_exec`` on a passing
+    and a failing program. Seconds a driver; each driver's launches counted
+    between a reset before it and a read after it (the forward-only drivers'
+    exact: flash once a layer and every W4 product of the layer on row 5 at
+    1024 rows or more, on row 1's tile below), and the shapes of their
+    forwards and Generator runs held against EVAL_FIRST_TOKEN and
+    EVAL_GEN_RUNS, the shapes the kernels phase checks. Then the perplexity
+    parity at 2 layers (``_eval_ppl_parity``). Returns the launches summed
+    over the drivers."""
+    import torch
+
+    from accessory_tpu_torch import kernels
+    from accessory_tpu_torch.eval import (code_exec, generation_eval, multiple_choice,
+                                          perplexity, tasks)
+
+    L, nq = model.args.n_layers, _qcount(model.params["layers"][0])
+    tok = model.tokenizer
+    # the first-token drivers' forwards, as _last_logits is handed them, and
+    # the Generator's runs: the shapes held against EVAL_FIRST_TOKEN and
+    # EVAL_GEN_RUNS, at which the kernels phase checks each kernel
+    ft_rows, ft_shapes, gen_runs, inner_last = [], [], [], tasks._last_logits
+    gen = model.generator
+    inner_run = gen._run
+
+    def recorded_last(m, toks, lens):
+        ft_rows.append(toks.shape[0] * toks.shape[1])
+        ft_shapes.append(tuple(toks.shape))
+        return inner_last(m, toks, lens)
+
+    def recorded_run(tokens, mask, prefill_len, start_pos, end, *a, **kw):
+        gen_runs.append((*tokens.shape, prefill_len, start_pos, end))
+        return inner_run(tokens, mask, prefill_len, start_pos, end, *a, **kw)
+
+    def forward_counts(rows, per_layer):
+        want = _zero_counts()
+        for m in rows:
+            want["flash_attention"] += L
+            want["w4_matmul_bigm" if m >= 1024 else "w4_matmul"] += per_layer * L
+        return want
+
+    drivers = {
+        "perplexity": (lambda: perplexity(model, EVAL_TEXT, seq_len=EVAL_PPL_SEQ,
+                                          max_windows=2),
+                       forward_counts([EVAL_PPL_SEQ] * 2, nq)),
+        # evaluate_examples: every pair in the 64-token bucket, one forward of
+        # 8 rows over the Generator's fused weights (4 products a layer)
+        "multiple_choice": (lambda: multiple_choice(model, EVAL_MC),
+                            forward_counts([EVAL_MC_FORWARD[0] * EVAL_MC_FORWARD[1]], 4)),
+        "first_token_choices": (lambda: tasks._first_token_choices(
+            model, [m["question"] for m in EVAL_MC]), "first-token"),
+        "generation_eval": (lambda: generation_eval(
+            model, EVAL_GEN, prompt_fn=lambda x: x["q"], target_fn=lambda x: x["a"],
+            max_gen_len=EVAL_GEN_LEN), None),
+    }
+    results, secs, counts, total = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _eval_files(tmp)
+        drivers.update({
+            "eval_bbh": (lambda: tasks.eval_bbh(model, f"{tmp}/bbh", tasks=["snarks"],
+                                                max_gen_len=EVAL_GEN_LEN), None),
+            "eval_math": (lambda: tasks.eval_math(model, f"{tmp}/math.jsonl",
+                                                  max_gen_len=EVAL_GEN_LEN), None),
+            "eval_humaneval": (lambda: tasks.eval_humaneval(model, f"{tmp}/HumanEval.jsonl",
+                                                            max_gen_len=EVAL_GEN_LEN), None),
+            "eval_ceval": (lambda: tasks.eval_ceval(model, f"{tmp}/ceval", ntrain=1),
+                           "first-token"),
+            "eval_cmmlu": (lambda: tasks.eval_cmmlu(model, f"{tmp}/cmmlu", ntrain=1),
+                           "first-token"),
+        })
+        tasks._last_logits = recorded_last
+        gen._run = recorded_run
+        try:
+            for name, (run, want) in drivers.items():
+                ft_rows.clear()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                results[name] = run()
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+                counts[name] = kernels.launch_counts()
+                _add_counts(total, counts[name])
+                if want == "first-token":
+                    drivers[name] = (run, forward_counts(list(ft_rows), nq))
+        finally:
+            tasks._last_logits = inner_last
+            del gen._run
+    t0 = time.perf_counter()
+    prob = {"prompt": "def add(a, b):\n", "test": "def check(f):\n    assert f(1, 2) == 3\n",
+            "entry_point": "add"}
+    code = [code_exec.check_program(code_exec.build_test_program(
+        prob["prompt"], body, prob["test"], "add")) for body in ("    return a + b\n",
+                                                                 "    return a - b\n")]
+    secs["code_exec"] = time.perf_counter() - t0
+    row = {"phase": "eval", "card": smi,
+           "model": f"TinyLlama-1.1B shape, {L} layers, W4 g128, ByteTokenizer",
+           "ppl_tokens": len(tok.encode(EVAL_TEXT, bos=True, eos=False)),
+           "results": results, "code_exec": code, "seconds": secs,
+           "first_token_forwards": ft_shapes, "generator_runs": gen_runs,
+           "launches": {name: {k: n for k, n in c.items() if n} for name, c in counts.items()}}
+    emit(row)
+    wrong = {name: (counts[name], want) for name, (_, want) in drivers.items()
+             if want is not None and counts[name] != want}
+    idle = [name for name, (_, want) in drivers.items() if want is None
+            and not (counts[name]["w4_matmul"] and counts[name]["decode_attention"]
+                     and counts[name]["flash_attention"])]
+    ppl = results["perplexity"]
+    shapes_ok = (tuple(ft_shapes) == EVAL_FIRST_TOKEN and tuple(gen_runs) == EVAL_GEN_RUNS)
+    if wrong or idle or code != [True, False] or not (math.isfinite(ppl) and ppl > 1) \
+            or not shapes_ok:
+        raise AssertionError(f"eval: launches {wrong}, drivers with no decode launches {idle}, "
+                             f"code_exec {code}, ppl {ppl}, first-token forwards {ft_shapes} "
+                             f"(the kernels phase checks {EVAL_FIRST_TOKEN}), Generator runs "
+                             f"{gen_runs} (checked: {EVAL_GEN_RUNS})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _eval_ppl_parity(seed)
+    return total
+
+
+# the tools' checkpoint: TinyLlama's width, 2 of its 22 layers (the tools are
+# host-side numpy passes; the embedding and the head, 131 M of its params, are
+# whole)
+TOOLS_LAYERS = 2
+
+
+def phase_tools(seed: int, smi: str):
+    """The host-side tools on a checkpoint the port writes (MetaModel.
+    save_pretrained, bf16, TinyLlama's width, TOOLS_LAYERS layers, from
+    --seed), read and written with the port's numpy container (the row says
+    whether ``safetensors`` is importable at all): a finetuned copy
+    (wq of each layer plus seeded noise, the norms plus 0.5), then
+    ``weight_operate.extract_delta`` / ``apply_delta``: every merged array
+    bit-equal to bf16(base + f16(tuned - base)) computed here, the leaves the
+    finetune left alone bit-equal to the base; and ``convert_to_hf`` /
+    ``convert_hf_to_ours``: every array back bit-equal to the original
+    (widened to f32). Seconds each."""
+    import torch
+
+    from accessory_tpu_torch.checkpoint import read_safetensors
+    from accessory_tpu_torch.convert import _f32
+    from accessory_tpu_torch.meta import MetaModel
+    from accessory_tpu_torch.tools import convert_weights_to_hf as hf
+    from accessory_tpu_torch.tools import weight_operate
+
+    import numpy as np
+
+    secs = {}
+    model = MetaModel("llama", dict(TINYLLAMA, n_layers=TOOLS_LAYERS), max_seq_len=512,
+                      seed=seed, tokenizer=ByteTokenizer())
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model.save_pretrained(f"{tmp}/base")
+        for layer in model.params["layers"]:
+            w = layer["attention"]["wq"]["weight"]
+            w += (0.01 * torch.randn(w.shape, generator=g, device="cuda")).to(w.dtype)
+            layer["attention_norm"]["weight"] += 0.5
+        model.save_pretrained(f"{tmp}/tuned")
+        secs["save_pretrained_x2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weight_operate.extract_delta(f"{tmp}/base", f"{tmp}/tuned", f"{tmp}/delta")
+        secs["extract_delta"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weight_operate.apply_delta(f"{tmp}/base", f"{tmp}/delta", f"{tmp}/merged")
+        secs["apply_delta"] = time.perf_counter() - t0
+        base = read_safetensors(f"{tmp}/base/weights.safetensors")
+        tuned = read_safetensors(f"{tmp}/tuned/weights.safetensors")
+        merged = read_safetensors(f"{tmp}/merged/weights.safetensors")
+        delta_bad, unchanged, changed, worst = [], 0, 0, 0.0
+        for k, b in base.items():
+            t, m = tuned[k], merged[k]
+            if np.array_equal(t, b):
+                unchanged += 1
+                if not np.array_equal(m, b):
+                    delta_bad.append(k + " (unchanged)")
+                continue
+            changed += 1
+            if k.endswith("@bf16"):
+                d = (_f32(_bits(t)) - _f32(_bits(b))).astype(np.float16)
+                want = (torch.from_numpy(_f32(_bits(b)) + d.astype(np.float32))
+                        .to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16))
+                worst = max(worst, float(np.abs(_f32(_bits(m)) - _f32(_bits(t))).max()))
+            else:
+                want = (b.astype(np.float32) + (t.astype(np.float32) - b.astype(np.float32))
+                        .astype(np.float16).astype(np.float32)).astype(b.dtype)
+            if not np.array_equal(m, want):
+                delta_bad.append(k)
+        shutil.copy(f"{tmp}/base/config.json", f"{tmp}/merged/config.json")
+        t0 = time.perf_counter()
+        hf.convert_to_hf(f"{tmp}/merged", f"{tmp}/hf")
+        secs["convert_to_hf"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = hf.convert_hf_to_ours(f"{tmp}/hf", n_heads=TINYLLAMA["n_heads"],
+                                     n_kv_heads=TINYLLAMA["n_kv_heads"])
+        secs["convert_hf_to_ours"] = time.perf_counter() - t0
+        hf_bad = [k for k, v in back.items()
+                  if not np.array_equal(v.astype(np.float32), _f32(_bits(merged[k + "@bf16"])))]
+        nbytes = sum(a.nbytes for a in base.values())
+    row = {"phase": "tools", "card": smi,
+           "checkpoint": f"TinyLlama width, {TOOLS_LAYERS} layers, bf16, port-written",
+           "checkpoint_bytes": nbytes, "arrays": len(base), "changed_by_finetune": changed,
+           "unchanged": unchanged, "delta_round_trip_max_abs_err": worst,
+           "delta_arrays_not_bit_equal": delta_bad, "hf_arrays": len(back),
+           "hf_arrays_not_bit_equal": hf_bad, "seconds": secs,
+           "safetensors_importable": _importable("safetensors")}
+    emit(row)
+    if delta_bad or hf_bad or len(back) != len(base) or not changed or not unchanged:
+        raise AssertionError(f"tools: {row}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bits(arr):
+    from accessory_tpu_torch.convert import BF16Bits
+
+    return BF16Bits(arr)
+
+
+def _importable(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
 ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged_parity,serve8,"
               "stream,stacked,batcher,batcher8,preempt,server,decode8,decode_unfused,parity7b,"
               "serve7b,decode7b,parity_w8,parity_gptq,serve7b_w8,decode7b_w8,serve_gptq,"
@@ -6650,10 +7268,10 @@ ALL_PHASES = ("device,build,kernels,parity,serve,decode,checkpoint,parity8,paged
               "serve_falcon40b,decode_falcon40b,serve_internlm7b,decode_internlm7b,"
               "serve_falcon7b,decode_falcon7b,torch_import,"
               "parity_sphinx,serve_sphinx,score,parity_adapter,serve_adapter,parity_sphinx_moe,"
-              "serve_sphinx_moe,train_sphinx_moe,train_mm")
+              "serve_sphinx_moe,train_sphinx_moe,train_mm,eval,tools,dit")
 TINY_MODEL_PHASES = ("serve", "decode", "checkpoint", "serve8", "stream", "stacked", "batcher",
                      "batcher8", "preempt", "server", "decode8", "decode_unfused", "serve_ffn",
-                     "graphs", "decode_ffn")
+                     "graphs", "decode_ffn", "eval")
 
 
 def _add_counts(total, counts):
@@ -6720,7 +7338,7 @@ def main() -> int:
             if "serve" in phases:
                 counts_by_path["tiny"] = phase_serve("serve", model, setup_s)[0]
             if "decode" in phases:
-                phase_decode("decode", model, None, steps=100)
+                phase_decode("decode", model, None, steps=50)
             if "checkpoint" in phases:
                 # from here on the paths run the weights that came back from the file
                 loaded = phase_checkpoint(model)
@@ -6745,7 +7363,7 @@ def main() -> int:
             if "decode8" in phases:
                 model.kv_dtype = "int8"
                 model._reset_generator()
-                _add_counts(bench, phase_decode("decode8", model, "int8", steps=100))
+                _add_counts(bench, phase_decode("decode8", model, "int8", steps=50))
             if "decode_unfused" in phases:
                 for kv_dtype in (None, "int8"):
                     model.kv_dtype = kv_dtype
@@ -6778,6 +7396,11 @@ def main() -> int:
                     if fuse:
                         _add_counts(bench, counts)
                 counts_by_path["tiny ffn bench"] = bench
+            if "eval" in phases:
+                model.kv_dtype = None
+                model.ffn_fuse = False
+                model._reset_generator()
+                counts_by_path["eval"] = phase_eval(model, opts.seed, smi)
             del model
             torch.cuda.empty_cache()
         if "parity7b" in phases:
@@ -6971,6 +7594,15 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             counts_by_path["train mm"] = phase_train_mm(opts.seed)
+        if "tools" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_tools(opts.seed, smi)
+        if "dit" in phases:
+            # DiT-XL/2 trained at batch 32 (~the whole card's share): every earlier model is freed
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_dit(opts.seed, smi)
         if set(ALL_PHASES.split(",")) <= set(phases):
             idle = [n for n in KERNEL_NAMES
                     if not sum(c.get(n, 0) for c in counts_by_path.values())]

@@ -3148,3 +3148,97 @@ def test_capture_under_sync_debug_error(gen):
     assert kernels.launch_counts()["w4_matmul"] == 3
     assert torch.equal(out, planes_qmm(a, qw.packed, qw.scales, qw.zeros, in_dim=256,
                                        group_size=128))
+
+
+# ---------------------------------------------------------------- DiT and the eval harness
+
+
+def _dit_pair(gen, layers=2):
+    """A DiT at a small width with every zero-init leaf opened, on the card
+    and copied to the CPU."""
+    from accessory_tpu_torch.dit.model import DiTArgs, init_dit
+    from accessory_tpu_torch.train.tree import named_leaves
+
+    args = DiTArgs(input_size=16, dim=256, n_layers=layers, n_heads=4, num_classes=10)
+    params = init_dit(gen, args, device="cuda")
+    for _, leaf in named_leaves(params):
+        if not bool(leaf.any()):
+            leaf.copy_(randn(gen, *leaf.shape, dtype=torch.float32, scale=0.02))
+    return args, params, _to_cpu(params)
+
+
+def _to_cpu(node):
+    if isinstance(node, dict):
+        return {k: _to_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_cpu(v) for v in node]
+    return node.to("cpu")
+
+
+def test_dit_forward_and_step_cuda_match_cpu(gen):
+    """dit_forward and one train step (remat True, the same draws) on the
+    card against the CPU, f32 on both (TF32 off): output, loss and gradient
+    norm, and the f32 EMA after the step, within 1e-4 relative (cuBLAS sums
+    in another order)."""
+    from accessory_tpu_torch.dit.diffusion import GaussianDiffusion
+    from accessory_tpu_torch.dit.model import dit_forward
+    from accessory_tpu_torch.dit.train import make_dit_train_step
+    from accessory_tpu_torch.train import TrainState, make_optimizer
+    from accessory_tpu_torch.train.tree import map_leaves, named_leaves
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        args, gpu, cpu = _dit_pair(gen)
+        g = torch.Generator().manual_seed(1)
+        b = 4
+        x = torch.randn((b, 4, 16, 16), generator=g)
+        t = torch.randint(0, 1000, (b,), generator=g)
+        y = torch.tensor([0, 3, 10, 7])
+        draws = {"t": t, "noise": torch.randn(x.shape, generator=g),
+                 "drop": torch.tensor([False, True, False, False])}
+        out = {}
+        for dev, params in (("cuda", gpu), ("cpu", cpu)):
+            with torch.no_grad():
+                fwd = dit_forward(params, args, x.to(dev), t.to(dev), y.to(dev)).cpu()
+            tx = make_optimizer(params, 1e-4, weight_decay=0.0, betas=(0.9, 0.999),
+                                clip_norm=1.0)
+            step = make_dit_train_step(args, GaussianDiffusion(), tx, device=dev)
+            ema = map_leaves(lambda _, v: v.detach().to(torch.float32, copy=True), params)
+            _, ema, m = step(TrainState.create(params, tx), ema, x, y,
+                             draws={k: v.to(dev) for k, v in draws.items()})
+            out[dev] = (fwd, float(m["loss"]), float(m["grad_norm"]),
+                        {k: v.cpu() for k, v in named_leaves(ema)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    (fg, lg, ng, eg), (fc, lc, nc, ec) = out["cuda"], out["cpu"]
+    assert float((fg - fc).abs().max()) <= 1e-4 * float(fc.abs().max())
+    assert abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-4 * abs(nc)
+    for k, v in ec.items():
+        assert float((eg[k] - v).abs().max()) <= 1e-4 * float(v.abs().max()), k
+
+
+def test_eval_perplexity_cuda_matches_cpu(gen):
+    """perplexity through the cache-free forward of a small W4 LLaMA (one
+    1024-token window: row 5 and flash on the card, the plain versions on
+    the CPU) within 2% of the CPU's."""
+    from accessory_tpu_torch.eval import perplexity
+    from accessory_tpu_torch.meta import MetaModel
+
+    class Tok:
+        bos_id, eos_id, n_words = 256, 257, 258
+
+        def encode(self, s, bos, eos):
+            return [256] * bos + list(s.encode()) + [257] * eos
+
+    cfg = dict(dim=512, n_layers=2, n_heads=8, n_kv_heads=2, multiple_of=128, vocab_size=258)
+    gpu = MetaModel("llama", cfg, max_seq_len=2048, seed=0, tokenizer=Tok()).quantize()
+    cpu = MetaModel("llama", cfg, max_seq_len=2048, device="cpu", init_params=False,
+                    tokenizer=Tok())
+    cpu.params = _to_cpu(gpu.params)
+    text = "the quick brown fox jumps over the lazy dog " * 30
+    kernels.reset_launch_counts()
+    got = perplexity(gpu, text, seq_len=1024, max_windows=1)
+    assert kernels.launch_counts()["w4_matmul_bigm"] == 14
+    want = perplexity(cpu, text, seq_len=1024, max_windows=1)
+    assert abs(got - want) <= 2e-2 * want

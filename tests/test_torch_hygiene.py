@@ -36,6 +36,13 @@ from accessory_tpu_torch.parallel import (init_distributed_mode, local_mesh, mak
 from accessory_tpu_torch.train import TrainState, make_optimizer, make_train_step
 from accessory_tpu_torch.train.ckpt import resume_stage1
 from accessory_tpu_torch.util import profiling
+from accessory_tpu_torch.dit import sample as dit_sample
+from accessory_tpu_torch.dit import train as dit_train
+from accessory_tpu_torch.dit.diffusion import GaussianDiffusion
+from accessory_tpu_torch.dit.model import init_dit
+from accessory_tpu_torch.dit.timestep_sampler import (create_named_schedule_sampler,
+                                                      init_sampler_state)
+from accessory_tpu_torch.eval import eval_mm, run_eval
 
 PKG_DIR = Path(accessory_tpu_torch.__file__).parent
 REPO = PKG_DIR.parent
@@ -57,7 +64,11 @@ def test_every_module_imports_without_jax():
                  "checkpoint.torch_import", "models.visual", "models.sphinx",
                  "models.llama_qformerv2", "checkpoint.visual_import", "data.transform",
                  "data.data_reader", "sphinx_api", "demos.cli", "native", "data.falcon",
-                 "data.falcon_packed", "tools.generate_packed_data", "main_pretrain"):
+                 "data.falcon_packed", "tools.generate_packed_data", "main_pretrain",
+                 "dit.diffusion", "dit.model", "dit.timestep_sampler", "dit.train",
+                 "dit.sample", "eval.harness", "eval.tasks", "eval.run_eval", "eval.eval_mm",
+                 "eval.code_exec", "eval.math_util", "tools.weight_operate",
+                 "tools.convert_weights_to_hf", "tools.download"):
         assert "accessory_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -195,7 +206,12 @@ print('ok')
                                 visual_import.convert_hf_clip_vision,
                                 visual_import.convert_hf_dinov2, visual_import.convert_convnext,
                                 visual_import.convert_hf_blip2_qformer, profiling.time_fn,
-                                profiling.roofline_report])
+                                profiling.roofline_report, init_dit, dit_train.main,
+                                dit_train.make_dit_train_step, dit_sample.sample,
+                                dit_sample.main, dit_sample.load_dit_params,
+                                GaussianDiffusion.p_sample_loop,
+                                GaussianDiffusion.ddim_sample_loop, init_sampler_state,
+                                create_named_schedule_sampler, run_eval.main, eval_mm.main])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -275,6 +291,81 @@ for epochs in ("1", "2"):
 assert state.step == 2, state.step
 assert not [k for k in sys.modules
             if k.split('.')[0] in ('yaml', 'optax', 'orbax', 'safetensors', 'tokenizers', 'jax')]
+print('ok')
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_dit_eval_and_tools_need_no_safetensors_pil_hub_or_optax(tmp_path):
+    """The card's machine has no safetensors, PIL, huggingface_hub or optax:
+    with them (and jax) blocked, DiT trains two iterations and saves, samples
+    from that checkpoint, the eval primitives and a driver of each kind run
+    on a tiny model through a stub tokenizer, code_exec checks a program,
+    and the weight-delta and HF tools round-trip a checkpoint. Only
+    eval_mm's image drivers read images with PIL."""
+    code = f"""
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('safetensors', 'PIL', 'huggingface_hub', 'optax', 'jax'):
+            raise ImportError(name + ' is blocked in this test')
+sys.meta_path.insert(0, Block())
+import json, os, shutil
+import numpy as np, torch
+from accessory_tpu_torch.dit import sample, train
+from accessory_tpu_torch.eval import code_exec, harness, tasks
+from accessory_tpu_torch.meta import MetaModel
+from accessory_tpu_torch.tools import convert_weights_to_hf as hf, download, weight_operate
+t = {str(tmp_path)!r}
+rng = np.random.RandomState(0)
+os.makedirs(t + '/shards')
+np.savez(t + '/shards/a.npz', latents=rng.randn(4, 4, 8, 8).astype(np.float32),
+         labels=np.arange(4))
+dims = ['--dim', '32', '--n_layers', '1', '--n_heads', '2', '--input_size', '8',
+        '--num_classes', '4']
+a = train.get_args_parser().parse_args(['--data_dir', t + '/shards', '--output_dir', t + '/o',
+    '--batch_size', '2', '--max_iters', '2', '--save_freq', '2', '--log_every', '1',
+    '--schedule_sampler', 'loss-second-moment'] + dims)
+state, ema = train.main(a, device='cpu')
+s = sample.get_args_parser().parse_args(['--ckpt', t + '/o/iter2', '--steps', '2',
+    '--labels', '1', '2', '--out', t + '/s.npz'] + dims)
+assert sample.main(s, device='cpu').shape == (2, 4, 8, 8)
+class Tok:
+    bos_id, eos_id, n_words = 62, 63, 64
+    def encode(self, s, bos, eos): return [self.bos_id] * bos + [ord(c) % 62 for c in s]
+    def decode(self, t): return ''.join(chr(48 + x) for x in t)
+    def encode_segment(self, s): return self.encode(s, False, False)
+    encode_wo_prefix_space = encode_segment
+cfg = dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=2, multiple_of=32, vocab_size=64)
+m = MetaModel('llama', cfg, max_seq_len=128, device='cpu', tokenizer=Tok())
+assert harness.perplexity(m, 'hello world ' * 20, seq_len=64) > 1
+assert harness.multiple_choice(m, [dict(question='a', choices=['b', 'c'], answer=0)])['total'] == 1
+os.makedirs(t + '/ceval/val'); os.makedirs(t + '/ceval/dev')
+for part in ('val', 'dev'):
+    with open(t + f'/ceval/{{part}}/logic_{{part}}.csv', 'w') as f:
+        f.write('id,question,A,B,C,D,answer\\n0,q?,1,2,3,4,A\\n')
+assert 'logic' in tasks.eval_ceval(m, t + '/ceval', ntrain=1)['tasks']
+with open(t + '/math.jsonl', 'w') as f:
+    f.write(json.dumps(dict(problem='1+1?', solution='\\\\boxed{{2}}')) + '\\n')
+assert tasks.eval_math(m, t + '/math.jsonl', max_gen_len=4)['total'] == 1
+assert code_exec.check_program('assert 1 + 1 == 2')
+m.save_pretrained(t + '/base')
+m.params['norm']['weight'] += 0.5
+m.save_pretrained(t + '/tuned')
+weight_operate.extract_delta(t + '/base', t + '/tuned', t + '/delta')
+weight_operate.apply_delta(t + '/base', t + '/delta', t + '/merged')
+shutil.copy(t + '/base/config.json', t + '/merged/config.json')
+hf.convert_to_hf(t + '/merged', t + '/hf')
+back = hf.convert_hf_to_ours(t + '/hf', n_heads=4, n_kv_heads=2)
+assert float(back['norm/weight'][0]) == 1.5
+assert download.resolve_hf_path(t) == t
+bad = sorted(k for k in sys.modules if k.split('.')[0] in
+             ('safetensors', 'PIL', 'huggingface_hub', 'optax', 'jax'))
+assert not bad, bad
 print('ok')
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
